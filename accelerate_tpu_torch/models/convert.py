@@ -1,0 +1,65 @@
+"""Params conversion: JAX llama params (as numpy arrays) → the port's torch params.
+
+The JAX package keeps fp32 master weights and casts projections and the embedding to
+``cfg.dtype`` at each use; the port stores them already cast (the same rounding), and
+keeps norm gammas and q/k/v biases in fp32. ``scan_layers`` params (every leaf stacked
+on a leading layer axis) are unstacked into the per-layer list the port uses.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from .llama import PROJECTIONS, LlamaConfig, check_supported
+
+__all__ = ["params_from_jax", "params_to"]
+
+_FP32_LEAVES = ("ln_attn", "ln_mlp", "ln_attn_post", "ln_mlp_post", "bq", "bk", "bv")
+
+
+def _tensor(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    if not hasattr(arr, "__array__"):
+        raise NotImplementedError(
+            f"quantized weight leaves ({type(arr).__name__}) are not ported yet")
+    host = torch.from_numpy(np.array(arr, np.float32))  # a writable copy
+    return host.to(device=device, dtype=dtype)
+
+
+def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
+    """The port's params from the JAX llama params pytree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``), stacked or unstacked layers, on ``device``
+    (default CUDA; raises when CUDA is absent and no CPU was asked for)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    layers = np_params["layers"]
+    if isinstance(layers, dict):  # scan_layers: leaves stacked on a leading layer axis
+        layers = [{k: v[i] for k, v in layers.items()} for i in range(cfg.n_layers)]
+    out_layers = []
+    for layer in layers:
+        out = {}
+        for name, arr in layer.items():
+            if name in PROJECTIONS:
+                out[name] = _tensor(arr, cfg.dtype, dev)
+            elif name in _FP32_LEAVES:
+                out[name] = _tensor(arr, torch.float32, dev)
+            else:
+                raise NotImplementedError(f"layer leaf {name!r} is not ported yet")
+        out_layers.append(out)
+    params = {
+        "embed": _tensor(np_params["embed"], cfg.dtype, dev),
+        "layers": out_layers,
+        "ln_f": _tensor(np_params["ln_f"], torch.float32, dev),
+    }
+    if "lm_head" in np_params:
+        params["lm_head"] = _tensor(np_params["lm_head"], cfg.dtype, dev)
+    return params
+
+
+def params_to(params: dict, device) -> dict:
+    """A copy of ``params`` on ``device`` (same dtypes)."""
+    dev = resolve_device(device)
+    out = {k: v.to(dev) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: v.to(dev) for k, v in layer.items()} for layer in params["layers"]]
+    return out

@@ -1,0 +1,536 @@
+"""Llama-family decoder LM: config, params and the cached (serving) forward.
+
+Counterpart of ``accelerate_tpu/models/llama.py`` for the serving path: the same
+config fields and named configs, the same param names and shapes (dict params, weight
+matrices laid out ``[d_in, d_out]`` so ``x @ w``), and the same cached forwards —
+``forward_cached`` (single-row prefill over a dense cache), ``forward_slots`` (per-lane
+positions, dense or paged cache) and ``forward_slots_paged``.
+
+Params are a plain dict: ``{"embed" [V,D], "layers": [per-layer dict, ...], "ln_f" [D],
+"lm_head" [D,V]}``. Projection matrices and the embedding are stored in ``cfg.dtype``
+(the JAX code keeps fp32 masters and casts them to ``cfg.dtype`` at each use, so the
+rounding is the same); norm gammas and q/k/v biases stay fp32 and are cast at use.
+Layers are always a per-layer list (``convert.params_from_jax`` unstacks
+``scan_layers`` params).
+
+Not supported in this slice (raise ``NotImplementedError``): ``moe_experts > 0``,
+``lora_rank > 0``, ``use_fp8`` and quantized weight leaves.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.device import resolve_device
+from .common import kv_planes as _kv_planes
+from .common import paged_attention_dispatch as _paged_attention
+from .common import paged_kv_planes as _paged_kv_planes
+from .common import paged_write_coords as _paged_write_coords
+from .common import read_kv as _read_cache
+from .common import write_kv as _write_cache
+from .common import write_kv_paged as _write_cache_paged
+
+__all__ = [
+    "LlamaConfig",
+    "CONFIGS",
+    "init_params",
+    "head_logits",
+    "init_cache",
+    "init_paged_cache",
+    "forward_cached",
+    "forward_slots",
+    "forward_slots_paged",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    d_model: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    d_ff: int = 14336
+    max_seq: int = 8192
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16
+    tie_embeddings: bool = False
+    attn_impl: str = "auto"
+    remat: bool = True
+    remat_policy: str = "full"
+    remat_prevent_cse: Optional[bool] = None
+    scan_layers: bool = False
+    scan_unroll: int = 1
+    use_fp8: bool = False
+    fp8_format: Optional[str] = None
+    moe_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    loss_chunk: int = 0
+    loss_impl: str = "auto"
+    # int8 KV cache: int8 k/v with a per-(token, kv-head) fp32 scale.
+    kv_quant: bool = False
+    # Sliding-window attention: position i attends only (i-window, i]. 0 = full causal.
+    sliding_window: int = 0
+    # Apply the window to every Nth layer only (Gemma-2: even layers banded).
+    window_every: int = 1
+    # ---- Gemma-family knobs (all default to llama behavior) ----
+    head_dim_override: Optional[int] = None
+    mlp_act: str = "silu"       # "silu" (SwiGLU) | "gelu" (GeGLU, tanh approximation)
+    post_norm: bool = False     # RMSNorm on each sublayer OUTPUT before the residual
+    norm_plus_one: bool = False  # RMSNorm weight stored zero-centered: out = x̂·(1 + w)
+    embed_scale: bool = False   # multiply token embeddings by sqrt(d_model)
+    attn_scale: Optional[float] = None
+    attn_softcap: float = 0.0
+    final_softcap: float = 0.0
+    qkv_bias: bool = False      # Qwen2-style q/k/v biases
+    rope_scaling: Optional[str] = None  # None | "llama3" (Llama-3.1 per-band scaling)
+    rope_scaling_factor: float = 8.0
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max: int = 8192
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: tuple = ("wq", "wk", "wv", "wo")
+
+    @property
+    def head_dim(self) -> int:
+        return self.head_dim_override or self.d_model // self.n_heads
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+
+CONFIGS = {
+    "llama3-8b": LlamaConfig(
+        vocab_size=128256, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8, d_ff=14336
+    ),
+    "llama3.1-8b": LlamaConfig(
+        vocab_size=128256, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        d_ff=14336, max_seq=131072, rope_scaling="llama3",
+    ),
+    "llama3-70b": LlamaConfig(
+        vocab_size=128256, d_model=8192, n_layers=80, n_heads=64, n_kv_heads=8, d_ff=28672
+    ),
+    "llama2-7b": LlamaConfig(
+        vocab_size=32000, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=32, d_ff=11008,
+        rope_theta=10000.0, max_seq=4096,
+    ),
+    "tiny": LlamaConfig(
+        vocab_size=256, d_model=128, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=256,
+        max_seq=128, remat=False,
+    ),
+    "debug": LlamaConfig(
+        vocab_size=512, d_model=256, n_layers=4, n_heads=8, n_kv_heads=4, d_ff=512,
+        max_seq=512, remat=False,
+    ),
+    "mistral-7b": LlamaConfig(
+        vocab_size=32000, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8, d_ff=14336,
+        rope_theta=10000.0, max_seq=32768, sliding_window=4096,
+    ),
+    "gemma2-9b": LlamaConfig(
+        vocab_size=256000, d_model=3584, n_layers=42, n_heads=16, n_kv_heads=8,
+        d_ff=14336, head_dim_override=256, rope_theta=10000.0, max_seq=8192,
+        tie_embeddings=True, mlp_act="gelu", post_norm=True, norm_plus_one=True,
+        embed_scale=True, attn_scale=224.0**-0.5, attn_softcap=50.0, final_softcap=30.0,
+        sliding_window=4096, window_every=2, norm_eps=1e-6,
+    ),
+    "qwen2-7b": LlamaConfig(
+        vocab_size=152064, d_model=3584, n_layers=28, n_heads=28, n_kv_heads=4,
+        d_ff=18944, rope_theta=1e6, max_seq=32768, qkv_bias=True, norm_eps=1e-6,
+    ),
+    "mixtral-8x7b": LlamaConfig(
+        vocab_size=32000, d_model=4096, n_layers=32, n_heads=32, n_kv_heads=8, d_ff=14336,
+        rope_theta=1e6, max_seq=32768, moe_experts=8, moe_top_k=2,
+    ),
+    "moe-tiny": LlamaConfig(
+        vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128,
+        max_seq=128, remat=False, moe_experts=4, moe_top_k=2,
+    ),
+}
+
+#: Weight leaves stored in ``cfg.dtype``; every other layer leaf stays fp32.
+PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def check_supported(cfg: LlamaConfig) -> None:
+    """Raise ``NotImplementedError`` for config knobs this slice does not port."""
+    for knob, on in (("moe_experts", cfg.moe_experts > 0), ("lora_rank", cfg.lora_rank > 0),
+                     ("use_fp8", cfg.use_fp8)):
+        if on:
+            raise NotImplementedError(f"{knob}={getattr(cfg, knob)!r} is not ported yet")
+
+
+# --------------------------------------------------------------------------------- params
+def _layer_params(cfg: LlamaConfig, g: torch.Generator, device) -> dict:
+    D, H, K, hd, F_ = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    s_in = 1.0 / math.sqrt(D)
+    s_ff = 1.0 / math.sqrt(F_)
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=g, device=device, dtype=torch.float32) * scale
+        return w.to(cfg.dtype)
+
+    norm_init = torch.zeros if cfg.norm_plus_one else torch.ones
+    params = {
+        "ln_attn": norm_init(D, dtype=torch.float32, device=device),
+        "wq": normal((D, H * hd), s_in),
+        "wk": normal((D, K * hd), s_in),
+        "wv": normal((D, K * hd), s_in),
+        "wo": normal((H * hd, D), s_in),
+        "ln_mlp": norm_init(D, dtype=torch.float32, device=device),
+    }
+    if cfg.post_norm:
+        params["ln_attn_post"] = norm_init(D, dtype=torch.float32, device=device)
+        params["ln_mlp_post"] = norm_init(D, dtype=torch.float32, device=device)
+    if cfg.qkv_bias:
+        params["bq"] = torch.zeros(H * hd, dtype=torch.float32, device=device)
+        params["bk"] = torch.zeros(K * hd, dtype=torch.float32, device=device)
+        params["bv"] = torch.zeros(K * hd, dtype=torch.float32, device=device)
+    params.update({
+        "w_gate": normal((D, F_), s_in),
+        "w_up": normal((D, F_), s_in),
+        "w_down": normal((F_, D), s_ff),
+    })
+    return params
+
+
+def init_params(cfg: LlamaConfig, *, generator: Optional[torch.Generator] = None,
+                device=None) -> dict:
+    """Random params with the JAX ``init_params`` names, shapes and scales, drawn on
+    ``device`` (default CUDA; raises when CUDA is absent and no CPU was asked for)
+    from ``generator`` (default: a generator on that device seeded with 0)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    g = generator if generator is not None else torch.Generator(device=dev).manual_seed(0)
+    scale = 1.0 / math.sqrt(cfg.d_model)
+    params = {
+        "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=g, device=dev)
+                  * scale).to(cfg.dtype),
+        "layers": [_layer_params(cfg, g, dev) for _ in range(cfg.n_layers)],
+        "ln_f": (torch.zeros if cfg.norm_plus_one else torch.ones)(
+            cfg.d_model, dtype=torch.float32, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab_size), generator=g,
+                                         device=dev) * scale).to(cfg.dtype)
+    return params
+
+
+# ------------------------------------------------------------------------------ layer math
+def _rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float,
+              plus_one: bool = False) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    g = gamma.float()
+    if plus_one:  # Gemma convention: weights stored zero-centered
+        g = g + 1.0
+    return (normed * g).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_freqs(cfg: LlamaConfig, hd: int, device: torch.device) -> torch.Tensor:
+    """Per-band inverse wavelengths, with optional Llama-3.1 context-extension scaling
+    (cached per config, head dim and device; callers never write to it)."""
+    freqs = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, hd, 2, dtype=torch.float32, device=device) / hd))
+    if cfg.rope_scaling is None:
+        return freqs
+    if cfg.rope_scaling != "llama3":
+        raise ValueError(f"rope_scaling={cfg.rope_scaling!r}: expected None or 'llama3'")
+    factor = cfg.rope_scaling_factor
+    low_wl = cfg.rope_original_max / cfg.rope_low_freq_factor
+    high_wl = cfg.rope_original_max / cfg.rope_high_freq_factor
+    wavelen = 2.0 * math.pi / freqs
+    smooth = (cfg.rope_original_max / wavelen - cfg.rope_low_freq_factor) / (
+        cfg.rope_high_freq_factor - cfg.rope_low_freq_factor
+    )
+    return torch.where(
+        wavelen > low_wl,
+        freqs / factor,  # long-wavelength (low-freq) bands: fully scaled
+        torch.where(
+            wavelen < high_wl,
+            freqs,  # short-wavelength bands: untouched
+            (1.0 - smooth) * freqs / factor + smooth * freqs,  # smooth ramp between
+        ),
+    )
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    """Rotary embedding in fp32: x [B, S, H, hd], positions [B, S]."""
+    freqs = _rope_freqs(cfg, x.shape[-1], x.device)
+    angles = positions[..., None].float() * freqs                # [B, S, hd/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def _sm_scale(cfg: LlamaConfig) -> float:
+    """Softmax scale: 1/sqrt(head_dim) unless the config overrides it."""
+    return cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(cfg.head_dim)
+
+
+def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-style logit capping: cap·tanh(x/cap) (identity when cap == 0)."""
+    return cap * torch.tanh(scores / cap) if cap else scores
+
+
+def _proj(h: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
+    """Dense projection matmul ``h @ w`` in ``cfg.dtype``."""
+    if not torch.is_tensor(w):
+        raise NotImplementedError(
+            f"quantized weight leaves ({type(w).__name__}) are not ported yet")
+    return h @ w.to(cfg.dtype)
+
+
+def _proj_l(h: torch.Tensor, layer: dict, name: str, cfg: LlamaConfig) -> torch.Tensor:
+    """:func:`_proj` of the layer's ``name`` weight (LoRA adapters are not ported)."""
+    return _proj(h, layer[name], cfg)
+
+
+def _mlp_gate_act(h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    if cfg.mlp_act == "silu":
+        return F.silu(h)
+    if cfg.mlp_act == "gelu":  # GeGLU (tanh approximation — Gemma convention)
+        return F.gelu(h, approximate="tanh")
+    raise ValueError(f"mlp_act={cfg.mlp_act!r}: expected 'silu' or 'gelu'")
+
+
+def _qkv_proj(h: torch.Tensor, layer: dict, cfg: LlamaConfig):
+    """q/k/v projections (+ Qwen2-style biases when ``cfg.qkv_bias``)."""
+    q = _proj_l(h, layer, "wq", cfg)
+    k = _proj_l(h, layer, "wk", cfg)
+    v = _proj_l(h, layer, "wv", cfg)
+    if cfg.qkv_bias:
+        q = q + layer["bq"].to(q.dtype)
+        k = k + layer["bk"].to(k.dtype)
+        v = v + layer["bv"].to(v.dtype)
+    return q, k, v
+
+
+def head_logits(x: torch.Tensor, params: dict, cfg: LlamaConfig) -> torch.Tensor:
+    """Final hidden → fp32 logits, incl. the Gemma final softcap."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x @ head.to(cfg.dtype)).float()
+    return _softcap(logits, cfg.final_softcap)
+
+
+# ----------------------------------------------------------------------- cached generation
+def init_cache(cfg: LlamaConfig, batch_size: int, max_len: int, dtype=None,
+               quantized: Optional[bool] = None, device=None) -> dict:
+    """Empty dense KV cache for ``batch_size`` sequences of up to ``max_len`` tokens:
+    ``{"layers": [{"k": [B,C,K,hd], "v": ...}, ...], "valid": [B,C] bool, "index": int}``
+    — ``valid`` marks filled, non-pad slots, ``index`` is the next write slot.
+    ``quantized`` (default ``cfg.kv_quant``): int8 k/v plus fp32 scales."""
+    quantized = cfg.kv_quant if quantized is None else quantized
+    dtype = dtype or cfg.dtype
+    dev = resolve_device(device)
+    return {
+        "layers": [
+            _kv_planes(batch_size, max_len, cfg.n_kv_heads, cfg.head_dim, dtype, quantized,
+                       dev)
+            for _ in range(cfg.n_layers)
+        ],
+        "valid": torch.zeros((batch_size, max_len), dtype=torch.bool, device=dev),
+        "index": 0,
+    }
+
+
+def init_paged_cache(cfg: LlamaConfig, batch_size: int, max_len: int, num_pages: int,
+                     page_size: int, dtype=None, quantized: Optional[bool] = None,
+                     device=None) -> dict:
+    """Empty PAGED KV cache: per-layer pool planes ``[num_pages, page_size, K, hd]``
+    plus the per-lane valid mask ``[batch_size, max_len]`` (dense by logical position).
+    Which lane owns which page lives in the host-side ``paged_kv.BlockManager``."""
+    quantized = cfg.kv_quant if quantized is None else quantized
+    dtype = dtype or cfg.dtype
+    dev = resolve_device(device)
+    return {
+        "layers": [
+            _paged_kv_planes(num_pages, page_size, cfg.n_kv_heads, cfg.head_dim, dtype,
+                             quantized, dev)
+            for _ in range(cfg.n_layers)
+        ],
+        "valid": torch.zeros((batch_size, max_len), dtype=torch.bool, device=dev),
+    }
+
+
+def _attention_cached(q, ck, cv, q_positions, valid, cfg: LlamaConfig):
+    """q [B,T,H,hd] against the full cache ck/cv [B,C,K,hd]; ``valid`` [B,C] marks live
+    keys; key slot j is visible to the query at absolute slot p iff ``j <= p``. Masked
+    scores take ``finfo(dtype).min`` before the fp32 softmax, so a fully masked row is
+    uniform (unlike the kernel's zeros) — exactly the JAX dense path."""
+    B, T, H, hd = q.shape
+    C, K = ck.shape[1], ck.shape[2]
+    G = H // K
+    qg = q.reshape(B, T, K, G, hd)
+    scores = torch.einsum("btkgd,bckd->bkgtc", qg, ck) * _sm_scale(cfg)
+    scores = _softcap(scores, cfg.attn_softcap)
+    slots = torch.arange(C, device=q.device)[None, None, :]
+    causal = slots <= q_positions[:, :, None]  # [B,T,C]
+    if cfg.sliding_window:
+        causal = causal & (slots > q_positions[:, :, None] - cfg.sliding_window)
+    mask = (causal & valid[:, None, :])[:, None, None, :, :]  # [B,1,1,T,C]
+    scores = torch.where(mask, scores, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bkgtc,bckd->btkgd", probs, cv).reshape(B, T, H, hd)
+
+
+def _block_cached(x, layer, kv, index, positions, valid, cfg: LlamaConfig, paged=None):
+    """One block with KV-cache read/write → (x, new_kv); the cache planes are updated
+    in place.
+
+    ``index`` is the write slot: an int advances every row together (prefill), a
+    tensor ``[B]`` gives each row its own slot (the continuous-batching engine).
+    ``paged`` — ``(tables, pages, offs, start_positions, page_size)`` switches the KV
+    side to the paged pool: writes go through the precomputed physical (page, slot)
+    grid, reads through ``common.paged_attention_dispatch`` (the CUDA kernel on the
+    card, gather into this module's ``_attention_cached`` on the CPU)."""
+    B, T, D = x.shape
+    p1 = cfg.norm_plus_one
+    h = _rms_norm(x, layer["ln_attn"], cfg.norm_eps, p1)
+    q, k, v = _qkv_proj(h, layer, cfg)
+    q = q.reshape(B, T, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, T, cfg.n_kv_heads, cfg.head_dim)
+    q = _rope(q, positions, cfg)
+    k = _rope(k, positions, cfg)
+    if paged is not None:
+        tables, pages, offs, start_pos, page_size = paged
+        new_kv = {**_write_cache_paged(kv, "k", k, pages, offs),
+                  **_write_cache_paged(kv, "v", v, pages, offs)}
+        attn = _paged_attention(
+            q, new_kv, tables, start_pos, valid, page_size=page_size,
+            sm_scale=_sm_scale(cfg), window=cfg.sliding_window,
+            softcap=cfg.attn_softcap, dtype=cfg.dtype,
+            dense_attention=lambda ck, cv: _attention_cached(
+                q, ck, cv, positions, valid, cfg
+            ),
+        )
+    else:
+        new_kv = {**_write_cache(kv, "k", k, index), **_write_cache(kv, "v", v, index)}
+        attn = _attention_cached(
+            q, _read_cache(new_kv, "k", cfg.dtype), _read_cache(new_kv, "v", cfg.dtype),
+            positions, valid, cfg,
+        )
+    attn_out = _proj_l(attn.reshape(B, T, cfg.n_heads * cfg.head_dim), layer, "wo", cfg)
+    if cfg.post_norm:
+        attn_out = _rms_norm(attn_out, layer["ln_attn_post"], cfg.norm_eps, p1)
+    x = x + attn_out
+    h = _rms_norm(x, layer["ln_mlp"], cfg.norm_eps, p1)
+    gate = _mlp_gate_act(_proj_l(h, layer, "w_gate", cfg), cfg)
+    up = _proj_l(h, layer, "w_up", cfg)
+    mlp_out = _proj_l(gate * up, layer, "w_down", cfg)
+    if cfg.post_norm:
+        mlp_out = _rms_norm(mlp_out, layer["ln_mlp_post"], cfg.norm_eps, p1)
+    return x + mlp_out, new_kv
+
+
+def _cache_advance(cache: dict, tokens: torch.Tensor, token_mask: Optional[torch.Tensor]):
+    """(write index, absolute rope positions [B,T], valid mask [B,C]); the valid mask
+    is updated in place at the index, whose start clamps into range like
+    ``dynamic_update_slice``."""
+    B, T = tokens.shape
+    index = cache["index"]
+    positions = index + torch.arange(T, dtype=torch.int32, device=tokens.device)
+    positions = positions[None, :].expand(B, T)
+    if token_mask is None:
+        token_mask = torch.ones((B, T), dtype=torch.bool, device=tokens.device)
+    valid = cache["valid"]
+    start = min(max(index, 0), valid.shape[1] - T)
+    valid[:, start:start + T] = token_mask
+    return index, positions, valid
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
+    x = params["embed"][tokens].to(cfg.dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype, device=x.device)
+    return x
+
+
+def _layer_cfgs(cfg: LlamaConfig):
+    """Per-layer configs: layer i is banded iff ``cfg.sliding_window`` and
+    ``i % window_every == 0`` (the unstacked branch of the JAX forwards)."""
+    full_cfg = dataclasses.replace(cfg, sliding_window=0)
+    return [cfg if cfg.sliding_window and i % cfg.window_every == 0 else full_cfg
+            for i in range(cfg.n_layers)]
+
+
+def forward_cached(params: dict, tokens: torch.Tensor, cache: dict, cfg: LlamaConfig,
+                   token_mask: Optional[torch.Tensor] = None,
+                   last_only: bool = False) -> tuple[torch.Tensor, dict]:
+    """Write ``tokens`` [B,T] into the cache at its current index (in place) and return
+    (fp32 logits, cache) — logits [B,T,V], or [B,1,V] with ``last_only``. Prefill
+    passes the left-padded prompt with ``token_mask`` False on pads."""
+    T = tokens.shape[1]
+    index, positions, valid = _cache_advance(cache, tokens, token_mask)
+    x = _embed(params, tokens, cfg)
+    new_layers = []
+    for layer, kv, layer_cfg in zip(params["layers"], cache["layers"], _layer_cfgs(cfg)):
+        x, new_kv = _block_cached(x, layer, kv, index, positions, valid, layer_cfg)
+        new_layers.append(new_kv)
+    x = _rms_norm(x, params["ln_f"], cfg.norm_eps, cfg.norm_plus_one)
+    if last_only:
+        x = x[:, -1:, :]
+    logits = head_logits(x, params, cfg)
+    return logits, {"layers": new_layers, "valid": valid, "index": index + T}
+
+
+def forward_slots(params: dict, tokens: torch.Tensor, cache: dict, positions: torch.Tensor,
+                  cfg: LlamaConfig, tables: Optional[torch.Tensor] = None,
+                  page_size: int = 0) -> tuple[torch.Tensor, dict]:
+    """Per-slot cached forward: ``tokens`` [B,T] written (in place) at each row's own
+    cache slots ``positions[b] .. positions[b]+T-1`` → (fp32 logits [B,T,V], cache).
+
+    ``tables``/``page_size`` switch the KV side to the PAGED layout (``cache`` from
+    :func:`init_paged_cache`): writes scatter through each lane's block-table row
+    (sentinel and past-``max_len`` positions drop), reads go through the paged
+    dispatch. One implementation serves both layouts."""
+    B, T = tokens.shape
+    C = cache["valid"].shape[1]
+    pos_grid = positions[:, None] + torch.arange(T, dtype=positions.dtype,
+                                                 device=positions.device)[None, :]
+    valid = cache["valid"]
+    rows = torch.arange(B, device=valid.device)[:, None].expand(B, T)
+    keep = pos_grid < C  # JAX scatter drops out-of-range slots
+    valid[rows[keep], pos_grid[keep].long()] = True
+    paged = None
+    if tables is not None:
+        num_pages = cache["layers"][0]["k"].shape[0]
+        pages, offs = _paged_write_coords(tables, pos_grid, page_size, C, num_pages)
+        paged = (tables, pages, offs, positions, page_size)
+    x = _embed(params, tokens, cfg)
+    new_layers = []
+    for layer, kv, layer_cfg in zip(params["layers"], cache["layers"], _layer_cfgs(cfg)):
+        x, new_kv = _block_cached(x, layer, kv, positions, pos_grid, valid, layer_cfg,
+                                  paged=paged)
+        new_layers.append(new_kv)
+    x = _rms_norm(x, params["ln_f"], cfg.norm_eps, cfg.norm_plus_one)
+    logits = head_logits(x, params, cfg)
+    if paged is not None:
+        return logits, {"layers": new_layers, "valid": valid}
+    return logits, {"layers": new_layers, "valid": valid, "index": cache["index"]}
+
+
+def forward_slots_paged(params: dict, tokens: torch.Tensor, cache: dict,
+                        tables: torch.Tensor, positions: torch.Tensor, cfg: LlamaConfig,
+                        page_size: int) -> tuple[torch.Tensor, dict]:
+    """:func:`forward_slots` over the PAGED cache — the serving engine's entry point
+    for the paged layout. ``tables`` [B, MP] int32 maps each lane's logical pages to
+    physical pool pages (SENTINEL == num_pages marks unallocated entries; writes
+    through them, and at/past max_len, drop). The pool is updated in place."""
+    return forward_slots(params, tokens, cache, positions, cfg, tables=tables,
+                         page_size=page_size)

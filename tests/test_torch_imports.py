@@ -1,0 +1,128 @@
+"""Boundaries of the PyTorch port (``accelerate_tpu_torch``).
+
+- No module of the port, and no line of ``chip_smoke.py``, imports ``jax`` or the JAX
+  package ``accelerate_tpu`` (AST scan), and importing the serving engine loads none
+  of them (fresh interpreter).
+- Entry points default to CUDA and raise without it; the kernel wrapper never runs
+  the kernel path on CPU tensors (it takes the plain version) and refuses tensors on
+  other devices.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "accelerate_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "accelerate_tpu")
+
+
+def _absolute_imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [m for m in _absolute_imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_serving_loads_no_jax():
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1]);"
+        "import accelerate_tpu_torch.serving, accelerate_tpu_torch.models.convert;"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r);"
+        "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,)
+    )
+    res = subprocess.run([sys.executable, "-I", "-c", code, str(ROOT)],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_from_jax
+    from accelerate_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = llama.CONFIGS["tiny"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        llama.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_jax({"embed": None, "layers": [], "ln_f": None}, cfg)
+    assert resolve_device("cpu") == torch.device("cpu")
+    params = llama.init_params(cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("knob", [{"moe_experts": 4}, {"lora_rank": 4}, {"use_fp8": True}])
+def test_unsupported_knobs_raise(knob):
+    import dataclasses
+
+    from accelerate_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.CONFIGS["tiny"], **knob)
+    with pytest.raises(NotImplementedError):
+        llama.init_params(cfg, device="cpu")
+
+
+def _small_paged_inputs(device):
+    from accelerate_tpu_torch.models.common import paged_kv_planes
+
+    pool = paged_kv_planes(4, 4, 1, 64, torch.float32, False, device)
+    q = torch.ones((1, 1, 2, 64), device=device)
+    tables = torch.zeros((1, 2), dtype=torch.int32, device=device)
+    positions = torch.zeros((1,), dtype=torch.int32, device=device)
+    valid = torch.ones((1, 8), dtype=torch.bool, device=device)
+    return q, pool, tables, positions, valid
+
+
+def test_kernel_wrapper_cpu_takes_plain_version(monkeypatch):
+    """On CPU tensors the wrapper runs the plain version: it neither builds nor
+    launches the kernel, and the launch count does not move."""
+    from accelerate_tpu_torch.ops import _build, paged_attention as pa
+
+    def no_build(*_a, **_k):
+        raise AssertionError("the CUDA kernel was built or loaded for CPU tensors")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    before = pa.paged_attention.launches
+    args = _small_paged_inputs("cpu")
+    out = pa.paged_attention(*args, page_size=4, sm_scale=0.125)
+    ref = pa.paged_attention_reference(*args, page_size=4, sm_scale=0.125)
+    assert torch.equal(out, ref)
+    assert pa.paged_attention.launches == before
+
+
+def test_kernel_launcher_raises_on_cpu_tensors():
+    """The CUDA launcher refuses CPU tensors (it never computes them), and the
+    wrapper refuses tensors that are neither CPU nor CUDA."""
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention, paged_attention_cuda
+
+    args = _small_paged_inputs("cpu")
+    with pytest.raises(ValueError, match="must be on CUDA"):
+        paged_attention_cuda(*args, page_size=4, sm_scale=0.125)
+    with pytest.raises(ValueError, match="must be on CUDA"):
+        paged_attention(*_small_paged_inputs("meta"), page_size=4, sm_scale=0.125)
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """The CUDA build raises when no ``nvcc`` is found — nothing falls back."""
+    from accelerate_tpu_torch.ops import _build
+
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["paged_attention"])
