@@ -10,9 +10,17 @@ do); hand-written kernels live under ``csrc/`` and are built at first use
 (``ops/_build.py``). On CPU tensors each kernel wrapper runs its plain PyTorch
 version instead.
 
-Ported so far (slice 1): the paged continuous-batching serving path —
-``serving.ContinuousBatcher`` over ``models.llama`` with the paged-attention decode
-kernel (``ops/paged_attention.py``, ``csrc/paged_attention.cu``).
+Ported so far:
+
+- slice 1, serving: the paged continuous-batching engine — ``serving.ContinuousBatcher``
+  over ``models.llama`` with the paged-attention decode kernel
+  (``ops/paged_attention.py``, ``csrc/paged_attention.cu``);
+- slice 2, training: ``accelerator.Accelerator`` (``create_train_state``,
+  ``build_train_step``, ``build_eval_step``) over ``models.llama.loss_fn``, with the
+  flash-attention forward/backward kernels (``ops/flash_attention.py``,
+  ``csrc/flash_attention.cu``), the fused AdamW kernel (``ops/fused_optim.py``,
+  ``csrc/fused_adamw.cu``), ``optim`` (the optax counterparts), ``state`` and
+  ``optimizer``.
 """
 
 __version__ = "0.1.0"

@@ -59,10 +59,10 @@ def sampling_core(logits: torch.Tensor, generator: torch.Generator, temperature,
     distribution → int64 token ids [..]. ``generator`` is a CPU generator: the Gumbel
     noise is drawn on the CPU and moved to the logits' device.
 
-    ``top_p >= 1.0`` disables the nucleus filter (``GenerationConfig``'s contract):
-    applied at 1.0, a cumulative sum that rounds to exactly 1.0 would mask live tail
-    tokens, and where it does depends on the summation order."""
-    filt = filtered_logits(logits, temperature, top_p, top_k, apply_top_p and top_p < 1.0)
+    The nucleus filter runs whenever ``apply_top_p`` is true, at ``top_p = 1.0`` too,
+    as the JAX engine's draw does: where the fp32 cumulative sum reaches 1.0 before the
+    tail ends, the tail tokens past that point are masked on both sides."""
+    filt = filtered_logits(logits, temperature, top_p, top_k, apply_top_p)
     u = torch.rand(filt.shape, generator=generator, dtype=torch.float32)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
     return torch.argmax(filt + gumbel.to(filt.device), dim=-1)

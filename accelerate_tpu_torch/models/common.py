@@ -1,6 +1,14 @@
-"""Shared model-family machinery: KV-cache planes, dense and paged.
+"""Shared model-family machinery: activation checkpointing, the attention and
+cross-entropy dispatch of the training path, and KV-cache planes, dense and paged.
 
-Counterpart of the KV helpers in ``accelerate_tpu/models/common.py``. Caches are plane
+Counterpart of ``remat_wrap``, ``attention_dispatch``, ``resolve_loss_chunk``,
+``chunked_ce``, ``ce_sum``, ``ce_sum_dispatch`` and the KV helpers in
+``accelerate_tpu/models/common.py``. ``jax.checkpoint`` becomes
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: the block's forward runs
+again during the backward, so a checkpointed block launches its attention forward twice
+per step. Attention ``flash`` launches the port's flash kernels on CUDA tensors (their
+plain versions on the CPU) and never falls back to the ``xla`` path; ``auto`` is
+``flash`` on CUDA and ``xla`` on the CPU. Caches are plane
 dicts: ``k``/``v`` ``[B,C,heads,hd]`` (dense) or ``[P,page_size,heads,hd]`` (paged
 pool), plus ``k_scale``/``v_scale`` ``[...,1]`` fp32 when int8-quantized.
 
@@ -13,17 +21,140 @@ start like ``lax.dynamic_update_slice``.
 
 from __future__ import annotations
 
-from typing import Callable, Union
+from typing import Callable, Optional, Union
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import gather_pages, paged_attention
 
 __all__ = [
+    "remat_wrap", "attention_dispatch",
+    "resolve_loss_chunk", "chunked_ce", "ce_sum", "ce_sum_dispatch",
     "kv_planes", "quant_kv", "write_kv", "read_kv",
     "paged_kv_planes", "write_kv_paged", "read_kv_paged", "paged_write_coords",
     "paged_attention_dispatch",
 ]
+
+_SP_MODES = ("ring", "ulysses", "ulysses_ppermute", "allgather")
+
+
+def remat_wrap(fn: Callable, *, remat: bool, policy: str = "full") -> Callable:
+    """``fn`` under the config's activation-checkpointing policy. ``full`` recomputes
+    the whole call in the backward (``torch.utils.checkpoint``, non-reentrant, so
+    non-tensor arguments such as configs pass through as they are). ``dots`` and
+    ``offload`` are not ported."""
+    if not remat:
+        return fn
+    if policy in ("dots", "offload"):
+        raise NotImplementedError(f"remat_policy={policy!r} is not ported yet (only 'full')")
+    if policy != "full":
+        raise ValueError(f"remat_policy={policy!r}: expected 'full', 'dots' or 'offload'")
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+
+    return wrapped
+
+
+def attention_dispatch(q, k, v, mask, *, impl: str, sm_scale: float, window: int = 0,
+                       softcap: float = 0.0, segment_ids=None, xla_attention=None):
+    """Causal self-attention over q [B,S,H,hd], k/v [B,S,K,hd] (GQA: K ≤ H): ``impl``
+    ``flash`` (the flash kernels; segment ids, window and softcap in-kernel), ``xla``
+    (the family's ``xla_attention(q, k, v, mask)``) or ``auto`` (flash on CUDA, xla on
+    the CPU). The sequence-parallel modes are not ported."""
+    if impl in _SP_MODES:
+        raise NotImplementedError(f"attn_impl={impl!r} (sequence parallelism) is not ported")
+    if impl == "auto":
+        impl = "flash" if q.device.type == "cuda" else "xla"
+    if impl == "flash":
+        return flash_attention(q, k, v, causal=True, sm_scale=sm_scale,
+                               segment_ids=segment_ids, window=window, softcap=softcap)
+    if impl == "xla":
+        return xla_attention(q, k, v, mask)
+    raise ValueError(f"attn_impl={impl!r}: expected 'auto', 'flash' or 'xla'")
+
+
+def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-style logit capping: cap·tanh(x/cap) (identity when cap == 0)."""
+    return cap * torch.tanh(scores / cap) if cap else scores
+
+
+def resolve_loss_chunk(loss_chunk: int, S: int, vocab_size: int) -> int:
+    """Chunked-CE chunk length (0 = don't chunk): an explicit ``loss_chunk`` is honored
+    (capped at S), ``-1`` disables chunking, and auto (0) chunks at 512 only when the
+    fp32 logits of one row would pass 2**24 elements (64 MB)."""
+    if loss_chunk == -1:
+        return 0
+    if loss_chunk > 0:
+        return min(loss_chunk, S)
+    if S * vocab_size <= 2**24:
+        return 0
+    return min(512, S)
+
+
+def _head_logits(x, head, dtype, softcap, bias):
+    logits = (x @ head.to(dtype)).float()
+    if bias is not None:
+        logits = logits + bias.float()
+    return _softcap(logits, softcap)
+
+
+def _chunk_loss(xc, head, tc, mc, dtype, softcap, bias):
+    logits = _head_logits(xc, head, dtype, softcap, bias)          # [B, c, V] fp32
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, tc[..., None]).squeeze(-1)
+    return -((tgt - lse) * mc).sum()
+
+
+def chunked_ce(x, head, targets, mask, chunk: int, dtype, final_softcap: float = 0.0,
+               bias=None):
+    """Memory-efficient cross-entropy: the sum of -log p(target) over unmasked
+    positions, one [B, chunk, V] block of fp32 logits at a time, each recomputed in the
+    backward (checkpointed), so peak memory is O(chunk·V) instead of O(S·V). S is padded
+    up to a chunk multiple with masked positions."""
+    B, S, D = x.shape
+    targets = targets.long()
+    if S % chunk:
+        pad = chunk - S % chunk
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+        mask = F.pad(mask, (0, pad))
+        S += pad
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S, chunk):
+        total = total + checkpoint(
+            _chunk_loss, x[:, i:i + chunk], head, targets[:, i:i + chunk],
+            mask[:, i:i + chunk], dtype, final_softcap, bias, use_reentrant=False)
+    return total
+
+
+def ce_sum(x, head, targets, mask, *, dtype, chunk: int = 0, softcap: float = 0.0,
+           bias=None) -> torch.Tensor:
+    """SUM-style CE (chunked when ``chunk`` > 0): the one copy of the softcap +
+    log-softmax + target-gather math."""
+    if chunk > 0:
+        return chunked_ce(x, head, targets, mask, chunk, dtype, final_softcap=softcap,
+                          bias=bias)
+    logp = torch.log_softmax(_head_logits(x, head, dtype, softcap, bias), dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None]).squeeze(-1)
+    return -(ll * mask).sum()
+
+
+def ce_sum_dispatch(x, head, targets, mask, *, loss_impl: str, dtype, chunk: int = 0,
+                    softcap: float = 0.0, bias=None) -> torch.Tensor:
+    """SUM-style CE dispatch over ``loss_impl``: ``auto`` takes :func:`ce_sum`; the
+    fused-CE kernels (``fused``, ``fused_dp``, ``fused_tp``) are not ported yet."""
+    if loss_impl not in ("auto", "fused", "fused_dp", "fused_tp"):
+        raise ValueError(f"loss_impl={loss_impl!r}: expected 'auto', 'fused', 'fused_dp', "
+                         "or 'fused_tp' (a typo would otherwise silently run the chunked path)")
+    if bias is None and loss_impl != "auto":
+        raise NotImplementedError(f"loss_impl={loss_impl!r}: the fused cross-entropy "
+                                  "kernels are not ported yet")
+    return ce_sum(x, head, targets, mask, dtype=dtype, chunk=chunk, softcap=softcap,
+                  bias=bias)
 
 
 def kv_planes(batch: int, max_len: int, heads: int, head_dim: int, dtype, quantized: bool,

@@ -1,9 +1,12 @@
-"""Params conversion: JAX llama params (as numpy arrays) → the port's torch params.
+"""Params conversion between the JAX llama params (as numpy arrays) and the port's.
 
 The JAX package keeps fp32 master weights and casts projections and the embedding to
-``cfg.dtype`` at each use; the port stores them already cast (the same rounding), and
-keeps norm gammas and q/k/v biases in fp32. ``scan_layers`` params (every leaf stacked
-on a leading layer axis) are unstacked into the per-layer list the port uses.
+``cfg.dtype`` at each use. The port casts at use too, so it may store them either way:
+``params_from_jax`` stores them in ``cfg.dtype`` by default (serving: the same rounding,
+half the memory) or in ``master_dtype`` (training keeps fp32 masters); norm gammas and
+q/k/v biases stay fp32. ``scan_layers`` params (every leaf stacked on a leading layer
+axis) are unstacked into the per-layer list the port uses; ``params_to_numpy`` goes back,
+stacked or not, so trained params can be held against the JAX pytree.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 from ..utils.device import resolve_device
 from .llama import PROJECTIONS, LlamaConfig, check_supported
 
-__all__ = ["params_from_jax", "params_to"]
+__all__ = ["params_from_jax", "params_to", "params_to_numpy"]
 
 _FP32_LEAVES = ("ln_attn", "ln_mlp", "ln_attn_post", "ln_mlp_post", "bq", "bk", "bv")
 
@@ -27,12 +30,15 @@ def _tensor(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return host.to(device=device, dtype=dtype)
 
 
-def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
+def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None,
+                    master_dtype=None) -> dict:
     """The port's params from the JAX llama params pytree with numpy leaves
     (``jax.tree.map(np.asarray, params)``), stacked or unstacked layers, on ``device``
-    (default CUDA; raises when CUDA is absent and no CPU was asked for)."""
+    (default CUDA; raises when CUDA is absent and no CPU was asked for). Projections,
+    the embedding and the head are stored in ``master_dtype`` (default ``cfg.dtype``)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    weight_dtype = master_dtype or cfg.dtype
     layers = np_params["layers"]
     if isinstance(layers, dict):  # scan_layers: leaves stacked on a leading layer axis
         layers = [{k: v[i] for k, v in layers.items()} for i in range(cfg.n_layers)]
@@ -41,19 +47,19 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None) -> dict:
         out = {}
         for name, arr in layer.items():
             if name in PROJECTIONS:
-                out[name] = _tensor(arr, cfg.dtype, dev)
+                out[name] = _tensor(arr, weight_dtype, dev)
             elif name in _FP32_LEAVES:
                 out[name] = _tensor(arr, torch.float32, dev)
             else:
                 raise NotImplementedError(f"layer leaf {name!r} is not ported yet")
         out_layers.append(out)
     params = {
-        "embed": _tensor(np_params["embed"], cfg.dtype, dev),
+        "embed": _tensor(np_params["embed"], weight_dtype, dev),
         "layers": out_layers,
         "ln_f": _tensor(np_params["ln_f"], torch.float32, dev),
     }
     if "lm_head" in np_params:
-        params["lm_head"] = _tensor(np_params["lm_head"], cfg.dtype, dev)
+        params["lm_head"] = _tensor(np_params["lm_head"], weight_dtype, dev)
     return params
 
 
@@ -62,4 +68,20 @@ def params_to(params: dict, device) -> dict:
     dev = resolve_device(device)
     out = {k: v.to(dev) for k, v in params.items() if k != "layers"}
     out["layers"] = [{k: v.to(dev) for k, v in layer.items()} for layer in params["layers"]]
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_numpy(params: dict, stacked: bool = False) -> dict:
+    """The JAX pytree layout of the port's params, with numpy leaves (bf16 leaves as
+    fp32): layers as a list of dicts, or ``stacked`` as one dict of ``[L, ...]`` arrays
+    (``scan_layers``)."""
+    out = {k: _numpy(v) for k, v in params.items() if k != "layers"}
+    layers = [{k: _numpy(v) for k, v in layer.items()} for layer in params["layers"]]
+    out["layers"] = ({k: np.stack([layer[k] for layer in layers]) for k in layers[0]}
+                     if stacked else layers)
     return out

@@ -1,17 +1,22 @@
-"""Llama-family decoder LM: config, params and the cached (serving) forward.
+"""Llama-family decoder LM: config, params, the training forward and loss, and the
+cached (serving) forwards.
 
-Counterpart of ``accelerate_tpu/models/llama.py`` for the serving path: the same
-config fields and named configs, the same param names and shapes (dict params, weight
-matrices laid out ``[d_in, d_out]`` so ``x @ w``), and the same cached forwards —
-``forward_cached`` (single-row prefill over a dense cache), ``forward_slots`` (per-lane
-positions, dense or paged cache) and ``forward_slots_paged``.
+Counterpart of ``accelerate_tpu/models/llama.py``: the same config fields and named
+configs, the same param names and shapes (dict params, weight matrices laid out
+``[d_in, d_out]`` so ``x @ w``), the training path — ``forward_hidden``, ``forward``,
+``loss_fn`` (next-token CE, chunked for large vocabularies, packed ``segment_ids``,
+sliding windows alternating by ``window_every``), with each block checkpointed when
+``cfg.remat`` — and the cached forwards — ``forward_cached`` (single-row prefill over a
+dense cache), ``forward_slots`` (per-lane positions, dense or paged cache) and
+``forward_slots_paged``.
 
 Params are a plain dict: ``{"embed" [V,D], "layers": [per-layer dict, ...], "ln_f" [D],
-"lm_head" [D,V]}``. Projection matrices and the embedding are stored in ``cfg.dtype``
-(the JAX code keeps fp32 masters and casts them to ``cfg.dtype`` at each use, so the
-rounding is the same); norm gammas and q/k/v biases stay fp32 and are cast at use.
-Layers are always a per-layer list (``convert.params_from_jax`` unstacks
-``scan_layers`` params).
+"lm_head" [D,V]}``. Every weight is cast to ``cfg.dtype`` at its use, as in the JAX
+code, so params may be held in ``cfg.dtype`` (serving: ``init_params`` and
+``convert.params_from_jax`` store them so) or as fp32 masters (training); norm gammas
+and q/k/v biases stay fp32. Layers are always a per-layer list
+(``convert.params_from_jax`` unstacks ``scan_layers`` params; the unstacked layers run
+the same math as the JAX scan, the window alternation included).
 
 Not supported in this slice (raise ``NotImplementedError``): ``moe_experts > 0``,
 ``lora_rank > 0``, ``use_fp8`` and quantized weight leaves.
@@ -28,6 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import resolve_device
+from .common import (_softcap, attention_dispatch, ce_sum_dispatch, remat_wrap,
+                     resolve_loss_chunk)
 from .common import kv_planes as _kv_planes
 from .common import paged_attention_dispatch as _paged_attention
 from .common import paged_kv_planes as _paged_kv_planes
@@ -40,6 +47,13 @@ __all__ = [
     "LlamaConfig",
     "CONFIGS",
     "init_params",
+    "num_params",
+    "packed_target_mask",
+    "segment_positions",
+    "segment_mask",
+    "forward_hidden",
+    "forward",
+    "loss_fn",
     "head_logits",
     "init_cache",
     "init_paged_cache",
@@ -282,11 +296,6 @@ def _sm_scale(cfg: LlamaConfig) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(cfg.head_dim)
 
 
-def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
-    """Gemma-style logit capping: cap·tanh(x/cap) (identity when cap == 0)."""
-    return cap * torch.tanh(scores / cap) if cap else scores
-
-
 def _proj(h: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
     """Dense projection matmul ``h @ w`` in ``cfg.dtype``."""
     if not torch.is_tensor(w):
@@ -325,6 +334,165 @@ def head_logits(x: torch.Tensor, params: dict, cfg: LlamaConfig) -> torch.Tensor
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (x @ head.to(cfg.dtype)).float()
     return _softcap(logits, cfg.final_softcap)
+
+
+def num_params(cfg: LlamaConfig) -> int:
+    """Analytic parameter count (the MFU formula's N)."""
+    D, F_, V, H, K, hd = (cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_heads, cfg.n_kv_heads,
+                          cfg.head_dim)
+    mlp = 3 * D * F_ if cfg.moe_experts == 0 else cfg.moe_experts * 3 * D * F_ + D * cfg.moe_experts
+    per_layer = D * H * hd + 2 * D * K * hd + H * hd * D + mlp + 2 * D
+    total = V * D + cfg.n_layers * per_layer + D
+    if not cfg.tie_embeddings:
+        total += D * V
+    return total
+
+
+# ------------------------------------------------------------------------ training forward
+def _attention_xla(q, k, v, mask, cfg: LlamaConfig):
+    """Reference attention: q [B,S,H,hd], k/v [B,S,K,hd], mask [B|1,S,S] → [B,S,H,hd].
+    GQA stays grouped (the einsums contract against the unrepeated k/v); a masked score
+    takes ``finfo.min`` before the fp32 softmax."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, S, K, H // K, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k) * _sm_scale(cfg)
+    scores = _softcap(scores, cfg.attn_softcap)
+    scores = torch.where(mask[:, None, None, :, :], scores, torch.finfo(scores.dtype).min)
+    probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(B, S, H, hd)
+
+
+def _attention(q, k, v, mask, cfg: LlamaConfig, segment_ids=None):
+    """Family attention through ``common.attention_dispatch`` (flash kernels or the
+    grouped einsum above), with the config's window, softcap and scale."""
+    return attention_dispatch(
+        q, k, v, mask, impl=cfg.attn_impl, sm_scale=_sm_scale(cfg),
+        window=cfg.sliding_window, softcap=cfg.attn_softcap, segment_ids=segment_ids,
+        xla_attention=lambda q_, k_, v_, m_: _attention_xla(q_, k_, v_, m_, cfg),
+    )
+
+
+def _block(x, layer, positions, mask, cfg: LlamaConfig, segment_ids=None):
+    """One transformer block (dense MLP; MoE is not ported)."""
+    B, S, D = x.shape
+    p1 = cfg.norm_plus_one
+    h = _rms_norm(x, layer["ln_attn"], cfg.norm_eps, p1)
+    q, k, v = _qkv_proj(h, layer, cfg)
+    q = _rope(q.reshape(B, S, cfg.n_heads, cfg.head_dim), positions, cfg)
+    k = _rope(k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim), positions, cfg)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    attn = _attention(q, k, v, mask, cfg, segment_ids).reshape(B, S, cfg.n_heads * cfg.head_dim)
+    attn_out = _proj_l(attn, layer, "wo", cfg)
+    if cfg.post_norm:  # Gemma-2: normalize the sublayer OUTPUT before the residual add
+        attn_out = _rms_norm(attn_out, layer["ln_attn_post"], cfg.norm_eps, p1)
+    x = x + attn_out
+    h = _rms_norm(x, layer["ln_mlp"], cfg.norm_eps, p1)
+    gate = _mlp_gate_act(_proj_l(h, layer, "w_gate", cfg), cfg)
+    mlp_out = _proj_l(gate * _proj_l(h, layer, "w_up", cfg), layer, "w_down", cfg)
+    if cfg.post_norm:
+        mlp_out = _rms_norm(mlp_out, layer["ln_mlp_post"], cfg.norm_eps, p1)
+    return x + mlp_out
+
+
+def _maybe_remat_block(cfg: LlamaConfig):
+    """The block under the config's activation-checkpointing policy."""
+    return remat_wrap(_block, remat=cfg.remat, policy=cfg.remat_policy)
+
+
+def packed_target_mask(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Float mask [B, S-1] of valid next-token targets in packed rows: position t's
+    target (slot t+1) counts only when it continues the SAME segment and is not pad."""
+    seg = segment_ids
+    return ((seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] != 0)).float()
+
+
+def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Per-segment 0-based positions [B, S] of contiguous ``segment_ids`` (0 on pads)."""
+    B, S = segment_ids.shape
+    idx = torch.arange(S, device=segment_ids.device).expand(B, S)
+    change = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=segment_ids.device),
+                        segment_ids[:, 1:] != segment_ids[:, :-1]], dim=1)
+    starts = torch.cummax(torch.where(change, idx, 0), dim=1).values
+    return torch.where(segment_ids != 0, idx - starts, 0)
+
+
+def segment_mask(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Packed-row attention mask [B, S, S]: causal AND same segment AND not padding."""
+    S = segment_ids.shape[1]
+    causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=segment_ids.device))[None]
+    same = segment_ids[:, :, None] == segment_ids[:, None, :]
+    live = (segment_ids != 0)[:, None, :]
+    return causal & same & live
+
+
+def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+                   positions: Optional[torch.Tensor] = None,
+                   segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Backbone: tokens [B, S] → hidden states [B, S, D] after ln_f (dense MLPs: no
+    MoE aux loss).
+
+    ``segment_ids`` (packed rows, 0 = pad) keep attention inside each segment —
+    in-kernel on the flash path, through the block-diagonal mask on the xla path — and
+    default the positions to per-segment RoPE restarts. Layer i is banded by
+    ``cfg.sliding_window`` iff ``i % window_every == 0``."""
+    check_supported(cfg)
+    B, S = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        positions = (segment_positions(segment_ids) if segment_ids is not None
+                     else torch.arange(S, device=dev).expand(B, S))
+    x = _embed(params, tokens.long(), cfg)
+    full_mask = (segment_mask(segment_ids) if segment_ids is not None
+                 else torch.tril(torch.ones((S, S), dtype=torch.bool, device=dev))[None])
+    mask = full_mask
+    if cfg.sliding_window:
+        idx = torch.arange(S, device=dev)
+        mask = full_mask & (idx[None, :] > idx[:, None] - cfg.sliding_window)[None]
+    block = _maybe_remat_block(cfg)
+    for layer, layer_cfg in zip(params["layers"], _layer_cfgs(cfg)):
+        x = block(x, layer, positions, mask if layer_cfg.sliding_window else full_mask,
+                  layer_cfg, segment_ids)
+    return _rms_norm(x, params["ln_f"], cfg.norm_eps, cfg.norm_plus_one)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Causal LM: tokens [B, S] → fp32 logits [B, S, V]."""
+    return head_logits(forward_hidden(params, tokens, cfg, positions), params, cfg)
+
+
+def _ce_from_hidden(x, params, targets, mask, cfg: LlamaConfig) -> torch.Tensor:
+    """Mean next-token CE from post-ln_f hidden states (chunked per ``cfg.loss_chunk``)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    denom = torch.clamp(mask.sum(), min=1.0)
+    total = ce_sum_dispatch(
+        x, head, targets, mask, loss_impl=cfg.loss_impl, dtype=cfg.dtype,
+        chunk=resolve_loss_chunk(cfg.loss_chunk, x.shape[1], cfg.vocab_size),
+        softcap=cfg.final_softcap,
+    )
+    return total / denom
+
+
+def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, rng=None) -> torch.Tensor:
+    """Next-token cross-entropy over ``batch`` = {"tokens": [B, S+1]} with optional
+    "mask" [B, S+1], packed "segment_ids" [B, S+1] and "positions" [B, S+1]."""
+    tokens = batch["tokens"].long()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    B, S = inputs.shape
+    if "segment_ids" in batch:
+        seg = batch["segment_ids"]
+        mask = packed_target_mask(seg)
+        if "mask" in batch:
+            mask = mask * batch["mask"][:, 1:].float()
+        positions = (batch["positions"][:, :-1] if "positions" in batch
+                     else segment_positions(seg[:, :-1]))
+        x = forward_hidden(params, inputs, cfg, positions=positions, segment_ids=seg[:, :-1])
+    else:
+        mask = (batch["mask"][:, 1:].float() if "mask" in batch
+                else torch.ones((B, S), dtype=torch.float32, device=tokens.device))
+        x = forward_hidden(params, inputs, cfg)
+    return _ce_from_hidden(x, params, targets, mask, cfg)
 
 
 # ----------------------------------------------------------------------- cached generation

@@ -23,14 +23,19 @@ import subprocess
 from pathlib import Path
 from typing import Sequence
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "build", "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "build", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+#: Every CUDA source of the port, as ``build`` names them.
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_adamw")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# Flags of one source only. fused_adamw keeps every multiply and add rounded on its own
+# (no fused multiply-add), so its fp32 trajectory is the plain version's, bit for bit.
+SOURCE_FLAGS = {"fused_adamw": ("--fmad=false",)}
 
 
 def _nvcc() -> str:
@@ -47,9 +52,13 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _lib_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -65,7 +74,7 @@ def build(names: Sequence[str]) -> dict:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp)
     failed = []

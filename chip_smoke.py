@@ -5,15 +5,14 @@
 Phases, in order; each prints one JSON line and any failure exits non-zero:
 
 1. device — the card's ``nvidia-smi`` name and power limit; build every CUDA kernel
-   of the serving path from ``accelerate_tpu_torch/csrc`` (all ``nvcc`` processes
-   started together) and print the build seconds.
+   of the port from ``accelerate_tpu_torch/csrc`` (all ``nvcc`` processes started
+   together) and print the build seconds.
 2. kernel — the paged-attention kernel against its plain PyTorch version on the card:
-   the main path's shape (B=8, T=1, H=32, K=8, hd=128, page_size=16, 64 pages per
+   the serving path's shape (B=8, T=1, H=32, K=8, hd=128, page_size=16, 64 pages per
    lane, bf16) plus T=4, fp32, int8 pools, window, softcap, other head dims, sentinel
-   table entries and a never-written lane; then kernel, plain and bound times at the
-   main shape: device time from CUDA-graph replay between CUDA events, and call time
-   (host work included) from CUDA events around calls; K/V pools rotate past the
-   50 MB L2.
+   table entries and a never-written lane; then kernel, plain and bound times: device
+   time from CUDA-graph replay between CUDA events, and call time (host work included)
+   from CUDA events around calls; K/V pools rotate past the 50 MB L2.
 3. engine — the paged engine on the card against the same engine on the CPU
    (``debug`` config, fp32, same seeded params and requests): identical greedy tokens,
    first decode step's logits within tolerance.
@@ -21,6 +20,22 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    full width and depth (bf16, seeded random weights made on the card), with the
    kernel's launch count checked against the decode dispatches; then a few decode
    steps under ``torch.profiler`` for the device's busy time and idle share.
+5. flash — the flash-attention forward, dq and dk/dv kernels against their plain
+   versions on the same inputs (the training path's shape B=2, H=32, K=8, S=2048,
+   hd=128, bf16, causal; plus fp32, GQA 1, S=1000, packed segments with padding,
+   window, softcap, offsets, hd 32 and 64), element by element on each row's scale;
+   the same check must reject faults planted in the plain versions (a skipped kv
+   tile, a cut-off q tile, p and ds left unrounded); then kernel, plain, bound and
+   library times (SDPA forward; one aten flash-attention backward for dq, dk and dv).
+6. adamw — the fused AdamW kernel against its plain version over the training path's
+   leaf shapes, 3 steps, fp32 and bf16 first moments; then the time of one apply over
+   the whole 8-layer tree beside ``torch._fused_adamw_``.
+7. train_parity — ``Accelerator.build_train_step`` on the card against the same step
+   on the CPU (``debug`` config, fp32, 3 steps of ``adamw`` and of ``fused_adamw``).
+8. train_main — the training main path at Llama-3-8B's full width, depth cut to 8
+   layers: bf16 over fp32 masters, remat, flash attention, chunked CE, ``fused_adamw``,
+   global-norm clip; 7 steps on one seeded batch with every kernel's launches counted;
+   then one step under ``torch.profiler``.
 
 Then the kernels line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -358,6 +373,552 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
     }
 
 
+# ------------------------------------------------------------ phase 5: flash kernels
+FLASH_MAIN = dict(B=2, H=32, K=8, S=2048, T=2048, hd=128, dtype=torch.bfloat16)
+
+
+def make_flash_inputs(gen, *, B, H, K, S, T, hd, dtype, dev, segments=False):
+    """Seeded q [B,H,S,hd], k/v [B,K,T,hd], do, and (optionally) packed segment ids
+    with zero padding at each row's end (so some query rows see no key)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev, dtype)
+
+    q, k, v, do = randn(B, H, S, hd), randn(B, K, T, hd), randn(B, K, T, hd), randn(B, H, S, hd)
+    segs = None
+    if segments:
+        ids = np.zeros((B, S), np.int32)
+        for b in range(B):
+            cuts = np.sort(torch.randint(1, S, (3,), generator=gen).numpy())
+            ids[b, :cuts[0]], ids[b, cuts[0]:cuts[1]], ids[b, cuts[1]:cuts[2]] = 1, 2, 3
+        segs = torch.as_tensor(ids, device=dev)
+    return q, k, v, do, segs
+
+
+# Flash tolerances: every element within ``elem`` of its scale (for o, dq, dk, dv the
+# rms of its row of the reference, plus its own magnitude, plus a hundredth of the
+# tensor's rms for rows that cancel to ~0; for lse 1 + its magnitude), and the whole
+# tensor's rms error within ``rms`` of the reference's rms. Each is set a few times
+# above the largest error the kernels showed on the card over all cases (PERF.md); the
+# bf16 ``elem`` stays under the 3e-2 cap and the fp32 ones under 1e-4. The gradients'
+# ``rms`` also rejects p or ds left unrounded before their products.
+FLASH_TOL = {
+    torch.bfloat16: {"o": {"elem": 3e-2, "rms": 5e-3}, "grad": {"elem": 2e-2, "rms": 3e-4}},
+    torch.float32: {"o": {"elem": 1e-5, "rms": 1e-6}, "grad": {"elem": 1e-5, "rms": 1e-6}},
+    "lse": {"elem": 2e-6, "rms": 5e-7},
+}
+
+
+def flash_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """``elem``: max |got - want| / scale; ``rms``: rms(got - want) over rms(want)."""
+    w = want.float()
+    d = (got.float() - w).abs()
+    rms_w = w.square().mean().sqrt()
+    if w.dim() == 4:
+        scale = w.square().mean(-1, keepdim=True).sqrt() + w.abs() + 1e-2 * rms_w
+    else:
+        scale = 1.0 + w.abs()
+    elem = torch.where(d == 0, 0.0, d / scale)
+    return {"elem": float(elem.max()), "rms": float(d.square().mean().sqrt()
+                                                    / rms_w.clamp_min(1e-30))}
+
+
+def flash_within(errs: dict, dtype) -> dict:
+    """Per output, whether its errors are within the tolerances of ``dtype``."""
+    def tol(n):
+        return FLASH_TOL["lse"] if n == "lse" else FLASH_TOL[dtype]["o" if n == "o" else "grad"]
+
+    return {n: all(e[m] <= tol(n)[m] for m in e) for n, e in errs.items()}
+
+
+def flash_outputs(fa, q, k, v, do, lse, delta, args, plain: bool) -> dict:
+    """o, lse, dq, dk, dv from the kernels or the plain versions; the backward gets the
+    given lse and delta."""
+    fwd, dq, dkv = ((fa.flash_attention_reference, fa.flash_dq_reference,
+                     fa.flash_dkv_reference) if plain else (fa._fwd, fa._bwd_dq, fa._bwd_dkv))
+    out = dict(zip(("o", "lse"), fwd(q, k, v, **args)))
+    out["dq"] = dq(q, k, v, do, lse, delta, **args)
+    out["dk"], out["dv"] = dkv(q, k, v, do, lse, delta, **args)
+    return out
+
+
+def flash_planted_faults(fa, q, k, v, do, ref, delta, args) -> dict:
+    """The check of the main case applied to the plain versions with a fault planted:
+    kv tile 0 (64 keys) skipped by every later query row; the last q tile cut off from
+    every earlier key; p and ds left unrounded before their products (the references
+    on the fp32 values of the same inputs, o rounded to the input type as the kernel
+    writes it). The backward of each gets the sound lse and delta."""
+    B, _, S, _ = q.shape
+    ones = torch.ones((B, S), dtype=torch.int32, device=q.device)
+    tile0, last = ones.clone(), ones.clone()
+    tile0[:, 64:] = 2
+    last[:, -64:] = 2
+    faults = {}
+    for name, seg in (("kv_tile0_skipped", tile0), ("last_q_tile_cut_off", last)):
+        bad = flash_outputs(fa, q, k, v, do, ref["lse"], delta, {**args, "segments": seg},
+                            plain=True)
+        faults[name] = bad
+    f32 = [x.float() for x in (q, k, v, do)]
+    bad = flash_outputs(fa, *f32, ref["lse"], delta, args, plain=True)
+    bad["o"] = bad["o"].to(q.dtype)
+    faults["p_ds_unrounded"] = bad
+    result = {}
+    for name, bad in faults.items():
+        errs = {n: flash_errors(bad[n], ref[n]) for n in ref}
+        within = flash_within(errs, q.dtype)
+        result[name] = {"errors": errs, "caught": [n for n, ok in within.items() if not ok]}
+    return result
+
+
+def flash_bound_ms(S, T, B, H, K, hd, causal, window, itemsize, which) -> tuple[float, str]:
+    """Least time of one flash call on this card: its matrix-product flops over the bf16
+    (or fp32) peak, or its bytes over the HBM rate, whichever is larger. Flops count the
+    (query, key) pairs this call's mask leaves visible (no offsets, no segments), two
+    flops per multiply-add: forward 2 products (q·k, p·v), dq 3 (q·k, do·v, ds·k),
+    dk/dv 4 (q·k, do·v, pᵀ·do, dsᵀ·q). Bytes: every input read once, every output
+    written once (fp32 gradients, fp32 lse/delta)."""
+    rows = np.arange(S)[:, None]
+    cols = np.arange(T)[None, :]
+    vis = np.ones((S, T), bool)
+    if causal:
+        vis &= cols <= rows
+    if window:
+        vis &= cols > rows - window
+    pairs = int(vis.sum())
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[which]
+    flops = 2 * products * B * H * pairs * hd
+    q_bytes, kv_bytes = B * H * S * hd * itemsize, B * K * T * hd * itemsize
+    nbytes = {
+        "fwd": 2 * q_bytes + 2 * kv_bytes + B * H * S * 4,
+        "dq": 2 * q_bytes + 2 * kv_bytes + 2 * B * H * S * 4 + B * H * S * hd * 4,
+        "dkv": 2 * q_bytes + 2 * kv_bytes + 2 * B * H * S * 4 + 2 * (kv_bytes // itemsize) * 4,
+    }[which]
+    peak = PEAK_FLOPS[torch.bfloat16 if itemsize == 2 else torch.float32]
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_flash(dev) -> dict:
+    """Forward, dq and dk/dv kernels against their plain versions on the same inputs
+    (the backward kernels get the plain forward's lse and delta), then times at the
+    main shape."""
+    from accelerate_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator().manual_seed(2)
+    main = FLASH_MAIN
+    small = {**main, "S": 512, "T": 512}
+    cases = [
+        ("main_bf16_causal_G4", main, {}),
+        ("fp32_G4", {**small, "H": 8, "K": 2, "dtype": torch.float32}, {}),
+        ("G1", {**small, "H": 8, "K": 8}, {}),
+        ("S1000_padding", {**main, "S": 1000, "T": 1000, "H": 8, "K": 2}, {}),
+        ("segments_zero_pad", {**small, "H": 8, "K": 2}, {"segments": True}),
+        ("window256", {**main, "S": 1024, "T": 1024, "H": 8, "K": 2}, {"window": 256}),
+        ("softcap50", {**small, "H": 8, "K": 2}, {"softcap": 50.0}),
+        ("offsets_q256_kv0", {**small, "S": 256, "H": 8, "K": 2},
+         {"q_offset": 256, "kv_offset": 0}),
+        ("noncausal_fp32_offsets", {**small, "S": 192, "T": 320, "H": 4, "K": 2,
+                                    "dtype": torch.float32},
+         {"causal": False, "q_offset": 64, "kv_offset": 32}),
+        ("hd32_segments_softcap", {**small, "hd": 32, "H": 8, "K": 4},
+         {"segments": True, "softcap": 20.0}),
+        ("hd64_window_fp32", {**small, "hd": 64, "H": 4, "K": 1, "dtype": torch.float32},
+         {"window": 100}),
+    ]
+    errors, failed, faults = {}, [], None
+    for name, shape, kw in cases:
+        kw = dict(kw)
+        q, k, v, do, segs = make_flash_inputs(gen, dev=dev, segments=kw.pop("segments", False),
+                                              **shape)
+        args = dict(causal=kw.pop("causal", True), sm_scale=shape["hd"] ** -0.5,
+                    segments=segs, **kw)
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, **args)
+        delta = (do.float() * o_ref.float()).sum(-1)
+        got = flash_outputs(fa, q, k, v, do, lse_ref, delta, args, plain=False)
+        torch.cuda.synchronize()
+        ref = flash_outputs(fa, q, k, v, do, lse_ref, delta, args, plain=True)
+        live = lse_ref > -1e29  # rows that see a key (others: lse = -1e30 on both sides)
+        masked_exact = (bool(torch.equal(got["lse"][~live], ref["lse"][~live]))
+                        and not bool(got["o"][~live].any()) and not bool(got["dq"][~live].any()))
+        got["lse"], ref["lse"] = got["lse"][live], ref["lse"][live]
+        errs = {n: flash_errors(got[n], ref[n]) for n in ref}
+        max_abs = {n: float((got[n].float() - ref[n].float()).abs().max()) for n in ref}
+        within = flash_within(errs, shape["dtype"])
+        finite = all(bool(torch.isfinite(got[n]).all()) for n in ("o", "dq", "dk", "dv"))
+        ok = finite and masked_exact and all(within.values())
+        emit({"phase": "flash_check", "case": name, "errors": errs, "max_abs": max_abs,
+              "masked_rows": int((~live).sum()), "masked_rows_exact": masked_exact,
+              "tol": FLASH_TOL[shape["dtype"]], "tol_lse": FLASH_TOL["lse"], "ok": ok})
+        if not ok:
+            failed.append(name)
+        errors[name] = {"errors": errs, "max_abs": max_abs}
+        if name == "main_bf16_causal_G4":
+            ref["lse"] = lse_ref
+            faults = flash_planted_faults(fa, q, k, v, do, ref, delta, args)
+        del q, k, v, do, got, ref, o_ref, lse_ref, delta
+    # The check must reject each planted fault in every output it changes (the
+    # unrounded p and ds leave lse as it is, and o within its bf16 rounding).
+    must_catch = {"kv_tile0_skipped": ["o", "lse", "dq", "dk", "dv"],
+                  "last_q_tile_cut_off": ["o", "lse", "dq", "dk", "dv"],
+                  "p_ds_unrounded": ["dq", "dk", "dv"]}
+    for name, res in faults.items():
+        res["must_catch"] = must_catch[name]
+        emit({"phase": "flash_planted_fault", "fault": name, **res})
+        if not set(must_catch[name]) <= set(res["caught"]):
+            failed.append(f"planted fault {name} passes the check")
+    if failed:
+        raise SystemExit(f"flash kernels disagree with their plain versions: {failed}")
+
+    # Times at the main shape: device time from CUDA-graph replay (kernels and plain
+    # versions), in turns plain, kernel, kernel, plain; SDPA as the library yardstick.
+    q, k, v, do, _ = make_flash_inputs(gen, dev=dev, **main)
+    args = dict(causal=True, sm_scale=main["hd"] ** -0.5)
+    o_ref, lse = fa.flash_attention_reference(q, k, v, **args)
+    delta = (do.float() * o_ref.float()).sum(-1)
+    del o_ref
+    calls = {
+        "fwd": (lambda _: fa._fwd(q, k, v, **args),
+                lambda _: fa.flash_attention_reference(q, k, v, **args)),
+        "dq": (lambda _: fa._bwd_dq(q, k, v, do, lse, delta, **args),
+               lambda _: fa.flash_dq_reference(q, k, v, do, lse, delta, **args)),
+        "dkv": (lambda _: fa._bwd_dkv(q, k, v, do, lse, delta, **args),
+                lambda _: fa.flash_dkv_reference(q, k, v, do, lse, delta, **args)),
+    }
+    times = {}
+    for which, (kernel, plain) in calls.items():
+        plain_runs = [device_ms(plain, 1, 3)]
+        kernel_runs = [device_ms(kernel, 2, 10), device_ms(kernel, 2, 10)]
+        plain_runs.append(device_ms(plain, 1, 3))
+        torch.cuda.empty_cache()
+        bound, bound_by = flash_bound_ms(main["S"], main["T"], main["B"], main["H"], main["K"],
+                                         main["hd"], True, 0, 2, which)
+        times[which] = {"kernel_ms": min(kernel_runs), "plain_ms": min(plain_runs),
+                        "kernel_ms_runs": kernel_runs, "plain_ms_runs": plain_runs,
+                        "bound_ms": bound, "bound_by": bound_by}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times["fwd"]["library_ms"] = device_ms(
+        lambda _: sdpa(q, k, v, is_causal=True, enable_gqa=True), 2, 10)
+    # The library's backward: one aten flash-attention call computes dq, dk and dv from
+    # o and lse. It takes no GQA, so K/V are expanded to H heads once, before timing
+    # (its dk/dv come per q head, not yet summed over each group).
+    G = main["H"] // main["K"]
+    ke, ve = (x.repeat_interleave(G, dim=1) for x in (k, v))
+    aten = torch.ops.aten
+    out, lse_l, cq, ck, mq, mk, seed, offset = aten._scaled_dot_product_flash_attention(
+        q, ke, ve, 0.0, True, False, scale=args["sm_scale"])[:8]
+    library_bwd_ms = device_ms(lambda _: aten._scaled_dot_product_flash_attention_backward(
+        do, q, ke, ve, out, lse_l, cq, ck, mq, mk, 0.0, True, seed, offset,
+        scale=args["sm_scale"]), 2, 10)
+    times["dq"]["library_ms"] = times["dkv"]["library_ms"] = library_bwd_ms
+    times["library_bwd_covers"] = "dq+dk+dv (aten flash-attention backward, K/V expanded)"
+    times["kernels_dq_plus_dkv_ms"] = times["dq"]["kernel_ms"] + times["dkv"]["kernel_ms"]
+    del ke, ve, out
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd_bwd(_):
+        o_ = sdpa(qg, kg, vg, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(o_, (qg, kg, vg), do)
+
+    # SDPA forward + backward as a caller sees it (host work and autograd included).
+    times["sdpa_fwd_bwd_call_ms"] = call_ms(sdpa_fwd_bwd, 10)
+    times["kernels_fwd_dq_dkv_ms"] = sum(times[w]["kernel_ms"] for w in ("fwd", "dq", "dkv"))
+    emit({"phase": "flash_time", "shape": {k_: str(v_) for k_, v_ in main.items()}, **times})
+    return {"errors": errors["main_bf16_causal_G4"], "times": times}
+
+
+# ------------------------------------------------------------- phase 6: AdamW kernel
+def llama_leaf_shapes(cfg, n_layers: int) -> dict:
+    """The training main path's param leaves (name → shape), ``n_layers`` layers deep."""
+    D, F, V, hd = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.head_dim
+    layer = {"ln_attn": (D,), "wq": (D, cfg.n_heads * hd), "wk": (D, cfg.n_kv_heads * hd),
+             "wv": (D, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, D), "ln_mlp": (D,),
+             "w_gate": (D, F), "w_up": (D, F), "w_down": (F, D)}
+    shapes = {"embed": (V, D), "lm_head": (D, V), "ln_f": (D,)}
+    for i in range(n_layers):
+        shapes.update({f"layers.{i}.{k}": s for k, s in layer.items()})
+    return shapes
+
+
+def _adam_tree(shapes, dev, gen, mu_dtype):
+    """params (normal * 0.02), moments at 0, and 3 steps of gradients, all on the card."""
+    def normal(shape, scale):
+        return torch.empty(shape, device=dev).normal_(0.0, scale, generator=gen)
+
+    params = {n: normal(s, 0.02) for n, s in shapes.items()}
+    mu = {n: torch.zeros(s, device=dev, dtype=mu_dtype) for n, s in shapes.items()}
+    nu = {n: torch.zeros(s, device=dev) for n, s in shapes.items()}
+    return params, mu, nu
+
+
+def phase_adamw(dev, main_layers: int) -> dict:
+    """The fused AdamW kernel against its plain version over the main path's leaf shapes
+    (embed, lm_head, ln_f and one layer), 3 steps, fp32 and bf16 first moments; then
+    times of one apply over the full main-path tree (``main_layers`` layers)."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.optim import AdamState
+
+    cfg = llama.CONFIGS["llama3-8b"]
+    gen = torch.Generator(dev).manual_seed(3)
+    shapes = llama_leaf_shapes(cfg, 1)
+    result = {}
+    for mu_dtype in (torch.float32, torch.bfloat16):
+        opt = {"kernel": fo.fused_adamw(1e-3, mu_dtype=mu_dtype),
+               "plain": fo.fused_adamw(1e-3, mu_dtype=mu_dtype, use_kernel=False)}
+        params, mu, nu = _adam_tree(shapes, dev, gen, mu_dtype)
+        runs = {"kernel": (params, AdamState(0, mu, nu)),
+                "plain": ({n: p.clone() for n, p in params.items()},
+                          AdamState(0, {n: m.clone() for n, m in mu.items()},
+                                    {n: x.clone() for n, x in nu.items()}))}
+        for step in range(3):
+            grads = {n: torch.empty(s, device=dev).normal_(0.0, 1e-3, generator=gen)
+                     for n, s in shapes.items()}
+            scale = torch.tensor(0.5 + 0.25 * step, device=dev)  # a clip factor on the card
+            for name, (p, st) in runs.items():
+                runs[name] = opt[name].fused_apply(grads, st, p, grad_scale=scale)
+            del grads
+        torch.cuda.synchronize()
+        (pk, sk), (pp, sp) = runs["kernel"], runs["plain"]
+        rel, absd = 0.0, 0.0
+        for a, b in [(pk[n], pp[n]) for n in shapes] + [(sk.mu[n], sp.mu[n]) for n in shapes] \
+                + [(sk.nu[n], sp.nu[n]) for n in shapes]:
+            d = (a.float() - b.float()).abs()
+            absd = max(absd, float(d.max()))
+            rel = max(rel, float((d / b.float().abs().clamp_min(1e-30)).max()))
+        tag = "fp32" if mu_dtype == torch.float32 else "bf16"
+        ok = rel <= 1e-6
+        emit({"phase": "adamw_check", "mu_dtype": tag, "steps": 3, "leaves": len(shapes),
+              "params": sum(int(np.prod(s)) for s in shapes.values()),
+              "max_abs_err": absd, "max_rel_err": rel, "tol_rel": 1e-6, "ok": ok})
+        if not ok:
+            raise SystemExit(f"fused AdamW kernel disagrees with its plain version ({tag})")
+        result[f"max_abs_err_{tag}"] = absd
+        del runs, params, mu, nu, pk, pp, sk, sp
+        torch.cuda.empty_cache()
+
+    # Times of one apply over the whole main-path tree, fp32 moments (28 B per param).
+    shapes = llama_leaf_shapes(cfg, main_layers)
+    n_params = sum(int(np.prod(s)) for s in shapes.values())
+    params, mu, nu = _adam_tree(shapes, dev, gen, torch.float32)
+    grads = {n: torch.empty(s, device=dev).normal_(0.0, 1e-3, generator=gen)
+             for n, s in shapes.items()}
+    state = AdamState(0, mu, nu)
+    kernel_opt = fo.fused_adamw(1e-4)
+    plain_opt = fo.fused_adamw(1e-4, use_kernel=False)
+    plist, glist = list(params.values()), list(grads.values())
+    mlist, vlist = list(mu.values()), list(nu.values())
+    steps = [torch.tensor(1.0, device=dev) for _ in plist]
+
+    def library(_):
+        torch._fused_adamw_(plist, glist, mlist, vlist, [], steps, lr=1e-4, beta1=0.9,
+                            beta2=0.999, weight_decay=1e-4, eps=1e-8, amsgrad=False,
+                            maximize=False)
+
+    before = fo.adamw_leaves.launches
+    kernel_opt.fused_apply(grads, state, params)
+    launches_per_apply = fo.adamw_leaves.launches - before
+    times = {
+        "plain": [call_ms(lambda _: plain_opt.fused_apply(grads, state, params), 2)],
+        "kernel": [call_ms(lambda _: kernel_opt.fused_apply(grads, state, params), 5)
+                   for _ in range(2)],
+        "library": [call_ms(library, 5)],
+    }
+    times["plain"].append(call_ms(lambda _: plain_opt.fused_apply(grads, state, params), 2))
+    bound_ms = 1e3 * 28 * n_params / HBM_BYTES_PER_S
+    res = {"phase": "adamw_time", "layers": main_layers, "leaves": len(shapes),
+           "params": n_params, "kernel_ms": min(times["kernel"]), "plain_ms": min(times["plain"]),
+           "library_ms": times["library"][0], "runs_ms": times, "bound_ms": bound_ms,
+           "bound_by": "bytes", "launches_per_apply": launches_per_apply}
+    emit(res)
+    del params, mu, nu, grads, state, plist, glist, mlist, vlist
+    torch.cuda.empty_cache()
+    return {**result, **res}
+
+
+# ------------------------------------------------------------ phase 7: train parity
+def _clone_to(params, dev):
+    from accelerate_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.detach().clone().to(dev), params)
+
+
+def _fresh_state_singletons():
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+
+
+def phase_train_parity(dev) -> None:
+    """``build_train_step`` on the card against the same step on the CPU: ``debug``
+    config, fp32 (TF32 off), the same seeded params and batch, 3 steps with
+    ``max_grad_norm=1.0``, once with ``adamw`` and once with ``fused_adamw`` (the kernel
+    on the card, its plain version on the CPU)."""
+    from accelerate_tpu_torch import optim
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_to_numpy
+    from accelerate_tpu_torch.ops.fused_optim import fused_adamw
+
+    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32, attn_impl="flash")
+    params = llama.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 129))}
+    lr = 1e-3
+    for opt_name, make_opt in (("adamw", optim.adamw), ("fused_adamw", fused_adamw)):
+        runs = {}
+        for where in ("cpu", dev):
+            _fresh_state_singletons()
+            acc = Accelerator(device=where)
+            state = acc.create_train_state(_clone_to(params, where), make_opt(lr))
+            step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+            losses = []
+            for _ in range(3):
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+            flat = params_to_numpy(state.params)
+            runs[where] = (losses, np.concatenate(
+                [np.ravel(x) for x in [flat["embed"], flat["lm_head"], flat["ln_f"]]
+                 + [v for layer in flat["layers"] for v in layer.values()]]))
+        (l_cpu, p_cpu), (l_gpu, p_gpu) = runs["cpu"], runs[dev]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+        diff = np.abs(p_gpu - p_cpu)
+        tight = float(np.mean(diff <= 2e-6 + 1e-5 * np.abs(p_cpu)))
+        # Adam divides by the root of the second moment: an element whose gradient is at
+        # the level of rounding noise may move by a fraction of lr on one side only.
+        ok = loss_rel <= 1e-4 and float(diff.max()) <= lr / 2 and tight >= 0.999
+        emit({"phase": "train_parity", "config": "debug", "optimizer": opt_name,
+              "losses_cpu": l_cpu, "losses_gpu": l_gpu, "loss_max_rel_err": loss_rel,
+              "loss_tol_rel": 1e-4, "params_max_abs_err": float(diff.max()),
+              "params_tol_abs": lr / 2, "params_share_within_2e-6+1e-5rel": tight, "ok": ok})
+        if not ok:
+            raise SystemExit(f"train step on the card disagrees with the CPU ({opt_name})")
+    _fresh_state_singletons()
+
+
+# -------------------------------------------------------------- phase 8: train main path
+TRAIN_LAYERS = 8  # all 32 layers' fp32 masters + moments + grads (~128 GB) pass 80 GB
+TRAIN_B, TRAIN_S = 2, 2048
+
+
+def phase_train_main(dev) -> dict:
+    """The training main path at Llama-3-8B's full width, depth cut to TRAIN_LAYERS:
+    bf16 compute over fp32 masters, every block checkpointed, flash attention, chunked
+    CE, ``fused_adamw(1e-4)``, ``max_grad_norm=1.0``; one seeded batch, 2 warm-up steps
+    and 5 timed steps, with the kernels' launches counted over all 7."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention
+
+    _fresh_state_singletons()
+    L = TRAIN_LAYERS
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], n_layers=L, dtype=torch.bfloat16,
+                              attn_impl="flash", remat=True, remat_policy="full",
+                              loss_impl="auto")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                               generator=torch.Generator(dev).manual_seed(0), device=dev)
+    acc = Accelerator(mixed_precision="bf16", device=dev)
+    state = acc.create_train_state(params, fo.fused_adamw(1e-4))
+    del params
+    step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+
+    fa._fwd.launches = fa._bwd_dq.launches = fa._bwd_dkv.launches = 0
+    fo.adamw_leaves.launches = 0
+    paged_attention.launches = 0
+    losses, step_s, norms = [], [], []
+    for _ in range(7):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = {"flash_fwd": fa._fwd.launches, "flash_bwd_dq": fa._bwd_dq.launches,
+                "flash_bwd_dkv": fa._bwd_dkv.launches, "fused_adamw": fo.adamw_leaves.launches,
+                "paged_attention": paged_attention.launches}
+    n_params = llama.num_params(cfg)
+    n_leaves = 3 + 9 * L
+    flops_per_token = 6 * n_params + 6 * L * TRAIN_S * cfg.d_model  # bench.py's formula
+    tokens_per_step = TRAIN_B * TRAIN_S
+    step_ms = 1e3 * float(np.mean(step_s[2:]))
+    res = {
+        "phase": "train_main", "config": "llama3-8b", "layers": L,
+        "cut": f"depth {L} of 32 layers (fp32 masters, moments and grads of all 32 need "
+               "~128 GB); widths as published", "batch": [TRAIN_B, TRAIN_S],
+        "params": n_params, "params_init_s": init_s, "losses": losses, "grad_norms": norms,
+        "step_ms_runs": [1e3 * t for t in step_s], "step_ms": step_ms,
+        "tokens_per_s": tokens_per_step / (step_ms / 1e3),
+        "mfu": tokens_per_step * flops_per_token / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16],
+        "flops_per_token": flops_per_token,
+        "ideal_step_ms_at_peak": 1e3 * tokens_per_step * flops_per_token
+        / PEAK_FLOPS[torch.bfloat16],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": launches, "leaves": n_leaves,
+    }
+    expect = {"flash_fwd": 2 * L * 7, "flash_bwd_dq": L * 7, "flash_bwd_dkv": L * 7,
+              "fused_adamw": 7, "paged_attention": 0}
+    res["launches_expected"] = expect
+    res["finite"] = all(np.isfinite(losses)) and all(np.isfinite(norms))
+    res["losses_decreasing"] = all(b < a for a, b in zip(losses, losses[1:]))
+    res["ok"] = res["finite"] and res["losses_decreasing"] and launches == expect
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("training main path failed its checks")
+    emit(profile_train_step(step, state, batch))
+    _fresh_state_singletons()
+    return res
+
+
+def profile_train_step(step, state, batch) -> dict:
+    """Where a training step's time goes: one step under ``torch.profiler`` (after the
+    counted run). Device busy time is the sum of the kernels' own device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels, n_launch = {}, 0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kernels[e.key] = kernels.get(e.key, 0) + e.self_device_time_total
+        n_launch += e.count
+    busy_ms = sum(kernels.values()) / 1e3
+
+    def group(*names):
+        return sum(v for k, v in kernels.items() if any(n in k for n in names)) / 1e3
+
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    groups = {"matmul": group("nvjet", "gemm", "cutlass", "sm90_xmma"),
+              "flash": group("flash_fwd", "flash_bwd"), "adamw": group("adamw_kernel"),
+              "copy_cast": group("copy")}
+    groups["other"] = busy_ms - sum(groups.values())
+    return {
+        "phase": "train_profile", "wall_ms_profiled": wall_ms,
+        "device_busy_ms": busy_ms if kernels else None,
+        "device_idle_share": (1 - busy_ms / wall_ms) if kernels else None,
+        "device_ms_by_group": groups if kernels else None,
+        "device_kernels": n_launch if kernels else None,
+        "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
+    }
+
+
+def _kernel_row(name, source, replaces, launches, max_abs_err, t, library=None) -> dict:
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": max_abs_err, "ms": t["kernel_ms"],
+            "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"), "library": library}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -372,27 +933,50 @@ def main() -> int:
     smi = nvidia_smi()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    libs = _build.build(["paged_attention"])
+    libs = _build.build(list(_build.KERNEL_SOURCES))
     build_s = time.perf_counter() - t0
     for lib in libs.values():
         log = lib.with_suffix(".log")
         if log.exists():
             print(log.read_text(), file=sys.stderr)
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s})
+          "cuda": torch.version.cuda, "build_s": build_s, "sources": list(libs)})
 
+    # Serving (slice 1).
     kern = phase_kernel(dev)
     phase_engine(dev)
-    launches = phase_main(dev)
-    emit({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "accelerate_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "accelerate_tpu/ops/paged_attention.py:106",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["kernel_ms"], "kernel_ms": kern["kernel_ms"],
-        "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"], "library_ms": None,
-    }]})
+    paged_launches = phase_main(dev)
+    torch.cuda.empty_cache()
+    # Training (slice 2).
+    flash = phase_flash(dev)
+    torch.cuda.empty_cache()
+    adamw = phase_adamw(dev, TRAIN_LAYERS)
+    phase_train_parity(dev)
+    torch.cuda.empty_cache()
+    train = phase_train_main(dev)
+
+    csrc, fa_py = "accelerate_tpu_torch/csrc/", "accelerate_tpu/ops/flash_attention.py"
+    ft, fe = flash["times"], flash["errors"]["max_abs"]
+    # One library call computes dq, dk and dv together: its time stands in both rows,
+    # beside the sum of the two kernels (``kernels_dq_plus_dkv_ms`` of flash_time).
+    bwd_library = "one aten flash-attention backward for dq+dk+dv (K/V expanded to H heads)"
+    emit({"kernels": [
+        _kernel_row("paged_attention", csrc + "paged_attention.cu",
+                    "accelerate_tpu/ops/paged_attention.py:106", paged_launches,
+                    kern["max_abs_err"], kern),
+        _kernel_row("flash_fwd", csrc + "flash_attention.cu", fa_py + ":155",
+                    train["launches"]["flash_fwd"], max(fe["o"], fe["lse"]), ft["fwd"],
+                    "scaled_dot_product_attention forward (flash, enable_gqa)"),
+        _kernel_row("flash_bwd_dq", csrc + "flash_attention.cu", fa_py + ":343",
+                    train["launches"]["flash_bwd_dq"], fe["dq"], ft["dq"], bwd_library),
+        _kernel_row("flash_bwd_dkv", csrc + "flash_attention.cu", fa_py + ":422",
+                    train["launches"]["flash_bwd_dkv"], max(fe["dk"], fe["dv"]), ft["dkv"],
+                    bwd_library),
+        _kernel_row("fused_adamw", csrc + "fused_adamw.cu",
+                    "accelerate_tpu/ops/fused_optim.py:101", train["launches"]["fused_adamw"],
+                    max(adamw["max_abs_err_fp32"], adamw["max_abs_err_bf16"]), adamw,
+                    "torch._fused_adamw_"),
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

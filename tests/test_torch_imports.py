@@ -1,9 +1,9 @@
 """Boundaries of the PyTorch port (``accelerate_tpu_torch``).
 
 - No module of the port, and no line of ``chip_smoke.py``, imports ``jax`` or the JAX
-  package ``accelerate_tpu`` (AST scan), and importing the serving engine loads none
-  of them (fresh interpreter).
-- Entry points default to CUDA and raise without it; the kernel wrapper never runs
+  package ``accelerate_tpu`` (AST scan); importing the serving engine loads none of
+  them, and every module imports with them blocked (fresh interpreters).
+- Entry points (the Accelerator included) default to CUDA and raise without it; the kernel wrapper never runs
   the kernel path on CPU tensors (it takes the plain version) and refuses tensors on
   other devices.
 """
@@ -47,6 +47,32 @@ def test_importing_serving_loads_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_every_module_imports_with_jax_blocked():
+    """Every module of the port, and chip_smoke.py, imports in a fresh interpreter where
+    importing jax or the JAX package raises, and none of them gets loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "FORBIDDEN = %r\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in FORBIDDEN:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "import accelerate_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(accelerate_tpu_torch.__path__,\n"
+        "                                              'accelerate_tpu_torch.')]\n"
+        "for m in mods + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in FORBIDDEN)\n"
+        "print(len(mods), bad)\n"
+        "sys.exit(1 if bad or len(mods) < 15 else 0)\n" % (FORBIDDEN,)
+    )
+    res = subprocess.run([sys.executable, "-I", "-c", code, str(ROOT)],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.models.convert import params_from_jax
@@ -60,6 +86,18 @@ def test_entry_points_default_to_cuda(monkeypatch):
         llama.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_jax({"embed": None, "layers": [], "ln_f": None}, cfg)
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Accelerator(mixed_precision="bf16")
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    assert Accelerator(device="cpu").device == torch.device("cpu")
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
     assert resolve_device("cpu") == torch.device("cpu")
     params = llama.init_params(cfg, device="cpu")
     assert params["embed"].device.type == "cpu"

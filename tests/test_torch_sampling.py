@@ -30,9 +30,10 @@ def _logits(seed=0, shape=(6, 50)):
 @pytest.mark.parametrize("temperature,top_p,top_k", SETTINGS)
 def test_filtered_logits_match_jax(temperature, top_p, top_k):
     x = _logits()
-    # top_p == 1.0 means "no nucleus filter" (the port's draw skips it); applied at
-    # 1.0 the filter's cumsum can round to 1.0 and mask a tail token depending on
-    # summation order, so both sides skip it there.
+    # At top_p == 1.0 both sides run without the nucleus filter here: on these rows the
+    # fp32 cumsum reaches 1.0 at a point that depends on the summation order, which
+    # differs between the frameworks. test_top_p_one_masks_what_jax_masks holds the
+    # filter at 1.0 on a row where that point does not depend on the order.
     nucleus = top_p < 1.0
     want = np.asarray(jgen.filtered_logits(jnp.asarray(x), temperature, top_p, top_k,
                                            apply_top_p=nucleus))
@@ -47,8 +48,7 @@ def test_filtered_logits_match_jax(temperature, top_p, top_k):
 @pytest.mark.parametrize("temperature,top_p,top_k", SETTINGS)
 def test_draws_stay_in_support_and_reproduce(temperature, top_p, top_k):
     x = torch.from_numpy(_logits(1))
-    support = torch.isfinite(tgen.filtered_logits(x, temperature, top_p, top_k,
-                                                  apply_top_p=top_p < 1.0))
+    support = torch.isfinite(tgen.filtered_logits(x, temperature, top_p, top_k))
     for seed in range(40):
         tok = tgen.sampling_core(x, torch.Generator().manual_seed(seed), temperature,
                                  top_p, top_k)
@@ -57,6 +57,33 @@ def test_draws_stay_in_support_and_reproduce(temperature, top_p, top_k):
         again = tgen.sampling_core(x, torch.Generator().manual_seed(seed), temperature,
                                    top_p, top_k)
         assert torch.equal(tok, again)
+
+
+def _saturating_row(V=64):
+    """One logit far above a long tail: each tail probability is below 2**-25, so the
+    fp32 cumulative sum is exactly 1.0 from the first token on, in any summation
+    order — the nucleus filter at top_p = 1.0 then keeps the best token only."""
+    row = np.zeros((1, V), np.float32)
+    row[0, 7] = 30.0  # exp(-30) ~ 9.4e-14 < 2**-25
+    row[0, 20:] = -1.0
+    return row
+
+
+def test_top_p_one_masks_what_jax_masks():
+    """At top_p = 1.0 the nucleus filter runs, as in the JAX engine, and masks exactly
+    the tokens JAX masks; the draw lands only on what is left."""
+    x = _saturating_row()
+    want = np.asarray(jgen.filtered_logits(jnp.asarray(x), 1.0, 1.0, 0))
+    got = tgen.filtered_logits(torch.from_numpy(x), 1.0, 1.0, 0).numpy()
+    np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+    assert np.isfinite(want).sum() == 1 and np.isfinite(want[0, 7])
+    for seed in range(20):
+        tok = tgen.sampling_core(torch.from_numpy(x), torch.Generator().manual_seed(seed),
+                                 1.0, 1.0, 0)
+        assert int(tok[0]) == 7
+    # With the filter off, every tail token stays live (and a draw may take one).
+    assert np.isfinite(tgen.filtered_logits(torch.from_numpy(x), 1.0, 1.0, 0,
+                                            apply_top_p=False).numpy()).all()
 
 
 def test_draws_follow_the_filtered_distribution():
