@@ -2,13 +2,16 @@
 cross-entropy dispatch of the training path, and KV-cache planes, dense and paged.
 
 Counterpart of ``remat_wrap``, ``attention_dispatch``, ``resolve_loss_chunk``,
-``chunked_ce``, ``ce_sum``, ``ce_sum_dispatch`` and the KV helpers in
+``chunked_ce``, ``ce_sum``, ``ce_sum_dispatch``, ``fused_ce_allowed``,
+``fused_ce_single_shard`` and the KV helpers in
 ``accelerate_tpu/models/common.py``. ``jax.checkpoint`` becomes
 ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: the block's forward runs
 again during the backward, so a checkpointed block launches its attention forward twice
 per step. Attention ``flash`` launches the port's flash kernels on CUDA tensors (their
 plain versions on the CPU) and never falls back to the ``xla`` path; ``auto`` is
-``flash`` on CUDA and ``xla`` on the CPU. Caches are plane
+``flash`` on CUDA and ``xla`` on the CPU. ``loss_impl="fused"`` launches the fused
+cross-entropy kernels on CUDA tensors (their plain versions on the CPU) and never falls
+back to the chunked path. Caches are plane
 dicts: ``k``/``v`` ``[B,C,heads,hd]`` (dense) or ``[P,page_size,heads,hd]`` (paged
 pool), plus ``k_scale``/``v_scale`` ``[...,1]`` fp32 when int8-quantized.
 
@@ -24,15 +27,18 @@ from __future__ import annotations
 from typing import Callable, Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
+from ..ops.fused_xent import fused_cross_entropy
 from ..ops.paged_attention import gather_pages, paged_attention
 
 __all__ = [
     "remat_wrap", "attention_dispatch",
     "resolve_loss_chunk", "chunked_ce", "ce_sum", "ce_sum_dispatch",
+    "fused_ce_allowed", "fused_ce_single_shard",
     "kv_planes", "quant_kv", "write_kv", "read_kv",
     "paged_kv_planes", "write_kv_paged", "read_kv_paged", "paged_write_coords",
     "paged_attention_dispatch",
@@ -145,16 +151,47 @@ def ce_sum(x, head, targets, mask, *, dtype, chunk: int = 0, softcap: float = 0.
 
 def ce_sum_dispatch(x, head, targets, mask, *, loss_impl: str, dtype, chunk: int = 0,
                     softcap: float = 0.0, bias=None) -> torch.Tensor:
-    """SUM-style CE dispatch over ``loss_impl``: ``auto`` takes :func:`ce_sum`; the
-    fused-CE kernels (``fused``, ``fused_dp``, ``fused_tp``) are not ported yet."""
+    """SUM-style CE dispatch over ``loss_impl``: ``auto`` takes :func:`ce_sum`, ``fused``
+    the fused linear + CE kernels (:func:`fused_ce_single_shard`, converted back to a
+    sum). The fused kernels have no bias term, so a non-None ``bias`` takes
+    :func:`ce_sum` whatever ``loss_impl`` says. ``fused_dp`` and ``fused_tp`` need a
+    process mesh and are not ported."""
     if loss_impl not in ("auto", "fused", "fused_dp", "fused_tp"):
         raise ValueError(f"loss_impl={loss_impl!r}: expected 'auto', 'fused', 'fused_dp', "
                          "or 'fused_tp' (a typo would otherwise silently run the chunked path)")
-    if bias is None and loss_impl != "auto":
-        raise NotImplementedError(f"loss_impl={loss_impl!r}: the fused cross-entropy "
-                                  "kernels are not ported yet")
+    if bias is not None:
+        loss_impl = "auto"
+    if loss_impl in ("fused_dp", "fused_tp"):
+        raise NotImplementedError(f"loss_impl={loss_impl!r} needs a process mesh, which is "
+                                  "not ported yet (ROADMAP A.7)")
+    if loss_impl == "fused":
+        loss = fused_ce_single_shard(x, head.to(dtype), targets, mask, softcap=softcap)
+        if loss is None:
+            raise NotImplementedError("loss_impl='fused' runs in one process; across "
+                                      "processes it needs 'fused_dp' (ROADMAP A.7)")
+        # The masked mean, back to a sum: every branch here returns a sum.
+        return loss * torch.clamp(mask.sum(), min=1.0)
     return ce_sum(x, head, targets, mask, dtype=dtype, chunk=chunk, softcap=softcap,
                   bias=bias)
+
+
+def fused_ce_allowed() -> bool:
+    """True when the single-shard fused-CE kernel may run: one process (no
+    ``torch.distributed`` group of more than one rank)."""
+    return not (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1)
+
+
+def fused_ce_single_shard(x, head, targets, mask, softcap: float = 0.0):
+    """Masked-mean fused cross-entropy over [B,S,D] hidden states, or None when
+    :func:`fused_ce_allowed` says the kernel must not run. ``mask`` [B,S] float;
+    ``head`` [D,V] already in the compute type."""
+    if not fused_ce_allowed():
+        return None
+    B, S, D = x.shape
+    nll = fused_cross_entropy(x.reshape(B * S, D), head, targets.reshape(B * S),
+                              softcap=softcap)
+    mask1d = mask.reshape(B * S)
+    return (nll * mask1d).sum() / torch.clamp(mask1d.sum(), min=1.0)
 
 
 def kv_planes(batch: int, max_len: int, heads: int, head_dim: int, dtype, quantized: bool,

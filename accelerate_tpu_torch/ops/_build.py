@@ -27,7 +27,7 @@ __all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "build", "load"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 #: Every CUDA source of the port, as ``build`` names them.
-KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_adamw")
+KERNEL_SOURCES = ("paged_attention", "flash_attention", "fused_adamw", "fused_xent")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -30,12 +30,23 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 6. adamw — the fused AdamW kernel against its plain version over the training path's
    leaf shapes, 3 steps, fp32 and bf16 first moments; then the time of one apply over
    the whole 8-layer tree beside ``torch._fused_adamw_``.
-7. train_parity — ``Accelerator.build_train_step`` on the card against the same step
-   on the CPU (``debug`` config, fp32, 3 steps of ``adamw`` and of ``fused_adamw``).
-8. train_main — the training main path at Llama-3-8B's full width, depth cut to 8
+7. fused_xent — the fused linear + cross-entropy kernels (forward; one backward for dx
+   and dw) against their plain versions on the same inputs: the training path's shape
+   T=4096, D=4096, V=128256, bf16; plus fp32 at T=300, D=256, V=1000 (ragged against
+   every tile), softcap 30, ignored targets with a cotangent that is zero on some rows,
+   and the tied (transposed) head, each element on its row's scale; the same check must
+   reject faults planted in the plain versions (the last vocab tile skipped, the
+   softcap's chain rule dropped, d left unrounded); then kernel, plain and bound times
+   beside the chunked CE the kernels replace (chunk 512, forward and forward+backward).
+8. train_parity — ``Accelerator.build_train_step`` on the card against the same step
+   on the CPU (``debug`` config, fp32, 3 steps of ``adamw``, of ``fused_adamw`` and of
+   ``fused_adamw`` with ``loss_impl="fused"``).
+9. train_main — the training main path at Llama-3-8B's full width, depth cut to 8
    layers: bf16 over fp32 masters, remat, flash attention, chunked CE, ``fused_adamw``,
    global-norm clip; 7 steps on one seeded batch with every kernel's launches counted;
    then one step under ``torch.profiler``.
+10. train_fused — the same run with ``loss_impl="fused"``: the fused CE kernels launch
+   once each per step, and the first step's loss matches train_main's.
 
 Then the kernels line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -45,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -408,12 +420,14 @@ FLASH_TOL = {
 }
 
 
-def flash_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
-    """``elem``: max |got - want| / scale; ``rms``: rms(got - want) over rms(want)."""
+def flash_errors(got: torch.Tensor, want: torch.Tensor, rowwise: bool = False) -> dict:
+    """``elem``: max |got - want| / scale; ``rms``: rms(got - want) over rms(want). The
+    scale is per row (the rms of the element's row, its own magnitude and a hundredth of
+    the tensor's rms) for 4-D and ``rowwise`` tensors, else 1 + |want|."""
     w = want.float()
     d = (got.float() - w).abs()
     rms_w = w.square().mean().sqrt()
-    if w.dim() == 4:
+    if w.dim() == 4 or rowwise:
         scale = w.square().mean(-1, keepdim=True).sqrt() + w.abs() + 1e-2 * rms_w
     else:
         scale = 1.0 + w.abs()
@@ -734,7 +748,225 @@ def phase_adamw(dev, main_layers: int) -> dict:
     return {**result, **res}
 
 
-# ------------------------------------------------------------ phase 7: train parity
+# ------------------------------------------------------ phase 7: fused cross-entropy
+XENT_MAIN = dict(T=4096, D=4096, V=128256, dtype=torch.bfloat16)
+XENT_TILE_V = 256  # the bf16 kernels' vocab tile (kBV in csrc/fused_xent.cu)
+
+# Fused-CE tolerances, in flash_errors' terms: nll and lse against 1 + |want|; dx and dw
+# element by element on their row's scale, and the whole tensor's rms error. Kernel and
+# plain version take the same roundings and differ only in the order of their fp32 sums
+# (and the atomics' order, which changes from run to run). bf16 dx/dw flip by one bf16
+# step where d or the result sits next to a rounding boundary. Each limit is a few
+# times above the largest error the kernels showed on the card over all cases
+# (PERF.md); the bf16 gradients' rms limit sits 5x below the error of d left unrounded.
+XENT_TOL = {
+    torch.bfloat16: {"stat": {"elem": 1e-5, "rms": 2e-6}, "grad": {"elem": 2e-2, "rms": 5e-4}},
+    torch.float32: {"stat": {"elem": 1e-5, "rms": 2e-6}, "grad": {"elem": 2e-5, "rms": 2e-6}},
+}
+
+
+def make_xent_inputs(gen, *, T, D, V, dtype, dev, score_std=1.0, tied=False, ignored=0.0,
+                     zero_g=0.0):
+    """Seeded x [T,D] (unit normal, as post-norm hidden states), w [D,V] scaled so the
+    scores have std ``score_std`` (``tied``: the transposed view of an embedding
+    [V,D]), targets in [0,V) with every 97th in the last vocab tile and a share
+    ``ignored`` of them -1, and the cotangent g [T] uniform in [0,1) with a share
+    ``zero_g`` of rows 0."""
+    x = torch.randn((T, D), generator=gen, device=dev).to(dtype)
+    scale = score_std / math.sqrt(D)
+    if tied:
+        w = (torch.randn((V, D), generator=gen, device=dev) * scale).to(dtype).T
+    else:
+        w = (torch.randn((D, V), generator=gen, device=dev) * scale).to(dtype)
+    t = torch.randint(0, V, (T,), generator=gen, device=dev)
+    t[::97] = V - 1
+    t[torch.rand((T,), generator=gen, device=dev) < ignored] = -1
+    g = torch.rand((T,), generator=gen, device=dev)
+    g[torch.rand((T,), generator=gen, device=dev) < zero_g] = 0.0
+    return x, w, t, g
+
+
+def xent_outputs(fx, x, w, t, g, lse, cap, plain: bool) -> dict:
+    """nll, lse, dx, dw from the kernels or the plain versions; the backward gets the
+    given lse."""
+    if plain:
+        nll, lse_out = fx.fused_xent_reference(x, w, t, cap)
+        return {"nll": nll, "lse": lse_out,
+                "dx": fx.fused_xent_dx_reference(x, w, t, lse, g, cap),
+                "dw": fx.fused_xent_dw_reference(x, w, t, lse, g, cap)}
+    out = dict(zip(("nll", "lse"), fx._fwd(x, w, t, cap)))
+    out["dx"], out["dw"] = fx._bwd(x, w, t, lse, g, cap)
+    return out
+
+
+def xent_check(got: dict, ref: dict, dtype) -> tuple[dict, dict]:
+    """Errors of every output (flash_errors, rows for dx and dw) and whether each is
+    within XENT_TOL."""
+    errs = {n: flash_errors(got[n], ref[n], rowwise=ref[n].dim() == 2) for n in ref}
+    tol = XENT_TOL[dtype]
+    within = {n: all(e[m] <= tol["grad" if n in ("dx", "dw") else "stat"][m] for m in e)
+              for n, e in errs.items()}
+    return errs, within
+
+
+def xent_planted_faults(fx, x, w, t, g, ref, cap, kinds) -> dict:
+    """Faulty plain versions, the ``kinds`` named: the last vocab tile skipped (its
+    columns dropped from every sum; a target there matches nothing); d left unrounded
+    (the references on the fp32 values of the same inputs, outputs in the input type);
+    the softcap's chain rule 1 - (capped/cap)^2 dropped. The backward of each gets the
+    sound lse."""
+    lse = ref["lse"]
+    faults = {}
+    if "last_vocab_tile_skipped" in kinds:
+        cut = (w.shape[1] - 1) // XENT_TILE_V * XENT_TILE_V
+        nll_s, lse_s = fx.fused_xent_reference(x, w[:, :cut], t, cap)
+        dw_s = torch.zeros_like(ref["dw"])
+        dw_s[:, :cut] = fx.fused_xent_dw_reference(x, w[:, :cut], t, lse, g, cap)
+        faults["last_vocab_tile_skipped"] = {
+            "nll": nll_s, "lse": lse_s,
+            "dx": fx.fused_xent_dx_reference(x, w[:, :cut], t, lse, g, cap), "dw": dw_s}
+    if "d_unrounded" in kinds:
+        faults["d_unrounded"] = {
+            **ref, "dx": fx.fused_xent_dx_reference(x, w.float(), t, lse, g, cap),
+            "dw": fx.fused_xent_dw_reference(x.float(), w, t, lse, g, cap)}
+    if "softcap_chain_dropped" in kinds:
+        s, _ = fx._scores(x, w, cap)
+        d = fx._dlogits(s, None, lse, g, t)
+        faults["softcap_chain_dropped"] = {**ref, "dx": fx._dx_from(d, w, x.dtype),
+                                           "dw": fx._dw_from(d, x, w.dtype)}
+    result = {}
+    for name, bad in faults.items():
+        errs, within = xent_check(bad, ref, x.dtype)
+        result[name] = {"errors": errs, "caught": [n for n, ok in within.items() if not ok]}
+    return result
+
+
+def xent_bound_ms(T, D, V, itemsize, which) -> tuple[float, str]:
+    """Least time of one call on this card: its matrix-product flops over the bf16 (or
+    fp32) peak, or its bytes over the HBM rate, whichever is larger. Flops: the forward
+    2·T·D·V (the scores); the backward kernel 6·T·D·V (the scores once, d·wᵀ and xᵀ·d).
+    Bytes: every input read once (int32 targets; fp32 lse and g), every output written
+    once (fp32 nll and lse; dx and dw in the input type)."""
+    io = (T * D + D * V) * itemsize + 4 * T
+    nbytes = io + 8 * T + ((T * D + D * V) * itemsize if which == "bwd" else 0)
+    flops = {"fwd": 2, "bwd": 6}[which] * T * D * V
+    peak = PEAK_FLOPS[torch.bfloat16 if itemsize == 2 else torch.float32]
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_fused_xent(dev) -> dict:
+    """The fused CE kernels against their plain versions on the same inputs (the
+    backward gets the plain forward's lse), then times at the main shape."""
+    from accelerate_tpu_torch.models.common import chunked_ce
+    from accelerate_tpu_torch.ops import fused_xent as fx
+
+    gen = torch.Generator(dev).manual_seed(5)
+    cases = [
+        ("main_bf16", XENT_MAIN, {}),
+        ("fp32_ragged", dict(T=300, D=256, V=1000, dtype=torch.float32), {}),
+        ("softcap30_bf16", dict(T=1000, D=512, V=5000, dtype=torch.bfloat16),
+         {"softcap": 30.0, "score_std": 30.0}),
+        ("ignored_targets_zero_g", dict(T=700, D=1024, V=32000, dtype=torch.bfloat16),
+         {"ignored": 0.125, "zero_g": 0.125}),
+        ("tied_head", dict(T=512, D=1024, V=16000, dtype=torch.bfloat16), {"tied": True}),
+        ("fp32_softcap_tied", dict(T=300, D=256, V=1000, dtype=torch.float32),
+         {"softcap": 30.0, "score_std": 30.0, "tied": True}),
+    ]
+    errors, failed, faults = {}, [], {}
+    for name, shape, kw in cases:
+        kw = dict(kw)
+        cap = kw.pop("softcap", 0.0)
+        x, w, t, g = make_xent_inputs(gen, dev=dev, **shape, **kw)
+        _, lse_ref = fx.fused_xent_reference(x, w, t, cap)
+        got = xent_outputs(fx, x, w, t, g, lse_ref, cap, plain=False)
+        torch.cuda.synchronize()
+        ref = xent_outputs(fx, x, w, t, g, lse_ref, cap, plain=True)
+        errs, within = xent_check(got, ref, shape["dtype"])
+        max_abs = {n: float((got[n].float() - ref[n].float()).abs().max()) for n in ref}
+        finite = all(bool(torch.isfinite(got[n]).all()) for n in got)
+        shapes_ok = all(got[n].shape == ref[n].shape and got[n].dtype == ref[n].dtype
+                        for n in ref)
+        ok = finite and shapes_ok and all(within.values())
+        emit({"phase": "fused_xent_check", "case": name, "softcap": cap, "errors": errs,
+              "max_abs": max_abs, "tol": XENT_TOL[shape["dtype"]], "ok": ok})
+        if not ok:
+            failed.append(name)
+        errors[name] = {"errors": errs, "max_abs": max_abs}
+        kinds = {"main_bf16": ("last_vocab_tile_skipped", "d_unrounded"),
+                 "softcap30_bf16": ("softcap_chain_dropped",)}.get(name, ())
+        faults.update(xent_planted_faults(fx, x, w, t, g, ref, cap, kinds))
+        del x, w, t, g, got, ref, lse_ref
+        torch.cuda.empty_cache()
+    must_catch = {"last_vocab_tile_skipped": ["nll", "lse", "dx", "dw"],
+                  "d_unrounded": ["dx", "dw"], "softcap_chain_dropped": ["dx", "dw"]}
+    for name, res in faults.items():
+        res["must_catch"] = must_catch[name]
+        emit({"phase": "fused_xent_planted_fault", "fault": name, **res})
+        if not set(must_catch[name]) <= set(res["caught"]):
+            failed.append(f"planted fault {name} passes the check")
+    if set(faults) != set(must_catch):
+        failed.append(f"planted faults run: {sorted(faults)}")
+    if failed:
+        raise SystemExit(f"fused CE kernels disagree with their plain versions: {failed}")
+
+    # Times at the main shape: device time from CUDA-graph replay, in turns plain,
+    # kernel, kernel, plain; the chunked CE the kernels replace beside them.
+    main = XENT_MAIN
+    T, D, V = main["T"], main["D"], main["V"]
+    x, w, t, g = make_xent_inputs(gen, dev=dev, **main)
+    _, lse = fx.fused_xent_reference(x, w, t)
+    calls = {
+        "fwd": (lambda _: fx._fwd(x, w, t), lambda _: fx.fused_xent_reference(x, w, t)),
+        "bwd": (lambda _: fx._bwd(x, w, t, lse, g),
+                lambda _: (fx.fused_xent_dx_reference(x, w, t, lse, g),
+                           fx.fused_xent_dw_reference(x, w, t, lse, g))),
+    }
+    times = {}
+    for which, (kernel, plain) in calls.items():
+        plain_runs = [device_ms(plain, 1, 2)]
+        torch.cuda.empty_cache()
+        kernel_runs = [device_ms(kernel, 2, 5), device_ms(kernel, 2, 5)]
+        plain_runs.append(device_ms(plain, 1, 2))
+        torch.cuda.empty_cache()
+        bound, bound_by = xent_bound_ms(T, D, V, 2, which)
+        times[which] = {"kernel_ms": min(kernel_runs), "plain_ms": min(plain_runs),
+                        "kernel_ms_runs": kernel_runs, "plain_ms_runs": plain_runs,
+                        "bound_ms": bound, "bound_by": bound_by}
+    # The chunked CE at the training path's layout ([2, 2048] tokens, chunk 512): its
+    # forward from graph replay; forward + backward, and the fused path's, as a caller
+    # sees them (autograd and host work included).
+    B = 2
+    x3, t2 = x.view(B, T // B, D), t.view(B, T // B)
+    mask = torch.ones((B, T // B), device=dev)
+    with torch.no_grad():
+        chunked_fwd_ms = device_ms(lambda _: chunked_ce(x3, w, t2, mask, 512, torch.bfloat16),
+                                   1, 3)
+    xg, wg = x3.detach().requires_grad_(), w.detach().requires_grad_()
+
+    def chunked_fwd_bwd(_):
+        loss = chunked_ce(xg, wg, t2, mask, 512, torch.bfloat16)
+        torch.autograd.grad(loss, (xg, wg))
+
+    def fused_fwd_bwd(_):
+        loss = fx.fused_cross_entropy(xg.view(T, D), wg, t).sum()
+        torch.autograd.grad(loss, (xg, wg))
+
+    chunked_fb = [call_ms(chunked_fwd_bwd, 3)]
+    fused_fb = [call_ms(fused_fwd_bwd, 3), call_ms(fused_fwd_bwd, 3)]
+    chunked_fb.append(call_ms(chunked_fwd_bwd, 3))
+    times["chunked_ce"] = {"chunk": 512, "fwd_ms": chunked_fwd_ms,
+                           "fwd_bwd_call_ms": min(chunked_fb), "fwd_bwd_call_ms_runs": chunked_fb}
+    times["fused_fwd_bwd_call_ms"] = min(fused_fb)
+    times["fused_fwd_bwd_call_ms_runs"] = fused_fb
+    times["kernels_fwd_bwd_ms"] = times["fwd"]["kernel_ms"] + times["bwd"]["kernel_ms"]
+    emit({"phase": "fused_xent_time", "shape": {k: str(v) for k, v in main.items()}, **times})
+    del x, w, t, g, lse, xg, wg, x3
+    torch.cuda.empty_cache()
+    return {"errors": errors["main_bf16"], "times": times}
+
+
+# ------------------------------------------------------------ phase 8: train parity
 def _clone_to(params, dev):
     from accelerate_tpu_torch.utils.tree import tree_map
 
@@ -751,19 +983,22 @@ def _fresh_state_singletons():
 def phase_train_parity(dev) -> None:
     """``build_train_step`` on the card against the same step on the CPU: ``debug``
     config, fp32 (TF32 off), the same seeded params and batch, 3 steps with
-    ``max_grad_norm=1.0``, once with ``adamw`` and once with ``fused_adamw`` (the kernel
-    on the card, its plain version on the CPU)."""
+    ``max_grad_norm=1.0``: ``adamw``, ``fused_adamw``, and ``fused_adamw`` with
+    ``loss_impl="fused"`` (the kernels on the card, their plain versions on the CPU)."""
     from accelerate_tpu_torch import optim
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.models.convert import params_to_numpy
     from accelerate_tpu_torch.ops.fused_optim import fused_adamw
 
-    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32, attn_impl="flash")
-    params = llama.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    batch = {"tokens": np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 129))}
+    base = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32, attn_impl="flash")
+    params = llama.init_params(base, generator=torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": np.random.default_rng(4).integers(0, base.vocab_size, (2, 129))}
     lr = 1e-3
-    for opt_name, make_opt in (("adamw", optim.adamw), ("fused_adamw", fused_adamw)):
+    for opt_name, make_opt, loss_impl in (("adamw", optim.adamw, "auto"),
+                                          ("fused_adamw", fused_adamw, "auto"),
+                                          ("fused_adamw", fused_adamw, "fused")):
+        cfg = dataclasses.replace(base, loss_impl=loss_impl)
         runs = {}
         for where in ("cpu", dev):
             _fresh_state_singletons()
@@ -786,35 +1021,41 @@ def phase_train_parity(dev) -> None:
         # the level of rounding noise may move by a fraction of lr on one side only.
         ok = loss_rel <= 1e-4 and float(diff.max()) <= lr / 2 and tight >= 0.999
         emit({"phase": "train_parity", "config": "debug", "optimizer": opt_name,
-              "losses_cpu": l_cpu, "losses_gpu": l_gpu, "loss_max_rel_err": loss_rel,
-              "loss_tol_rel": 1e-4, "params_max_abs_err": float(diff.max()),
-              "params_tol_abs": lr / 2, "params_share_within_2e-6+1e-5rel": tight, "ok": ok})
+              "loss_impl": loss_impl, "losses_cpu": l_cpu, "losses_gpu": l_gpu,
+              "loss_max_rel_err": loss_rel, "loss_tol_rel": 1e-4,
+              "params_max_abs_err": float(diff.max()), "params_tol_abs": lr / 2,
+              "params_share_within_2e-6+1e-5rel": tight, "ok": ok})
         if not ok:
-            raise SystemExit(f"train step on the card disagrees with the CPU ({opt_name})")
+            raise SystemExit(f"train step on the card disagrees with the CPU ({opt_name}, "
+                             f"loss_impl={loss_impl})")
     _fresh_state_singletons()
 
 
-# -------------------------------------------------------------- phase 8: train main path
+# -------------------------------------------------------------- phase 9: train main path
 TRAIN_LAYERS = 8  # all 32 layers' fp32 masters + moments + grads (~128 GB) pass 80 GB
 TRAIN_B, TRAIN_S = 2, 2048
 
 
-def phase_train_main(dev) -> dict:
+def phase_train_main(dev, loss_impl: str = "auto", first_loss=None) -> dict:
     """The training main path at Llama-3-8B's full width, depth cut to TRAIN_LAYERS:
     bf16 compute over fp32 masters, every block checkpointed, flash attention, chunked
-    CE, ``fused_adamw(1e-4)``, ``max_grad_norm=1.0``; one seeded batch, 2 warm-up steps
-    and 5 timed steps, with the kernels' launches counted over all 7."""
+    CE (``loss_impl="auto"``, phase train_main) or the fused CE kernels (``"fused"``,
+    phase train_fused, whose first loss must be within 2e-3 of ``first_loss``),
+    ``fused_adamw(1e-4)``, ``max_grad_norm=1.0``; one seeded batch, 2 warm-up steps and
+    5 timed steps, with the kernels' launches counted over all 7."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.ops import fused_xent as fx
     from accelerate_tpu_torch.ops.paged_attention import paged_attention
 
     _fresh_state_singletons()
     L = TRAIN_LAYERS
+    fused = loss_impl == "fused"
     cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], n_layers=L, dtype=torch.bfloat16,
                               attn_impl="flash", remat=True, remat_policy="full",
-                              loss_impl="auto")
+                              loss_impl=loss_impl)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
@@ -830,6 +1071,7 @@ def phase_train_main(dev) -> dict:
 
     fa._fwd.launches = fa._bwd_dq.launches = fa._bwd_dkv.launches = 0
     fo.adamw_leaves.launches = 0
+    fx._fwd.launches = fx._bwd.launches = 0
     paged_attention.launches = 0
     losses, step_s, norms = [], [], []
     for _ in range(7):
@@ -841,6 +1083,7 @@ def phase_train_main(dev) -> dict:
         norms.append(float(metrics["grad_norm"]))
     launches = {"flash_fwd": fa._fwd.launches, "flash_bwd_dq": fa._bwd_dq.launches,
                 "flash_bwd_dkv": fa._bwd_dkv.launches, "fused_adamw": fo.adamw_leaves.launches,
+                "fused_xent_fwd": fx._fwd.launches, "fused_xent_bwd": fx._bwd.launches,
                 "paged_attention": paged_attention.launches}
     n_params = llama.num_params(cfg)
     n_leaves = 3 + 9 * L
@@ -848,7 +1091,8 @@ def phase_train_main(dev) -> dict:
     tokens_per_step = TRAIN_B * TRAIN_S
     step_ms = 1e3 * float(np.mean(step_s[2:]))
     res = {
-        "phase": "train_main", "config": "llama3-8b", "layers": L,
+        "phase": "train_fused" if fused else "train_main", "config": "llama3-8b",
+        "loss_impl": loss_impl, "layers": L,
         "cut": f"depth {L} of 32 layers (fp32 masters, moments and grads of all 32 need "
                "~128 GB); widths as published", "batch": [TRAIN_B, TRAIN_S],
         "params": n_params, "params_init_s": init_s, "losses": losses, "grad_norms": norms,
@@ -861,16 +1105,22 @@ def phase_train_main(dev) -> dict:
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches, "leaves": n_leaves,
     }
+    # The fused backward is one kernel for dx and dw: one launch per step for the pair.
     expect = {"flash_fwd": 2 * L * 7, "flash_bwd_dq": L * 7, "flash_bwd_dkv": L * 7,
-              "fused_adamw": 7, "paged_attention": 0}
+              "fused_adamw": 7, "fused_xent_fwd": 7 * fused, "fused_xent_bwd": 7 * fused,
+              "paged_attention": 0}
     res["launches_expected"] = expect
     res["finite"] = all(np.isfinite(losses)) and all(np.isfinite(norms))
     res["losses_decreasing"] = all(b < a for a, b in zip(losses, losses[1:]))
     res["ok"] = res["finite"] and res["losses_decreasing"] and launches == expect
+    if first_loss is not None:
+        res["first_loss_rel_err_vs_train_main"] = abs(losses[0] - first_loss) / abs(first_loss)
+        res["first_loss_tol_rel"] = 2e-3
+        res["ok"] = res["ok"] and res["first_loss_rel_err_vs_train_main"] <= 2e-3
     emit(res)
     if not res["ok"]:
-        raise SystemExit("training main path failed its checks")
-    emit(profile_train_step(step, state, batch))
+        raise SystemExit(f"training main path ({loss_impl} CE) failed its checks")
+    emit({**profile_train_step(step, state, batch), "loss_impl": loss_impl})
     _fresh_state_singletons()
     return res
 
@@ -900,7 +1150,7 @@ def profile_train_step(step, state, batch) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     groups = {"matmul": group("nvjet", "gemm", "cutlass", "sm90_xmma"),
               "flash": group("flash_fwd", "flash_bwd"), "adamw": group("adamw_kernel"),
-              "copy_cast": group("copy")}
+              "fused_xent": group("fxent_"), "copy_cast": group("copy")}
     groups["other"] = busy_ms - sum(groups.values())
     return {
         "phase": "train_profile", "wall_ms_profiled": wall_ms,
@@ -912,11 +1162,13 @@ def profile_train_step(step, state, batch) -> dict:
     }
 
 
-def _kernel_row(name, source, replaces, launches, max_abs_err, t, library=None) -> dict:
+def _kernel_row(name, source, replaces, launches, max_abs_err, t, library=None,
+                **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max_abs_err, "ms": t["kernel_ms"],
             "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"), "library": library}
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"), "library": library,
+            **extra}
 
 
 def main() -> int:
@@ -951,15 +1203,27 @@ def main() -> int:
     flash = phase_flash(dev)
     torch.cuda.empty_cache()
     adamw = phase_adamw(dev, TRAIN_LAYERS)
+    # Fused cross-entropy (slice 3).
+    xent = phase_fused_xent(dev)
     phase_train_parity(dev)
     torch.cuda.empty_cache()
     train = phase_train_main(dev)
+    torch.cuda.empty_cache()
+    train_fused = phase_train_main(dev, "fused", first_loss=train["losses"][0])
 
     csrc, fa_py = "accelerate_tpu_torch/csrc/", "accelerate_tpu/ops/flash_attention.py"
     ft, fe = flash["times"], flash["errors"]["max_abs"]
     # One library call computes dq, dk and dv together: its time stands in both rows,
     # beside the sum of the two kernels (``kernels_dq_plus_dkv_ms`` of flash_time).
     bwd_library = "one aten flash-attention backward for dq+dk+dv (K/V expanded to H heads)"
+    xt, xe = xent["times"], xent["errors"]["max_abs"]
+    fx_py = "accelerate_tpu/ops/fused_xent.py"
+    # One backward kernel computes dx and dw: rows 7 and 8 name it both, with its time
+    # and its launches (one per step for the pair).
+    xent_extra = {"chunked_ce_fwd_ms": xt["chunked_ce"]["fwd_ms"],
+                  "chunked_ce_fwd_bwd_call_ms": xt["chunked_ce"]["fwd_bwd_call_ms"]}
+    bwd_note = {"note": "one backward kernel (fxent_bwd_mma_kernel) computes dx and dw; "
+                        "launches count that kernel, once per step for the pair"}
     emit({"kernels": [
         _kernel_row("paged_attention", csrc + "paged_attention.cu",
                     "accelerate_tpu/ops/paged_attention.py:106", paged_launches,
@@ -976,6 +1240,15 @@ def main() -> int:
                     "accelerate_tpu/ops/fused_optim.py:101", train["launches"]["fused_adamw"],
                     max(adamw["max_abs_err_fp32"], adamw["max_abs_err_bf16"]), adamw,
                     "torch._fused_adamw_"),
+        _kernel_row("fused_xent_fwd", csrc + "fused_xent.cu", fx_py + ":82",
+                    train_fused["launches"]["fused_xent_fwd"], max(xe["nll"], xe["lse"]),
+                    xt["fwd"], None, **xent_extra),
+        _kernel_row("fused_xent_bwd_dx", csrc + "fused_xent.cu", fx_py + ":128",
+                    train_fused["launches"]["fused_xent_bwd"], xe["dx"], xt["bwd"], None,
+                    **xent_extra, **bwd_note),
+        _kernel_row("fused_xent_bwd_dw", csrc + "fused_xent.cu", fx_py + ":151",
+                    train_fused["launches"]["fused_xent_bwd"], xe["dw"], xt["bwd"], None,
+                    **xent_extra, **bwd_note),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,9 @@
 - No module of the port, and no line of ``chip_smoke.py``, imports ``jax`` or the JAX
   package ``accelerate_tpu`` (AST scan); importing the serving engine loads none of
   them, and every module imports with them blocked (fresh interpreters).
-- Entry points (the Accelerator included) default to CUDA and raise without it; the kernel wrapper never runs
-  the kernel path on CPU tensors (it takes the plain version) and refuses tensors on
-  other devices.
+- Entry points (the Accelerator included) default to CUDA and raise without it; the
+  kernel wrappers (paged attention, fused cross-entropy) never run the kernel path on
+  CPU tensors (they take the plain versions) and refuse tensors on other devices.
 """
 
 import ast
@@ -125,34 +125,75 @@ def _small_paged_inputs(device):
     return q, pool, tables, positions, valid
 
 
-def test_kernel_wrapper_cpu_takes_plain_version(monkeypatch):
+def _small_xent_inputs(device):
+    x = torch.linspace(-1, 1, 3 * 16, device=device).reshape(3, 16)
+    w = torch.linspace(-1, 1, 16 * 24, device=device).reshape(16, 24)
+    t = torch.tensor([0, 23, -1], device=device)
+    g = torch.ones(3, device=device)
+    return x, w, t, g
+
+
+def _paged_calls(device):
+    """(wrapper call, plain call, launch counter owner, CUDA launcher call) of the
+    paged-attention kernel."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    args = _small_paged_inputs(device)
+    kw = dict(page_size=4, sm_scale=0.125)
+    return [(lambda: pa.paged_attention(*args, **kw),
+             lambda: pa.paged_attention_reference(*args, **kw), pa.paged_attention,
+             lambda: pa.paged_attention_cuda(*args, **kw))]
+
+
+def _xent_calls(device):
+    """The same for the fused cross-entropy's forward and backward."""
+    from accelerate_tpu_torch.ops import fused_xent as fx
+
+    x, w, t, g = _small_xent_inputs(device)
+    lse = torch.zeros(3, device=device)
+    return [(lambda: fx._fwd(x, w, t, 5.0), lambda: fx.fused_xent_reference(x, w, t, 5.0),
+             fx._fwd, lambda: fx._fwd_cuda(x, w, t, 5.0)),
+            (lambda: fx._bwd(x, w, t, lse, g, 5.0),
+             lambda: (fx.fused_xent_dx_reference(x, w, t, lse, g, 5.0),
+                      fx.fused_xent_dw_reference(x, w, t, lse, g, 5.0)), fx._bwd,
+             lambda: fx._bwd_cuda(x, w, t, lse, g, 5.0))]
+
+
+KERNEL_CALLS = {"paged_attention": _paged_calls, "fused_xent": _xent_calls}
+
+
+def _tensors(out):
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+@pytest.mark.parametrize("kernel", list(KERNEL_CALLS))
+def test_kernel_wrapper_cpu_takes_plain_version(monkeypatch, kernel):
     """On CPU tensors the wrapper runs the plain version: it neither builds nor
     launches the kernel, and the launch count does not move."""
-    from accelerate_tpu_torch.ops import _build, paged_attention as pa
+    from accelerate_tpu_torch.ops import _build
 
     def no_build(*_a, **_k):
         raise AssertionError("the CUDA kernel was built or loaded for CPU tensors")
 
     monkeypatch.setattr(_build, "build", no_build)
     monkeypatch.setattr(_build, "load", no_build)
-    before = pa.paged_attention.launches
-    args = _small_paged_inputs("cpu")
-    out = pa.paged_attention(*args, page_size=4, sm_scale=0.125)
-    ref = pa.paged_attention_reference(*args, page_size=4, sm_scale=0.125)
-    assert torch.equal(out, ref)
-    assert pa.paged_attention.launches == before
+    for call, plain, owner, _ in KERNEL_CALLS[kernel]("cpu"):
+        before = owner.launches
+        for got, want in zip(_tensors(call()), _tensors(plain()), strict=True):
+            assert torch.equal(got, want)
+        assert owner.launches == before
 
 
-def test_kernel_launcher_raises_on_cpu_tensors():
+@pytest.mark.parametrize("kernel", list(KERNEL_CALLS))
+def test_kernel_launcher_raises_on_cpu_tensors(kernel):
     """The CUDA launcher refuses CPU tensors (it never computes them), and the
     wrapper refuses tensors that are neither CPU nor CUDA."""
-    from accelerate_tpu_torch.ops.paged_attention import paged_attention, paged_attention_cuda
-
-    args = _small_paged_inputs("cpu")
-    with pytest.raises(ValueError, match="must be on CUDA"):
-        paged_attention_cuda(*args, page_size=4, sm_scale=0.125)
-    with pytest.raises(ValueError, match="must be on CUDA"):
-        paged_attention(*_small_paged_inputs("meta"), page_size=4, sm_scale=0.125)
+    for _, _, _, cuda_call in KERNEL_CALLS[kernel]("cpu"):
+        with pytest.raises(ValueError, match="must be on CUDA"):
+            cuda_call()
+    for call, _, _, _ in KERNEL_CALLS[kernel]("meta"):
+        with pytest.raises(ValueError, match="must be on CUDA"):
+            call()
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

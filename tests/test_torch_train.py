@@ -6,9 +6,9 @@
   an alternating sliding window with a score softcap, a forced loss chunk that does not
   divide S, checkpointed blocks, and the xla attention path.
 - Four calls of ``Accelerator.build_train_step`` (gradient accumulation 2, global-norm
-  clipping, ``cast_params`` both ways, ``adamw`` and ``fused_adamw``, a value clamp)
-  against the JAX ``build_train_step``; and one bf16 run through the ``compress_reduce``
-  branch.
+  clipping, ``cast_params`` both ways, ``adamw`` and ``fused_adamw``, a value clamp,
+  ``loss_impl="fused"``) against the JAX ``build_train_step``; and one bf16 run through
+  the ``compress_reduce`` branch.
 - ``convert``: JAX → port → numpy round trips, bit-equal in fp32.
 - The step's own contracts: the non-finite guard, ``fused_steps``, and what raises.
 
@@ -115,10 +115,11 @@ def test_loss_and_grads_match_jax(case):
               jax.tree.map(np.asarray, jgrads), atol=2e-6, rtol=1e-4)
 
 
-TRAIN_CASES = {  # optimizer, cast_params, extra build_train_step arguments
-    "adamw_cast": ("adamw", True, {}),
-    "adamw_no_cast": ("adamw", False, {}),
-    "fused_adamw_cast_clip_value": ("fused_adamw", True, {"max_grad_value": 2e-3}),
+TRAIN_CASES = {  # optimizer, cast_params, extra build_train_step arguments, config
+    "adamw_cast": ("adamw", True, {}, {}),
+    "adamw_no_cast": ("adamw", False, {}, {}),
+    "fused_adamw_cast_clip_value": ("fused_adamw", True, {"max_grad_value": 2e-3}, {}),
+    "fused_ce_fused_adamw": ("fused_adamw", True, {}, {"loss_impl": "fused"}),
 }
 
 
@@ -130,8 +131,8 @@ def _optimizers(name):
 
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
 def test_train_steps_match_jax(case):
-    opt_name, cast_params, extra = TRAIN_CASES[case]
-    jcfg, tcfg = _configs()
+    opt_name, cast_params, extra, cfg_kw = TRAIN_CASES[case]
+    jcfg, tcfg = _configs(**cfg_kw)
     np_params = _np_params(jcfg, seed=2)
     batches = [_batch(jcfg.vocab_size, seed=10 + i) for i in range(4)]
     jopt, topt_ = _optimizers(opt_name)
@@ -293,10 +294,11 @@ def test_unported_options_raise():
     q = torch.zeros((1, 4, 2, 32))
     with pytest.raises(NotImplementedError):
         common.attention_dispatch(q, q, q, None, impl="ring", sm_scale=1.0)
-    jcfg, tcfg = _configs(loss_impl="fused")
-    params = params_from_jax(_np_params(jcfg), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="fused cross-entropy"):
-        tl.loss_fn(params, {"tokens": torch.ones((1, 9), dtype=torch.int64)}, tcfg)
+    for impl in ("fused_dp", "fused_tp"):  # both need a process mesh
+        jcfg, tcfg = _configs(loss_impl=impl)
+        params = params_from_jax(_np_params(jcfg), tcfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="process mesh"):
+            tl.loss_fn(params, {"tokens": torch.ones((1, 9), dtype=torch.int64)}, tcfg)
 
 
 def test_reinit_on_another_device_raises():
