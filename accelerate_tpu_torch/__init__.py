@@ -20,7 +20,12 @@ Ported so far:
   flash-attention forward/backward kernels (``ops/flash_attention.py``,
   ``csrc/flash_attention.cu``), the fused AdamW kernel (``ops/fused_optim.py``,
   ``csrc/fused_adamw.cu``), ``optim`` (the optax counterparts), ``state`` and
-  ``optimizer``.
+  ``optimizer``;
+- slice 3, the fused linear + cross-entropy (``ops/fused_xent.py``,
+  ``csrc/fused_xent.cu``) behind ``loss_impl="fused"``;
+- slice 4, int8 weight-only serving: ``ops/quantization.py`` (int8/int4/nf4 leaves)
+  and the quantized projection branch of ``models.llama``, with the int8 matmul
+  kernel (``csrc/int8_matmul.cu``).
 """
 
 __version__ = "0.1.0"

@@ -20,7 +20,8 @@ afterwards (identical values; the cast copy is made without autograd).
 
 Not ported yet (raise ``NotImplementedError``): fp8 (``mixed_precision="fp8"``),
 optimizer/activation offload, ZeRO and every sharding plugin, data loaders, telemetry,
-fault injection and the compile cache.
+fault injection, the compile cache, and training over quantized weight leaves
+(``ops.quantization.QuantizedWeight``: QLoRA, a frozen int8 base under LoRA adapters).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 import torch
 
+from .ops.quantization import QuantizedWeight
 from .optimizer import AcceleratedOptimizer
 from .state import AcceleratorState, GradientState
 from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionPolicy
@@ -70,6 +72,14 @@ class NonFiniteStepError(RuntimeError):
                          "skipped) — loss/grads are diverging, aborting")
         self.consecutive = consecutive
         self.total = total
+
+
+def _refuse_quantized(params) -> None:
+    """Training over quantized weight leaves (QLoRA) is not ported: raise."""
+    if any(isinstance(leaf, QuantizedWeight) for leaf in tree_leaves(params)):
+        raise NotImplementedError(
+            "training over quantized weight leaves (QLoRA: a frozen int8 base under "
+            "models/lora.py adapters) is not ported yet")
 
 
 class _TrainStep:
@@ -295,6 +305,7 @@ class Accelerator:
                            optimizer: Union[AcceleratedOptimizer, Any]) -> TrainState:
         """The training carry: params prepared (master dtype, on the device), optimizer
         state initialized from them, an accumulation buffer when accumulating."""
+        _refuse_quantized(params)
         if not isinstance(optimizer, AcceleratedOptimizer):
             optimizer = self.prepare_optimizer(optimizer)
         params = self.prepare_params(params)
@@ -358,6 +369,7 @@ class Accelerator:
             return loss.float(), aux
 
         def compute(state: TrainState, batch):
+            _refuse_quantized(state.params)
             batch = self._to_device(batch)
             masters = tree_leaves(state.params)
             if compress_reduce:

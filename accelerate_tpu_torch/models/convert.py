@@ -7,6 +7,14 @@ half the memory) or in ``master_dtype`` (training keeps fp32 masters); norm gamm
 q/k/v biases stay fp32. ``scan_layers`` params (every leaf stacked on a leading layer
 axis) are unstacked into the per-layer list the port uses; ``params_to_numpy`` goes back,
 stacked or not, so trained params can be held against the JAX pytree.
+
+A quantized leaf (the JAX ``QuantizedWeight`` as ``jax.tree.map(np.asarray, params)``
+leaves it: numpy ``data`` and ``scales`` beside ``shape``, ``scheme`` and
+``block_size``) is recognised by those attributes and carried across as the port's
+:class:`ops.quantization.QuantizedWeight`, its codes (int8 or uint8) and fp32 scales
+unchanged — never cast to the weight dtype. ``params_to_numpy`` gives it back as a
+``QuantizedWeight`` of numpy arrays, in unstacked layers only (JAX quantizes 2-D leaves,
+never the 3-D ``scan_layers`` stacks).
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.quantization import QuantizedWeight
 from ..utils.device import resolve_device
 from .llama import PROJECTIONS, LlamaConfig, check_supported
 
@@ -22,10 +31,22 @@ __all__ = ["params_from_jax", "params_to", "params_to_numpy"]
 _FP32_LEAVES = ("ln_attn", "ln_mlp", "ln_attn_post", "ln_mlp_post", "bq", "bk", "bv")
 
 
-def _tensor(arr, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    if not hasattr(arr, "__array__"):
-        raise NotImplementedError(
-            f"quantized weight leaves ({type(arr).__name__}) are not ported yet")
+_QUANT_FIELDS = ("data", "scales", "shape", "scheme", "block_size")
+
+
+def _is_quantized(leaf) -> bool:
+    return all(hasattr(leaf, f) for f in _QUANT_FIELDS)
+
+
+def _tensor(arr, dtype: torch.dtype, device: torch.device):
+    """A float leaf as a tensor in ``dtype``; a quantized leaf as the port's
+    ``QuantizedWeight`` with its codes and scales as they are."""
+    if _is_quantized(arr):
+        return QuantizedWeight(
+            torch.from_numpy(np.array(arr.data)),  # int8 or uint8 codes, a writable copy
+            torch.from_numpy(np.array(arr.scales, np.float32)),
+            tuple(int(d) for d in arr.shape), str(arr.scheme), int(arr.block_size),
+        ).to(device)
     host = torch.from_numpy(np.array(arr, np.float32))  # a writable copy
     return host.to(device=device, dtype=dtype)
 
@@ -35,7 +56,8 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None,
     """The port's params from the JAX llama params pytree with numpy leaves
     (``jax.tree.map(np.asarray, params)``), stacked or unstacked layers, on ``device``
     (default CUDA; raises when CUDA is absent and no CPU was asked for). Projections,
-    the embedding and the head are stored in ``master_dtype`` (default ``cfg.dtype``)."""
+    the embedding and the head are stored in ``master_dtype`` (default ``cfg.dtype``);
+    quantized leaves keep their codes and scales."""
     check_supported(cfg)
     dev = resolve_device(device)
     weight_dtype = master_dtype or cfg.dtype
@@ -64,24 +86,31 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None,
 
 
 def params_to(params: dict, device) -> dict:
-    """A copy of ``params`` on ``device`` (same dtypes)."""
+    """A copy of ``params`` on ``device`` (same dtypes; quantized leaves included)."""
     dev = resolve_device(device)
     out = {k: v.to(dev) for k, v in params.items() if k != "layers"}
     out["layers"] = [{k: v.to(dev) for k, v in layer.items()} for layer in params["layers"]]
     return out
 
 
-def _numpy(t: torch.Tensor) -> np.ndarray:
+def _numpy(t):
+    if isinstance(t, QuantizedWeight):
+        return QuantizedWeight(_numpy(t.data), _numpy(t.scales), t.shape, t.scheme,
+                               t.block_size)
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def params_to_numpy(params: dict, stacked: bool = False) -> dict:
     """The JAX pytree layout of the port's params, with numpy leaves (bf16 leaves as
-    fp32): layers as a list of dicts, or ``stacked`` as one dict of ``[L, ...]`` arrays
+    fp32; a quantized leaf as a ``QuantizedWeight`` of numpy codes and scales): layers
+    as a list of dicts, or ``stacked`` as one dict of ``[L, ...]`` arrays
     (``scan_layers``)."""
     out = {k: _numpy(v) for k, v in params.items() if k != "layers"}
     layers = [{k: _numpy(v) for k, v in layer.items()} for layer in params["layers"]]
+    if stacked and any(isinstance(v, QuantizedWeight)
+                       for layer in layers for v in layer.values()):
+        raise NotImplementedError("stacked layers of quantized leaves")
     out["layers"] = ({k: np.stack([layer[k] for layer in layers]) for k in layers[0]}
                      if stacked else layers)
     return out

@@ -18,8 +18,15 @@ and q/k/v biases stay fp32. Layers are always a per-layer list
 (``convert.params_from_jax`` unstacks ``scan_layers`` params; the unstacked layers run
 the same math as the JAX scan, the window alternation included).
 
+Projection leaves may be :class:`ops.quantization.QuantizedWeight` (int8 / int4 / nf4
+weight-only, from ``ops.quantization.load_and_quantize_model``): ``_proj`` sends them
+through ``quant_matmul``, as the JAX ``_proj`` does — int8 through the hand-written
+kernel on the card. A quantized ``embed`` or ``lm_head`` raises ``NotImplementedError``
+(the JAX forwards cannot run one either; quantize with ``skip_modules=["embed",
+"lm_head"]``).
+
 Not supported in this slice (raise ``NotImplementedError``): ``moe_experts > 0``,
-``lora_rank > 0``, ``use_fp8`` and quantized weight leaves.
+``lora_rank > 0`` and ``use_fp8``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.quantization import QuantizedWeight, quant_matmul
 from ..utils.device import resolve_device
 from .common import (_softcap, attention_dispatch, ce_sum_dispatch, remat_wrap,
                      resolve_loss_chunk)
@@ -297,11 +305,20 @@ def _sm_scale(cfg: LlamaConfig) -> float:
 
 
 def _proj(h: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
-    """Dense projection matmul ``h @ w`` in ``cfg.dtype``."""
-    if not torch.is_tensor(w):
-        raise NotImplementedError(
-            f"quantized weight leaves ({type(w).__name__}) are not ported yet")
+    """Projection matmul ``h @ w`` in ``cfg.dtype``, or, for a quantized weight leaf,
+    ``quant_matmul`` (the int8 kernel on the card) with a ``cfg.dtype`` result."""
+    if isinstance(w, QuantizedWeight):
+        return quant_matmul(h, w, out_dtype=cfg.dtype)
     return h @ w.to(cfg.dtype)
+
+
+def _dense_leaf(w, name: str):
+    """``w``, which must not be quantized (the embedding and the LM head)."""
+    if isinstance(w, QuantizedWeight):
+        raise NotImplementedError(
+            f"a quantized {name!r} leaf is not supported (nor in the JAX forwards): "
+            "quantize with skip_modules=['embed', 'lm_head']")
+    return w
 
 
 def _proj_l(h: torch.Tensor, layer: dict, name: str, cfg: LlamaConfig) -> torch.Tensor:
@@ -329,9 +346,16 @@ def _qkv_proj(h: torch.Tensor, layer: dict, cfg: LlamaConfig):
     return q, k, v
 
 
+def _head(params: dict, cfg: LlamaConfig) -> torch.Tensor:
+    """The LM head ``[D, V]``: ``embed.T`` when tied, else ``lm_head``."""
+    if cfg.tie_embeddings:
+        return _dense_leaf(params["embed"], "embed").T
+    return _dense_leaf(params["lm_head"], "lm_head")
+
+
 def head_logits(x: torch.Tensor, params: dict, cfg: LlamaConfig) -> torch.Tensor:
     """Final hidden → fp32 logits, incl. the Gemma final softcap."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = _head(params, cfg)
     logits = (x @ head.to(cfg.dtype)).float()
     return _softcap(logits, cfg.final_softcap)
 
@@ -464,7 +488,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
 
 def _ce_from_hidden(x, params, targets, mask, cfg: LlamaConfig) -> torch.Tensor:
     """Mean next-token CE from post-ln_f hidden states (chunked per ``cfg.loss_chunk``)."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    head = _head(params, cfg)
     denom = torch.clamp(mask.sum(), min=1.0)
     total = ce_sum_dispatch(
         x, head, targets, mask, loss_impl=cfg.loss_impl, dtype=cfg.dtype,
@@ -623,7 +647,7 @@ def _cache_advance(cache: dict, tokens: torch.Tensor, token_mask: Optional[torch
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = _dense_leaf(params["embed"], "embed")[tokens].to(cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype, device=x.device)
     return x

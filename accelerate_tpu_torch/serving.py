@@ -14,6 +14,10 @@ decode path, dense (``page_size=0``) and paged (``page_size > 0``):
 - Paged admission allocates the lane's pages for prompt + budget up front
   (``paged_kv.BlockManager``) and DEFERS in FIFO order when the pool is short.
 
+Params may hold quantized projection leaves (``ops.quantization.QuantizedWeight``,
+int8 through its CUDA kernel on the card): the engine reads only the embedding's
+device and leaves every weight to ``models.llama``.
+
 The JAX engine donates its cache to jitted programs; this one updates the cache
 tensors in place. Greedy output matches the JAX engine token for token at fp32 on the
 CPU. Sampled requests take an integer ``seed``: emission ``i`` draws from a generator

@@ -3,13 +3,20 @@
 Leaves are everything that is not a container; ``None`` is an empty subtree. Dict keys
 are visited in sorted order, as ``jax.tree_util`` visits them, so sums over
 ``tree_leaves`` add up in the JAX package's order.
+
+``named_parameters`` / ``unflatten_to_nested_dict`` / ``listify_int_dicts`` are the
+port's copies of ``accelerate_tpu/utils/modeling.py::named_parameters`` (with
+``utils/serialization.py::flatten_pytree``), ``utils/serialization.py::
+unflatten_to_nested_dict`` and ``big_modeling.py::_listify_int_dicts``: a tree flattens
+to ``{"layers/0/wq": leaf}`` keys as in JAX, and back.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Iterator
 
-__all__ = ["tree_leaves", "tree_map", "tree_unflatten"]
+__all__ = ["tree_leaves", "tree_map", "tree_unflatten", "named_parameters",
+           "unflatten_to_nested_dict", "listify_int_dicts"]
 
 
 def _is_namedtuple(x) -> bool:
@@ -59,3 +66,47 @@ def tree_unflatten(like, leaves) -> Any:
         return next(it)
 
     return build(like, it)
+
+
+def named_parameters(tree, sep: str = "/") -> dict:
+    """Flatten a tree to ``{"a/b/0/c": leaf}`` in :func:`tree_leaves` order (dict keys
+    sorted, list and tuple entries by index)."""
+    flat = {}
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], path + [str(key)])
+        elif isinstance(node, (list, tuple)):
+            for i, child in enumerate(node):
+                walk(child, path + [str(i)])
+        else:
+            flat[sep.join(path)] = node
+
+    walk(tree, [])
+    return flat
+
+
+def unflatten_to_nested_dict(flat: dict, sep: str = "/") -> dict:
+    """Nested dicts from joined keys (list indices come back as ``"0"``, ``"1"``, ...
+    keys: :func:`listify_int_dicts` turns those into lists)."""
+    nested: dict = {}
+    for key, value in flat.items():
+        parts = key.split(sep)
+        node = nested
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return nested
+
+
+def listify_int_dicts(node):
+    """``{"0": x, "1": y}`` dicts back into lists, all the way down."""
+    if isinstance(node, dict):
+        conv = {k: listify_int_dicts(v) for k, v in node.items()}
+        if conv and all(k.isdigit() for k in conv):
+            return [conv[str(i)] for i in range(len(conv))]
+        return conv
+    return node

@@ -47,6 +47,19 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    then one step under ``torch.profiler``.
 10. train_fused — the same run with ``loss_impl="fused"``: the fused CE kernels launch
    once each per step, and the first step's loss matches train_main's.
+11. int8_matmul — the int8 weight-only matmul kernel against its plain version on the
+   card: the serving path's four (K, N) at M = 8 and 64 in bf16, fp32 x, fp32 out, 3-D
+   x, the ragged 130×200 @ 200×72 (bf16 and fp32) and an all-zero column, each element
+   on its row's scale; the same check must reject faults planted in the plain version
+   (the scale left out, the last K tile skipped, the codes read as unsigned); then
+   kernel, plain and bound times per shape (weight copies rotate past the 50 MB L2)
+   beside the dense bf16 cuBLAS product and ``torch._weight_int8pack_mm``.
+12. quant_engine_vs_cpu — phase 3 with every projection quantized (int8 through the
+   kernel, then nf4 through dequantize-then-multiply).
+13. main_int8 — phase 4's workload at Llama-3-8B's full width and depth with every
+   projection int8 (quantized on the card), each projection's launch counted; top-1
+   agreement of the first decode step with a bf16 engine; then a profiled decode window
+   and ``decode_ab``: bf16 and int8 engines' prefill and decode steps in alternation.
 
 Then the kernels line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -245,15 +258,25 @@ def phase_kernel(dev) -> dict:
 
 
 # ------------------------------------------------------------------ phase 3: engine
-def phase_engine(dev) -> None:
+def phase_engine(dev, scheme=None) -> None:
+    """The paged engine on the card against the CPU (``debug``, fp32). ``scheme``
+    (int8 | nf4) quantizes every projection first (embedding and head skipped): phase
+    ``quant_engine_vs_cpu``, int8 through the kernel on the card."""
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.models.convert import params_to
+    from accelerate_tpu_torch.ops import quantization as qz
     from accelerate_tpu_torch.serving import ContinuousBatcher
 
     cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32)
     params_cpu = llama.init_params(cfg, generator=torch.Generator().manual_seed(0),
                                    device="cpu")
+    if scheme is not None:
+        kw = (dict(load_in_8bit=True) if scheme == "int8"
+              else dict(load_in_4bit=True, bnb_4bit_quant_type=scheme))
+        params_cpu = qz.load_and_quantize_model(params_cpu, qz.BnbQuantizationConfig(
+            skip_modules=["embed", "lm_head"], min_weight_size=1, **kw))
     params_gpu = params_to(params_cpu, dev)
+    launches = qz.int8_matmul.launches
     rng = np.random.default_rng(3)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in (20, 45, 70, 100, 33)]
     runs = {}
@@ -270,18 +293,110 @@ def phase_engine(dev) -> None:
     # kernels than on the CPU's, over 4 layers: 1e-3 absolute on logits of order 1.
     err = float((runs["cpu"][1] - runs["gpu"][1]).abs().max())
     ok = tokens_equal and err <= 1e-3
-    emit({"phase": "engine_vs_cpu", "config": "debug", "tokens_equal": tokens_equal,
-          "first_step_logits_max_abs_err": err, "tol": 1e-3, "ok": ok})
+    res = {"phase": "engine_vs_cpu" if scheme is None else "quant_engine_vs_cpu",
+           "config": "debug", "tokens_equal": tokens_equal,
+           "first_step_logits_max_abs_err": err, "tol": 1e-3}
+    if scheme is not None:
+        # int8 leaves must have gone through the kernel on the card (nf4: no kernel).
+        res["scheme"] = scheme
+        res["int8_matmul_launches"] = qz.int8_matmul.launches - launches
+        ok = ok and (res["int8_matmul_launches"] > 0) == (scheme == "int8")
+    res["ok"] = ok
+    emit(res)
     if not ok:
-        raise SystemExit("engine on the card disagrees with the engine on the CPU")
+        raise SystemExit(f"engine on the card disagrees with the engine on the CPU "
+                         f"({scheme or 'dense'} weights)")
 
 
 # ------------------------------------------------------------------ phase 4: main path
-def phase_main(dev) -> int:
+MAIN_ENGINE = dict(max_slots=8, max_len=1024, prompt_bucket=64, page_size=16)
+
+
+def main_workload(vocab: int):
+    """The main path's seeded requests: ``(rng, warm-up prompt, prompt lengths,
+    [(prompt, submit kwargs)])`` — 10 prompts of 64–512 tokens, 64 new tokens each,
+    requests 3 and 7 sampled; ``rng`` goes on to the profiled window."""
     from accelerate_tpu_torch.generation import GenerationConfig
+
+    rng = np.random.default_rng(8)
+    warm = rng.integers(0, vocab, 70)
+    lengths = rng.integers(64, 513, 10)
+    reqs = []
+    for i, n in enumerate(lengths):
+        prompt = rng.integers(0, vocab, int(n))
+        if i in (3, 7):  # two sampled requests
+            gen = GenerationConfig(max_new_tokens=64, temperature=0.8, top_k=50, top_p=0.95)
+            reqs.append((prompt, dict(gen=gen, seed=100 + i)))
+        else:
+            reqs.append((prompt, dict(max_new_tokens=64)))
+    return rng, warm, lengths, reqs
+
+
+def serve_main(params, cfg, dev, reset_counts) -> dict:
+    """Warm up on a throwaway engine (cuBLAS handles, allocator pools), then serve the
+    main workload on a fresh engine with the peak-memory statistics and the launch
+    counts (``reset_counts()``) reset just before; the drain is timed to its final
+    sync. Returns the engine, requests, stats and checks."""
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    rng, warm_prompt, lengths, workload = main_workload(cfg.vocab_size)
+    warm = ContinuousBatcher(params, cfg, **MAIN_ENGINE)
+    warm.submit(warm_prompt, max_new_tokens=4)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
+
+    eng = ContinuousBatcher(params, cfg, **MAIN_ENGINE)
+    reqs = [eng.submit(prompt, **kw) for prompt, kw in workload]
+    reset_counts()
+    t0 = time.perf_counter()
+    finite, first_logits = True, None
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        eng.step()
+        if eng.last_logits is not None:
+            finite &= bool(torch.isfinite(eng.last_logits).all())
+            if first_logits is None:
+                first_logits = eng.last_logits.clone()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    s = eng.stats()
+    n_tokens = sum(len(r.tokens) for r in reqs)
+    return {
+        "eng": eng, "rng": rng, "reqs": reqs, "stats": s, "lengths": lengths, "wall": wall,
+        "first_logits": first_logits, "finite": finite, "n_tokens": n_tokens,
+        "in_range": all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens),
+        "all_done": all(r.done and len(r.tokens) == 64 for r in reqs),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "memory_allocated_at_start_bytes": allocated_at_start,
+    }
+
+
+def _serve_result(run: dict, phase: str, init_s: float) -> dict:
+    """The JSON line of a served main workload (the keys ``phase_main`` reports)."""
+    s = run["stats"]
+    return {
+        "phase": phase, "config": "llama3-8b", "dtype": "bfloat16",
+        "engine": MAIN_ENGINE, "requests": len(run["reqs"]),
+        "prompt_lengths": run["lengths"].tolist(),
+        "max_new_tokens": 64, "sampled": 2, "params_init_s": init_s,
+        "wall_s": run["wall"], "tokens": run["n_tokens"],
+        "tokens_per_s": run["n_tokens"] / run["wall"],
+        "decode_steps": s["decode_steps"], "decode_tokens": s["decode_tokens"],
+        "mean_decode_step_ms": 1e3 * s["decode_s"] / max(s["decode_steps"], 1),
+        "prefill_ms_total": 1e3 * s["prefill_s"],
+        "prefill_ms_per_request": 1e3 * s["prefill_s"] / len(run["reqs"]),
+        "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
+        "memory_allocated_at_start_bytes": run["memory_allocated_at_start_bytes"],
+        "finite_logits": run["finite"], "tokens_in_range": run["in_range"],
+        "all_done": run["all_done"], "pages_in_use_after": s["pages_in_use"],
+    }
+
+
+def phase_main(dev) -> int:
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.ops.paged_attention import paged_attention
-    from accelerate_tpu_torch.serving import ContinuousBatcher
 
     cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -289,60 +404,22 @@ def phase_main(dev) -> int:
                                device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    engine_kw = dict(max_slots=8, max_len=1024, prompt_bucket=64, page_size=16)
-    rng = np.random.default_rng(8)
-    # Warm-up on a throwaway engine (cuBLAS handles, allocator pools).
-    warm = ContinuousBatcher(params, cfg, **engine_kw)
-    warm.submit(rng.integers(0, cfg.vocab_size, 70), max_new_tokens=4)
-    warm.run()
-    del warm
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
 
-    eng = ContinuousBatcher(params, cfg, **engine_kw)
-    lengths = rng.integers(64, 513, 10)
-    reqs = []
-    for i, n in enumerate(lengths):
-        prompt = rng.integers(0, cfg.vocab_size, int(n))
-        if i in (3, 7):  # two sampled requests
-            gen = GenerationConfig(max_new_tokens=64, temperature=0.8, top_k=50, top_p=0.95)
-            reqs.append(eng.submit(prompt, gen=gen, seed=100 + i))
-        else:
-            reqs.append(eng.submit(prompt, max_new_tokens=64))
-    paged_attention.launches = 0
-    t0 = time.perf_counter()
-    finite = True
-    while eng.queue or any(r is not None for r in eng.slot_req):
-        eng.step()
-        if eng.last_logits is not None:
-            finite &= bool(torch.isfinite(eng.last_logits).all())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    def reset_counts():
+        paged_attention.launches = 0
+
+    run = serve_main(params, cfg, dev, reset_counts)
     launches = paged_attention.launches
-    s = eng.stats()
-    n_tokens = sum(len(r.tokens) for r in reqs)
-    in_range = all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens)
-    all_done = all(r.done and len(r.tokens) == 64 for r in reqs)
+    s = run["stats"]
     launches_ok = s["decode_steps"] > 0 and launches == cfg.n_layers * s["decode_steps"]
-    res = {
-        "phase": "main", "config": "llama3-8b", "dtype": "bfloat16",
-        "engine": engine_kw, "requests": len(reqs), "prompt_lengths": lengths.tolist(),
-        "max_new_tokens": 64, "sampled": 2, "params_init_s": init_s,
-        "wall_s": wall, "tokens": n_tokens, "tokens_per_s": n_tokens / wall,
-        "decode_steps": s["decode_steps"], "decode_tokens": s["decode_tokens"],
-        "mean_decode_step_ms": 1e3 * s["decode_s"] / max(s["decode_steps"], 1),
-        "prefill_ms_total": 1e3 * s["prefill_s"],
-        "prefill_ms_per_request": 1e3 * s["prefill_s"] / len(reqs),
-        "paged_attention_launches": launches,
-        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "finite_logits": finite, "tokens_in_range": in_range, "all_done": all_done,
-        "launches_ok": launches_ok, "pages_in_use_after": s["pages_in_use"],
-    }
-    res["ok"] = finite and in_range and all_done and launches_ok and s["pages_in_use"] == 0
+    res = {**_serve_result(run, "main", init_s), "paged_attention_launches": launches,
+           "launches_ok": launches_ok}
+    res["ok"] = (run["finite"] and run["in_range"] and run["all_done"] and launches_ok
+                 and s["pages_in_use"] == 0)
     emit(res)
     if not res["ok"]:
         raise SystemExit("main path failed its checks")
-    emit(profile_decode(eng, rng, cfg.vocab_size))
+    emit(profile_decode(run["eng"], run["rng"], cfg.vocab_size))
     return launches
 
 
@@ -372,7 +449,10 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
         kernels[e.key] = kernels.get(e.key, 0) + e.self_device_time_total
         n_launch += e.count
     busy_ms = sum(kernels.values()) / 1e3 / steps
-    attn_ms = sum(v for k, v in kernels.items() if "paged_attention" in k) / 1e3 / steps
+    def group_ms(*names):
+        return sum(v for k, v in kernels.items() if any(n in k for n in names)) / 1e3 / steps
+
+    attn_ms = group_ms("paged_attention")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     return {
         "phase": "decode_profile", "steps": steps, "lanes": eng.max_slots,
@@ -380,6 +460,9 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
         "device_busy_ms_per_step": busy_ms if kernels else None,
         "device_idle_share": (1 - busy_ms / wall_ms) if kernels else None,
         "paged_attention_ms_per_step": attn_ms if kernels else None,
+        "int8_matmul_ms_per_step": group_ms("int8_mm") if kernels else None,
+        "cublas_matmul_ms_per_step": (group_ms("nvjet", "gemm", "cutlass", "sm90_xmma")
+                                      if kernels else None),
         "device_kernels_per_step": n_launch / steps if kernels else None,
         "top_kernels_ms_per_step": {k[:80]: v / 1e3 / steps for k, v in top},
     }
@@ -1162,6 +1245,316 @@ def profile_train_step(step, state, batch) -> dict:
     }
 
 
+# ------------------------------------------------------------- phase 11: int8 matmul
+# The serving path's int8 projections at Llama-3-8B's widths: leaf → (K, N).
+INT8_LAYER = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
+              "wo": (4096, 4096), "w_gate": (4096, 14336), "w_up": (4096, 14336),
+              "w_down": (14336, 4096)}
+INT8_M = {"decode": 8, "prefill": 64}  # max_slots=8 lanes at T=1; one 64-token chunk
+
+# int8 matmul tolerances by output type, in flash_errors' terms (each element on its
+# row's scale; the whole tensor's rms error). Kernel and plain version take the same
+# exact products (bf16 × int8 and fp32 × int8 are exact in fp32) and differ only in the
+# order of their fp32 sums, so a bf16 result may sit one bf16 step (≤ 2^-7 of |y|) away
+# where the sum lies next to a rounding boundary. Each limit is a few times above the
+# largest error the kernel showed on the card (PERF.md); a skipped K tile moves every
+# element by about sqrt(64/K) of its row's rms and fails both.
+INT8_TOL = {torch.bfloat16: {"elem": 1e-2, "rms": 1e-3},
+            torch.float32: {"elem": 1e-5, "rms": 2e-6}}
+
+
+def make_int8_inputs(gen, *, K, N, x_dtype, dev, M=8, lead=None, zero_col=None):
+    """Seeded x (unit normal, ``[M, K]`` or ``lead``) and an int8 weight quantized on
+    the card from a normal ``[K, N]`` weight of std 1/sqrt(K) (``zero_col``: one
+    all-zero column, whose scale is 1e-8/127)."""
+    from accelerate_tpu_torch.ops.quantization import quantize_weight
+
+    w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
+    if zero_col is not None:
+        w[:, zero_col] = 0.0
+    x = torch.randn(lead or (M, K), generator=gen, device=dev).to(x_dtype)
+    return x, quantize_weight(w)
+
+
+def int8_check(got: torch.Tensor, want: torch.Tensor, out_dtype) -> tuple[dict, bool]:
+    errs = flash_errors(got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1]),
+                        rowwise=True)
+    return errs, all(errs[m] <= INT8_TOL[out_dtype][m] for m in errs)
+
+
+def int8_planted_faults(x, qw, out_dtype, want) -> dict:
+    """Faulty plain versions, each held to the same check: the column scale left out;
+    the last K tile (64 rows) skipped; the codes read as unsigned bytes."""
+    d, s = qw.data, qw.scales
+    K = d.shape[0]
+    bad = {
+        "scale_left_out": (x.float() @ d.float()).to(out_dtype),
+        "last_k_tile_skipped": ((x[..., :K - 64].float() @ d[:K - 64].float()) * s)
+        .to(out_dtype),
+        "codes_unsigned": ((x.float() @ d.view(torch.uint8).float()) * s).to(out_dtype),
+    }
+    result = {}
+    for name, out in bad.items():
+        errs, ok = int8_check(out, want, out_dtype)
+        result[name] = {"errors": errs, "caught": not ok}
+    return result
+
+
+def int8_bound_ms(M, K, N, out_itemsize=2) -> tuple[float, str]:
+    """Least time of one call on this card: x (bf16), the int8 weight, its fp32 scales
+    and y read or written once over the HBM rate, or 2·M·K·N flops over the bf16 peak,
+    whichever is larger."""
+    nbytes = M * K * 2 + K * N + 4 * N + M * N * out_itemsize
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * M * K * N / PEAK_FLOPS[torch.bfloat16]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def int8_times(gen, dev, M, K, N) -> dict:
+    """Device times at one shape (bf16 x and out) from CUDA-graph replay, in turns plain,
+    kernel, kernel, plain. Weight copies rotate past the 50 MB L2 (a 4096 × 4096 int8
+    weight is 16.8 MB and would otherwise be served from L2). Beside them: the dense bf16
+    product the quantization replaces (cuBLAS ``x @ w_bf16``) and
+    ``torch._weight_int8pack_mm`` (weight [N, K], bf16 scales), where this build runs it."""
+    from accelerate_tpu_torch.ops import quantization as qz
+
+    copies = max(2, math.ceil(100e6 / (K * N)))
+    ws = [make_int8_inputs(gen, M=M, K=K, N=N, x_dtype=torch.bfloat16, dev=dev)[1]
+          for _ in range(copies)]
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+
+    def kernel(i):
+        qz.int8_matmul(x, ws[i].data, ws[i].scales, torch.bfloat16)
+
+    def plain(i):
+        qz.int8_matmul_reference(x, ws[i].data, ws[i].scales, torch.bfloat16)
+
+    plain_runs = [device_ms(plain, copies, 3)]
+    kernel_runs = [device_ms(kernel, copies, 20), device_ms(kernel, copies, 20)]
+    plain_runs.append(device_ms(plain, copies, 3))
+    bound, bound_by = int8_bound_ms(M, K, N)
+    res = {"M": M, "K": K, "N": N, "weight_copies": copies,
+           "kernel_ms": min(kernel_runs), "plain_ms": min(plain_runs),
+           "kernel_ms_runs": kernel_runs, "plain_ms_runs": plain_runs,
+           "bound_ms": bound, "bound_by": bound_by,
+           "kernel_gb_per_s": (M * K * 2 + K * N + 4 * N + 2 * M * N) / min(kernel_runs) / 1e6}
+    dense_copies = max(2, math.ceil(100e6 / (2 * K * N)))
+    dense = [qz.dequantize_weight(w, torch.bfloat16) for w in ws[:dense_copies]]
+    while len(dense) < dense_copies:
+        dense.append(dense[-1].clone())
+    res["dense_bf16_ms"] = device_ms(lambda i: x @ dense[i], dense_copies, 20)
+    # Call times (CUDA events around eager calls): what a host-bound caller pays per call.
+    res["kernel_call_ms"] = call_ms(lambda i: kernel(i % copies), 200)
+    res["dense_bf16_call_ms"] = call_ms(lambda i: x @ dense[i % dense_copies], 200)
+    del dense
+    packed = [(w.data.T.contiguous(), w.scales.to(torch.bfloat16)) for w in ws]
+    try:
+        torch._weight_int8pack_mm(x, *packed[0])
+        torch.cuda.synchronize()
+        res["int8pack_ms"] = device_ms(lambda i: torch._weight_int8pack_mm(x, *packed[i]),
+                                       copies, 20)
+    except (RuntimeError, NotImplementedError, TypeError, ValueError) as err:
+        res["int8pack_ms"] = None
+        res["int8pack_error"] = str(err).splitlines()[0][:200]
+    del ws, packed
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_int8_matmul(dev) -> dict:
+    """The int8 matmul kernel against its plain version on the card, then times at the
+    serving path's shapes."""
+    from accelerate_tpu_torch.ops import quantization as qz
+
+    gen = torch.Generator(dev).manual_seed(6)
+    bf, f32 = torch.bfloat16, torch.float32
+    shapes = {"wq_wo": (4096, 4096), "wk_wv": (4096, 1024), "w_gate_w_up": (4096, 14336),
+              "w_down": (14336, 4096)}
+    cases = [(f"{leaf}_M{M}", dict(M=M, K=K, N=N, x_dtype=bf), bf)
+             for M in INT8_M.values() for leaf, (K, N) in shapes.items()]
+    cases += [
+        ("fp32_x_M8", dict(M=8, K=4096, N=4096, x_dtype=f32), f32),
+        ("bf16_x_out_fp32_M8", dict(M=8, K=4096, N=1024, x_dtype=bf), f32),
+        ("x3d_2x3", dict(lead=(2, 3, 4096), K=4096, N=1024, x_dtype=bf), bf),
+        ("ragged_130x200_at_200x72_bf16", dict(M=130, K=200, N=72, x_dtype=bf), bf),
+        ("ragged_130x200_at_200x72_fp32", dict(M=130, K=200, N=72, x_dtype=f32), f32),
+        ("zero_column_M8", dict(M=8, K=4096, N=1024, x_dtype=bf, zero_col=5), bf),
+    ]
+    failed, max_abs, faults = [], {}, {}
+    for name, shape, out_dtype in cases:
+        x, qw = make_int8_inputs(gen, dev=dev, **shape)
+        got = qz.int8_matmul(x, qw.data, qw.scales, out_dtype)
+        torch.cuda.synchronize()
+        want = qz.int8_matmul_reference(x, qw.data, qw.scales, out_dtype)
+        errs, ok = int8_check(got, want, out_dtype)
+        ok = ok and got.shape == want.shape and got.dtype == want.dtype
+        ok = ok and bool(torch.isfinite(got).all())
+        res = {"phase": "int8_matmul_check", "case": name, "x_dtype": str(x.dtype),
+               "out_dtype": str(out_dtype), "x_shape": list(x.shape),
+               "w_shape": list(qw.data.shape), "errors": errs,
+               "max_abs": float((got.float() - want.float()).abs().max()),
+               "tol": INT8_TOL[out_dtype]}
+        if "zero_col" in shape:
+            c = shape["zero_col"]
+            res["zero_column_exact"] = (not bool(got[..., c].any())
+                                        and float(qw.scales[c])
+                                        == float(np.float32(1e-8) / np.float32(127.0)))
+            ok = ok and res["zero_column_exact"]
+        res["ok"] = ok
+        emit(res)
+        if not ok:
+            failed.append(name)
+        max_abs[name] = res["max_abs"]
+        if name == "wq_wo_M8":
+            faults = int8_planted_faults(x, qw, out_dtype, want)
+        del x, qw, got, want
+    for name, res in faults.items():
+        emit({"phase": "int8_matmul_planted_fault", "fault": name, **res})
+        if not res["caught"]:
+            failed.append(f"planted fault {name} passes the check")
+    if len(faults) != 3:
+        failed.append(f"planted faults run: {sorted(faults)}")
+    if failed:
+        raise SystemExit(f"int8 matmul kernel disagrees with its plain version: {failed}")
+    torch.cuda.empty_cache()
+
+    per_shape = {(M, K, N): int8_times(gen, dev, M, K, N)
+                 for M in INT8_M.values() for K, N in shapes.values()}
+    for t in per_shape.values():
+        emit({"phase": "int8_matmul_time", **t})
+
+    def layer(M, key):
+        vals = [per_shape[(M, K, N)][key] for K, N in INT8_LAYER.values()]
+        return None if any(v is None for v in vals) else sum(vals)
+
+    totals = {stage: {k: layer(M, k) for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                               "dense_bf16_ms", "int8pack_ms")}
+              for stage, M in INT8_M.items()}
+    for key in ("kernel_call_ms", "dense_bf16_call_ms"):
+        for stage, M in INT8_M.items():
+            totals[stage][key] = layer(M, key)
+    res = {"phase": "int8_matmul_layer_time",
+           "covers": "one layer's 7 projections (wq, wk, wv, wo, w_gate, w_up, w_down) at "
+                     "Llama-3-8B widths, bf16 x and out", **totals,
+           "int8pack_error": next((t["int8pack_error"] for t in per_shape.values()
+                                   if "int8pack_error" in t), None)}
+    emit(res)
+    decode = totals["decode"]
+    return {"max_abs_err": max(max_abs.values()), "kernel_ms": decode["kernel_ms"],
+            "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
+            "bound_by": "bytes", "library_ms": decode["int8pack_ms"],
+            "dense_bf16_ms": decode["dense_bf16_ms"], "prefill": totals["prefill"],
+            "int8pack_error": res["int8pack_error"]}
+
+
+# ----------------------------------------------------------- phase 13: int8 main path
+def phase_main_int8(dev) -> int:
+    """The main path with int8 weight-only projections: Llama-3-8B at full width and
+    depth, bf16 params made on the card, every projection of every layer quantized on
+    the card (embedding and head skipped) and the bf16 projections freed; the main
+    workload served with ``phase_main``'s engine settings; every projection's launch
+    counted. The first decode step's top-1 tokens are held beside those of a bf16
+    engine on the same requests (informative, not a limit)."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import quantization as qz
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
+                               device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    bf16_bytes = sum(leaf.nbytes for leaf in tree_leaves(params))
+    ref = ContinuousBatcher(params, cfg, **MAIN_ENGINE)
+    for prompt, kw in main_workload(cfg.vocab_size)[3]:
+        ref.submit(prompt, **kw)
+    ref.step()  # admits the first 8 requests, then the first decode step
+    bf16_top1 = ref.last_logits.argmax(-1)
+    del ref
+
+    t0 = time.perf_counter()
+    params = qz.load_and_quantize_model(params, qz.BnbQuantizationConfig(
+        load_in_8bit=True, skip_modules=["embed", "lm_head"]))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    quantize_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_quantized = sum(isinstance(leaf, qz.QuantizedWeight) for leaf in leaves)
+    int8_bytes = sum(leaf.nbytes for leaf in leaves)
+
+    def reset_counts():
+        paged_attention.launches = 0
+        qz.int8_matmul.launches = 0
+
+    run = serve_main(params, cfg, dev, reset_counts)
+    launches, paged = qz.int8_matmul.launches, paged_attention.launches
+    s = run["stats"]
+    chunks = sum(max(1, -(-int(n) // MAIN_ENGINE["prompt_bucket"])) for n in run["lengths"])
+    expect = len(INT8_LAYER) * cfg.n_layers * (s["decode_steps"] + chunks)
+    top1 = float((run["first_logits"].argmax(-1) == bf16_top1).float().mean())
+    res = {**_serve_result(run, "main_int8", init_s),
+           "weights": "int8 weight-only projections (load_in_8bit, embed and lm_head bf16)",
+           "quantize_s": quantize_s, "quantized_leaves": n_quantized,
+           "param_bytes_int8": int8_bytes, "param_bytes_bf16": bf16_bytes,
+           "int8_matmul_launches": launches, "int8_matmul_launches_expected": expect,
+           "prefill_chunks": chunks, "paged_attention_launches": paged,
+           "top1_agreement_first_decode_step_vs_bf16": top1}
+    res["ok"] = (run["finite"] and run["in_range"] and run["all_done"]
+                 and s["pages_in_use"] == 0 and s["decode_steps"] > 0 and launches == expect
+                 and paged == cfg.n_layers * s["decode_steps"]
+                 and n_quantized == len(INT8_LAYER) * cfg.n_layers)
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("int8 main path failed its checks")
+    emit({**profile_decode(run["eng"], run["rng"], cfg.vocab_size), "weights": "int8"})
+    del run
+    dense = llama.init_params(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    emit(decode_ab({"bf16": dense, "int8": params}, cfg))
+    return launches
+
+
+def decode_ab(weights: dict, cfg, steps: int = 8) -> dict:
+    """Prefill and decode-step wall times of two weight sets served alike, in
+    alternation (A, B, B, A, ...) so that the host's load drifts alike over both: each
+    window is a fresh engine that admits 8 lanes from the same 200-token prompts (the
+    engine's prefill time per request), then ``steps`` decode steps timed on the host
+    clock to a final sync."""
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    prompts = np.random.default_rng(9).integers(0, cfg.vocab_size, (8, 200))
+    a, b = list(weights)
+
+    def window(params) -> tuple[float, float]:
+        eng = ContinuousBatcher(params, cfg, **MAIN_ENGINE)
+        for prompt in prompts:
+            eng.submit(prompt, max_new_tokens=steps + 2)
+        eng.step()  # admissions + the first decode step
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * eng.stats()["prefill_s"] / len(prompts)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        return prefill_ms, 1e3 * (time.perf_counter() - t0) / steps
+
+    runs = {a: [], b: []}
+    prefill = {a: [], b: []}
+    for name in (a, b, b, a) * 2:
+        p_ms, s_ms = window(weights[name])
+        prefill[name].append(p_ms)
+        runs[name].append(s_ms)
+    med = {name: float(np.median(r)) for name, r in runs.items()}
+    p_med = {name: float(np.median(r)) for name, r in prefill.items()}
+    return {"phase": "decode_ab", "steps_per_window": steps, "lanes": 8,
+            "order": f"({a}, {b}, {b}, {a}) x 2", "step_ms_runs": runs,
+            "step_ms_median": med, f"{b}_over_{a}": med[b] / med[a],
+            f"{b}_faster_in_every_pair": all(x < y for x, y in zip(runs[b], runs[a])),
+            "prefill_ms_per_request_runs": prefill, "prefill_ms_per_request_median": p_med,
+            f"prefill_{b}_over_{a}": p_med[b] / p_med[a]}
+
+
 def _kernel_row(name, source, replaces, launches, max_abs_err, t, library=None,
                 **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1211,6 +1604,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_fused = phase_train_main(dev, "fused", first_loss=train["losses"][0])
 
+    # Int8 weight-only serving (slice 4).
+    torch.cuda.empty_cache()
+    int8 = phase_int8_matmul(dev)
+    phase_engine(dev, "int8")
+    phase_engine(dev, "nf4")
+    int8_launches = phase_main_int8(dev)
+
     csrc, fa_py = "accelerate_tpu_torch/csrc/", "accelerate_tpu/ops/flash_attention.py"
     ft, fe = flash["times"], flash["errors"]["max_abs"]
     # One library call computes dq, dk and dv together: its time stands in both rows,
@@ -1249,6 +1649,14 @@ def main() -> int:
         _kernel_row("fused_xent_bwd_dw", csrc + "fused_xent.cu", fx_py + ":151",
                     train_fused["launches"]["fused_xent_bwd"], xe["dw"], xt["bwd"], None,
                     **xent_extra, **bwd_note),
+        _kernel_row("int8_matmul", csrc + "int8_matmul.cu",
+                    "accelerate_tpu/ops/quantization.py:153", int8_launches,
+                    int8["max_abs_err"], int8,
+                    "torch._weight_int8pack_mm (weight [N, K], bf16 scales)",
+                    shape="one decode step's 7 projections of a layer (M = 8, bf16), "
+                          "Llama-3-8B widths",
+                    dense_bf16_ms=int8["dense_bf16_ms"], prefill_layer=int8["prefill"],
+                    int8pack_error=int8["int8pack_error"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

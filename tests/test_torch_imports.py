@@ -4,8 +4,9 @@
   package ``accelerate_tpu`` (AST scan); importing the serving engine loads none of
   them, and every module imports with them blocked (fresh interpreters).
 - Entry points (the Accelerator included) default to CUDA and raise without it; the
-  kernel wrappers (paged attention, fused cross-entropy) never run the kernel path on
-  CPU tensors (they take the plain versions) and refuse tensors on other devices.
+  kernel wrappers (paged attention, fused cross-entropy, the int8 matmul) never run the
+  kernel path on CPU tensors (they take the plain versions) and refuse tensors on other
+  devices.
 """
 
 import ast
@@ -39,6 +40,7 @@ def test_importing_serving_loads_no_jax():
     code = (
         "import sys; sys.path.insert(0, sys.argv[1]);"
         "import accelerate_tpu_torch.serving, accelerate_tpu_torch.models.convert;"
+        "import accelerate_tpu_torch.ops.quantization;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r);"
         "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,)
     )
@@ -159,7 +161,23 @@ def _xent_calls(device):
              lambda: fx._bwd_cuda(x, w, t, lse, g, 5.0))]
 
 
-KERNEL_CALLS = {"paged_attention": _paged_calls, "fused_xent": _xent_calls}
+def _int8_calls(device):
+    """The same for the int8 weight-only matmul (fp32 and bf16 x)."""
+    from accelerate_tpu_torch.ops import quantization as qz
+
+    qw = qz.quantize_weight(torch.linspace(-1, 1, 16 * 24).reshape(16, 24)).to(device)
+    calls = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.linspace(-1, 1, 3 * 16).reshape(3, 16).to(device=device, dtype=dtype)
+        calls.append((lambda x=x: qz.int8_matmul(x, qw.data, qw.scales, dtype),
+                      lambda x=x: qz.int8_matmul_reference(x, qw.data, qw.scales, dtype),
+                      qz.int8_matmul,
+                      lambda x=x: qz.int8_matmul_cuda(x, qw.data, qw.scales, dtype)))
+    return calls
+
+
+KERNEL_CALLS = {"paged_attention": _paged_calls, "fused_xent": _xent_calls,
+                "int8_matmul": _int8_calls}
 
 
 def _tensors(out):
