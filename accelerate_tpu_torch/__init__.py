@@ -25,7 +25,12 @@ Ported so far:
   ``csrc/fused_xent.cu``) behind ``loss_impl="fused"``;
 - slice 4, int8 weight-only serving: ``ops/quantization.py`` (int8/int4/nf4 leaves)
   and the quantized projection branch of ``models.llama``, with the int8 matmul
-  kernel (``csrc/int8_matmul.cu``).
+  kernel (``csrc/int8_matmul.cu``);
+- slice 5, tensor-parallel training: ``launchers`` (one process per rank), the process
+  mesh (``parallel/mesh.py``) and Megatron placement with its collectives
+  (``parallel/tp.py``), multi-process ``state``, ``llama.partition_specs`` and the
+  sharded forward, and ``loss_impl="fused_tp"`` with the vocab-sharded partial forward
+  kernel (``csrc/fused_xent.cu``, ``ops/fused_xent.fused_cross_entropy_tp``).
 """
 
 __version__ = "0.1.0"

@@ -18,6 +18,22 @@ bf16 the policy's ``reduce_dtype`` equals the compute dtype, which selects the
 ``compress_reduce`` branch: gradients are taken w.r.t. the cast tree and upcast
 afterwards (identical values; the cast copy is made without autograd).
 
+Several processes (one per rank, e.g. from ``launchers.notebook_launcher``):
+``Accelerator(mesh_config=MeshConfig(dp=..., tp=...))`` lays the ranks out on a process
+mesh, and ``create_train_state(params, tx, partition_specs=llama.partition_specs(cfg))``
+keeps each rank's tensor-parallel shard of every leaf. Every rank is given the whole
+global batch (the JAX step's single-controller view) and the step, run under
+``parallel.mesh.mesh_context``, takes the rank's slice over the batch axes ``(dp,
+fsdp)``. Gradients are averaged over the batch ranks as they come out of autograd (in
+the reduce dtype, as the JAX step reduces them), and so is the reported loss: a loss
+that is a mean over the rank's examples (a plain ``.mean()``) gives the JAX step's
+global mean, the slices being of one size. A loss whose mean is over tokens that the
+slices hold in different numbers (``llama.loss_fn``'s masked mean) returns the global
+value itself: it sums over the batch ranks with ``parallel.tp.replica_sum``, whose
+gradient is scaled for that average. ``max_grad_norm`` clips by the global norm (the
+squares of each tp-sharded leaf summed over tp, each replicated leaf counted once), and
+the optimizer updates the local shards.
+
 Not ported yet (raise ``NotImplementedError``): fp8 (``mixed_precision="fp8"``),
 optimizer/activation offload, ZeRO and every sharding plugin, data loaders, telemetry,
 fault injection, the compile cache, and training over quantized weight leaves
@@ -26,16 +42,21 @@ fault injection, the compile cache, and training over quantized weight leaves
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 from dataclasses import dataclass, replace as dataclass_replace
 from typing import Any, Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .ops.quantization import QuantizedWeight
 from .optimizer import AcceleratedOptimizer
+from .parallel.mesh import mesh_batch_size_divisor, mesh_context
+from .parallel.tp import all_reduce, apply_tensor_parallel, sharded_leaves
 from .state import AcceleratorState, GradientState
+from .utils.constants import BATCH_AXES, TENSOR_AXIS
 from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionPolicy
 from .utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -52,13 +73,16 @@ def cast_floating(tree: Any, dtype) -> Any:
 class TrainState:
     """The training carry: everything a train step reads and writes. ``step`` counts
     optimizer steps, ``micro`` the micro-steps since the last apply; ``grad_accum`` holds
-    the running gradient sum between sync steps."""
+    the running gradient sum between sync steps. ``tp_sharded`` flags, per leaf of
+    ``params`` in ``tree_leaves`` order, the leaves that are this rank's tp shards
+    (from ``create_train_state``'s ``partition_specs``; None: every leaf whole)."""
 
     params: Any
     opt_state: Any
     step: int = 0
     grad_accum: Any = None
     micro: int = 0
+    tp_sharded: Optional[list] = None
 
     def replace(self, **kwargs) -> "TrainState":
         return dataclass_replace(self, **kwargs)
@@ -176,7 +200,7 @@ class _FusedTrainStep:
 
 
 _UNPORTED_ARGS = (
-    "dataloader_config", "mesh_config", "fsdp_plugin", "tp_plugin", "pp_plugin", "sp_plugin",
+    "dataloader_config", "fsdp_plugin", "tp_plugin", "pp_plugin", "sp_plugin",
     "ep_plugin", "megatron_lm_plugin", "rng_types", "log_with", "project_dir",
     "project_config", "kwargs_handlers", "dynamo_plugin", "telemetry_config",
     "step_scheduler_with_optimizer",
@@ -197,6 +221,8 @@ class Accelerator:
         device=None,
         max_grad_norm: Optional[float] = None,
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
+        mesh_config=None,
+        backend: Optional[str] = None,
         **kwargs,
     ):
         unported = sorted(k for k, v in kwargs.items() if v is not None)
@@ -209,7 +235,8 @@ class Accelerator:
                 "are not ported yet")
         if mixed_precision == "fp8":
             raise NotImplementedError("mixed_precision='fp8' is not ported yet")
-        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu, device=device)
+        self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu, device=device,
+                                      mesh_config=mesh_config, backend=backend)
         if gradient_accumulation_plugin is None:
             gradient_accumulation_plugin = GradientAccumulationPlugin(
                 num_steps=gradient_accumulation_steps or 1)
@@ -222,6 +249,12 @@ class Accelerator:
     @property
     def device(self) -> torch.device:
         return self.state.device
+
+    @property
+    def mesh(self):
+        """The process mesh (``parallel.mesh.Mesh``), or None in one process without a
+        ``mesh_config``."""
+        return self.state.mesh
 
     @property
     def distributed_type(self):
@@ -280,9 +313,13 @@ class Accelerator:
             return self.prepare_params(obj)
         return obj
 
-    def prepare_params(self, params):
+    def prepare_params(self, params, partition_specs=None):
         """Params on the device with floating leaves in the policy's param dtype (fp32
-        master weights). A leaf already there is kept, not copied."""
+        master weights); with ``partition_specs``, each leaf's shard on this rank of the
+        mesh (sliced before it is moved or cast). A leaf already there is kept, not
+        copied."""
+        if partition_specs is not None:
+            params = apply_tensor_parallel(params, self.mesh, partition_specs)
         dtype, dev = self.mixed_precision_policy.param_dtype, self.device
         return tree_map(lambda x: x.to(device=dev, dtype=dtype) if x.is_floating_point()
                         else x.to(dev), params)
@@ -297,24 +334,45 @@ class Accelerator:
         return wrapped
 
     def _to_device(self, batch):
-        """Batch leaves (numpy arrays or tensors) as tensors on the device."""
-        return tree_map(lambda x: torch.as_tensor(x).to(self.device), batch)
+        """Batch leaves (numpy arrays or tensors) as tensors on the device; under a mesh,
+        this rank's slice of their leading (batch) dim over the batch axes."""
+        mesh = self.mesh
+        n = 1 if mesh is None else mesh_batch_size_divisor(mesh)
+
+        def local(x):
+            x = torch.as_tensor(x)
+            if n > 1:
+                if x.dim() == 0 or x.shape[0] % n:
+                    raise ValueError(f"batch leaf of shape {tuple(x.shape)}: the global batch "
+                                     f"must split over dp*fsdp = {n} ranks")
+                k = x.shape[0] // n
+                x = x[mesh.axis_index(BATCH_AXES) * k:][:k]
+            return x.to(self.device)
+
+        return tree_map(local, batch)
+
+    def _mesh_context(self):
+        return contextlib.nullcontext() if self.mesh is None else mesh_context(self.mesh)
 
     # -------------------------------------------------------------------- train state/step
-    def create_train_state(self, params,
-                           optimizer: Union[AcceleratedOptimizer, Any]) -> TrainState:
-        """The training carry: params prepared (master dtype, on the device), optimizer
-        state initialized from them, an accumulation buffer when accumulating."""
+    def create_train_state(self, params, optimizer: Union[AcceleratedOptimizer, Any],
+                           partition_specs=None) -> TrainState:
+        """The training carry: params prepared (master dtype, on the device; this rank's
+        shards under ``partition_specs``), optimizer state initialized from them, an
+        accumulation buffer when accumulating."""
         _refuse_quantized(params)
         if not isinstance(optimizer, AcceleratedOptimizer):
             optimizer = self.prepare_optimizer(optimizer)
-        params = self.prepare_params(params)
+        params = self.prepare_params(params, partition_specs=partition_specs)
         opt_state = optimizer.init(params)
         accum = None
         if self.gradient_accumulation_steps > 1:
             accum = tree_map(torch.zeros_like, params)
         optimizer._opt_state_ref = opt_state
-        return TrainState(params=params, opt_state=opt_state, step=0, grad_accum=accum, micro=0)
+        tp_sharded = (None if partition_specs is None
+                      else sharded_leaves(params, partition_specs, self.mesh))
+        return TrainState(params=params, opt_state=opt_state, step=0, grad_accum=accum, micro=0,
+                          tp_sharded=tp_sharded)
 
     def build_train_step(
         self,
@@ -360,6 +418,11 @@ class Accelerator:
                            and policy.compute_dtype != torch.float32)
         self._reduce_compressed = compress_reduce
         guard = skip_nonfinite_steps > 0
+        mesh = self.mesh
+        batch_group = None if mesh is None else mesh.group(BATCH_AXES)
+        n_batch = 1 if batch_group is None else dist.get_world_size(batch_group)
+        tp_group = None if mesh is None else mesh.group(TENSOR_AXIS)
+        world_group = dist.group.WORLD if mesh is not None and mesh.size > 1 else None
 
         def call_loss(params, batch):
             out = loss_fn(params, batch)
@@ -368,40 +431,48 @@ class Accelerator:
             aux = tree_map(lambda x: x.detach().clone() if torch.is_tensor(x) else x, aux)
             return loss.float(), aux
 
+        def averaged(x, dtype=None):
+            """``x`` averaged over the batch ranks: summed in its own type (in place),
+            then divided by their number in ``dtype``."""
+            x = all_reduce(x.contiguous(), "sum", batch_group).to(dtype or x.dtype)
+            return x if n_batch == 1 else x.div_(n_batch)
+
         def compute(state: TrainState, batch):
             _refuse_quantized(state.params)
             batch = self._to_device(batch)
             masters = tree_leaves(state.params)
-            if compress_reduce:
-                # Gradients w.r.t. the cast tree, upcast afterwards: the backward of the
-                # cast IS that upcast, so the values are those of the plain branch.
-                with torch.no_grad():
-                    cast = [p.to(policy.compute_dtype) for p in masters]
-                leaves = [c.requires_grad_(True) for c in cast]
-                del cast
-                loss, aux = call_loss(tree_unflatten(state.params, leaves), batch)
-                low = list(torch.autograd.grad(loss, leaves, allow_unused=True))
-                del leaves
-                grads = []
-                for i, p in enumerate(masters):
-                    g = low[i]
-                    low[i] = None  # free each low-precision gradient once upcast
-                    grads.append(torch.zeros_like(p) if g is None else g.to(p.dtype))
-            else:
-                leaves = [p.detach().requires_grad_(True) for p in masters]
-                tree = tree_unflatten(state.params, leaves)
-                if cast_params:
-                    tree = cast_floating(tree, policy.compute_dtype)
-                loss, aux = call_loss(tree, batch)
-                grads = [torch.zeros_like(p) if g is None else g for g, p in zip(
-                    torch.autograd.grad(loss, leaves, allow_unused=True), masters)]
-            return loss.detach(), aux, grads
+            with self._mesh_context():
+                if compress_reduce:
+                    # Gradients w.r.t. the cast tree, upcast afterwards: the backward of
+                    # the cast IS that upcast, so the values are those of the plain branch.
+                    with torch.no_grad():
+                        cast = [p.to(policy.compute_dtype) for p in masters]
+                    leaves = [c.requires_grad_(True) for c in cast]
+                    del cast
+                    loss, aux = call_loss(tree_unflatten(state.params, leaves), batch)
+                    low = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+                    del leaves
+                    grads = []
+                    for i, p in enumerate(masters):
+                        g = low[i]
+                        low[i] = None  # free each low-precision gradient once upcast
+                        grads.append(torch.zeros_like(p) if g is None
+                                     else averaged(g, p.dtype))
+                else:
+                    leaves = [p.detach().requires_grad_(True) for p in masters]
+                    tree = tree_unflatten(state.params, leaves)
+                    if cast_params:
+                        tree = cast_floating(tree, policy.compute_dtype)
+                    loss, aux = call_loss(tree, batch)
+                    grads = [torch.zeros_like(p) if g is None else averaged(g) for g, p in zip(
+                        torch.autograd.grad(loss, leaves, allow_unused=True), masters)]
+            return averaged(loss.detach().clone().reshape(1))[0], aux, grads
 
         def micro_step(state: TrainState, batch):
             loss, aux, grads = compute(state, batch)
             metrics = {"loss": loss}
             if guard:
-                finite = _all_finite(loss, grads)
+                finite = _all_finite(loss, grads, world_group)
                 metrics["nonfinite"] = not finite
                 if not finite:  # a non-finite contribution would poison the window
                     grads = [torch.zeros_like(g) for g in grads]
@@ -424,13 +495,13 @@ class Accelerator:
                 if accum_steps > 1:
                     grads = [g / accum_steps for g in grads]
                 metrics = {"loss": loss}
-                finite = _all_finite(loss, grads) if guard else True
+                finite = _all_finite(loss, grads, world_group) if guard else True
                 fused_opt = getattr(tx, "fused_apply", None)
                 grad_scale = None
                 if max_grad_value is not None:
                     grads = [torch.clamp(g, -max_grad_value, max_grad_value) for g in grads]
                 if max_grad_norm is not None:
-                    gnorm = _global_norm(grads)
+                    gnorm = _global_norm(grads, state.tp_sharded, tp_group)
                     scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
                     metrics["grad_norm"] = gnorm
                     if fused_opt is None:
@@ -473,11 +544,12 @@ class Accelerator:
     def build_eval_step(self, eval_fn: Callable) -> Callable:
         """``eval_fn(params, batch) -> outputs`` under ``torch.no_grad`` with the params
         cast to the compute dtype; floating outputs cast to fp32 when the policy's
-        output dtype is fp32."""
+        output dtype is fp32. Under a mesh the function runs in its context on this
+        rank's slice of the batch (outputs are the rank's own)."""
         policy = self.mixed_precision_policy
 
         def step(params, batch):
-            with torch.no_grad():
+            with torch.no_grad(), self._mesh_context():
                 out = eval_fn(cast_floating(params, policy.compute_dtype), self._to_device(batch))
                 if policy.output_dtype == torch.float32:
                     out = cast_floating(out, torch.float32)
@@ -500,14 +572,23 @@ def _loss_fn_wants_rng(loss_fn) -> bool:
     return len(params) >= 3 or "rng" in sig.parameters
 
 
-def _all_finite(loss: torch.Tensor, grads) -> bool:
-    """One host sync: loss and every gradient finite."""
+def _all_finite(loss: torch.Tensor, grads, group=None) -> bool:
+    """One host sync: loss and every gradient finite (on every rank of ``group``)."""
     finite = torch.isfinite(loss).all()
     for g in grads:
         finite = finite & torch.isfinite(g).all()
-    return bool(finite)
+    return bool(all_reduce(finite.float().reshape(1), "min", group))
 
 
-def _global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, in fp32, summed leaf by leaf."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+def _global_norm(grads, sharded=None, tp_group=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, in fp32, summed leaf by leaf. Leaves
+    flagged in ``sharded`` are this rank's tp shards: their squares are summed over
+    ``tp_group``; the others are replicated and counted once."""
+    sharded = sharded or [False] * len(grads)
+    squares = [torch.sum(torch.square(g.float())) for g in grads]
+    zero = torch.zeros((), dtype=torch.float32, device=squares[0].device if squares else None)
+    local = sum((q for q, s in zip(squares, sharded) if s), zero)
+    replicated = sum((q for q, s in zip(squares, sharded) if not s), zero)
+    if tp_group is None:
+        return torch.sqrt(local + replicated)
+    return torch.sqrt(all_reduce(local.reshape(1), "sum", tp_group)[0] + replicated)

@@ -1,8 +1,11 @@
 // Fused linear + cross-entropy for Hopper (sm_90a), CUDA C++ with plain C entry points.
 //
-// Replaces three TPU kernels of accelerate_tpu/ops/fused_xent.py:
+// Replaces four TPU kernels of accelerate_tpu/ops/fused_xent.py:
 //   fxent_fwd_*_kernel + fxent_combine_kernel <- _fwd_kernel     (:82, pallas_call in
 //                                                _launch_fwd at :224)
+//   fxent_fwd_*_kernel + fxent_combine_partial_kernel
+//                                             <- _fwd_partial_kernel (:96, the same
+//                                                pallas_call through _launch_fwd)
 //   fxent_bwd_*_kernel (+ fxent_cast_kernel)  <- _bwd_dx_kernel (:128, pallas_call at
 //                                                :258) and _bwd_dw_kernel (:151, :277)
 // They compute the same functions. x [T,D] and w [D,V] share a type (bf16 or fp32);
@@ -13,7 +16,14 @@
 // recomputes the scores and takes d = (exp(capped - lse) - onehot) * g, times
 // 1 - (capped/cap)^2 under the cap; d is rounded to w's type before d.w^T and to x's
 // type before x^T.d, both products sum in fp32, and dx / dw are written in x's / w's
-// type.
+// type. The partial forward (the vocab-sharded head of tensor parallelism: w is one
+// rank's [D, Vl] slice and the targets are shard-local, so a row whose target another
+// rank owns has an id outside [0, Vl)) writes the row's raw online statistics instead:
+// m (the max of its capped scores), l (the sum of exp(score - m), taken at that final
+// max) and tgt (the target's capped score, 0 when no column matches), all fp32, which
+// the ranks merge across the tp group. As in the Pallas kernels, #5 and #6 share their
+// score tiles (_online_tile there, fxent_fwd_*_kernel here) and differ only in what
+// the last step writes.
 //
 // Design. A TPU grid runs in order on one core: the Pallas forward carries (m, l, tgt)
 // across the vocab axis in VMEM, and the backward carries a [block_t, D] (dx) or
@@ -52,7 +62,9 @@
 // design does about it: every product runs on the tensor cores and the head is read
 // in place (no padded copy). It still issues mma.sync rather than wgmma, loads without
 // TMA, and the backward's atomics and fp32 buffers cost traffic the Pallas pair does
-// not -- later work.
+// not -- later work. The partial forward of a tensor-parallel rank has the forward's
+// bound with V the shard's width (2 T D Vl flops: 2.18 ms at Vl = 64128) and the same
+// design; its combine pass writes (m, l, tgt) in place of (nll, lse).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -153,6 +165,35 @@ __global__ void fxent_combine_kernel(const float* __restrict__ part, float* __re
     const float ls = mx + logf(sum);
     lse[t] = ls;
     nll[t] = ls - tv;
+  }
+}
+
+// The same merge for the partial forward: the row's (m, l, tgt), l at the final max.
+__global__ void fxent_combine_partial_kernel(const float* __restrict__ part,
+                                             float* __restrict__ m_out,
+                                             float* __restrict__ l_out,
+                                             float* __restrict__ tgt_out, int T, int nv) {
+  const int t = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (t >= T) return;
+  const int64_t plane = static_cast<int64_t>(T) * nv;
+  const float* m = part + static_cast<int64_t>(t) * nv;
+  const float* l = m + plane;
+  const float* tg = l + plane;
+  float mx = kNegInf;
+  for (int j = lane; j < nv; j += 32) mx = fmaxf(mx, m[j]);
+  mx = warp_max(mx);
+  float sum = 0.0f, tv = 0.0f;
+  for (int j = lane; j < nv; j += 32) {
+    sum += l[j] * expf(m[j] - mx);
+    tv += tg[j];
+  }
+  sum = warp_sum(sum);
+  tv = warp_sum(tv);
+  if (lane == 0) {
+    m_out[t] = mx;
+    l_out[t] = sum;
+    tgt_out[t] = tv;
   }
 }
 
@@ -689,6 +730,15 @@ cudaError_t cast(const float* src, bf16* dst, int64_t n, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The forward's score-tile kernel of either type, writing the partials of a.part.
+cudaError_t launch_fwd_tiles(const Args& a, int dtype, cudaStream_t st) {
+  if (dtype == kBF16)
+    return launch(fxent_fwd_mma_kernel, dim3(cdiv(a.T, kBT), cdiv(a.V, kBV)), kFwdSmem, a, st);
+  if (dtype == kF32)
+    return launch(fxent_fwd_f32_kernel, dim3(cdiv(a.T, kF32T), cdiv(a.V, kF32V)), 0, a, st);
+  return cudaErrorInvalidValue;
+}
+
 Args make_args(const void* x, const void* w, const int* tgt, int T, int D, int V, int64_t ldx,
                int64_t ldw, float softcap) {
   Args a{};
@@ -725,15 +775,26 @@ int fxent_fwd_launch(const void* x, const void* w, const int* targets, float* pa
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Args a = make_args(x, w, targets, T, D, V, ldx, ldw, softcap);
   a.part = part;
-  cudaError_t err;
-  if (dtype == kBF16)
-    err = launch(fxent_fwd_mma_kernel, dim3(cdiv(T, kBT), cdiv(V, kBV)), kFwdSmem, a, st);
-  else if (dtype == kF32)
-    err = launch(fxent_fwd_f32_kernel, dim3(cdiv(T, kF32T), cdiv(V, kF32V)), 0, a, st);
-  else
-    return cudaErrorInvalidValue;
+  cudaError_t err = launch_fwd_tiles(a, dtype, st);
   if (err != cudaSuccess || T == 0 || V == 0) return err;
   fxent_combine_kernel<<<cdiv(T, kThreads / 32), kThreads, 0, st>>>(part, nll, lse, T, a.nv);
+  return cudaGetLastError();
+}
+
+// The partial forward of a vocab shard: m, l and tgt (fp32 [T]) from x, the shard
+// w [D, V] and shard-local targets (ids outside [0, V) match nothing); part is scratch
+// of 3 * T * nv floats.
+int fxent_fwd_partial_launch(const void* x, const void* w, const int* targets, float* part,
+                             float* m, float* l, float* tgt, int T, int D, int V,
+                             int64_t ldx, int64_t ldw, float softcap, int dtype,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Args a = make_args(x, w, targets, T, D, V, ldx, ldw, softcap);
+  a.part = part;
+  cudaError_t err = launch_fwd_tiles(a, dtype, st);
+  if (err != cudaSuccess || T == 0 || V == 0) return err;
+  fxent_combine_partial_kernel<<<cdiv(T, kThreads / 32), kThreads, 0, st>>>(part, m, l, tgt,
+                                                                            T, a.nv);
   return cudaGetLastError();
 }
 

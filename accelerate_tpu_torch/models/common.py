@@ -10,8 +10,11 @@ again during the backward, so a checkpointed block launches its attention forwar
 per step. Attention ``flash`` launches the port's flash kernels on CUDA tensors (their
 plain versions on the CPU) and never falls back to the ``xla`` path; ``auto`` is
 ``flash`` on CUDA and ``xla`` on the CPU. ``loss_impl="fused"`` launches the fused
-cross-entropy kernels on CUDA tensors (their plain versions on the CPU) and never falls
-back to the chunked path. Caches are plane
+cross-entropy kernels on CUDA tensors (their plain versions on the CPU) in one process; with more than one
+process it runs the chunked CE, as the JAX dispatcher falls through on a multi-device
+mesh. ``fused_tp`` and ``fused_dp`` run under a process mesh (``parallel.mesh.
+mesh_context``): tokens are sharded over the batch axes, and every branch's sum is
+summed over the batch ranks (``replica_sum``). Caches are plane
 dicts: ``k``/``v`` ``[B,C,heads,hd]`` (dense) or ``[P,page_size,heads,hd]`` (paged
 pool), plus ``k_scale``/``v_scale`` ``[...,1]`` fp32 when int8-quantized.
 
@@ -32,8 +35,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
-from ..ops.fused_xent import fused_cross_entropy
+from ..ops.fused_xent import fused_cross_entropy, fused_cross_entropy_tp
 from ..ops.paged_attention import gather_pages, paged_attention
+from ..parallel.mesh import current_mesh
+from ..parallel.tp import replica_sum
+from ..utils.constants import BATCH_AXES, TENSOR_AXIS
 
 __all__ = [
     "remat_wrap", "attention_dispatch",
@@ -151,28 +157,62 @@ def ce_sum(x, head, targets, mask, *, dtype, chunk: int = 0, softcap: float = 0.
 
 def ce_sum_dispatch(x, head, targets, mask, *, loss_impl: str, dtype, chunk: int = 0,
                     softcap: float = 0.0, bias=None) -> torch.Tensor:
-    """SUM-style CE dispatch over ``loss_impl``: ``auto`` takes :func:`ce_sum`, ``fused``
-    the fused linear + CE kernels (:func:`fused_ce_single_shard`, converted back to a
-    sum). The fused kernels have no bias term, so a non-None ``bias`` takes
-    :func:`ce_sum` whatever ``loss_impl`` says. ``fused_dp`` and ``fused_tp`` need a
-    process mesh and are not ported."""
+    """SUM-style CE dispatch over ``loss_impl``, the one place every ``loss_impl`` routes
+    through. ``auto`` takes :func:`ce_sum`; ``fused`` the fused linear + CE kernels
+    (:func:`fused_ce_single_shard`, converted back to a sum) in one process, and
+    :func:`ce_sum` in more than one (as the JAX dispatcher falls through on a
+    multi-device mesh). Under a mesh (:func:`parallel.mesh.current_mesh`) x, targets
+    and mask are this rank's slice of the batch and the sum is taken over every batch
+    rank (``replica_sum``: its gradient is scaled for the train step's average over
+    those ranks):
+
+    - ``fused_tp``: ``head`` is this rank's vocab slice ``[D, V/tp]``; the vocab-sharded
+      kernel runs on it and merges over the tp group
+      (``ops.fused_xent.fused_cross_entropy_tp``);
+    - ``fused_dp``: the single-shard kernel on this rank's tokens against a replicated
+      head (the train step's average over the batch ranks gives the head's gradient).
+
+    Both raise ``ValueError`` outside a mesh context, as in JAX. The chunked CE runs over
+    a whole head only: under a tp-sharded head it raises ``NotImplementedError``. The
+    fused kernels have no bias term, so a non-None ``bias`` takes :func:`ce_sum`
+    whatever ``loss_impl`` says."""
     if loss_impl not in ("auto", "fused", "fused_dp", "fused_tp"):
         raise ValueError(f"loss_impl={loss_impl!r}: expected 'auto', 'fused', 'fused_dp', "
                          "or 'fused_tp' (a typo would otherwise silently run the chunked path)")
     if bias is not None:
         loss_impl = "auto"
-    if loss_impl in ("fused_dp", "fused_tp"):
-        raise NotImplementedError(f"loss_impl={loss_impl!r} needs a process mesh, which is "
-                                  "not ported yet (ROADMAP A.7)")
-    if loss_impl == "fused":
-        loss = fused_ce_single_shard(x, head.to(dtype), targets, mask, softcap=softcap)
-        if loss is None:
-            raise NotImplementedError("loss_impl='fused' runs in one process; across "
-                                      "processes it needs 'fused_dp' (ROADMAP A.7)")
-        # The masked mean, back to a sum: every branch here returns a sum.
-        return loss * torch.clamp(mask.sum(), min=1.0)
-    return ce_sum(x, head, targets, mask, dtype=dtype, chunk=chunk, softcap=softcap,
-                  bias=bias)
+    mesh = current_mesh()
+    if loss_impl in ("fused_tp", "fused_dp") and mesh is None:
+        raise ValueError(
+            f"loss_impl={loss_impl!r} needs an active mesh context "
+            "(Accelerator.build_train_step provides one; or wrap in parallel.mesh.mesh_context).")
+    tp = mesh.group(TENSOR_AXIS) if mesh is not None else None
+    B, S, D = x.shape
+    if loss_impl == "fused_tp":
+        nll = fused_cross_entropy_tp(x.reshape(B * S, D), head.to(dtype),
+                                     targets.reshape(B * S), group=tp, softcap=softcap)
+        total = (nll * mask.reshape(B * S)).sum()
+    elif tp is not None:
+        raise NotImplementedError(
+            f"loss_impl={loss_impl!r} over a tp-sharded head is not ported: the chunked CE "
+            "and the fused_dp kernel take the whole head; use loss_impl='fused_tp'")
+    elif loss_impl == "fused_dp":
+        nll = fused_cross_entropy(x.reshape(B * S, D), head.to(dtype), targets.reshape(B * S),
+                                  softcap=softcap)
+        total = (nll * mask.reshape(B * S)).sum()
+    else:
+        loss = None
+        if loss_impl == "fused":
+            loss = fused_ce_single_shard(x, head.to(dtype), targets, mask, softcap=softcap)
+        if loss is not None:
+            # The masked mean, back to a sum: every branch here returns a sum.
+            total = loss * torch.clamp(mask.sum(), min=1.0)
+        else:
+            total = ce_sum(x, head, targets, mask, dtype=dtype, chunk=chunk,
+                           softcap=softcap, bias=bias)
+    if mesh is not None:
+        total = replica_sum(total, mesh.group(BATCH_AXES))
+    return total
 
 
 def fused_ce_allowed() -> bool:

@@ -15,6 +15,11 @@ leaves it: numpy ``data`` and ``scales`` beside ``shape``, ``scheme`` and
 unchanged — never cast to the weight dtype. ``params_to_numpy`` gives it back as a
 ``QuantizedWeight`` of numpy arrays, in unstacked layers only (JAX quantizes 2-D leaves,
 never the 3-D ``scan_layers`` stacks).
+
+Under a process mesh (``mesh=``, with ``specs`` defaulting to ``llama.partition_specs``)
+``params_from_jax`` gives this rank's shards, sliced from the numpy leaves before any
+tensor is made; ``params_to_numpy`` gathers the shards back into whole arrays (a
+collective: every rank calls it), so whole pytrees can be compared.
 """
 
 from __future__ import annotations
@@ -23,8 +28,9 @@ import numpy as np
 import torch
 
 from ..ops.quantization import QuantizedWeight
+from ..parallel.tp import apply_tensor_parallel, gather_tensor_parallel
 from ..utils.device import resolve_device
-from .llama import PROJECTIONS, LlamaConfig, check_supported
+from .llama import PROJECTIONS, LlamaConfig, check_supported, partition_specs
 
 __all__ = ["params_from_jax", "params_to", "params_to_numpy"]
 
@@ -52,18 +58,25 @@ def _tensor(arr, dtype: torch.dtype, device: torch.device):
 
 
 def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None,
-                    master_dtype=None) -> dict:
+                    master_dtype=None, mesh=None, specs=None) -> dict:
     """The port's params from the JAX llama params pytree with numpy leaves
     (``jax.tree.map(np.asarray, params)``), stacked or unstacked layers, on ``device``
     (default CUDA; raises when CUDA is absent and no CPU was asked for). Projections,
     the embedding and the head are stored in ``master_dtype`` (default ``cfg.dtype``);
-    quantized leaves keep their codes and scales."""
+    quantized leaves keep their codes and scales. With ``mesh``: this rank's shards
+    under ``specs`` (default ``llama.partition_specs(cfg)``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     weight_dtype = master_dtype or cfg.dtype
     layers = np_params["layers"]
     if isinstance(layers, dict):  # scan_layers: leaves stacked on a leading layer axis
         layers = [{k: v[i] for k, v in layers.items()} for i in range(cfg.n_layers)]
+    if mesh is not None:
+        if any(_is_quantized(v) for layer in layers for v in layer.values()):
+            raise NotImplementedError("sharding quantized leaves is not ported")
+        sharded = apply_tensor_parallel({**np_params, "layers": layers}, mesh,
+                                        specs if specs is not None else partition_specs(cfg))
+        np_params, layers = sharded, sharded["layers"]
     out_layers = []
     for layer in layers:
         out = {}
@@ -97,15 +110,22 @@ def _numpy(t):
     if isinstance(t, QuantizedWeight):
         return QuantizedWeight(_numpy(t.data), _numpy(t.scales), t.shape, t.scheme,
                                t.block_size)
-    t = t.detach().cpu()
+    t = t.detach().to("cpu", copy=True)  # never a view of a leaf the step updates
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def params_to_numpy(params: dict, stacked: bool = False) -> dict:
+def params_to_numpy(params: dict, stacked: bool = False, mesh=None, specs=None) -> dict:
     """The JAX pytree layout of the port's params, with numpy leaves (bf16 leaves as
     fp32; a quantized leaf as a ``QuantizedWeight`` of numpy codes and scales): layers
     as a list of dicts, or ``stacked`` as one dict of ``[L, ...]`` arrays
-    (``scan_layers``)."""
+    (``scan_layers``). With ``mesh``: the whole leaves gathered from every rank's
+    shards under ``specs`` (a collective; ``specs`` as given to
+    ``params_from_jax``)."""
+    if mesh is not None:
+        if specs is None:
+            raise ValueError("params_to_numpy(mesh=...) needs the specs the params were "
+                             "sharded with")
+        params = gather_tensor_parallel(params, mesh, specs)
     out = {k: _numpy(v) for k, v in params.items() if k != "layers"}
     layers = [{k: _numpy(v) for k, v in layer.items()} for layer in params["layers"]]
     if stacked and any(isinstance(v, QuantizedWeight)

@@ -25,6 +25,18 @@ kernel on the card. A quantized ``embed`` or ``lm_head`` raises ``NotImplemented
 (the JAX forwards cannot run one either; quantize with ``skip_modules=["embed",
 "lm_head"]``).
 
+Tensor parallelism (Megatron layout, ``partition_specs``): under a process mesh with a
+``tp`` axis (``parallel.mesh.mesh_context``, which ``Accelerator.build_train_step``
+provides) the params are this rank's shards (``parallel.tp.apply_tensor_parallel``) and
+the training forward reads them as such: ``H/tp`` query and ``K/tp`` kv heads (whole
+GQA groups), the column-parallel ``wq/wk/wv/w_gate/w_up`` behind ``copy_to_group``,
+the row-parallel ``wo/w_down`` followed by ``reduce_from_group``, the vocab-parallel
+embedding, and norms replicated. ``loss_fn`` then returns the global masked mean over
+the batch ranks' tokens on every rank (its gradient scaled for the train step's average
+over the batch ranks: ``parallel.tp.replica_sum``), and
+``forward``/``head_logits`` give this rank's vocab slice of the logits. The cached
+(serving) forwards take whole params.
+
 Not supported in this slice (raise ``NotImplementedError``): ``moe_experts > 0``,
 ``lora_rank > 0`` and ``use_fp8``.
 """
@@ -40,6 +52,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.quantization import QuantizedWeight, quant_matmul
+from ..parallel.mesh import P, current_mesh
+from ..parallel.tp import (all_reduce, copy_to_group, group_rank_size, reduce_from_group,
+                           vocab_parallel_embedding)
+from ..utils.constants import BATCH_AXES, FSDP_AXIS, TENSOR_AXIS
 from ..utils.device import resolve_device
 from .common import (_softcap, attention_dispatch, ce_sum_dispatch, remat_wrap,
                      resolve_loss_chunk)
@@ -55,6 +71,7 @@ __all__ = [
     "LlamaConfig",
     "CONFIGS",
     "init_params",
+    "partition_specs",
     "num_params",
     "packed_target_mask",
     "segment_positions",
@@ -248,6 +265,46 @@ def init_params(cfg: LlamaConfig, *, generator: Optional[torch.Generator] = None
     return params
 
 
+def partition_specs(cfg: LlamaConfig, pp: bool = False, virtual_stages: int = 1) -> dict:
+    """Megatron-layout specs, the structure of the JAX params pytree (a per-layer list,
+    or with ``scan_layers`` one dict of stacked specs): column-parallel wq/wk/wv/w_gate/
+    w_up split their output dim over ``tp``, row-parallel wo/w_down their input dim;
+    the embedding and the head shard the vocab dim over ``(tp, fsdp)``; norms are
+    replicated. Pipeline stages, MoE and LoRA are not ported (``NotImplementedError``)."""
+    if pp or virtual_stages != 1:
+        raise NotImplementedError("pipeline-parallel specs are not ported")
+    check_supported(cfg)
+    layer = {
+        "ln_attn": P(),
+        "wq": P(None, TENSOR_AXIS),
+        "wk": P(None, TENSOR_AXIS),
+        "wv": P(None, TENSOR_AXIS),
+        "wo": P(TENSOR_AXIS, None),
+        "ln_mlp": P(),
+    }
+    if cfg.post_norm:
+        layer["ln_attn_post"] = P()
+        layer["ln_mlp_post"] = P()
+    if cfg.qkv_bias:
+        layer["bq"] = P(TENSOR_AXIS)
+        layer["bk"] = P(TENSOR_AXIS)
+        layer["bv"] = P(TENSOR_AXIS)
+    layer.update({
+        "w_gate": P(None, TENSOR_AXIS),
+        "w_up": P(None, TENSOR_AXIS),
+        "w_down": P(TENSOR_AXIS, None),
+    })
+    if cfg.scan_layers:
+        layers: Any = {k: P(None, *v) for k, v in layer.items()}
+    else:
+        layers = [dict(layer) for _ in range(cfg.n_layers)]
+    vocab_axes = (TENSOR_AXIS, FSDP_AXIS)
+    specs = {"embed": P(vocab_axes, None), "layers": layers, "ln_f": P()}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, vocab_axes)
+    return specs
+
+
 # ------------------------------------------------------------------------------ layer math
 def _rms_norm(x: torch.Tensor, gamma: torch.Tensor, eps: float,
               plus_one: bool = False) -> torch.Tensor:
@@ -397,23 +454,27 @@ def _attention(q, k, v, mask, cfg: LlamaConfig, segment_ids=None):
     )
 
 
-def _block(x, layer, positions, mask, cfg: LlamaConfig, segment_ids=None):
-    """One transformer block (dense MLP; MoE is not ported)."""
+def _block(x, layer, positions, mask, cfg: LlamaConfig, segment_ids=None, tp=None):
+    """One transformer block (dense MLP; MoE is not ported). ``tp``: the
+    tensor-parallel group whose rank holds ``layer``'s shards (``None``: whole)."""
     B, S, D = x.shape
+    n = group_rank_size(tp)[1]
+    H, K = cfg.n_heads // n, cfg.n_kv_heads // n  # this rank's heads, whole GQA groups
     p1 = cfg.norm_plus_one
-    h = _rms_norm(x, layer["ln_attn"], cfg.norm_eps, p1)
+    h = copy_to_group(_rms_norm(x, layer["ln_attn"], cfg.norm_eps, p1), tp)
     q, k, v = _qkv_proj(h, layer, cfg)
-    q = _rope(q.reshape(B, S, cfg.n_heads, cfg.head_dim), positions, cfg)
-    k = _rope(k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim), positions, cfg)
-    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
-    attn = _attention(q, k, v, mask, cfg, segment_ids).reshape(B, S, cfg.n_heads * cfg.head_dim)
-    attn_out = _proj_l(attn, layer, "wo", cfg)
+    q = _rope(q.reshape(B, S, H, cfg.head_dim), positions, cfg)
+    k = _rope(k.reshape(B, S, K, cfg.head_dim), positions, cfg)
+    v = v.reshape(B, S, K, cfg.head_dim)
+    attn = _attention(q, k, v, mask, cfg, segment_ids).reshape(B, S, H * cfg.head_dim)
+    attn_out = reduce_from_group(_proj_l(attn, layer, "wo", cfg), tp)
     if cfg.post_norm:  # Gemma-2: normalize the sublayer OUTPUT before the residual add
         attn_out = _rms_norm(attn_out, layer["ln_attn_post"], cfg.norm_eps, p1)
     x = x + attn_out
-    h = _rms_norm(x, layer["ln_mlp"], cfg.norm_eps, p1)
+    h = copy_to_group(_rms_norm(x, layer["ln_mlp"], cfg.norm_eps, p1), tp)
     gate = _mlp_gate_act(_proj_l(h, layer, "w_gate", cfg), cfg)
-    mlp_out = _proj_l(gate * _proj_l(h, layer, "w_up", cfg), layer, "w_down", cfg)
+    mlp_out = reduce_from_group(
+        _proj_l(gate * _proj_l(h, layer, "w_up", cfg), layer, "w_down", cfg), tp)
     if cfg.post_norm:
         mlp_out = _rms_norm(mlp_out, layer["ln_mlp_post"], cfg.norm_eps, p1)
     return x + mlp_out
@@ -459,14 +520,16 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     ``segment_ids`` (packed rows, 0 = pad) keep attention inside each segment —
     in-kernel on the flash path, through the block-diagonal mask on the xla path — and
     default the positions to per-segment RoPE restarts. Layer i is banded by
-    ``cfg.sliding_window`` iff ``i % window_every == 0``."""
+    ``cfg.sliding_window`` iff ``i % window_every == 0``. Under a mesh with a ``tp``
+    axis the params are this rank's shards (module docstring)."""
     check_supported(cfg)
     B, S = tokens.shape
     dev = tokens.device
+    tp = _tp_group(cfg)
     if positions is None:
         positions = (segment_positions(segment_ids) if segment_ids is not None
                      else torch.arange(S, device=dev).expand(B, S))
-    x = _embed(params, tokens.long(), cfg)
+    x = _embed(params, tokens.long(), cfg, tp)
     full_mask = (segment_mask(segment_ids) if segment_ids is not None
                  else torch.tril(torch.ones((S, S), dtype=torch.bool, device=dev))[None])
     mask = full_mask
@@ -476,20 +539,39 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     block = _maybe_remat_block(cfg)
     for layer, layer_cfg in zip(params["layers"], _layer_cfgs(cfg)):
         x = block(x, layer, positions, mask if layer_cfg.sliding_window else full_mask,
-                  layer_cfg, segment_ids)
+                  layer_cfg, segment_ids, tp)
     return _rms_norm(x, params["ln_f"], cfg.norm_eps, cfg.norm_plus_one)
+
+
+def _tp_group(cfg: LlamaConfig):
+    """The current mesh's tensor-parallel group (``None`` without one), with the
+    config's head counts checked against it."""
+    mesh = current_mesh()
+    tp = mesh.group(TENSOR_AXIS) if mesh is not None else None
+    n = group_rank_size(tp)[1]
+    if cfg.n_heads % n or cfg.n_kv_heads % n:
+        raise ValueError(f"tp={n} must divide n_heads={cfg.n_heads} and "
+                         f"n_kv_heads={cfg.n_kv_heads} (whole GQA groups per rank)")
+    return tp
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal LM: tokens [B, S] → fp32 logits [B, S, V]."""
+    """Causal LM: tokens [B, S] → fp32 logits [B, S, V] (this rank's vocab slice under
+    a tp mesh)."""
     return head_logits(forward_hidden(params, tokens, cfg, positions), params, cfg)
 
 
 def _ce_from_hidden(x, params, targets, mask, cfg: LlamaConfig) -> torch.Tensor:
-    """Mean next-token CE from post-ln_f hidden states (chunked per ``cfg.loss_chunk``)."""
+    """Mean next-token CE from post-ln_f hidden states (chunked per ``cfg.loss_chunk``).
+    Under a mesh the mean is over every batch rank's tokens: the token count is summed
+    over the batch ranks before the division."""
     head = _head(params, cfg)
-    denom = torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    mesh = current_mesh()
+    if mesh is not None:
+        count = all_reduce(count.detach().clone(), "sum", mesh.group(BATCH_AXES))
+    denom = torch.clamp(count, min=1.0)
     total = ce_sum_dispatch(
         x, head, targets, mask, loss_impl=cfg.loss_impl, dtype=cfg.dtype,
         chunk=resolve_loss_chunk(cfg.loss_chunk, x.shape[1], cfg.vocab_size),
@@ -646,8 +728,14 @@ def _cache_advance(cache: dict, tokens: torch.Tensor, token_mask: Optional[torch
     return index, positions, valid
 
 
-def _embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
-    x = _dense_leaf(params["embed"], "embed")[tokens].to(cfg.dtype)
+def _embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, tp=None) -> torch.Tensor:
+    """Token embeddings in ``cfg.dtype``; ``tp``: the group over whose ranks the table's
+    rows are sharded (the vocab-parallel lookup)."""
+    table = _dense_leaf(params["embed"], "embed")
+    if tp is not None:
+        x = vocab_parallel_embedding(table, tokens, tp, dtype=cfg.dtype)
+    else:
+        x = table[tokens].to(cfg.dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype, device=x.device)
     return x

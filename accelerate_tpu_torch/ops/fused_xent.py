@@ -18,6 +18,15 @@ type (fp32 or bf16); targets ``[T]`` are integer ids, and -1 (or any id outside
   launch raises.
 - :func:`fused_cross_entropy` is differentiable: a ``torch.autograd.Function`` that
   saves ``(x, w, targets, lse)`` and calls :func:`_bwd` in its backward.
+- The vocab-sharded (tensor-parallel) variant: :func:`_fwd_partial` → ``(m, l, tgt)``,
+  fp32 [T] each, of one rank's head slice ``[D, Vl]`` against shard-local targets (the
+  row's max capped score, its sum of ``exp(score - m)`` at that max, and the target's
+  score, 0 when the target lies outside ``[0, Vl)``); its plain version is
+  :func:`fused_xent_partial_reference`, its launches ``_fwd_partial.launches``.
+  :func:`fused_cross_entropy_tp` merges the ranks' partials in fp32 over the tp group
+  (``lse = m_g + log l_g``) and runs :func:`_bwd` against the global lse in its
+  backward: dw stays the rank's slice, dx is summed over the group (x is replicated
+  over it, and its gradient is summed here and nowhere else).
 
 Semantics kept from the Pallas kernels: scores are dots over D in the input type with
 fp32 sums, capped as ``cap·tanh(s/cap)`` when ``softcap`` > 0; ``lse = m + log(l)`` and
@@ -38,11 +47,13 @@ import ctypes
 
 import torch
 
+from ..parallel.tp import all_reduce, group_rank_size
 from . import _build
 
 __all__ = [
     "fused_cross_entropy", "fused_cross_entropy_tp", "fused_xent_reference",
-    "fused_xent_dx_reference", "fused_xent_dw_reference", "_fwd", "_bwd",
+    "fused_xent_partial_reference", "fused_xent_dx_reference", "fused_xent_dw_reference",
+    "_fwd", "_fwd_partial", "_bwd",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -74,6 +85,18 @@ def fused_xent_reference(x, w, targets, softcap=0.0):
     idx, hit = _target_index(targets, s.shape[1])
     tgt = torch.where(hit, s.gather(1, idx[:, None])[:, 0], 0.0)
     return lse - tgt, lse
+
+
+def fused_xent_partial_reference(x, w_shard, t_local, softcap=0.0):
+    """Plain partial forward of a vocab shard: ``(m, l, tgt)``, fp32 [T] — the max
+    capped score of each row, the sum of ``exp(score - m)``, and the score of the
+    shard-local target (0 when it lies outside ``[0, Vl)``)."""
+    s, _ = _scores(x, w_shard, softcap)
+    m = s.max(dim=-1).values
+    l = torch.exp(s - m[:, None]).sum(dim=-1)
+    idx, hit = _target_index(t_local, s.shape[1])
+    tgt = torch.where(hit, s.gather(1, idx[:, None])[:, 0], 0.0)
+    return m, l, tgt
 
 
 def _dlogits(s, chain, lse, g, targets):
@@ -114,7 +137,9 @@ def _lib() -> ctypes.CDLL:
         vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
         lib.fxent_fwd_launch.argtypes = [vp] * 6 + [ci] * 3 + [cl, cl, cf, ci, vp]
         lib.fxent_bwd_launch.argtypes = [vp] * 9 + [ci] * 3 + [cl, cl, cf, ci, vp]
+        lib.fxent_fwd_partial_launch.argtypes = [vp] * 7 + [ci] * 3 + [cl, cl, cf, ci, vp]
         lib.fxent_fwd_launch.restype = lib.fxent_bwd_launch.restype = ci
+        lib.fxent_fwd_partial_launch.restype = ci
         lib.fxent_num_vtiles.argtypes = [ci]
         lib.fxent_smem_bytes.argtypes = [ci, ci]
         lib.fxent_num_vtiles.restype = lib.fxent_smem_bytes.restype = ci
@@ -181,6 +206,22 @@ def _fwd_cuda(x, w, targets, softcap):
     return nll, lse
 
 
+def _fwd_partial_cuda(x, w, t_local, softcap):
+    lib, x, w, t, code = _launch_args(x, w, t_local, 0)
+    (T, D), V = x.shape, w.shape[1]
+    part = torch.empty((3, T, lib.fxent_num_vtiles(V)), dtype=torch.float32,
+                       device=x.device)
+    m, l, tgt = torch.empty((3, T), dtype=torch.float32, device=x.device).unbind(0)
+    with torch.cuda.device(x.device):
+        err = lib.fxent_fwd_partial_launch(
+            x.data_ptr(), w.data_ptr(), t.data_ptr(), part.data_ptr(), m.data_ptr(),
+            l.data_ptr(), tgt.data_ptr(), T, D, V, x.stride(0), w.stride(0),
+            float(softcap), code, _stream(x.device))
+    _raise_on(err, "partial forward")
+    _fwd_partial.launches += 1
+    return m, l, tgt
+
+
 def _bwd_cuda(x, w, targets, lse, g, softcap):
     lib, xk, wk, t, code = _launch_args(x, w, targets, 1)
     (T, D), V = x.shape, w.shape[1]
@@ -221,6 +262,16 @@ def _fwd(x, w, targets, softcap=0.0):
     return _fwd_cuda(x, w, targets, softcap)
 
 
+def _fwd_partial(x, w_shard, t_local, softcap=0.0):
+    """Raw partial forward of a vocab shard: x [T,D], w_shard [D,Vl], shard-local
+    targets [T] → (m, l, tgt), fp32 [T]. CPU tensors run
+    :func:`fused_xent_partial_reference`; others launch the kernel."""
+    _check_shapes(x, w_shard, t_local)
+    if x.device.type == "cpu":
+        return fused_xent_partial_reference(x, w_shard, t_local, softcap)
+    return _fwd_partial_cuda(x, w_shard, t_local, softcap)
+
+
 def _bwd(x, w, targets, lse, g, softcap=0.0):
     """Raw backward → (dx [T,D] in x's type, dw [D,V] in w's type) from the forward's
     lse and the cotangent g [T] of nll: one kernel launch for both."""
@@ -233,6 +284,7 @@ def _bwd(x, w, targets, lse, g, softcap=0.0):
 
 #: Kernel launches since the counts were last reset (CPU calls are not counted).
 _fwd.launches = 0
+_fwd_partial.launches = 0
 _bwd.launches = 0
 
 
@@ -266,8 +318,40 @@ def fused_cross_entropy(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
     return _FusedXent.apply(x, w, targets, float(softcap))
 
 
-def fused_cross_entropy_tp(*args, **kwargs):
-    """The vocab-sharded (tensor-parallel) variant is not ported: it needs a tp process
-    group (ROADMAP A.7)."""
-    raise NotImplementedError("fused_cross_entropy_tp needs a tensor-parallel process "
-                              "group, which is not ported yet (ROADMAP A.7)")
+class _FusedXentTP(torch.autograd.Function):
+    """Differentiable vocab-sharded fused CE (``_fce_tp`` and its custom VJP in the JAX
+    package). The JAX backward scales the cotangent by the axis size to undo
+    shard_map's split-cotangent convention; with explicit collectives every rank gets
+    the true cotangent, so nothing is scaled here."""
+
+    @staticmethod
+    def forward(ctx, x, w, targets, group, softcap):
+        rank, _ = group_rank_size(group)
+        if w.device.type != "cpu":
+            w = _operand(w)  # a tied head's embed.T: one contiguous copy, kept for backward
+        t_local = targets.long() - rank * w.shape[1]  # other ranks' ids fall out of range
+        m, l, tgt = _fwd_partial(x, w, t_local, softcap)
+        m_g = all_reduce(m.clone(), "max", group)
+        l_g = all_reduce(l * torch.exp(m - m_g), "sum", group)
+        tgt_g = all_reduce(tgt.clone(), "sum", group)  # exactly one rank owns each id
+        lse = m_g + torch.log(l_g)
+        ctx.save_for_backward(x, w, t_local, lse)
+        ctx.group, ctx.softcap = group, softcap
+        return lse - tgt_g
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, t_local, lse = ctx.saved_tensors
+        dx, dw = _bwd(x, w, t_local, lse, g.contiguous(), ctx.softcap)
+        return all_reduce(dx, "sum", ctx.group), dw, None, None, None
+
+
+def fused_cross_entropy_tp(x: torch.Tensor, w_shard: torch.Tensor, targets: torch.Tensor,
+                           group=None, softcap: float = 0.0) -> torch.Tensor:
+    """Per-token ``-log p(target)`` over a vocab-sharded head: x [T,D] (replicated over
+    ``group``), this rank's slice ``w_shard`` [D, V/n] (rank r holds columns
+    ``r·V/n ..``) and the global targets [T] → nll [T] fp32, the same on every rank;
+    differentiable in x and w_shard. ``group`` is the tensor-parallel process group
+    (``None``: one rank holding the whole head)."""
+    _check_shapes(x, w_shard, targets)
+    return _FusedXentTP.apply(x, w_shard, targets, group, float(softcap))

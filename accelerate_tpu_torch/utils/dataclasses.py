@@ -51,8 +51,9 @@ class BaseEnum(str, enum.Enum, metaclass=EnumWithContains):
 
 
 class DistributedType(BaseEnum):
-    """Which parallelism mode the Accelerator is driving (one process, one device for
-    now: always ``NO``)."""
+    """Which parallelism mode the Accelerator is driving: ``NO`` in one process without a
+    mesh, otherwise the JAX package's rule over the mesh's axes of size > 1
+    (``state.AcceleratorState``)."""
 
     NO = "NO"
     MULTI_DEVICE = "MULTI_DEVICE"

@@ -1,6 +1,8 @@
 """Minimal pytree helpers over the port's param trees (dicts, lists, tuples, NamedTuples).
 
-Leaves are everything that is not a container; ``None`` is an empty subtree. Dict keys
+Leaves are everything that is not a container; ``None`` is an empty subtree; a tuple
+whose class sets ``_tree_leaf`` (the partition spec ``parallel.mesh.P``) is one leaf, so
+a tree of specs maps like a tree of params. Dict keys
 are visited in sorted order, as ``jax.tree_util`` visits them, so sums over
 ``tree_leaves`` add up in the JAX package's order.
 
@@ -23,12 +25,17 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
+def _is_seq(x) -> bool:
+    """A list or tuple container (not a tuple that declares itself a leaf)."""
+    return isinstance(x, (list, tuple)) and not getattr(type(x), "_tree_leaf", False)
+
+
 def tree_leaves(tree) -> list:
     if tree is None:
         return []
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         return [leaf for child in tree for leaf in tree_leaves(child)]
     return [tree]
 
@@ -45,7 +52,7 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
         return None
     if isinstance(tree, dict):
         return {key: tree_map(fn, tree[key], *(r[key] for r in rest)) for key in tree}
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         return _rebuild(tree, [tree_map(fn, child, *(r[i] for r in rest))
                                for i, child in enumerate(tree)])
     return fn(tree, *rest)
@@ -61,7 +68,7 @@ def tree_unflatten(like, leaves) -> Any:
         if isinstance(node, dict):
             built = {key: build(node[key], it) for key in sorted(node)}
             return {key: built[key] for key in node}
-        if isinstance(node, (list, tuple)):
+        if _is_seq(node):
             return _rebuild(node, [build(child, it) for child in node])
         return next(it)
 
@@ -79,7 +86,7 @@ def named_parameters(tree, sep: str = "/") -> dict:
         if isinstance(node, dict):
             for key in sorted(node):
                 walk(node[key], path + [str(key)])
-        elif isinstance(node, (list, tuple)):
+        elif _is_seq(node):
             for i, child in enumerate(node):
                 walk(child, path + [str(i)])
         else:

@@ -60,6 +60,26 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
    projection int8 (quantized on the card), each projection's launch counted; top-1
    agreement of the first decode step with a bf16 engine; then a profiled decode window
    and ``decode_ab``: bf16 and int8 engines' prefill and decode steps in alternation.
+14. fused_xent_partial — kernel #6, the vocab-sharded partial forward of the fused CE,
+   against its plain version: one tp rank's slice of Llama-3-8B's head (T = D = 4096,
+   VL = 64128 and 32064, bf16), an fp32 case ragged against every tile and softcap 30,
+   targets other ranks own and -1; faults planted in the plain version (the last vocab
+   tile skipped, a target outside the slice matched, l not rescaled to the final max)
+   must fail the same check; the tp slices' partials, merged in torch, must equal
+   kernel #5's (nll, lse) on the whole head; then kernel, plain and bound times.
+15. train_tp_parity — the tensor-parallel train step (``Accelerator(mesh_config=dp1×tp2)``,
+   ``partition_specs``, ``loss_impl="fused_tp"``) in two gloo ranks that share the card
+   (``notebook_launcher``), against the same steps on the CPU in one process (``debug``,
+   fp32, 3 steps of ``fused_adamw``): losses, each step's global grad norm and the
+   gathered params; each rank also checks gloo's all-reduce of CUDA tensors (SUM and
+   MAX, fp32 and bf16).
+16. train_tp — the tensor-parallel training path at Llama-3-8B's full width, depth cut
+   to 8 layers, in two gloo ranks sharing the card (dp1×tp2): ``train_main``'s seeded
+   weights and batch, bf16 over fp32 masters, remat, flash attention, ``fused_tp``,
+   ``fused_adamw``, global-norm clip; the first loss against ``train_main``'s, each
+   rank's launches per step, peak memory of the set-up and of the steps, and step time
+   (two ranks on one card with collectives staged through host memory: not a
+   tensor-parallel speed).
 
 Then the kernels line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -68,6 +88,7 @@ Then the kernels line, the card's name and power limit, and a last line
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -1219,8 +1240,12 @@ def profile_train_step(step, state, batch) -> dict:
         step(state, batch)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels, n_launch = {}, 0
+    kernels, n_launch, collective_cpu_us = {}, 0, 0.0
     for e in prof.key_averages():
+        if e.key.startswith(("gloo:", "nccl:")):  # a collective's annotation, no kernel
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                collective_cpu_us += e.cpu_time_total
+            continue
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         kernels[e.key] = kernels.get(e.key, 0) + e.self_device_time_total
@@ -1233,7 +1258,8 @@ def profile_train_step(step, state, batch) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     groups = {"matmul": group("nvjet", "gemm", "cutlass", "sm90_xmma"),
               "flash": group("flash_fwd", "flash_bwd"), "adamw": group("adamw_kernel"),
-              "fused_xent": group("fxent_"), "copy_cast": group("copy")}
+              "fused_xent": group("fxent_"), "copy_cast": group("copy"),
+              "memcpy": group("Memcpy")}
     groups["other"] = busy_ms - sum(groups.values())
     return {
         "phase": "train_profile", "wall_ms_profiled": wall_ms,
@@ -1241,6 +1267,7 @@ def profile_train_step(step, state, batch) -> dict:
         "device_idle_share": (1 - busy_ms / wall_ms) if kernels else None,
         "device_ms_by_group": groups if kernels else None,
         "device_kernels": n_launch if kernels else None,
+        "collective_cpu_ms": collective_cpu_us / 1e3,
         "top_kernels_ms": {k[:80]: v / 1e3 for k, v in top},
     }
 
@@ -1555,6 +1582,423 @@ def decode_ab(weights: dict, cfg, steps: int = 8) -> dict:
             f"prefill_{b}_over_{a}": p_med[b] / p_med[a]}
 
 
+# ------------------------------------------- phase 14: vocab-sharded partial forward
+XENT_TP_SIZES = (2, 4)  # tp ranks over Llama-3-8B's head: shards of 64128 and 32064
+
+
+def make_partial_inputs(gen, *, T, D, VL, dtype, dev, score_std=1.0):
+    """Seeded x [T,D], one rank's head slice w [D,VL] (scores of std ``score_std``) and
+    shard-local targets: a third inside [0,VL), the rest on either side of it (ids the
+    other ranks own), every 89th -1 and every 97th in the last vocab tile."""
+    x = torch.randn((T, D), generator=gen, device=dev).to(dtype)
+    w = (torch.randn((D, VL), generator=gen, device=dev) * (score_std / math.sqrt(D))).to(dtype)
+    t = torch.randint(-VL, 2 * VL, (T,), generator=gen, device=dev)
+    t[::89] = -1
+    t[::97] = VL - 1
+    return x, w, t
+
+
+# Kernel #6 against its plain version, in flash_errors' terms (each element against
+# 1 + |want|; the rms error). Both sum the same products in fp32 in other orders (mma
+# tiles against cuBLAS), so at D = 4096 in bf16 a score differs by up to ≈ 4e-5: m and
+# tgt are scores and carry that error as it is, and l = Σ exp(s - m) (≥ 1) as a relative
+# one. The merged lse averages it out, so kernel #5's nll/lse limits are tighter. Each
+# limit is about 3x the largest error the kernel showed on the card (PERF.md); every
+# planted fault moves its statistic by 1e-2 or more.
+PARTIAL_TOL = {
+    torch.bfloat16: {"m": {"elem": 3e-5, "rms": 1.5e-5}, "l": {"elem": 1e-4, "rms": 4e-5},
+                     "tgt": {"elem": 3e-5, "rms": 1.5e-5}},
+    torch.float32: {n: {"elem": 1e-5, "rms": 2e-6} for n in ("m", "l", "tgt")},
+}
+
+
+def partial_check(got, ref, dtype) -> tuple[dict, dict]:
+    """Errors of m, l and tgt and whether each is within PARTIAL_TOL."""
+    errs = {n: flash_errors(g, r) for n, g, r in zip(("m", "l", "tgt"), got, ref)}
+    tol = PARTIAL_TOL[dtype]
+    return errs, {n: all(e[k] <= tol[n][k] for k in e) for n, e in errs.items()}
+
+
+def partial_planted_faults(fx, x, w, t, cap, ref) -> dict:
+    """Faulty plain versions of #6: the last vocab tile skipped; a target outside
+    [0,VL) matched (its id clamped into the shard); l summed tile by tile at each
+    tile's own max, never rescaled to the row's final max."""
+    tile = XENT_TILE_V if x.dtype == torch.bfloat16 else 64  # the fp32 kernel's tile
+    cut = (w.shape[1] - 1) // tile * tile
+    faults = {"last_vocab_tile_skipped": fx.fused_xent_partial_reference(x, w[:, :cut], t, cap)}
+    s, _ = fx._scores(x, w, cap)
+    m, l, _ = ref
+    idx = t.long().clamp(0, w.shape[1] - 1)
+    faults["target_outside_matched"] = (m, l, s.gather(1, idx[:, None])[:, 0])
+    tiles = s.split(tile, dim=1)
+    l_bad = sum(torch.exp(c - c.max(dim=1, keepdim=True).values).sum(1) for c in tiles)
+    faults["l_not_rescaled"] = (m, l_bad, ref[2])
+    out = {}
+    for name, bad in faults.items():
+        errs, within = partial_check(bad, ref, x.dtype)
+        out[name] = {"errors": errs, "caught": [n for n, ok in within.items() if not ok]}
+    return out
+
+
+def partial_bound_ms(T, D, VL, itemsize) -> tuple[float, str]:
+    """Least time of one #6 call: 2·T·D·VL flops over the bf16 (fp32) peak, or x, w and
+    the targets read once and m, l, tgt written once over the HBM rate."""
+    flops = 2 * T * D * VL
+    nbytes = (T * D + D * VL) * itemsize + 4 * T + 12 * T
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16 if itemsize == 2 else torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_fused_xent_partial(dev) -> dict:
+    """Kernel #6 (the vocab-sharded partial forward) against its plain version: the
+    training path's shards of Llama-3-8B's head (T = D = 4096, VL = 64128 and 32064,
+    bf16) and an fp32 case ragged against every tile (T=300, D=256, VL=250), softcap
+    30, targets of other ranks and -1; faults planted in the plain version must fail the
+    same check; the partials of every tp slice of the whole head, merged in torch, must
+    equal kernel #5's (nll, lse); then kernel, plain and bound times at VL = 64128."""
+    from accelerate_tpu_torch.ops import fused_xent as fx
+
+    gen = torch.Generator(dev).manual_seed(14)
+    T, D, V = XENT_MAIN["T"], XENT_MAIN["D"], XENT_MAIN["V"]
+    cases = [(f"tp{n}_bf16", dict(T=T, D=D, VL=V // n, dtype=torch.bfloat16), 0.0)
+             for n in XENT_TP_SIZES]
+    cases += [("fp32_ragged_softcap30", dict(T=300, D=256, VL=250, dtype=torch.float32,
+                                             score_std=30.0), 30.0),
+              ("bf16_softcap30", dict(T=1000, D=512, VL=5000, dtype=torch.bfloat16,
+                                      score_std=30.0), 30.0)]
+    failed, errors, faults = [], {}, {}
+    for name, shape, cap in cases:
+        x, w, t = make_partial_inputs(gen, dev=dev, **shape)
+        got = fx._fwd_partial(x, w, t, cap)
+        torch.cuda.synchronize()
+        ref = fx.fused_xent_partial_reference(x, w, t, cap)
+        errs, within = partial_check(got, ref, shape["dtype"])
+        max_abs = {n: float((g - r).abs().max()) for n, g, r in zip(("m", "l", "tgt"), got, ref)}
+        off = (t < 0) | (t >= shape["VL"])
+        ok = (all(within.values()) and all(bool(torch.isfinite(g).all()) for g in got)
+              and all(g.shape == (shape["T"],) and g.dtype == torch.float32 for g in got)
+              and bool((got[2][off] == 0).all()))
+        emit({"phase": "fused_xent_partial_check", "case": name, "softcap": cap,
+              "rows_owned_elsewhere": int(off.sum()), "errors": errs, "max_abs": max_abs,
+              "tol": PARTIAL_TOL[shape["dtype"]], "ok": ok})
+        if not ok:
+            failed.append(name)
+        errors[name] = max_abs
+        if name == "tp2_bf16" or name == "fp32_ragged_softcap30":
+            for fault, res in partial_planted_faults(fx, x, w, t, cap, ref).items():
+                faults[f"{fault}/{name}"] = res
+        del x, w, t, got, ref
+        torch.cuda.empty_cache()
+    must_catch = {"last_vocab_tile_skipped": ["l", "tgt"], "target_outside_matched": ["tgt"],
+                  "l_not_rescaled": ["l"]}
+    for key, res in faults.items():
+        res["must_catch"] = must_catch[key.split("/")[0]]
+        emit({"phase": "fused_xent_partial_planted_fault", "fault": key, **res})
+        if not set(res["must_catch"]) <= set(res["caught"]):
+            failed.append(f"planted fault {key} passes the check")
+
+    # The tp slices of one whole head, merged in fp32 as fused_cross_entropy_tp merges
+    # them, against kernel #5 on the whole head.
+    x = torch.randn((T, D), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((D, V), generator=gen, device=dev) / math.sqrt(D)).to(torch.bfloat16)
+    t = torch.randint(0, V, (T,), generator=gen, device=dev)
+    t[::89] = -1
+    nll5, lse5 = fx._fwd(x, w, t)
+    merge = {}
+    for n in XENT_TP_SIZES:
+        vl = V // n
+        parts = [fx._fwd_partial(x, w[:, r * vl:(r + 1) * vl], t - r * vl) for r in range(n)]
+        m, l, tgt = (torch.stack(p) for p in zip(*parts))
+        m_g = m.max(0).values
+        lse = m_g + torch.log((l * torch.exp(m - m_g)).sum(0))
+        errs, within = xent_check({"nll": lse - tgt.sum(0), "lse": lse},
+                                  {"nll": nll5, "lse": lse5}, torch.bfloat16)
+        merge[f"tp{n}"] = errs
+        if not all(within.values()):
+            failed.append(f"tp{n} merge disagrees with kernel #5")
+    emit({"phase": "fused_xent_partial_merge", "vs": "kernel #5 (nll, lse) on the whole head",
+          "errors": merge, "tol": XENT_TOL[torch.bfloat16]["stat"], "ok": not failed})
+    del x, w, t, nll5, lse5
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"kernel #6 disagrees with its plain version: {failed}")
+
+    # Times at the tp=2 shard: graph-replayed device time, plain, kernel, kernel, plain.
+    times = {}
+    for n in XENT_TP_SIZES:
+        vl = V // n
+        x, w, t = make_partial_inputs(gen, T=T, D=D, VL=vl, dtype=torch.bfloat16, dev=dev)
+        plain_runs = [device_ms(lambda _: fx.fused_xent_partial_reference(x, w, t), 1, 2)]
+        torch.cuda.empty_cache()
+        kernel_runs = [device_ms(lambda _: fx._fwd_partial(x, w, t), 2, 5) for _ in range(2)]
+        plain_runs.append(device_ms(lambda _: fx.fused_xent_partial_reference(x, w, t), 1, 2))
+        bound, bound_by = partial_bound_ms(T, D, vl, 2)
+        times[f"tp{n}"] = {"VL": vl, "kernel_ms": min(kernel_runs), "plain_ms": min(plain_runs),
+                           "kernel_ms_runs": kernel_runs, "plain_ms_runs": plain_runs,
+                           "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+        del x, w, t
+        torch.cuda.empty_cache()
+    emit({"phase": "fused_xent_partial_time", "T": T, "D": D, "dtype": "bf16", **times})
+    return {"errors": errors, "times": times}
+
+
+# ------------------------------------------------ phases 15-16: tensor-parallel training
+TP_MESH = {"dp": 1, "tp": 2}  # two gloo ranks share the card
+
+
+def _rank_device(dev) -> str:
+    """The device both ranks use: the parent's card (``cuda:0`` for ``cuda``)."""
+    dev = torch.device(dev)
+    return f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
+
+
+def _tp_counts(fa, fo, fx) -> dict:
+    return {"fused_xent_partial": fx._fwd_partial.launches, "fused_xent_bwd": fx._bwd.launches,
+            "fused_xent_fwd": fx._fwd.launches, "flash_fwd": fa._fwd.launches,
+            "flash_bwd_dq": fa._bwd_dq.launches, "flash_bwd_dkv": fa._bwd_dkv.launches,
+            "fused_adamw": fo.adamw_leaves.launches}
+
+
+def _reset_tp_counts(fa, fo, fx) -> None:
+    fx._fwd_partial.launches = fx._bwd.launches = fx._fwd.launches = 0
+    fa._fwd.launches = fa._bwd_dq.launches = fa._bwd_dkv.launches = 0
+    fo.adamw_leaves.launches = 0
+
+
+def gloo_cuda_probe(device) -> dict:
+    """What gloo's all-reduce does with tensors on ``device`` (the card): SUM and MAX of
+    fp32 and bf16 against the values every rank can compute."""
+    import torch.distributed as dist
+
+    rank, n = dist.get_rank(), dist.get_world_size()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for op, want in (("sum", sum(range(1, n + 1))), ("max", n)):
+            t = torch.full((1024,), rank + 1.0, dtype=dtype, device=device)
+            dist.all_reduce(t, op=getattr(dist.ReduceOp, op.upper()))
+            out[f"{op}_{str(dtype).split('.')[-1]}"] = bool((t == want).all())
+    return out
+
+
+def tp_rank_parity(tokens, lr: float, steps: int, device: str) -> dict:
+    """One rank of ``train_tp_parity``: the ``debug`` config in fp32 on dp1×tp2, the
+    params made on the CPU from seed 0 and sharded by ``partition_specs``,
+    ``fused_adamw`` and ``loss_impl="fused_tp"``; losses, grad norms, the gathered params
+    and the kernels' launches."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_to_numpy
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.ops import fused_xent as fx
+    from accelerate_tpu_torch.parallel import MeshConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    probe = gloo_cuda_probe(device)
+    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32, attn_impl="flash",
+                              loss_impl="fused_tp")
+    params = llama.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    acc = Accelerator(device=device, mesh_config=MeshConfig(**TP_MESH), backend="gloo")
+    specs = llama.partition_specs(cfg)
+    state = acc.create_train_state(params, fo.fused_adamw(lr), partition_specs=specs)
+    step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+    _reset_tp_counts(fa, fo, fx)
+    losses, norms = [], []
+    for _ in range(steps):
+        state, metrics = step(state, {"tokens": tokens})
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    flat = params_to_numpy(state.params, mesh=acc.mesh, specs=specs)
+    return {"rank": acc.process_index, "gloo_cuda_all_reduce": probe, "losses": losses,
+            "grad_norms": norms,
+            "launches": _tp_counts(fa, fo, fx), "params": _flat_params(flat),
+            "backend": acc.state.backend, "device": str(acc.device)}
+
+
+def _flat_params(flat: dict) -> np.ndarray:
+    return np.concatenate([np.ravel(x) for x in [flat["embed"], flat["lm_head"], flat["ln_f"]]
+                           + [v for layer in flat["layers"] for v in layer.values()]])
+
+
+def phase_train_tp_parity(dev) -> None:
+    """The tensor-parallel train step on the card (2 gloo ranks sharing it, dp1×tp2,
+    ``loss_impl="fused_tp"``, kernel #6 and the fused-CE backward on each rank's vocab
+    slice) against the same step on the CPU in one process (``loss_impl="fused"``, the
+    plain versions): ``debug`` config, fp32, TF32 off, 3 steps of ``fused_adamw`` with
+    ``max_grad_norm=1.0``; losses, the gathered params, and each step's global grad norm
+    (AdamW's update barely moves when a leaf's gradient is scaled by a constant, so a
+    tp-scaled or twice-reduced gradient shows in the norm, not in the params)."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.launchers import notebook_launcher
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_to_numpy
+    from accelerate_tpu_torch.ops.fused_optim import fused_adamw
+
+    lr, steps = 1e-3, 3
+    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32, attn_impl="flash",
+                              loss_impl="fused")
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 129))
+    _fresh_state_singletons()
+    acc = Accelerator(device="cpu")
+    state = acc.create_train_state(
+        llama.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu"),
+        fused_adamw(lr))
+    step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+    l_cpu, n_cpu = [], []
+    for _ in range(steps):
+        state, metrics = step(state, {"tokens": tokens})
+        l_cpu.append(float(metrics["loss"]))
+        n_cpu.append(float(metrics["grad_norm"]))
+    p_cpu = _flat_params(params_to_numpy(state.params))
+    _fresh_state_singletons()
+    t0 = time.perf_counter()
+    card = _rank_device(dev)
+    ranks = notebook_launcher(tp_rank_parity, (tokens, lr, steps, card), 2, device=card,
+                              backend="gloo", timeout_s=600)
+    launch_s = time.perf_counter() - t0
+    L = cfg.n_layers
+    expect = {"fused_xent_partial": steps, "fused_xent_bwd": steps, "fused_xent_fwd": 0,
+              "flash_fwd": L * steps, "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps,
+              "fused_adamw": steps}
+    res = {"phase": "train_tp_parity", "config": "debug", "mesh": TP_MESH,
+           "loss_impl": "fused_tp (card, 2 gloo ranks) vs fused (CPU, one process)",
+           "losses_cpu": l_cpu, "grad_norms_cpu": n_cpu, "launch_s": launch_s, "launches_expected_per_rank": expect,
+           "ranks": []}
+    ok = True
+    for r in ranks:
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], l_cpu))
+        norm_rel = max(abs(a - b) / abs(b) for a, b in zip(r["grad_norms"], n_cpu))
+        diff = np.abs(r["params"] - p_cpu)
+        tight = float(np.mean(diff <= 2e-6 + 1e-5 * np.abs(p_cpu)))
+        r_ok = (loss_rel <= 1e-4 and norm_rel <= 1e-5 and float(diff.max()) <= lr / 2
+                and tight >= 0.999
+                and r["launches"] == expect and all(r["gloo_cuda_all_reduce"].values()))
+        ok = ok and r_ok
+        res["ranks"].append({k: v for k, v in r.items() if k != "params"} | {
+            "loss_max_rel_err": loss_rel, "grad_norm_max_rel_err": norm_rel,
+            "params_max_abs_err": float(diff.max()),
+            "params_share_within_2e-6+1e-5rel": tight, "ok": r_ok})
+    res.update({"loss_tol_rel": 1e-4, "grad_norm_tol_rel": 1e-5, "params_tol_abs": lr / 2,
+                "ok": ok})
+    emit(res)
+    if not ok:
+        raise SystemExit("tensor-parallel train step on the card disagrees with the CPU")
+
+
+TP_STEPS = 5  # 2 warm-up steps and 3 timed
+
+
+def tp_rank_main(tokens, device: str) -> dict:
+    """One rank of ``train_tp``: ``train_main``'s model (Llama-3-8B widths, TRAIN_LAYERS
+    layers, the same seeded fp32 params made on the card) sharded by
+    ``partition_specs`` over dp1×tp2, bf16 over fp32 masters, remat, flash attention,
+    ``loss_impl="fused_tp"``, ``fused_adamw(1e-4)``, ``max_grad_norm=1.0``."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.ops import fused_xent as fx
+    from accelerate_tpu_torch.parallel import MeshConfig
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    dev = torch.device(device)
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], n_layers=TRAIN_LAYERS,
+                              dtype=torch.bfloat16, attn_impl="flash", remat=True,
+                              remat_policy="full", loss_impl="fused_tp")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    acc = Accelerator(mixed_precision="bf16", device=dev, mesh_config=MeshConfig(**TP_MESH),
+                      backend="gloo")
+    params = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                               generator=torch.Generator(dev).manual_seed(0), device=dev)
+    state = acc.create_train_state(params, fo.fused_adamw(1e-4),
+                                   partition_specs=llama.partition_specs(cfg))
+    del params
+    torch.cuda.empty_cache()
+    step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()  # the whole fp32 model made, then sliced
+    torch.cuda.reset_peak_memory_stats()
+    _reset_tp_counts(fa, fo, fx)
+    losses, norms, step_s = [], [], []
+    for _ in range(TP_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = _tp_counts(fa, fo, fx)
+    step_peak = torch.cuda.max_memory_allocated()
+    shard_sizes = sorted({leaf.numel() % 1024 for leaf in state.params["layers"][0].values()})
+    # One more step under the profiler (both ranks step: the collectives need both). The
+    # card time-slices the two ranks' kernels, so a kernel's span may hold the other
+    # rank's work too: the sum of the ranks' busy times bounds the card's from above.
+    profile = profile_train_step(step, state, batch)
+    return {"rank": acc.process_index, "losses": losses, "grad_norms": norms,
+            "step_ms_runs": [1e3 * s for s in step_s], "step_ms": 1e3 * float(np.mean(step_s[2:])),
+            "init_s": init_s, "init_peak_bytes": init_peak, "step_peak_bytes": step_peak,
+            "launches": launches, "profile": profile,
+            "local_params": sum(leaf.numel() for leaf in tree_leaves(state.params)),
+            "layer_leaf_sizes_mod_1024": shard_sizes}
+
+
+def phase_train_tp(dev, first_loss: float) -> dict:
+    """The tensor-parallel training path at Llama-3-8B's full width, depth TRAIN_LAYERS:
+    two gloo ranks share the card (dp1×tp2), each holding half of every projection, of
+    the embedding and of the head, on ``train_main``'s seeded weights and batch. The
+    first loss must be within 2e-3 of ``train_main``'s, and each rank's launches per step
+    must be kernel #6 once, the fused-CE backward once, the flash forward 2L (remat), dq
+    and dk/dv L each, AdamW once. The step time is two ranks on one card with the
+    collectives staged through host memory by gloo: no tensor-parallel speed."""
+    from accelerate_tpu_torch.launchers import notebook_launcher
+
+    _fresh_state_singletons()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    parent_bytes = torch.cuda.memory_allocated()
+    tokens = np.random.default_rng(0).integers(0, 128256, (TRAIN_B, TRAIN_S + 1))
+    t0 = time.perf_counter()
+    card = _rank_device(dev)
+    ranks = notebook_launcher(tp_rank_main, (tokens, card), 2, device=card, backend="gloo",
+                              timeout_s=900)
+    launch_s = time.perf_counter() - t0
+    L, n = TRAIN_LAYERS, TP_STEPS
+    expect = {"fused_xent_partial": n, "fused_xent_bwd": n, "fused_xent_fwd": 0,
+              "flash_fwd": 2 * L * n, "flash_bwd_dq": L * n, "flash_bwd_dkv": L * n,
+              "fused_adamw": n}
+    res = {"phase": "train_tp", "config": "llama3-8b", "layers": L, "mesh": TP_MESH,
+           "backend": "gloo (2 ranks share one card; collectives staged through host memory)",
+           "batch": [TRAIN_B, TRAIN_S], "steps": n, "launch_s": launch_s,
+           "parent_allocated_bytes": parent_bytes, "first_loss_train_main": first_loss,
+           "first_loss_tol_rel": 2e-3, "launches_expected_per_rank": expect,
+           "launches_per_step_expected": {k: v // n for k, v in expect.items()}, "ranks": []}
+    ok = True
+    for r in ranks:
+        rel = abs(r["losses"][0] - first_loss) / abs(first_loss)
+        r_ok = (rel <= 2e-3 and all(np.isfinite(r["losses"])) and all(np.isfinite(r["grad_norms"]))
+                and all(b < a for a, b in zip(r["losses"], r["losses"][1:]))
+                and r["launches"] == expect and r["layer_leaf_sizes_mod_1024"] == [0])
+        ok = ok and r_ok
+        res["ranks"].append({**r, "launches_per_step": {k: v / n for k, v in r["launches"].items()},
+                             "first_loss_rel_err_vs_train_main": rel, "ok": r_ok})
+    res["same_losses_on_every_rank"] = all(r["losses"] == ranks[0]["losses"] for r in ranks)
+    busy = [r["profile"]["device_busy_ms"] for r in ranks]
+    if all(b is not None for b in busy):
+        wall = max(r["profile"]["wall_ms_profiled"] for r in ranks)
+        res["profiled_step"] = {"wall_ms": wall, "device_busy_ms_by_rank": busy,
+                                "card_idle_share_at_least": 1 - sum(busy) / wall}
+    res["ok"] = ok and res["same_losses_on_every_rank"]
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("tensor-parallel training path failed its checks")
+    return {"launches": ranks[0]["launches"], "ranks": ranks}
+
+
 def _kernel_row(name, source, replaces, launches, max_abs_err, t, library=None,
                 **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1611,6 +2055,16 @@ def main() -> int:
     phase_engine(dev, "nf4")
     int8_launches = phase_main_int8(dev)
 
+    # Tensor-parallel training (slice 5): the parent frees its cached memory first, since
+    # the two ranks share the card.
+    gc.collect()
+    torch.cuda.empty_cache()
+    partial = phase_fused_xent_partial(dev)
+    phase_train_tp_parity(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_tp = phase_train_tp(dev, train["losses"][0])
+
     csrc, fa_py = "accelerate_tpu_torch/csrc/", "accelerate_tpu/ops/flash_attention.py"
     ft, fe = flash["times"], flash["errors"]["max_abs"]
     # One library call computes dq, dk and dv together: its time stands in both rows,
@@ -1657,6 +2111,12 @@ def main() -> int:
                           "Llama-3-8B widths",
                     dense_bf16_ms=int8["dense_bf16_ms"], prefill_layer=int8["prefill"],
                     int8pack_error=int8["int8pack_error"]),
+        _kernel_row("fused_xent_partial", csrc + "fused_xent.cu", fx_py + ":96",
+                    train_tp["launches"]["fused_xent_partial"], max(partial["errors"]["tp2_bf16"].values()),
+                    partial["times"]["tp2"], None,
+                    shape="one tp=2 rank's slice of Llama-3-8B's head: T = D = 4096, "
+                          "VL = 64128, bf16", tp4=partial["times"]["tp4"],
+                    note="launches: rank 0 of train_tp (each rank launches it once per step)"),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

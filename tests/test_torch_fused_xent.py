@@ -109,12 +109,6 @@ def test_raw_backward_is_the_plain_versions():
     torch.testing.assert_close(dw, wr.grad, rtol=1e-5, atol=1e-6)
 
 
-def test_tp_variant_raises():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        tfx.fused_cross_entropy_tp(torch.zeros((2, 4)), torch.zeros((4, 8)),
-                                   torch.zeros(2, dtype=torch.int64), axis_name="tp")
-
-
 MODEL_CASES = {
     "untied": {},
     "gemma_style_tied_softcap": {"tie_embeddings": True, "final_softcap": 20.0},

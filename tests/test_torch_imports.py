@@ -4,9 +4,12 @@
   package ``accelerate_tpu`` (AST scan); importing the serving engine loads none of
   them, and every module imports with them blocked (fresh interpreters).
 - Entry points (the Accelerator included) default to CUDA and raise without it; the
-  kernel wrappers (paged attention, fused cross-entropy, the int8 matmul) never run the
-  kernel path on CPU tensors (they take the plain versions) and refuse tensors on other
-  devices.
+  kernel wrappers (paged attention, fused cross-entropy with its vocab-sharded partial
+  forward, the int8 matmul) never run the kernel path on CPU tensors (they take the
+  plain versions) and refuse tensors on other devices.
+- Ranks spawned by the port's ``notebook_launcher`` load no jax; a rank that raises
+  fails the launch with its traceback; a multi-process state never lands on the CPU
+  unasked.
 """
 
 import ast
@@ -158,7 +161,10 @@ def _xent_calls(device):
             (lambda: fx._bwd(x, w, t, lse, g, 5.0),
              lambda: (fx.fused_xent_dx_reference(x, w, t, lse, g, 5.0),
                       fx.fused_xent_dw_reference(x, w, t, lse, g, 5.0)), fx._bwd,
-             lambda: fx._bwd_cuda(x, w, t, lse, g, 5.0))]
+             lambda: fx._bwd_cuda(x, w, t, lse, g, 5.0)),
+            (lambda: fx._fwd_partial(x, w, t - 8, 5.0),
+             lambda: fx.fused_xent_partial_reference(x, w, t - 8, 5.0), fx._fwd_partial,
+             lambda: fx._fwd_partial_cuda(x, w, t - 8, 5.0))]
 
 
 def _int8_calls(device):
@@ -223,3 +229,40 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build(["paged_attention"])
+
+
+def test_spawned_ranks_load_no_jax():
+    import torch_tp_ranks
+    from accelerate_tpu_torch.launchers import notebook_launcher
+
+    loaded = notebook_launcher(torch_tp_ranks.loaded_modules, (FORBIDDEN,), 2, device="cpu",
+                               backend="gloo", timeout_s=60)
+    assert loaded == [[], []]
+
+
+def test_failed_rank_fails_the_launch():
+    import torch_tp_ranks
+    from accelerate_tpu_torch.launchers import notebook_launcher
+
+    with pytest.raises(RuntimeError, match="rank 1 of 2 failed(.|\\n)*told to fail"):
+        notebook_launcher(torch_tp_ranks.raise_on_rank, (1,), 2, device="cpu", backend="gloo",
+                          timeout_s=60)
+    assert notebook_launcher(torch_tp_ranks.raise_on_rank, (5,), 1) == [0]  # in-process
+
+
+def test_multi_process_state_defaults_to_cuda(monkeypatch):
+    """A rank of a multi-process run asks for CUDA unless the CPU is named: without
+    CUDA it raises before joining any group."""
+    from accelerate_tpu_torch.state import PartialState
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "1")
+    PartialState._reset_state()
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PartialState()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            PartialState(backend="gloo")
+    finally:
+        PartialState._reset_state()

@@ -294,10 +294,10 @@ def test_unported_options_raise():
     q = torch.zeros((1, 4, 2, 32))
     with pytest.raises(NotImplementedError):
         common.attention_dispatch(q, q, q, None, impl="ring", sm_scale=1.0)
-    for impl in ("fused_dp", "fused_tp"):  # both need a process mesh
+    for impl in ("fused_dp", "fused_tp"):  # both need a mesh context, as in JAX
         jcfg, tcfg = _configs(loss_impl=impl)
         params = params_from_jax(_np_params(jcfg), tcfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="process mesh"):
+        with pytest.raises(ValueError, match="mesh context"):
             tl.loss_fn(params, {"tokens": torch.ones((1, 9), dtype=torch.int64)}, tcfg)
 
 
