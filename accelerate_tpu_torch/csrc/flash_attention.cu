@@ -1,10 +1,13 @@
 // FlashAttention-2 forward and backward for Hopper (sm_90a), CUDA C++ with plain C
 // entry points.
 //
-// Replaces three TPU kernels of accelerate_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel     <- _fwd_kernel     (:155, pallas_call in _fwd at :306)
-//   flash_bwd_dq_kernel  <- _bwd_dq_kernel  (:343, pallas_call in _bwd_dq at :560)
-//   flash_bwd_dkv_kernel <- _bwd_dkv_kernel (:422, pallas_call in _bwd_dkv at :625)
+// Replaces three TPU kernels of accelerate_tpu/ops/flash_attention.py (bf16 / fp32):
+//   flash_fwd_ws_kernel / flash_fwd_kernel  <- _fwd_kernel (:155, pallas_call in _fwd
+//                                              at :306)
+//   flash_bwd_dq_mma_kernel / flash_bwd_dq_kernel <- _bwd_dq_kernel (:343, pallas_call
+//                                              in _bwd_dq at :560)
+//   flash_bwd_dkv_ws_kernel / flash_bwd_dkv_kernel <- _bwd_dkv_kernel (:422,
+//                                              pallas_call in _bwd_dkv at :625)
 // They compute the same functions. q [B,H,S,hd] attends to k/v [B,K,T,hd] with K
 // dividing H: q head h reads kv head h / (H/K), and no repeated K/V exists in memory.
 // Query row i sits at global position q_off + i, key column j at kv_off + j. Key j is
@@ -27,23 +30,39 @@
 //                 q tile) pair -- the block owns its dk/dv rows, so no atomics are
 //                 needed across blocks.
 // kv tiles wholly above the causal diagonal or wholly below the window are skipped, as
-// in the Pallas kernels. Tiles reach shared memory by cp.async. Two paths:
-//   bf16 (the training path): tensor-core kernels (*_mma_kernel), FlashAttention-2
-//     style -- each warp owns 16 rows and keeps its scores, probabilities and fp32
-//     accumulators in registers, issuing mma.sync m16n8k16 on ldmatrix operands;
+// in the Pallas kernels. Three paths:
+//   bf16 forward and dk/dv (the training path): warp-specialised Hopper kernels
+//     (*_ws_kernel). A producer warp streams tiles by TMA into a 2-stage ring of shared
+//     memory (full/empty mbarriers; 128-byte swizzle, 64 at hd 32; rows past the end
+//     read as zeros, strides from the tensor, so the model's [B,S,H,hd] views are read
+//     in place). Two consumer warpgroups of 64 rows each issue wgmma.mma_async: the
+//     forward takes 128 q rows against 128-key tiles (S = Q·Kᵀ from shared memory,
+//     O += P·V with P from registers and V through transpose-B), dk/dv 128 kv rows
+//     against 64-row q tiles (Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then dV += Pᵀ·dO and
+//     dK += dSᵀ·Q from registers). The softmax runs in base 2, log2(e)·scale folded
+//     into one multiply; masks are a per-row range of positions, applied by select in
+//     one uniform branch per tile that is not wholly visible. Under the causal mask
+//     the grid starts with the blocks that walk the most tiles (last q tiles for the
+//     forward, first kv tiles for dk/dv), so the longest chains do not end the launch.
+//   bf16 dq: a tensor-core kernel (mma.sync m16n8k16 on ldmatrix operands, cp.async),
+//     FlashAttention-2 style, each warp owning 16 q rows.
 //   fp32: shared-memory kernels with plain fp32 products (no TF32, whose ten mantissa
 //     bits would not hold the fp32 tolerance), scores and accumulators in shared memory.
 //
 // Bound on this card (H100 SXM): at training shapes attention is bound by its matrix
 // products (forward 4 B H S T hd flops, halved under the causal mask; dq three
 // products, dk/dv four, counting the recomputed scores) over 989 TFLOP/s bf16 dense.
-// What the bf16 design does about it: every product runs on the tensor cores with its
-// operands in registers; it still issues mma.sync rather than wgmma, loads without TMA
-// and overlaps no copy with compute -- later work.
+// What the bf16 design leaves out: each consumer warpgroup still waits for every
+// product before its softmax (no ping-pong between the two, no overlap of one tile's
+// softmax with the next tile's Q·Kᵀ), so the tensor cores idle while the exponentials
+// run; no persistent grid; no fp8; hd 256; dq (#3) keeps the mma.sync design.
 
-#include <cuda_runtime.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
 
 #include <type_traits>
 
@@ -496,24 +515,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p)
   }
 }
 
-// ------------------------------------------------------------ tensor-core path (bf16)
-// bf16 inputs take these three kernels instead of the shared-memory ones above. They
-// keep every product in registers, FlashAttention-2 style: 4 warps per block, each warp
-// owning 16 rows of the block's output tile (q rows for the forward and dq, kv rows for
-// dk/dv) and issuing mma.sync m16n8k16 (bf16 in, fp32 accumulate) with operands read
-// from shared memory by ldmatrix. The scores, probabilities and ds of a warp never
-// leave its registers: the fp32 accumulator layout of one product, rounded to bf16, is
-// the A-operand layout of the next (p for p·v, ds for ds·k). dk/dv works on the
-// transposed scores sᵀ = k·qᵀ so that the kv rows it owns are the rows of every product.
-// Roundings are those of the kernels above: p and ds rounded to bf16 before their
-// products, row sums taken over the fp32 p.
+// ------------------------------------------------------- tensor-core dq (bf16, mma.sync)
+// bf16 dq takes this kernel instead of the shared-memory one above. It keeps every
+// product in registers, FlashAttention-2 style: 4 warps per block, each warp owning 16
+// q rows and issuing mma.sync m16n8k16 (bf16 in, fp32 accumulate) with operands read
+// from shared memory by ldmatrix. The scores and ds of a warp never leave its
+// registers: the fp32 accumulator layout of one product, rounded to bf16, is the
+// A-operand layout of the next (ds for ds·k) -- the same layout that wgmma's
+// accumulators and register A operand use, so the Hopper kernels below share these
+// helpers. Roundings are those of the kernels above: ds rounded to bf16 before its
+// product.
 
 using bf16 = __nv_bfloat16;
 constexpr int kMmaThreads = 128;
-// Tiles (rows of q, rows of kv): dk/dv walks q in tiles of 32 to keep its two
-// accumulators, sᵀ and dpᵀ within the registers of one thread.
-constexpr int kMmaFwdQ = 64, kMmaFwdK = 64, kMmaDqQ = 64, kMmaDqK = 64, kMmaDkvQ = 32,
-              kMmaDkvK = 64;
+constexpr int kMmaDqQ = 64, kMmaDqK = 64;
 
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -667,9 +682,8 @@ __device__ __forceinline__ int2 needed_range(const Params& p, int n, bool walk_k
 // the bf16 path's tolerance.
 __device__ __forceinline__ float fexp(float x) { return __expf(x); }
 
-// Shared memory of a tensor-core kernel: NQ tiles of BQ q-side rows (q; q and do; or two
-// buffers of both), NK tiles of BK kv-side rows (two buffers of k and v; or k and v),
-// then the per-row lse, delta and q_seg (two buffers) and kv_seg (two buffers).
+// Shared memory of the dq kernel: NQ tiles of BQ q rows (q and do), NK tiles of BK kv
+// rows (two buffers of k and v), then per-row scratch and kv_seg (two buffers).
 template <int HD, int BQ, int BK, int NQ, int NK>
 struct MmaLayout {
   static constexpr int LD = HD + 8;
@@ -680,135 +694,7 @@ struct MmaLayout {
   static constexpr int KSeg = Lse + align128(2 * 3 * BQ * 4);
   static constexpr int bytes = KSeg + align128(2 * BK * 4);
 };
-template <int HD> using FwdMma = MmaLayout<HD, kMmaFwdQ, kMmaFwdK, 1, 4>;
 template <int HD> using DqMma = MmaLayout<HD, kMmaDqQ, kMmaDqK, 2, 4>;
-template <int HD> using DkvMma = MmaLayout<HD, kMmaDkvQ, kMmaDkvK, 4, 2>;
-
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma_kernel(const Params p) {
-  constexpr int BQ = kMmaFwdQ, BK = kMmaFwdK;
-  using L = FwdMma<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q);
-  int* sQseg = reinterpret_cast<int*>(smem + L::Lse);
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (p.H / p.K);
-  const int q_rows = min(BQ, p.S - q0);
-  const bool has_seg = p.q_seg != nullptr;
-  const int r0 = (threadIdx.x / 32) * 16;
-  const bf16* Kb = static_cast<const bf16*>(p.k) + b * p.k_s[0] + kh * p.k_s[1];
-  const bf16* Vb = static_cast<const bf16*>(p.v) + b * p.v_s[0] + kh * p.v_s[1];
-  auto sK = [&](int buf) { return reinterpret_cast<bf16*>(smem + L::Kt + buf * 2 * L::KB); };
-  auto sV = [&](int buf) { return reinterpret_cast<bf16*>(smem + L::Kt + (buf * 2 + 1) * L::KB); };
-  auto sKseg = [&](int buf) { return reinterpret_cast<int*>(smem + L::KSeg) + buf * BK; };
-  auto load_kv = [&](int j, int buf) {
-    const int k0 = j * BK, k_rows = min(BK, p.T - k0);
-    load_rows_async<bf16, HD, kMmaThreads>(sK(buf), L::LD, Kb + k0 * p.k_s[2], p.k_s[2], BK, k_rows);
-    load_rows_async<bf16, HD, kMmaThreads>(sV(buf), L::LD, Vb + k0 * p.v_s[2], p.v_s[2], BK, k_rows);
-    for (int r = threadIdx.x; r < BK; r += kMmaThreads)
-      sKseg(buf)[r] = (has_seg && r < k_rows) ? p.kv_seg[b * p.T + k0 + r] : 0;
-  };
-
-  const int2 range = needed_range(p, (p.T + BK - 1) / BK, true, q0, BQ, BK);
-  const bf16* Q = static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[1] + q0 * p.q_s[2];
-  load_rows_async<bf16, HD, kMmaThreads>(sQ, L::LD, Q, p.q_s[2], BQ, q_rows);
-  for (int r = threadIdx.x; r < BQ; r += kMmaThreads)
-    sQseg[r] = (has_seg && r < q_rows) ? p.q_seg[b * p.S + q0 + r] : 0;
-  if (range.x <= range.y) load_kv(range.x, 0);
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qf[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) load_a(qf[kk], sQ, L::LD, r0, kk * 16);
-  const int qseg[2] = {sQseg[r0 + acc_row(0)], sQseg[r0 + acc_row(2)]};
-
-  float o[HD / 8][4] = {};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  for (int j = range.x; j <= range.y; ++j) {
-    const int buf = (j - range.x) & 1, k0 = j * BK;
-    if (j < range.y) load_kv(j + 1, buf ^ 1);  // in flight while this tile computes
-    cp_async_commit();
-    const bf16* k_tile = sK(buf);
-    const int* kseg = sKseg(buf);
-    const bool interior = tile_interior(p, q0, BQ, k0, BK, has_seg);
-
-    float s[BK / 8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        uint32_t bfr[4];
-        load_b_nk(bfr, k_tile, L::LD, np * 16, kk * 16);
-        mma16816(s[2 * np], qf[kk], bfr[0], bfr[1]);
-        mma16816(s[2 * np + 1], qf[kk], bfr[2], bfr[3]);
-      }
-    }
-    // Online softmax over the thread's two rows (each row spread over a quad of lanes).
-    uint32_t ok = 0;
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int jj = 0; jj < BK / 8; ++jj) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = acc_col(jj, c), i = c >> 1;
-        float t;
-        const float v = capped(s[jj][c] * p.sm_scale, p.softcap, &t);
-        const bool vis = interior ||
-            visible(p, q0 + r0 + acc_row(c), k0 + col, qseg[i], kseg[col], has_seg);
-        ok |= static_cast<uint32_t>(vis) << (4 * jj + c);
-        s[jj][c] = vis ? v : kNegInf;
-        mx[i] = fmaxf(mx[i], s[jj][c]);
-      }
-    }
-    float alpha[2], sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_next = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = fexp(m[i] - m_next);
-      m[i] = m_next;
-    }
-#pragma unroll
-    for (int jj = 0; jj < BK / 8; ++jj) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float pv = (ok >> (4 * jj + c)) & 1u ? fexp(s[jj][c] - m[c >> 1]) : 0.0f;
-        s[jj][c] = pv;
-        sum[c >> 1] += pv;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
-#pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) o[jj][c] *= alpha[c >> 1];
-    }
-    uint32_t pf[BK / 16][4];
-    to_a<BK>(pf, s);
-    mm_reg_kn<HD, BK>(o, pf, sV(buf), L::LD);
-    cp_async_wait_group0();
-    __syncthreads();  // the next tile has landed and every warp is done with this one
-  }
-
-  bf16* O = static_cast<bf16*>(p.out0) + b * p.o0_s[0] + h * p.o0_s[1];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + acc_row(2 * i);
-    if (row >= q_rows) continue;
-    const float l_safe = l[i] == 0.0f ? 1.0f : l[i];
-    bf16* orow = O + (q0 + row) * p.o0_s[2];
-#pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj) {
-      *reinterpret_cast<uint32_t*>(orow + acc_col(jj, 0)) =
-          pack_bf16(o[jj][2 * i] / l_safe, o[jj][2 * i + 1] / l_safe);
-    }
-    if (threadIdx.x % 4 == 0) {
-      p.lse_out[(static_cast<int64_t>(b) * p.H + h) * p.S + q0 + row] =
-          l[i] == 0.0f ? kNegInf : m[i] + logf(l_safe);
-    }
-  }
-}
 
 template <int HD>
 __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma_kernel(const Params p) {
@@ -906,119 +792,740 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma_kernel(const Par
   }
 }
 
+// ------------------------------------------------- Hopper path (bf16 forward, dk/dv)
+// The bf16 forward and dk/dv kernels are warp-specialised: a block is three warpgroups.
+// Warpgroups 0 and 1 (the consumers) each own 64 rows of the block's output tile; they
+// run every product as wgmma.mma_async on the tiles that have landed and free a stage
+// once their products have read it. Warpgroup 2 gives its registers to the consumers
+// (setmaxnreg: 128 x 24 + 256 x 240 = 64,512 of the SM's 65,536), and one of its warps
+// issues every copy: TMA loads (cp.async.bulk.tensor, 128-byte swizzle, zero fill past
+// the tensor's end) into a ring of stages, each with a "full" and an "empty" mbarrier.
+// The block enters with 168 registers a thread (65,536 / 384), so no second block fits
+// on its SM and setmaxnreg.inc never waits on another block's registers. No code path
+// of these kernels may trap: ptxas then keeps those 168 for the consumers too, and
+// spills their accumulators.
+
+constexpr int kWgThreads = 128;
+constexpr int kWsThreads = 3 * kWgThreads;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr int kFwdBQ = 128, kFwdBK = 128, kFwdStages = 2;
+constexpr int kDkvBQ = 64, kDkvBK = 128, kDkvStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the completion of the phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One 4-D TMA load: the box of `map` at coordinates (col, row, head, batch) into `dst`,
+// completing `bytes` transactions on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int row, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(head),
+      "r"(batch)
+      : "memory");
+}
+
+template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::
+                   : "memory");
+}
+
+// Keep the compiler from reading a wgmma's accumulators, or reusing its A registers,
+// before the wgmma has completed: each value passes through an empty asm after the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(d[j][c]));
+  }
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(a[j][c]));
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x on the special-function unit
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared tiles of HD bf16 columns as TMA writes them: HD / CB column blocks, each
+// `rows` rows of SW bytes in the SW-byte swizzle (128 bytes at hd 64 and 128, 64 at 32).
+template <int HD> struct Swz {
+  static constexpr int SW = HD >= 64 ? 128 : 64;
+  static constexpr int CB = SW / 2;
+  static constexpr int NCB = HD / CB;
+  static constexpr uint64_t kLayout = SW == 128 ? 1 : 2;  // the descriptor's swizzle mode
+};
+
+__device__ __forceinline__ uint64_t make_desc(const void* p, int lbo, int sbo, uint64_t layout) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+// wgmma descriptor of a K-major operand: the tile's rows from `tile` on (a tile of R
+// rows; `tile` may point at a later row group), k step 0. k step kk (16 columns) adds
+// k_step<HD, R>(kk).
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_mma_kernel(const Params p) {
-  constexpr int BQ = kMmaDkvQ, BK = kMmaDkvK;
-  using L = DkvMma<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::Kt);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::Kt + L::KB);
-  int* sKseg = reinterpret_cast<int*>(smem + L::KSeg);
+__device__ __forceinline__ uint64_t desc_k(const unsigned char* tile) {
+  using Z = Swz<HD>;
+  return make_desc(tile, 16, 8 * Z::SW, Z::kLayout);
+}
+template <int HD, int R>
+__device__ __forceinline__ constexpr uint64_t k_step(int kk) {
+  return ((kk * 32 / Swz<HD>::SW) * R * Swz<HD>::SW + (kk * 32) % Swz<HD>::SW) >> 4;
+}
 
-  const int k0 = blockIdx.x * BK, kh = blockIdx.y, b = blockIdx.z;
-  const int G = p.H / p.K;
-  const int k_rows = min(BK, p.T - k0);
+// wgmma descriptor of an MN-major operand: a tile of R rows (the product's K) by HD
+// columns (its N), column blocks R * SW bytes apart, k step 0. k step kk (16 rows) adds
+// mn_step<HD>(kk).
+template <int HD, int R>
+__device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile) {
+  using Z = Swz<HD>;
+  return make_desc(tile, R * Z::SW, 8 * Z::SW, Z::kLayout);
+}
+template <int HD>
+__device__ __forceinline__ constexpr uint64_t mn_step(int kk) {
+  return (kk * 16 * Swz<HD>::SW) >> 4;
+}
+
+// TMA loads of one tile (all its column blocks) of a [B, heads, rows, HD] tensor.
+template <int HD, int R>
+__device__ __forceinline__ void tma_tile(unsigned char* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row, int head, int batch) {
+  using Z = Swz<HD>;
+#pragma unroll
+  for (int cb = 0; cb < Z::NCB; ++cb)
+    tma_load(dst + cb * R * Z::SW, map, bar, cb * Z::CB, row, head, batch);
+}
+
+// The thread's accumulator columns 8 j + 2 t + e (t = lane % 4, e = 0, 1) that fall in
+// [lo, hi] (tile-local, any int64 bounds) are those with 8 j + e in the returned range:
+// a tile's mask then costs two compares per element.
+__device__ __forceinline__ int2 col_range(long long lo, long long hi) {
+  const long long t2 = 2 * (threadIdx.x % 4);
+  const auto clamp = [](long long x) { return static_cast<int>(x < -1 ? -1 : x > 256 ? 256 : x); };
+  return make_int2(clamp(lo - t2), clamp(hi - t2));
+}
+
+// The thread's warpgroup, as a value the compiler knows to be uniform in each warp (so
+// that each role's setmaxnreg sits in one branch).
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kWgThreads, 0);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// d (+)= A · B for one warpgroup, m64nNk16, bf16 in, fp32 accumulate. wgmma_ss: A and B
+// from shared memory, both K-major; the first k step passes accumulate = 0. wgmma_rs_tb:
+// A from registers (the mma.sync A-fragment layout), B from shared memory MN-major
+// (transpose-B), always accumulating.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[4][4], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[8][4], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[16][4], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Shared memory of the warp-specialised kernels (offsets from a 1024-byte aligned base;
+// `bytes` adds the slack for that alignment).
+template <int HD> struct FwdSmem {
+  static constexpr int QB = kFwdBQ * HD * 2, KB = kFwdBK * HD * 2;
+  static constexpr int Q = 0;
+  static constexpr int Kt = Q + QB;                       // kFwdStages tiles of k
+  static constexpr int Vt = Kt + kFwdStages * KB;         // kFwdStages tiles of v
+  static constexpr int KSeg = Vt + kFwdStages * KB;       // kFwdStages x BK kv_seg
+  static constexpr int Bar = KSeg + kFwdStages * kFwdBK * 4;  // q, full[], empty[]
+  static constexpr int used = Bar + (1 + 2 * kFwdStages) * 8;
+  static constexpr int bytes = used + 1024;
+};
+
+template <int HD> struct DkvSmem {
+  static constexpr int KB = kDkvBK * HD * 2, QB = kDkvBQ * HD * 2;
+  static constexpr int Kt = 0, Vt = KB;
+  static constexpr int Qt = 2 * KB;                       // kDkvStages tiles of q
+  static constexpr int DOt = Qt + kDkvStages * QB;        // kDkvStages tiles of do
+  static constexpr int Rows = DOt + kDkvStages * QB;      // per stage: lse·log2(e), delta, q_seg
+  static constexpr int Bar = Rows + kDkvStages * 3 * kDkvBQ * 4;  // kv, full[], empty[]
+  static constexpr int used = Bar + (1 + 2 * kDkvStages) * 8;
+  static constexpr int bytes = used + 1024;
+};
+
+// Forward. One block per (q tile of 128 rows, head, batch), 1-D grid, the q tile the
+// slowest index and taken from the last one down: under the causal mask the blocks with
+// the most kv tiles start first. Each consumer warpgroup keeps its 64 rows' scores,
+// probabilities and output accumulator in registers: S = Q·Kᵀ (wgmma, both operands in
+// shared memory), the online softmax in base 2, then O += P·V with P from registers
+// (rounded to bf16) and V read through transpose-B.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_ws_kernel(const __grid_constant__ Params p,
+                        const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v) {
+  constexpr int BQ = kFwdBQ, BK = kFwdBK, NS = kFwdStages;
+  using L = FwdSmem<HD>;
+  using Z = Swz<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::Bar);
+  uint64_t* q_bar = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + NS;
+
+  const int hb = p.H * p.B;
+  const int q0 = ((p.S + BQ - 1) / BQ - 1 - static_cast<int>(blockIdx.x) / hb) * BQ;
+  const int h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H;
+  const int kh = h / (p.H / p.K);
   const bool has_seg = p.q_seg != nullptr;
-  const int r0 = (threadIdx.x / 32) * 16;  // the warp's first kv row
-  auto sQ = [&](int buf) { return reinterpret_cast<bf16*>(smem + L::Q + buf * 2 * L::QB); };
-  auto sDO = [&](int buf) { return reinterpret_cast<bf16*>(smem + L::Q + (buf * 2 + 1) * L::QB); };
-  auto sRow = [&](int buf, int which) {  // lse, delta (float) or q_seg (int) of a q tile
-    return reinterpret_cast<float*>(smem + L::Lse) + (buf * 3 + which) * BQ;
-  };
-  // Load q tile i of group head g into buffer buf: q and do rows (async), lse, delta, q_seg.
-  auto load_q = [&](int g, int i, int buf) {
-    const int h = kh * G + g, q0 = i * BQ, q_rows = min(BQ, p.S - q0);
-    const int64_t row_base = (static_cast<int64_t>(b) * p.H + h) * p.S + q0;
-    const bf16* Qh = static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[1];
-    const bf16* DOh = static_cast<const bf16*>(p.dout) + b * p.do_s[0] + h * p.do_s[1];
-    load_rows_async<bf16, HD, kMmaThreads>(sQ(buf), L::LD, Qh + q0 * p.q_s[2], p.q_s[2], BQ, q_rows);
-    load_rows_async<bf16, HD, kMmaThreads>(sDO(buf), L::LD, DOh + q0 * p.do_s[2], p.do_s[2], BQ,
-                                           q_rows);
-    for (int r = threadIdx.x; r < BQ; r += kMmaThreads) {
-      const bool live = r < q_rows;
-      sRow(buf, 0)[r] = live ? p.lse[row_base + r] : 0.0f;
-      sRow(buf, 1)[r] = live ? p.delta[row_base + r] : 0.0f;
-      reinterpret_cast<int*>(sRow(buf, 2))[r] = (has_seg && live) ? p.q_seg[b * p.S + q0 + r] : 0;
+  const int2 range = needed_range(p, (p.T + BK - 1) / BK, true, q0, BQ, BK);
+  const int n_tiles = max(0, range.y - range.x + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 32);                 // the producer warp's lanes
+      mbar_init(&empty[s], 2 * kWgThreads);    // every consumer thread
     }
-  };
-
-  const int2 range = needed_range(p, (p.S + BQ - 1) / BQ, false, k0, BK, BQ);
-  const int n_i = range.y - range.x + 1;  // q tiles per group head (<= 0: none)
-  const bf16* Kb = static_cast<const bf16*>(p.k) + b * p.k_s[0] + kh * p.k_s[1] + k0 * p.k_s[2];
-  const bf16* Vb = static_cast<const bf16*>(p.v) + b * p.v_s[0] + kh * p.v_s[1] + k0 * p.v_s[2];
-  load_rows_async<bf16, HD, kMmaThreads>(sK, L::LD, Kb, p.k_s[2], BK, k_rows);
-  load_rows_async<bf16, HD, kMmaThreads>(sV, L::LD, Vb, p.v_s[2], BK, k_rows);
-  for (int r = threadIdx.x; r < BK; r += kMmaThreads)
-    sKseg[r] = (has_seg && r < k_rows) ? p.kv_seg[b * p.T + k0 + r] : 0;
-  if (n_i > 0) load_q(0, range.x, 0);
-  cp_async_wait_all();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  const int kseg[2] = {sKseg[r0 + acc_row(0)], sKseg[r0 + acc_row(2)]};
 
-  float dk[HD / 8][4] = {}, dv[HD / 8][4] = {};
-  const int n_iter = n_i > 0 ? G * n_i : 0;
-  for (int it = 0; it < n_iter; ++it) {
-    const int buf = it & 1, i = range.x + it % n_i, q0 = i * BQ;
-    if (it + 1 < n_iter) load_q((it + 1) / n_i, range.x + (it + 1) % n_i, buf ^ 1);
-    cp_async_commit();
-    const bf16* q_tile = sQ(buf);
-    const bf16* do_tile = sDO(buf);
-    const float* lse = sRow(buf, 0);
-    const float* delta = sRow(buf, 1);
-    const int* qseg = reinterpret_cast<const int*>(sRow(buf, 2));
-    const int q_rows = min(BQ, p.S - q0);
-    const bool interior = tile_interior(p, q0, BQ, k0, BK, has_seg);
-
-    float st[BQ / 8][4] = {}, dpt[BQ / 8][4] = {};
-    mm_smem_nk<BQ, HD>(st, sK, L::LD, r0, q_tile, L::LD);    // sᵀ = k · qᵀ
-    mm_smem_nk<BQ, HD>(dpt, sV, L::LD, r0, do_tile, L::LD);  // dpᵀ = v · doᵀ
-#pragma unroll
-    for (int jj = 0; jj < BQ / 8; ++jj) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int qc = acc_col(jj, c), kr = r0 + acc_row(c);
-        float t;
-        const float v = capped(st[jj][c] * p.sm_scale, p.softcap, &t);
-        // Padded q columns (qc >= q_rows) must add nothing to dk/dv.
-        const bool vis = interior || (qc < q_rows &&
-            visible(p, q0 + qc, k0 + kr, qseg[qc], kseg[c >> 1], has_seg));
-        const float pv = vis ? fexp(v - lse[qc]) : 0.0f;
-        float ds = pv * (dpt[jj][c] - delta[qc]) * p.sm_scale;
-        if (p.softcap > 0.0f) ds = ds * (1.0f - t * t);
-        st[jj][c] = pv;
-        dpt[jj][c] = ds;
+  if (warpgroup() == 2) {
+    // ------------------------------------------------------------------- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= 2 * kWgThreads + 32) return;  // one warp issues the copies
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_tx(q_bar, L::QB);
+      tma_tile<HD, BQ>(smem + L::Q, &tm_q, q_bar, q0, h, b);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % NS, k0 = (range.x + it) * BK;
+      mbar_wait(&empty[s], ((it / NS) & 1) ^ 1);
+      if (has_seg) {
+        int* kseg = reinterpret_cast<int*>(smem + L::KSeg) + s * BK;
+        for (int r = lane; r < BK; r += 32)
+          kseg[r] = k0 + r < p.T ? p.kv_seg[static_cast<int64_t>(b) * p.T + k0 + r] : 0;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(&full[s], 2 * L::KB);
+        tma_tile<HD, BK>(smem + L::Kt + s * L::KB, &tm_k, &full[s], k0, kh, b);
+        tma_tile<HD, BK>(smem + L::Vt + s * L::KB, &tm_v, &full[s], k0, kh, b);
+      } else {
+        mbar_arrive(&full[s]);
       }
     }
-    uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
-    to_a<BQ>(pf, st);
-    to_a<BQ>(dsf, dpt);
-    mm_reg_kn<HD, BQ>(dv, pf, do_tile, L::LD);  // dv += pᵀ · do
-    mm_reg_kn<HD, BQ>(dk, dsf, q_tile, L::LD);  // dk += dsᵀ · q
-    cp_async_wait_group0();
-    __syncthreads();
-  }
+  } else {
+    // ------------------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int cw = threadIdx.x / kWgThreads;  // rows 64 cw .. 64 cw + 63 of the tile
+    const int row0 = 64 * cw + 16 * (threadIdx.x / 32 % 4) + threadIdx.x % 32 / 4;
+    // The thread's two rows are row0 and row0 + 8; acc element (j, c) sits in row
+    // row0 + 8 (c / 2), column acc_col(j, c).
+    // Each row sees the keys at global positions lo..hi (causal, window), below T, and
+    // (with segments) of its segment.
+    int qseg[2] = {0, 0}, lo[2], hi[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + row0 + 8 * i, rg = p.q_off + row;
+      if (has_seg && row < p.S) qseg[i] = p.q_seg[static_cast<int64_t>(b) * p.S + row];
+      lo[i] = p.window > 0 ? rg - p.window + 1 : INT_MIN;
+      hi[i] = p.causal ? rg : INT_MAX;
+    }
+    // Scores x = s (or cap·tanh(s·scale/cap)) enter the base-2 softmax as x·scale2.
+    const float scale2 = (CAP ? 1.0f : p.sm_scale) * kLog2e;
+    const unsigned char* sQ = smem + L::Q + 64 * cw * Z::SW;
 
-  float* DK = static_cast<float*>(p.out0) + b * p.o0_s[0] + kh * p.o0_s[1];
-  float* DV = static_cast<float*>(p.out1) + b * p.o1_s[0] + kh * p.o1_s[1];
+    float o[HD / 8][4] = {};
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+    mbar_wait(q_bar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % NS, k0 = (range.x + it) * BK;
+      mbar_wait(&full[s], (it / NS) & 1);
+      const unsigned char* sK = smem + L::Kt + s * L::KB;
+      const unsigned char* sV = smem + L::Vt + s * L::KB;
+
+      float sc[BK / 8][4];
+      const uint64_t dQ = desc_k<HD>(sQ), dK = desc_k<HD>(sK);
+      wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + acc_row(2 * i);
-    if (row >= k_rows) continue;
-    float* krow = DK + (k0 + row) * p.o0_s[2];
-    float* vrow = DV + (k0 + row) * p.o1_s[2];
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss(sc, dQ + k_step<HD, BQ>(kk), dK + k_step<HD, BK>(kk), kk > 0);
+      wgmma_commit_wait();
+      fence_regs(sc);
+
+      const bool interior = tile_interior(p, q0 + 64 * cw, 64, k0, BK, has_seg);
+      const int* kseg = reinterpret_cast<const int*>(smem + L::KSeg) + s * BK;
+      // Visible columns of each row: the tile-local range of its key positions, below T.
+      int2 vis[2];
 #pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj) {
-      *reinterpret_cast<float2*>(krow + acc_col(jj, 0)) =
-          make_float2(dk[jj][2 * i], dk[jj][2 * i + 1]);
-      *reinterpret_cast<float2*>(vrow + acc_col(jj, 0)) =
-          make_float2(dv[jj][2 * i], dv[jj][2 * i + 1]);
+      for (int i = 0; i < 2; ++i) {
+        const long long cg0 = static_cast<long long>(p.kv_off) + k0;
+        vis[i] = col_range(lo[i] - cg0, min(hi[i] - cg0, static_cast<long long>(p.T - k0 - 1)));
+      }
+      // One uniform branch per tile, selects inside: a branch per element would cost
+      // every tile its convergence barriers.
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (CAP) sc[j][c] = p.softcap * tanhf(sc[j][c] * p.sm_scale / p.softcap);
+        }
+      }
+      if (!interior) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int i = c >> 1, e = 8 * j + (c & 1);
+            sc[j][c] = e >= vis[i].x && e <= vis[i].y ? sc[j][c] : -INFINITY;
+          }
+        }
+        if (has_seg) {
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int ks = kseg[acc_col(j, c)];
+              sc[j][c] = ks == qseg[c >> 1] && ks != 0 ? sc[j][c] : -INFINITY;
+            }
+          }
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) mx[c >> 1] = fmaxf(mx[c >> 1], sc[j][c]);
+      }
+      // A row that has seen no key keeps m = -inf; its offset is then 0, so that every
+      // exp2 of a masked score is exactly 0 (never inf - inf).
+      float alpha[2], off[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float m_next = fmaxf(m[i], quad_max(mx[i]));
+        off[i] = m_next == -INFINITY ? 0.0f : m_next * scale2;
+        alpha[i] = ex2(m[i] * scale2 - off[i]);
+        m[i] = m_next;
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float pv = ex2(fmaf(sc[j][c], scale2, -off[c >> 1]));
+          sc[j][c] = pv;
+          sum[c >> 1] += pv;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + quad_sum(sum[i]);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) o[j][c] *= alpha[c >> 1];
+      }
+      uint32_t pf[BK / 16][4];
+      to_a<BK>(pf, sc);
+      const uint64_t dV = desc_mn<HD, BK>(sV);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_tb(o, pf[kk], dV + mn_step<HD>(kk));
+      wgmma_commit_wait();
+      fence_regs(o);
+      fence_regs(pf);
+      mbar_arrive(&empty[s]);
+    }
+
+    bf16* O = static_cast<bf16*>(p.out0) + b * p.o0_s[0] + h * p.o0_s[1];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + row0 + 8 * i;
+      if (row >= p.S) continue;
+      const float l_safe = l[i] == 0.0f ? 1.0f : l[i];
+      bf16* orow = O + row * p.o0_s[2];
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + acc_col(j, 0)) =
+            pack_bf16(o[j][2 * i] / l_safe, o[j][2 * i + 1] / l_safe);
+      }
+      if (threadIdx.x % 4 == 0) {
+        p.lse_out[(static_cast<int64_t>(b) * p.H + h) * p.S + row] =
+            l[i] == 0.0f ? kNegInf : (CAP ? m[i] : m[i] * p.sm_scale) + logf(l_safe);
+      }
     }
   }
 }
 
+// dk/dv. One block per (kv tile of 128 rows, kv head, batch), 1-D grid, the kv tile the
+// slowest index and taken from the first one up: under the causal mask the blocks with
+// the most q tiles start first. The block walks every (group head, q tile of 64 rows)
+// pair; the producer warp streams q and do (TMA) and each q tile's lse·log2(e), delta
+// and q_seg (its lanes' stores) through the ring. Each consumer warpgroup owns 64 kv
+// rows: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (wgmma, K and V resident in shared memory), then
+// dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ and dSᵀ from registers (rounded to bf16) and dO, Q
+// read through transpose-B. dk and dv stay in registers until the block's end.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dkv_ws_kernel(const __grid_constant__ Params p,
+                            const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do) {
+  constexpr int BQ = kDkvBQ, BK = kDkvBK, NS = kDkvStages;
+  using L = DkvSmem<HD>;
+  using Z = Swz<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::Bar);
+  uint64_t* kv_bar = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + NS;
+  auto rows = [&](int s, int which) {  // lse·log2(e), delta (float) or q_seg (int)
+    return reinterpret_cast<float*>(smem + L::Rows) + (s * 3 + which) * BQ;
+  };
+
+  const int kb = p.K * p.B;
+  const int k0 = static_cast<int>(blockIdx.x) / kb * BK;
+  const int kh = blockIdx.x % kb % p.K, b = blockIdx.x % kb / p.K;
+  const int G = p.H / p.K;
+  const bool has_seg = p.q_seg != nullptr;
+  const int2 range = needed_range(p, (p.S + BQ - 1) / BQ, false, k0, BK, BQ);
+  const int n_i = range.y - range.x + 1;  // q tiles per group head (<= 0: none)
+  const int n_iter = n_i > 0 ? G * n_i : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 2 * kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup() == 2) {
+    // ------------------------------------------------------------------- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= 2 * kWgThreads + 32) return;  // one warp issues the copies
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_tx(kv_bar, 2 * L::KB);
+      tma_tile<HD, BK>(smem + L::Kt, &tm_k, kv_bar, k0, kh, b);
+      tma_tile<HD, BK>(smem + L::Vt, &tm_v, kv_bar, k0, kh, b);
+    }
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % NS, h = kh * G + it / n_i, q0 = (range.x + it % n_i) * BQ;
+      mbar_wait(&empty[s], ((it / NS) & 1) ^ 1);
+      const int64_t row_base = (static_cast<int64_t>(b) * p.H + h) * p.S + q0;
+      for (int r = lane; r < BQ; r += 32) {
+        const bool live = q0 + r < p.S;
+        rows(s, 0)[r] = live ? p.lse[row_base + r] * kLog2e : 0.0f;
+        rows(s, 1)[r] = live ? p.delta[row_base + r] : 0.0f;
+        reinterpret_cast<int*>(rows(s, 2))[r] =
+            has_seg && live ? p.q_seg[static_cast<int64_t>(b) * p.S + q0 + r] : 0;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(&full[s], 2 * L::QB);
+        tma_tile<HD, BQ>(smem + L::Qt + s * L::QB, &tm_q, &full[s], q0, h, b);
+        tma_tile<HD, BQ>(smem + L::DOt + s * L::QB, &tm_do, &full[s], q0, h, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ------------------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int cw = threadIdx.x / kWgThreads;  // kv rows 64 cw .. 64 cw + 63
+    const int row0 = 64 * cw + 16 * (threadIdx.x / 32 % 4) + threadIdx.x % 32 / 4;
+    // Sᵀ element (j, c) sits in kv row row0 + 8 (c / 2) and q column acc_col(j, c).
+    // Each kv row is seen by the query rows at global positions lo..hi (causal, window;
+    // none past T), below S, and (with segments) of its segment.
+    int kseg[2] = {0, 0}, lo[2], hi[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = k0 + row0 + 8 * i, cg = p.kv_off + row;
+      if (has_seg && row < p.T) kseg[i] = p.kv_seg[static_cast<int64_t>(b) * p.T + row];
+      lo[i] = row >= p.T ? INT_MAX : p.causal ? cg : INT_MIN;
+      hi[i] = p.window > 0 ? cg + p.window - 1 : INT_MAX;
+    }
+    const float sm_scale = p.sm_scale, scale2 = (CAP ? 1.0f : sm_scale) * kLog2e;
+    const unsigned char* sK = smem + L::Kt + 64 * cw * Z::SW;
+    const unsigned char* sV = smem + L::Vt + 64 * cw * Z::SW;
+
+    float dk[HD / 8][4] = {}, dv[HD / 8][4] = {};
+    mbar_wait(kv_bar, 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % NS, q0 = (range.x + it % n_i) * BQ;
+      mbar_wait(&full[s], (it / NS) & 1);
+      const unsigned char* sQ = smem + L::Qt + s * L::QB;
+      const unsigned char* sDO = smem + L::DOt + s * L::QB;
+      const float* lse2 = rows(s, 0);
+      const float* delta = rows(s, 1);
+      const int* qseg = reinterpret_cast<const int*>(rows(s, 2));
+
+      float st[BQ / 8][4], dpt[BQ / 8][4];
+      const uint64_t dK = desc_k<HD>(sK), dV = desc_k<HD>(sV);
+      const uint64_t dQ = desc_k<HD>(sQ), dDO = desc_k<HD>(sDO);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        wgmma_ss(st, dK + k_step<HD, BK>(kk), dQ + k_step<HD, BQ>(kk), kk > 0);
+        wgmma_ss(dpt, dV + k_step<HD, BK>(kk), dDO + k_step<HD, BQ>(kk), kk > 0);
+      }
+      wgmma_commit_wait();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      const bool interior = tile_interior(p, q0, BQ, k0 + 64 * cw, 64, has_seg);
+      // q columns that see each kv row: the tile-local range of their positions, below
+      // S (padded q columns must add nothing to dk/dv).
+      int2 seen[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const long long rg0 = static_cast<long long>(p.q_off) + q0;
+        seen[i] = col_range(lo[i] - rg0, min(hi[i] - rg0, static_cast<long long>(p.S - q0 - 1)));
+      }
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qc = acc_col(j, c);
+          float x = st[j][c], t = 0.0f;
+          if (CAP) {
+            t = tanhf(x * sm_scale / p.softcap);
+            x = p.softcap * t;
+          }
+          const float pv = ex2(fmaf(x, scale2, -lse2[qc]));
+          float ds = pv * (dpt[j][c] - delta[qc]) * sm_scale;
+          if (CAP) ds = ds * (1.0f - t * t);
+          st[j][c] = pv;
+          dpt[j][c] = ds;
+        }
+      }
+      // Masked elements become 0 by select (their p may be inf: a row that sees no key
+      // has lse = -1e30), in one uniform branch per tile.
+      if (!interior) {
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int i = c >> 1, e = 8 * j + (c & 1);
+            const bool vis = e >= seen[i].x && e <= seen[i].y;
+            st[j][c] = vis ? st[j][c] : 0.0f;
+            dpt[j][c] = vis ? dpt[j][c] : 0.0f;
+          }
+        }
+        if (has_seg) {
+#pragma unroll
+          for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int qs = qseg[acc_col(j, c)], ks = kseg[c >> 1];
+              const bool vis = qs == ks && ks != 0;
+              st[j][c] = vis ? st[j][c] : 0.0f;
+              dpt[j][c] = vis ? dpt[j][c] : 0.0f;
+            }
+          }
+        }
+      }
+      uint32_t pf[BQ / 16][4], dsf[BQ / 16][4];
+      to_a<BQ>(pf, st);
+      to_a<BQ>(dsf, dpt);
+      const uint64_t tDO = desc_mn<HD, BQ>(sDO), tQ = desc_mn<HD, BQ>(sQ);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        wgmma_rs_tb(dv, pf[kk], tDO + mn_step<HD>(kk));   // dv += pᵀ · do
+        wgmma_rs_tb(dk, dsf[kk], tQ + mn_step<HD>(kk));   // dk += dsᵀ · q
+      }
+      wgmma_commit_wait();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pf);
+      fence_regs(dsf);
+      mbar_arrive(&empty[s]);
+    }
+
+    float* DK = static_cast<float*>(p.out0) + b * p.o0_s[0] + kh * p.o0_s[1];
+    float* DV = static_cast<float*>(p.out1) + b * p.o1_s[0] + kh * p.o1_s[1];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = k0 + row0 + 8 * i;
+      if (row >= p.T) continue;
+      float* krow = DK + row * p.o0_s[2];
+      float* vrow = DV + row * p.o1_s[2];
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<float2*>(krow + acc_col(j, 0)) =
+            make_float2(dk[j][2 * i], dk[j][2 * i + 1]);
+        *reinterpret_cast<float2*>(vrow + acc_col(j, 0)) =
+            make_float2(dv[j][2 * i], dv[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
+
 // --------------------------------------------------------------------------- dispatch
 // fp32: the shared-memory kernels, 64 x 64 tiles except where fp32 operands would pass
-// the 227 KB of shared memory a block may use. bf16: the tensor-core kernels.
+// the 227 KB of shared memory a block may use. bf16: the warp-specialised wgmma kernels
+// (forward, dk/dv) and the mma.sync kernel (dq).
 constexpr int kF32FwdQ = 64, kF32FwdK = 64, kF32DqQ = 64, kF32DqK = 32, kF32DkvQ = 32,
               kF32DkvK = 64;
 
@@ -1046,6 +1553,66 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Params
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point so that the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D TMA map over the bf16 tensor [B, heads, rows, HD] at `base` (strides `s` in
+// elements: batch, head, row; any order, e.g. the model's [B,S,H,hd] viewed as
+// [B,H,S,hd]), read in boxes of one column block by `box_rows` rows, swizzled as the
+// wgmma descriptors expect; rows past the end read as zeros. A dimension of size 1
+// takes a canonical stride (its own may be anything).
+template <int HD>
+bool tensor_map(CUtensorMap* map, const void* base, int B, int heads, int rows,
+                const int64_t* s, int box_rows) {
+  using Z = Swz<HD>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  rows = rows > 0 ? rows : 1;  // no tile of an empty tensor is ever loaded
+  const int64_t row_s = rows > 1 ? s[2] : HD;
+  const int64_t head_s = heads > 1 ? s[1] : row_s * rows;
+  const int64_t batch_s = B > 1 ? s[0] : head_s * heads;
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(row_s * 2),
+                                 static_cast<cuuint64_t>(head_s * 2),
+                                 static_cast<cuuint64_t>(batch_s * 2)};
+  const cuuint32_t box[4] = {Z::CB, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                Z::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch a warp-specialised kernel on a 1-D grid of `blocks` with its tensor maps.
+template <typename Kernel, typename... Maps>
+cudaError_t launch_ws(Kernel kernel, int blocks, int smem, const Params& p, void* stream,
+                      const Maps&... maps) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kWsThreads, smem, static_cast<cudaStream_t>(stream)>>>(p, maps...);
+  return cudaGetLastError();
+}
 
 Params make_params(const void* q, const void* k, const void* v, int B, int H, int K, int S,
                    int T, const int64_t* q_s, const int64_t* k_s, const int64_t* v_s,
@@ -1099,10 +1666,20 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o, float
   for (int i = 0; i < 3; ++i) p.o0_s[i] = o_s[i];
   return with_head_dim(hd, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    const dim3 grid(cdiv(S, dtype == kBF16 ? kMmaFwdQ : kF32FwdQ), H, B);
-    if (dtype == kBF16)
-      return launch(flash_fwd_mma_kernel<D>, grid, kMmaThreads,
-                    FwdMma<D>::bytes, p, stream);
+    if (dtype == kBF16) {
+      const int blocks = cdiv(S, kFwdBQ) * H * B;
+      if (blocks == 0) return cudaSuccess;
+      CUtensorMap tq, tk, tv;
+      if (!tensor_map<D>(&tq, q, B, H, S, q_s, kFwdBQ) ||
+          !tensor_map<D>(&tk, k, B, K, T, k_s, kFwdBK) ||
+          !tensor_map<D>(&tv, v, B, K, T, v_s, kFwdBK))
+        return cudaErrorInvalidValue;
+      return softcap > 0.0f ? launch_ws(flash_fwd_ws_kernel<D, true>, blocks, FwdSmem<D>::bytes,
+                                        p, stream, tq, tk, tv)
+                            : launch_ws(flash_fwd_ws_kernel<D, false>, blocks,
+                                        FwdSmem<D>::bytes, p, stream, tq, tk, tv);
+    }
+    const dim3 grid(cdiv(S, kF32FwdQ), H, B);
     if (dtype == kF32)
       return launch(flash_fwd_kernel<float, D, kF32FwdQ, kF32FwdK>, grid, kThreads,
                     FwdLayout<float, D, kF32FwdQ, kF32FwdK>::bytes, p, stream);
@@ -1165,10 +1742,22 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v, const void
   }
   return with_head_dim(hd, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    const dim3 grid(cdiv(T, dtype == kBF16 ? kMmaDkvK : kF32DkvK), K, B);
-    if (dtype == kBF16)
-      return launch(flash_bwd_dkv_mma_kernel<D>, grid, kMmaThreads,
-                    DkvMma<D>::bytes, p, stream);
+    if (dtype == kBF16) {
+      const int blocks = cdiv(T, kDkvBK) * K * B;
+      if (blocks == 0) return cudaSuccess;
+      CUtensorMap tq, tk, tv, tdo;
+      if (!tensor_map<D>(&tq, q, B, H, S, q_s, kDkvBQ) ||
+          !tensor_map<D>(&tk, k, B, K, T, k_s, kDkvBK) ||
+          !tensor_map<D>(&tv, v, B, K, T, v_s, kDkvBK) ||
+          !tensor_map<D>(&tdo, dout, B, H, S, do_s, kDkvBQ))
+        return cudaErrorInvalidValue;
+      return softcap > 0.0f
+                 ? launch_ws(flash_bwd_dkv_ws_kernel<D, true>, blocks, DkvSmem<D>::bytes, p,
+                             stream, tq, tk, tv, tdo)
+                 : launch_ws(flash_bwd_dkv_ws_kernel<D, false>, blocks, DkvSmem<D>::bytes, p,
+                             stream, tq, tk, tv, tdo);
+    }
+    const dim3 grid(cdiv(T, kF32DkvK), K, B);
     if (dtype == kF32)
       return launch(flash_bwd_dkv_kernel<float, D, kF32DkvQ, kF32DkvK>, grid, kThreads,
                     DkvLayout<float, D, kF32DkvQ, kF32DkvK>::bytes, p, stream);
@@ -1184,9 +1773,9 @@ int flash_smem_bytes(int which, int hd, int dtype) {
   with_head_dim(hd, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (dtype == kBF16) {
-      bytes = which == 0   ? FwdMma<D>::bytes
+      bytes = which == 0   ? FwdSmem<D>::bytes
               : which == 1 ? DqMma<D>::bytes
-                           : DkvMma<D>::bytes;
+                           : DkvSmem<D>::bytes;
     } else if (dtype == kF32) {
       bytes = which == 0   ? FwdLayout<float, D, kF32FwdQ, kF32FwdK>::bytes
               : which == 1 ? DqLayout<float, D, kF32DqQ, kF32DqK>::bytes

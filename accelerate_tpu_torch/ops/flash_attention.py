@@ -178,15 +178,20 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_attention kernel: {msg}")
 
 
-def _rows_ok(x: torch.Tensor) -> bool:
-    """Last dim contiguous and every row on a 16-byte boundary (the kernels' copies)."""
+def _tma_ok(x: torch.Tensor) -> bool:
+    """Whether the kernels read ``x`` in place: its last dim contiguous, its base and the
+    stride of every other dim of more than one element on 16 bytes (what TMA and
+    cp.async need; a dim of one element may have any stride, the kernels never step
+    along it). The model's ``[B,S,H,hd]`` tensors viewed as ``[B,H,S,hd]`` qualify."""
     vec = 16 // x.element_size()
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(s % vec == 0 for s in x.stride()[:-1]))
+            and all(st % vec == 0 for n, st in zip(x.shape[:-1], x.stride()[:-1]) if n > 1))
 
 
 def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
-    return x if _rows_ok(x) else x.contiguous()
+    """``x`` itself when :func:`_tma_ok`, else a fresh contiguous copy (``contiguous``
+    would hand back a contiguous tensor whose base is off 16 bytes as it is)."""
+    return x if _tma_ok(x) else x.clone(memory_format=torch.contiguous_format)
 
 
 def _strides(x: torch.Tensor):

@@ -18,7 +18,8 @@ the port's collectives skip it, so a one-process mesh needs no process group at 
 - :class:`P` — a ``PartitionSpec`` mirror: per dimension ``None``, an axis name or a
   tuple of axis names, so ``models.llama.partition_specs`` reads as in JAX.
 
-Not ported: the multi-slice ``dcn_dp`` layout and ``from_plugins``.
+Not ported: the multi-slice ``dcn_dp`` layout (``from_env`` accepts ``DCN_DP=1`` and
+raises on more) and ``from_plugins``.
 """
 
 from __future__ import annotations
@@ -113,14 +114,23 @@ class MeshConfig:
 
     @classmethod
     def from_env(cls) -> Optional["MeshConfig"]:
-        """``ACCELERATE_MESH_{DP,FSDP,TP,SP,PP,EP}``, or None when none is set
-        (unset axes keep their defaults; ``-1`` keeps its meaning)."""
+        """``ACCELERATE_MESH_{DP,FSDP,TP,SP,PP,EP,DCN_DP}``, or None when none is set
+        (unset axes keep their defaults; ``-1`` keeps its meaning). ``DCN_DP`` of 1
+        is the single-slice layout every mesh here has (as in JAX); a larger value raises
+        ``NotImplementedError``: the multi-slice dp layout is not ported."""
         values = {}
-        for field_name in ("dp", "fsdp", "tp", "sp", "pp", "ep"):
+        for field_name in ("dp", "fsdp", "tp", "sp", "pp", "ep", "dcn_dp"):
             raw = os.environ.get(f"ACCELERATE_MESH_{field_name.upper()}")
             if raw is not None:
                 values[field_name] = int(raw)
-        return cls(**values) if values else None
+        if not values:
+            return None
+        dcn_dp = values.pop("dcn_dp", 1)
+        if dcn_dp > 1:
+            raise NotImplementedError(
+                f"ACCELERATE_MESH_DCN_DP={dcn_dp}: the multi-slice dp layout (dcn_dp > 1) "
+                "is not ported")
+        return cls(**values)
 
 
 def _world() -> tuple[int, int]:

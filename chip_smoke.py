@@ -23,10 +23,12 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 5. flash — the flash-attention forward, dq and dk/dv kernels against their plain
    versions on the same inputs (the training path's shape B=2, H=32, K=8, S=2048,
    hd=128, bf16, causal; plus fp32, GQA 1, S=1000, packed segments with padding,
-   window, softcap, offsets, hd 32 and 64), element by element on each row's scale;
-   the same check must reject faults planted in the plain versions (a skipped kv
-   tile, a cut-off q tile, p and ds left unrounded); then kernel, plain, bound and
-   library times (SDPA forward; one aten flash-attention backward for dq, dk and dv).
+   window, softcap, offsets, hd 32 and 64; then the bf16 kernels' edges: the model's
+   transposed [B,S,H,hd] views, S=1088, a group of 8 q heads per kv head, hd 64 at
+   S=2048, non-causal with offsets at S=192, T=320), element by element on each row's scale; the same check must reject faults
+   planted in the plain versions (a skipped kv tile, a cut-off q tile, p and ds left
+   unrounded); then kernel, plain, bound and library times (SDPA forward; one aten
+   flash-attention backward for dq, dk and dv), with each kernel's TFLOP/s.
 6. adamw — the fused AdamW kernel against its plain version over the training path's
    leaf shapes, 3 steps, fp32 and bf16 first moments; then the time of one apply over
    the whole 8-layer tree beside ``torch._fused_adamw_``.
@@ -491,13 +493,19 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
 
 # ------------------------------------------------------------ phase 5: flash kernels
 FLASH_MAIN = dict(B=2, H=32, K=8, S=2048, T=2048, hd=128, dtype=torch.bfloat16)
+FLASH_DESIGN = "wgmma+tma, warp-specialised"
 
 
-def make_flash_inputs(gen, *, B, H, K, S, T, hd, dtype, dev, segments=False):
+def make_flash_inputs(gen, *, B, H, K, S, T, hd, dtype, dev, segments=False,
+                      transposed=False):
     """Seeded q [B,H,S,hd], k/v [B,K,T,hd], do, and (optionally) packed segment ids
-    with zero padding at each row's end (so some query rows see no key)."""
-    def randn(*shape):
-        return torch.randn(shape, generator=gen).to(dev, dtype)
+    with zero padding at each row's end (so some query rows see no key). ``transposed``
+    makes each tensor a ``.transpose(1, 2)`` view of ``[B,S,H,hd]`` memory, as the
+    model passes them."""
+    def randn(b, h, s, d):
+        if transposed:
+            return torch.randn((b, s, h, d), generator=gen).to(dev, dtype).transpose(1, 2)
+        return torch.randn((b, h, s, d), generator=gen).to(dev, dtype)
 
     q, k, v, do = randn(B, H, S, hd), randn(B, K, T, hd), randn(B, K, T, hd), randn(B, H, S, hd)
     segs = None
@@ -587,13 +595,10 @@ def flash_planted_faults(fa, q, k, v, do, ref, delta, args) -> dict:
     return result
 
 
-def flash_bound_ms(S, T, B, H, K, hd, causal, window, itemsize, which) -> tuple[float, str]:
-    """Least time of one flash call on this card: its matrix-product flops over the bf16
-    (or fp32) peak, or its bytes over the HBM rate, whichever is larger. Flops count the
-    (query, key) pairs this call's mask leaves visible (no offsets, no segments), two
-    flops per multiply-add: forward 2 products (q·k, p·v), dq 3 (q·k, do·v, ds·k),
-    dk/dv 4 (q·k, do·v, pᵀ·do, dsᵀ·q). Bytes: every input read once, every output
-    written once (fp32 gradients, fp32 lse/delta)."""
+def flash_flops(S, T, B, H, hd, causal, window, which) -> int:
+    """Matrix-product flops of one flash call over the (query, key) pairs its mask
+    leaves visible (no offsets, no segments), two flops per multiply-add: forward 2
+    products (q·k, p·v), dq 3 (q·k, do·v, ds·k), dk/dv 4 (q·k, do·v, pᵀ·do, dsᵀ·q)."""
     rows = np.arange(S)[:, None]
     cols = np.arange(T)[None, :]
     vis = np.ones((S, T), bool)
@@ -601,9 +606,16 @@ def flash_bound_ms(S, T, B, H, K, hd, causal, window, itemsize, which) -> tuple[
         vis &= cols <= rows
     if window:
         vis &= cols > rows - window
-    pairs = int(vis.sum())
     products = {"fwd": 2, "dq": 3, "dkv": 4}[which]
-    flops = 2 * products * B * H * pairs * hd
+    return 2 * products * B * H * int(vis.sum()) * hd
+
+
+def flash_bound_ms(S, T, B, H, K, hd, causal, window, itemsize, which) -> tuple[float, str]:
+    """Least time of one flash call on this card: its matrix-product flops
+    (``flash_flops``) over the bf16 (or fp32) peak, or its bytes over the HBM rate,
+    whichever is larger. Bytes: every input read once, every output written once (fp32
+    gradients, fp32 lse/delta)."""
+    flops = flash_flops(S, T, B, H, hd, causal, window, which)
     q_bytes, kv_bytes = B * H * S * hd * itemsize, B * K * T * hd * itemsize
     nbytes = {
         "fwd": 2 * q_bytes + 2 * kv_bytes + B * H * S * 4,
@@ -641,12 +653,23 @@ def phase_flash(dev) -> dict:
          {"segments": True, "softcap": 20.0}),
         ("hd64_window_fp32", {**small, "hd": 64, "H": 4, "K": 1, "dtype": torch.float32},
          {"window": 100}),
+        # The edges of the bf16 wgmma kernels (128-row q and kv tiles, TMA maps over
+        # strided views): the model's transposed layout at the main shape, S ragged
+        # against 128, a group of 8 q heads per kv head, hd 64 (the 128-byte swizzle
+        # with one column block) at S = 2048, and the non-causal masks with offsets and
+        # S != T, both ragged against 128.
+        ("model_layout_main", main, {"transposed": True}),
+        ("S1088_ragged128", {**main, "S": 1088, "T": 1088, "H": 8, "K": 2}, {}),
+        ("H32_K4_G8", {**small, "K": 4}, {}),
+        ("hd64_S2048", {**main, "hd": 64, "H": 8, "K": 2}, {}),
+        ("noncausal_bf16_offsets", {**small, "S": 192, "T": 320, "H": 4, "K": 2},
+         {"causal": False, "q_offset": 64, "kv_offset": 32}),
     ]
     errors, failed, faults = {}, [], None
     for name, shape, kw in cases:
         kw = dict(kw)
         q, k, v, do, segs = make_flash_inputs(gen, dev=dev, segments=kw.pop("segments", False),
-                                              **shape)
+                                              transposed=kw.pop("transposed", False), **shape)
         args = dict(causal=kw.pop("causal", True), sm_scale=shape["hd"] ** -0.5,
                     segments=segs, **kw)
         o_ref, lse_ref = fa.flash_attention_reference(q, k, v, **args)
@@ -709,9 +732,13 @@ def phase_flash(dev) -> dict:
         torch.cuda.empty_cache()
         bound, bound_by = flash_bound_ms(main["S"], main["T"], main["B"], main["H"], main["K"],
                                          main["hd"], True, 0, 2, which)
+        flops = flash_flops(main["S"], main["T"], main["B"], main["H"], main["hd"], True, 0,
+                            which)
         times[which] = {"kernel_ms": min(kernel_runs), "plain_ms": min(plain_runs),
                         "kernel_ms_runs": kernel_runs, "plain_ms_runs": plain_runs,
-                        "bound_ms": bound, "bound_by": bound_by}
+                        "bound_ms": bound, "bound_by": bound_by,
+                        "kernel_tflops": flops / min(kernel_runs) / 1e9,
+                        "bound_over_kernel": bound / min(kernel_runs)}
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times["fwd"]["library_ms"] = device_ms(
         lambda _: sdpa(q, k, v, is_causal=True, enable_gqa=True), 2, 10)
@@ -2084,12 +2111,13 @@ def main() -> int:
                     kern["max_abs_err"], kern),
         _kernel_row("flash_fwd", csrc + "flash_attention.cu", fa_py + ":155",
                     train["launches"]["flash_fwd"], max(fe["o"], fe["lse"]), ft["fwd"],
-                    "scaled_dot_product_attention forward (flash, enable_gqa)"),
+                    "scaled_dot_product_attention forward (flash, enable_gqa)",
+                    design=FLASH_DESIGN),
         _kernel_row("flash_bwd_dq", csrc + "flash_attention.cu", fa_py + ":343",
                     train["launches"]["flash_bwd_dq"], fe["dq"], ft["dq"], bwd_library),
         _kernel_row("flash_bwd_dkv", csrc + "flash_attention.cu", fa_py + ":422",
                     train["launches"]["flash_bwd_dkv"], max(fe["dk"], fe["dv"]), ft["dkv"],
-                    bwd_library),
+                    bwd_library, design=FLASH_DESIGN),
         _kernel_row("fused_adamw", csrc + "fused_adamw.cu",
                     "accelerate_tpu/ops/fused_optim.py:101", train["launches"]["fused_adamw"],
                     max(adamw["max_abs_err_fp32"], adamw["max_abs_err_bf16"]), adamw,

@@ -159,3 +159,43 @@ def test_cuda_launchers_refuse_other_devices():
         tfa._bwd_dq(meta_q, meta_kv, meta_kv, meta_q, meta_q[..., 0], meta_q[..., 0])
     with pytest.raises(ValueError, match="must be on CUDA"):
         tfa._bwd_dkv(meta_q, meta_kv, meta_kv, meta_q, meta_q[..., 0], meta_q[..., 0])
+
+
+def _misaligned(shape):
+    """A contiguous bf16 tensor whose base sits 2 bytes past a 16-byte boundary."""
+    flat = torch.arange(int(np.prod(shape)) + 8, dtype=torch.float32).to(torch.bfloat16)
+    return flat[1:1 + int(np.prod(shape))].view(shape)
+
+
+LAYOUTS = {  # name: (make [B,H,S,hd] bf16 tensor, read in place)
+    "contiguous": (lambda: torch.zeros((2, 4, 40, 32), dtype=torch.bfloat16), True),
+    "model_transposed_view": (
+        lambda: torch.zeros((2, 40, 4, 32), dtype=torch.bfloat16).transpose(1, 2), True),
+    "batch_of_one_any_batch_stride": (
+        lambda: torch.zeros(4 * 40 * 32 + 3, dtype=torch.bfloat16).as_strided(
+            (1, 4, 40, 32), (3, 40 * 32, 32, 1)), True),
+    "odd_row_stride": (
+        lambda: torch.zeros((2, 4, 40, 33), dtype=torch.bfloat16)[..., :32], False),
+    "base_off_16_bytes": (lambda: _misaligned((2, 4, 40, 32)), False),
+    "last_dim_strided": (
+        lambda: torch.zeros((2, 4, 40, 64), dtype=torch.bfloat16)[..., ::2], False),
+}
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_kernel_layout_reads_tma_eligible_tensors_in_place(name):
+    """The CUDA launchers hand the kernels (TMA loads) a tensor in place when its base and
+    the strides of its dims of more than one element are on 16 bytes and its last dim is
+    contiguous; any other tensor is copied into a fresh contiguous, aligned tensor with the
+    same values."""
+    make, in_place = LAYOUTS[name]
+    x = make()
+    x.copy_(torch.randn(x.shape).to(x.dtype))
+    assert tfa._tma_ok(x) == in_place
+    got = tfa._kernel_layout(x)
+    assert (got is x) == in_place
+    assert torch.equal(got, x)
+    assert tfa._tma_ok(got)
+    if not in_place:
+        assert got.is_contiguous() and got.data_ptr() % 16 == 0
+        assert got.untyped_storage().data_ptr() != x.untyped_storage().data_ptr()

@@ -62,14 +62,45 @@ def test_resolved_sizes_match_jax(kw, n):
     assert outcome(tm.MeshConfig(**kw)) == outcome(JMeshConfig(**kw))
 
 
+def _as_jax_dict(cfg) -> dict:
+    """The port's config as JAX's ``asdict``: the port has no ``dcn_dp`` field, and every
+    config it returns is the single-slice layout, JAX's ``dcn_dp=1``."""
+    return {**dataclasses.asdict(cfg), "dcn_dp": 1}
+
+
+def _jax_dict(cfg) -> dict:
+    """JAX's ``asdict`` less the fields that are not mesh sizes."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k not in ("devices", "allow_split_physical_axes")}
+
+
 def test_mesh_config_from_env(monkeypatch):
     assert tm.MeshConfig.from_env() is None
+    assert JMeshConfig.from_env() is None
     monkeypatch.setenv("ACCELERATE_MESH_TP", "2")
     monkeypatch.setenv("ACCELERATE_MESH_DP", "-1")
     assert tm.MeshConfig.from_env() == tm.MeshConfig(dp=-1, tp=2)
-    assert dataclasses.asdict(tm.MeshConfig.from_env()) == {
-        k: v for k, v in dataclasses.asdict(JMeshConfig.from_env()).items()
-        if k not in ("dcn_dp", "devices", "allow_split_physical_axes")}
+    assert _as_jax_dict(tm.MeshConfig.from_env()) == _jax_dict(JMeshConfig.from_env())
+    monkeypatch.setenv("ACCELERATE_MESH_DCN_DP", "1")
+    assert JMeshConfig.from_env().dcn_dp == 1
+    assert _as_jax_dict(tm.MeshConfig.from_env()) == _jax_dict(JMeshConfig.from_env())
+
+
+@pytest.mark.parametrize("dcn_dp", ["1", "2"])
+def test_mesh_config_from_env_dcn_dp_alone(monkeypatch, dcn_dp):
+    """Only ``ACCELERATE_MESH_DCN_DP`` set: both sides return a config (not None). At 1
+    the port's config is JAX's and builds the mesh of the default config; above 1 the
+    port raises rather than build another mesh."""
+    monkeypatch.setenv("ACCELERATE_MESH_DCN_DP", dcn_dp)
+    want = JMeshConfig.from_env()
+    assert want is not None and want.dcn_dp == int(dcn_dp)
+    if dcn_dp == "1":
+        got = tm.MeshConfig.from_env()
+        assert got is not None and _as_jax_dict(got) == _jax_dict(want)
+        assert tm.build_mesh(got).shape == tm.build_mesh(tm.MeshConfig()).shape
+    else:
+        with pytest.raises(NotImplementedError, match="multi-slice"):
+            tm.MeshConfig.from_env()
 
 
 SPEC_CASES = {
