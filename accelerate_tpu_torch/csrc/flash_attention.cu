@@ -4,7 +4,7 @@
 // Replaces three TPU kernels of accelerate_tpu/ops/flash_attention.py (bf16 / fp32):
 //   flash_fwd_ws_kernel / flash_fwd_kernel  <- _fwd_kernel (:155, pallas_call in _fwd
 //                                              at :306)
-//   flash_bwd_dq_mma_kernel / flash_bwd_dq_kernel <- _bwd_dq_kernel (:343, pallas_call
+//   flash_bwd_dq_ws_kernel / flash_bwd_dq_kernel <- _bwd_dq_kernel (:343, pallas_call
 //                                              in _bwd_dq at :560)
 //   flash_bwd_dkv_ws_kernel / flash_bwd_dkv_kernel <- _bwd_dkv_kernel (:422,
 //                                              pallas_call in _bwd_dkv at :625)
@@ -30,22 +30,22 @@
 //                 q tile) pair -- the block owns its dk/dv rows, so no atomics are
 //                 needed across blocks.
 // kv tiles wholly above the causal diagonal or wholly below the window are skipped, as
-// in the Pallas kernels. Three paths:
-//   bf16 forward and dk/dv (the training path): warp-specialised Hopper kernels
+// in the Pallas kernels. Two paths:
+//   bf16 (the training path): warp-specialised Hopper kernels
 //     (*_ws_kernel). A producer warp streams tiles by TMA into a 2-stage ring of shared
 //     memory (full/empty mbarriers; 128-byte swizzle, 64 at hd 32; rows past the end
 //     read as zeros, strides from the tensor, so the model's [B,S,H,hd] views are read
 //     in place). Two consumer warpgroups of 64 rows each issue wgmma.mma_async: the
 //     forward takes 128 q rows against 128-key tiles (S = Q·Kᵀ from shared memory,
-//     O += P·V with P from registers and V through transpose-B), dk/dv 128 kv rows
-//     against 64-row q tiles (Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then dV += Pᵀ·dO and
-//     dK += dSᵀ·Q from registers). The softmax runs in base 2, log2(e)·scale folded
+//     O += P·V with P from registers and V through transpose-B), dq 128 q rows against
+//     64-key tiles (S = Q·Kᵀ and dP = dO·Vᵀ, then dQ += dS·K from registers), dk/dv
+//     128 kv rows against 64-row q tiles (Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then dV += Pᵀ·dO
+//     and dK += dSᵀ·Q from registers). The softmax runs in base 2, log2(e)·scale folded
 //     into one multiply; masks are a per-row range of positions, applied by select in
 //     one uniform branch per tile that is not wholly visible. Under the causal mask
 //     the grid starts with the blocks that walk the most tiles (last q tiles for the
-//     forward, first kv tiles for dk/dv), so the longest chains do not end the launch.
-//   bf16 dq: a tensor-core kernel (mma.sync m16n8k16 on ldmatrix operands, cp.async),
-//     FlashAttention-2 style, each warp owning 16 q rows.
+//     forward and dq, first kv tiles for dk/dv), so the longest chains do not end the
+//     launch.
 //   fp32: shared-memory kernels with plain fp32 products (no TF32, whose ten mantissa
 //     bits would not hold the fp32 tolerance), scores and accumulators in shared memory.
 //
@@ -55,12 +55,9 @@
 // What the bf16 design leaves out: each consumer warpgroup still waits for every
 // product before its softmax (no ping-pong between the two, no overlap of one tile's
 // softmax with the next tile's Q·Kᵀ), so the tensor cores idle while the exponentials
-// run; no persistent grid; no fp8; hd 256; dq (#3) keeps the mma.sync design.
+// run; no persistent grid; no fp8; hd 256.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 #include <climits>
 
@@ -515,103 +512,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const Params p)
   }
 }
 
-// ------------------------------------------------------- tensor-core dq (bf16, mma.sync)
-// bf16 dq takes this kernel instead of the shared-memory one above. It keeps every
-// product in registers, FlashAttention-2 style: 4 warps per block, each warp owning 16
-// q rows and issuing mma.sync m16n8k16 (bf16 in, fp32 accumulate) with operands read
-// from shared memory by ldmatrix. The scores and ds of a warp never leave its
-// registers: the fp32 accumulator layout of one product, rounded to bf16, is the
-// A-operand layout of the next (ds for ds·k) -- the same layout that wgmma's
-// accumulators and register A operand use, so the Hopper kernels below share these
-// helpers. Roundings are those of the kernels above: ds rounded to bf16 before its
-// product.
-
-using bf16 = __nv_bfloat16;
-constexpr int kMmaThreads = 128;
-constexpr int kMmaDqQ = 64, kMmaDqK = 64;
-
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment (16 x 16) at rows r0.., cols k0.. of a row-major tile with pitch ld.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int r0,
-                                       int k0) {
-  const int l = threadIdx.x % 32;
-  ldsm_x4(a, tile + (r0 + (l % 8) + ((l / 8) % 2) * 8) * ld + k0 + (l / 16) * 8);
-}
-
-// B fragments of the n-tiles n0 and n0 + 8 at k-step k0, from a tile stored [n][k]:
-// b[0], b[1] for n0; b[2], b[3] for n0 + 8.
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* tile, int ld, int n0,
-                                          int k0) {
-  const int l = threadIdx.x % 32;
-  ldsm_x4(b, tile + (n0 + (l % 8) + (l / 16) * 8) * ld + k0 + ((l / 8) % 2) * 8);
-}
-
-// The same from a tile stored [k][n] (a transposing load).
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* tile, int ld, int n0,
-                                          int k0) {
-  const int l = threadIdx.x % 32;
-  ldsm_x4_t(b, tile + (k0 + (l % 8) + ((l / 8) % 2) * 8) * ld + n0 + (l / 16) * 8);
-}
-
-// acc[N/8] += A (the warp's 16 rows r0.. of row-major tile sA, K wide) · B, where B (K x N)
-// is a tile stored [n][k].
-template <int N, int K>
-__device__ __forceinline__ void mm_smem_nk(float (&acc)[N / 8][4], const bf16* sA, int lda,
-                                           int r0, const bf16* sB, int ldb) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t a[4];
-    load_a(a, sA, lda, r0, kk * 16);
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t b[4];
-      load_b_nk(b, sB, ldb, np * 16, kk * 16);
-      mma16816(acc[2 * np], a, b[0], b[1]);
-      mma16816(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[N/8] += A (register fragments, 16 x K) · B, where B (K x N) is a tile stored [k][n].
-template <int N, int K>
-__device__ __forceinline__ void mm_reg_kn(float (&acc)[N / 8][4], const uint32_t (&a)[K / 16][4],
-                                          const bf16* sB, int ldb) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t b[4];
-      load_b_kn(b, sB, ldb, np * 16, kk * 16);
-      mma16816(acc[2 * np], a[kk], b[0], b[1]);
-      mma16816(acc[2 * np + 1], a[kk], b[2], b[3]);
-    }
-  }
-}
+// ------------------------------------------------------------ register-fragment helpers
+// The bf16 kernels below keep every product's result in registers. wgmma's fp32
+// accumulator layout, rounded to bf16, is its register A-operand layout (the layout of
+// mma.sync m16n8k16's fragments): the probabilities and ds of one product feed the next
+// without leaving the registers.
 
 // Accumulator values x (16 x N), rounded to bf16, as A fragments (16 x N, k = N).
 template <int N>
@@ -623,31 +528,6 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4], const float (&x)[
     a[kk][2] = pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]);
     a[kk][3] = pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3]);
   }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Accumulator element (j, c) of a thread sits at row gid + 8 * (c / 2) of the warp's 16
-// and column 8 * j + 2 * tig + (c % 2).
-__device__ __forceinline__ int acc_row(int c) { return (threadIdx.x % 32) / 4 + 8 * (c >> 1); }
-__device__ __forceinline__ int acc_col(int j, int c) {
-  return 8 * j + 2 * (threadIdx.x % 4) + (c & 1);
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_group0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // The mask-free tiles of the Pallas kernels: no padding on either side, no segments,
@@ -678,122 +558,8 @@ __device__ __forceinline__ int2 needed_range(const Params& p, int n, bool walk_k
   return make_int2(lo, hi);
 }
 
-// exp on the special-function unit (ex2.approx): within a few fp32 ulps, far inside
-// the bf16 path's tolerance.
-__device__ __forceinline__ float fexp(float x) { return __expf(x); }
-
-// Shared memory of the dq kernel: NQ tiles of BQ q rows (q and do), NK tiles of BK kv
-// rows (two buffers of k and v), then per-row scratch and kv_seg (two buffers).
-template <int HD, int BQ, int BK, int NQ, int NK>
-struct MmaLayout {
-  static constexpr int LD = HD + 8;
-  static constexpr int QB = BQ * LD * 2, KB = BK * LD * 2;
-  static constexpr int Q = 0;
-  static constexpr int Kt = Q + align128(NQ * QB);
-  static constexpr int Lse = Kt + align128(NK * KB);
-  static constexpr int KSeg = Lse + align128(2 * 3 * BQ * 4);
-  static constexpr int bytes = KSeg + align128(2 * BK * 4);
-};
-template <int HD> using DqMma = MmaLayout<HD, kMmaDqQ, kMmaDqK, 2, 4>;
-
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma_kernel(const Params p) {
-  constexpr int BQ = kMmaDqQ, BK = kMmaDqK;
-  using L = DqMma<HD>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::Q + L::QB);
-  int* sQseg = reinterpret_cast<int*>(smem + L::Lse);
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (p.H / p.K);
-  const int q_rows = min(BQ, p.S - q0);
-  const bool has_seg = p.q_seg != nullptr;
-  const int r0 = (threadIdx.x / 32) * 16;
-  const int64_t row_base = (static_cast<int64_t>(b) * p.H + h) * p.S + q0;
-  const bf16* Kb = static_cast<const bf16*>(p.k) + b * p.k_s[0] + kh * p.k_s[1];
-  const bf16* Vb = static_cast<const bf16*>(p.v) + b * p.v_s[0] + kh * p.v_s[1];
-  auto sK = [&](int buf) { return reinterpret_cast<bf16*>(smem + L::Kt + buf * 2 * L::KB); };
-  auto sV = [&](int buf) { return reinterpret_cast<bf16*>(smem + L::Kt + (buf * 2 + 1) * L::KB); };
-  auto sKseg = [&](int buf) { return reinterpret_cast<int*>(smem + L::KSeg) + buf * BK; };
-  auto load_kv = [&](int j, int buf) {
-    const int k0 = j * BK, k_rows = min(BK, p.T - k0);
-    load_rows_async<bf16, HD, kMmaThreads>(sK(buf), L::LD, Kb + k0 * p.k_s[2], p.k_s[2], BK, k_rows);
-    load_rows_async<bf16, HD, kMmaThreads>(sV(buf), L::LD, Vb + k0 * p.v_s[2], p.v_s[2], BK, k_rows);
-    for (int r = threadIdx.x; r < BK; r += kMmaThreads)
-      sKseg(buf)[r] = (has_seg && r < k_rows) ? p.kv_seg[b * p.T + k0 + r] : 0;
-  };
-
-  const int2 range = needed_range(p, (p.T + BK - 1) / BK, true, q0, BQ, BK);
-  const bf16* Q = static_cast<const bf16*>(p.q) + b * p.q_s[0] + h * p.q_s[1] + q0 * p.q_s[2];
-  const bf16* DOp =
-      static_cast<const bf16*>(p.dout) + b * p.do_s[0] + h * p.do_s[1] + q0 * p.do_s[2];
-  load_rows_async<bf16, HD, kMmaThreads>(sQ, L::LD, Q, p.q_s[2], BQ, q_rows);
-  load_rows_async<bf16, HD, kMmaThreads>(sDO, L::LD, DOp, p.do_s[2], BQ, q_rows);
-  for (int r = threadIdx.x; r < BQ; r += kMmaThreads)
-    sQseg[r] = (has_seg && r < q_rows) ? p.q_seg[b * p.S + q0 + r] : 0;
-  if (range.x <= range.y) load_kv(range.x, 0);
-  float lse[2], delta[2];
-  bool live[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + acc_row(2 * i);
-    live[i] = row < q_rows;
-    lse[i] = live[i] ? p.lse[row_base + row] : 0.0f;
-    delta[i] = live[i] ? p.delta[row_base + row] : 0.0f;
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  const int qseg[2] = {sQseg[r0 + acc_row(0)], sQseg[r0 + acc_row(2)]};
-
-  float dq[HD / 8][4] = {};
-  for (int j = range.x; j <= range.y; ++j) {
-    const int buf = (j - range.x) & 1, k0 = j * BK;
-    if (j < range.y) load_kv(j + 1, buf ^ 1);
-    cp_async_commit();
-    const int* kseg = sKseg(buf);
-    const bool interior = tile_interior(p, q0, BQ, k0, BK, has_seg);
-
-    float s[BK / 8][4] = {}, dp[BK / 8][4] = {};
-    mm_smem_nk<BK, HD>(s, sQ, L::LD, r0, sK(buf), L::LD);
-    mm_smem_nk<BK, HD>(dp, sDO, L::LD, r0, sV(buf), L::LD);
-#pragma unroll
-    for (int jj = 0; jj < BK / 8; ++jj) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = acc_col(jj, c), i = c >> 1;
-        float t;
-        const float v = capped(s[jj][c] * p.sm_scale, p.softcap, &t);
-        const bool vis = interior || (live[i] &&
-            visible(p, q0 + r0 + acc_row(c), k0 + col, qseg[i], kseg[col], has_seg));
-        const float pv = vis ? fexp(v - lse[i]) : 0.0f;
-        float ds = pv * (dp[jj][c] - delta[i]) * p.sm_scale;
-        if (p.softcap > 0.0f) ds = ds * (1.0f - t * t);
-        s[jj][c] = ds;
-      }
-    }
-    uint32_t dsf[BK / 16][4];
-    to_a<BK>(dsf, s);
-    mm_reg_kn<HD, BK>(dq, dsf, sK(buf), L::LD);
-    cp_async_wait_group0();
-    __syncthreads();
-  }
-
-  float* DQ = static_cast<float*>(p.out0) + b * p.o0_s[0] + h * p.o0_s[1];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!live[i]) continue;
-    float* drow = DQ + (q0 + r0 + acc_row(2 * i)) * p.o0_s[2];
-#pragma unroll
-    for (int jj = 0; jj < HD / 8; ++jj) {
-      *reinterpret_cast<float2*>(drow + acc_col(jj, 0)) =
-          make_float2(dq[jj][2 * i], dq[jj][2 * i + 1]);
-    }
-  }
-}
-
-// ------------------------------------------------- Hopper path (bf16 forward, dk/dv)
-// The bf16 forward and dk/dv kernels are warp-specialised: a block is three warpgroups.
+// ------------------------------------------------ Hopper path (bf16 forward, dq, dk/dv)
+// The bf16 kernels are warp-specialised: a block is three warpgroups.
 // Warpgroups 0 and 1 (the consumers) each own 64 rows of the block's output tile; they
 // run every product as wgmma.mma_async on the tiles that have landed and free a stage
 // once their products have read it. Warpgroup 2 gives its registers to the consumers
@@ -805,45 +571,12 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma_kernel(const Par
 // of these kernels may trap: ptxas then keeps those 168 for the consumers too, and
 // spills their accumulators.
 
-constexpr int kWgThreads = 128;
 constexpr int kWsThreads = 3 * kWgThreads;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 constexpr int kFwdBQ = 128, kFwdBK = 128, kFwdStages = 2;
 constexpr int kDkvBQ = 64, kDkvBK = 128, kDkvStages = 2;
+constexpr int kDqBQ = 128, kDqBK = 64, kDqStages = 2;
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Arrive and add `bytes` to the transactions the current phase waits for.
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the completion of the phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
 
 // One 4-D TMA load: the box of `map` at coordinates (col, row, head, batch) into `dst`,
 // completing `bytes` transactions on `bar`.
@@ -855,40 +588,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row), "r"(head),
       "r"(batch)
       : "memory");
-}
-
-template <int R> __device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R> __device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::
-                   : "memory");
-}
-
-// Keep the compiler from reading a wgmma's accumulators, or reusing its A registers,
-// before the wgmma has completed: each value passes through an empty asm after the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(d[j][c]));
-  }
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(a[j][c]));
-  }
 }
 
 __device__ __forceinline__ float ex2(float x) {  // 2^x on the special-function unit
@@ -905,12 +604,6 @@ template <int HD> struct Swz {
   static constexpr int NCB = HD / CB;
   static constexpr uint64_t kLayout = SW == 128 ? 1 : 2;  // the descriptor's swizzle mode
 };
-
-__device__ __forceinline__ uint64_t make_desc(const void* p, int lbo, int sbo, uint64_t layout) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
 
 // wgmma descriptor of a K-major operand: the tile's rows from `tile` on (a tile of R
 // rows; `tile` may point at a later row group), k step 0. k step kk (16 columns) adds
@@ -955,12 +648,6 @@ __device__ __forceinline__ int2 col_range(long long lo, long long hi) {
   const long long t2 = 2 * (threadIdx.x % 4);
   const auto clamp = [](long long x) { return static_cast<int>(x < -1 ? -1 : x > 256 ? 256 : x); };
   return make_int2(clamp(lo - t2), clamp(hi - t2));
-}
-
-// The thread's warpgroup, as a value the compiler knows to be uniform in each warp (so
-// that each role's setmaxnreg sits in one branch).
-__device__ __forceinline__ int warpgroup() {
-  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kWgThreads, 0);
 }
 
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
@@ -1103,6 +790,17 @@ template <int HD> struct DkvSmem {
   static constexpr int Rows = DOt + kDkvStages * QB;      // per stage: lse·log2(e), delta, q_seg
   static constexpr int Bar = Rows + kDkvStages * 3 * kDkvBQ * 4;  // kv, full[], empty[]
   static constexpr int used = Bar + (1 + 2 * kDkvStages) * 8;
+  static constexpr int bytes = used + 1024;
+};
+
+template <int HD> struct DqSmem {
+  static constexpr int QB = kDqBQ * HD * 2, KB = kDqBK * HD * 2;
+  static constexpr int Q = 0, DOt = QB;
+  static constexpr int Kt = 2 * QB;                      // kDqStages tiles of k
+  static constexpr int Vt = Kt + kDqStages * KB;         // kDqStages tiles of v
+  static constexpr int KSeg = Vt + kDqStages * KB;       // kDqStages x BK kv_seg
+  static constexpr int Bar = KSeg + kDqStages * kDqBK * 4;  // q and do, full[], empty[]
+  static constexpr int used = Bar + (1 + 2 * kDqStages) * 8;
   static constexpr int bytes = used + 1024;
 };
 
@@ -1521,11 +1219,198 @@ __global__ void __launch_bounds__(kWsThreads, 1)
   }
 }
 
+// dq. One block per (q tile of 128 rows, head, batch), 1-D grid ordered as the
+// forward's (under the causal mask the blocks with the most kv tiles start first). Q and
+// dO stay in shared memory for the block's life; the producer warp streams 64-row k and
+// v tiles (TMA) and their kv_seg through the ring. Each consumer warpgroup owns 64 q
+// rows and keeps their lse·log2(e) and delta in registers: S = Q·Kᵀ and dP = dO·Vᵀ
+// (wgmma, both operands in shared memory), dS in registers, then dQ += dS·K with dS
+// from registers (rounded to bf16) and K read through transpose-B. dq stays in
+// registers (64 a thread at hd 128) until the block's end; the 64-key tile keeps S and
+// dP at 32 registers each beside it.
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_bwd_dq_ws_kernel(const __grid_constant__ Params p,
+                           const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_do) {
+  constexpr int BQ = kDqBQ, BK = kDqBK, NS = kDqStages;
+  using L = DqSmem<HD>;
+  using Z = Swz<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::Bar);
+  uint64_t* q_bar = bar;
+  uint64_t* full = bar + 1;
+  uint64_t* empty = bar + 1 + NS;
+
+  const int hb = p.H * p.B;
+  const int q0 = ((p.S + BQ - 1) / BQ - 1 - static_cast<int>(blockIdx.x) / hb) * BQ;
+  const int h = blockIdx.x % hb % p.H, b = blockIdx.x % hb / p.H;
+  const int kh = h / (p.H / p.K);
+  const bool has_seg = p.q_seg != nullptr;
+  const int2 range = needed_range(p, (p.T + BK - 1) / BK, true, q0, BQ, BK);
+  const int n_tiles = max(0, range.y - range.x + 1);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], 2 * kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup() == 2) {
+    // ------------------------------------------------------------------- producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= 2 * kWgThreads + 32) return;  // one warp issues the copies
+    const int lane = threadIdx.x % 32;
+    if (lane == 0) {
+      mbar_arrive_tx(q_bar, 2 * L::QB);
+      tma_tile<HD, BQ>(smem + L::Q, &tm_q, q_bar, q0, h, b);
+      tma_tile<HD, BQ>(smem + L::DOt, &tm_do, q_bar, q0, h, b);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % NS, k0 = (range.x + it) * BK;
+      mbar_wait(&empty[s], ((it / NS) & 1) ^ 1);
+      if (has_seg) {
+        int* kseg = reinterpret_cast<int*>(smem + L::KSeg) + s * BK;
+        for (int r = lane; r < BK; r += 32)
+          kseg[r] = k0 + r < p.T ? p.kv_seg[static_cast<int64_t>(b) * p.T + k0 + r] : 0;
+      }
+      if (lane == 0) {
+        mbar_arrive_tx(&full[s], 2 * L::KB);
+        tma_tile<HD, BK>(smem + L::Kt + s * L::KB, &tm_k, &full[s], k0, kh, b);
+        tma_tile<HD, BK>(smem + L::Vt + s * L::KB, &tm_v, &full[s], k0, kh, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    // ------------------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int cw = threadIdx.x / kWgThreads;  // rows 64 cw .. 64 cw + 63 of the tile
+    const int row0 = 64 * cw + 16 * (threadIdx.x / 32 % 4) + threadIdx.x % 32 / 4;
+    // The thread's two rows are row0 and row0 + 8, as in the forward; each sees the keys
+    // at global positions lo..hi (causal, window), below T, and (with segments) of its
+    // segment.
+    int qseg[2] = {0, 0}, lo[2], hi[2];
+    float lse2[2], delta[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + row0 + 8 * i, rg = p.q_off + row;
+      const bool live = row < p.S;
+      const int64_t at = (static_cast<int64_t>(b) * p.H + h) * p.S + row;
+      if (has_seg && live) qseg[i] = p.q_seg[static_cast<int64_t>(b) * p.S + row];
+      lse2[i] = live ? p.lse[at] * kLog2e : 0.0f;
+      delta[i] = live ? p.delta[at] : 0.0f;
+      lo[i] = p.window > 0 ? rg - p.window + 1 : INT_MIN;
+      hi[i] = p.causal ? rg : INT_MAX;
+    }
+    const float sm_scale = p.sm_scale, scale2 = (CAP ? 1.0f : sm_scale) * kLog2e;
+    const unsigned char* sQ = smem + L::Q + 64 * cw * Z::SW;
+    const unsigned char* sDO = smem + L::DOt + 64 * cw * Z::SW;
+
+    float dq[HD / 8][4] = {};
+    mbar_wait(q_bar, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % NS, k0 = (range.x + it) * BK;
+      mbar_wait(&full[s], (it / NS) & 1);
+      const unsigned char* sK = smem + L::Kt + s * L::KB;
+      const unsigned char* sV = smem + L::Vt + s * L::KB;
+
+      float sc[BK / 8][4], dp[BK / 8][4];
+      const uint64_t dQ = desc_k<HD>(sQ), dDO = desc_k<HD>(sDO);
+      const uint64_t dK = desc_k<HD>(sK), dV = desc_k<HD>(sV);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        wgmma_ss(sc, dQ + k_step<HD, BQ>(kk), dK + k_step<HD, BK>(kk), kk > 0);
+        wgmma_ss(dp, dDO + k_step<HD, BQ>(kk), dV + k_step<HD, BK>(kk), kk > 0);
+      }
+      wgmma_commit_wait();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      const bool interior = tile_interior(p, q0 + 64 * cw, 64, k0, BK, has_seg);
+      const int* kseg = reinterpret_cast<const int*>(smem + L::KSeg) + s * BK;
+      int2 vis[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const long long cg0 = static_cast<long long>(p.kv_off) + k0;
+        vis[i] = col_range(lo[i] - cg0, min(hi[i] - cg0, static_cast<long long>(p.T - k0 - 1)));
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float x = sc[j][c], t = 0.0f;
+          if (CAP) {
+            t = tanhf(x * sm_scale / p.softcap);
+            x = p.softcap * t;
+          }
+          const float pv = ex2(fmaf(x, scale2, -lse2[c >> 1]));
+          float ds = pv * (dp[j][c] - delta[c >> 1]) * sm_scale;
+          if (CAP) ds = ds * (1.0f - t * t);
+          sc[j][c] = ds;
+        }
+      }
+      // Masked elements become 0 by select (their p may be inf: a row that sees no key
+      // has lse = -1e30), in one uniform branch per tile.
+      if (!interior) {
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int i = c >> 1, e = 8 * j + (c & 1);
+            sc[j][c] = e >= vis[i].x && e <= vis[i].y ? sc[j][c] : 0.0f;
+          }
+        }
+        if (has_seg) {
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int ks = kseg[acc_col(j, c)];
+              sc[j][c] = ks == qseg[c >> 1] && ks != 0 ? sc[j][c] : 0.0f;
+            }
+          }
+        }
+      }
+      uint32_t dsf[BK / 16][4];
+      to_a<BK>(dsf, sc);
+      const uint64_t tK = desc_mn<HD, BK>(sK);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs_tb(dq, dsf[kk], tK + mn_step<HD>(kk));
+      wgmma_commit_wait();
+      fence_regs(dq);
+      fence_regs(dsf);
+      mbar_arrive(&empty[s]);
+    }
+
+    float* DQ = static_cast<float*>(p.out0) + b * p.o0_s[0] + h * p.o0_s[1];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + row0 + 8 * i;
+      if (row >= p.S) continue;
+      float* drow = DQ + row * p.o0_s[2];
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        *reinterpret_cast<float2*>(drow + acc_col(j, 0)) =
+            make_float2(dq[j][2 * i], dq[j][2 * i + 1]);
+      }
+    }
+  }
+}
+
 
 // --------------------------------------------------------------------------- dispatch
 // fp32: the shared-memory kernels, 64 x 64 tiles except where fp32 operands would pass
-// the 227 KB of shared memory a block may use. bf16: the warp-specialised wgmma kernels
-// (forward, dk/dv) and the mma.sync kernel (dq).
+// the 227 KB of shared memory a block may use. bf16: the warp-specialised wgmma kernels.
 constexpr int kF32FwdQ = 64, kF32FwdK = 64, kF32DqQ = 64, kF32DqK = 32, kF32DkvQ = 32,
               kF32DkvK = 64;
 
@@ -1553,26 +1438,6 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem, const Params
 }
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point so that the
-// library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // A 4-D TMA map over the bf16 tensor [B, heads, rows, HD] at `base` (strides `s` in
 // elements: batch, head, row; any order, e.g. the model's [B,S,H,hd] viewed as
@@ -1708,10 +1573,22 @@ int flash_bwd_dq_launch(const void* q, const void* k, const void* v, const void*
   }
   return with_head_dim(hd, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    const dim3 grid(cdiv(S, dtype == kBF16 ? kMmaDqQ : kF32DqQ), H, B);
-    if (dtype == kBF16)
-      return launch(flash_bwd_dq_mma_kernel<D>, grid, kMmaThreads,
-                    DqMma<D>::bytes, p, stream);
+    if (dtype == kBF16) {
+      const int blocks = cdiv(S, kDqBQ) * H * B;
+      if (blocks == 0) return cudaSuccess;
+      CUtensorMap tq, tk, tv, tdo;
+      if (!tensor_map<D>(&tq, q, B, H, S, q_s, kDqBQ) ||
+          !tensor_map<D>(&tk, k, B, K, T, k_s, kDqBK) ||
+          !tensor_map<D>(&tv, v, B, K, T, v_s, kDqBK) ||
+          !tensor_map<D>(&tdo, dout, B, H, S, do_s, kDqBQ))
+        return cudaErrorInvalidValue;
+      return softcap > 0.0f
+                 ? launch_ws(flash_bwd_dq_ws_kernel<D, true>, blocks, DqSmem<D>::bytes, p,
+                             stream, tq, tk, tv, tdo)
+                 : launch_ws(flash_bwd_dq_ws_kernel<D, false>, blocks, DqSmem<D>::bytes, p,
+                             stream, tq, tk, tv, tdo);
+    }
+    const dim3 grid(cdiv(S, kF32DqQ), H, B);
     if (dtype == kF32)
       return launch(flash_bwd_dq_kernel<float, D, kF32DqQ, kF32DqK>, grid, kThreads,
                     DqLayout<float, D, kF32DqQ, kF32DqK>::bytes, p, stream);
@@ -1774,7 +1651,7 @@ int flash_smem_bytes(int which, int hd, int dtype) {
     constexpr int D = decltype(d)::value;
     if (dtype == kBF16) {
       bytes = which == 0   ? FwdSmem<D>::bytes
-              : which == 1 ? DqMma<D>::bytes
+              : which == 1 ? DqSmem<D>::bytes
                            : DkvSmem<D>::bytes;
     } else if (dtype == kF32) {
       bytes = which == 0   ? FwdLayout<float, D, kF32FwdQ, kF32FwdK>::bytes

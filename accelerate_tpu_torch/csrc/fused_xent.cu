@@ -6,7 +6,8 @@
 //   fxent_fwd_*_kernel + fxent_combine_partial_kernel
 //                                             <- _fwd_partial_kernel (:96, the same
 //                                                pallas_call through _launch_fwd)
-//   fxent_bwd_*_kernel (+ fxent_cast_kernel)  <- _bwd_dx_kernel (:128, pallas_call at
+//   fxent_bwd_ws_kernel (bf16: d, dw, dx per vocab slab) / fxent_bwd_f32_kernel
+//                                             <- _bwd_dx_kernel (:128, pallas_call at
 //                                                :258) and _bwd_dw_kernel (:151, :277)
 // They compute the same functions. x [T,D] and w [D,V] share a type (bf16 or fp32);
 // targets [T] are int32, and -1 (or any id outside [0, V)) matches no column. Scores
@@ -28,47 +29,44 @@
 // Design. A TPU grid runs in order on one core: the Pallas forward carries (m, l, tgt)
 // across the vocab axis in VMEM, and the backward carries a [block_t, D] (dx) or
 // [D, block_v] (dw) fp32 sum across a sequential axis -- 4 MB at D = 4096, far past
-// the 227 KB of shared memory of one block. Here every block owns one (token tile,
-// vocab tile) pair and nothing is carried between blocks:
-//   forward : the block computes its score tile over all of D and writes, for every
-//             row and every 64 of its columns, the partial (max, sum of exp at that
-//             max, target score); a combine pass merges the partials of a row (split-K,
-//             as csrc/paged_attention.cu combines its chunks).
-//   backward: one kernel for dx and dw. The block recomputes its score tile, forms d
-//             once, then walks D in chunks: dx[t tile, chunk] += d . w[chunk, v tile]^T
-//             and dw[chunk, v tile] += x[t tile, chunk]^T . d, each added into an fp32
-//             buffer ([T,D] and [D,V]) with atomics (one float4 atomic per 4 columns
-//             on the bf16 path); a cast pass writes dx and dw in the input type. The
-//             scores are computed once per block instead of once per product
-//             (6 T D V flops against the Pallas pair's 8 T D V); the price is an fp32
-//             [D,V] buffer (2.1 GB at V = 128256, D = 4096) and sums whose order
-//             changes from run to run.
-// The score tile never reaches device memory; d lives in registers and shared memory.
-// Blocks take their tiles in groups of 8 token tiles (block_tile), which keeps the dx
-// and dw the blocks in flight add into inside L2.
+// the 227 KB of shared memory of one block. Here:
+//   forward : every block owns one (token tile, vocab tile) pair, computes its score
+//             tile over all of D and writes, for every row and every 64 of its
+//             columns, the partial (max, sum of exp at that max, target score); a
+//             combine pass merges the partials of a row (split-K, as
+//             csrc/paged_attention.cu combines its chunks). The score tile never
+//             reaches device memory.
+//   backward: over vocab slabs of the head (the loop is ops/fused_xent.py's
+//             _bwd_slabs), three products per slab, each output tile owned by one
+//             block that sums over the whole depth in registers: d for the slab (the
+//             scores recomputed once, 2 T D V flops in all), dw[:, slab] = x^T . d,
+//             written once, and dx32 += d . w[:, slab]^T into an fp32 [T, D] buffer in
+//             slab order, the last slab writing dx itself. 6 T D V flops against the
+//             Pallas pair's 8 T D V (which recompute the scores in each); no atomics,
+//             so the sums' order is fixed; a bf16 [T, slab] buffer for d (128 MB at
+//             T = 4096) in place of whole logits.
 //
 // Two paths:
-//   bf16 (the training path): a 128 x 256 tile per block, 8 warps each owning 64 x 64
-//     of it and issuing mma.sync m16n8k16 (bf16 in, fp32 accumulate) on ldmatrix
-//     operands; the score loop stages D in chunks of 64 through a 3-deep cp.async ring.
-//     d is rounded to bf16 into a shared tile, the A operand of d.w^T and the B operand
-//     of x^T.d. The wide vocab tile halves the dx atomics of a 128-wide one.
+//   bf16 (the training path): the forward a 128 x 256 tile per block, 8 warps each
+//     owning 64 x 64 of it and issuing mma.sync m16n8k16 (bf16 in, fp32 accumulate) on
+//     ldmatrix operands, D staged in chunks of 64 through a 3-deep cp.async ring; the
+//     backward warp-specialised wgmma kernels fed by TMA (see fxent_bwd_ws_kernel).
 //   fp32: shared-memory tiles and plain fp32 products (no TF32, whose ten mantissa
-//     bits would not hold the fp32 tolerance).
+//     bits would not hold the fp32 tolerance); the backward adds into dx and dw with
+//     atomics.
 //
 // Bound on this card (H100 SXM): at the training shape (T = D = 4096, V = 128256) the
 // kernels are bound by their matrix products over 989 TFLOP/s bf16 dense (2 T D V for
 // the forward, 6 T D V for the backward); reading w (1.05 GB) takes 0.31 ms. What the
 // design does about it: every product runs on the tensor cores and the head is read
-// in place (no padded copy). It still issues mma.sync rather than wgmma, loads without
-// TMA, and the backward's atomics and fp32 buffers cost traffic the Pallas pair does
-// not -- later work. The partial forward of a tensor-parallel rank has the forward's
+// in place (no padded copy). The forward still issues mma.sync rather than wgmma and
+// loads without TMA -- later work. The backward's slabs add traffic the bound does not
+// count: d written once and read twice (2 GB at the training shape) and the fp32 dx
+// buffer read and written once per slab (1 GB), about 0.9 ms at 3.35 TB/s. The partial forward of a tensor-parallel rank has the forward's
 // bound with V the shard's width (2 T D Vl flops: 2.18 ms at Vl = 64128) and the same
 // design; its combine pass writes (m, l, tgt) in place of (nll, lse).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -76,8 +74,6 @@ constexpr int kThreads = 256;
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' _NEG_INF
 
 enum DType { kF32 = 0, kBF16 = 1 };
-
-using bf16 = __nv_bfloat16;
 
 // Everything a kernel needs. Strides (ldx, ldw) are in elements; the last dim of x and
 // w is contiguous.
@@ -88,8 +84,8 @@ struct Args {
   const float* lse;      // [T] backward
   const float* g;        // [T] backward: the cotangent of nll
   float* part;           // forward: partial (m, l, tgt), each [T, nv]
-  float* dx32;           // backward: fp32 [T, D]
-  float* dw32;           // backward: fp32 [D, V]
+  float* dx32;           // fp32 backward: dx [T, D]
+  float* dw32;           // fp32 backward: dw [D, V]
   int T, D, V, nv;
   int64_t ldx, ldw;
   float cap;
@@ -105,16 +101,6 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // cap * tanh(s / cap) and its derivative 1 - (capped / cap)^2 (s and 1 without a cap).
@@ -195,14 +181,6 @@ __global__ void fxent_combine_partial_kernel(const float* __restrict__ part,
     l_out[t] = sum;
     tgt_out[t] = tv;
   }
-}
-
-__global__ void fxent_cast_kernel(const float* __restrict__ src, bf16* __restrict__ dst,
-                                  int64_t n) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    dst[i] = __float2bfloat16(src[i]);
 }
 
 constexpr int kPartV = 64;  // vocab columns per partial (m, l, tgt) of the forward
@@ -328,18 +306,11 @@ constexpr int kBT = 128, kBV = 256;  // token rows, vocab columns of a block's t
 constexpr int kWarpT = 64, kWarpV = 64;  // a warp's part of the score tile (2 x 4 warps)
 constexpr int kKC = 64;              // D per stage of the score loop
 constexpr int kStages = 3;
-constexpr int kDc = 64;              // D per chunk of the backward's products
 constexpr int kGroupT = 8;           // token tiles per group of the block order
 constexpr int kLdX = kKC + 8;        // pitches (elements) of the staged tiles: 16 bytes
 constexpr int kLdW = kBV + 8;        //   of padding spread a column over the banks
-constexpr int kLdXc = kDc + 8;
 constexpr int kStageBytes = (kBT * kLdX + kKC * kLdW) * 2;
-constexpr int kDTileBytes = kBT * kLdW * 2;
-constexpr int kChunkBytes = (kDc * kLdW + kBT * kLdXc) * 2;
 constexpr int kFwdSmem = kStages * kStageBytes;
-constexpr int kBwdSmem = kStages * kStageBytes > kDTileBytes + 2 * kChunkBytes
-                             ? kStages * kStageBytes
-                             : kDTileBytes + 2 * kChunkBytes;
 static_assert(kPartV == kWarpV, "a forward partial is one warp's columns");
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fill) {
@@ -380,31 +351,11 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // A fragment (16 x 16) at rows m0.., cols k0.. of a tile stored [m][k].
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int m0,
                                        int k0) {
   const int l = threadIdx.x % 32;
   ldsm_x4(a, tile + (m0 + (l % 8) + ((l / 8) % 2) * 8) * ld + k0 + (l / 16) * 8);
-}
-
-// The same A fragment from a tile stored [k][m] (a transposing load).
-__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* tile, int ld, int m0,
-                                         int k0) {
-  const int l = threadIdx.x % 32;
-  ldsm_x4_t(a, tile + (k0 + (l % 8) + (l / 16) * 8) * ld + m0 + ((l / 8) % 2) * 8);
-}
-
-// B fragments of the n-tiles n0 and n0 + 8 at k-step k0, from a tile stored [n][k]:
-// b[0], b[1] for n0; b[2], b[3] for n0 + 8.
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* tile, int ld, int n0,
-                                          int k0) {
-  const int l = threadIdx.x % 32;
-  ldsm_x4(b, tile + (n0 + (l % 8) + (l / 16) * 8) * ld + k0 + ((l / 8) % 2) * 8);
 }
 
 // The same from a tile stored [k][n] (a transposing load).
@@ -414,39 +365,8 @@ __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* tile, in
   ldsm_x4_t(b, tile + (k0 + (l % 8) + ((l / 8) % 2) * 8) * ld + n0 + (l / 16) * 8);
 }
 
-// Accumulator element (j, c) of a thread sits at row gid + 8 * (c / 2) of the warp's 16
-// and column 8 * j + 2 * tig + (c % 2).
+// The row of accumulator element (j, c) in its warp's 16 (acc_col gives the column).
 __device__ __forceinline__ int acc_row(int c) { return (threadIdx.x % 32) / 4 + 8 * (c >> 1); }
-__device__ __forceinline__ int acc_col(int j, int c) {
-  return 8 * j + 2 * (threadIdx.x % 4) + (c & 1);
-}
-
-// Add one 16 x 8 accumulator tile of a warp (rows row0.., cols col0..) into an fp32
-// matrix of pitch ld (rows_valid x cols_valid). Lanes trade pairs with their quad
-// neighbour, so that each holds 4 consecutive columns of one row and adds them with one
-// vector atomic (vec: ld is a multiple of 4); scalar atomics at a ragged edge.
-__device__ __forceinline__ void add_tile(float* base, int64_t ld, int row0, int col0,
-                                         const float (&acc)[4], int rows_valid,
-                                         int cols_valid, bool vec) {
-  const int lane = threadIdx.x % 32, tig = lane % 4;
-  const bool odd = tig & 1;
-  // Even lanes keep row gid and send their row gid + 8 pair; odd lanes the reverse.
-  const float r0 = __shfl_xor_sync(0xffffffffu, odd ? acc[0] : acc[2], 1);
-  const float r1 = __shfl_xor_sync(0xffffffffu, odd ? acc[1] : acc[3], 1);
-  const int row = row0 + lane / 4 + (odd ? 8 : 0);
-  const int col = col0 + 2 * (tig & ~1);
-  const float4 v = odd ? make_float4(r0, r1, acc[2], acc[3]) : make_float4(acc[0], acc[1], r0, r1);
-  if (row >= rows_valid) return;
-  float* p = base + row * ld + col;
-  if (vec && col + 3 < cols_valid) {
-    atomicAdd(reinterpret_cast<float4*>(p), v);
-  } else {
-    const float e[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (col + k < cols_valid) atomicAdd(p + k, e[k]);
-  }
-}
 
 // Stage rows [r0, r0 + rows) x cols [c0, c0 + cols) of a row-major bf16 tensor (row
 // pitch ld elements, rows_valid x cols_valid in size) into a shared tile of pitch
@@ -585,121 +505,285 @@ __global__ void __launch_bounds__(kThreads) fxent_fwd_mma_kernel(const Args a) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) fxent_bwd_mma_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const bf16* x = static_cast<const bf16*>(a.x);
-  const bf16* w = static_cast<const bf16*>(a.w);
-  int t0, v0;
-  block_tile(&t0, &v0);
-  const int warp = threadIdx.x / 32;
-  const int m0 = (warp / 4) * kWarpT, n0 = (warp % 4) * kWarpV;
-  bf16* sD = reinterpret_cast<bf16*>(smem);
-  {
-    float s[kWarpT / 16][kWarpV / 8][4] = {};
-    mma_scores(s, smem, a, t0, v0, m0, n0);
-    // d, rounded to bf16, into the tile sD [t][v]: the A operand of d . w^T and the B
-    // operand of x^T . d.
+// ------------------------------------------- bf16 backward (wgmma + TMA, vocab slabs)
+// The backward runs over vocab slabs of the head (the slab loop is in
+// ops/fused_xent.py), three kernels per slab, each one product of the Pallas pair's:
+//   d  : d[t, c] = dlogit(x[t, :] . w[:, v0 + c]) for the slab's columns, in bf16 into
+//        a [T, slab] buffer (M = T, N = slab, K = D: x K-major, w MN-major);
+//   dw : dw[:, v0 + c] = x^T . d, written once in bf16 (M = D, N = slab, K = T: x
+//        MN-major, d MN-major);
+//   dx : dx32 (+)= d . w[:, slab]^T into an fp32 [T, D] buffer, slab after slab; the
+//        last slab's kernel writes dx in bf16 instead (M = T, N = D, K = slab: d
+//        K-major, w K-major).
+// Every output tile has one owner block, which sums over all of K in registers: no
+// atomics, and a sum order that is the same from run to run. One kernel serves the
+// three: a block of three warpgroups owns a 128 x 256 output tile. Warpgroup 2's first
+// thread streams A (128 x 64) and B (64 x 256) tiles by TMA (2-D maps, 128-byte
+// swizzle, zero fill past the tensor's end, so ragged T, D, V and slab edges need no
+// masking in the loads) into a 4-stage ring with full/empty mbarriers; warpgroups 0 and
+// 1 each issue wgmma m64n256k16 on their 64 rows (an fp32 accumulator of 128 registers
+// a thread), keep one k step's wgmma batch in flight while freeing the stage before it,
+// and run the epilogue from registers. Blocks take their tiles in groups of 8 row
+// tiles (all column tiles of a group before the next), so the tiles in flight share
+// their operands in L2.
+
+constexpr int kGM = 128, kGN = 256, kGK = 64;  // output tile rows, cols; depth per stage
+constexpr int kGStages = 4;
+constexpr int kGThreads = 3 * kWgThreads;
+constexpr int kGProducerRegs = 24, kGConsumerRegs = 240;
+constexpr int kGATile = kGM * kGK * 2, kGBTile = kGK * kGN * 2;
+constexpr int kGStage = kGATile + kGBTile;
+constexpr int kGSmemUsed = kGStages * kGStage + 2 * kGStages * 8;
+constexpr int kGSmem = kGSmemUsed + 1024;  // slack for the 1024-byte alignment
+constexpr int kGGroupM = 8;
+
+enum Epi { kEpiD = 0, kEpiDw = 1, kEpiDx = 2 };
+
+struct Gemm {
+  int M, N, K;            // output rows, output cols, depth
+  int tiles_m, tiles_n;
+  void* out;              // d: the slab (bf16); dw: dw + v0 (bf16); dx: dx (bf16)
+  int64_t ld_out;
+  float* acc32;           // dx: the fp32 [T, D] buffer
+  const int* tgt;         // d: targets, lse, g, the slab's first column
+  const float* lse;
+  const float* g;
+  int v0;
+  float cap;
+  int first, last;        // dx: the first and the last slab
+};
+
+// One 2-D TMA load: the box of `map` at (col, row) into `dst`, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// An operand tile as TMA writes it: K-major (rows of 64 depth values, 128 bytes each,
+// 8-row groups 1024 bytes apart; a k step of 16 adds 32 bytes) or MN-major (64-column
+// blocks of kGK rows, 8 KB apart; a k step of 16 rows adds 2048 bytes).
+template <bool MN> __device__ __forceinline__ uint64_t op_desc(const unsigned char* tile) {
+  return MN ? make_desc(tile, kGK * 128, 1024, 1) : make_desc(tile, 16, 1024, 1);
+}
+template <bool MN> __device__ __forceinline__ constexpr uint64_t op_step(int kk) {
+  return MN ? (kk * 16 * 128) >> 4 : (kk * 32) >> 4;
+}
+
+// d (+)= A · B for one warpgroup, m64n256k16, bf16 in, fp32 accumulate, both operands
+// from shared memory; TA / TB: A / B MN-major (transposed). The first k step of a tile
+// passes accumulate = 0.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_256(float (&d)[32][4], uint64_t da, uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, "
+      "%123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// Store two neighbouring values of a row: one 2-element store where the row pitch keeps
+// it aligned (vec), else one store per column inside the matrix.
+__device__ __forceinline__ void store2(bf16* p, int col, int cols, float a, float b,
+                                       bool vec) {
+  if (vec) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
+  } else {
+    p[0] = __float2bfloat16(a);
+    if (col + 1 < cols) p[1] = __float2bfloat16(b);
+  }
+}
+
+// One 128 x 256 output tile of A (M x K) · B (K x N); A_MN / B_MN: the operand is stored
+// MN-major (A as [K][M], B as [K][N]) rather than K-major (A as [M][K], B as [N][K]).
+// The epilogue EPI writes the tile (CAP: d under the softcap).
+template <int EPI, bool A_MN, bool B_MN, bool CAP>
+__global__ void __launch_bounds__(kGThreads, 1)
+    fxent_bwd_ws_kernel(const __grid_constant__ Gemm gm, const __grid_constant__ CUtensorMap tm_a,
+                        const __grid_constant__ CUtensorMap tm_b) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // 1024-byte aligned
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kGStages * kGStage);
+  uint64_t* empty = full + kGStages;
+
+  // The block's tile: groups of kGGroupM row tiles, every column tile of a group in turn.
+  const int bid = blockIdx.x, per_group = kGGroupM * gm.tiles_n;
+  const int grp = bid / per_group, rem = bid % per_group;
+  const int gsz = min(kGGroupM, gm.tiles_m - grp * kGGroupM);
+  const int m0 = (grp * kGGroupM + rem % gsz) * kGM, n0 = (rem / gsz) * kGN;
+  const int nk = (gm.K + kGK - 1) / kGK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup() == 2) {
+    // ------------------------------------------------------------------- producer
+    setmaxnreg_dec<kGProducerRegs>();
+    if (threadIdx.x != 2 * kWgThreads) return;  // one thread issues the copies
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kGStages, k0 = kt * kGK;
+      unsigned char* sA = smem + s * kGStage;
+      unsigned char* sB = sA + kGATile;
+      mbar_wait(&empty[s], ((kt / kGStages) & 1) ^ 1);
+      mbar_arrive_tx(&full[s], kGStage);
+      if (A_MN) {
 #pragma unroll
-    for (int mi = 0; mi < kWarpT / 16; ++mi) {
+        for (int cb = 0; cb < kGM / 64; ++cb)
+          tma_load(sA + cb * kGK * 128, &tm_a, &full[s], m0 + 64 * cb, k0);
+      } else {
+        tma_load(sA, &tm_a, &full[s], k0, m0);
+      }
+      if (B_MN) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = m0 + 16 * mi + acc_row(2 * i), t = t0 + r;
-        const bool live = t < a.T;
-        const int tg = live ? a.tgt[t] : -1;
-        const float ls = live ? a.lse[t] : 0.0f, gg = live ? a.g[t] : 0.0f;
-#pragma unroll
-        for (int j = 0; j < kWarpV / 8; ++j) {
-          float d[2];
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int col = v0 + n0 + acc_col(j, c);
-            d[c] = dlogit(s[mi][j][2 * i + c], live && col < a.V, col == tg, ls, gg, a.cap,
-                          true);
-          }
-          *reinterpret_cast<uint32_t*>(sD + r * kLdW + n0 + acc_col(j, 0)) =
-              pack_bf16(d[0], d[1]);
-        }
+        for (int cb = 0; cb < kGN / 64; ++cb)
+          tma_load(sB + cb * kGK * 128, &tm_b, &full[s], n0 + 64 * cb, k0);
+      } else {
+        tma_load(sB, &tm_b, &full[s], k0, n0);
       }
     }
+    return;
   }
 
-  // D in chunks of kDc, two buffers of (w[chunk, v tile] as [d][v], x[t tile, chunk]
-  // as [t][d]) after sD.
-  auto s_w = [&](int buf) {
-    return reinterpret_cast<bf16*>(smem + kDTileBytes + buf * kChunkBytes);
-  };
-  auto s_x = [&](int buf) {
-    return reinterpret_cast<bf16*>(smem + kDTileBytes + buf * kChunkBytes + kDc * kLdW * 2);
-  };
-  auto load_chunk = [&](int ci, int buf) {
-    const int c0 = ci * kDc;
-    stage_bf16(s_w(buf), kLdW, w, a.ldw, c0, kDc, a.D, v0, kBV, a.V);
-    stage_bf16(s_x(buf), kLdXc, x, a.ldx, t0, kBT, a.T, c0, kDc, a.D);
-  };
-  const int nc = (a.D + kDc - 1) / kDc;
-  const int xm = (warp / 2) * 32, xn = (warp % 2) * 32;  // dx warp tile (4 x 2 warps)
-  const int wm = (warp / 4) * 32, wn = (warp % 4) * 64;  // dw warp tile (2 x 4 warps)
-  load_chunk(0, 0);
-  cp_async_commit();
-  for (int ci = 0; ci < nc; ++ci) {
-    const int buf = ci & 1, c0 = ci * kDc;
-    cp_async_wait<0>();  // chunk ci has landed
-    __syncthreads();     // ... for every thread (and sD is complete); chunk ci - 1's
-                         // buffer is free again
-    if (ci + 1 < nc) load_chunk(ci + 1, buf ^ 1);
-    cp_async_commit();
-    const bf16* wc = s_w(buf);
-    const bf16* xc = s_x(buf);
-    {  // dx[t0 + xm.., c0 + xn..] += d[xm.., :] . w[c0 + xn.., v0..]^T (K: kBV columns)
-      float acc[2][4][4] = {};
+  // --------------------------------------------------------------------- consumers
+  setmaxnreg_inc<kGConsumerRegs>();
+  const int cw = threadIdx.x / kWgThreads;  // output rows m0 + 64 cw .. + 63
+  // The warpgroup's 64 rows of A: K-major, 64 rows of 128 bytes further; MN-major, the
+  // next 64-column block.
+  const int a_off = A_MN ? cw * kGK * 128 : cw * 64 * 128;
+  float acc[kGN / 8][4];
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kGStages;
+    const unsigned char* sA = smem + s * kGStage;
+    const unsigned char* sB = sA + kGATile;
+    mbar_wait(&full[s], (kt / kGStages) & 1);
+    const uint64_t dA = op_desc<A_MN>(sA + a_off), dB = op_desc<B_MN>(sB);
+    fence_regs(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBV / 16; ++kk) {
-        uint32_t af[2][4];
+    for (int kk = 0; kk < kGK / 16; ++kk)
+      wgmma_256<A_MN, B_MN>(acc, dA + op_step<A_MN>(kk), dB + op_step<B_MN>(kk),
+                            kt > 0 || kk > 0);
+    wgmma_commit();
+    fence_regs(acc);
+    wgmma_wait<1>();  // the batch of k step kt - 1 is done: its stage is free
+    if (kt > 0) mbar_arrive(&empty[(kt - 1) % kGStages]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // ---------------------------------------------------------------------- epilogue
+  // Accumulator element (j, c) sits in row r0 + 8 (c / 2) and column
+  // n0 + 8 j + 2 (lane % 4) + (c % 2).
+  const int r0 = m0 + 64 * cw + 16 * (threadIdx.x / 32 % 4) + threadIdx.x % 32 / 4;
+  const int c0 = n0 + 2 * (threadIdx.x % 4);
+  const bool vec = gm.ld_out % 2 == 0;
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) load_a(af[mi], sD, kLdW, xm + 16 * mi, kk * 16);
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= gm.M) continue;
+    if (EPI == kEpiD) {
+      // d = (exp(capped - lse) - onehot) * g, times the chain under the cap; 0 past the
+      // slab's last column (those columns are never read back).
+      const int tg = gm.tgt[row] - gm.v0;
+      const float ls = gm.lse[row], gg = gm.g[row];
+      bf16* drow = static_cast<bf16*>(gm.out) + row * gm.ld_out;
 #pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t b[4];
-          load_b_nk(b, wc, kLdW, xn + 16 * np, kk * 16);
+      for (int j = 0; j < kGN / 8; ++j) {
+        const int col = c0 + 8 * j;
+        float dv[2];
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma16816(acc[mi][2 * np], af[mi], b[0], b[1]);
-            mma16816(acc[mi][2 * np + 1], af[mi], b[2], b[3]);
+        for (int e = 0; e < 2; ++e)
+          dv[e] = dlogit(acc[j][2 * i + e], col + e < gm.N, col + e == tg, ls, gg,
+                         CAP ? gm.cap : 0.0f, true);
+        if (col < gm.N) store2(drow + col, col, gm.N, dv[0], dv[1], vec);
+      }
+    } else if (EPI == kEpiDw) {
+      bf16* orow = static_cast<bf16*>(gm.out) + row * gm.ld_out;
+#pragma unroll
+      for (int j = 0; j < kGN / 8; ++j) {
+        const int col = c0 + 8 * j;
+        if (col < gm.N) store2(orow + col, col, gm.N, acc[j][2 * i], acc[j][2 * i + 1], vec);
+      }
+    } else {
+      // dx: the fp32 sum of the slabs so far plus this one's; written in bf16 at the last
+      // slab, else back into the fp32 buffer (pitch ld_out, as dx).
+      float* arow = gm.acc32 + row * gm.ld_out;
+      bf16* orow = static_cast<bf16*>(gm.out) + row * gm.ld_out;
+#pragma unroll
+      for (int j = 0; j < kGN / 8; ++j) {
+        const int col = c0 + 8 * j;
+        if (col >= gm.N) continue;
+        float a = acc[j][2 * i], b = acc[j][2 * i + 1];
+        if (!gm.first) {
+          if (vec) {
+            const float2 prev = *reinterpret_cast<const float2*>(arow + col);
+            a += prev.x;
+            b += prev.y;
+          } else {
+            a += arow[col];
+            if (col + 1 < gm.N) b += arow[col + 1];
           }
         }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          add_tile(a.dx32, a.D, t0 + xm + 16 * mi, c0 + xn + 8 * j, acc[mi][j], a.T, a.D,
-                   a.D % 4 == 0);
-      }
-    }
-    {  // dw[c0 + wm.., v0 + wn..] += x[t0.., c0 + wm..]^T . d[:, wn..] (K: kBT rows)
-      float acc[2][8][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < kBT / 16; ++kk) {
-        uint32_t af[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) load_a_t(af[mi], xc, kLdXc, wm + 16 * mi, kk * 16);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t b[4];
-          load_b_kn(b, sD, kLdW, wn + 16 * np, kk * 16);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi) {
-            mma16816(acc[mi][2 * np], af[mi], b[0], b[1]);
-            mma16816(acc[mi][2 * np + 1], af[mi], b[2], b[3]);
-          }
+        if (gm.last) {
+          store2(orow + col, col, gm.N, a, b, vec);
+        } else if (vec) {
+          *reinterpret_cast<float2*>(arow + col) = make_float2(a, b);
+        } else {
+          arow[col] = a;
+          if (col + 1 < gm.N) arow[col + 1] = b;
         }
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          add_tile(a.dw32, a.V, c0 + wm + 16 * mi, v0 + wn + 8 * j, acc[mi][j], a.D, a.V,
-                   a.V % 4 == 0);
       }
     }
   }
@@ -722,11 +806,37 @@ cudaError_t launch(Kernel kernel, dim3 grid, int smem, const Args& a, cudaStream
   return cudaGetLastError();
 }
 
-cudaError_t cast(const float* src, bf16* dst, int64_t n, cudaStream_t stream) {
-  if (n == 0) return cudaSuccess;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  fxent_cast_kernel<<<static_cast<int>(blocks < 8192 ? blocks : 8192), kThreads, 0, stream>>>(
-      src, dst, n);
+// A 2-D TMA map over the bf16 matrix [rows, cols] at `base` (row pitch `ld` elements),
+// read in boxes of 64 columns by `box_rows` rows in the 128-byte swizzle; elements
+// outside the matrix read as zeros.
+bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int64_t ld,
+                int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols > 0 ? cols : 1),
+                              static_cast<cuuint64_t>(rows > 0 ? rows : 1)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld * 2)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One backward product: a 1-D grid of 128 x 256 output tiles.
+template <int EPI, bool A_MN, bool B_MN, bool CAP>
+cudaError_t launch_ws(Gemm gm, const CUtensorMap& ta, const CUtensorMap& tb,
+                      cudaStream_t stream) {
+  gm.tiles_m = cdiv(gm.M, kGM);
+  gm.tiles_n = cdiv(gm.N, kGN);
+  const int blocks = gm.tiles_m * gm.tiles_n;
+  if (blocks == 0) return cudaSuccess;
+  auto kernel = fxent_bwd_ws_kernel<EPI, A_MN, B_MN, CAP>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kGThreads, kGSmem, stream>>>(gm, ta, tb);
   return cudaGetLastError();
 }
 
@@ -798,39 +908,92 @@ int fxent_fwd_partial_launch(const void* x, const void* w, const int* targets, f
   return cudaGetLastError();
 }
 
-// dx (x's type, [T,D] contiguous) and dw (w's type, [D,V] contiguous) from x, w,
-// targets, lse and g. dx32 / dw32 are fp32 scratch of the same shapes, zeroed here;
-// for fp32 inputs they are dx / dw themselves.
-int fxent_bwd_launch(const void* x, const void* w, const int* targets, const float* lse,
-                     const float* g, float* dx32, float* dw32, void* dx, void* dw, int T,
-                     int D, int V, int64_t ldx, int64_t ldw, float softcap, int dtype,
-                     void* stream) {
+// fp32 dx [T,D] and dw [D,V] (contiguous) from x, w, targets, lse and g: zeroed here,
+// then summed into by the fp32 kernel's atomics.
+int fxent_bwd_f32_launch(const void* x, const void* w, const int* targets, const float* lse,
+                         const float* g, float* dx, float* dw, int T, int D, int V,
+                         int64_t ldx, int64_t ldw, float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != kBF16 && dtype != kF32) return cudaErrorInvalidValue;
   Args a = make_args(x, w, targets, T, D, V, ldx, ldw, softcap);
   a.lse = lse;
   a.g = g;
-  a.dx32 = dx32;
-  a.dw32 = dw32;
-  const int64_t ndx = static_cast<int64_t>(T) * D, ndw = static_cast<int64_t>(D) * V;
-  cudaError_t err = cudaMemsetAsync(dx32, 0, ndx * sizeof(float), st);
-  if (err == cudaSuccess) err = cudaMemsetAsync(dw32, 0, ndw * sizeof(float), st);
+  a.dx32 = dx;
+  a.dw32 = dw;
+  cudaError_t err = cudaMemsetAsync(dx, 0, static_cast<int64_t>(T) * D * sizeof(float), st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(dw, 0, static_cast<int64_t>(D) * V * sizeof(float), st);
   if (err != cudaSuccess) return err;
-  if (dtype == kBF16)
-    err = launch(fxent_bwd_mma_kernel, dim3(cdiv(T, kBT), cdiv(V, kBV)), kBwdSmem, a, st);
-  else
-    err = launch(fxent_bwd_f32_kernel, dim3(cdiv(T, kF32T), cdiv(V, kF32V)), 0, a, st);
-  if (err != cudaSuccess || dtype == kF32) return err;
-  err = cast(dx32, static_cast<bf16*>(dx), ndx, st);
-  if (err != cudaSuccess) return err;
-  return cast(dw32, static_cast<bf16*>(dw), ndw, st);
+  return launch(fxent_bwd_f32_kernel, dim3(cdiv(T, kF32T), cdiv(V, kF32V)), 0, a, st);
+}
+
+// The bf16 backward, one vocab slab (columns v0 .. v0 + vn of w) per call of each of the
+// three below; d is the slab buffer [T, >= vn] (bf16, row pitch ldd, a multiple of 8).
+// T and D are at least 1.
+
+// d[t, c] = dlogit(x[t] . w[:, v0 + c]) for c < vn (targets are global ids).
+int fxent_bwd_d_launch(const void* x, const void* w, const int* targets, const float* lse,
+                       const float* g, void* d, int T, int D, int64_t ldx, int64_t ldw, int v0,
+                       int vn, int64_t ldd, float softcap, void* stream) {
+  Gemm gm{};
+  gm.M = T;
+  gm.N = vn;
+  gm.K = D;
+  gm.out = d;
+  gm.ld_out = ldd;
+  gm.tgt = targets;
+  gm.lse = lse;
+  gm.g = g;
+  gm.v0 = v0;
+  gm.cap = softcap;
+  CUtensorMap ta, tb;
+  if (!tensor_map(&ta, x, T, D, ldx, kGM) ||
+      !tensor_map(&tb, static_cast<const bf16*>(w) + v0, D, vn, ldw, kGK))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return softcap > 0.0f ? launch_ws<kEpiD, false, true, true>(gm, ta, tb, st)
+                        : launch_ws<kEpiD, false, true, false>(gm, ta, tb, st);
+}
+
+// dw[:, v0 .. v0 + vn] = x^T . d, in bf16 (dw [D, V] contiguous).
+int fxent_bwd_dw_launch(const void* x, const void* d, void* dw, int T, int D, int V,
+                        int64_t ldx, int v0, int vn, int64_t ldd, void* stream) {
+  Gemm gm{};
+  gm.M = D;
+  gm.N = vn;
+  gm.K = T;
+  gm.out = static_cast<bf16*>(dw) + v0;
+  gm.ld_out = V;
+  CUtensorMap ta, tb;
+  if (!tensor_map(&ta, x, T, D, ldx, kGK) || !tensor_map(&tb, d, T, vn, ldd, kGK))
+    return cudaErrorInvalidValue;
+  return launch_ws<kEpiDw, true, true, false>(gm, ta, tb, static_cast<cudaStream_t>(stream));
+}
+
+// dx32 (+)= d . w[:, v0 .. v0 + vn]^T (fp32 [T, D]; `first`: written, not added to);
+// `last`: dx [T, D] (bf16) is written instead. dx32 may be null when first and last.
+int fxent_bwd_dx_launch(const void* d, const void* w, float* dx32, void* dx, int T, int D,
+                        int64_t ldw, int v0, int vn, int64_t ldd, int first, int last,
+                        void* stream) {
+  Gemm gm{};
+  gm.M = T;
+  gm.N = D;
+  gm.K = vn;
+  gm.out = dx;
+  gm.ld_out = D;
+  gm.acc32 = dx32;
+  gm.first = first;
+  gm.last = last;
+  CUtensorMap ta, tb;
+  if (!tensor_map(&ta, d, T, vn, ldd, kGM) ||
+      !tensor_map(&tb, static_cast<const bf16*>(w) + v0, D, vn, ldw, kGN))
+    return cudaErrorInvalidValue;
+  return launch_ws<kEpiDx, false, false, false>(gm, ta, tb, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory of one block (the wrapper checks it against the card's
 // 227 KB): which = 0 forward, 1 backward; 0 for a type without dynamic memory.
 int fxent_smem_bytes(int which, int dtype) {
   if (dtype != kBF16) return 0;
-  return which == 0 ? kFwdSmem : kBwdSmem;
+  return which == 0 ? kFwdSmem : kGSmem;
 }
 
 }  // extern "C"

@@ -6,10 +6,11 @@ a shared library under ``build/torch_kernels/`` at the repository root (listed i
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-The library name carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. Sources are built at first use — never when
-a module is imported — so CPU-only hosts (no ``nvcc``) can import every module. A
-build failure raises; nothing falls back to a plain version.
+The library name carries a hash of the source, of the ``csrc/`` headers it includes and
+of the flags, so an edited source or header is rebuilt and an unchanged one is reused.
+Sources are built at first use — never when a module is imported — so CPU-only hosts
+(no ``nvcc``) can import every module. A build failure raises; nothing falls back to a
+plain version.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -58,8 +60,12 @@ def _flags(name: str) -> tuple:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode()).hexdigest()
+    """The library's path: its name carries a hash of the source, of the ``csrc/``
+    headers it includes (``#include "..."``) and of the flags."""
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    headers = re.findall(rb'^\s*#include\s+"([^"]+)"', src, re.M)
+    parts = [src] + [(CSRC_DIR / h.decode()).read_bytes() for h in headers]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -6,16 +6,20 @@ type (fp32 or bf16); targets ``[T]`` are integer ids, and -1 (or any id outside
 ``[0, V)``) matches no column, so its nll is just the lse.
 
 - :func:`_fwd` → ``(nll, lse)``, both fp32 ``[T]``; :func:`_bwd` → ``(dx, dw)`` in x's
-  and w's types, from the forward's lse and the cotangent ``g [T]`` of nll. One kernel
-  launch computes both gradients (``csrc/fused_xent.cu`` explains why).
+  and w's types, from the forward's lse and the cotangent ``g [T]`` of nll. In bf16 the
+  backward runs over vocab slabs (:func:`_bwd_slabs`): per slab one kernel recomputes
+  d, one writes that slab of dw and one adds the slab's part of dx into an fp32 sum,
+  each output tile owned by one block (no atomics: the sums' order is fixed);
+  ``csrc/fused_xent.cu`` explains why. :data:`PLAIN_SLAB_STEPS` are the plain versions
+  of the three steps, for running the same schedule on the CPU.
 - :func:`fused_xent_reference`, :func:`fused_xent_dx_reference` and
   :func:`fused_xent_dw_reference` are the plain versions: the same formulas over the
   whole ``[T,V]`` score matrix.
 - Each raw entry point runs its plain version on CPU tensors. Any other tensors go to
   the hand-written kernels of ``csrc/fused_xent.cu`` (built at first use by
   ``ops/_build.py``), whose launches are counted in ``_fwd.launches`` and
-  ``_bwd.launches``. A CUDA call never falls back: a refused device, type, shape or
-  launch raises.
+  ``_bwd.launches`` (one per call, whatever the number of slabs). A CUDA call never
+  falls back: a refused device, type, shape or launch raises.
 - :func:`fused_cross_entropy` is differentiable: a ``torch.autograd.Function`` that
   saves ``(x, w, targets, lse)`` and calls :func:`_bwd` in its backward.
 - The vocab-sharded (tensor-parallel) variant: :func:`_fwd_partial` → ``(m, l, tgt)``,
@@ -136,10 +140,14 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
         lib.fxent_fwd_launch.argtypes = [vp] * 6 + [ci] * 3 + [cl, cl, cf, ci, vp]
-        lib.fxent_bwd_launch.argtypes = [vp] * 9 + [ci] * 3 + [cl, cl, cf, ci, vp]
         lib.fxent_fwd_partial_launch.argtypes = [vp] * 7 + [ci] * 3 + [cl, cl, cf, ci, vp]
-        lib.fxent_fwd_launch.restype = lib.fxent_bwd_launch.restype = ci
-        lib.fxent_fwd_partial_launch.restype = ci
+        lib.fxent_bwd_f32_launch.argtypes = [vp] * 7 + [ci] * 3 + [cl, cl, cf, vp]
+        lib.fxent_bwd_d_launch.argtypes = [vp] * 6 + [ci] * 2 + [cl, cl, ci, ci, cl, cf, vp]
+        lib.fxent_bwd_dw_launch.argtypes = [vp] * 3 + [ci] * 3 + [cl, ci, ci, cl, vp]
+        lib.fxent_bwd_dx_launch.argtypes = [vp] * 4 + [ci] * 2 + [cl, ci, ci, cl, ci, ci, vp]
+        for fn in (lib.fxent_fwd_launch, lib.fxent_fwd_partial_launch, lib.fxent_bwd_f32_launch,
+                   lib.fxent_bwd_d_launch, lib.fxent_bwd_dw_launch, lib.fxent_bwd_dx_launch):
+            fn.restype = ci
         lib.fxent_num_vtiles.argtypes = [ci]
         lib.fxent_smem_bytes.argtypes = [ci, ci]
         lib.fxent_num_vtiles.restype = lib.fxent_smem_bytes.restype = ci
@@ -222,25 +230,113 @@ def _fwd_partial_cuda(x, w, t_local, softcap):
     return m, l, tgt
 
 
+# ------------------------------------------------------------------ backward in slabs
+#: Bytes of the bf16 d slab [T, slab] at most (128 MB: a slab of 16384 columns at
+#: T = 4096); the slab is a multiple of the kernels' 256-column tile.
+_SLAB_BYTES = 128 << 20
+_SLAB_TILE = 256
+
+
+def _slab_width(T: int, V: int) -> int:
+    """Vocab columns per slab of the bf16 backward."""
+    tiles = max(1, _SLAB_BYTES // (2 * max(T, 1) * _SLAB_TILE))
+    return _SLAB_TILE * min(tiles, -(-V // _SLAB_TILE))
+
+
+def _bwd_slabs(x, w, targets, lse, g, softcap, slab, d_step, dw_step, dx_step):
+    """The backward over vocab slabs of ``slab`` columns, in order, from the three
+    per-slab steps → (dx [T,D] in x's type, dw [D,V] in w's type). For the slab of
+    columns ``v0 .. v0 + vn``:
+
+    - ``d_step(x, w, targets, lse, g, softcap, v0, vn, d)`` writes
+      ``d[:, :vn]`` = the recomputed d of those columns, rounded to x's type (= w's);
+    - ``dw_step(x, d, v0, vn, dw)`` writes ``dw[:, v0:v0 + vn] = xᵀ·d``;
+    - ``dx_step(d, w, v0, vn, dx32, dx, first, last)`` adds ``d·w[:, v0:v0 + vn]ᵀ`` to
+      the fp32 sum ``dx32`` (``first``: writes it), and at the ``last`` slab writes the
+      finished sum into ``dx`` instead (``dx32`` is None when there is one slab).
+
+    Every sum is taken in fp32 in a fixed order; d never holds more than one slab."""
+    (T, D), V = x.shape, w.shape[1]
+    dx = torch.empty((T, D), dtype=x.dtype, device=x.device)
+    dw = torch.empty((D, V), dtype=w.dtype, device=x.device)
+    starts = range(0, V, slab)
+    d = torch.empty((T, slab), dtype=x.dtype, device=x.device)
+    dx32 = (torch.empty((T, D), dtype=torch.float32, device=x.device)
+            if len(starts) > 1 else None)
+    for i, v0 in enumerate(starts):
+        vn = min(slab, V - v0)
+        d_step(x, w, targets, lse, g, softcap, v0, vn, d)
+        dw_step(x, d, v0, vn, dw)
+        dx_step(d, w, v0, vn, dx32, dx, i == 0, i == len(starts) - 1)
+    return dx, dw
+
+
+def _d_slab_plain(x, w, targets, lse, g, softcap, v0, vn, d):
+    s, chain = _scores(x, w[:, v0:v0 + vn], softcap)
+    d[:, :vn] = _dlogits(s, chain, lse, g, targets.long() - v0)
+
+
+def _dw_slab_plain(x, d, v0, vn, dw):
+    dw[:, v0:v0 + vn] = _dw_from(d[:, :vn], x, dw.dtype)
+
+
+def _dx_slab_plain(d, w, v0, vn, dx32, dx, first, last):
+    part = d[:, :vn].float() @ w[:, v0:v0 + vn].float().T
+    total = part if first else dx32 + part
+    (dx if last else dx32).copy_(total)
+
+
+#: The plain per-slab steps, in ``_bwd_slabs``' order.
+PLAIN_SLAB_STEPS = (_d_slab_plain, _dw_slab_plain, _dx_slab_plain)
+
+
+def _cuda_slab_steps(lib, stream: int):
+    """The per-slab steps as launches of the bf16 backward kernels (``d``'s row pitch is
+    the slab width). Each launch adds one to ``_bwd.slab_launches``."""
+    def d_step(x, w, targets, lse, g, softcap, v0, vn, d):
+        _raise_on(lib.fxent_bwd_d_launch(
+            x.data_ptr(), w.data_ptr(), targets.data_ptr(), lse.data_ptr(), g.data_ptr(),
+            d.data_ptr(), x.shape[0], x.shape[1], x.stride(0), w.stride(0), v0, vn,
+            d.stride(0), float(softcap), stream), "backward d")
+        _bwd.slab_launches += 1
+
+    def dw_step(x, d, v0, vn, dw):
+        _raise_on(lib.fxent_bwd_dw_launch(
+            x.data_ptr(), d.data_ptr(), dw.data_ptr(), x.shape[0], x.shape[1], dw.shape[1],
+            x.stride(0), v0, vn, d.stride(0), stream), "backward dw")
+        _bwd.slab_launches += 1
+
+    def dx_step(d, w, v0, vn, dx32, dx, first, last):
+        _raise_on(lib.fxent_bwd_dx_launch(
+            d.data_ptr(), w.data_ptr(), None if dx32 is None else dx32.data_ptr(),
+            dx.data_ptr(), dx.shape[0], dx.shape[1], w.stride(0), v0, vn, d.stride(0),
+            int(first), int(last), stream), "backward dx")
+        _bwd.slab_launches += 1
+
+    return d_step, dw_step, dx_step
+
+
 def _bwd_cuda(x, w, targets, lse, g, softcap):
     lib, xk, wk, t, code = _launch_args(x, w, targets, 1)
     (T, D), V = x.shape, w.shape[1]
     _check(lse.shape == (T,) and g.shape == (T,), "lse and g must be [T]")
     lse = lse.to(x.device, torch.float32).contiguous()
     g = g.to(x.device, torch.float32).contiguous()
-    dx = torch.empty((T, D), dtype=x.dtype, device=x.device)
-    dw = torch.empty((D, V), dtype=w.dtype, device=x.device)
-    if x.dtype == torch.float32:  # the fp32 sums are the result
-        dx32, dw32 = dx, dw
+    if min(T, D, V) == 0:  # nothing to sum: the gradients are zeros (or empty)
+        dx, dw = torch.zeros_like(x), torch.zeros_like(w)
+    elif x.dtype == torch.float32:
+        dx = torch.empty((T, D), dtype=x.dtype, device=x.device)
+        dw = torch.empty((D, V), dtype=w.dtype, device=x.device)
+        with torch.cuda.device(x.device):
+            err = lib.fxent_bwd_f32_launch(
+                xk.data_ptr(), wk.data_ptr(), t.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                dx.data_ptr(), dw.data_ptr(), T, D, V, xk.stride(0), wk.stride(0),
+                float(softcap), _stream(x.device))
+        _raise_on(err, "backward")
     else:
-        dx32 = torch.empty((T, D), dtype=torch.float32, device=x.device)
-        dw32 = torch.empty((D, V), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.fxent_bwd_launch(
-            xk.data_ptr(), wk.data_ptr(), t.data_ptr(), lse.data_ptr(), g.data_ptr(),
-            dx32.data_ptr(), dw32.data_ptr(), dx.data_ptr(), dw.data_ptr(), T, D, V,
-            xk.stride(0), wk.stride(0), float(softcap), code, _stream(x.device))
-    _raise_on(err, "backward")
+        with torch.cuda.device(x.device):
+            dx, dw = _bwd_slabs(xk, wk, t, lse, g, softcap, _slab_width(T, V),
+                                *_cuda_slab_steps(lib, _stream(x.device)))
     _bwd.launches += 1
     return dx, dw
 
@@ -274,7 +370,8 @@ def _fwd_partial(x, w_shard, t_local, softcap=0.0):
 
 def _bwd(x, w, targets, lse, g, softcap=0.0):
     """Raw backward → (dx [T,D] in x's type, dw [D,V] in w's type) from the forward's
-    lse and the cotangent g [T] of nll: one kernel launch for both."""
+    lse and the cotangent g [T] of nll. CPU tensors run the two plain versions; others
+    launch the kernels (bf16: three per vocab slab; fp32: one), counted once."""
     _check_shapes(x, w, targets)
     if x.device.type == "cpu":
         return (fused_xent_dx_reference(x, w, targets, lse, g, softcap),
@@ -286,6 +383,8 @@ def _bwd(x, w, targets, lse, g, softcap=0.0):
 _fwd.launches = 0
 _fwd_partial.launches = 0
 _bwd.launches = 0
+#: The bf16 backward's device kernels (three per vocab slab), counted apart.
+_bwd.slab_launches = 0
 
 
 # ---------------------------------------------------------------------------- autograd

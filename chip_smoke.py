@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py
 
-Phases, in order; each prints one JSON line and any failure exits non-zero:
+Phases, in order; each prints one JSON line and any failure exits non-zero, after one
+line ``{"phase": "failed", "in": ..., "cases": ..., "error": ..., "traceback": ...}``
+that names the phase, its failed cases and the exception:
 
 1. device — the card's ``nvidia-smi`` name and power limit; build every CUDA kernel
    of the port from ``accelerate_tpu_torch/csrc`` (all ``nvcc`` processes started
@@ -32,14 +34,18 @@ Phases, in order; each prints one JSON line and any failure exits non-zero:
 6. adamw — the fused AdamW kernel against its plain version over the training path's
    leaf shapes, 3 steps, fp32 and bf16 first moments; then the time of one apply over
    the whole 8-layer tree beside ``torch._fused_adamw_``.
-7. fused_xent — the fused linear + cross-entropy kernels (forward; one backward for dx
-   and dw) against their plain versions on the same inputs: the training path's shape
-   T=4096, D=4096, V=128256, bf16; plus fp32 at T=300, D=256, V=1000 (ragged against
-   every tile), softcap 30, ignored targets with a cotangent that is zero on some rows,
-   and the tied (transposed) head, each element on its row's scale; the same check must
-   reject faults planted in the plain versions (the last vocab tile skipped, the
-   softcap's chain rule dropped, d left unrounded); then kernel, plain and bound times
-   beside the chunked CE the kernels replace (chunk 512, forward and forward+backward).
+7. fused_xent — the fused linear + cross-entropy kernels (forward; the backward's d, dw
+   and dx kernels over vocab slabs) against their plain versions on the same inputs: the
+   training path's shape T=4096, D=4096, V=128256, bf16; plus fp32 at T=300, D=256,
+   V=1000 (ragged against every tile), softcap 30, ignored targets with a cotangent that
+   is zero on some rows, the tied (transposed) head, and the slabs' edges (V ragged
+   against the slab and the tile, the tp shard VL=64128, T=4100, V=200), each element
+   on its row's scale; every bf16 backward called twice must give the same bits; the
+   same check must reject faults planted in the plain versions (the last vocab tile
+   skipped, the softcap's chain rule dropped, d left unrounded); then kernel, plain and
+   bound times (and each backward kernel alone on one slab; the SM clock, power and
+   temperature sampled by ``nvidia-smi`` beside both) beside the chunked CE the kernels
+   replace (chunk 512, forward and forward+backward).
 8. train_parity — ``Accelerator.build_train_step`` on the card against the same step
    on the CPU (``debug`` config, fp32, 3 steps of ``adamw``, of ``fused_adamw`` and of
    ``fused_adamw`` with ``loss_impl="fused"``).
@@ -95,7 +101,9 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -111,12 +119,95 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
+class PhaseFailed(SystemExit):
+    """A phase's checks failed; ``cases`` names the failed cases."""
+
+    def __init__(self, what: str, cases):
+        super().__init__(f"{what}: {list(cases)}")
+        self.cases = list(cases)
+
+
+def run_phase(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``. Any failure first leaves a record on stdout: one JSON line
+    naming the phase, its failed cases (where it names them), the exception's text and
+    the end of its traceback; then it propagates."""
+    try:
+        return fn(*args, **kw)
+    except BaseException as e:
+        emit({"phase": "failed", "in": name, "cases": getattr(e, "cases", None),
+              "error": f"{type(e).__name__}: {e}", "traceback": traceback.format_exc()[-4000:]})
+        raise
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+#: NVML's clock-event (throttle) reason bits, as ``nvidia-smi`` reports them in hex.
+CLOCK_REASONS = {0x1: "gpu_idle", 0x2: "applications_clocks_setting", 0x4: "sw_power_cap",
+                 0x8: "hw_slowdown", 0x10: "sync_boost", 0x20: "sw_thermal_slowdown",
+                 0x40: "hw_thermal_slowdown", 0x80: "hw_power_brake_slowdown",
+                 0x100: "display_clock_setting"}
+
+
+def _smi_query(fields: str):
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=10)
+    return out.stdout.strip().splitlines()[0].split(", ") if out.returncode == 0 else None
+
+
+def clock_probe(run, n: int) -> dict:
+    """``run()`` ``n`` times back to back, each between CUDA events, while ``nvidia-smi``
+    samples the card every 0.1 s: SM clock (MHz), power draw (W; the driver's average
+    and, where it reports one, the instantaneous draw), temperature (°C) and the active
+    clock-event reasons → {"call_ms": [...], "fields": [...], "samples": [[s, value per
+    field], ...]}. Its own window: no reported time is taken beside it."""
+    fields = ["clocks.sm", "power.draw", "temperature.gpu"]
+    # Drivers since 535 name the reasons clocks_event_reasons, older ones throttle; the
+    # instantaneous draw is newer still. A field the driver does not know is left out.
+    for choices in (("power.draw.instant",),
+                    ("clocks_event_reasons.active", "clocks_throttle_reasons.active")):
+        fields += [f for f in choices if _smi_query(f) is not None][:1]
+    samples, stop = [], threading.Event()
+    t0 = time.perf_counter()
+
+    def value(field, text):
+        try:
+            if field.startswith("clocks_"):
+                bits = int(text, 16)
+                return [name for b, name in CLOCK_REASONS.items() if bits & b]
+            return float(text)
+        except ValueError:  # "[N/A]"
+            return None
+
+    def sample():
+        while not stop.is_set():
+            vals = _smi_query(",".join(fields))
+            if vals is not None:
+                samples.append([round(time.perf_counter() - t0, 3),
+                                *(value(f, v) for f, v in zip(fields, vals))])
+            stop.wait(0.1)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    torch.cuda.synchronize()
+    thread.start()
+    try:
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(n)]
+        for start, end in events:
+            start.record()
+            run()
+            end.record()
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        thread.join()
+    return {"call_ms": [a.elapsed_time(b) for a, b in events], "fields": fields,
+            "samples": samples}
 
 
 def _events_ms(run, iters: int) -> float:
@@ -707,7 +798,7 @@ def phase_flash(dev) -> dict:
         if not set(must_catch[name]) <= set(res["caught"]):
             failed.append(f"planted fault {name} passes the check")
     if failed:
-        raise SystemExit(f"flash kernels disagree with their plain versions: {failed}")
+        raise PhaseFailed("flash kernels disagree with their plain versions", failed)
 
     # Times at the main shape: device time from CUDA-graph replay (kernels and plain
     # versions), in turns plain, kernel, kernel, plain; SDPA as the library yardstick.
@@ -881,13 +972,16 @@ def phase_adamw(dev, main_layers: int) -> dict:
 
 # ------------------------------------------------------ phase 7: fused cross-entropy
 XENT_MAIN = dict(T=4096, D=4096, V=128256, dtype=torch.bfloat16)
-XENT_TILE_V = 256  # the bf16 kernels' vocab tile (kBV in csrc/fused_xent.cu)
+XENT_TILE_V = 256  # the bf16 kernels' vocab tile (kBV and kGN in csrc/fused_xent.cu)
+XENT_BWD_DESIGN = ("vocab slabs; per slab d, dw and dx kernels, each output tile owned by "
+                   "one block (no atomics); wgmma+tma, warp-specialised")
 
 # Fused-CE tolerances, in flash_errors' terms: nll and lse against 1 + |want|; dx and dw
 # element by element on their row's scale, and the whole tensor's rms error. Kernel and
 # plain version take the same roundings and differ only in the order of their fp32 sums
-# (and the atomics' order, which changes from run to run). bf16 dx/dw flip by one bf16
-# step where d or the result sits next to a rounding boundary. Each limit is a few
+# (on the fp32 path also the atomics' order, which changes from run to run; the bf16
+# backward's order is fixed). bf16 dx/dw flip by one bf16 step where d or the result
+# sits next to a rounding boundary. Each limit is a few
 # times above the largest error the kernels showed on the card over all cases
 # (PERF.md); the bf16 gradients' rms limit sits 5x below the error of d left unrounded.
 XENT_TOL = {
@@ -988,7 +1082,8 @@ def xent_bound_ms(T, D, V, itemsize, which) -> tuple[float, str]:
 
 def phase_fused_xent(dev) -> dict:
     """The fused CE kernels against their plain versions on the same inputs (the
-    backward gets the plain forward's lse), then times at the main shape."""
+    backward gets the plain forward's lse; the bf16 backward runs twice and must repeat
+    its bits), then times at the main shape."""
     from accelerate_tpu_torch.models.common import chunked_ce
     from accelerate_tpu_torch.ops import fused_xent as fx
 
@@ -1003,6 +1098,15 @@ def phase_fused_xent(dev) -> dict:
         ("tied_head", dict(T=512, D=1024, V=16000, dtype=torch.bfloat16), {"tied": True}),
         ("fp32_softcap_tied", dict(T=300, D=256, V=1000, dtype=torch.float32),
          {"softcap": 30.0, "score_std": 30.0, "tied": True}),
+        # The edges of the bf16 backward's vocab slabs (16384 columns at T = 4096, 16128
+        # at T = 4100): V ragged against the slab and the 256-column tile (three slabs,
+        # the last 7309 wide), the tp shard of Llama-3-8B's head (VL = 64128: four slabs),
+        # T not a multiple of 128 with several slabs, and a head narrower than one tile.
+        ("slabs_V40077_ragged", dict(T=4096, D=1024, V=40077, dtype=torch.bfloat16), {}),
+        ("tp_shard_V64128", dict(T=4096, D=4096, V=64128, dtype=torch.bfloat16), {}),
+        ("T4100_ragged_slabs", dict(T=4100, D=1024, V=33000, dtype=torch.bfloat16),
+         {"ignored": 0.125, "zero_g": 0.125}),
+        ("V200_one_tile", dict(T=300, D=256, V=200, dtype=torch.bfloat16), {}),
     ]
     errors, failed, faults = {}, [], {}
     for name, shape, kw in cases:
@@ -1011,6 +1115,13 @@ def phase_fused_xent(dev) -> dict:
         x, w, t, g = make_xent_inputs(gen, dev=dev, **shape, **kw)
         _, lse_ref = fx.fused_xent_reference(x, w, t, cap)
         got = xent_outputs(fx, x, w, t, g, lse_ref, cap, plain=False)
+        # The bf16 backward sums in a fixed order: a second call gives the same bits. (The
+        # fp32 backward adds with atomics, whose order changes from run to run.)
+        deterministic = None
+        if shape["dtype"] == torch.bfloat16:
+            dx2, dw2 = fx._bwd(x, w, t, lse_ref, g, cap)
+            deterministic = bool(torch.equal(dx2, got["dx"]) and torch.equal(dw2, got["dw"]))
+            del dx2, dw2
         torch.cuda.synchronize()
         ref = xent_outputs(fx, x, w, t, g, lse_ref, cap, plain=True)
         errs, within = xent_check(got, ref, shape["dtype"])
@@ -1018,9 +1129,10 @@ def phase_fused_xent(dev) -> dict:
         finite = all(bool(torch.isfinite(got[n]).all()) for n in got)
         shapes_ok = all(got[n].shape == ref[n].shape and got[n].dtype == ref[n].dtype
                         for n in ref)
-        ok = finite and shapes_ok and all(within.values())
+        ok = finite and shapes_ok and all(within.values()) and deterministic is not False
         emit({"phase": "fused_xent_check", "case": name, "softcap": cap, "errors": errs,
-              "max_abs": max_abs, "tol": XENT_TOL[shape["dtype"]], "ok": ok})
+              "max_abs": max_abs, "deterministic": deterministic,
+              "tol": XENT_TOL[shape["dtype"]], "ok": ok})
         if not ok:
             failed.append(name)
         errors[name] = {"errors": errs, "max_abs": max_abs}
@@ -1039,7 +1151,7 @@ def phase_fused_xent(dev) -> dict:
     if set(faults) != set(must_catch):
         failed.append(f"planted faults run: {sorted(faults)}")
     if failed:
-        raise SystemExit(f"fused CE kernels disagree with their plain versions: {failed}")
+        raise PhaseFailed("fused CE kernels disagree with their plain versions", failed)
 
     # Times at the main shape: device time from CUDA-graph replay, in turns plain,
     # kernel, kernel, plain; the chunked CE the kernels replace beside them.
@@ -1064,6 +1176,29 @@ def phase_fused_xent(dev) -> dict:
         times[which] = {"kernel_ms": min(kernel_runs), "plain_ms": min(plain_runs),
                         "kernel_ms_runs": kernel_runs, "plain_ms_runs": plain_runs,
                         "bound_ms": bound, "bound_by": bound_by}
+    # The backward's three kernels on the first slab, each alone (2·T·D·vn flops each).
+    slab = fx._slab_width(T, V)
+    vn = min(slab, V)
+    lib, ti, gf = fx._lib(), t.to(torch.int32), g.float()
+    d = torch.empty((T, slab), dtype=x.dtype, device=dev)
+    dx, dx32 = torch.empty_like(x), torch.empty((T, D), dtype=torch.float32, device=dev)
+    dw = torch.empty_like(w)
+
+    def step(i):
+        return fx._cuda_slab_steps(lib, torch.cuda.current_stream().cuda_stream)[i]
+
+    slab_ms = {
+        "d": device_ms(lambda _: step(0)(x, w, ti, lse, gf, 0.0, 0, vn, d), 2, 5),
+        "dw": device_ms(lambda _: step(1)(x, d, 0, vn, dw), 2, 5),
+        "dx": device_ms(lambda _: step(2)(d, w, 0, vn, dx32, dx, False, False), 2, 5),
+    }
+    times["bwd"].update({
+        "slab": slab, "slab_kernel_ms": slab_ms,
+        "slab_kernel_tflops": {k: 2 * T * D * vn / ms / 1e9 for k, ms in slab_ms.items()}})
+    del d, dx, dx32, dw
+    # The clock under sustained load, in a window of its own after the timings: 80
+    # backward calls back to back (≈ 1.7 s), each timed, beside nvidia-smi's samples.
+    times["bwd"]["clock_probe"] = clock_probe(lambda: fx._bwd(x, w, t, lse, g), 80)
     # The chunked CE at the training path's layout ([2, 2048] tokens, chunk 512): its
     # forward from graph replay; forward + backward, and the fused path's, as a caller
     # sees them (autograd and host work included).
@@ -1202,7 +1337,7 @@ def phase_train_main(dev, loss_impl: str = "auto", first_loss=None) -> dict:
 
     fa._fwd.launches = fa._bwd_dq.launches = fa._bwd_dkv.launches = 0
     fo.adamw_leaves.launches = 0
-    fx._fwd.launches = fx._bwd.launches = 0
+    fx._fwd.launches = fx._bwd.launches = fx._bwd.slab_launches = 0
     paged_attention.launches = 0
     losses, step_s, norms = [], [], []
     for _ in range(7):
@@ -1215,6 +1350,7 @@ def phase_train_main(dev, loss_impl: str = "auto", first_loss=None) -> dict:
     launches = {"flash_fwd": fa._fwd.launches, "flash_bwd_dq": fa._bwd_dq.launches,
                 "flash_bwd_dkv": fa._bwd_dkv.launches, "fused_adamw": fo.adamw_leaves.launches,
                 "fused_xent_fwd": fx._fwd.launches, "fused_xent_bwd": fx._bwd.launches,
+                "fused_xent_bwd_slab_kernels": fx._bwd.slab_launches,
                 "paged_attention": paged_attention.launches}
     n_params = llama.num_params(cfg)
     n_leaves = 3 + 9 * L
@@ -1236,9 +1372,12 @@ def phase_train_main(dev, loss_impl: str = "auto", first_loss=None) -> dict:
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "launches": launches, "leaves": n_leaves,
     }
-    # The fused backward is one kernel for dx and dw: one launch per step for the pair.
+    # The fused backward is one call for dx and dw: one per step for the pair, and in it
+    # a d, a dw and a dx kernel per vocab slab.
+    n_slabs = -(-cfg.vocab_size // fx._slab_width(TRAIN_B * TRAIN_S, cfg.vocab_size))
     expect = {"flash_fwd": 2 * L * 7, "flash_bwd_dq": L * 7, "flash_bwd_dkv": L * 7,
               "fused_adamw": 7, "fused_xent_fwd": 7 * fused, "fused_xent_bwd": 7 * fused,
+              "fused_xent_bwd_slab_kernels": 7 * fused * 3 * n_slabs,
               "paged_attention": 0}
     res["launches_expected"] = expect
     res["finite"] = all(np.isfinite(losses)) and all(np.isfinite(norms))
@@ -1468,7 +1607,7 @@ def phase_int8_matmul(dev) -> dict:
     if len(faults) != 3:
         failed.append(f"planted faults run: {sorted(faults)}")
     if failed:
-        raise SystemExit(f"int8 matmul kernel disagrees with its plain version: {failed}")
+        raise PhaseFailed("int8 matmul kernel disagrees with its plain version", failed)
     torch.cuda.empty_cache()
 
     per_shape = {(M, K, N): int8_times(gen, dev, M, K, N)
@@ -1749,7 +1888,7 @@ def phase_fused_xent_partial(dev) -> dict:
     del x, w, t, nll5, lse5
     torch.cuda.empty_cache()
     if failed:
-        raise SystemExit(f"kernel #6 disagrees with its plain version: {failed}")
+        raise PhaseFailed("kernel #6 disagrees with its plain version", failed)
 
     # Times at the tp=2 shard: graph-replayed device time, plain, kernel, kernel, plain.
     times = {}
@@ -2049,7 +2188,7 @@ def main() -> int:
     smi = nvidia_smi()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    libs = _build.build(list(_build.KERNEL_SOURCES))
+    libs = run_phase("device", _build.build, list(_build.KERNEL_SOURCES))
     build_s = time.perf_counter() - t0
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -2059,39 +2198,51 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": build_s, "sources": list(libs)})
 
     # Serving (slice 1).
-    kern = phase_kernel(dev)
-    phase_engine(dev)
-    paged_launches = phase_main(dev)
+    kern = run_phase("kernel", phase_kernel, dev)
+    run_phase("engine", phase_engine, dev)
+    paged_launches = run_phase("main", phase_main, dev)
     torch.cuda.empty_cache()
     # Training (slice 2).
-    flash = phase_flash(dev)
+    flash = run_phase("flash", phase_flash, dev)
     torch.cuda.empty_cache()
-    adamw = phase_adamw(dev, TRAIN_LAYERS)
+    adamw = run_phase("adamw", phase_adamw, dev, TRAIN_LAYERS)
     # Fused cross-entropy (slice 3).
-    xent = phase_fused_xent(dev)
-    phase_train_parity(dev)
+    xent = run_phase("fused_xent", phase_fused_xent, dev)
+    run_phase("train_parity", phase_train_parity, dev)
     torch.cuda.empty_cache()
-    train = phase_train_main(dev)
+    train = run_phase("train_main", phase_train_main, dev)
     torch.cuda.empty_cache()
-    train_fused = phase_train_main(dev, "fused", first_loss=train["losses"][0])
+    train_fused = run_phase("train_fused", phase_train_main, dev, "fused",
+                            first_loss=train["losses"][0])
 
     # Int8 weight-only serving (slice 4).
     torch.cuda.empty_cache()
-    int8 = phase_int8_matmul(dev)
-    phase_engine(dev, "int8")
-    phase_engine(dev, "nf4")
-    int8_launches = phase_main_int8(dev)
+    int8 = run_phase("int8_matmul", phase_int8_matmul, dev)
+    run_phase("quant_engine_vs_cpu", phase_engine, dev, "int8")
+    run_phase("quant_engine_vs_cpu", phase_engine, dev, "nf4")
+    int8_launches = run_phase("main_int8", phase_main_int8, dev)
 
     # Tensor-parallel training (slice 5): the parent frees its cached memory first, since
     # the two ranks share the card.
     gc.collect()
     torch.cuda.empty_cache()
-    partial = phase_fused_xent_partial(dev)
-    phase_train_tp_parity(dev)
+    partial = run_phase("fused_xent_partial", phase_fused_xent_partial, dev)
+    run_phase("train_tp_parity", phase_train_tp_parity, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    train_tp = phase_train_tp(dev, train["losses"][0])
+    train_tp = run_phase("train_tp", phase_train_tp, dev, train["losses"][0])
+    emit({"kernels": run_phase("kernels", kernel_rows, kern, paged_launches, flash, adamw,
+                               xent, train, train_fused, int8, int8_launches, partial,
+                               train_tp)})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
 
+
+def kernel_rows(kern, paged_launches, flash, adamw, xent, train, train_fused, int8,
+                int8_launches, partial, train_tp) -> list:
+    """The kernels line: one row per kernel of the port, from the phases' results."""
     csrc, fa_py = "accelerate_tpu_torch/csrc/", "accelerate_tpu/ops/flash_attention.py"
     ft, fe = flash["times"], flash["errors"]["max_abs"]
     # One library call computes dq, dk and dv together: its time stands in both rows,
@@ -2099,13 +2250,19 @@ def main() -> int:
     bwd_library = "one aten flash-attention backward for dq+dk+dv (K/V expanded to H heads)"
     xt, xe = xent["times"], xent["errors"]["max_abs"]
     fx_py = "accelerate_tpu/ops/fused_xent.py"
-    # One backward kernel computes dx and dw: rows 7 and 8 name it both, with its time
-    # and its launches (one per step for the pair).
+    # One backward call computes dx and dw: rows 7 and 8 name it both, with its time and
+    # its launches (one per step for the pair).
     xent_extra = {"chunked_ce_fwd_ms": xt["chunked_ce"]["fwd_ms"],
                   "chunked_ce_fwd_bwd_call_ms": xt["chunked_ce"]["fwd_bwd_call_ms"]}
-    bwd_note = {"note": "one backward kernel (fxent_bwd_mma_kernel) computes dx and dw; "
-                        "launches count that kernel, once per step for the pair"}
-    emit({"kernels": [
+    bwd_note = {"design": XENT_BWD_DESIGN, "slab": xt["bwd"]["slab"],
+                # Counted in train_fused's run: slab-kernel launches per _bwd call.
+                "device_kernels_per_call": train_fused["launches"]["fused_xent_bwd_slab_kernels"]
+                / train_fused["launches"]["fused_xent_bwd"],
+                "slab_kernel_ms": xt["bwd"]["slab_kernel_ms"],
+                "note": "one _bwd call computes dx and dw: per vocab slab one d, one dw and "
+                        "one dx kernel (fxent_bwd_ws_kernel); launches count _bwd calls, "
+                        "once per step for the pair"}
+    return [
         _kernel_row("paged_attention", csrc + "paged_attention.cu",
                     "accelerate_tpu/ops/paged_attention.py:106", paged_launches,
                     kern["max_abs_err"], kern),
@@ -2114,7 +2271,8 @@ def main() -> int:
                     "scaled_dot_product_attention forward (flash, enable_gqa)",
                     design=FLASH_DESIGN),
         _kernel_row("flash_bwd_dq", csrc + "flash_attention.cu", fa_py + ":343",
-                    train["launches"]["flash_bwd_dq"], fe["dq"], ft["dq"], bwd_library),
+                    train["launches"]["flash_bwd_dq"], fe["dq"], ft["dq"], bwd_library,
+                    design=FLASH_DESIGN),
         _kernel_row("flash_bwd_dkv", csrc + "flash_attention.cu", fa_py + ":422",
                     train["launches"]["flash_bwd_dkv"], max(fe["dk"], fe["dv"]), ft["dkv"],
                     bwd_library, design=FLASH_DESIGN),
@@ -2145,11 +2303,7 @@ def main() -> int:
                     shape="one tp=2 rank's slice of Llama-3-8B's head: T = D = 4096, "
                           "VL = 64128, bf16", tp4=partial["times"]["tp4"],
                     note="launches: rank 0 of train_tp (each rank launches it once per step)"),
-    ]})
-    print(smi, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    ]
 
 
 if __name__ == "__main__":

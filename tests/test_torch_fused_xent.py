@@ -109,6 +109,71 @@ def test_raw_backward_is_the_plain_versions():
     torch.testing.assert_close(dw, wr.grad, rtol=1e-5, atol=1e-6)
 
 
+# The bf16 backward's slab schedule (``_bwd_slabs``) run on the CPU with the plain
+# per-slab steps: slab widths that leave a ragged last slab (300 = 128 + 128 + 44) or one
+# slab, softcap, ignored targets, bf16 and a tied head (w the transposed view of an
+# embedding). Against JAX's VJP (interpret mode) at the tolerances of the tests above,
+# and against the whole-matrix plain versions: fp32 within rtol 1e-5 / atol 1e-6 (the
+# slabs add dx's fp32 partial sums in another order), bf16 within one bf16 step
+# (d takes the same rounding; dx's fp32 sum may round to the neighbouring value).
+SLAB_CASES = {
+    "fp32_ragged": dict(dtype=torch.float32, softcap=0.0, ignore=False, tied=False, slab=128),
+    "fp32_softcap_ignored": dict(dtype=torch.float32, softcap=30.0, ignore=True, tied=False,
+                                 slab=128),
+    "fp32_one_slab": dict(dtype=torch.float32, softcap=0.0, ignore=False, tied=False, slab=512),
+    "bf16_ragged": dict(dtype=torch.bfloat16, softcap=0.0, ignore=True, tied=False, slab=128),
+    "tied_head_softcap": dict(dtype=torch.float32, softcap=20.0, ignore=False, tied=True,
+                              slab=256),
+    "bf16_tied_head": dict(dtype=torch.bfloat16, softcap=0.0, ignore=False, tied=True,
+                           slab=128),
+}
+
+
+@pytest.mark.parametrize("case", list(SLAB_CASES))
+def test_bwd_slabs_match_jax(case):
+    c = SLAB_CASES[case]
+    x, w, t, cot = _data(seed=4, ignore=c["ignore"])
+    jdt = jnp.bfloat16 if c["dtype"] == torch.bfloat16 else jnp.float32
+    jx = jnp.asarray(x, jdt)
+    # A tied head is the transposed view of an embedding [V, D].
+    jw = jnp.asarray(np.ascontiguousarray(w.T), jdt).T if c["tied"] else jnp.asarray(w, jdt)
+    jdx, jdw = jax.grad(
+        lambda a, b: jnp.sum(_jax_nll(a, b, jnp.asarray(t), c["softcap"]) * cot),
+        argnums=(0, 1))(jx, jw)
+    tx = torch.tensor(np.asarray(jx.astype(jnp.float32))).to(c["dtype"])
+    tw = torch.tensor(np.asarray(jw.T.astype(jnp.float32))).to(c["dtype"])
+    tw = tw.T if c["tied"] else tw.T.contiguous()
+    assert tw.is_contiguous() != c["tied"]
+    tt, g = torch.tensor(t), torch.tensor(cot)
+    _, lse = tfx._fwd(tx, tw, tt, c["softcap"])
+    dx, dw = tfx._bwd_slabs(tx, tw, tt, lse, g, c["softcap"], c["slab"],
+                            *tfx.PLAIN_SLAB_STEPS)
+    assert dx.dtype == tx.dtype and dw.dtype == tw.dtype
+    assert dx.shape == (T, D) and dw.shape == (D, V)
+    ref_dx = tfx.fused_xent_dx_reference(tx, tw, tt, lse, g, c["softcap"])
+    ref_dw = tfx.fused_xent_dw_reference(tx, tw, tt, lse, g, c["softcap"])
+    if c["dtype"] == torch.float32:
+        for got, ref in ((dx, jdx), (dw, jdw)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=3e-5, atol=3e-6)
+        torch.testing.assert_close(dx, ref_dx, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(dw, ref_dw, rtol=1e-5, atol=1e-6)
+    else:
+        for got, ref in ((dx, jdx), (dw, jdw)):
+            got, ref = got.float().numpy(), np.asarray(ref, np.float32)
+            assert np.abs(got - ref).max() <= 2e-2 * max(1.0, np.abs(ref).max())
+        for got, ref in ((dx, ref_dx), (dw, ref_dw)):
+            torch.testing.assert_close(got.float(), ref.float(), rtol=2.0 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("T_, V_, want", [(4096, 128256, 16384), (4096, 64128, 16384),
+                                          (70, 300, 512), (1, 5, 256), (65536, 128256, 1024),
+                                          (1 << 20, 128256, 256)])
+def test_slab_width(T_, V_, want):
+    """Slabs are whole 256-column tiles, at most 128 MB of bf16 d, never wider than V
+    rounded up to a tile."""
+    assert tfx._slab_width(T_, V_) == want
+
+
 MODEL_CASES = {
     "untied": {},
     "gemma_style_tied_softcap": {"tie_embeddings": True, "final_softcap": 20.0},
