@@ -650,11 +650,6 @@ __device__ __forceinline__ int2 col_range(long long lo, long long hi) {
   return make_int2(clamp(lo - t2), clamp(hi - t2));
 }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + ((1024 - (a & 1023)) & 1023);
-}
-
 // d (+)= A · B for one warpgroup, m64nNk16, bf16 in, fp32 accumulate. wgmma_ss: A and B
 // from shared memory, both K-major; the first k step passes accumulate = 0. wgmma_rs_tb:
 // A from registers (the mma.sync A-fragment layout), B from shared memory MN-major

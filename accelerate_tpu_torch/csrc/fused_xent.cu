@@ -330,27 +330,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
 // A fragment (16 x 16) at rows m0.., cols k0.. of a tile stored [m][k].
 __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int m0,
                                        int k0) {
@@ -553,16 +532,6 @@ struct Gemm {
   int first, last;        // dx: the first and the last slab
 };
 
-// One 2-D TMA load: the box of `map` at (col, row) into `dst`, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(col), "r"(row)
-      : "memory");
-}
-
 // An operand tile as TMA writes it: K-major (rows of 64 depth values, 128 bytes each,
 // 8-row groups 1024 bytes apart; a k step of 16 adds 32 bytes) or MN-major (64-column
 // blocks of kGK rows, 8 KB apart; a k step of 16 rows adds 2048 bytes).
@@ -681,16 +650,16 @@ __global__ void __launch_bounds__(kGThreads, 1)
       if (A_MN) {
 #pragma unroll
         for (int cb = 0; cb < kGM / 64; ++cb)
-          tma_load(sA + cb * kGK * 128, &tm_a, &full[s], m0 + 64 * cb, k0);
+          tma_load2d(sA + cb * kGK * 128, &tm_a, &full[s], m0 + 64 * cb, k0);
       } else {
-        tma_load(sA, &tm_a, &full[s], k0, m0);
+        tma_load2d(sA, &tm_a, &full[s], k0, m0);
       }
       if (B_MN) {
 #pragma unroll
         for (int cb = 0; cb < kGN / 64; ++cb)
-          tma_load(sB + cb * kGK * 128, &tm_b, &full[s], n0 + 64 * cb, k0);
+          tma_load2d(sB + cb * kGK * 128, &tm_b, &full[s], n0 + 64 * cb, k0);
       } else {
-        tma_load(sB, &tm_b, &full[s], k0, n0);
+        tma_load2d(sB, &tm_b, &full[s], k0, n0);
       }
     }
     return;

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the port's warp-specialised kernels
-// (flash_attention.cu, fused_xent.cu): shared-memory addresses, mbarriers, setmaxnreg,
-// wgmma fences and shared-memory descriptors, bf16 fragments, and the host's TMA map
-// encoder. Every .cu that includes it is compiled on its own; ops/_build.py hashes this
-// header into each library's name, so an edit here rebuilds them all.
+// Hopper (sm_90a) building blocks shared by the port's kernels (flash_attention.cu,
+// fused_xent.cu, int8_matmul.cu, paged_attention.cu): shared-memory addresses, mbarriers,
+// setmaxnreg, wgmma fences and shared-memory descriptors, bf16 fragments, TMA loads and
+// their swizzle, programmatic dependent launch, thread block clusters, and the host's TMA
+// map encoder. Every .cu that includes it is compiled on its own; ops/_build.py hashes
+// this header into each library's name, so an edit here rebuilds them all.
 #pragma once
 
 #include <cuda.h>
@@ -31,6 +32,13 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
 // Arrive and add `bytes` to the transactions the current phase waits for.
 __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Add `bytes` to the transactions the current phase waits for, without arriving.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
 }
@@ -103,6 +111,37 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, int lbo, int sbo, u
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
+// The first 1024-byte boundary at or after p (TMA's 128-byte swizzle repeats every 1024).
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// d += A · B, one warp, m16n8k16, bf16 in, fp32 accumulate (A row-major, B column-major
+// fragments).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory (each lane gives one row's address), as
+// they are or transposed.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
@@ -122,6 +161,89 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// One TMA load of the box of `map` at coordinates (c0, c1[, c2]) into `dst`, completing
+// its bytes on `bar` (the executing block's own shared memory).
+__device__ __forceinline__ void tma_load2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A hint that brings the box of `map` at (c0, c1) into L2 without reading it into the
+// block: it moves no data the program sees, so it may precede griddep_wait().
+__device__ __forceinline__ void tma_prefetch2d(const CUtensorMap* map, int c0, int c1) {
+  asm volatile("cp.async.bulk.prefetch.tensor.2d.L2.global.tile [%0, {%1, %2}];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1)
+               : "memory");
+}
+
+// Shared-memory byte offset `off` (from a 1024-byte aligned base) as TMA's swizzle of
+// `span` bytes (128, 64 or 32: CU_TENSOR_MAP_SWIZZLE_128B/64B/32B) stores it: the 16-byte
+// chunk bits 4.. XORed with the 128-byte row bits 7...
+template <int SPAN>
+__device__ __forceinline__ int swizzled(int off) {
+  return off ^ (((off >> 7) & (SPAN / 16 - 1)) << 4);
+}
+
+// Programmatic dependent launch: wait until the kernels this one depends on have
+// finished and their writes are visible (a no-op when it was not launched as a
+// dependent), and let the kernel after this one be scheduled before this one ends.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Barrier over the `threads` threads (whole warps) that name barrier `id` (1..15; 0 is
+// __syncthreads).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Thread block clusters: the block's rank in its cluster, a barrier over every thread of
+// the cluster (release / acquire: shared-memory writes before it are visible to the
+// peers' reads after it), and stores to and loads from a peer block's shared memory.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// The shared::cluster address of `p` (this block's shared memory) in block `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+__device__ __forceinline__ void st_peer_f4(uint32_t a, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ float2 ld_peer_f2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y)
+               : "r"(a)
+               : "memory");
+  return v;
 }
 
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point so that the

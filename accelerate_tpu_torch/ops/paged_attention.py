@@ -10,26 +10,91 @@ through that indirection.
 - :func:`paged_attention_reference` — the plain version: gather, mask, fp32 softmax,
   the same math as the dense cached attention.
 - :func:`paged_attention` — the wrapper. On CPU tensors it runs the plain version;
-  otherwise :func:`paged_attention_cuda` launches the hand-written kernel
+  otherwise :func:`paged_attention_cuda` launches a hand-written kernel of
   ``csrc/paged_attention.cu`` (built at first use, ``ops/_build.py``) and counts the
-  launch in ``paged_attention.launches``. A CUDA launch never falls back: a refused
-  device, shape, dtype or launch raises.
+  launch in ``paged_attention.launches``. :func:`paged_plan` chooses the kernel by dtype
+  and shape before the launch: bf16 q takes the cluster kernel (one launch; the blocks of
+  one (lane, kv head) split its live tiles as :func:`lane_tiles` says and merge inside
+  their thread block cluster) on every shape it takes, the serving path's among them;
+  fp32 q, and bf16 q on other shapes (page sizes such as 4 or 24), the CUDA-core pair
+  (partial + combine), whose bf16 launches are counted again in
+  ``paged_attention.launches_ragged``. A CUDA launch never falls back: a refused device,
+  shape, dtype or launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_cuda", "paged_attention_reference",
-           "gather_pages"]
+           "gather_pages", "cluster_blocks", "lane_tiles", "paged_plan", "PagedPlan"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (32, 64, 128, 256)
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+#: The cluster kernel's tile of key slots, its most blocks per cluster (the portable
+#: size) and its most query rows T·H/K (8 n-tiles of the mma; half that at head dim 256).
+TILE_SLOTS = 64
+MAX_CLUSTER = 8
+MAX_ROWS = 64
+
+
+@functools.lru_cache(maxsize=256)
+def cluster_blocks(B: int, K: int, MP: int, page_size: int, sms: int) -> int:
+    """Blocks in the bf16 kernel's cluster of one (lane, kv head), each walking tiles of
+    ``TILE_SLOTS`` key slots: one per tile of a full lane (``MP * page_size`` slots), at
+    most :data:`MAX_CLUSTER`, and no more than keep the ``B * K`` clusters at about two
+    blocks an SM, so that the grid runs in one wave. A pure function of the shapes and
+    the card's SM count."""
+    tiles = -(-(MP * page_size) // TILE_SLOTS)
+    fill = 2 * sms // max(1, B * K)
+    return max(1, min(MAX_CLUSTER, tiles, fill))
+
+
+class PagedPlan(NamedTuple):
+    """One launch: ``route`` ``"cluster"`` (the bf16 cluster kernel, ``blocks`` blocks a
+    cluster) or ``"pair"`` (the partial + combine pair; ``blocks`` 0)."""
+
+    route: str
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def paged_plan(bf16: bool, B: int, T: int, H: int, K: int, hd: int, page_size: int,
+               MP: int, sms: int, aligned: bool = True) -> PagedPlan:
+    """The kernel of a call, by dtype and shape: the cluster kernel for bf16 q when the
+    page size is a power of two of at least 8 (its TMA copies whole pages into 64-slot
+    tiles), the query rows T·H/K number at most :data:`MAX_ROWS` (half that at head dim
+    256) and q starts on a 16-byte boundary (``aligned``; the pool planes must, on both
+    routes); the pair otherwise. A pure function of its arguments."""
+    rows = T * (H // K)
+    max_rows = MAX_ROWS if hd < 256 else MAX_ROWS // 2
+    if (bf16 and aligned and page_size >= 8 and page_size & (page_size - 1) == 0
+            and rows <= max_rows):
+        return PagedPlan("cluster", cluster_blocks(B, K, MP, page_size, sms))
+    return PagedPlan("pair", 0)
+
+
+def lane_tiles(pos0: int, T: int, MP: int, page_size: int, window: int,
+               blocks: int, tile: int = TILE_SLOTS) -> list[range]:
+    """The tiles (indices of ``tile``-slot tiles from slot 0) that each block of a lane's
+    cluster walks, in rank order: the lane's live range — the tiles that hold a slot in
+    ``[max(0, pos0 - window + 1) if window else 0, min(pos0 + T, MP * page_size))`` — cut
+    into contiguous shares of ``ceil(n / blocks)`` tiles; the blocks past the last share
+    get none (and only meet the cluster's barriers). With the pair's chunk as ``tile``
+    and a block per chunk, the pair's split."""
+    end = max(0, min(pos0 + T, MP * page_size))
+    first = max(0, pos0 - window + 1) if window > 0 else 0
+    t0 = first // tile
+    n = max(0, -(-(end - t0 * tile) // tile))
+    per = -(-n // blocks)
+    return [range(t0 + min(n, z * per), t0 + min(n, (z + 1) * per)) for z in range(blocks)]
 
 
 def gather_pages(pool: dict, name: str, tables: torch.Tensor, length: int,
@@ -87,7 +152,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_attention_launch.argtypes = (
-            [vp] * 11 + [ci] * 9 + [cf, ci, cf, ci, ci, vp]
+            [vp] * 11 + [ci] * 9 + [cf, ci, cf, ci, ci, ci, vp]
         )
         lib.paged_attention_launch.restype = ctypes.c_int
         lib.paged_attention_chunk.argtypes = [ci, ci]
@@ -98,6 +163,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"paged_attention kernel: {msg}")
@@ -105,11 +175,13 @@ def _check(cond: bool, msg: str) -> None:
 
 def paged_attention_cuda(q, pool, tables, positions, valid, *, page_size, sm_scale,
                          window: int = 0, softcap: float = 0.0):
-    """Launch the CUDA kernel (:func:`paged_attention`'s contract). Raises
-    ``ValueError`` for anything it does not take: tensors off CUDA (the CPU included),
-    mixed devices, non-contiguous tensors, q not fp32/bf16, a pool neither of q's
-    dtype nor int8, a head dim outside 32/64/128/256, or more shared memory than a
-    block may use; ``RuntimeError`` when the launch fails."""
+    """Launch the CUDA kernel (:func:`paged_attention`'s contract) that
+    :func:`paged_plan` chooses: the cluster kernel, or the partial + combine pair.
+    Raises ``ValueError`` for anything it does not take: tensors off CUDA (the CPU
+    included), mixed devices, non-contiguous tensors, q not fp32/bf16, a pool neither of
+    q's dtype nor int8, a head dim outside 32/64/128/256, pool planes off 16-byte
+    boundaries, or, on the pair, more shared memory than a block may use;
+    ``RuntimeError`` when the launch fails."""
     B, T, H, hd = q.shape
     P, ps, K = pool["k"].shape[0], pool["k"].shape[1], pool["k"].shape[2]
     quantized = "k_scale" in pool
@@ -142,12 +214,19 @@ def paged_attention_cuda(q, pool, tables, positions, valid, *, page_size, sm_sca
     lib = _lib()
     R = T * (H // K)
     q_code, kv_code = _DTYPE_CODE[q.dtype], _DTYPE_CODE[kv_dtype]
-    smem = lib.paged_attention_smem_bytes(R, hd, kv_code)
-    _check(smem <= _SMEM_LIMIT, f"{smem} bytes of shared memory for T*H/K={R}")
-    S = -(-(MP * ps) // lib.paged_attention_chunk(hd, kv_code))  # key chunks per lane
     out = torch.empty_like(q)
-    part_acc = torch.empty((B, K, S, R, hd), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B, K, S, R, 2), dtype=torch.float32, device=q.device)
+    part_acc = part_ml = None
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    _check(pool["k"].data_ptr() % 16 == 0 and pool["v"].data_ptr() % 16 == 0,
+           "the pool planes must start on 16-byte boundaries")
+    plan = paged_plan(q.dtype == torch.bfloat16, B, T, H, K, hd, ps, MP, _sm_count(index),
+                      q.data_ptr() % 16 == 0)
+    if plan.route == "pair":
+        smem = lib.paged_attention_smem_bytes(R, hd, kv_code)
+        _check(smem <= _SMEM_LIMIT, f"{smem} bytes of shared memory for T*H/K={R}")
+        S = -(-(MP * ps) // lib.paged_attention_chunk(hd, kv_code))  # key chunks per lane
+        part_acc = torch.empty((B, K, S, R, hd), dtype=torch.float32, device=q.device)
+        part_ml = torch.empty((B, K, S, R, 2), dtype=torch.float32, device=q.device)
     scale_k = pool["k_scale"].data_ptr() if quantized else None
     scale_v = pool["v_scale"].data_ptr() if quantized else None
     with torch.cuda.device(q.device):
@@ -155,13 +234,16 @@ def paged_attention_cuda(q, pool, tables, positions, valid, *, page_size, sm_sca
         err = lib.paged_attention_launch(
             q.data_ptr(), pool["k"].data_ptr(), pool["v"].data_ptr(), scale_k, scale_v,
             tables.data_ptr(), positions.data_ptr(), valid.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+            None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(), out.data_ptr(),
             B, T, H, K, hd, P, ps, MP, C, float(sm_scale), int(window), float(softcap),
-            q_code, kv_code, stream,
+            q_code, kv_code, plan.blocks, stream,
         )
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")
     paged_attention.launches += 1
+    if plan.route == "pair" and q.dtype == torch.bfloat16:
+        paged_attention.launches_ragged += 1
     return out
 
 
@@ -193,6 +275,8 @@ def paged_attention(q, pool, tables, positions, valid, *, page_size, sm_scale,
                                 sm_scale=sm_scale, window=window, softcap=softcap)
 
 
-#: Kernel launches since the count was last reset (one per call that launched the
-#: kernel; CPU calls are not counted).
+#: Kernel launches since the count was last reset (one per call that launched a kernel,
+#: either route; CPU calls are not counted). ``launches_ragged`` counts the bf16 calls
+#: among them that took the pair (shapes outside the cluster kernel's rules).
 paged_attention.launches = 0
+paged_attention.launches_ragged = 0

@@ -21,9 +21,13 @@ after the sum, the result rounded to ``out_dtype`` once. It never computes
 
 - :func:`int8_matmul_reference` — the plain version of that order.
 - :func:`int8_matmul` — the dispatcher: CPU tensors run the plain version; any other
-  tensors go to :func:`int8_matmul_cuda`, which launches the hand-written kernel
+  tensors go to :func:`int8_matmul_cuda`, which launches a hand-written kernel of
   ``csrc/int8_matmul.cu`` (built at first use, ``ops/_build.py``) on the current stream
   and counts the launch in ``int8_matmul.launches``, or raises. It never falls back.
+  :func:`split_plan` picks the kernel by shape before the launch: bf16 x on the serving
+  shapes takes the cluster kernel (one launch, K split inside a thread block cluster),
+  other bf16 shapes the bounds-checked kernel (counted again in
+  ``int8_matmul.launches_ragged``), fp32 x the CUDA-core kernel.
 - The backward is the JAX custom VJP's: the weight dequantized to x's dtype, ``dx = g @
   wᵀ`` (a plain matmul outside any kernel); ``data`` gets no gradient, ``scales`` zeros.
 """
@@ -34,7 +38,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -54,6 +58,8 @@ __all__ = [
     "int8_matmul_cuda",
     "int8_matmul_reference",
     "split_plan",
+    "Int8Plan",
+    "MAX_CLUSTER",
 ]
 
 # NormalFloat-4: quantiles of N(0,1) normalized to [-1, 1] (QLoRA's table, as in JAX).
@@ -186,30 +192,80 @@ def int8_matmul_reference(x: torch.Tensor, data: torch.Tensor, scales: torch.Ten
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# Block tiles of csrc/int8_matmul.cu. The bf16 tensor-core kernel: 16, 32 or 64 rows ×
-# 128 columns, 64 K rows per stage; the fp32 kernel: 32 rows × 64 columns × 32 K rows.
-_BF16_TILE = (128, 64)  # (columns, K rows)
+# Block tiles of csrc/int8_matmul.cu. Both bf16 kernels: 128 weight columns × 64 K rows
+# a step, with 8, 16, 32 or 64 tokens (cluster kernel) or 16, 32 or 64 rows (the
+# bounds-checked one) a block; the fp32 kernel: 32 rows × 64 columns × 32 K rows.
+_BF16_TILE = (128, 64)  # (weight columns, K rows)
 _F32_TILE = (32, 64, 32)  # (rows, columns, K rows)
-_MIN_K_TILES = 4  # K tiles a split covers at the least
+_MIN_K_TILES = 4  # K tiles an fp32 split covers at the least
+#: Most blocks the cluster kernel takes in one cluster (past the portable 8: the kernel
+#: launches with the non-portable attribute).
+MAX_CLUSTER = 16
+#: The cluster kernel's K split, as a sweep of it on an H100 found fastest for calls that
+#: follow another kernel, as a decode step's do (PERF.md): as many K ranges as keep about
+#: two blocks an SM (a block takes 77-98 KB of shared memory, so two fit), in clusters of
+#: at most 7, so that the grid stays one wave (32 clusters of 8 did not). Where that
+#: leaves the grid short of one block per SM (a weight of few column tiles, N = 1024),
+#: the grid grows to one: first by halving the tokens a block down to 32 while the
+#: clusters would pass the portable 8 blocks (at 64 tokens, 16 token tiles × 8 ranges
+#: measured faster than 8 × 16), then by clusters of up to :data:`MAX_CLUSTER`.
+_MOST_SPLITS = 7
+
+
+class Int8Plan(NamedTuple):
+    """One launch of the int8 matmul: ``route`` ``"cluster"`` (bf16 x on the TMA
+    shapes: N % 16 == 0, K % 8 == 0, 16-byte aligned tensors), ``"ragged"`` (bf16 x,
+    other shapes: the bounds-checked kernel) or ``"fp32"`` (fp32 x); ``bm`` tokens a
+    block; ``splits`` K ranges (the cluster's blocks on the cluster route, whose partial
+    sums merge inside the cluster; fp32 partials summed by a second kernel on the fp32
+    route; 1 on the ragged route) of ``k_chunk`` rows each, in whole K tiles."""
+
+    route: str
+    bm: int
+    splits: int
+    k_chunk: int
 
 
 @functools.lru_cache(maxsize=1024)
-def split_plan(M: int, N: int, K: int, sms: int, bf16: bool) -> tuple[int, int, int]:
-    """``(block rows, splits, K rows per split)`` for one launch: K is split until the
-    grid holds about two blocks per SM (``N = 1024`` gives only 8 column tiles), each
-    split keeping at least ``_MIN_K_TILES`` tiles of K. The split's fp32 partials are
-    summed in split order before the scale."""
-    if bf16:
-        bm = 16 if M <= 16 else 32 if M <= 32 else 64
-        bn, bk = _BF16_TILE
-    else:
+def split_plan(M: int, N: int, K: int, sms: int, bf16: bool = True,
+               tma: bool = True) -> Int8Plan:
+    """The launch plan, a pure function of the shape and the card's SM count. ``tma``:
+    the tensors meet the cluster kernel's TMA rules (16-byte aligned; the shape's rules
+    are checked here).
+
+    - cluster: ``bm`` is the smallest of 8/16/32/64 tokens that holds M (64 past that);
+      K is cut into as many ranges as keep the grid at about two blocks per SM, at most
+      ``_MOST_SPLITS``, or, where that leaves fewer blocks than SMs, ``bm`` is halved
+      down to 32 while one block per SM would take clusters past 8, and the ranges are
+      as many as give one block per SM, at most ``MAX_CLUSTER``; each range a whole
+      number of 64-row K tiles and none empty (N = 4096: 32 column tiles and 7 ranges;
+      N = 14336: 112 and 2; N = 1024: 8 tiles and 16 ranges at M = 8, 16 tiles of 32
+      tokens and 8 ranges at M = 64);
+    - ragged: one block per 128 columns and ``bm`` rows, K unsplit;
+    - fp32: K split until the grid holds about two blocks per SM, each split keeping at
+      least ``_MIN_K_TILES`` tiles of K."""
+    if not bf16:
         bm, bn, bk = _F32_TILE
-    tiles = -(-M // bm) * -(-N // bn)
+        tiles = -(-M // bm) * -(-N // bn)
+        k_tiles = -(-K // bk)
+        want = max(1, -(-2 * sms // tiles))
+        per = min(k_tiles, max(_MIN_K_TILES, -(-k_tiles // want)))
+        return Int8Plan("fp32", bm, -(-k_tiles // per), per * bk)
+    bn, bk = _BF16_TILE
     k_tiles = -(-K // bk)
-    want = max(1, -(-2 * sms // tiles))
-    per = min(k_tiles, max(_MIN_K_TILES, -(-k_tiles // want)))
-    splits = -(-k_tiles // per)
-    return bm, splits, per * bk
+    if not (tma and N % 16 == 0 and K % 8 == 0 and K > 0):
+        return Int8Plan("ragged", 16 if M <= 16 else 32 if M <= 32 else 64, 1,
+                        max(1, k_tiles) * bk)
+    bm = 8 if M <= 8 else 16 if M <= 16 else 32 if M <= 32 else 64
+    tiles = -(-M // bm) * -(-N // bn)
+    splits = min(_MOST_SPLITS, k_tiles, max(1, 2 * sms // tiles))
+    if tiles * splits < sms:
+        while bm > 32 and -(-sms // tiles) > 8:
+            bm //= 2
+            tiles = -(-M // bm) * -(-N // bn)
+        splits = min(MAX_CLUSTER, k_tiles, -(-sms // tiles))
+    per = -(-k_tiles // splits)
+    return Int8Plan("cluster", bm, -(-k_tiles // per), per * bk)
 
 
 @functools.lru_cache(maxsize=None)
@@ -218,13 +274,27 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    """The kernel's C entry point, its argument types set (built at first use)."""
-    fn = _build.load("int8_matmul").int8_matmul_launch
+def _lib() -> ctypes.CDLL:
+    """The kernels' library, its entry points' argument types set (built at first use)."""
+    lib = _build.load("int8_matmul")
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp] * 5 + [ci] * 9 + [vp]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.int8_matmul_launch.argtypes = [vp] * 5 + [ci] * 9 + [vp]
+    lib.int8_matmul_launch.restype = ci
+    lib.int8_matmul_max_active_clusters.argtypes = [ci, ci]
+    lib.int8_matmul_max_active_clusters.restype = ci
+    return lib
+
+
+def _launcher():
+    return _lib().int8_matmul_launch
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(index: int, bm: int, splits: int) -> int:
+    """Clusters of ``splits`` blocks of the cluster kernel that card ``index`` holds at
+    once (``cudaOccupancyMaxActiveClusters``)."""
+    with torch.cuda.device(index):
+        return _lib().int8_matmul_max_active_clusters(bm, splits)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -234,11 +304,12 @@ def _check(cond: bool, msg: str) -> None:
 
 def int8_matmul_cuda(x: torch.Tensor, data: torch.Tensor, scales: torch.Tensor,
                      out_dtype: torch.dtype) -> torch.Tensor:
-    """Launch the CUDA kernel (:func:`int8_matmul`'s contract). Raises ``ValueError``
-    for anything it does not take: tensors off CUDA (the CPU included), mixed devices,
-    non-contiguous tensors, x not fp32/bf16, ``out_dtype`` not fp32/bf16, ``data`` not
-    int8 ``[K, N]`` or ``scales`` not fp32 ``[N]``; ``RuntimeError`` when the launch
-    fails."""
+    """Launch the CUDA kernel (:func:`int8_matmul`'s contract) on the route
+    :func:`split_plan` picks. Raises ``ValueError`` for anything it does not take:
+    tensors off CUDA (the CPU included), mixed devices, non-contiguous tensors, x not
+    fp32/bf16, ``out_dtype`` not fp32/bf16, ``data`` not int8 ``[K, N]`` or ``scales``
+    not fp32 ``[N]``; ``RuntimeError`` when the card cannot hold the plan's cluster or
+    the launch fails."""
     dev = x.device
     _check(dev.type == "cuda", f"tensors must be on CUDA, got {dev}")
     _check(data.device == dev and scales.device == dev, "x, data and scales must share a device")
@@ -258,13 +329,16 @@ def int8_matmul_cuda(x: torch.Tensor, data: torch.Tensor, scales: torch.Tensor,
         return y
     bf16 = x.dtype == torch.bfloat16
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    bm, splits, k_chunk = split_plan(M, N, max(K, 1), _sm_count(index), bf16)
-    ws = torch.empty((splits, M, N), dtype=torch.float32, device=dev) if splits > 1 else None
     x_ptr, q_ptr, s_ptr = x.data_ptr(), data.data_ptr(), scales.data_ptr()
-    # 16-byte loads and stores: rows of whole 16-byte chunks, aligned bases.
-    vec = int(bf16 and N % 16 == 0 and K % 8 == 0 and (x_ptr | q_ptr | s_ptr) % 16 == 0)
+    plan = split_plan(M, N, K, _sm_count(index), bf16, (x_ptr | q_ptr | s_ptr) % 16 == 0)
+    if plan.route == "cluster" and max_active_clusters(index, plan.bm, plan.splits) < 1:
+        raise RuntimeError(f"int8_matmul kernel: the card holds no cluster of {plan.splits} "
+                           f"blocks ({plan.bm} tokens each)")
+    ws = (torch.empty((plan.splits, M, N), dtype=torch.float32, device=dev)
+          if plan.route == "fp32" and plan.splits > 1 else None)
     args = (x_ptr, q_ptr, s_ptr, y.data_ptr(), ws.data_ptr() if ws is not None else None,
-            M, N, K, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], bm, splits, k_chunk, vec)
+            M, N, K, _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype], plan.bm, plan.splits,
+            plan.k_chunk, int(plan.route == "cluster"))
     # The decode step is bound by host work: read the raw current stream, and switch
     # the current device only when it is not x's already.
     if torch.cuda.current_device() == index:
@@ -275,6 +349,8 @@ def int8_matmul_cuda(x: torch.Tensor, data: torch.Tensor, scales: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err}")
     int8_matmul.launches += 1
+    if plan.route == "ragged":
+        int8_matmul.launches_ragged += 1
     return y
 
 
@@ -292,9 +368,11 @@ def int8_matmul(x: torch.Tensor, data: torch.Tensor, scales: torch.Tensor,
     return int8_matmul_cuda(x, data, scales, out_dtype)
 
 
-#: Kernel launches since the count was last reset (one per call that launched the
-#: kernel; CPU calls are not counted).
+#: Kernel launches since the count was last reset (one per call that launched a kernel,
+#: any route; CPU calls are not counted). ``launches_ragged`` counts the calls among them
+#: that took the bounds-checked bf16 kernel (shapes outside the cluster kernel's rules).
 int8_matmul.launches = 0
+int8_matmul.launches_ragged = 0
 
 
 class _Int8Matmul(torch.autograd.Function):

@@ -9,19 +9,28 @@ that names the phase, its failed cases and the exception:
 1. device — the card's ``nvidia-smi`` name and power limit; build every CUDA kernel
    of the port from ``accelerate_tpu_torch/csrc`` (all ``nvcc`` processes started
    together) and print the build seconds.
-2. kernel — the paged-attention kernel against its plain PyTorch version on the card:
-   the serving path's shape (B=8, T=1, H=32, K=8, hd=128, page_size=16, 64 pages per
-   lane, bf16) plus T=4, fp32, int8 pools, window, softcap, other head dims, sentinel
-   table entries and a never-written lane; then kernel, plain and bound times: device
-   time from CUDA-graph replay between CUDA events, and call time (host work included)
-   from CUDA events around calls; K/V pools rotate past the 50 MB L2.
+2. kernel — the paged-attention kernel against its plain PyTorch version and against
+   ``paged_chunked_reference`` (the bf16 kernel's split of each lane over its cluster,
+   with the plain math) on the card, each element on its row's scale: the serving
+   path's shape (B=8, T=1, H=32, K=8, hd=128, page_size=16, 64 pages per lane, bf16)
+   plus T=4, fp32, int8 pools, window, softcap, other head dims and page sizes, G from
+   1 to 8, sentinel table entries and a never-written lane, then the cluster schedule's
+   edges (a lane with more tiles than its cluster has blocks, lanes of one live slot,
+   lanes ending on a tile boundary, all-sentinel tail pages); every bf16 call made twice
+   must repeat its bits; faults planted in the chunked reference (the last live tile
+   skipped, the window's edge off by one, p left unrounded, the int8 V scale dropped)
+   must fail the same check; then kernel, plain and bound times: device time from
+   CUDA-graph replay between CUDA events, and call time (host work included) from CUDA
+   events around calls; K/V pools rotate past the 50 MB L2.
 3. engine — the paged engine on the card against the same engine on the CPU
    (``debug`` config, fp32, same seeded params and requests): identical greedy tokens,
    first decode step's logits within tolerance.
 4. main — the paged continuous-batching engine serving 10 requests at Llama-3-8B's
    full width and depth (bf16, seeded random weights made on the card), with the
    kernel's launch count checked against the decode dispatches; then a few decode
-   steps under ``torch.profiler`` for the device's busy time and idle share.
+   steps under ``torch.profiler`` for the device's busy time and idle share, where each
+   launch of the paged kernel must show as exactly one device kernel (and, in phase 13,
+   each int8 launch too).
 5. flash — the flash-attention forward, dq and dk/dv kernels against their plain
    versions on the same inputs (the training path's shape B=2, H=32, K=8, S=2048,
    hd=128, bf16, causal; plus fp32, GQA 1, S=1000, packed segments with padding,
@@ -55,13 +64,16 @@ that names the phase, its failed cases and the exception:
    then one step under ``torch.profiler``.
 10. train_fused — the same run with ``loss_impl="fused"``: the fused CE kernels launch
    once each per step, and the first step's loss matches train_main's.
-11. int8_matmul — the int8 weight-only matmul kernel against its plain version on the
-   card: the serving path's four (K, N) at M = 8 and 64 in bf16, fp32 x, fp32 out, 3-D
-   x, the ragged 130×200 @ 200×72 (bf16 and fp32) and an all-zero column, each element
-   on its row's scale; the same check must reject faults planted in the plain version
-   (the scale left out, the last K tile skipped, the codes read as unsigned); then
-   kernel, plain and bound times per shape (weight copies rotate past the 50 MB L2)
-   beside the dense bf16 cuBLAS product and ``torch._weight_int8pack_mm``.
+11. int8_matmul — the int8 weight-only matmul kernels against their plain version on
+   the card: the serving path's four (K, N) at M = 8 and 64 in bf16, M = 1, 16, 65 and
+   128, fp32 x, fp32 out, 3-D x, the ragged 130×200 @ 200×72 (bf16 and fp32) and an
+   all-zero column, each element on its row's scale, each case on the route its shape
+   picks (cluster, ragged or fp32) and every bf16 call made twice repeating its bits;
+   the same check must reject faults planted in the plain version (the scale left out,
+   the last K tile skipped, the codes read as unsigned, one middle K range of the plan
+   skipped); then kernel, plain and bound times per shape (weight copies rotate past the
+   50 MB L2) beside the dense bf16 cuBLAS product and ``torch._weight_int8pack_mm``, and
+   the cluster kernel's time against its number of K ranges at three shapes.
 12. quant_engine_vs_cpu — phase 3 with every projection quantized (int8 through the
    kernel, then nf4 through dequantize-then-multiply).
 13. main_int8 — phase 4's workload at Llama-3-8B's full width and depth with every
@@ -250,25 +262,34 @@ def device_ms(fn, n: int, replays: int) -> float:
 
 
 # ------------------------------------------------------------------ phase 2: kernel
-def make_paged_inputs(gen, *, B, T, H, K, hd, ps, MP, dtype, quantized, dev):
-    """Seeded decode inputs: lane 0 never written (position 0, no valid slot, all
-    sentinel entries); lane 1 has an unallocated (sentinel) page inside its range;
-    the other lanes random lengths in [T, MP*ps]."""
+def make_paged_inputs(gen, *, B, T, H, K, hd, ps, MP, dtype, quantized, dev, lens=None,
+                      alloc=None):
+    """Seeded decode inputs. By default lane 0 is never written (position 0, no valid
+    slot, all sentinel entries), lane 1 has an unallocated (sentinel) page inside its
+    range and the other lanes random lengths in [T, MP*ps]. ``lens`` sets every lane's
+    length (its live slots end at lens[b]); ``alloc`` caps each lane's allocated,
+    written and valid slots (the pages past them keep sentinel entries: all-sentinel
+    tail pages inside the live range)."""
     from accelerate_tpu_torch.models.common import paged_kv_planes, write_kv_paged
 
     C = MP * ps
     P = B * MP
-    lens = torch.randint(T, C + 1, (B,), generator=gen).tolist()
-    lens[0] = 0
+    if lens is None:
+        lens = torch.randint(T, C + 1, (B,), generator=gen).tolist()
+        lens[0] = 0
+        hole = True
+    else:
+        lens, hole = list(lens), False
+    written = [min(n, a) for n, a in zip(lens, alloc or lens)]
     pool = paged_kv_planes(P, ps, K, hd, dtype, quantized, dev)
     tables = np.full((B, MP), P, np.int32)
     valid = np.zeros((B, C), bool)
     perm = torch.randperm(P, generator=gen).numpy()
-    for b, n in enumerate(lens):
+    for b, n in enumerate(written):
         n_pages = -(-n // ps)
         tables[b, :n_pages] = perm[b * MP:b * MP + n_pages]
         valid[b, :n] = True
-        if b == 1 and n_pages > 2:  # a hole: sentinel entry, its slots not valid
+        if hole and b == 1 and n_pages > 2:  # a hole: sentinel entry, its slots not valid
             tables[b, 1] = P
             valid[b, ps:2 * ps] = False
     kv = torch.randn((2, B, C, K, hd), generator=gen).to(dev)
@@ -302,45 +323,258 @@ def paged_bound_ms(q, pool, lens, *, T, ps) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+#: Faults :func:`paged_chunked_reference` can plant, each of which the kernel check
+#: must catch, with the case of :func:`paged_cases` each is planted in.
+PAGED_FAULTS = {"last_chunk_skipped": "main", "window_edge_off_by_one": "window_softcap_T3_bf16",
+                "p_unrounded": "main", "int8_v_scale_dropped": "int8_bf16"}
+
+
+def sm_count(dev) -> int:
+    """SMs of ``dev``'s card (an H100's 132 for the CPU, as the CPU tests plan for it)."""
+    dev = torch.device(dev)
+    return (torch.cuda.get_device_properties(dev).multi_processor_count
+            if dev.type == "cuda" else 132)
+
+
+def paged_split(q, pool, tables) -> tuple[int, int]:
+    """(slots a tile, blocks a lane) of the kernel that ``ops.paged_attention.paged_plan``
+    chooses for these inputs: the cluster kernel's 64-slot tiles over its blocks, or the
+    partial + combine pair's chunks (their size from the built library), one per block.
+    For fp32 q the split only orders fp32 sums, and the cluster's stands in for it."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
+
+    B, T, H, hd = q.shape
+    ps, K = pool["k"].shape[1], pool["k"].shape[2]
+    MP = tables.shape[1]
+    bf16 = q.dtype == torch.bfloat16
+    plan = pa.paged_plan(bf16, B, T, H, K, hd, ps, MP, sm_count(q.device),
+                         q.data_ptr() % 16 == 0)
+    if plan.route == "cluster" or not bf16:
+        return pa.TILE_SLOTS, pa.cluster_blocks(B, K, MP, ps, sm_count(q.device))
+    chunk = pa._lib().paged_attention_chunk(hd, 2 if "k_scale" in pool else 1)
+    return chunk, -(-(MP * ps) // chunk)
+
+
+def paged_chunked_reference(q, pool, tables, positions, valid, *, page_size, sm_scale,
+                            window: int = 0, softcap: float = 0.0, fault=None, split=None):
+    """The paged attention as the kernel splits it, with the plain math: each block of a
+    lane walks its tiles (``ops.paged_attention.lane_tiles``) with an online softmax in
+    fp32 — scores in fp32 (int8 pools dequantized to fp32 first), the tile's max, p
+    rounded to V's type before P·V (bf16 pools; fp32 for fp32 and int8 pools, as the
+    Pallas kernel's ``p.astype(v.dtype)``) — and the blocks' (m, l, acc) merge in rank
+    order; a row that sees no key gives zeros. ``split`` (slots a tile, blocks a lane)
+    defaults to :func:`paged_split`'s. ``fault`` (one of :data:`PAGED_FAULTS`) plants a
+    fault: the lane's last live tile skipped, the window's edge slot kept, p left in
+    fp32, the int8 V scale left out."""
+    from accelerate_tpu_torch.ops.paged_attention import lane_tiles
+
+    B, T, H, hd = q.shape
+    P, ps, K = pool["k"].shape[0], pool["k"].shape[1], pool["k"].shape[2]
+    MP, C = tables.shape[1], valid.shape[1]
+    G, R = H // K, T * (H // K)
+    dev = q.device
+    quantized = "k_scale" in pool
+    p_type = q.dtype if not quantized and fault != "p_unrounded" else torch.float32
+    qf = q.float().reshape(B, T, K, G, hd).permute(0, 2, 1, 3, 4).reshape(B, K, R, hd)
+    tile_slots, blocks = split or paged_split(q, pool, tables)
+    neg = -1e30
+    tables_h, valid_h = tables.cpu(), valid.cpu()
+    out = torch.zeros((B, K, R, hd), dtype=torch.float32, device=dev)
+    r_t = torch.arange(R, device=dev) // G
+
+    def plane(name, pages, offs):
+        x = pool[name][pages, offs].float()  # [TS, K, hd]
+        if quantized and not (name == "v" and fault == "int8_v_scale_dropped"):
+            x = x * pool[f"{name}_scale"][pages, offs].float()
+        return x
+
+    for b in range(B):
+        pos0 = int(positions[b])
+        shares = [list(r) for r in lane_tiles(pos0, T, MP, ps, window, blocks, tile_slots)]
+        if fault == "last_chunk_skipped":
+            last = max(i for i, sh in enumerate(shares) if sh)
+            shares[last] = shares[last][:-1]
+        qpos = pos0 + r_t  # [R]
+        parts = []
+        for share in shares:
+            if not share:
+                continue
+            m = torch.full((K, R), neg, device=dev)
+            l = torch.zeros((K, R), device=dev)
+            acc = torch.zeros((K, R, hd), device=dev)
+            for tile in share:
+                slots = torch.arange(tile * tile_slots, (tile + 1) * tile_slots)
+                lp = slots // ps
+                pages = torch.where(lp < MP, tables_h[b, lp.clamp(max=MP - 1)],
+                                    torch.tensor(P - 1)).clamp(max=P - 1)
+                offs = slots % ps
+                ok = torch.where(slots < C, valid_h[b, slots.clamp(max=C - 1)], False).to(dev)
+                k = plane("k", pages.to(dev), offs.to(dev))
+                v = plane("v", pages.to(dev), offs.to(dev))
+                sc = torch.einsum("krd,jkd->krj", qf[b], k) * sm_scale
+                if softcap:
+                    sc = softcap * torch.tanh(sc / softcap)
+                sl = slots.to(dev)[None, :]
+                vis = ok[None, :] & (sl <= qpos[:, None])
+                if window > 0:
+                    edge = qpos[:, None] - window
+                    vis = vis & ((sl >= edge) if fault == "window_edge_off_by_one" else (sl > edge))
+                sc = torch.where(vis[None], sc, neg)
+                m_new = torch.maximum(m, sc.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.where(vis[None], torch.exp(sc - m_new[..., None]), 0.0)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "krj,jkd->krd", p.to(p_type).float(), v)
+                m = m_new
+            parts.append((m, l, acc))
+        if not parts:  # every tile dropped (a planted fault): the lane reads as zeros
+            continue
+        mm = torch.stack([pm for pm, _, _ in parts]).amax(0)
+        lsum = torch.zeros_like(mm)
+        osum = torch.zeros((K, R, hd), device=dev)
+        for pm, pl_, pa in parts:  # rank order
+            w = torch.exp(pm - mm)
+            lsum = lsum + pl_ * w
+            osum = osum + pa * w[..., None]
+        out[b] = osum / torch.where(lsum == 0, 1.0, lsum)[..., None]
+    return out.reshape(B, K, T, G, hd).permute(0, 2, 1, 3, 4).reshape(B, T, H, hd).to(q.dtype)
+
+
+# Paged-attention limits in flash_errors' terms (each element on its row's scale; the
+# whole tensor's rms error). "chunked": against paged_chunked_reference, which rounds
+# where the kernel rounds, so only fp32 summation orders and the output's one rounding
+# differ (a bf16 output may sit one bf16 step away); "plain": against the module's plain
+# version, whose bf16 scores are rounded to bf16 before the softmax (and int8 pools
+# dequantized in bf16). Each is set a few times above the largest error the kernels
+# showed on the card (PERF.md); the planted faults move the chunked check's rms error by
+# about 1e-3 (p unrounded) or far more.
+PAGED_TOL = {
+    "chunked": {torch.bfloat16: {"elem": 1e-2, "rms": 3e-4},
+                torch.float32: {"elem": 1e-5, "rms": 2e-6}},
+    "plain": {torch.bfloat16: {"elem": 1e-1, "rms": 2e-2},
+              torch.float32: {"elem": 1e-5, "rms": 2e-6}},
+}
+
+PAGED_MAIN = dict(B=8, T=1, H=32, K=8, hd=128, ps=16, MP=64, dtype=torch.bfloat16,
+                  quantized=False)
+
+
+def paged_cases() -> list:
+    """(name, shape, kwargs, lens, alloc) of the kernel check: the serving path's shape
+    and its variants, then the cluster schedule's edges."""
+    main = PAGED_MAIN
+    f32 = torch.float32
+    long_lane = [4000, 4096, 3000, 2049, 64, 1, 700, 128]
+    return [
+        ("main", main, {}, None, None),
+        ("T4", {**main, "T": 4}, {}, None, None),
+        ("fp32", {**main, "dtype": f32}, {}, None, None),
+        ("int8_bf16", {**main, "quantized": True}, {}, None, None),
+        ("int8_fp32", {**main, "dtype": f32, "quantized": True}, {}, None, None),
+        ("window_softcap_T3", {**main, "T": 3, "dtype": f32}, {"window": 100, "softcap": 30.0},
+         None, None),
+        ("window_softcap_T3_bf16", {**main, "T": 3}, {"window": 100, "softcap": 30.0},
+         None, None),
+        ("int8_bf16_window_T2", {**main, "T": 2, "quantized": True}, {"window": 77}, None, None),
+        ("hd64_ps8", {**main, "hd": 64, "ps": 8, "MP": 40, "H": 16, "K": 4}, {}, None, None),
+        ("hd256_G2", {**main, "hd": 256, "H": 16, "K": 8, "MP": 16}, {"softcap": 50.0},
+         None, None),
+        ("hd32_G8_T4", {**main, "hd": 32, "H": 32, "K": 4, "T": 4}, {}, None, None),
+        ("G1_ps32", {**main, "H": 8, "ps": 32, "MP": 32}, {}, None, None),
+        # A lane with more tiles than its cluster has blocks (4096 slots: 64 tiles over
+        # 8 blocks), ragged lanes beside it.
+        ("lanes_past_cluster_MP256", {**main, "MP": 256}, {}, long_lane, None),
+        # Lanes of one live slot.
+        ("one_live_slot", main, {}, [1, 1, 2, 1, 1, 1, 1, 1], None),
+        # Lanes that end exactly on a tile (and page) boundary.
+        ("ends_on_tile_boundary", main, {}, [64, 128, 192, 256, 512, 640, 960, 1024], None),
+        # Pages past the written ones left as sentinel entries inside the live range.
+        ("sentinel_tail_pages", main, {}, [1024, 700, 300, 129, 64, 900, 500, 1000],
+         [200, 100, 300, 64, 1, 450, 16, 999]),
+        # bf16 shapes outside the cluster kernel's rules take the pair: page sizes of 24
+        # and 4 (the JAX package's program lowering and engine tests use them) and more
+        # than 64 query rows.
+        ("bf16_ps24", {**main, "ps": 24, "MP": 43}, {}, None, None),
+        ("int8_bf16_ps4_T2", {**main, "ps": 4, "MP": 256, "T": 2, "quantized": True},
+         {"window": 300}, None, None),
+        ("bf16_rows80", {**main, "T": 20}, {}, None, None),
+    ]
+
+
+def paged_check(got, want, dtype, which) -> tuple[dict, bool]:
+    errs = flash_errors(got, want)
+    return errs, all(errs[m] <= PAGED_TOL[which][dtype][m] for m in errs)
+
+
 def phase_kernel(dev) -> dict:
+    """The paged-attention kernel against its plain version and the chunked reference on
+    the card; each case's launches take the route ``paged_plan`` gives its shape (bf16
+    pair launches counted in ``launches_ragged``); faults planted in the chunked
+    reference must fail the same check; two calls on the same bf16 inputs give the same
+    bits; then kernel, plain and bound times."""
+    from accelerate_tpu_torch.ops import paged_attention as pa
     from accelerate_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference,
     )
 
     gen = torch.Generator().manual_seed(1)
-    main = dict(B=8, T=1, H=32, K=8, hd=128, ps=16, MP=64, dtype=torch.bfloat16,
-                quantized=False)
-    cases = [
-        ("main", main, {}),
-        ("T4", {**main, "T": 4}, {}),
-        ("fp32", {**main, "dtype": torch.float32}, {}),
-        ("int8_bf16", {**main, "quantized": True}, {}),
-        ("int8_fp32", {**main, "dtype": torch.float32, "quantized": True}, {}),
-        ("window_softcap_T3", {**main, "T": 3, "dtype": torch.float32},
-         {"window": 100, "softcap": 30.0}),
-        ("hd64_ps8", {**main, "hd": 64, "ps": 8, "MP": 40, "H": 16, "K": 4}, {}),
-        ("hd256_G2", {**main, "hd": 256, "H": 16, "K": 8, "MP": 16}, {"softcap": 50.0}),
-    ]
-    errors = {}
-    for name, shape, kw in cases:
-        q, pool, tables, positions, valid, lens = make_paged_inputs(gen, dev=dev, **shape)
+    main = PAGED_MAIN
+    failed, errors, faults = [], {}, {}
+    fault_of = {c: [f for f, fc in PAGED_FAULTS.items() if fc == c]
+                for c in set(PAGED_FAULTS.values())}
+    for name, shape, kw, lens, alloc in paged_cases():
+        q, pool, tables, positions, valid, lens = make_paged_inputs(
+            gen, dev=dev, lens=lens, alloc=alloc, **shape)
         args = dict(page_size=shape["ps"], sm_scale=shape["hd"] ** -0.5, **kw)
+        ragged = paged_attention.launches_ragged
         out = paged_attention(q, pool, tables, positions, valid, **args)
+        again = paged_attention(q, pool, tables, positions, valid, **args)
         torch.cuda.synchronize()
+        ragged = paged_attention.launches_ragged - ragged
         ref = paged_attention_reference(q, pool, tables, positions, valid, **args)
-        err = float((out.float() - ref.float()).abs().max())
-        tol = TOL[shape["dtype"]]
-        ok = bool(torch.isfinite(out).all()) and err <= tol
-        emit({"phase": "kernel_check", "case": name, "max_abs_err": err, "tol": tol,
-              "ok": ok})
+        chunked = paged_chunked_reference(q, pool, tables, positions, valid, **args)
+        dtype = shape["dtype"]
+        e_chunked, ok_c = paged_check(out, chunked, dtype, "chunked")
+        e_plain, ok_p = paged_check(out, ref, dtype, "plain")
+        same_bits = bool(torch.equal(out, again))
+        finite = bool(torch.isfinite(out).all())
+        bf16 = dtype == torch.bfloat16
+        plan = pa.paged_plan(bf16, *(shape[k] for k in ("B", "T", "H", "K", "hd", "ps", "MP")),
+                             sm_count(dev))
+        route_ok = ragged == 2 * (bf16 and plan.route == "pair")
+        ok = ok_c and ok_p and finite and (same_bits or not bf16) and route_ok
+        res = {"phase": "kernel_check", "case": name, "dtype": str(dtype),
+               "quantized": shape["quantized"], "lens": lens, "route": plan.route,
+               "cluster_blocks": plan.blocks, "split": paged_split(q, pool, tables),
+               "errors_vs_chunked": e_chunked, "errors_vs_plain": e_plain,
+               "max_abs_err": float((out.float() - ref.float()).abs().max()),
+               "max_abs_err_vs_chunked": float((out.float() - chunked.float()).abs().max()),
+               "same_bits_twice": same_bits, "tol": {k: PAGED_TOL[k][dtype] for k in PAGED_TOL},
+               "ok": ok}
+        emit(res)
         if not ok:
-            raise SystemExit(f"paged_attention kernel disagrees with plain on {name}: "
-                             f"{err} > {tol}")
-        errors[name] = err
+            failed.append(name)
+        errors[name] = res["max_abs_err"]
+        for fault in fault_of.get(name, []):
+            bad = paged_chunked_reference(q, pool, tables, positions, valid, fault=fault, **args)
+            e_bad, ok_bad = paged_check(bad, chunked, dtype, "chunked")
+            faults[fault] = {"case": name, "errors": e_bad, "caught": not ok_bad}
+        del q, pool, tables, positions, valid, out, again, ref, chunked
+    for name, res in faults.items():
+        emit({"phase": "kernel_planted_fault", "fault": name, **res})
+        if not res["caught"]:
+            failed.append(f"planted fault {name} passes the check")
+    if sorted(faults) != sorted(PAGED_FAULTS):
+        failed.append(f"planted faults run: {sorted(faults)}")
+    if failed:
+        raise PhaseFailed("paged_attention kernel disagrees with its references", failed)
 
     # Timing at the main shape. Four input sets (each pool 32 MB) rotate so a launch
-    # finds its K/V outside the 50 MB L2, as a decode step's per-layer pools are.
-    sets = [make_paged_inputs(gen, dev=dev, **main) for _ in range(4)]
+    # finds its K/V outside the 50 MB L2, as a decode step's per-layer pools are; they
+    # come from their own seed, whatever cases the check above holds.
+    tgen = torch.Generator().manual_seed(2)
+    sets = [make_paged_inputs(tgen, dev=dev, **main) for _ in range(4)]
     args = dict(page_size=main["ps"], sm_scale=main["hd"] ** -0.5)
 
     def kernel(i):
@@ -361,14 +595,22 @@ def phase_kernel(dev) -> dict:
     bounds = [paged_bound_ms(s[0], s[1], s[5], T=main["T"], ps=main["ps"]) for s in sets]
     bound_ms = sum(b for b, _ in bounds) / len(bounds)
     res = {"phase": "kernel_time", "shape": {k: str(v) for k, v in main.items()},
+           "design": PAGED_DESIGN,
            "kernel_ms": min(kernel_ms), "plain_ms": min(plain_ms),
            "kernel_ms_runs": kernel_ms, "plain_ms_runs": plain_ms,
            "kernel_call_ms": kernel_call_ms, "plain_call_ms": plain_call_ms,
            "bound_ms": bound_ms, "bound_by": bounds[0][1],
+           "kernel_over_bound": min(kernel_ms) / bound_ms,
            "live_slots_per_set": [sum(s[5]) for s in sets]}
     emit(res)
     return {"max_abs_err": errors["main"], "kernel_ms": res["kernel_ms"],
             "plain_ms": res["plain_ms"], "bound_ms": bound_ms, "bound_by": res["bound_by"]}
+
+
+PAGED_DESIGN = ("one launch; a thread block cluster (<= 8 blocks, one wave) per (lane, kv "
+                "head) over 64-slot tiles, TMA page copies into a 2-stage mbarrier ring, "
+                "mma.sync swap-AB (S^T = K Q^T, O^T = V^T P^T), merge through distributed "
+                "shared memory")
 
 
 # ------------------------------------------------------------------ phase 3: engine
@@ -521,20 +763,37 @@ def phase_main(dev) -> int:
 
     def reset_counts():
         paged_attention.launches = 0
+        paged_attention.launches_ragged = 0
 
     run = serve_main(params, cfg, dev, reset_counts)
-    launches = paged_attention.launches
+    launches, ragged = paged_attention.launches, paged_attention.launches_ragged
     s = run["stats"]
-    launches_ok = s["decode_steps"] > 0 and launches == cfg.n_layers * s["decode_steps"]
+    launches_ok = (s["decode_steps"] > 0 and launches == cfg.n_layers * s["decode_steps"]
+                   and ragged == 0)
     res = {**_serve_result(run, "main", init_s), "paged_attention_launches": launches,
-           "launches_ok": launches_ok}
+           "paged_attention_launches_ragged": ragged, "launches_ok": launches_ok}
     res["ok"] = (run["finite"] and run["in_range"] and run["all_done"] and launches_ok
                  and s["pages_in_use"] == 0)
     emit(res)
     if not res["ok"]:
         raise SystemExit("main path failed its checks")
-    emit(profile_decode(run["eng"], run["rng"], cfg.vocab_size))
-    return launches
+    prof = profile_decode(run["eng"], run["rng"], cfg.vocab_size)
+    emit(prof)
+    one_kernel_per_call(prof, int8=False)
+    return {"launches": launches, "profile": prof}
+
+
+def one_kernel_per_call(prof: dict, int8: bool) -> None:
+    """The profiled decode window ran one device kernel per launch of each port kernel
+    (paged attention; with ``int8``, the int8 matmul too), and launched it."""
+    names = ["paged_attention"] + (["int8_mm"] if int8 else [])
+    launch_key = {"paged_attention": "paged_attention_launches_per_step",
+                  "int8_mm": "int8_matmul_launches_per_step"}
+    bad = [n for n in names if prof[f"{n}_kernels_per_step"] is None
+           or prof[launch_key[n]] <= 0
+           or prof[f"{n}_kernels_per_step"] != prof[launch_key[n]]]
+    if bad:
+        raise PhaseFailed("device kernels per step differ from the wrapper's launches", bad)
 
 
 def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
@@ -543,28 +802,52 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
     number). Device busy time is the sum of the kernels' own device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention
+    from accelerate_tpu_torch.ops.quantization import int8_matmul
+
     for _ in range(eng.max_slots):
         eng.submit(rng.integers(0, vocab, 200), max_new_tokens=steps + 4)
     eng.step()  # admissions + the first decode step
     eng.step()
     torch.cuda.synchronize()
+    before = (paged_attention.launches, int8_matmul.launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    launches = (paged_attention.launches - before[0], int8_matmul.launches - before[1])
     eng.run()
-    kernels, n_launch = {}, 0
+    # Device time as the union of the kernels' intervals: a kernel launched as a
+    # programmatic dependent (the int8 matmul) starts before the one ahead of it ends,
+    # so the sum of kernel durations counts that overlap twice.
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def union_ms(stem=""):
+        ivs = sorted((a, b) for n, a, b in spans if stem in n)
+        total, end = 0.0, -math.inf
+        for a, b in ivs:
+            if b > end:
+                total += b - max(a, end)
+                end = b
+        return total / 1e3 / steps
+
+    kernels, counts, n_launch = {}, {}, 0
     for e in prof.key_averages():
         # Device-side events only: a CPU op's entry repeats its kernels' device time.
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         kernels[e.key] = kernels.get(e.key, 0) + e.self_device_time_total
+        counts[e.key] = counts.get(e.key, 0) + e.count
         n_launch += e.count
     busy_ms = sum(kernels.values()) / 1e3 / steps
     def group_ms(*names):
         return sum(v for k, v in kernels.items() if any(n in k for n in names)) / 1e3 / steps
+
+    def group_count(name):
+        return sum(c for k, c in counts.items() if name in k) / steps
 
     attn_ms = group_ms("paged_attention")
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
@@ -572,12 +855,20 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
         "phase": "decode_profile", "steps": steps, "lanes": eng.max_slots,
         "wall_ms_per_step_profiled": wall_ms,
         "device_busy_ms_per_step": busy_ms if kernels else None,
-        "device_idle_share": (1 - busy_ms / wall_ms) if kernels else None,
+        "device_busy_union_ms_per_step": union_ms() if kernels else None,
+        "device_idle_share": (1 - union_ms() / wall_ms) if kernels else None,
         "paged_attention_ms_per_step": attn_ms if kernels else None,
         "int8_matmul_ms_per_step": group_ms("int8_mm") if kernels else None,
+        "int8_matmul_union_ms_per_step": union_ms("int8_mm") if kernels else None,
         "cublas_matmul_ms_per_step": (group_ms("nvjet", "gemm", "cutlass", "sm90_xmma")
                                       if kernels else None),
         "device_kernels_per_step": n_launch / steps if kernels else None,
+        # Device kernels of each port kernel per step, and the wrapper's launches per step
+        # in the same window: one device kernel per launch is one launch per call.
+        "paged_attention_kernels_per_step": group_count("paged_attention") if kernels else None,
+        "int8_mm_kernels_per_step": group_count("int8_mm") if kernels else None,
+        "paged_attention_launches_per_step": launches[0] / steps,
+        "int8_matmul_launches_per_step": launches[1] / steps,
         "top_kernels_ms_per_step": {k[:80]: v / 1e3 / steps for k, v in top},
     }
 
@@ -1444,6 +1735,12 @@ INT8_LAYER = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
               "wo": (4096, 4096), "w_gate": (4096, 14336), "w_up": (4096, 14336),
               "w_down": (14336, 4096)}
 INT8_M = {"decode": 8, "prefill": 64}  # max_slots=8 lanes at T=1; one 64-token chunk
+INT8_DESIGN = ("one launch; swap-AB wgmma (weight columns on the 64-row side, tokens on n) "
+               "with int8 dequantized to bf16 A fragments in registers, TMA ring of the "
+               "[K, N] weight and x, K split over a thread block cluster (<= 7; <= 16 at "
+               "N = 1024, one block an SM), partials "
+               "pushed to their owners through distributed shared memory and summed in "
+               "rank order, programmatic dependent launch")
 
 # int8 matmul tolerances by output type, in flash_errors' terms (each element on its
 # row's scale; the whole tensor's rms error). Kernel and plain version take the same
@@ -1477,14 +1774,23 @@ def int8_check(got: torch.Tensor, want: torch.Tensor, out_dtype) -> tuple[dict, 
 
 def int8_planted_faults(x, qw, out_dtype, want) -> dict:
     """Faulty plain versions, each held to the same check: the column scale left out;
-    the last K tile (64 rows) skipped; the codes read as unsigned bytes."""
+    the last K tile (64 rows) skipped; the codes read as unsigned bytes; one middle K
+    range of the launch plan (the rows one block of the cluster sums) skipped."""
+    from accelerate_tpu_torch.ops.quantization import split_plan
+
     d, s = qw.data, qw.scales
-    K = d.shape[0]
+    K, N = d.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = split_plan(math.prod(x.shape[:-1]), N, K, sms)
+    z = plan.splits // 2
+    keep = torch.ones(K, dtype=torch.bool, device=x.device)
+    keep[z * plan.k_chunk:(z + 1) * plan.k_chunk] = False
     bad = {
         "scale_left_out": (x.float() @ d.float()).to(out_dtype),
         "last_k_tile_skipped": ((x[..., :K - 64].float() @ d[:K - 64].float()) * s)
         .to(out_dtype),
         "codes_unsigned": ((x.float() @ d.view(torch.uint8).float()) * s).to(out_dtype),
+        "middle_k_range_skipped": (((x.float() * keep) @ d.float()) * s).to(out_dtype),
     }
     result = {}
     for name, out in bad.items():
@@ -1502,12 +1808,22 @@ def int8_bound_ms(M, K, N, out_itemsize=2) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def in_context_ms(call, n: int, replays: int) -> float:
+    """Device time of ``call(i)`` when a PyTorch kernel runs between calls, as in a decode
+    step (where a kernel launched as a programmatic dependent cannot start before the one
+    ahead of it ends): the graph of call + a one-element add, less the adds alone."""
+    z = torch.zeros(1, device="cuda")
+    adds = device_ms(lambda i: z.add_(1), n, replays)
+    return device_ms(lambda i: (call(i), z.add_(1)), n, replays) - adds
+
+
 def int8_times(gen, dev, M, K, N) -> dict:
     """Device times at one shape (bf16 x and out) from CUDA-graph replay, in turns plain,
-    kernel, kernel, plain. Weight copies rotate past the 50 MB L2 (a 4096 × 4096 int8
-    weight is 16.8 MB and would otherwise be served from L2). Beside them: the dense bf16
-    product the quantization replaces (cuBLAS ``x @ w_bf16``) and
-    ``torch._weight_int8pack_mm`` (weight [N, K], bf16 scales), where this build runs it."""
+    kernel, kernel, plain, then the kernel's time in context (``in_context_ms``). Weight
+    copies rotate past the 50 MB L2 (a 4096 × 4096 int8 weight is 16.8 MB and would
+    otherwise be served from L2). Beside them: the dense bf16 product the quantization
+    replaces (cuBLAS ``x @ w_bf16``) and ``torch._weight_int8pack_mm`` (weight [N, K], bf16
+    scales), where this build runs it."""
     from accelerate_tpu_torch.ops import quantization as qz
 
     copies = max(2, math.ceil(100e6 / (K * N)))
@@ -1528,6 +1844,7 @@ def int8_times(gen, dev, M, K, N) -> dict:
     res = {"M": M, "K": K, "N": N, "weight_copies": copies,
            "kernel_ms": min(kernel_runs), "plain_ms": min(plain_runs),
            "kernel_ms_runs": kernel_runs, "plain_ms_runs": plain_runs,
+           "kernel_in_context_ms": in_context_ms(kernel, copies, 20),
            "bound_ms": bound, "bound_by": bound_by,
            "kernel_gb_per_s": (M * K * 2 + K * N + 4 * N + 2 * M * N) / min(kernel_runs) / 1e6}
     dense_copies = max(2, math.ceil(100e6 / (2 * K * N)))
@@ -1553,6 +1870,87 @@ def int8_times(gen, dev, M, K, N) -> dict:
     return res
 
 
+def int8_split_sweep(gen, dev) -> list:
+    """The cluster kernel's device time in context (``in_context_ms``) at five serving
+    shapes against its tokens a block (the plan's and down to a quarter of it) and the
+    number of K ranges (blocks of a cluster, 1..16), launched through the C entry point
+    with the plan forced, beside the plan's own choice: the measurement behind
+    ``split_plan``'s rule (``quantization._MOST_SPLITS`` and ``MAX_CLUSTER``). Weight
+    copies rotate past the L2 as in ``int8_times``. Run only when asked:
+    ``python3 chip_smoke.py --int8-split-sweep``."""
+    from accelerate_tpu_torch.ops import quantization as qz
+
+    fn = qz._launcher()
+    out = []
+    for M, K, N in ((8, 4096, 4096), (8, 14336, 4096), (64, 4096, 4096), (8, 4096, 1024),
+                    (64, 4096, 1024)):
+        copies = max(2, math.ceil(100e6 / (K * N)))
+        ws = [make_int8_inputs(gen, M=M, K=K, N=N, x_dtype=torch.bfloat16, dev=dev)[1]
+              for _ in range(copies)]
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        ys = [torch.empty((M, N), dtype=torch.bfloat16, device=dev) for _ in range(copies)]
+        plan = qz.split_plan(M, N, K, sm_count(dev))
+        k_tiles = -(-K // 64)
+
+        def launch(i, bm, splits):
+            per = -(-k_tiles // splits)
+            err = fn(x.data_ptr(), ws[i].data.data_ptr(), ws[i].scales.data_ptr(),
+                     ys[i].data_ptr(), None, M, N, K, 1, 1, bm, -(-k_tiles // per),
+                     per * 64, 1, torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"int8 cluster kernel launch failed: CUDA error {err}")
+
+        ms = {f"bm{bm}_s{s}": in_context_ms(lambda i: launch(i, bm, s), copies, 20)
+              for bm in (8, 16, 32, 64) if plan.bm // 4 <= bm <= plan.bm
+              for s in range(1, qz.MAX_CLUSTER + 1)}
+        out.append({"M": M, "K": K, "N": N, "plan": f"bm{plan.bm}_s{plan.splits}",
+                    "ms": ms, "best": min(ms, key=ms.get),
+                    "bound_ms": int8_bound_ms(M, K, N)[0]})
+        del ws, ys
+    return out
+
+
+def int8_fresh_weight_check(gen, dev) -> dict:
+    """Weights written by the kernel just before the call: the cluster kernel launches as
+    a programmatic dependent of the kernel ahead of it and must not read the weight or
+    its scales before that kernel's writes. 12 rounds at M = 8, 4096 × 1024 (a cluster of
+    16 blocks), each writing one of two weights into the same buffers (the codes or the
+    scales last) or quantizing a new one, then calling the kernel at once; each result is
+    held against the plain version on the weight it should have read."""
+    from accelerate_tpu_torch.ops import quantization as qz
+
+    K, N = 4096, 1024
+    x, a = make_int8_inputs(gen, M=8, K=K, N=N, x_dtype=torch.bfloat16, dev=dev)
+    b = make_int8_inputs(gen, M=8, K=K, N=N, x_dtype=torch.bfloat16, dev=dev)[1]
+    data, scales = a.data.clone(), a.scales.clone()
+    w = torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)
+    outs, copies = [], 0
+    for r in range(12):
+        if r % 3 == 2:  # quantized by the kernels just before the call
+            src = qz.quantize_weight(w * (1 + r))
+            got = qz.int8_matmul(x, src.data, src.scales, torch.bfloat16)
+        else:  # the buffers hold the other weight until these copies
+            src = (b, a)[copies % 2]
+            copies += 1
+            if r % 3 == 0:
+                scales.copy_(src.scales)
+                data.copy_(src.data)
+            else:
+                data.copy_(src.data)
+                scales.copy_(src.scales)
+            got = qz.int8_matmul(x, data, scales, torch.bfloat16)
+        outs.append((got, src))
+    torch.cuda.synchronize()
+    worst, ok = {"elem": 0.0, "rms": 0.0}, True
+    for got, src in outs:
+        errs, good = int8_check(got, qz.int8_matmul_reference(x, src.data, src.scales,
+                                                              torch.bfloat16), torch.bfloat16)
+        worst = {k: max(worst[k], errs[k]) for k in worst}
+        ok = ok and good
+    return {"rounds": len(outs), "errors": worst, "ok": ok,
+            "splits": qz.split_plan(8, N, K, sm_count(dev)).splits}
+
+
 def phase_int8_matmul(dev) -> dict:
     """The int8 matmul kernel against its plain version on the card, then times at the
     serving path's shapes."""
@@ -1564,6 +1962,8 @@ def phase_int8_matmul(dev) -> dict:
               "w_down": (14336, 4096)}
     cases = [(f"{leaf}_M{M}", dict(M=M, K=K, N=N, x_dtype=bf), bf)
              for M in INT8_M.values() for leaf, (K, N) in shapes.items()]
+    cases += [(f"wq_wo_M{M}", dict(M=M, K=4096, N=4096, x_dtype=bf), bf) for M in (1, 16, 65)]
+    cases += [("w_gate_w_up_M128", dict(M=128, K=4096, N=14336, x_dtype=bf), bf)]
     cases += [
         ("fp32_x_M8", dict(M=8, K=4096, N=4096, x_dtype=f32), f32),
         ("bf16_x_out_fp32_M8", dict(M=8, K=4096, N=1024, x_dtype=bf), f32),
@@ -1573,19 +1973,29 @@ def phase_int8_matmul(dev) -> dict:
         ("zero_column_M8", dict(M=8, K=4096, N=1024, x_dtype=bf, zero_col=5), bf),
     ]
     failed, max_abs, faults = [], {}, {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, shape, out_dtype in cases:
         x, qw = make_int8_inputs(gen, dev=dev, **shape)
+        ragged = qz.int8_matmul.launches_ragged
         got = qz.int8_matmul(x, qw.data, qw.scales, out_dtype)
+        again = qz.int8_matmul(x, qw.data, qw.scales, out_dtype)
         torch.cuda.synchronize()
+        ragged = qz.int8_matmul.launches_ragged - ragged
         want = qz.int8_matmul_reference(x, qw.data, qw.scales, out_dtype)
         errs, ok = int8_check(got, want, out_dtype)
         ok = ok and got.shape == want.shape and got.dtype == want.dtype
         ok = ok and bool(torch.isfinite(got).all())
+        K, N = qw.data.shape
+        plan = qz.split_plan(math.prod(x.shape[:-1]), N, K, sms, x.dtype == bf)
+        same_bits = bool(torch.equal(got, again))
+        # bf16 x on the cluster route repeats its bits; the route is the shape's.
+        ok = ok and (same_bits or x.dtype != bf) and ragged == 2 * (plan.route == "ragged")
         res = {"phase": "int8_matmul_check", "case": name, "x_dtype": str(x.dtype),
                "out_dtype": str(out_dtype), "x_shape": list(x.shape),
                "w_shape": list(qw.data.shape), "errors": errs,
                "max_abs": float((got.float() - want.float()).abs().max()),
-               "tol": INT8_TOL[out_dtype]}
+               "route": plan.route, "cluster": plan.splits if plan.route == "cluster" else None,
+               "bm": plan.bm, "same_bits_twice": same_bits, "tol": INT8_TOL[out_dtype]}
         if "zero_col" in shape:
             c = shape["zero_col"]
             res["zero_column_exact"] = (not bool(got[..., c].any())
@@ -1599,13 +2009,17 @@ def phase_int8_matmul(dev) -> dict:
         max_abs[name] = res["max_abs"]
         if name == "wq_wo_M8":
             faults = int8_planted_faults(x, qw, out_dtype, want)
-        del x, qw, got, want
+        del x, qw, got, again, want
     for name, res in faults.items():
         emit({"phase": "int8_matmul_planted_fault", "fault": name, **res})
         if not res["caught"]:
             failed.append(f"planted fault {name} passes the check")
-    if len(faults) != 3:
+    if len(faults) != 4:
         failed.append(f"planted faults run: {sorted(faults)}")
+    fresh = int8_fresh_weight_check(gen, dev)
+    emit({"phase": "int8_matmul_fresh_weight", **fresh})
+    if not fresh["ok"]:
+        failed.append("weight written just before the call")
     if failed:
         raise PhaseFailed("int8 matmul kernel disagrees with its plain version", failed)
     torch.cuda.empty_cache()
@@ -1619,8 +2033,9 @@ def phase_int8_matmul(dev) -> dict:
         vals = [per_shape[(M, K, N)][key] for K, N in INT8_LAYER.values()]
         return None if any(v is None for v in vals) else sum(vals)
 
-    totals = {stage: {k: layer(M, k) for k in ("kernel_ms", "plain_ms", "bound_ms",
-                                               "dense_bf16_ms", "int8pack_ms")}
+    totals = {stage: {k: layer(M, k) for k in ("kernel_ms", "kernel_in_context_ms",
+                                               "plain_ms", "bound_ms", "dense_bf16_ms",
+                                               "int8pack_ms")}
               for stage, M in INT8_M.items()}
     for key in ("kernel_call_ms", "dense_bf16_call_ms"):
         for stage, M in INT8_M.items():
@@ -1633,6 +2048,8 @@ def phase_int8_matmul(dev) -> dict:
     emit(res)
     decode = totals["decode"]
     return {"max_abs_err": max(max_abs.values()), "kernel_ms": decode["kernel_ms"],
+            "kernel_in_context_ms": decode["kernel_in_context_ms"],
+            "kernel_call_ms": decode["kernel_call_ms"],
             "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
             "bound_by": "bytes", "library_ms": decode["int8pack_ms"],
             "dense_bf16_ms": decode["dense_bf16_ms"], "prefill": totals["prefill"],
@@ -1679,10 +2096,14 @@ def phase_main_int8(dev) -> int:
 
     def reset_counts():
         paged_attention.launches = 0
+        paged_attention.launches_ragged = 0
         qz.int8_matmul.launches = 0
+        qz.int8_matmul.launches_ragged = 0
 
     run = serve_main(params, cfg, dev, reset_counts)
     launches, paged = qz.int8_matmul.launches, paged_attention.launches
+    ragged = qz.int8_matmul.launches_ragged
+    paged_ragged = paged_attention.launches_ragged
     s = run["stats"]
     chunks = sum(max(1, -(-int(n) // MAIN_ENGINE["prompt_bucket"])) for n in run["lengths"])
     expect = len(INT8_LAYER) * cfg.n_layers * (s["decode_steps"] + chunks)
@@ -1692,20 +2113,25 @@ def phase_main_int8(dev) -> int:
            "quantize_s": quantize_s, "quantized_leaves": n_quantized,
            "param_bytes_int8": int8_bytes, "param_bytes_bf16": bf16_bytes,
            "int8_matmul_launches": launches, "int8_matmul_launches_expected": expect,
+           "int8_matmul_launches_ragged": ragged,
            "prefill_chunks": chunks, "paged_attention_launches": paged,
+           "paged_attention_launches_ragged": paged_ragged,
            "top1_agreement_first_decode_step_vs_bf16": top1}
     res["ok"] = (run["finite"] and run["in_range"] and run["all_done"]
                  and s["pages_in_use"] == 0 and s["decode_steps"] > 0 and launches == expect
+                 and ragged == 0 and paged_ragged == 0
                  and paged == cfg.n_layers * s["decode_steps"]
                  and n_quantized == len(INT8_LAYER) * cfg.n_layers)
     emit(res)
     if not res["ok"]:
         raise SystemExit("int8 main path failed its checks")
-    emit({**profile_decode(run["eng"], run["rng"], cfg.vocab_size), "weights": "int8"})
+    prof = {**profile_decode(run["eng"], run["rng"], cfg.vocab_size), "weights": "int8"}
+    emit(prof)
+    one_kernel_per_call(prof, int8=True)
     del run
     dense = llama.init_params(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
     emit(decode_ab({"bf16": dense, "int8": params}, cfg))
-    return launches
+    return {"launches": launches, "profile": prof}
 
 
 def decode_ab(weights: dict, cfg, steps: int = 8) -> dict:
@@ -2165,6 +2591,36 @@ def phase_train_tp(dev, first_loss: float) -> dict:
     return {"launches": ranks[0]["launches"], "ranks": ranks}
 
 
+def kernel_spills(libs: dict) -> dict:
+    """Spill bytes (stores + loads) of every redesigned Hopper kernel (``*_ws_kernel``,
+    ``*_cluster_kernel``) in the build's ``-Xptxas -v`` logs, by mangled name."""
+    out = {}
+    for lib in libs.values():
+        log = lib.with_suffix(".log")
+        if not log.exists():
+            continue
+        name = None
+        for line in log.read_text().splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1] if "'" in line else line
+            elif "spill stores" in line and name is not None:
+                if "_ws_kernel" in name or "_cluster_kernel" in name:
+                    nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+                    out[name] = sum(nums[1:3]) if len(nums) >= 3 else None
+                name = None
+    return out
+
+
+def check_spills(libs: dict) -> None:
+    """Every redesigned Hopper kernel of the build spills 0 bytes."""
+    spills = kernel_spills(libs)
+    emit({"phase": "spills", "kernels": len(spills),
+          "spilling": {k: v for k, v in spills.items() if v != 0}})
+    if not spills or any(v != 0 for v in spills.values()):
+        raise PhaseFailed("a Hopper kernel spills (or the build logs name none)",
+                          [k for k, v in spills.items() if v != 0])
+
+
 def _kernel_row(name, source, replaces, launches, max_abs_err, t, library=None,
                 **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2196,11 +2652,17 @@ def main() -> int:
             print(log.read_text(), file=sys.stderr)
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "sources": list(libs)})
+    run_phase("spills", check_spills, libs)
+    if "--int8-split-sweep" in sys.argv[1:]:  # a probe, run only when asked
+        for t in run_phase("int8_split_sweep", int8_split_sweep,
+                           torch.Generator(dev).manual_seed(6), dev):
+            emit({"phase": "int8_split_sweep", **t})
+        return 0
 
     # Serving (slice 1).
     kern = run_phase("kernel", phase_kernel, dev)
     run_phase("engine", phase_engine, dev)
-    paged_launches = run_phase("main", phase_main, dev)
+    serve = run_phase("main", phase_main, dev)
     torch.cuda.empty_cache()
     # Training (slice 2).
     flash = run_phase("flash", phase_flash, dev)
@@ -2220,7 +2682,7 @@ def main() -> int:
     int8 = run_phase("int8_matmul", phase_int8_matmul, dev)
     run_phase("quant_engine_vs_cpu", phase_engine, dev, "int8")
     run_phase("quant_engine_vs_cpu", phase_engine, dev, "nf4")
-    int8_launches = run_phase("main_int8", phase_main_int8, dev)
+    serve_int8 = run_phase("main_int8", phase_main_int8, dev)
 
     # Tensor-parallel training (slice 5): the parent frees its cached memory first, since
     # the two ranks share the card.
@@ -2231,8 +2693,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_tp = run_phase("train_tp", phase_train_tp, dev, train["losses"][0])
-    emit({"kernels": run_phase("kernels", kernel_rows, kern, paged_launches, flash, adamw,
-                               xent, train, train_fused, int8, int8_launches, partial,
+    emit({"kernels": run_phase("kernels", kernel_rows, kern, serve, flash, adamw,
+                               xent, train, train_fused, int8, serve_int8, partial,
                                train_tp)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2240,8 +2702,8 @@ def main() -> int:
     return 0
 
 
-def kernel_rows(kern, paged_launches, flash, adamw, xent, train, train_fused, int8,
-                int8_launches, partial, train_tp) -> list:
+def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve_int8,
+                partial, train_tp) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results."""
     csrc, fa_py = "accelerate_tpu_torch/csrc/", "accelerate_tpu/ops/flash_attention.py"
     ft, fe = flash["times"], flash["errors"]["max_abs"]
@@ -2264,8 +2726,12 @@ def kernel_rows(kern, paged_launches, flash, adamw, xent, train, train_fused, in
                         "once per step for the pair"}
     return [
         _kernel_row("paged_attention", csrc + "paged_attention.cu",
-                    "accelerate_tpu/ops/paged_attention.py:106", paged_launches,
-                    kern["max_abs_err"], kern),
+                    "accelerate_tpu/ops/paged_attention.py:106", serve["launches"],
+                    kern["max_abs_err"], kern, design=PAGED_DESIGN,
+                    device_kernels_per_decode_step=serve["profile"][
+                        "paged_attention_kernels_per_step"],
+                    device_kernels_per_decode_step_int8=serve_int8["profile"][
+                        "paged_attention_kernels_per_step"]),
         _kernel_row("flash_fwd", csrc + "flash_attention.cu", fa_py + ":155",
                     train["launches"]["flash_fwd"], max(fe["o"], fe["lse"]), ft["fwd"],
                     "scaled_dot_product_attention forward (flash, enable_gqa)",
@@ -2290,12 +2756,16 @@ def kernel_rows(kern, paged_launches, flash, adamw, xent, train, train_fused, in
                     train_fused["launches"]["fused_xent_bwd"], xe["dw"], xt["bwd"], None,
                     **xent_extra, **bwd_note),
         _kernel_row("int8_matmul", csrc + "int8_matmul.cu",
-                    "accelerate_tpu/ops/quantization.py:153", int8_launches,
+                    "accelerate_tpu/ops/quantization.py:153", serve_int8["launches"],
                     int8["max_abs_err"], int8,
                     "torch._weight_int8pack_mm (weight [N, K], bf16 scales)",
                     shape="one decode step's 7 projections of a layer (M = 8, bf16), "
-                          "Llama-3-8B widths",
-                    dense_bf16_ms=int8["dense_bf16_ms"], prefill_layer=int8["prefill"],
+                          "Llama-3-8B widths", design=INT8_DESIGN,
+                    dense_bf16_ms=int8["dense_bf16_ms"],
+                    kernel_in_context_ms=int8["kernel_in_context_ms"],
+                    prefill_layer=int8["prefill"],
+                    device_kernels_per_decode_step=serve_int8["profile"][
+                        "int8_mm_kernels_per_step"],
                     int8pack_error=int8["int8pack_error"]),
         _kernel_row("fused_xent_partial", csrc + "fused_xent.cu", fx_py + ":96",
                     train_tp["launches"]["fused_xent_partial"], max(partial["errors"]["tp2_bf16"].values()),

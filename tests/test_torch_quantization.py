@@ -14,7 +14,9 @@ Inputs are seeded numpy arrays handed to both sides. Compared:
 - ``BnbQuantizationConfig`` validation, ``load_and_quantize_model`` (the same leaves
   quantized as JAX, to the same codes, on ``tiny``), ``dequantize_model``;
 - ``params_from_jax`` / ``params_to_numpy`` round trips of quantized leaves;
-- ``split_plan``, the kernel's launch plan, at the serving path's shapes.
+- ``split_plan``, the kernels' launch plan: the route by shape (cluster, ragged, fp32),
+  the token tile, the cluster's K ranges in whole tiles at the serving path's shapes and
+  at M = 1..128.
 """
 
 import dataclasses
@@ -308,22 +310,74 @@ def test_params_from_jax_and_back_keep_quantized_leaves(tiny_params, scheme):
 MAIN_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]  # (K, N)
 
 
+def _grid(plan, M, N):
+    """Blocks of the launch: token tiles × 128-column tiles × K ranges."""
+    return -(-M // plan.bm) * -(-N // 128) * plan.splits
+
+
+def _covers_k(plan, K):
+    """Every K range non-empty, whole 64-row tiles, together all of K."""
+    return (plan.k_chunk % 64 == 0
+            and plan.splits * plan.k_chunk >= K > (plan.splits - 1) * plan.k_chunk)
+
+
 @pytest.mark.parametrize("M", [8, 64])
 @pytest.mark.parametrize("K,N", MAIN_SHAPES)
 def test_split_plan_fills_the_card(M, K, N):
-    """At the serving path's shapes the grid holds at least one block per SM (132 on
-    an H100), every split is non-empty and the splits cover K in whole K tiles."""
-    bm, splits, k_chunk = tq.split_plan(M, N, K, 132, bf16=True)
-    assert bm == (16 if M <= 16 else 64)
-    blocks = -(-M // bm) * -(-N // 128) * splits
-    assert blocks >= 128 and k_chunk % 64 == 0
-    assert splits * k_chunk >= K > (splits - 1) * k_chunk
+    """At the serving path's shapes the plan takes the cluster kernel and its grid holds
+    at least one block per SM (at least 128 blocks on an H100's 132), in one wave of about
+    two blocks an SM at the most; the K ranges cover K in whole tiles; clusters of at most
+    7 blocks, except where 7 leave SMs idle (N = 1024: 8 column tiles), which take 32
+    tokens a block at M = 64 and clusters of up to 16 (the non-portable size)."""
+    plan = tq.split_plan(M, N, K, 132)
+    assert plan.route == "cluster" and plan.bm == (8 if M <= 8 else 32 if N == 1024 else 64)
+    assert tq._MOST_SPLITS == 7 and tq.MAX_CLUSTER == 16
+    tiles = -(-N // 128)
+    assert 1 <= plan.splits <= (7 if tiles * 7 >= 132 else 16)
+    assert _covers_k(plan, K)
+    assert 128 <= _grid(plan, M, N) <= 2 * 132
 
 
-@pytest.mark.parametrize("M,N,K,bf16", [(130, 72, 200, True), (1, 5, 3, True),
-                                        (300, 1000, 256, False), (6, 24, 10, False)])
-def test_split_plan_small_and_fp32_shapes(M, N, K, bf16):
-    bm, splits, k_chunk = tq.split_plan(M, N, K, 132, bf16=bf16)
-    tile_k = 64 if bf16 else 32
-    assert bm in ((16, 32, 64) if bf16 else (32,)) and k_chunk % tile_k == 0
-    assert splits * k_chunk >= K > (splits - 1) * k_chunk
+@pytest.mark.parametrize("M,bm", [(1, 8), (6, 8), (16, 16), (32, 32), (64, 32), (65, 32),
+                                  (128, 32)])
+def test_split_plan_cluster_token_tiles(M, bm):
+    """Tokens per block: the smallest wgmma n that holds M (at most 64, then more token
+    tiles), halved down to 32 where one block per SM would take clusters past 8 (this
+    weight has 8 column tiles); the K split then shrinks as the grid grows, and the grid
+    keeps at least 128 blocks (one an SM) and at most two an SM."""
+    plan = tq.split_plan(M, 1024, 4096, 132)
+    assert plan.route == "cluster" and plan.bm == bm and _covers_k(plan, 4096)
+    tiles = -(-M // bm) * 8
+    want = min(16, -(-132 // tiles))  # K ranges of whole tiles may merge
+    assert plan.splits <= want and _grid(plan, M, 1024) == tiles * plan.splits
+    assert 128 <= _grid(plan, M, 1024) <= 2 * 132
+
+
+@pytest.mark.parametrize("M,N,K,bf16,tma,route", [
+    (130, 72, 200, True, True, "ragged"),     # N % 16 != 0
+    (1, 5, 3, True, True, "ragged"),
+    (8, 1024, 4100, True, True, "ragged"),    # K % 8 != 0
+    (8, 1024, 4096, True, False, "ragged"),   # a tensor off a 16-byte boundary
+    (8, 32, 0, True, True, "ragged"),         # K = 0
+    (300, 1000, 256, False, True, "fp32"),
+    (6, 24, 10, False, True, "fp32"),
+])
+def test_split_plan_small_and_fp32_shapes(M, N, K, bf16, tma, route):
+    """Shapes outside the cluster kernel's TMA rules take the bounds-checked bf16 kernel
+    (one block per 128 columns and 16/32/64 rows, K unsplit); fp32 x the CUDA-core kernel
+    with its split-K partials."""
+    plan = tq.split_plan(M, N, K, 132, bf16=bf16, tma=tma)
+    assert plan.route == route
+    if route == "ragged":
+        assert plan.bm in (16, 32, 64) and plan.splits == 1 and plan.k_chunk >= max(K, 1)
+        assert plan.k_chunk % 64 == 0
+    else:
+        assert plan.bm == 32 and plan.k_chunk % 32 == 0
+        assert plan.splits * plan.k_chunk >= K > (plan.splits - 1) * plan.k_chunk
+
+
+def test_split_plan_is_pure_and_cached():
+    """The plan is a function of (M, N, K, SMs, dtype, TMA rules) alone."""
+    a = tq.split_plan(8, 4096, 4096, 132)
+    assert tq.split_plan(8, 4096, 4096, 132) is a
+    assert tq.split_plan(8, 4096, 4096, 66).splits >= a.splits // 2
