@@ -1,15 +1,16 @@
 // Fused linear + cross-entropy for Hopper (sm_90a), CUDA C++ with plain C entry points.
 //
 // Replaces four TPU kernels of accelerate_tpu/ops/fused_xent.py:
-//   fxent_fwd_*_kernel + fxent_combine_kernel <- _fwd_kernel     (:82, pallas_call in
+//   score tiles + fxent_combine_kernel         <- _fwd_kernel     (:82, pallas_call in
 //                                                _launch_fwd at :224)
-//   fxent_fwd_*_kernel + fxent_combine_partial_kernel
-//                                             <- _fwd_partial_kernel (:96, the same
+//   score tiles + fxent_combine_partial_kernel <- _fwd_partial_kernel (:96, the same
 //                                                pallas_call through _launch_fwd)
-//   fxent_bwd_ws_kernel (bf16: d, dw, dx per vocab slab) / fxent_bwd_f32_kernel
+//   fxent_ws_kernel (bf16: d, dw, dx per vocab slab) / fxent_bwd_f32_kernel
 //                                             <- _bwd_dx_kernel (:128, pallas_call at
 //                                                :258) and _bwd_dw_kernel (:151, :277)
-// They compute the same functions. x [T,D] and w [D,V] share a type (bf16 or fp32);
+// The score tiles are fxent_ws_kernel's statistics epilogue (bf16) or
+// fxent_fwd_f32_kernel (fp32). They compute the same functions. x [T,D] and w [D,V]
+// share a type (bf16 or fp32);
 // targets [T] are int32, and -1 (or any id outside [0, V)) matches no column. Scores
 // s = x.w are dots over D in the input type with fp32 sums, capped as cap*tanh(s/cap)
 // when cap > 0. Columns at or past V count in no max or sum. The forward writes
@@ -23,48 +24,51 @@
 // m (the max of its capped scores), l (the sum of exp(score - m), taken at that final
 // max) and tgt (the target's capped score, 0 when no column matches), all fp32, which
 // the ranks merge across the tp group. As in the Pallas kernels, #5 and #6 share their
-// score tiles (_online_tile there, fxent_fwd_*_kernel here) and differ only in what
-// the last step writes.
+// score tiles (_online_tile there, the same kernel here) and differ only in what the
+// last step writes.
 //
 // Design. A TPU grid runs in order on one core: the Pallas forward carries (m, l, tgt)
 // across the vocab axis in VMEM, and the backward carries a [block_t, D] (dx) or
 // [D, block_v] (dw) fp32 sum across a sequential axis -- 4 MB at D = 4096, far past
-// the 227 KB of shared memory of one block. Here:
-//   forward : every block owns one (token tile, vocab tile) pair, computes its score
-//             tile over all of D and writes, for every row and every 64 of its
-//             columns, the partial (max, sum of exp at that max, target score); a
-//             combine pass merges the partials of a row (split-K, as
-//             csrc/paged_attention.cu combines its chunks). The score tile never
-//             reaches device memory.
+// the 227 KB of shared memory of one block. Here every product runs in one kernel,
+// fxent_ws_kernel: a block of three warpgroups owns a 128 x 256 output tile and sums
+// over all of its depth in registers, fed by a TMA producer warp (see below).
+//   forward : M = T, N = V, K = D. The statistics epilogue writes, for every
+//             row of its tile, the partial (max, sum of exp at that max, target
+//             score) of its 256 columns; a combine pass merges a row's cdiv(V, 256)
+//             partials in a fixed order (split-K, as csrc/paged_attention.cu
+//             combines its chunks). The score tile never reaches device memory.
 //   backward: over vocab slabs of the head (the loop is ops/fused_xent.py's
 //             _bwd_slabs), three products per slab, each output tile owned by one
-//             block that sums over the whole depth in registers: d for the slab (the
-//             scores recomputed once, 2 T D V flops in all), dw[:, slab] = x^T . d,
-//             written once, and dx32 += d . w[:, slab]^T into an fp32 [T, D] buffer in
-//             slab order, the last slab writing dx itself. 6 T D V flops against the
-//             Pallas pair's 8 T D V (which recompute the scores in each); no atomics,
-//             so the sums' order is fixed; a bf16 [T, slab] buffer for d (128 MB at
-//             T = 4096) in place of whole logits.
+//             block: d for the slab (the scores recomputed once, 2 T D V flops in
+//             all), dw[:, slab] = x^T . d, written once, and dx32 += d . w[:, slab]^T
+//             into an fp32 [T, D] buffer in slab order, the last slab writing dx
+//             itself. 6 T D V flops against the Pallas pair's 8 T D V (which recompute
+//             the scores in each); no atomics, so the sums' order is fixed; a bf16
+//             [T, slab] buffer for d (128 MB at T = 4096) in place of whole logits.
 //
 // Two paths:
-//   bf16 (the training path): the forward a 128 x 256 tile per block, 8 warps each
-//     owning 64 x 64 of it and issuing mma.sync m16n8k16 (bf16 in, fp32 accumulate) on
-//     ldmatrix operands, D staged in chunks of 64 through a 3-deep cp.async ring; the
-//     backward warp-specialised wgmma kernels fed by TMA (see fxent_bwd_ws_kernel).
+//   bf16 (the training path): fxent_ws_kernel, wgmma m64n256k16 (bf16 in, fp32
+//     accumulate) fed by TMA through a 4-stage mbarrier ring.
 //   fp32: shared-memory tiles and plain fp32 products (no TF32, whose ten mantissa
-//     bits would not hold the fp32 tolerance); the backward adds into dx and dw with
-//     atomics.
+//     bits would not hold the fp32 tolerance), 64-column forward partials; the
+//     backward adds into dx and dw with atomics.
 //
 // Bound on this card (H100 SXM): at the training shape (T = D = 4096, V = 128256) the
-// kernels are bound by their matrix products over 989 TFLOP/s bf16 dense (2 T D V for
-// the forward, 6 T D V for the backward); reading w (1.05 GB) takes 0.31 ms. What the
-// design does about it: every product runs on the tensor cores and the head is read
-// in place (no padded copy). The forward still issues mma.sync rather than wgmma and
-// loads without TMA -- later work. The backward's slabs add traffic the bound does not
+// kernels are bound by their matrix products over 989 TFLOP/s bf16 dense (2 T D V =
+// 4.30 TFLOP, 4.35 ms, for the forward; 6 T D V for the backward); reading w (1.05 GB)
+// takes 0.31 ms. What the design does about it: every product runs on wgmma with its
+// operands streamed by TMA, and the head is read in place (no padded copy). The
+// forward's launch is persistent (a block an SM walking over its tiles), so the
+// producer loads a tile's first stages while the consumers run the previous tile's
+// epilogue (an exp per score, quad shuffles, three stores a row), during which the
+// tensor cores idle; its 256-column partials (24.6 MB at the training shape) are a
+// quarter of 64-column ones. The backward's slabs add traffic the bound does not
 // count: d written once and read twice (2 GB at the training shape) and the fp32 dx
-// buffer read and written once per slab (1 GB), about 0.9 ms at 3.35 TB/s. The partial forward of a tensor-parallel rank has the forward's
-// bound with V the shard's width (2 T D Vl flops: 2.18 ms at Vl = 64128) and the same
-// design; its combine pass writes (m, l, tgt) in place of (nll, lse).
+// buffer read and written once per slab (1 GB), about 0.9 ms at 3.35 TB/s. The partial
+// forward of a tensor-parallel rank has the forward's bound with V the shard's width
+// (2 T D Vl flops: 2.18 ms at Vl = 64128) and the same design; its combine pass writes
+// (m, l, tgt) in place of (nll, lse).
 
 #include "hopper.cuh"
 
@@ -183,11 +187,8 @@ __global__ void fxent_combine_partial_kernel(const float* __restrict__ part,
   }
 }
 
-constexpr int kPartV = 64;  // vocab columns per partial (m, l, tgt) of the forward
-
 // ------------------------------------------------------------------ fp32 (shared memory)
-constexpr int kF32T = 32, kF32V = 64, kF32K = 32;
-static_assert(kF32V == kPartV, "a forward partial is one block's columns");
+constexpr int kF32T = 32, kF32V = 64, kF32K = 32;  // kF32V: a forward partial's columns
 
 struct F32Smem {
   float x[kF32T][kF32K + 1];
@@ -301,192 +302,14 @@ __global__ void __launch_bounds__(kThreads) fxent_bwd_f32_kernel(const Args a) {
   }
 }
 
-// ---------------------------------------------------------------- bf16 (tensor cores)
-constexpr int kBT = 128, kBV = 256;  // token rows, vocab columns of a block's tile
-constexpr int kWarpT = 64, kWarpV = 64;  // a warp's part of the score tile (2 x 4 warps)
-constexpr int kKC = 64;              // D per stage of the score loop
-constexpr int kStages = 3;
-constexpr int kGroupT = 8;           // token tiles per group of the block order
-constexpr int kLdX = kKC + 8;        // pitches (elements) of the staged tiles: 16 bytes
-constexpr int kLdW = kBV + 8;        //   of padding spread a column over the banks
-constexpr int kStageBytes = (kBT * kLdX + kKC * kLdW) * 2;
-constexpr int kFwdSmem = kStages * kStageBytes;
-static_assert(kPartV == kWarpV, "a forward partial is one warp's columns");
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool fill) {
-  // fill=false zero-fills the 16 bytes without reading global memory.
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int src_bytes = fill ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// A fragment (16 x 16) at rows m0.., cols k0.. of a tile stored [m][k].
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int m0,
-                                       int k0) {
-  const int l = threadIdx.x % 32;
-  ldsm_x4(a, tile + (m0 + (l % 8) + ((l / 8) % 2) * 8) * ld + k0 + (l / 16) * 8);
-}
-
-// The same from a tile stored [k][n] (a transposing load).
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* tile, int ld, int n0,
-                                          int k0) {
-  const int l = threadIdx.x % 32;
-  ldsm_x4_t(b, tile + (k0 + (l % 8) + ((l / 8) % 2) * 8) * ld + n0 + (l / 16) * 8);
-}
-
-// The row of accumulator element (j, c) in its warp's 16 (acc_col gives the column).
-__device__ __forceinline__ int acc_row(int c) { return (threadIdx.x % 32) / 4 + 8 * (c >> 1); }
-
-// Stage rows [r0, r0 + rows) x cols [c0, c0 + cols) of a row-major bf16 tensor (row
-// pitch ld elements, rows_valid x cols_valid in size) into a shared tile of pitch
-// sld; 16-byte pieces outside the tensor are zero-filled. The row pitch and base are
-// 16-byte aligned and columns past cols_valid up to the next multiple of 8 are zeros
-// (the wrapper's layout), so a piece is read whole or not at all.
-__device__ __forceinline__ void stage_bf16(bf16* dst, int sld, const bf16* src, int64_t ld,
-                                           int r0, int rows, int rows_valid, int c0, int cols,
-                                           int cols_valid) {
-  const int per_row = cols / 8;
-  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
-    const int r = i / per_row, c = (i % per_row) * 8;
-    const bool fill = r0 + r < rows_valid && c0 + c < cols_valid;
-    cp_async16(dst + r * sld + c, fill ? src + (r0 + r) * ld + c0 + c : src, fill);
-  }
-}
-
-// The block's (token tile, vocab tile): blocks walk the grid in groups of kGroupT token
-// tiles (all vocab tiles of one group before the next), so that the blocks in flight
-// at one time share a few MB of x and, in the backward, add into a few MB of dx and dw
-// that stay in L2 (walking all 32 token tiles per vocab tile kept the whole 64 MB of
-// dx hot, past the 50 MB of L2).
-__device__ __forceinline__ void block_tile(int* t0, int* v0) {
-  const int nt = gridDim.x, nvt = gridDim.y;
-  const int bid = blockIdx.x + nt * blockIdx.y;
-  const int grp = bid / (kGroupT * nvt), rem = bid % (kGroupT * nvt);
-  const int gsz = min(kGroupT, nt - grp * kGroupT);
-  *t0 = (grp * kGroupT + rem % gsz) * kBT;
-  *v0 = (rem / gsz) * kBV;
-}
-
-// s += x[t0.., :] . w[:, v0..] over all of D: the warp's 64 x 64 part of the 128 x 256
-// tile (rows m0 + 16 mi, columns n0 + 8 j), D staged in chunks of kKC through a
-// kStages-deep cp.async ring. Ends with every copy landed and the block synchronised,
-// so the caller may reuse the shared memory.
-__device__ __forceinline__ void mma_scores(float (&s)[kWarpT / 16][kWarpV / 8][4],
-                                           unsigned char* smem, const Args& a, int t0, int v0,
-                                           int m0, int n0) {
-  const bf16* x = static_cast<const bf16*>(a.x);
-  const bf16* w = static_cast<const bf16*>(a.w);
-  const int nk = (a.D + kKC - 1) / kKC;
-  auto sx = [&](int st) { return reinterpret_cast<bf16*>(smem + st * kStageBytes); };
-  auto sw = [&](int st) {
-    return reinterpret_cast<bf16*>(smem + st * kStageBytes + kBT * kLdX * 2);
-  };
-  auto load = [&](int kt) {
-    const int st = kt % kStages, k0 = kt * kKC;
-    stage_bf16(sx(st), kLdX, x, a.ldx, t0, kBT, a.T, k0, kKC, a.D);
-    stage_bf16(sw(st), kLdW, w, a.ldw, k0, kKC, a.D, v0, kBV, a.V);
-  };
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nk) load(st);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();  // stage kt has landed
-    __syncthreads();               // ... for every thread; stage kt - 1 is free again
-    if (kt + kStages - 1 < nk) load(kt + kStages - 1);
-    cp_async_commit();
-    const bf16* xs = sx(kt % kStages);
-    const bf16* ws = sw(kt % kStages);
-#pragma unroll
-    for (int kk = 0; kk < kKC / 16; ++kk) {
-      uint32_t af[kWarpT / 16][4];
-#pragma unroll
-      for (int mi = 0; mi < kWarpT / 16; ++mi) load_a(af[mi], xs, kLdX, m0 + 16 * mi, kk * 16);
-#pragma unroll
-      for (int np = 0; np < kWarpV / 16; ++np) {
-        uint32_t b[4];
-        load_b_kn(b, ws, kLdW, n0 + 16 * np, kk * 16);
-#pragma unroll
-        for (int mi = 0; mi < kWarpT / 16; ++mi) {
-          mma16816(s[mi][2 * np], af[mi], b[0], b[1]);
-          mma16816(s[mi][2 * np + 1], af[mi], b[2], b[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads) fxent_fwd_mma_kernel(const Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  int t0, v0;
-  block_tile(&t0, &v0);
-  const int warp = threadIdx.x / 32;
-  const int m0 = (warp / 4) * kWarpT, n0 = (warp % 4) * kWarpV;
-  float s[kWarpT / 16][kWarpV / 8][4] = {};
-  mma_scores(s, smem, a, t0, v0, m0, n0);
-  // Each warp writes the partials of its 64 columns: no reduction across warps.
-  const int vp = v0 + n0;
-  if (vp >= a.V) return;
-  const int pv = vp / kPartV;
-  const int64_t plane = static_cast<int64_t>(a.T) * a.nv;
-#pragma unroll
-  for (int mi = 0; mi < kWarpT / 16; ++mi) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // the thread's two rows (each spread over a quad)
-      const int t = t0 + m0 + 16 * mi + acc_row(2 * i);
-      const int tg = t < a.T ? a.tgt[t] : -1;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kWarpV / 8; ++j) {
-#pragma unroll
-        for (int c = 2 * i; c < 2 * i + 2; ++c) {
-          float chain;
-          const float v = capped(s[mi][j][c], a.cap, &chain);
-          s[mi][j][c] = vp + acc_col(j, c) < a.V ? v : kNegInf;
-          mx = fmaxf(mx, s[mi][j][c]);
-        }
-      }
-      mx = quad_max(mx);
-      float l = 0.0f, tv = 0.0f;
-#pragma unroll
-      for (int j = 0; j < kWarpV / 8; ++j) {
-#pragma unroll
-        for (int c = 2 * i; c < 2 * i + 2; ++c) {
-          const int col = vp + acc_col(j, c);
-          if (col < a.V) {
-            l += __expf(s[mi][j][c] - mx);
-            if (col == tg) tv += s[mi][j][c];
-          }
-        }
-      }
-      l = quad_sum(l);
-      tv = quad_sum(tv);
-      if (t < a.T && threadIdx.x % 4 == 0) {
-        const int64_t o = static_cast<int64_t>(t) * a.nv + pv;
-        a.part[o] = mx;
-        a.part[plane + o] = l;
-        a.part[2 * plane + o] = tv;
-      }
-    }
-  }
-}
-
-// ------------------------------------------- bf16 backward (wgmma + TMA, vocab slabs)
-// The backward runs over vocab slabs of the head (the slab loop is in
-// ops/fused_xent.py), three kernels per slab, each one product of the Pallas pair's:
+// ------------------------------------------------ bf16 products (wgmma + TMA)
+// One kernel, fxent_ws_kernel, runs every bf16 product of the fused CE; its epilogue
+// EPI says which:
+//   stats: the forward's score tile x[t, :] . w[:, c] (M = T, N = V, K = D: x K-major,
+//          w MN-major), and for each row of it the partial (m, l, tgt) of its 256
+//          columns into part (three fp32 [T, cdiv(V, 256)] planes) for the combine;
+// and, over vocab slabs of the head (the slab loop is in ops/fused_xent.py), the
+// backward's three products, each one of the Pallas pair's:
 //   d  : d[t, c] = dlogit(x[t, :] . w[:, v0 + c]) for the slab's columns, in bf16 into
 //        a [T, slab] buffer (M = T, N = slab, K = D: x K-major, w MN-major);
 //   dw : dw[:, v0 + c] = x^T . d, written once in bf16 (M = D, N = slab, K = T: x
@@ -495,9 +318,9 @@ __global__ void __launch_bounds__(kThreads) fxent_fwd_mma_kernel(const Args a) {
 //        last slab's kernel writes dx in bf16 instead (M = T, N = D, K = slab: d
 //        K-major, w K-major).
 // Every output tile has one owner block, which sums over all of K in registers: no
-// atomics, and a sum order that is the same from run to run. One kernel serves the
-// three: a block of three warpgroups owns a 128 x 256 output tile. Warpgroup 2's first
-// thread streams A (128 x 64) and B (64 x 256) tiles by TMA (2-D maps, 128-byte
+// atomics, and a sum order that is the same from run to run. A block of three
+// warpgroups owns a 128 x 256 output tile. Warpgroup 2's first thread streams A
+// (128 x 64) and B (64 x 256) tiles by TMA (2-D maps, 128-byte
 // swizzle, zero fill past the tensor's end, so ragged T, D, V and slab edges need no
 // masking in the loads) into a 4-stage ring with full/empty mbarriers; warpgroups 0 and
 // 1 each issue wgmma m64n256k16 on their 64 rows (an fp32 accumulator of 128 registers
@@ -516,7 +339,7 @@ constexpr int kGSmemUsed = kGStages * kGStage + 2 * kGStages * 8;
 constexpr int kGSmem = kGSmemUsed + 1024;  // slack for the 1024-byte alignment
 constexpr int kGGroupM = 8;
 
-enum Epi { kEpiD = 0, kEpiDw = 1, kEpiDx = 2 };
+enum Epi { kEpiD = 0, kEpiDw = 1, kEpiDx = 2, kEpiStats = 3 };
 
 struct Gemm {
   int M, N, K;            // output rows, output cols, depth
@@ -524,11 +347,12 @@ struct Gemm {
   void* out;              // d: the slab (bf16); dw: dw + v0 (bf16); dx: dx (bf16)
   int64_t ld_out;
   float* acc32;           // dx: the fp32 [T, D] buffer
-  const int* tgt;         // d: targets, lse, g, the slab's first column
+  const int* tgt;         // d, stats: targets; d: lse, g, the slab's first column
+  float* part;            // stats: the partials (m, l, tgt), each [M, tiles_n]
   const float* lse;
   const float* g;
   int v0;
-  float cap;
+  float cap;              // d, stats: the softcap (used when CAP)
   int first, last;        // dx: the first and the last slab
 };
 
@@ -608,95 +432,70 @@ __device__ __forceinline__ void store2(bf16* p, int col, int cols, float a, floa
   }
 }
 
-// One 128 x 256 output tile of A (M x K) · B (K x N); A_MN / B_MN: the operand is stored
-// MN-major (A as [K][M], B as [K][N]) rather than K-major (A as [M][K], B as [N][K]).
-// The epilogue EPI writes the tile (CAP: d under the softcap).
-template <int EPI, bool A_MN, bool B_MN, bool CAP>
-__global__ void __launch_bounds__(kGThreads, 1)
-    fxent_bwd_ws_kernel(const __grid_constant__ Gemm gm, const __grid_constant__ CUtensorMap tm_a,
-                        const __grid_constant__ CUtensorMap tm_b) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // 1024-byte aligned
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kGStages * kGStage);
-  uint64_t* empty = full + kGStages;
-
-  // The block's tile: groups of kGGroupM row tiles, every column tile of a group in turn.
-  const int bid = blockIdx.x, per_group = kGGroupM * gm.tiles_n;
-  const int grp = bid / per_group, rem = bid % per_group;
+// The block's tile number `tile` → its first output row and column: groups of kGGroupM
+// row tiles, every column tile of a group in turn.
+__device__ __forceinline__ void tile_origin(const Gemm& gm, int tile, int* m0, int* n0) {
+  const int per_group = kGGroupM * gm.tiles_n;
+  const int grp = tile / per_group, rem = tile % per_group;
   const int gsz = min(kGGroupM, gm.tiles_m - grp * kGGroupM);
-  const int m0 = (grp * kGGroupM + rem % gsz) * kGM, n0 = (rem / gsz) * kGN;
-  const int nk = (gm.K + kGK - 1) / kGK;
+  *m0 = (grp * kGGroupM + rem % gsz) * kGM;
+  *n0 = (rem / gsz) * kGN;
+}
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kGStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 2 * kWgThreads);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warpgroup() == 2) {
-    // ------------------------------------------------------------------- producer
-    setmaxnreg_dec<kGProducerRegs>();
-    if (threadIdx.x != 2 * kWgThreads) return;  // one thread issues the copies
-    for (int kt = 0; kt < nk; ++kt) {
-      const int s = kt % kGStages, k0 = kt * kGK;
-      unsigned char* sA = smem + s * kGStage;
-      unsigned char* sB = sA + kGATile;
-      mbar_wait(&empty[s], ((kt / kGStages) & 1) ^ 1);
-      mbar_arrive_tx(&full[s], kGStage);
-      if (A_MN) {
+// The statistics epilogue of one tile (the forward): each row's partial (m, l, tgt) of
+// its 256 columns. Accumulator element (j, c) sits in row r0 + 8 (c / 2) and column
+// c0 + 8 j + (c % 2); tgr holds the two rows' targets.
+template <bool CAP>
+__device__ __forceinline__ void stats_epilogue(const Gemm& gm, float (&acc)[kGN / 8][4], int r0,
+                                               int c0, int n0, const int (&tgr)[2]) {
+  // A row's 256 scores lie in one quad of lanes, 64 each: cap them, mask the columns
+  // at or past N (TMA's zero fill scored them 0), and take the row's max, its sum of
+  // exp at that max and its target's score, each reduced over the quad; the quad's
+  // first lane writes the partial. Every lane runs the shuffles, in rows past M too
+  // (those write nothing). Selects, not branches, inside the unrolled loops.
+  const int64_t plane = static_cast<int64_t>(gm.M) * gm.tiles_n;
+  const int lim = gm.N - c0;  // element (j, e) lies inside the matrix iff 8 j + e < lim
 #pragma unroll
-        for (int cb = 0; cb < kGM / 64; ++cb)
-          tma_load2d(sA + cb * kGK * 128, &tm_a, &full[s], m0 + 64 * cb, k0);
-      } else {
-        tma_load2d(sA, &tm_a, &full[s], k0, m0);
-      }
-      if (B_MN) {
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i, tg = tgr[i];
+    const int toff = tg >= 0 && tg < gm.N ? tg - c0 : -1;  // ids outside [0, N): none
+    float mx = kNegInf;
 #pragma unroll
-        for (int cb = 0; cb < kGN / 64; ++cb)
-          tma_load2d(sB + cb * kGK * 128, &tm_b, &full[s], n0 + 64 * cb, k0);
-      } else {
-        tma_load2d(sB, &tm_b, &full[s], k0, n0);
+    for (int j = 0; j < kGN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = acc[j][2 * i + e];
+        if (CAP) s = gm.cap * tanhf(s / gm.cap);
+        s = 8 * j + e < lim ? s : kNegInf;
+        acc[j][2 * i + e] = s;
+        mx = fmaxf(mx, s);
       }
     }
-    return;
-  }
-
-  // --------------------------------------------------------------------- consumers
-  setmaxnreg_inc<kGConsumerRegs>();
-  const int cw = threadIdx.x / kWgThreads;  // output rows m0 + 64 cw .. + 63
-  // The warpgroup's 64 rows of A: K-major, 64 rows of 128 bytes further; MN-major, the
-  // next 64-column block.
-  const int a_off = A_MN ? cw * kGK * 128 : cw * 64 * 128;
-  float acc[kGN / 8][4];
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % kGStages;
-    const unsigned char* sA = smem + s * kGStage;
-    const unsigned char* sB = sA + kGATile;
-    mbar_wait(&full[s], (kt / kGStages) & 1);
-    const uint64_t dA = op_desc<A_MN>(sA + a_off), dB = op_desc<B_MN>(sB);
-    fence_regs(acc);
-    wgmma_fence();
+    mx = quad_max(mx);
+    float l = 0.0f, tv = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < kGK / 16; ++kk)
-      wgmma_256<A_MN, B_MN>(acc, dA + op_step<A_MN>(kk), dB + op_step<B_MN>(kk),
-                            kt > 0 || kk > 0);
-    wgmma_commit();
-    fence_regs(acc);
-    wgmma_wait<1>();  // the batch of k step kt - 1 is done: its stage is free
-    if (kt > 0) mbar_arrive(&empty[(kt - 1) % kGStages]);
+    for (int j = 0; j < kGN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        l += __expf(acc[j][2 * i + e] - mx);
+        tv = 8 * j + e == toff ? acc[j][2 * i + e] : tv;
+      }
+    }
+    l = quad_sum(l);
+    tv = quad_sum(tv);  // one lane of the quad holds the target's score, the others 0
+    if (row < gm.M && threadIdx.x % 4 == 0) {
+      const int64_t o = static_cast<int64_t>(row) * gm.tiles_n + n0 / kGN;
+      gm.part[o] = mx;
+      gm.part[plane + o] = l;
+      gm.part[2 * plane + o] = tv;
+    }
   }
-  wgmma_wait<0>();
-  fence_regs(acc);
+}
 
-  // ---------------------------------------------------------------------- epilogue
-  // Accumulator element (j, c) sits in row r0 + 8 (c / 2) and column
-  // n0 + 8 j + 2 (lane % 4) + (c % 2).
-  const int r0 = m0 + 64 * cw + 16 * (threadIdx.x / 32 % 4) + threadIdx.x % 32 / 4;
-  const int c0 = n0 + 2 * (threadIdx.x % 4);
+// The backward's epilogues (d, dw, dx) of one tile, accumulator layout as above.
+template <int EPI, bool CAP>
+__device__ __forceinline__ void tile_epilogue(const Gemm& gm, float (&acc)[kGN / 8][4], int r0,
+                                              int c0) {
   const bool vec = gm.ld_out % 2 == 0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -758,10 +557,121 @@ __global__ void __launch_bounds__(kGThreads, 1)
   }
 }
 
+// Output tiles of A (M x K) · B (K x N), 128 x 256 each; A_MN / B_MN: the operand is
+// stored MN-major (A as [K][M], B as [K][N]) rather than K-major (A as [M][K], B as
+// [N][K]). The epilogue EPI writes each tile or its rows' statistics (CAP: the scores
+// are capped). A block takes tiles blockIdx.x, blockIdx.x + gridDim.x, ... (one per
+// block when the grid has a block per tile, as the backward's launches do): the ring's
+// stages and phases run on across its tiles, so the producer loads the next tile's
+// first stages while the consumers run the epilogue.
+template <int EPI, bool A_MN, bool B_MN, bool CAP>
+__global__ void __launch_bounds__(kGThreads, 1)
+    fxent_ws_kernel(const __grid_constant__ Gemm gm, const __grid_constant__ CUtensorMap tm_a,
+                    const __grid_constant__ CUtensorMap tm_b) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // 1024-byte aligned
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kGStages * kGStage);
+  uint64_t* empty = full + kGStages;
+  const int tiles = gm.tiles_m * gm.tiles_n;
+  const int nk = (gm.K + kGK - 1) / kGK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * kWgThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warpgroup() == 2) {
+    // ------------------------------------------------------------------- producer
+    setmaxnreg_dec<kGProducerRegs>();
+    if (threadIdx.x != 2 * kWgThreads) return;  // one thread issues the copies
+    int it = 0;  // k steps issued by this block, over all its tiles
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0;
+      tile_origin(gm, tile, &m0, &n0);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kGStages, k0 = kt * kGK;
+        unsigned char* sA = smem + s * kGStage;
+        unsigned char* sB = sA + kGATile;
+        mbar_wait(&empty[s], ((it / kGStages) & 1) ^ 1);
+        mbar_arrive_tx(&full[s], kGStage);
+        if (A_MN) {
+#pragma unroll
+          for (int cb = 0; cb < kGM / 64; ++cb)
+            tma_load2d(sA + cb * kGK * 128, &tm_a, &full[s], m0 + 64 * cb, k0);
+        } else {
+          tma_load2d(sA, &tm_a, &full[s], k0, m0);
+        }
+        if (B_MN) {
+#pragma unroll
+          for (int cb = 0; cb < kGN / 64; ++cb)
+            tma_load2d(sB + cb * kGK * 128, &tm_b, &full[s], n0 + 64 * cb, k0);
+        } else {
+          tma_load2d(sB, &tm_b, &full[s], k0, n0);
+        }
+      }
+    }
+    return;
+  }
+
+  // --------------------------------------------------------------------- consumers
+  setmaxnreg_inc<kGConsumerRegs>();
+  const int cw = threadIdx.x / kWgThreads;  // output rows m0 + 64 cw .. + 63
+  // The warpgroup's 64 rows of A: K-major, 64 rows of 128 bytes further; MN-major, the
+  // next 64-column block.
+  const int a_off = A_MN ? cw * kGK * 128 : cw * 64 * 128;
+  int it = 0;  // k steps consumed by this block, over all its tiles
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int m0, n0;
+    tile_origin(gm, tile, &m0, &n0);
+    const int r0 = m0 + 64 * cw + 16 * (threadIdx.x / 32 % 4) + threadIdx.x % 32 / 4;
+    const int c0 = n0 + 2 * (threadIdx.x % 4);
+    int tgr[2] = {-1, -1};  // stats: the rows' targets, loaded while the products run
+    if (EPI == kEpiStats) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (r0 + 8 * i < gm.M) tgr[i] = gm.tgt[r0 + 8 * i];
+    }
+    float acc[kGN / 8][4];
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const int s = it % kGStages;
+      const unsigned char* sA = smem + s * kGStage;
+      const unsigned char* sB = sA + kGATile;
+      mbar_wait(&full[s], (it / kGStages) & 1);
+      const uint64_t dA = op_desc<A_MN>(sA + a_off), dB = op_desc<B_MN>(sB);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kGK / 16; ++kk)
+        wgmma_256<A_MN, B_MN>(acc, dA + op_step<A_MN>(kk), dB + op_step<B_MN>(kk),
+                              kt > 0 || kk > 0);
+      wgmma_commit();
+      fence_regs(acc);
+      wgmma_wait<1>();  // the batch of k step kt - 1 is done: its stage is free
+      if (kt > 0) mbar_arrive(&empty[(it - 1) % kGStages]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (nk > 0) mbar_arrive(&empty[(it - 1) % kGStages]);  // the tile's last stage
+
+    // -------------------------------------------------------------------- epilogue
+    if (EPI == kEpiStats) {
+      stats_epilogue<CAP>(gm, acc, r0, c0, n0, tgr);
+    } else {
+      tile_epilogue<EPI, CAP>(gm, acc, r0, c0);
+    }
+  }
+}
+
 // --------------------------------------------------------------------------- dispatch
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-int num_vtiles(int V) { return cdiv(V, kPartV); }
+// Vocab columns per forward partial: the bf16 kernel's tile, the fp32 kernel's block.
+int num_vtiles(int V, int dtype) { return cdiv(V, dtype == kBF16 ? kGN : kF32V); }
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, int smem, const Args& a, cudaStream_t stream) {
@@ -793,33 +703,56 @@ bool tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int64_t 
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// One backward product: a 1-D grid of 128 x 256 output tiles.
+// One product over 128 x 256 output tiles: the backward's with a block a tile; the
+// forward's statistics with at most a block an SM, each walking over its share of the
+// tiles, so that a tile's epilogue overlaps the next tile's first loads.
 template <int EPI, bool A_MN, bool B_MN, bool CAP>
 cudaError_t launch_ws(Gemm gm, const CUtensorMap& ta, const CUtensorMap& tb,
                       cudaStream_t stream) {
   gm.tiles_m = cdiv(gm.M, kGM);
   gm.tiles_n = cdiv(gm.N, kGN);
-  const int blocks = gm.tiles_m * gm.tiles_n;
+  int blocks = gm.tiles_m * gm.tiles_n;
   if (blocks == 0) return cudaSuccess;
-  auto kernel = fxent_bwd_ws_kernel<EPI, A_MN, B_MN, CAP>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+  cudaError_t err;
+  if (EPI == kEpiStats) {
+    int dev, sms;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    blocks = min(blocks, sms);
+  }
+  auto kernel = fxent_ws_kernel<EPI, A_MN, B_MN, CAP>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kGThreads, kGSmem, stream>>>(gm, ta, tb);
   return cudaGetLastError();
 }
 
-// The forward's score-tile kernel of either type, writing the partials of a.part.
+// The forward's score tiles of either type, writing the partials of a.part (a.nv of
+// them a row). bf16: the statistics epilogue of fxent_ws_kernel, x K-major and w
+// MN-major, as the backward's d kernel reads them (D >= 1).
 cudaError_t launch_fwd_tiles(const Args& a, int dtype, cudaStream_t st) {
-  if (dtype == kBF16)
-    return launch(fxent_fwd_mma_kernel, dim3(cdiv(a.T, kBT), cdiv(a.V, kBV)), kFwdSmem, a, st);
   if (dtype == kF32)
-    return launch(fxent_fwd_f32_kernel, dim3(cdiv(a.T, kF32T), cdiv(a.V, kF32V)), 0, a, st);
-  return cudaErrorInvalidValue;
+    return launch(fxent_fwd_f32_kernel, dim3(cdiv(a.T, kF32T), a.nv), 0, a, st);
+  if (dtype != kBF16) return cudaErrorInvalidValue;
+  if (a.T == 0 || a.V == 0) return cudaSuccess;
+  Gemm gm{};
+  gm.M = a.T;
+  gm.N = a.V;
+  gm.K = a.D;
+  gm.tgt = a.tgt;
+  gm.part = a.part;
+  gm.cap = a.cap;
+  CUtensorMap ta, tb;
+  if (!tensor_map(&ta, a.x, a.T, a.D, a.ldx, kGM) || !tensor_map(&tb, a.w, a.D, a.V, a.ldw, kGK))
+    return cudaErrorInvalidValue;
+  return a.cap > 0.0f ? launch_ws<kEpiStats, false, true, true>(gm, ta, tb, st)
+                      : launch_ws<kEpiStats, false, true, false>(gm, ta, tb, st);
 }
 
 Args make_args(const void* x, const void* w, const int* tgt, int T, int D, int V, int64_t ldx,
-               int64_t ldw, float softcap) {
+               int64_t ldw, float softcap, int dtype) {
   Args a{};
   a.x = x;
   a.w = w;
@@ -827,7 +760,7 @@ Args make_args(const void* x, const void* w, const int* tgt, int T, int D, int V
   a.T = T;
   a.D = D;
   a.V = V;
-  a.nv = num_vtiles(V);
+  a.nv = num_vtiles(V, dtype);
   a.ldx = ldx;
   a.ldw = ldw;
   a.cap = softcap;
@@ -844,15 +777,16 @@ extern "C" {
 // bases and pitches are 16-byte aligned and columns past D (x) or V (w) up to the next
 // multiple of 8 are zeros. targets, lse and g are int32 / fp32 / fp32 [T].
 
-// Partials per row: the forward's partial buffer holds 3 * T * this floats.
-int fxent_num_vtiles(int V) { return num_vtiles(V); }
+// Partials per row of the forward of type dtype: its partial buffer holds 3 * T * this
+// floats.
+int fxent_num_vtiles(int V, int dtype) { return num_vtiles(V, dtype); }
 
 // nll and lse (fp32 [T]) from x, w and targets; part is scratch of 3 * T * nv floats.
 int fxent_fwd_launch(const void* x, const void* w, const int* targets, float* part,
                      float* nll, float* lse, int T, int D, int V, int64_t ldx, int64_t ldw,
                      float softcap, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a = make_args(x, w, targets, T, D, V, ldx, ldw, softcap);
+  Args a = make_args(x, w, targets, T, D, V, ldx, ldw, softcap, dtype);
   a.part = part;
   cudaError_t err = launch_fwd_tiles(a, dtype, st);
   if (err != cudaSuccess || T == 0 || V == 0) return err;
@@ -868,7 +802,7 @@ int fxent_fwd_partial_launch(const void* x, const void* w, const int* targets, f
                              int64_t ldx, int64_t ldw, float softcap, int dtype,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a = make_args(x, w, targets, T, D, V, ldx, ldw, softcap);
+  Args a = make_args(x, w, targets, T, D, V, ldx, ldw, softcap, dtype);
   a.part = part;
   cudaError_t err = launch_fwd_tiles(a, dtype, st);
   if (err != cudaSuccess || T == 0 || V == 0) return err;
@@ -883,7 +817,7 @@ int fxent_bwd_f32_launch(const void* x, const void* w, const int* targets, const
                          const float* g, float* dx, float* dw, int T, int D, int V,
                          int64_t ldx, int64_t ldw, float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a = make_args(x, w, targets, T, D, V, ldx, ldw, softcap);
+  Args a = make_args(x, w, targets, T, D, V, ldx, ldw, softcap, kF32);
   a.lse = lse;
   a.g = g;
   a.dx32 = dx;
@@ -958,11 +892,8 @@ int fxent_bwd_dx_launch(const void* d, const void* w, float* dx32, void* dx, int
   return launch_ws<kEpiDx, false, false, false>(gm, ta, tb, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of one block (the wrapper checks it against the card's
-// 227 KB): which = 0 forward, 1 backward; 0 for a type without dynamic memory.
-int fxent_smem_bytes(int which, int dtype) {
-  if (dtype != kBF16) return 0;
-  return which == 0 ? kFwdSmem : kGSmem;
-}
+// Dynamic shared memory of one block of the kernels of type dtype (the wrapper checks
+// it against the card's 227 KB); 0 for a type without dynamic memory.
+int fxent_smem_bytes(int dtype) { return dtype == kBF16 ? kGSmem : 0; }
 
 }  // extern "C"

@@ -6,7 +6,10 @@ type (fp32 or bf16); targets ``[T]`` are integer ids, and -1 (or any id outside
 ``[0, V)``) matches no column, so its nll is just the lse.
 
 - :func:`_fwd` → ``(nll, lse)``, both fp32 ``[T]``; :func:`_bwd` → ``(dx, dw)`` in x's
-  and w's types, from the forward's lse and the cotangent ``g [T]`` of nll. In bf16 the
+  and w's types, from the forward's lse and the cotangent ``g [T]`` of nll. The forward
+  is two kernels: one writes each row's partial ``(m, l, tgt)`` of every vocab tile of
+  :data:`FWD_TILE` columns, a combine merges a row's partials in a fixed order;
+  :data:`PLAIN_FWD_STEPS` are the plain versions of the two. In bf16 the
   backward runs over vocab slabs (:func:`_bwd_slabs`): per slab one kernel recomputes
   d, one writes that slab of dw and one adds the slab's part of dx into an fp32 sum,
   each output tile owned by one block (no atomics: the sums' order is fixed);
@@ -62,6 +65,7 @@ __all__ = [
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on Hopper
+_NEG_INF = -1e30  # the score of a masked column, as in the kernels and the Pallas ones
 
 
 # --------------------------------------------------------------------------- plain math
@@ -148,8 +152,8 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.fxent_fwd_launch, lib.fxent_fwd_partial_launch, lib.fxent_bwd_f32_launch,
                    lib.fxent_bwd_d_launch, lib.fxent_bwd_dw_launch, lib.fxent_bwd_dx_launch):
             fn.restype = ci
-        lib.fxent_num_vtiles.argtypes = [ci]
-        lib.fxent_smem_bytes.argtypes = [ci, ci]
+        lib.fxent_num_vtiles.argtypes = [ci, ci]
+        lib.fxent_smem_bytes.argtypes = [ci]
         lib.fxent_num_vtiles.restype = lib.fxent_smem_bytes.restype = ci
         lib._argtypes_set = True
     return lib
@@ -174,7 +178,7 @@ def _operand(a: torch.Tensor) -> torch.Tensor:
     return buf[:, :C]
 
 
-def _launch_args(x, w, targets, which: int):
+def _launch_args(x, w, targets):
     """Validate a CUDA call and bring its operands into the kernels' layout."""
     _check(x.device.type == "cuda", f"tensors must be on CUDA, got {x.device}")
     _check(w.device == x.device and targets.device == x.device,
@@ -183,7 +187,7 @@ def _launch_args(x, w, targets, which: int):
     _check(w.dtype == x.dtype, "x and w must share a dtype")
     code = _DTYPE_CODE[x.dtype]
     lib = _lib()
-    smem = lib.fxent_smem_bytes(which, code)
+    smem = lib.fxent_smem_bytes(code)
     _check(smem <= _SMEM_LIMIT, f"{smem} bytes of shared memory")
     return lib, _operand(x), _operand(w), targets.to(torch.int32).contiguous(), code
 
@@ -197,11 +201,17 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"fused_xent {what} kernel launch failed: CUDA error {err}")
 
 
+def _fwd_part(lib, x, w, code):
+    """Scratch for the forward's partials: three fp32 planes [T, tiles]."""
+    _check(x.dtype == torch.float32 or x.shape[1] > 0, "the bf16 forward needs D >= 1")
+    return torch.empty((3, x.shape[0], lib.fxent_num_vtiles(w.shape[1], code)),
+                       dtype=torch.float32, device=x.device)
+
+
 def _fwd_cuda(x, w, targets, softcap):
-    lib, x, w, t, code = _launch_args(x, w, targets, 0)
+    lib, x, w, t, code = _launch_args(x, w, targets)
     (T, D), V = x.shape, w.shape[1]
-    part = torch.empty((3, T, lib.fxent_num_vtiles(V)), dtype=torch.float32,
-                       device=x.device)
+    part = _fwd_part(lib, x, w, code)
     nll = torch.empty((T,), dtype=torch.float32, device=x.device)
     lse = torch.empty_like(nll)
     with torch.cuda.device(x.device):
@@ -215,10 +225,9 @@ def _fwd_cuda(x, w, targets, softcap):
 
 
 def _fwd_partial_cuda(x, w, t_local, softcap):
-    lib, x, w, t, code = _launch_args(x, w, t_local, 0)
+    lib, x, w, t, code = _launch_args(x, w, t_local)
     (T, D), V = x.shape, w.shape[1]
-    part = torch.empty((3, T, lib.fxent_num_vtiles(V)), dtype=torch.float32,
-                       device=x.device)
+    part = _fwd_part(lib, x, w, code)
     m, l, tgt = torch.empty((3, T), dtype=torch.float32, device=x.device).unbind(0)
     with torch.cuda.device(x.device):
         err = lib.fxent_fwd_partial_launch(
@@ -228,6 +237,58 @@ def _fwd_partial_cuda(x, w, t_local, softcap):
     _raise_on(err, "partial forward")
     _fwd_partial.launches += 1
     return m, l, tgt
+
+
+# ------------------------------------------------------------- forward in vocab tiles
+#: Vocab columns per partial of the forward kernels: the bf16 kernel's 256-column
+#: output tile, the fp32 kernel's 64-column block.
+FWD_TILE = {torch.bfloat16: 256, torch.float32: 64}
+_WARP = 32
+
+
+def _tile_stats_plain(x, w, targets, softcap, tile):
+    """The score-tile kernels' step: for every ``tile`` columns, each row's partial
+    ``(m, l, tgt)`` — its max capped score, its sum of ``exp(score - m)`` and its
+    target's score (0 when the target lies outside the tile) — with the columns past V
+    masked: they count in no max or sum, and no id matches them → three fp32
+    ``[T, cdiv(V, tile)]``."""
+    s, _ = _scores(x, w, softcap)
+    T, V = s.shape
+    nv = -(-V // tile)
+    s = torch.nn.functional.pad(s, (0, nv * tile - V), value=_NEG_INF).view(T, nv, tile)
+    m = s.max(dim=-1).values
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    idx, hit = _target_index(targets, V)
+    score = torch.where(hit, s.view(T, -1).gather(1, idx[:, None])[:, 0], 0.0)
+    tgt = torch.zeros_like(m).scatter_(1, (idx // tile)[:, None], score[:, None])
+    return m, l, tgt
+
+
+def _merge_plain(m, l, tgt):
+    """The combine kernels' merge of each row's partials ``[T, n]`` → ``(m, l, tgt)``
+    fp32 [T], l at the row's max, in their order: lane k of a warp adds partials k,
+    k + 32, … in turn, then the butterfly (xor 16, 8, 4, 2, 1) adds the 32 lanes' sums,
+    and the row keeps lane 0's."""
+    T, n = m.shape
+    pad = (0, -(-n // _WARP) * _WARP - n)
+    m = torch.nn.functional.pad(m, pad, value=_NEG_INF)
+    l, tgt = torch.nn.functional.pad(l, pad), torch.nn.functional.pad(tgt, pad)
+    mx = m.max(dim=1).values
+    lanes = torch.arange(_WARP, device=m.device)
+    sums = []
+    for v in (l * torch.exp(m - mx[:, None]), tgt):
+        acc = torch.zeros((T, _WARP), dtype=v.dtype, device=v.device)
+        for chunk in v.view(T, -1, _WARP).unbind(1):
+            acc = acc + chunk
+        for o in (16, 8, 4, 2, 1):
+            acc = acc + acc[:, lanes ^ o]
+        sums.append(acc[:, 0])
+    return mx, sums[0], sums[1]
+
+
+#: The plain versions of the forward's two kernels: the score tiles' step
+#: ``(x, w, targets, softcap, tile)`` → per-tile partials, and the combine's merge.
+PLAIN_FWD_STEPS = (_tile_stats_plain, _merge_plain)
 
 
 # ------------------------------------------------------------------ backward in slabs
@@ -317,7 +378,7 @@ def _cuda_slab_steps(lib, stream: int):
 
 
 def _bwd_cuda(x, w, targets, lse, g, softcap):
-    lib, xk, wk, t, code = _launch_args(x, w, targets, 1)
+    lib, xk, wk, t, code = _launch_args(x, w, targets)
     (T, D), V = x.shape, w.shape[1]
     _check(lse.shape == (T,) and g.shape == (T,), "lse and g must be [T]")
     lse = lse.to(x.device, torch.float32).contiguous()

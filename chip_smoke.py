@@ -43,18 +43,22 @@ that names the phase, its failed cases and the exception:
 6. adamw — the fused AdamW kernel against its plain version over the training path's
    leaf shapes, 3 steps, fp32 and bf16 first moments; then the time of one apply over
    the whole 8-layer tree beside ``torch._fused_adamw_``.
-7. fused_xent — the fused linear + cross-entropy kernels (forward; the backward's d, dw
-   and dx kernels over vocab slabs) against their plain versions on the same inputs: the
-   training path's shape T=4096, D=4096, V=128256, bf16; plus fp32 at T=300, D=256,
-   V=1000 (ragged against every tile), softcap 30, ignored targets with a cotangent that
-   is zero on some rows, the tied (transposed) head, and the slabs' edges (V ragged
-   against the slab and the tile, the tp shard VL=64128, T=4100, V=200), each element
-   on its row's scale; every bf16 backward called twice must give the same bits; the
+7. fused_xent — the fused linear + cross-entropy kernels (forward: the score tiles'
+   statistics kernel and the combine; the backward's d, dw and dx kernels over vocab
+   slabs) against their plain versions on the same inputs: the training path's shape
+   T=4096, D=4096, V=128256, bf16; plus fp32 at T=300, D=256, V=1000 (ragged against
+   every tile), softcap 30, ignored targets with a cotangent that is zero on some rows,
+   the tied (transposed) head, the slabs' edges (V ragged against the slab and the tile,
+   the tp shard VL=64128, T=4100, V=200), and the forward tile's edges (T=1, T=65 under
+   softcap 30, D=1000 ragged against the 64-deep stage), each element on its row's
+   scale; every bf16 forward and backward called twice must give the same bits; the
    same check must reject faults planted in the plain versions (the last vocab tile
    skipped, the softcap's chain rule dropped, d left unrounded); then kernel, plain and
-   bound times (and each backward kernel alone on one slab; the SM clock, power and
-   temperature sampled by ``nvidia-smi`` beside both) beside the chunked CE the kernels
-   replace (chunk 512, forward and forward+backward).
+   bound times (the forward's device kernels per call, counted as the kernel nodes of a
+   CUDA graph captured from one call, and cuBLAS's ``x @ w`` beside it as the card's product rate at that shape; each
+   backward kernel alone on one slab; the SM clock, power and temperature sampled by
+   ``nvidia-smi`` beside the backward) beside the chunked CE the kernels replace (chunk
+   512, forward and forward+backward).
 8. train_parity — ``Accelerator.build_train_step`` on the card against the same step
    on the CPU (``debug`` config, fp32, 3 steps of ``adamw``, of ``fused_adamw`` and of
    ``fused_adamw`` with ``loss_impl="fused"``).
@@ -85,8 +89,9 @@ that names the phase, its failed cases and the exception:
    VL = 64128 and 32064, bf16), an fp32 case ragged against every tile and softcap 30,
    targets other ranks own and -1; faults planted in the plain version (the last vocab
    tile skipped, a target outside the slice matched, l not rescaled to the final max)
-   must fail the same check; the tp slices' partials, merged in torch, must equal
-   kernel #5's (nll, lse) on the whole head; then kernel, plain and bound times.
+   must fail the same check; every bf16 call made twice must repeat its bits; the tp
+   slices' partials, merged in torch, must equal kernel #5's (nll, lse) on the whole
+   head; then kernel, plain and bound times and the device kernels per call.
 15. train_tp_parity — the tensor-parallel train step (``Accelerator(mesh_config=dp1×tp2)``,
    ``partition_specs``, ``loss_impl="fused_tp"``) in two gloo ranks that share the card
    (``notebook_launcher``), against the same steps on the CPU in one process (``debug``,
@@ -103,6 +108,12 @@ that names the phase, its failed cases and the exception:
 
 Then the kernels line, the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
+
+    python3 chip_smoke.py --xent-fwd-times
+
+builds only the fused CE kernels and prints one line of forward times (#5 at the main
+shape, #6 at the tp shards), the phases skipped: run from another tree's root (with a
+copy of this script), it times that tree's kernels for a same-call comparison.
 """
 
 from __future__ import annotations
@@ -259,6 +270,36 @@ def device_ms(fn, n: int, replays: int) -> float:
     graph.replay()
     torch.cuda.synchronize()
     return _events_ms(lambda _: graph.replay(), replays) / n
+
+
+def device_kernels(fn) -> int:
+    """The device kernels one call of ``fn`` runs: the kernel nodes of a CUDA graph
+    captured from one call (after a warm-up call), counted through the driver API.
+    (``torch.profiler``'s kernel records missed kernels of a window's first call in
+    some runs on this card, so it is not used for counting.)"""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    handle, n = graph.raw_cuda_graph(), ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    kind, kernels = ctypes.c_int(), 0
+    if n.value and cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    for node in nodes:
+        if cuda.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
 
 
 # ------------------------------------------------------------------ phase 2: kernel
@@ -1263,9 +1304,12 @@ def phase_adamw(dev, main_layers: int) -> dict:
 
 # ------------------------------------------------------ phase 7: fused cross-entropy
 XENT_MAIN = dict(T=4096, D=4096, V=128256, dtype=torch.bfloat16)
-XENT_TILE_V = 256  # the bf16 kernels' vocab tile (kBV and kGN in csrc/fused_xent.cu)
 XENT_BWD_DESIGN = ("vocab slabs; per slab d, dw and dx kernels, each output tile owned by "
                    "one block (no atomics); wgmma+tma, warp-specialised")
+XENT_FWD_DESIGN = ("fxent_ws_kernel's statistics epilogue (128 x 256 tiles, a persistent "
+                   "block an SM; a TMA producer warp, a 4-stage mbarrier ring, two wgmma "
+                   "m64n256k16 consumer warpgroups; (m, l, tgt) per row and 256 columns), "
+                   "then a fixed-order combine")
 
 # Fused-CE tolerances, in flash_errors' terms: nll and lse against 1 + |want|; dx and dw
 # element by element on their row's scale, and the whole tensor's rms error. Kernel and
@@ -1334,7 +1378,8 @@ def xent_planted_faults(fx, x, w, t, g, ref, cap, kinds) -> dict:
     lse = ref["lse"]
     faults = {}
     if "last_vocab_tile_skipped" in kinds:
-        cut = (w.shape[1] - 1) // XENT_TILE_V * XENT_TILE_V
+        tile = fx.FWD_TILE[x.dtype]
+        cut = (w.shape[1] - 1) // tile * tile
         nll_s, lse_s = fx.fused_xent_reference(x, w[:, :cut], t, cap)
         dw_s = torch.zeros_like(ref["dw"])
         dw_s[:, :cut] = fx.fused_xent_dw_reference(x, w[:, :cut], t, lse, g, cap)
@@ -1398,6 +1443,13 @@ def phase_fused_xent(dev) -> dict:
         ("T4100_ragged_slabs", dict(T=4100, D=1024, V=33000, dtype=torch.bfloat16),
          {"ignored": 0.125, "zero_g": 0.125}),
         ("V200_one_tile", dict(T=300, D=256, V=200, dtype=torch.bfloat16), {}),
+        # The forward tile's edges: one row, 65 rows (a 128-row tile mostly past T) under
+        # the cap, and D ragged against the 64-deep stage; V ragged against the tile.
+        ("T1", dict(T=1, D=1024, V=32008, dtype=torch.bfloat16), {}),
+        ("T65_softcap30", dict(T=65, D=1024, V=32008, dtype=torch.bfloat16),
+         {"softcap": 30.0, "score_std": 30.0}),
+        ("D1000_ragged_stage", dict(T=300, D=1000, V=5000, dtype=torch.bfloat16),
+         {"ignored": 0.125}),
     ]
     errors, failed, faults = {}, [], {}
     for name, shape, kw in cases:
@@ -1406,13 +1458,13 @@ def phase_fused_xent(dev) -> dict:
         x, w, t, g = make_xent_inputs(gen, dev=dev, **shape, **kw)
         _, lse_ref = fx.fused_xent_reference(x, w, t, cap)
         got = xent_outputs(fx, x, w, t, g, lse_ref, cap, plain=False)
-        # The bf16 backward sums in a fixed order: a second call gives the same bits. (The
-        # fp32 backward adds with atomics, whose order changes from run to run.)
+        # The bf16 forward and backward sum in a fixed order: a second call gives the same
+        # bits. (The fp32 backward adds with atomics, whose order changes from run to run.)
         deterministic = None
         if shape["dtype"] == torch.bfloat16:
-            dx2, dw2 = fx._bwd(x, w, t, lse_ref, g, cap)
-            deterministic = bool(torch.equal(dx2, got["dx"]) and torch.equal(dw2, got["dw"]))
-            del dx2, dw2
+            again = xent_outputs(fx, x, w, t, g, lse_ref, cap, plain=False)
+            deterministic = {n: bool(torch.equal(again[n], got[n])) for n in got}
+            del again
         torch.cuda.synchronize()
         ref = xent_outputs(fx, x, w, t, g, lse_ref, cap, plain=True)
         errs, within = xent_check(got, ref, shape["dtype"])
@@ -1420,7 +1472,8 @@ def phase_fused_xent(dev) -> dict:
         finite = all(bool(torch.isfinite(got[n]).all()) for n in got)
         shapes_ok = all(got[n].shape == ref[n].shape and got[n].dtype == ref[n].dtype
                         for n in ref)
-        ok = finite and shapes_ok and all(within.values()) and deterministic is not False
+        ok = (finite and shapes_ok and all(within.values())
+              and all((deterministic or {}).values()))
         emit({"phase": "fused_xent_check", "case": name, "softcap": cap, "errors": errs,
               "max_abs": max_abs, "deterministic": deterministic,
               "tol": XENT_TOL[shape["dtype"]], "ok": ok})
@@ -1466,7 +1519,22 @@ def phase_fused_xent(dev) -> dict:
         bound, bound_by = xent_bound_ms(T, D, V, 2, which)
         times[which] = {"kernel_ms": min(kernel_runs), "plain_ms": min(plain_runs),
                         "kernel_ms_runs": kernel_runs, "plain_ms_runs": plain_runs,
-                        "bound_ms": bound, "bound_by": bound_by}
+                        "bound_ms": bound, "bound_by": bound_by,
+                        "tflops": {"fwd": 2, "bwd": 6}[which] * T * D * V
+                        / min(kernel_runs) / 1e9}
+    # The forward is the statistics kernel and the combine: two device kernels a call
+    # (int32 targets, so the wrapper casts nothing). cuBLAS's x @ w (the logits written
+    # in bf16) is the card's product rate at this shape: a yardstick, not the same
+    # function.
+    t32 = t.to(torch.int32)
+    times["fwd"]["device_kernels_per_call"] = device_kernels(lambda: fx._fwd(x, w, t32))
+    cublas_ms = device_ms(lambda _: x @ w, 2, 5)
+    times["fwd"]["cublas_x_at_w_ms"] = cublas_ms
+    times["fwd"]["cublas_x_at_w_tflops"] = 2 * T * D * V / cublas_ms / 1e9
+    torch.cuda.empty_cache()
+    if times["fwd"]["device_kernels_per_call"] != 2:
+        raise PhaseFailed("the forward is not two device kernels a call",
+                          [times["fwd"]["device_kernels_per_call"]])
     # The backward's three kernels on the first slab, each alone (2·T·D·vn flops each).
     slab = fx._slab_width(T, V)
     vn = min(slab, V)
@@ -2215,7 +2283,7 @@ def partial_planted_faults(fx, x, w, t, cap, ref) -> dict:
     """Faulty plain versions of #6: the last vocab tile skipped; a target outside
     [0,VL) matched (its id clamped into the shard); l summed tile by tile at each
     tile's own max, never rescaled to the row's final max."""
-    tile = XENT_TILE_V if x.dtype == torch.bfloat16 else 64  # the fp32 kernel's tile
+    tile = fx.FWD_TILE[x.dtype]
     cut = (w.shape[1] - 1) // tile * tile
     faults = {"last_vocab_tile_skipped": fx.fused_xent_partial_reference(x, w[:, :cut], t, cap)}
     s, _ = fx._scores(x, w, cap)
@@ -2263,6 +2331,9 @@ def phase_fused_xent_partial(dev) -> dict:
     for name, shape, cap in cases:
         x, w, t = make_partial_inputs(gen, dev=dev, **shape)
         got = fx._fwd_partial(x, w, t, cap)
+        repeats = None  # the bf16 kernels sum in a fixed order: a second call, same bits
+        if shape["dtype"] == torch.bfloat16:
+            repeats = all(torch.equal(a, b) for a, b in zip(fx._fwd_partial(x, w, t, cap), got))
         torch.cuda.synchronize()
         ref = fx.fused_xent_partial_reference(x, w, t, cap)
         errs, within = partial_check(got, ref, shape["dtype"])
@@ -2270,10 +2341,10 @@ def phase_fused_xent_partial(dev) -> dict:
         off = (t < 0) | (t >= shape["VL"])
         ok = (all(within.values()) and all(bool(torch.isfinite(g).all()) for g in got)
               and all(g.shape == (shape["T"],) and g.dtype == torch.float32 for g in got)
-              and bool((got[2][off] == 0).all()))
+              and bool((got[2][off] == 0).all()) and repeats is not False)
         emit({"phase": "fused_xent_partial_check", "case": name, "softcap": cap,
               "rows_owned_elsewhere": int(off.sum()), "errors": errs, "max_abs": max_abs,
-              "tol": PARTIAL_TOL[shape["dtype"]], "ok": ok})
+              "repeats_bits": repeats, "tol": PARTIAL_TOL[shape["dtype"]], "ok": ok})
         if not ok:
             failed.append(name)
         errors[name] = max_abs
@@ -2326,13 +2397,41 @@ def phase_fused_xent_partial(dev) -> dict:
         kernel_runs = [device_ms(lambda _: fx._fwd_partial(x, w, t), 2, 5) for _ in range(2)]
         plain_runs.append(device_ms(lambda _: fx.fused_xent_partial_reference(x, w, t), 1, 2))
         bound, bound_by = partial_bound_ms(T, D, vl, 2)
+        t32 = t.to(torch.int32)
+        kernels = device_kernels(lambda: fx._fwd_partial(x, w, t32))
         times[f"tp{n}"] = {"VL": vl, "kernel_ms": min(kernel_runs), "plain_ms": min(plain_runs),
                            "kernel_ms_runs": kernel_runs, "plain_ms_runs": plain_runs,
-                           "bound_ms": bound, "bound_by": bound_by, "library_ms": None}
+                           "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+                           "tflops": 2 * T * D * vl / min(kernel_runs) / 1e9,
+                           "device_kernels_per_call": kernels}
         del x, w, t
         torch.cuda.empty_cache()
     emit({"phase": "fused_xent_partial_time", "T": T, "D": D, "dtype": "bf16", **times})
+    if any(tm["device_kernels_per_call"] != 2 for tm in times.values()):
+        raise PhaseFailed("kernel #6 is not two device kernels a call",
+                          [tm["device_kernels_per_call"] for tm in times.values()])
     return {"errors": errors, "times": times}
+
+
+def xent_fwd_times(dev) -> dict:
+    """Device ms of the fused CE forward kernels alone, each the best of two
+    graph-replayed runs: #5 at the main shape and #6 at the tp shards of its head. It
+    calls only the package's ``_fwd`` and ``_fwd_partial``, so it times another tree's
+    kernels too (``--xent-fwd-times``)."""
+    from accelerate_tpu_torch.ops import fused_xent as fx
+
+    gen = torch.Generator(dev).manual_seed(9)
+    T, D, V = XENT_MAIN["T"], XENT_MAIN["D"], XENT_MAIN["V"]
+    x, w, t, _ = make_xent_inputs(gen, dev=dev, **XENT_MAIN)
+    out = {"fwd_ms": min(device_ms(lambda _: fx._fwd(x, w, t), 2, 5) for _ in range(2))}
+    del x, w, t
+    for n in XENT_TP_SIZES:
+        x, w, t = make_partial_inputs(gen, T=T, D=D, VL=V // n, dtype=torch.bfloat16, dev=dev)
+        out[f"partial_tp{n}_ms"] = min(
+            device_ms(lambda _: fx._fwd_partial(x, w, t), 2, 5) for _ in range(2))
+        del x, w, t
+    torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------ phases 15-16: tensor-parallel training
@@ -2644,7 +2743,9 @@ def main() -> int:
     smi = nvidia_smi()
     print(smi, flush=True)
     t0 = time.perf_counter()
-    libs = run_phase("device", _build.build, list(_build.KERNEL_SOURCES))
+    fwd_only = "--xent-fwd-times" in sys.argv[1:]
+    libs = run_phase("device", _build.build,
+                     ["fused_xent"] if fwd_only else list(_build.KERNEL_SOURCES))
     build_s = time.perf_counter() - t0
     for lib in libs.values():
         log = lib.with_suffix(".log")
@@ -2652,6 +2753,10 @@ def main() -> int:
             print(log.read_text(), file=sys.stderr)
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "sources": list(libs)})
+    if fwd_only:  # a probe for same-call comparisons
+        emit({"phase": "xent_fwd_times", "nvidia_smi": smi,
+              **run_phase("xent_fwd_times", xent_fwd_times, dev)})
+        return 0
     run_phase("spills", check_spills, libs)
     if "--int8-split-sweep" in sys.argv[1:]:  # a probe, run only when asked
         for t in run_phase("int8_split_sweep", int8_split_sweep,
@@ -2722,7 +2827,7 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                 / train_fused["launches"]["fused_xent_bwd"],
                 "slab_kernel_ms": xt["bwd"]["slab_kernel_ms"],
                 "note": "one _bwd call computes dx and dw: per vocab slab one d, one dw and "
-                        "one dx kernel (fxent_bwd_ws_kernel); launches count _bwd calls, "
+                        "one dx kernel (fxent_ws_kernel); launches count _bwd calls, "
                         "once per step for the pair"}
     return [
         _kernel_row("paged_attention", csrc + "paged_attention.cu",
@@ -2748,7 +2853,9 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                     "torch._fused_adamw_"),
         _kernel_row("fused_xent_fwd", csrc + "fused_xent.cu", fx_py + ":82",
                     train_fused["launches"]["fused_xent_fwd"], max(xe["nll"], xe["lse"]),
-                    xt["fwd"], None, **xent_extra),
+                    xt["fwd"], None, **xent_extra, design=XENT_FWD_DESIGN,
+                    device_kernels_per_call=xt["fwd"]["device_kernels_per_call"],
+                    cublas_x_at_w_ms=xt["fwd"]["cublas_x_at_w_ms"]),
         _kernel_row("fused_xent_bwd_dx", csrc + "fused_xent.cu", fx_py + ":128",
                     train_fused["launches"]["fused_xent_bwd"], xe["dx"], xt["bwd"], None,
                     **xent_extra, **bwd_note),
@@ -2769,7 +2876,8 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                     int8pack_error=int8["int8pack_error"]),
         _kernel_row("fused_xent_partial", csrc + "fused_xent.cu", fx_py + ":96",
                     train_tp["launches"]["fused_xent_partial"], max(partial["errors"]["tp2_bf16"].values()),
-                    partial["times"]["tp2"], None,
+                    partial["times"]["tp2"], None, design=XENT_FWD_DESIGN,
+                    device_kernels_per_call=partial["times"]["tp2"]["device_kernels_per_call"],
                     shape="one tp=2 rank's slice of Llama-3-8B's head: T = D = 4096, "
                           "VL = 64128, bf16", tp4=partial["times"]["tp4"],
                     note="launches: rank 0 of train_tp (each rank launches it once per step)"),

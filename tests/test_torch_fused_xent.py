@@ -10,12 +10,17 @@ torch autograd through the port's ``autograd.Function``), bf16 inputs, and targe
 ``tiny`` (vocab 300, fp32, with a mask), untied and Gemma-style (tied head,
 ``final_softcap=20``).
 
+The forward's tile schedule (per-tile partials and the combine's merge,
+``PLAIN_FWD_STEPS``) is held against the same Pallas forward at tiles of 128, 256 and
+512 columns.
+
 Tolerances: fp32 nll rtol 2e-5 / atol 2e-6, gradients rtol 3e-5 / atol 3e-6 (the two
 sides sum over D and V in other orders and tiles); bf16 2e-2; the model's loss rtol
 1e-5 and gradients rtol 5e-5 (atol 5e-6).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import jax
@@ -163,6 +168,42 @@ def test_bwd_slabs_match_jax(case):
             assert np.abs(got - ref).max() <= 2e-2 * max(1.0, np.abs(ref).max())
         for got, ref in ((dx, ref_dx), (dw, ref_dw)):
             torch.testing.assert_close(got.float(), ref.float(), rtol=2.0 ** -7, atol=1e-6)
+
+
+# The forward's schedule run on the CPU with its plain steps (``PLAIN_FWD_STEPS``): each
+# row's partial (m, l, tgt) per vocab tile, then the combine's merge in its order. Tiles of
+# 128 and 256 (the bf16 kernel's) leave a ragged last tile at V = 300, a tile of 512 is
+# wider than V; the last row's target lies in the last, ragged tile and every fifth is
+# -1. Against JAX's Pallas forward (interpret mode) at the tolerances of the tests above
+# (fp32 rtol 2e-5 / atol 2e-6, bf16 2e-2), and against the whole-matrix plain version
+# (rtol 1e-6: fp32 sums in another order).
+@functools.lru_cache(maxsize=None)
+def _jax_fwd(softcap, bf16):
+    x, w, t, _ = _data(seed=5, ignore=True)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    jx, jw = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
+    nll = np.asarray(_jax_nll(jx, jw, jnp.asarray(t), softcap))
+    return (np.asarray(jx.astype(jnp.float32)), np.asarray(jw.astype(jnp.float32)), t, nll)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("tile", [128, 256, 512])
+def test_fwd_tiles_match_jax(tile, softcap, dtype):
+    x, w, t, want = _jax_fwd(softcap, dtype == torch.bfloat16)
+    tx, tw, tt = torch.tensor(x).to(dtype), torch.tensor(w).to(dtype), torch.tensor(t)
+    step, merge = tfx.PLAIN_FWD_STEPS
+    parts = step(tx, tw, tt, softcap, tile)
+    assert all(p.shape == (T, -(-V // tile)) and p.dtype == torch.float32 for p in parts)
+    m, l, tgt = merge(*parts)
+    lse = m + torch.log(l)
+    nll = lse - tgt
+    tol = dict(rtol=2e-5, atol=2e-6) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(nll.numpy(), want, **tol)
+    assert torch.equal(nll[::5], lse[::5])  # an ignored target scores nothing
+    ref_nll, ref_lse = tfx.fused_xent_reference(tx, tw, tt, softcap)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-6, atol=0)
+    torch.testing.assert_close(nll, ref_nll, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("T_, V_, want", [(4096, 128256, 16384), (4096, 64128, 16384),

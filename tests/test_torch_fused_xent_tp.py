@@ -7,6 +7,9 @@ package's, on the CPU.
   block_v = 32`` (ragged on both axes), shard-local targets in range, out of range on
   both sides and -1, softcap 0 and 25; m, l and tgt at rtol 1e-5 (atol 1e-6 for scores
   near 0, which the two sides sum in other orders).
+- Kernel #6's tile schedule (``PLAIN_FWD_STEPS``: per-tile partials, then the
+  combine's merge) against the same Pallas kernel on a shard 300 wide, at tiles of 128,
+  256 and 512 columns, fp32 and bf16, softcap 0 and 30.
 - The merge of the shards' partials (``lse = m_g + log l_g``) equals
   ``fused_xent_reference`` on the whole head (rtol 1e-6: fp32 sums in another order).
 - ``fused_cross_entropy_tp`` over tp=2 and tp=4 gloo ranks (spawned by the port's
@@ -71,6 +74,36 @@ def test_partial_reference_matches_pallas(softcap):
     # The raw entry point takes the plain version on CPU tensors.
     raw = tfx._fwd_partial(torch.tensor(x), torch.tensor(w), torch.tensor(t), softcap)
     assert all(torch.equal(a, b) for a, b in zip(raw, got))
+
+
+# Kernel #6's schedule run on the CPU with its plain steps (``PLAIN_FWD_STEPS``: each
+# row's partial per vocab tile, then the combine's merge) on a shard VL = 300 wide:
+# tiles of 128 and 256 (the bf16 kernel's) leave a ragged last tile, 512 is wider than
+# the shard; row 2's target is the shard's last column, in the ragged tile; ids of other
+# ranks on both sides and -1. Against the Pallas kernel in interpret mode at the
+# tolerances above (rtol 1e-5, atol 1e-6).
+@functools.lru_cache(maxsize=None)
+def _pallas_shard(softcap, bf16):
+    x, w, t = _shard_data(VL=300, seed=3)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    jx, jw = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
+    want = _pallas_partial(jx, jw, t, softcap)
+    return np.asarray(jx.astype(jnp.float32)), np.asarray(jw.astype(jnp.float32)), t, want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("tile", [128, 256, 512])
+def test_partial_tiles_match_pallas(tile, softcap, dtype):
+    x, w, t, want = _pallas_shard(softcap, dtype == torch.bfloat16)
+    step, merge = tfx.PLAIN_FWD_STEPS
+    got = merge(*step(torch.tensor(x).to(dtype), torch.tensor(w).to(dtype), torch.tensor(t),
+                      softcap, tile))
+    for name, g, ref in zip(("m", "l", "tgt"), got, want):
+        np.testing.assert_allclose(g.numpy(), ref, rtol=1e-5, atol=1e-6, err_msg=name)
+    off = (t < 0) | (t >= w.shape[1])
+    assert off.any() and (~off).any() and t[2] == w.shape[1] - 1
+    assert np.all(got[2].numpy()[off] == 0.0)
 
 
 @pytest.mark.parametrize("n", [2, 8])
