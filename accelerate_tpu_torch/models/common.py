@@ -20,9 +20,16 @@ pool), plus ``k_scale``/``v_scale`` ``[...,1]`` fp32 when int8-quantized.
 
 JAX arrays are immutable and the JAX engine donates its cache; here the writers update
 the planes IN PLACE and return them, so a cache is never copied per step. JAX scatter
-semantics are reproduced explicitly: out-of-range per-row writes and writes through
-the sentinel page id are DROPPED (masked), and a scalar-start slice write CLAMPS its
-start like ``lax.dynamic_update_slice``.
+semantics are reproduced with fixed-shape writes that never wait on the host (no
+boolean-mask indexing), so a decode step can be captured into a CUDA graph:
+out-of-range per-row writes and writes through the sentinel page id are DROPPED
+(:func:`put_or_drop`: each dropped entry writes a slot with the bytes that slot ends up
+holding anyway, so no writer races another), and a scalar-start slice write CLAMPS its
+start like ``lax.dynamic_update_slice`` (the start may be a device tensor).
+
+:func:`multi_step_decode` runs N cached decode steps with the lane-freezing carry of
+the JAX super-step; on CUDA the serving engine and ``generation.generate_loop`` replay
+such steps from a CUDA graph (``utils/cuda_graph.py``).
 """
 
 from __future__ import annotations
@@ -45,9 +52,9 @@ __all__ = [
     "remat_wrap", "attention_dispatch",
     "resolve_loss_chunk", "chunked_ce", "ce_sum", "ce_sum_dispatch",
     "fused_ce_allowed", "fused_ce_single_shard",
-    "kv_planes", "quant_kv", "write_kv", "read_kv",
+    "kv_planes", "quant_kv", "put_or_drop", "write_kv", "read_kv",
     "paged_kv_planes", "write_kv_paged", "read_kv_paged", "paged_write_coords",
-    "paged_attention_dispatch",
+    "paged_attention_dispatch", "multi_step_decode",
 ]
 
 _SP_MODES = ("ring", "ulysses", "ulysses_ppermute", "allgather")
@@ -266,24 +273,46 @@ def _planes(kv: dict, name: str, val: torch.Tensor):
     return ((name, val),)
 
 
+def put_or_drop(dst: torch.Tensor, i0: torch.Tensor, i1: torch.Tensor, vals,
+                keep: torch.Tensor) -> None:
+    """``dst[i0[m], i1[m]] = vals[m]`` IN PLACE for the entries ``m`` where ``keep``
+    (flat ``[M]`` indices, ``vals`` ``[M, ...]`` in ``dst``'s dtype); the others are
+    DROPPED, as JAX's out-of-bounds scatter drops them, where their indices may be out
+    of range. The write keeps a fixed shape and never waits on the host: a dropped
+    entry writes the slot and the bytes of the first live entry (which that entry
+    writes too), or, when none is live, slot (0, 0) back with the bytes it holds — every
+    writer of a slot writes the same bytes, so nothing races."""
+    first = keep.to(torch.int32).argmax().reshape(1)  # 0 when none is live
+    live = keep.any()
+    i0 = torch.where(keep, i0, torch.where(live, i0.index_select(0, first), 0))
+    i1 = torch.where(keep, i1, torch.where(live, i1.index_select(0, first), 0))
+    fill = torch.where(live, vals.index_select(0, first), dst[0:1, 0])
+    dst[i0, i1] = torch.where(keep.reshape(-1, *([1] * (vals.dim() - 1))), vals, fill)
+
+
 def write_kv(kv: dict, name: str, val: torch.Tensor, index: Union[int, torch.Tensor]) -> dict:
     """Write ``val`` [B,T,...] into cache plane ``name`` IN PLACE at ``index`` — a
-    scalar start slot for all rows (clamped into range, as ``dynamic_update_slice``
-    does) or a per-row vector ``[B]`` (row b's tokens land at ``index[b] ..
-    index[b]+T-1``; slots past the cache end are dropped) — quantizing when the cache
-    is int8. Returns the written planes."""
+    scalar start slot for all rows (an int or a 0-d tensor, clamped into range as
+    ``dynamic_update_slice`` does) or a per-row vector ``[B]`` (row b's tokens land at
+    ``index[b] .. index[b]+T-1``; slots past the cache end are dropped,
+    :func:`put_or_drop`) — quantizing when the cache is int8. Returns the written
+    planes. No path waits on the host."""
     out = {}
     for key, plane in _planes(kv, name, val):
         dst = kv[key]
         B, T = plane.shape[0], plane.shape[1]
-        if not torch.is_tensor(index) or index.dim() == 0:
-            start = min(max(int(index), 0), dst.shape[1] - T)
+        C = dst.shape[1]
+        if not torch.is_tensor(index):
+            start = min(max(int(index), 0), C - T)
             dst[:, start:start + T] = plane.to(dst.dtype)
+        elif index.dim() == 0:
+            slots = index.long().clamp(0, C - T) + torch.arange(T, device=dst.device)
+            dst.index_copy_(1, slots, plane.to(dst.dtype))
         else:
-            slots = index.long()[:, None] + torch.arange(T, device=dst.device)[None, :]
-            rows = torch.arange(B, device=dst.device)[:, None].expand(B, T)
-            keep = slots < dst.shape[1]
-            dst[rows[keep], slots[keep]] = plane[keep].to(dst.dtype)
+            slots = (index.long()[:, None] + torch.arange(T, device=dst.device)).reshape(-1)
+            rows = torch.arange(B, device=dst.device).repeat_interleave(T)
+            put_or_drop(dst, rows, slots, plane.reshape(B * T, *plane.shape[2:]).to(dst.dtype),
+                        slots < C)
         out[key] = dst
     return out
 
@@ -307,13 +336,15 @@ def write_kv_paged(kv: dict, name: str, val: torch.Tensor, pages: torch.Tensor,
                    offs: torch.Tensor) -> dict:
     """Write ``val`` [B,T,K,hd] IN PLACE into pool plane ``name`` at physical slots
     ``(pages[b,t], offs[b,t])``, quantizing when the pool is int8 (the same per-slot
-    quantization as :func:`write_kv`). Sentinel page ids (== num_pages) are DROPPED —
-    stale/unallocated table entries never corrupt another lane's pages."""
+    quantization as :func:`write_kv`). Sentinel page ids (== num_pages) are DROPPED
+    (:func:`put_or_drop`) — stale/unallocated table entries never corrupt another
+    lane's pages."""
     out = {}
+    pg, off = pages.reshape(-1).long(), offs.reshape(-1).long()
     for key, plane in _planes(kv, name, val):
         dst = kv[key]
-        keep = pages < dst.shape[0]
-        dst[pages[keep].long(), offs[keep].long()] = plane[keep].to(dst.dtype)
+        put_or_drop(dst, pg, off, plane.reshape(pg.shape[0], *plane.shape[2:]).to(dst.dtype),
+                    pg < dst.shape[0])
         out[key] = dst
     return out
 
@@ -354,3 +385,47 @@ def paged_attention_dispatch(q, pool, tables, positions, valid, *, page_size: in
     ck = read_kv_paged(pool, "k", tables, valid.shape[1], dtype)
     cv = read_kv_paged(pool, "v", tables, valid.shape[1], dtype)
     return dense_attention(ck, cv)
+
+
+def multi_step_decode(forward_one: Callable, cache, tokens: torch.Tensor,
+                      positions: torch.Tensor, active: torch.Tensor, budgets: torch.Tensor,
+                      eos_ids: torch.Tensor, select_token: Callable, xs, n_steps: int,
+                      max_len: int):
+    """N cached decode steps with the JAX super-step's carry ``(tokens, positions,
+    done, count)`` — the loop both ``forward_slots_multi`` callers share, written with
+    fixed shapes and no host reads so that a CUDA graph can hold all N steps.
+
+    Per step the carried ``tokens`` [B] int32 (each lane's PENDING token — emitted by
+    the previous step but not yet written, the engine's host-loop invariant) are
+    written and attended at ``positions`` through ``forward_one(cache, tokens,
+    write_pos) -> (logits [B,V], cache)``; ``select_token(logits, xs[j])`` picks one new
+    token per lane (``xs`` None: ``select_token(logits, None)``); EOS and budget masking
+    freeze finished lanes: a frozen lane writes at ``max_len``, so the dense write and
+    the paged sentinel route both DROP it — which is also why a finishing lane's last
+    token is never written, as in the N = 1 loop, where the engine frees the lane first.
+
+    ``active`` bool [B] marks live lanes (idle lanes start frozen and never write;
+    their host position stays put). ``budgets`` int32 [B] is each lane's REMAINING
+    token budget; ``eos_ids`` int32 [B] uses -1 for "no EOS".
+
+    Returns ``(cache, tok_buf [N, B] int32, counts [B] int32, logits [B, V])``: the
+    token buffer is step-major (drain order), ``counts[b]`` how many of lane b's rows
+    are real emissions (its final position is ``positions[b] + counts[b]``), and
+    ``logits`` the last step's (the JAX function returns the first three)."""
+    done = ~active
+    count = torch.zeros_like(tokens, dtype=torch.int32)
+    tok, pos = tokens.to(torch.int32), positions.to(torch.int32)
+    rows, logits = [], None
+    for j in range(n_steps):
+        write_pos = pos.masked_fill(done, max_len)
+        logits, cache = forward_one(cache, tok, write_pos)
+        nxt = select_token(logits, None if xs is None else xs[j]).to(torch.int32)
+        nxt = torch.where(done, tok, nxt)
+        emit = ~done
+        count = count + emit.to(torch.int32)
+        hit_eos = (eos_ids >= 0) & (nxt == eos_ids)
+        done = done | (emit & (hit_eos | (count >= budgets)))
+        pos = torch.where(emit, pos + 1, pos)
+        tok = nxt
+        rows.append(nxt)
+    return cache, torch.stack(rows), count, logits

@@ -37,6 +37,11 @@ over the batch ranks: ``parallel.tp.replica_sum``), and
 ``forward``/``head_logits`` give this rank's vocab slice of the logits. The cached
 (serving) forwards take whole params.
 
+The one-request API — :func:`generate` (prefill, then decode steps replayed from a CUDA
+graph on the card through ``generation.generate_loop``), :func:`score` and
+:func:`perplexity` — and :func:`forward_slots_multi`, the serving engine's N-step
+super-step, follow the JAX functions of the same names.
+
 Not supported in this slice (raise ``NotImplementedError``): ``moe_experts > 0``,
 ``lora_rank > 0`` and ``use_fp8``.
 """
@@ -46,6 +51,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+from collections import OrderedDict
 from typing import Any, Optional
 
 import torch
@@ -57,8 +63,8 @@ from ..parallel.tp import (all_reduce, copy_to_group, group_rank_size, reduce_fr
                            vocab_parallel_embedding)
 from ..utils.constants import BATCH_AXES, FSDP_AXIS, TENSOR_AXIS
 from ..utils.device import resolve_device
-from .common import (_softcap, attention_dispatch, ce_sum_dispatch, remat_wrap,
-                     resolve_loss_chunk)
+from .common import (_softcap, attention_dispatch, ce_sum_dispatch, multi_step_decode,
+                     put_or_drop, remat_wrap, resolve_loss_chunk)
 from .common import kv_planes as _kv_planes
 from .common import paged_attention_dispatch as _paged_attention
 from .common import paged_kv_planes as _paged_kv_planes
@@ -85,6 +91,10 @@ __all__ = [
     "forward_cached",
     "forward_slots",
     "forward_slots_paged",
+    "forward_slots_multi",
+    "score",
+    "perplexity",
+    "generate",
 ]
 
 
@@ -715,7 +725,8 @@ def _block_cached(x, layer, kv, index, positions, valid, cfg: LlamaConfig, paged
 def _cache_advance(cache: dict, tokens: torch.Tensor, token_mask: Optional[torch.Tensor]):
     """(write index, absolute rope positions [B,T], valid mask [B,C]); the valid mask
     is updated in place at the index, whose start clamps into range like
-    ``dynamic_update_slice``."""
+    ``dynamic_update_slice``. The index is an int, or a 0-d device tensor that never
+    leaves the device (``generate``'s decode steps, replayed from a CUDA graph)."""
     B, T = tokens.shape
     index = cache["index"]
     positions = index + torch.arange(T, dtype=torch.int32, device=tokens.device)
@@ -723,8 +734,13 @@ def _cache_advance(cache: dict, tokens: torch.Tensor, token_mask: Optional[torch
     if token_mask is None:
         token_mask = torch.ones((B, T), dtype=torch.bool, device=tokens.device)
     valid = cache["valid"]
-    start = min(max(index, 0), valid.shape[1] - T)
-    valid[:, start:start + T] = token_mask
+    C = valid.shape[1]
+    if torch.is_tensor(index):
+        slots = index.long().clamp(0, C - T) + torch.arange(T, device=valid.device)
+        valid.index_copy_(1, slots, token_mask)
+    else:
+        start = min(max(index, 0), C - T)
+        valid[:, start:start + T] = token_mask
     return index, positions, valid
 
 
@@ -737,7 +753,8 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, tp=None) -> tor
     else:
         x = table[tokens].to(cfg.dtype)
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype, device=x.device)
+        # A 0-d CPU tensor rides into the kernel as a scalar: no host-to-device copy.
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
     return x
 
 
@@ -754,7 +771,8 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict, cfg: LlamaCo
                    last_only: bool = False) -> tuple[torch.Tensor, dict]:
     """Write ``tokens`` [B,T] into the cache at its current index (in place) and return
     (fp32 logits, cache) — logits [B,T,V], or [B,1,V] with ``last_only``. Prefill
-    passes the left-padded prompt with ``token_mask`` False on pads."""
+    passes the left-padded prompt with ``token_mask`` False on pads. ``cache["index"]``
+    may be a 0-d device tensor; the returned cache then holds ``index + T`` as one."""
     T = tokens.shape[1]
     index, positions, valid = _cache_advance(cache, tokens, token_mask)
     x = _embed(params, tokens, cfg)
@@ -784,9 +802,9 @@ def forward_slots(params: dict, tokens: torch.Tensor, cache: dict, positions: to
     pos_grid = positions[:, None] + torch.arange(T, dtype=positions.dtype,
                                                  device=positions.device)[None, :]
     valid = cache["valid"]
-    rows = torch.arange(B, device=valid.device)[:, None].expand(B, T)
-    keep = pos_grid < C  # JAX scatter drops out-of-range slots
-    valid[rows[keep], pos_grid[keep].long()] = True
+    keep = (pos_grid < C).reshape(-1)  # JAX's scatter drops out-of-range slots
+    put_or_drop(valid, torch.arange(B, device=valid.device).repeat_interleave(T),
+                pos_grid.reshape(-1).long(), keep, keep)
     paged = None
     if tables is not None:
         num_pages = cache["layers"][0]["k"].shape[0]
@@ -814,3 +832,120 @@ def forward_slots_paged(params: dict, tokens: torch.Tensor, cache: dict,
     through them, and at/past max_len, drop). The pool is updated in place."""
     return forward_slots(params, tokens, cache, positions, cfg, tables=tables,
                          page_size=page_size)
+
+
+def forward_slots_multi(params: dict, cache: dict, tokens: torch.Tensor,
+                        positions: torch.Tensor, active: torch.Tensor, budgets: torch.Tensor,
+                        eos_ids: torch.Tensor, select_token, xs, n_steps: int,
+                        cfg: LlamaConfig, tables: Optional[torch.Tensor] = None,
+                        page_size: int = 0):
+    """N :func:`forward_slots` decode steps (T == 1) — the super-step the serving
+    engine's ``decode_steps=N`` path runs (replayed from a CUDA graph on the card).
+    Each step is literally a T == 1 ``forward_slots`` call (same rope positions, same
+    valid/causal masking, same paged routing), so per-step logits are the one-token
+    engine's; see :func:`~.common.multi_step_decode` for the freeze/emission contract.
+    Returns ``(cache, tok_buf [n_steps, B], counts [B], last step's logits [B, V])``."""
+    max_len = cache["valid"].shape[1]
+
+    def forward_one(c, tok, write_pos):
+        logits, c = forward_slots(params, tok[:, None], c, write_pos, cfg, tables=tables,
+                                  page_size=page_size)
+        return logits[:, -1, :], c
+
+    return multi_step_decode(forward_one, cache, tokens, positions, active, budgets,
+                             eos_ids, select_token, xs, n_steps, max_len)
+
+
+# ------------------------------------------------------------------- one-request API
+def score(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-token log-probabilities log p(token[t+1] | tokens[:t+1]) → [B, S-1] fp32.
+
+    The evaluation companion to :func:`loss_fn` (which returns their masked mean
+    negated). ``mask`` [B, S] marks real tokens (False on pads); masked target
+    positions score 0.0."""
+    tokens = torch.as_tensor(tokens).long()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logp = torch.log_softmax(forward(params, inputs, cfg), dim=-1)  # final_softcap applied
+    ll = torch.gather(logp, -1, targets[..., None]).squeeze(-1)
+    if mask is not None:
+        ll = ll * torch.as_tensor(mask, device=ll.device)[:, 1:].to(ll.dtype)
+    return ll
+
+
+def perplexity(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """exp(mean negative log-likelihood over real target positions) — 0-d fp32."""
+    ll = score(params, tokens, cfg, mask)
+    if mask is not None:
+        denom = torch.clamp(torch.as_tensor(mask, device=ll.device)[:, 1:].sum(), min=1)
+    else:
+        denom = ll.numel()
+    return torch.exp(-ll.sum() / denom)
+
+
+def _make_gen_fns(cfg: LlamaConfig, max_len: int):
+    """(prefill, decode) pair for ``generation.generate_loop``. The prefill writes into
+    one cache per (batch, device), kept by the pair and reset per call (``valid``
+    cleared, index 0), so that a decode graph captured on it serves later calls; the
+    cache's write index is a 0-d tensor on the device, so that the decode step reads
+    and advances it there (a step replayed from a CUDA graph reads no host value)."""
+    caches: dict = {}
+
+    def prefill_fn(params, prompt, prompt_mask):
+        key = (prompt.shape[0], prompt.device)
+        cache = caches.get(key)
+        if cache is None:
+            cache = init_cache(cfg, prompt.shape[0], max_len, device=prompt.device)
+            cache["index"] = torch.zeros((), dtype=torch.long, device=prompt.device)
+            caches[key] = cache
+        else:
+            cache["valid"].zero_()
+            cache["index"].zero_()
+        logits, new = forward_cached(params, prompt, cache, cfg, token_mask=prompt_mask,
+                                     last_only=True)
+        cache["index"].copy_(new["index"])
+        return logits[:, -1, :], cache
+
+    def decode_fn(params, cache, token):
+        logits, cache = forward_cached(params, token[:, None], cache, cfg)
+        return logits[:, -1, :], cache
+
+    return prefill_fn, decode_fn
+
+
+# Bounded cache of (prefill, decode) pairs by (config, bucketed max_len), as in JAX,
+# where stable identities keep generate_loop's compiled programs warm; max_len is
+# bucketed so that nearby prompt lengths share one cache size.
+_GEN_FNS: OrderedDict = OrderedDict()
+_GEN_FNS_MAX = 16
+
+
+def generate(params: dict, prompt, cfg: LlamaConfig, gen=None, seed: Optional[int] = None,
+             prompt_mask=None) -> torch.Tensor:
+    """Autoregressive generation: prefill, then ``max_new_tokens - 1`` cached decode
+    steps (``generation.generate_loop``; on the card the decode steps replay one CUDA
+    graph, with one host read at the end).
+
+    ``prompt`` [B,S0] int (left-padded; pass ``prompt_mask`` False on pads), moved to
+    the params' device. Returns int32 [B, max_new_tokens] on that device. Sampled
+    generation draws emission t of every row from ``seed`` (default 0), where JAX takes
+    a key."""
+    from ..generation import GenerationConfig, generate_loop
+
+    gen = gen or GenerationConfig()
+    dev = _dense_leaf(params["embed"], "embed").device
+    prompt = torch.as_tensor(prompt, device=dev).to(torch.int32)
+    if prompt_mask is None:
+        prompt_mask = torch.ones(prompt.shape, dtype=torch.bool, device=dev)
+    prompt_mask = torch.as_tensor(prompt_mask, device=dev).bool()
+    max_len = prompt.shape[1] + gen.max_new_tokens
+    max_len = -(-max_len // 64) * 64
+    key = (cfg, max_len)
+    if key not in _GEN_FNS:
+        _GEN_FNS[key] = _make_gen_fns(cfg, max_len)
+        while len(_GEN_FNS) > _GEN_FNS_MAX:
+            _GEN_FNS.popitem(last=False)
+    _GEN_FNS.move_to_end(key)
+    prefill_fn, decode_fn = _GEN_FNS[key]
+    return generate_loop(prefill_fn, decode_fn, params, prompt, prompt_mask, gen, seed)

@@ -241,9 +241,10 @@ def paged_attention_cuda(q, pool, tables, positions, valid, *, page_size, sm_sca
         )
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")
-    paged_attention.launches += 1
-    if plan.route == "pair" and q.dtype == torch.bfloat16:
-        paged_attention.launches_ragged += 1
+    if not torch.cuda.is_current_stream_capturing():  # a captured call launches nothing
+        paged_attention.launches += 1
+        if plan.route == "pair" and q.dtype == torch.bfloat16:
+            paged_attention.launches_ragged += 1
     return out
 
 
@@ -276,7 +277,8 @@ def paged_attention(q, pool, tables, positions, valid, *, page_size, sm_scale,
 
 
 #: Kernel launches since the count was last reset (one per call that launched a kernel,
-#: either route; CPU calls are not counted). ``launches_ragged`` counts the bf16 calls
+#: either route; CPU calls, and calls captured into a CUDA graph, are not counted: a
+#: graph's launches are its kernel nodes times its replays, ``utils/cuda_graph.py``). ``launches_ragged`` counts the bf16 calls
 #: among them that took the pair (shapes outside the cluster kernel's rules).
 paged_attention.launches = 0
 paged_attention.launches_ragged = 0

@@ -348,9 +348,10 @@ def int8_matmul_cuda(x: torch.Tensor, data: torch.Tensor, scales: torch.Tensor,
             err = _launcher()(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err}")
-    int8_matmul.launches += 1
-    if plan.route == "ragged":
-        int8_matmul.launches_ragged += 1
+    if not torch.cuda.is_current_stream_capturing():  # a captured call launches nothing
+        int8_matmul.launches += 1
+        if plan.route == "ragged":
+            int8_matmul.launches_ragged += 1
     return y
 
 
@@ -369,7 +370,9 @@ def int8_matmul(x: torch.Tensor, data: torch.Tensor, scales: torch.Tensor,
 
 
 #: Kernel launches since the count was last reset (one per call that launched a kernel,
-#: any route; CPU calls are not counted). ``launches_ragged`` counts the calls among them
+#: any route; CPU calls, and calls captured into a CUDA graph, are not counted: a
+#: graph's launches are its kernel nodes times its replays, ``utils/cuda_graph.py``).
+#: ``launches_ragged`` counts the calls among them
 #: that took the bounds-checked bf16 kernel (shapes outside the cluster kernel's rules).
 int8_matmul.launches = 0
 int8_matmul.launches_ragged = 0

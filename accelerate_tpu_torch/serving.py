@@ -12,7 +12,15 @@ decode path, dense (``page_size=0``) and paged (``page_size > 0``):
   (``llama.forward_slots`` / ``forward_slots_paged``); paged decode attention runs in
   the CUDA kernel ``ops/paged_attention.py`` on the card.
 - Paged admission allocates the lane's pages for prompt + budget up front
-  (``paged_kv.BlockManager``) and DEFERS in FIFO order when the pool is short.
+  (``paged_kv.BlockManager``) and DEFERS in FIFO order when the pool is short, so no
+  table entry appears during a multi-step super-step.
+- ``decode_steps=N > 1`` runs N decode steps per dispatch (``llama.forward_slots_multi``:
+  in-step sampling, EOS/budget masking and lane freezing) and drains the ``[N, B]``
+  token buffer and the ``[B]`` counts with ONE host read; on the card the super-step
+  is replayed from a CUDA graph per ``(N, sampled, paged)`` (``utils/cuda_graph.py``),
+  its inputs in static tensors the host fills before each replay. Tokens are the
+  N = 1 engine's, greedy and sampled: a sampled lane's Gumbel noise for its next N
+  emissions is drawn on the host from the same per-emission generators and uploaded.
 
 Params may hold quantized projection leaves (``ops.quantization.QuantizedWeight``,
 int8 through its CUDA kernel on the card): the engine reads only the embedding's
@@ -25,13 +33,14 @@ seeded from ``(seed, i)`` (``generation.emission_generator``), so a request's to
 not depend on what else is in the batch.
 
 Not in this slice (the constructor does not take them): prefix caching, speculative
-decoding, multi-step decode, disaggregated roles, fault injection and recovery,
-telemetry and tracing, the compile cache and bucket ladders.
+decoding, disaggregated roles, fault injection and recovery, telemetry and tracing,
+the compile cache and bucket ladders.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import deque
 from typing import Callable, Optional
@@ -39,9 +48,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .generation import GenerationConfig, emission_generator, sampling_core
+from .generation import (GenerationConfig, emission_generator, gumbel_noise, sampling_core,
+                         sampling_core_dyn_k)
 from .models import llama
 from .paged_kv import BlockManager, KVBudgetError, pages_for
+from .utils.cuda_graph import CapturedStep
 
 __all__ = ["ContinuousBatcher", "KVBudgetError", "Request", "normalize_submit"]
 
@@ -150,6 +161,55 @@ def _insert_row_paged(cache, row_cache, write_ids: np.ndarray, slot: int, page_s
     return cache
 
 
+def _multi_select(sample: bool, noise, temps, top_ps, top_ks):
+    """(select_token, xs) for the super-step's steps.
+
+    ``sample=False`` (every live lane greedy) is the argmax ``_decode_step`` returns.
+    ``sample=True`` takes each step's noise from ``noise`` [B, N, V] (xs: step j reads
+    ``noise[:, j]``, lane b's Gumbel noise for its emission ``len(tokens) + j``, the
+    noise :meth:`Request._sample` would draw at that emission) and draws every lane
+    through ``sampling_core_dyn_k`` with its own temperature, top-p and top-k, bitwise
+    the N = 1 draw. Greedy lanes ride along with a safe temperature of 1.0 and their
+    draw discarded for the argmax."""
+    if not sample:
+        return (lambda logits, _: torch.argmax(logits, dim=-1)), None
+    safe_temps = torch.where(temps > 0.0, temps, 1.0)
+
+    def select_token(logits, step_noise):
+        greedy = torch.argmax(logits, dim=-1)
+        drawn = sampling_core_dyn_k(logits, step_noise, safe_temps, top_ps, top_ks)
+        return torch.where(temps > 0.0, drawn, greedy)
+
+    return select_token, noise.transpose(0, 1)
+
+
+def _decode_multi_step(params, cache, tokens, positions, active, budgets, eos_ids, noise,
+                       temps, top_ps, top_ks, cfg, n_steps: int, sample: bool):
+    """``n_steps`` decode steps as one super-step → (tok_buf [N, B] int32, counts [B]
+    int32, last step's logits [B, V], cache): sampling, EOS/budget masking and lane
+    freezing happen inside (``llama.forward_slots_multi``); the host drains the token
+    buffer once per super-step instead of once per token."""
+    select_token, xs = _multi_select(sample, noise, temps, top_ps, top_ks)
+    cache, tok_buf, counts, logits = llama.forward_slots_multi(
+        params, cache, tokens, positions, active, budgets, eos_ids, select_token, xs,
+        n_steps, cfg)
+    return tok_buf, counts, logits, cache
+
+
+def _decode_multi_step_paged(params, cache, tables, tokens, positions, active, budgets,
+                             eos_ids, noise, temps, top_ps, top_ks, cfg, n_steps: int,
+                             sample: bool, page_size: int):
+    """:func:`_decode_multi_step` over the PAGED cache: every step's K/V writes route
+    through the block tables uploaded once per super-step (admission reserves each
+    lane's whole budget of pages, so no table entry appears mid-super-step; frozen and
+    past-budget positions route to the sentinel and drop)."""
+    select_token, xs = _multi_select(sample, noise, temps, top_ps, top_ks)
+    cache, tok_buf, counts, logits = llama.forward_slots_multi(
+        params, cache, tokens, positions, active, budgets, eos_ids, select_token, xs,
+        n_steps, cfg, tables=tables, page_size=page_size)
+    return tok_buf, counts, logits, cache
+
+
 def _prefill_first_chunk(params, row, mask, cfg, max_len: int):
     """First prefill chunk into a fresh single-row cache → (greedy [1], last logits
     [1, V], row cache)."""
@@ -174,13 +234,14 @@ class ContinuousBatcher:
 
     ``submit()`` queues requests; ``step()`` admits queued requests into free lanes
     (prefill + row insert), advances every active lane one token with ONE batched
-    forward, and returns the requests finished this step. ``run()`` drains everything.
-    The engine runs on the device its params live on.
+    forward (or up to ``decode_steps`` tokens in one super-step), and returns the
+    requests finished this step. ``run()`` drains everything. The engine runs on the
+    device its params live on.
     """
 
     def __init__(self, params, cfg, max_slots: int = 8, max_len: int = 512,
                  prompt_bucket: int = 64, page_size: int = 0,
-                 kv_pages: Optional[int] = None):
+                 kv_pages: Optional[int] = None, decode_steps: int = 1):
         llama.check_supported(cfg)
         self.params = params
         self.cfg = cfg
@@ -199,6 +260,13 @@ class ContinuousBatcher:
                 "kv_pages was given but page_size=0: the pool size would be silently "
                 "ignored — pass page_size>=1 to enable the paged KV cache"
             )
+        if not isinstance(decode_steps, (int, np.integer)) or isinstance(decode_steps, bool):
+            raise TypeError(f"decode_steps must be an int, got {type(decode_steps).__name__}")
+        if decode_steps < 1:
+            raise ValueError(
+                f"decode_steps={decode_steps} must be >= 1 (1 = the classic one-token step)")
+        #: Decode steps per dispatch (``decode_steps``; the JAX engine's name).
+        self.multi_step = int(decode_steps)
         if self.paged:
             if kv_pages is None:
                 kv_pages = max_slots * pages_for(max_len, self.page_size)
@@ -224,8 +292,18 @@ class ContinuousBatcher:
         self.decode_tokens = 0     # tokens emitted by those dispatches
         self.prefill_s = 0.0       # host-clock seconds in admission prefills + inserts
         self.decode_s = 0.0        # host-clock seconds in decode dispatches
-        #: fp32 logits [max_slots, V] of the most recent decode dispatch.
+        self.dispatch_s = 0.0      # ... of which before the host read (host work)
+        self.noise_s = 0.0         # host-clock seconds drawing super-steps' sampled noise
+        self.noise_ahead_s = 0.0   # ... drawn ahead, while the device runs a super-step
+        self._noise_ahead: dict = {}  # uid -> {emission: noise row} drawn ahead
+        #: fp32 logits [max_slots, V] of the most recent decode step (of a super-step,
+        #: its last step's; on the card a graph output that the next replay overwrites).
         self.last_logits: Optional[torch.Tensor] = None
+        #: Super-step runners by (n_steps, sampled, paged): a ``CapturedStep`` on the
+        #: card (its graph's kernel nodes, capture time, pool bytes and replays), the
+        #: plain function on the CPU.
+        self.graphs: dict = {}
+        self._mbuf: Optional[dict] = None  # the super-step's static inputs
 
     # ------------------------------------------------------------------ user API
     def stats(self) -> dict:
@@ -263,6 +341,7 @@ class ContinuousBatcher:
             "admitted": self.admitted,
             "evicted": self.evicted,
             "evicted_external": self.evicted_external,
+            "multi_step": self.multi_step,
             "decode_steps": self.decode_steps,
             "decode_tokens": self.decode_tokens,
             "tokens_per_step": (
@@ -271,6 +350,9 @@ class ContinuousBatcher:
             ),
             "prefill_s": self.prefill_s,
             "decode_s": self.decode_s,
+            "dispatch_s": self.dispatch_s,
+            "noise_s": self.noise_s,
+            "noise_ahead_s": self.noise_ahead_s,
         }
 
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
@@ -339,7 +421,8 @@ class ContinuousBatcher:
         self.peak_active_slots = max(self.peak_active_slots, len(active))
         if not active:
             return finished_at_admit
-        finished = self._plain_step(active)
+        decode = self._multi_step if self.multi_step > 1 else self._plain_step
+        finished = decode(active)
         self.evicted += len(finished)
         return sorted(finished_at_admit + finished, key=lambda r: r.uid)
 
@@ -358,6 +441,7 @@ class ContinuousBatcher:
             greedy, logits, self.cache = _decode_step(
                 self.params, self.cache, tokens, positions, self.cfg
             )
+        self.dispatch_s += time.perf_counter() - t0
         greedy_host = greedy.cpu().numpy()
         self.last_logits = logits
         finished = []
@@ -382,6 +466,149 @@ class ContinuousBatcher:
         self.decode_tokens += len(active)
         self.decode_s += time.perf_counter() - t0
         return finished
+
+    def _multi_buffers(self) -> dict:
+        """The super-step's static inputs on the engine's device (made once: a captured
+        graph reads them where they are; the host fills them before each super-step)."""
+        if self._mbuf is None:
+            B, N, dev = self.max_slots, self.multi_step, self.device
+
+            def zeros(shape, dtype):
+                return torch.zeros(shape, dtype=dtype, device=dev)
+
+            self._mbuf = {
+                "tokens": zeros((B,), torch.int32), "positions": zeros((B,), torch.int32),
+                "active": zeros((B,), torch.bool), "budgets": zeros((B,), torch.int32),
+                "eos_ids": zeros((B,), torch.int32), "temps": zeros((B,), torch.float32),
+                "top_ps": zeros((B,), torch.float32), "top_ks": zeros((B,), torch.int32),
+                "noise": zeros((B, N, self.cfg.vocab_size), torch.float32),
+            }
+            if self.paged:
+                self._mbuf["tables"] = zeros(self.block_mgr.tables.shape, torch.int32)
+        return self._mbuf
+
+    def _super_step(self, sample: bool):
+        """One super-step over the static inputs → (tok_buf, counts, last logits)."""
+        b, N = self._mbuf, self.multi_step
+        lanes = (b["tokens"], b["positions"], b["active"], b["budgets"], b["eos_ids"],
+                 b["noise"], b["temps"], b["top_ps"], b["top_ks"])
+        if self.paged:
+            out = _decode_multi_step_paged(self.params, self.cache, b["tables"], *lanes,
+                                           self.cfg, N, sample, self.page_size)
+        else:
+            out = _decode_multi_step(self.params, self.cache, *lanes, self.cfg, N, sample)
+        return out[:3]
+
+    def _multi_step(self, active: list[int]) -> list[Request]:
+        """Super-step: ``decode_steps=N`` decode steps in one dispatch (on the card one
+        CUDA graph replay), then ONE read of the ``[N, B]`` token buffer and the counts.
+
+        Finishing lanes freeze inside (EOS / remaining-budget masking; a frozen lane's
+        writes drop, so its last token is never written, as in the N = 1 loop), which
+        makes the streams the N = 1 engine's: greedy lanes take the argmax, sampled lanes
+        the same filter and the noise their emissions would draw. The drain is
+        step-major, lane-minor — generation order, so ``on_token`` transcripts equal the
+        token lists — and clamps each lane to its budget. Admission and eviction act
+        between super-steps."""
+        t0 = time.perf_counter()
+        N, B = self.multi_step, self.max_slots
+        active_mask = np.zeros((B,), bool)
+        budgets = np.ones((B,), np.int32)  # idle lanes: frozen at step 0, never read
+        eos_ids = np.full((B,), -1, np.int32)
+        temps = np.zeros((B,), np.float32)
+        top_ps = np.ones((B,), np.float32)
+        top_ks = np.zeros((B,), np.int32)
+        buf = self._multi_buffers()
+        sampled = False
+        for i in active:
+            req = self.slot_req[i]
+            active_mask[i] = True
+            budgets[i] = req.gen.max_new_tokens - len(req.tokens)
+            if req.gen.eos_token_id is not None:
+                eos_ids[i] = req.gen.eos_token_id
+            if req.gen.temperature > 0.0:
+                sampled = True
+                temps[i] = req.gen.temperature
+                top_ps[i] = req.gen.top_p
+                top_ks[i] = req.gen.top_k
+                ts = time.perf_counter()
+                buf["noise"][i].copy_(self._noise_window(req, len(req.tokens)))
+                self.noise_s += time.perf_counter() - ts
+        for name, arr in (("tokens", self.tokens), ("positions", self.positions),
+                          ("active", active_mask), ("budgets", budgets),
+                          ("eos_ids", eos_ids), ("temps", temps), ("top_ps", top_ps),
+                          ("top_ks", top_ks)):
+            buf[name].copy_(torch.from_numpy(arr))
+        if self.paged:
+            buf["tables"].copy_(torch.from_numpy(self.block_mgr.tables))
+        key = (N, sampled, self.paged)
+        run = self.graphs.get(key)
+        if run is None:
+            run = functools.partial(self._super_step, sampled)
+            if self.device.type == "cuda":
+                run = CapturedStep(run, self.device)
+            self.graphs[key] = run
+        tok_buf, counts, logits = run()
+        self.dispatch_s += time.perf_counter() - t0
+        host = torch.cat([tok_buf, counts[None]])
+        # While the device runs the super-step, draw the next window's noise of each
+        # sampled lane, as if it emits N tokens (a lane that finishes needs none).
+        ts = time.perf_counter()
+        self._noise_ahead = {
+            req.uid: self._noise_rows(req, len(req.tokens) + N)
+            for req in (self.slot_req[i] for i in active) if req.gen.temperature > 0.0
+            and len(req.tokens) + N < req.gen.max_new_tokens}
+        self.noise_ahead_s += time.perf_counter() - ts
+        host = host.cpu().numpy()  # the one host read
+        tok_host, counts_host = host[:N], host[N]
+        self.last_logits = logits
+        for j in range(N):
+            for i in active:
+                req = self.slot_req[i]
+                if j >= counts_host[i] or len(req.tokens) >= req.gen.max_new_tokens:
+                    continue
+                tok = int(tok_host[j, i])
+                req.tokens.append(tok)
+                if req.on_token is not None:
+                    req.on_token(tok)
+        finished = []
+        step_tokens = 0
+        for i in active:
+            req = self.slot_req[i]
+            c = int(counts_host[i])
+            step_tokens += c
+            self.tokens[i] = int(tok_host[c - 1, i])  # the new pending token
+            self.positions[i] += c
+            eos = req.gen.eos_token_id
+            hit_eos = eos is not None and req.tokens and req.tokens[-1] == eos
+            if hit_eos or len(req.tokens) >= req.gen.max_new_tokens:
+                req.done = True
+                finished.append(req)
+                self.slot_req[i] = None
+                self._release_lane(i)
+        self.positions = np.minimum(self.positions, self.max_len - 1)
+        self.decode_steps += 1
+        self.decode_tokens += step_tokens
+        self.decode_s += time.perf_counter() - t0
+        return finished
+
+    def _noise_rows(self, req: Request, start: int) -> dict:
+        """{emission: Gumbel noise row [V]} of ``req``'s emissions ``start ..
+        start + N - 1`` up to its budget's last: each the noise :meth:`Request._sample`
+        draws at that emission (rows drawn ahead are taken, not drawn again)."""
+        ahead = self._noise_ahead.get(req.uid, {})
+        stop = min(start + self.multi_step, req.gen.max_new_tokens)
+        return {e: ahead[e] if e in ahead else
+                gumbel_noise((1, self.cfg.vocab_size), emission_generator(req.seed, e))[0]
+                for e in range(start, stop)}
+
+    def _noise_window(self, req: Request, start: int) -> torch.Tensor:
+        """[N, V] noise of a super-step's steps: step j draws emission ``start + j``,
+        clamped at the budget's last emission (the lane freezes there; later rows are
+        never read)."""
+        rows = self._noise_rows(req, start)
+        last = max(rows)
+        return torch.stack([rows[min(start + j, last)] for j in range(self.multi_step)])
 
     def run(self, report_throughput: bool = False):
         """Drain queue + active lanes; returns the finished requests (and tokens/s

@@ -24,13 +24,25 @@ that names the phase, its failed cases and the exception:
    events around calls; K/V pools rotate past the 50 MB L2.
 3. engine — the paged engine on the card against the same engine on the CPU
    (``debug`` config, fp32, same seeded params and requests): identical greedy tokens,
-   first decode step's logits within tolerance.
+   first decode step's logits within tolerance. engine_multistep — the same engine on
+   the card with ``decode_steps=4`` (super-steps replayed from CUDA graphs), dense and
+   paged, against the CPU's ``decode_steps=1``: identical greedy tokens, an EOS inside a
+   super-step; two sampled requests: identical to the card's ``decode_steps=1``; each
+   graph holds one paged-attention launch per layer and step (none when dense).
 4. main — the paged continuous-batching engine serving 10 requests at Llama-3-8B's
    full width and depth (bf16, seeded random weights made on the card), with the
    kernel's launch count checked against the decode dispatches; then a few decode
    steps under ``torch.profiler`` for the device's busy time and idle share, where each
    launch of the paged kernel must show as exactly one device kernel (and, in phase 13,
-   each int8 launch too).
+   each int8 launch too). main_multistep — the same workload with ``decode_steps=8``:
+   every token (greedy and sampled) equal to main's, each graph exactly 32·8 paged
+   attention launches, launches (eager plus graph nodes × replays) 32·8 a super-step;
+   its profiled window (and the graph replayed back to back: device time per
+   super-step); ``decode_ab`` of N = 1 and N = 8 engines (ms per decode token) and
+   ``drain_ab`` (the whole workload on warm engines: tokens/s), each alternated.
+   generate — ``llama.generate``, ``score`` and ``perplexity``: ``debug`` fp32 on the
+   card against the CPU, then Llama-3-8B bf16, 4 left-padded prompts, 64 new tokens
+   (the decode step one graph, replayed; time per token).
 5. flash — the flash-attention forward, dq and dk/dv kernels against their plain
    versions on the same inputs (the training path's shape B=2, H=32, K=8, S=2048,
    hd=128, bf16, causal; plus fp32, GQA 1, S=1000, packed segments with padding,
@@ -82,8 +94,11 @@ that names the phase, its failed cases and the exception:
    kernel, then nf4 through dequantize-then-multiply).
 13. main_int8 — phase 4's workload at Llama-3-8B's full width and depth with every
    projection int8 (quantized on the card), each projection's launch counted; top-1
-   agreement of the first decode step with a bf16 engine; then a profiled decode window
-   and ``decode_ab``: bf16 and int8 engines' prefill and decode steps in alternation.
+   agreement of the first decode step with a bf16 engine; then a profiled decode window,
+   the same workload with ``decode_steps=8`` (tokens equal to the N = 1 run's, graphs of
+   exactly 224·8 int8 and 32·8 paged-attention launches) and its profiled window, and
+   ``decode_ab``: bf16 and int8 engines' prefill and decode steps in alternation, at
+   N = 1 and at N = 8.
 14. fused_xent_partial — kernel #6, the vocab-sharded partial forward of the fused CE,
    against its plain version: one tp rank's slice of Llama-3-8B's head (T = D = 4096,
    VL = 64128 and 32064, bf16), an fp32 case ragged against every tile and softcap 30,
@@ -106,7 +121,8 @@ that names the phase, its failed cases and the exception:
    (two ranks on one card with collectives staged through host memory: not a
    tensor-parallel speed).
 
-Then the kernels line, the card's name and power limit, and a last line
+Then the kernels line (the serving kernels' launches include the super-steps' graph
+replays: kernel nodes times replays), the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 
     python3 chip_smoke.py --xent-fwd-times
@@ -274,32 +290,18 @@ def device_ms(fn, n: int, replays: int) -> float:
 
 def device_kernels(fn) -> int:
     """The device kernels one call of ``fn`` runs: the kernel nodes of a CUDA graph
-    captured from one call (after a warm-up call), counted through the driver API.
-    (``torch.profiler``'s kernel records missed kernels of a window's first call in
-    some runs on this card, so it is not used for counting.)"""
-    import ctypes
+    captured from one call (after a warm-up call), counted through the driver API
+    (``utils.cuda_graph.graph_kernel_nodes``). (``torch.profiler``'s kernel records
+    missed kernels of a window's first call in some runs on this card, so it is not
+    used for counting.)"""
+    from accelerate_tpu_torch.utils.cuda_graph import graph_kernel_nodes
 
-    cuda = ctypes.CDLL("libcuda.so.1")
-    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.POINTER(ctypes.c_size_t)]
-    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    handle, n = graph.raw_cuda_graph(), ctypes.c_size_t(0)
-    if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    kind, kernels = ctypes.c_int(), 0
-    if n.value and cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    for node in nodes:
-        if cuda.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0:
-            raise RuntimeError("cuGraphNodeGetType failed")
-        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
-    return kernels
+    return sum(graph_kernel_nodes(graph).values())
 
 
 # ------------------------------------------------------------------ phase 2: kernel
@@ -705,6 +707,100 @@ def phase_engine(dev, scheme=None) -> None:
                          f"({scheme or 'dense'} weights)")
 
 
+# --------------------------------------------- phase 3b: the super-step on the card
+MULTI_N = 8  # decode steps a super-step of the main paths
+
+
+def graph_stats(eng) -> dict:
+    """Each of ``eng``'s super-step graphs, by (n_steps, sampled, paged): kernel nodes
+    (all, paged attention, int8), replays, capture seconds and pool bytes."""
+    out = {}
+    for (n, sampled, paged), run in eng.graphs.items():
+        if not hasattr(run, "nodes"):
+            continue
+        out[f"n{n}_{'sampled' if sampled else 'greedy'}_{'paged' if paged else 'dense'}"] = {
+            "kernel_nodes": run.nodes(),
+            "paged_attention_nodes": sum(run.nodes(k) for k in PAGED_KERNELS),
+            "int8_matmul_nodes": sum(run.nodes(k) for k in INT8_KERNELS),
+            "replays": run.replays, "capture_s": run.capture_s, "pool_bytes": run.pool_bytes}
+    return out
+
+
+def graph_nodes_ok(eng, n_layers: int, int8: bool) -> bool:
+    """Every super-step graph of ``eng`` holds exactly n_layers·N paged-attention
+    launches (and 7·n_layers·N int8 launches with ``int8``, none without), and ran."""
+    stats = graph_stats(eng)
+    n = eng.multi_step
+    return bool(stats) and all(
+        g["paged_attention_nodes"] == n_layers * n
+        and g["int8_matmul_nodes"] == (len(INT8_LAYER) * n_layers * n if int8 else 0)
+        and g["replays"] > 0 for g in stats.values())
+
+
+def phase_engine_multistep(dev) -> dict:
+    """The ``debug`` fp32 engine on the card with ``decode_steps=4``, dense and paged,
+    against the CPU's ``decode_steps=1`` engine on the same seeded requests: greedy
+    tokens identical (one request's EOS lands inside a super-step); then, on the card,
+    two sampled requests beside greedy ones with ``decode_steps=4`` against
+    ``decode_steps=1``: every token identical. Each graph must hold exactly one paged
+    attention launch per layer and step when paged, and none when dense."""
+    from accelerate_tpu_torch.generation import GenerationConfig
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_to
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32)
+    params_cpu = llama.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                   device="cpu")
+    params_gpu = params_to(params_cpu, dev)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in (20, 45, 70, 100, 33)]
+    sampled = {1: GenerationConfig(max_new_tokens=21, temperature=0.8, top_k=40, top_p=0.9),
+               3: GenerationConfig(max_new_tokens=19, temperature=1.1, top_p=0.8)}
+
+    def serve(params, page_size, n, eos=None, sample=False):
+        eng = ContinuousBatcher(params, cfg, max_slots=4, max_len=256, prompt_bucket=32,
+                                page_size=page_size, decode_steps=n)
+        reqs = []
+        for i, p in enumerate(prompts):
+            if sample and i in sampled:
+                reqs.append(eng.submit(p, gen=sampled[i], seed=50 + i))
+            else:
+                reqs.append(eng.submit(p, max_new_tokens=22 + i, eos_token_id=eos))
+        eng.run()
+        pages = eng.stats().get("pages_in_use", 0)
+        return [r.tokens for r in reqs], eng, pages
+
+    res = {"phase": "engine_multistep", "config": "debug", "decode_steps": 4, "cases": {}}
+    failed = []
+    for page_size in (0, 16):
+        layout = "paged" if page_size else "dense"
+        probe, _, _ = serve(params_cpu, page_size, 1)
+        eos = int(probe[2][6])  # emitted mid-stream by request 2: it stops there
+        want, _, _ = serve(params_cpu, page_size, 1, eos)
+        got, eng, pages = serve(params_gpu, page_size, 4, eos)
+        s_one, _, _ = serve(params_gpu, page_size, 1, sample=True)
+        s_four, eng_s, pages_s = serve(params_gpu, page_size, 4, sample=True)
+        case = {"greedy_equal_cpu_n1": got == want, "eos_early": len(want[2]) < 24,
+                "sampled_equal_card_n1": s_four == s_one, "pages_in_use": pages + pages_s,
+                "graphs": {**graph_stats(eng), **graph_stats(eng_s)}}
+        L = cfg.n_layers if page_size else 0
+        case["graph_nodes_ok"] = all(
+            g["paged_attention_nodes"] == L * 4 and g["replays"] > 0
+            for g in case["graphs"].values()) and len(case["graphs"]) == 2
+        case["ok"] = (case["greedy_equal_cpu_n1"] and case["eos_early"]
+                      and case["sampled_equal_card_n1"] and case["pages_in_use"] == 0
+                      and case["graph_nodes_ok"])
+        res["cases"][layout] = case
+        if not case["ok"]:
+            failed.append(layout)
+    res["ok"] = not failed
+    emit(res)
+    if failed:
+        raise PhaseFailed("the super-step on the card disagrees", failed)
+    return res
+
+
 # ------------------------------------------------------------------ phase 4: main path
 MAIN_ENGINE = dict(max_slots=8, max_len=1024, prompt_bucket=64, page_size=16)
 
@@ -729,15 +825,16 @@ def main_workload(vocab: int):
     return rng, warm, lengths, reqs
 
 
-def serve_main(params, cfg, dev, reset_counts) -> dict:
+def serve_main(params, cfg, dev, reset_counts, decode_steps: int = 1) -> dict:
     """Warm up on a throwaway engine (cuBLAS handles, allocator pools), then serve the
-    main workload on a fresh engine with the peak-memory statistics and the launch
-    counts (``reset_counts()``) reset just before; the drain is timed to its final
-    sync. Returns the engine, requests, stats and checks."""
+    main workload on a fresh engine (``decode_steps`` tokens per dispatch) with the
+    peak-memory statistics and the launch counts (``reset_counts()``) reset just
+    before; the drain is timed to its final sync. Returns the engine, requests, stats
+    and checks."""
     from accelerate_tpu_torch.serving import ContinuousBatcher
 
     rng, warm_prompt, lengths, workload = main_workload(cfg.vocab_size)
-    warm = ContinuousBatcher(params, cfg, **MAIN_ENGINE)
+    warm = ContinuousBatcher(params, cfg, decode_steps=decode_steps, **MAIN_ENGINE)
     warm.submit(warm_prompt, max_new_tokens=4)
     warm.run()
     del warm
@@ -745,7 +842,7 @@ def serve_main(params, cfg, dev, reset_counts) -> dict:
     torch.cuda.reset_peak_memory_stats()
     allocated_at_start = torch.cuda.memory_allocated()
 
-    eng = ContinuousBatcher(params, cfg, **MAIN_ENGINE)
+    eng = ContinuousBatcher(params, cfg, decode_steps=decode_steps, **MAIN_ENGINE)
     reqs = [eng.submit(prompt, **kw) for prompt, kw in workload]
     reset_counts()
     t0 = time.perf_counter()
@@ -762,6 +859,7 @@ def serve_main(params, cfg, dev, reset_counts) -> dict:
     n_tokens = sum(len(r.tokens) for r in reqs)
     return {
         "eng": eng, "rng": rng, "reqs": reqs, "stats": s, "lengths": lengths, "wall": wall,
+        "tokens": [list(r.tokens) for r in reqs],
         "first_logits": first_logits, "finite": finite, "n_tokens": n_tokens,
         "in_range": all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens),
         "all_done": all(r.done and len(r.tokens) == 64 for r in reqs),
@@ -781,7 +879,13 @@ def _serve_result(run: dict, phase: str, init_s: float) -> dict:
         "wall_s": run["wall"], "tokens": run["n_tokens"],
         "tokens_per_s": run["n_tokens"] / run["wall"],
         "decode_steps": s["decode_steps"], "decode_tokens": s["decode_tokens"],
+        "decode_steps_per_dispatch": s["multi_step"],
         "mean_decode_step_ms": 1e3 * s["decode_s"] / max(s["decode_steps"], 1),
+        # A dispatch runs multi_step token steps on the device (frozen lanes included).
+        "mean_decode_ms_per_token_step": (1e3 * s["decode_s"]
+                                          / max(s["decode_steps"] * s["multi_step"], 1)),
+        "mean_dispatch_host_ms": 1e3 * s["dispatch_s"] / max(s["decode_steps"], 1),
+        "noise_draw_ms_total": 1e3 * s["noise_s"],
         "prefill_ms_total": 1e3 * s["prefill_s"],
         "prefill_ms_per_request": 1e3 * s["prefill_s"] / len(run["reqs"]),
         "max_memory_allocated_bytes": run["max_memory_allocated_bytes"],
@@ -821,7 +925,217 @@ def phase_main(dev) -> int:
     prof = profile_decode(run["eng"], run["rng"], cfg.vocab_size)
     emit(prof)
     one_kernel_per_call(prof, int8=False)
-    return {"launches": launches, "profile": prof}
+    return {"launches": launches, "profile": prof, "tokens": run["tokens"], "params": params}
+
+
+def phase_main_multistep(dev, main: dict) -> dict:
+    """``main``'s workload at Llama-3-8B's full width and depth, bf16, paged, with
+    ``decode_steps=8``: the super-steps replay CUDA graphs. Every token (greedy and
+    sampled) must equal ``main``'s ``decode_steps=1`` run; every request done, no page
+    leaked, logits finite; each graph holds exactly 32·8 paged-attention launches, and
+    the launches (the wrapper's eager ones plus the graphs' nodes times their replays)
+    are 32·8 per super-step. Then a profiled window and the N = 1 and N = 8 engines'
+    decode times in alternation (``decode_ab``)."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
+    params = main.pop("params")
+
+    def reset_counts():
+        paged_attention.launches = 0
+        paged_attention.launches_ragged = 0
+
+    run = serve_main(params, cfg, dev, reset_counts, decode_steps=MULTI_N)
+    eng, s = run["eng"], run["stats"]
+    launches = path_launches(eng)[0]
+    expect = cfg.n_layers * MULTI_N * s["decode_steps"]
+    differ = [i for i, (a, b) in enumerate(zip(run["tokens"], main["tokens"])) if a != b]
+    res = {**_serve_result(run, "main_multistep", None), "paged_attention_launches": launches,
+           "paged_attention_launches_expected": expect,
+           "paged_attention_launches_ragged": paged_attention.launches_ragged,
+           "requests_differing_from_main": differ, "graphs": graph_stats(eng),
+           "graph_nodes_ok": graph_nodes_ok(eng, cfg.n_layers, int8=False)}
+    res["ok"] = (run["finite"] and run["in_range"] and run["all_done"] and not differ
+                 and s["pages_in_use"] == 0 and launches == expect and res["graph_nodes_ok"]
+                 and paged_attention.launches_ragged == 0)
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("the super-step main path failed its checks")
+    prof = profile_decode(eng, run["rng"], cfg.vocab_size)
+    emit(prof)
+    one_kernel_per_call(prof, int8=False)
+    del run, eng
+    variants = {"n1": (params, {}), f"n{MULTI_N}": (params, {"decode_steps": MULTI_N})}
+    ab = decode_ab(variants, cfg, tokens=2 * MULTI_N)
+    emit(ab)
+    drains = drain_ab(variants, cfg, main["tokens"])
+    emit(drains)
+    if not drains["tokens_equal_main"]:
+        raise SystemExit("a warm engine's drain differs from main's tokens")
+    return {"launches": launches, "profile": prof, "ab": ab, "drains": drains}
+
+
+def drain_ab(variants: dict, cfg, want_tokens) -> dict:
+    """The main workload drained by warm engines, in alternation (A, B, B, A): one
+    engine per variant (``variants[name] = (params, engine keywords)``) drains it once
+    untimed (the super-step's graphs are captured then), then each drain is timed to
+    its final sync: tokens/s, decode and prefill seconds, host seconds drawing sampled
+    noise (on the critical path and ahead). Every drain's tokens must equal
+    ``want_tokens``."""
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    workload = main_workload(cfg.vocab_size)[3]
+    engines = {name: ContinuousBatcher(params, cfg, **MAIN_ENGINE, **kw)
+               for name, (params, kw) in variants.items()}
+
+    def drain(eng) -> tuple[dict, bool]:
+        before = eng.stats()
+        reqs = [eng.submit(prompt, **kw) for prompt, kw in workload]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = eng.stats()
+        n = sum(len(r.tokens) for r in reqs)
+        out = {"wall_s": wall, "tokens_per_s": n / wall,
+               **{k: s[k] - before[k] for k in ("decode_steps", "decode_s", "prefill_s",
+                                                 "dispatch_s", "noise_s", "noise_ahead_s")}}
+        return out, [list(r.tokens) for r in reqs] == want_tokens
+
+    equal = True
+    for eng in engines.values():
+        equal &= drain(eng)[1]
+    a, b = list(variants)
+    runs = {a: [], b: []}
+    for name in (a, b, b, a):
+        r, ok = drain(engines[name])
+        runs[name].append(r)
+        equal &= ok
+    med = {name: float(np.median([r["tokens_per_s"] for r in rs])) for name, rs in runs.items()}
+    return {"phase": "drain_ab", "order": f"({a}, {b}, {b}, {a}), warm engines",
+            "requests": len(workload), "runs": runs, "tokens_per_s_median": med,
+            f"{b}_over_{a}_tokens_per_s": med[b] / med[a], "tokens_equal_main": equal}
+
+
+# ------------------------------------------------------- phase 4c: one-request API
+GEN_MAIN = dict(lengths=(87, 130, 64, 200), new_tokens=64)
+#: Card against CPU in the debug config (fp32, TF32 off; flash kernels on the card,
+#: the einsum attention on the CPU): log-probabilities of order 1-10.
+SCORE_TOL = {"score_max_abs": 1e-3, "perplexity_rel": 1e-4}
+
+
+def _left_padded(rng, vocab: int, lengths) -> tuple[np.ndarray, np.ndarray]:
+    width = max(lengths)
+    prompt = np.zeros((len(lengths), width), np.int32)
+    mask = np.zeros((len(lengths), width), bool)
+    for i, n in enumerate(lengths):
+        prompt[i, width - n:] = rng.integers(1, vocab, n)
+        mask[i, width - n:] = True
+    return prompt, mask
+
+
+def phase_generate(dev) -> dict:
+    """``llama.generate``, ``score`` and ``perplexity`` on the card. ``debug`` fp32:
+    greedy tokens of 4 left-padded prompts (an EOS inside the stream, padded after)
+    identical to the CPU's, ``score`` and ``perplexity`` (with and without a mask)
+    within ``SCORE_TOL`` of the CPU's. Llama-3-8B, bf16, full depth: 4 left-padded
+    prompts, 64 new tokens: the first call runs its first decode step eagerly and
+    captures the step, the second replays the kept graph for all 63; time per token of
+    the second call, and of its decode steps alone (the call less its prefill, timed
+    alone)."""
+    from accelerate_tpu_torch import generation
+    from accelerate_tpu_torch.generation import GenerationConfig, generate_loop
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_to
+
+    res = {"phase": "generate"}
+    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32)
+    params_cpu = llama.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                   device="cpu")
+    params_gpu = params_to(params_cpu, dev)
+    rng = np.random.default_rng(11)
+    prompt, mask = _left_padded(rng, cfg.vocab_size, (40, 25, 33, 12))
+    probe = llama.generate(params_cpu, prompt, cfg, GenerationConfig(max_new_tokens=24),
+                           prompt_mask=mask)[1].tolist()
+    # Row 1's EOS: its first emission from 6 on that it has not emitted before.
+    j = next(j for j in range(6, 24) if probe[j] not in probe[:j])
+    gen = GenerationConfig(max_new_tokens=24, eos_token_id=probe[j], pad_token_id=0)
+    want = llama.generate(params_cpu, prompt, cfg, gen, prompt_mask=mask)
+    got = llama.generate(params_gpu, prompt, cfg, gen, prompt_mask=mask).cpu()
+    step = generate_loop.last_step
+    tokens = rng.integers(1, cfg.vocab_size, (4, 48)).astype(np.int64)
+    smask = np.ones((4, 48), bool)
+    smask[0, :10] = smask[2, :30] = False
+    score_err, ppl_err = {}, {}
+    for name, m in (("no_mask", None), ("mask", smask)):
+        ms = None if m is None else torch.from_numpy(m)
+        s_cpu = llama.score(params_cpu, torch.from_numpy(tokens), cfg, ms)
+        s_gpu = llama.score(params_gpu, torch.from_numpy(tokens).to(dev), cfg,
+                            None if ms is None else ms.to(dev)).cpu()
+        p_cpu = float(llama.perplexity(params_cpu, torch.from_numpy(tokens), cfg, ms))
+        p_gpu = float(llama.perplexity(params_gpu, torch.from_numpy(tokens).to(dev), cfg,
+                                       None if ms is None else ms.to(dev)))
+        score_err[name] = float((s_cpu - s_gpu).abs().max())
+        ppl_err[name] = abs(p_gpu - p_cpu) / p_cpu
+    res["debug"] = {
+        "tokens_equal_cpu": bool(torch.equal(got, want)),
+        "eos_padded": bool((want[1, j + 1:] == 0).all()) and int(want[1, j]) == probe[j],
+        "decode_replays": step.replays, "kernel_nodes": step.nodes(),
+        "score_max_abs_err": score_err, "perplexity_rel_err": ppl_err, "tol": SCORE_TOL}
+    ok_debug = (res["debug"]["tokens_equal_cpu"] and res["debug"]["eos_padded"]
+                and step.replays == gen.max_new_tokens - 2
+                and max(score_err.values()) <= SCORE_TOL["score_max_abs"]
+                and max(ppl_err.values()) <= SCORE_TOL["perplexity_rel"])
+    del params_gpu
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
+    params = llama.init_params(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    prompt, mask = _left_padded(rng, cfg.vocab_size, GEN_MAIN["lengths"])
+    n = GEN_MAIN["new_tokens"]
+    gen = GenerationConfig(max_new_tokens=n)
+    t0 = time.perf_counter()
+    llama.generate(params, prompt, cfg, gen, prompt_mask=mask)  # builds and captures
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
+    step = generate_loop.last_step
+    replays = step.replays
+    t0 = time.perf_counter()
+    out = llama.generate(params, prompt, cfg, gen, prompt_mask=mask)  # replays only
+    host = out.cpu()  # the one host read
+    call_s = time.perf_counter() - t0
+    replays = step.replays - replays
+    prefill_fn = llama._GEN_FNS[(cfg, -(-(prompt.shape[1] + n) // 64) * 64)][0]
+    p_t, m_t = torch.from_numpy(prompt).to(dev), torch.from_numpy(mask).to(dev)
+    prefill_fn(params, p_t, m_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill_fn(params, p_t, m_t)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    res["llama3_8b"] = {
+        "batch": len(GEN_MAIN["lengths"]), "prompt_lengths": list(GEN_MAIN["lengths"]),
+        "new_tokens": n, "first_call_ms": 1e3 * first_call_s,
+        "call_ms": 1e3 * call_s, "ms_per_token": 1e3 * call_s / n,
+        "prefill_ms": 1e3 * prefill_s,
+        "decode_ms_per_token": 1e3 * (call_s - prefill_s) / (n - 1),
+        "tokens_per_s": len(GEN_MAIN["lengths"]) * n / call_s,
+        "decode_replays": replays, "graph_reused": generate_loop.last_step is step,
+        "kernel_nodes": step.nodes(), "capture_s": step.capture_s,
+        "pool_bytes": step.pool_bytes, "shape": list(host.shape),
+        "tokens_in_range": bool(((host >= 0) & (host < cfg.vocab_size)).all())}
+    ok_8b = (res["llama3_8b"]["tokens_in_range"] and list(host.shape) == [len(mask), n]
+             and res["llama3_8b"]["graph_reused"] and replays == n - 1)
+    res["ok"] = ok_debug and ok_8b
+    emit(res)
+    # The kept decode graphs and prefill caches hold device memory the later phases need.
+    generation._DECODE_GRAPHS.clear()
+    llama._GEN_FNS.clear()
+    if not res["ok"]:
+        raise PhaseFailed("generate on the card failed its checks",
+                          [k for k, v in (("debug", ok_debug), ("llama3_8b", ok_8b)) if not v])
+    return res
 
 
 def one_kernel_per_call(prof: dict, int8: bool) -> None:
@@ -837,28 +1151,58 @@ def one_kernel_per_call(prof: dict, int8: bool) -> None:
         raise PhaseFailed("device kernels per step differ from the wrapper's launches", bad)
 
 
-def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
-    """Where a decode step's time goes: ``steps`` decode steps with all lanes busy,
-    under ``torch.profiler`` (after the counted run, so its cost touches no other
-    number). Device busy time is the sum of the kernels' own device time."""
-    from torch.profiler import ProfilerActivity, profile
+#: Kernel names (as the driver gives them) of each port kernel's launches in a CUDA
+#: graph: the kernel a launch of that route runs first.
+PAGED_KERNELS = ("paged_attention_cluster_kernel", "paged_attention_partial")
+INT8_KERNELS = ("int8_mm_cluster_kernel", "int8_mm_bf16_kernel", "int8_mm_f32_kernel")
 
+
+def replayed_launches(runners, names) -> int:
+    """Launches made by replaying the CUDA graphs of ``runners`` (``CapturedStep``s;
+    plain functions are skipped): each graph's kernel nodes of ``names`` times its
+    replays. The wrappers count the eager launches; a captured call counts nothing."""
+    return sum(r.nodes(n) * r.replays for r in runners if hasattr(r, "nodes") for n in names)
+
+
+def path_launches(eng) -> tuple[int, int]:
+    """(paged attention, int8 matmul) launches so far: the wrappers' counts plus the
+    replays of ``eng``'s graphs."""
     from accelerate_tpu_torch.ops.paged_attention import paged_attention
     from accelerate_tpu_torch.ops.quantization import int8_matmul
 
+    graphs = list(eng.graphs.values())
+    return (paged_attention.launches + replayed_launches(graphs, PAGED_KERNELS),
+            int8_matmul.launches + replayed_launches(graphs, INT8_KERNELS))
+
+
+def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
+    """Where a decode step's time goes: ``steps`` decode dispatches with all lanes busy
+    (each ``eng.multi_step`` tokens a lane), under ``torch.profiler`` (after the counted
+    run, so its cost touches no other number). Device busy time is the sum of the
+    kernels' own device time. A super-step's graph is then replayed 5 times back to
+    back between CUDA events (the same inputs: it writes the same K/V again) for its
+    device time with no host work between replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = eng.multi_step
     for _ in range(eng.max_slots):
-        eng.submit(rng.integers(0, vocab, 200), max_new_tokens=steps + 4)
+        eng.submit(rng.integers(0, vocab, 200), max_new_tokens=(steps + 3) * n + 2)
     eng.step()  # admissions + the first decode step
     eng.step()
     torch.cuda.synchronize()
-    before = (paged_attention.launches, int8_matmul.launches)
+    before = path_launches(eng)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
-    launches = (paged_attention.launches - before[0], int8_matmul.launches - before[1])
+    after = path_launches(eng)
+    launches = (after[0] - before[0], after[1] - before[1])
+    replay_ms = None
+    if n > 1:
+        graph = eng.graphs[(n, False, eng.paged)]
+        replay_ms = _events_ms(lambda _: graph.graph.replay(), 5)
     eng.run()
     # Device time as the union of the kernels' intervals: a kernel launched as a
     # programmatic dependent (the int8 matmul) starts before the one ahead of it ends,
@@ -894,7 +1238,11 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
     return {
         "phase": "decode_profile", "steps": steps, "lanes": eng.max_slots,
+        "tokens_per_lane_per_step": n,
         "wall_ms_per_step_profiled": wall_ms,
+        "wall_ms_per_token_step_profiled": wall_ms / n,
+        "graph_replay_device_ms_per_step": replay_ms,
+        "device_idle_share_from_replay": (1 - replay_ms / wall_ms) if replay_ms else None,
         "device_busy_ms_per_step": busy_ms if kernels else None,
         "device_busy_union_ms_per_step": union_ms() if kernels else None,
         "device_idle_share": (1 - union_ms() / wall_ms) if kernels else None,
@@ -2196,45 +2544,79 @@ def phase_main_int8(dev) -> int:
     prof = {**profile_decode(run["eng"], run["rng"], cfg.vocab_size), "weights": "int8"}
     emit(prof)
     one_kernel_per_call(prof, int8=True)
+    tokens_n1 = run["tokens"]
+    del run
+    # The same workload with decode_steps=8: graphs of 224·8 int8 and 32·8 paged
+    # attention launches, tokens equal to the N = 1 run's.
+    run = serve_main(params, cfg, dev, reset_counts, decode_steps=MULTI_N)
+    s = run["stats"]
+    paged8, launches8 = path_launches(run["eng"])
+    expect8 = len(INT8_LAYER) * cfg.n_layers * (MULTI_N * s["decode_steps"] + chunks)
+    differ = [i for i, (a, b) in enumerate(zip(run["tokens"], tokens_n1)) if a != b]
+    res8 = {**_serve_result(run, "main_int8_multistep", init_s),
+            "int8_matmul_launches": launches8, "int8_matmul_launches_expected": expect8,
+            "int8_matmul_launches_ragged": qz.int8_matmul.launches_ragged,
+            "paged_attention_launches": paged8,
+            "paged_attention_launches_expected": cfg.n_layers * MULTI_N * s["decode_steps"],
+            "requests_differing_from_main_int8": differ, "graphs": graph_stats(run["eng"]),
+            "graph_nodes_ok": graph_nodes_ok(run["eng"], cfg.n_layers, int8=True)}
+    res8["ok"] = (run["finite"] and run["in_range"] and run["all_done"] and not differ
+                  and s["pages_in_use"] == 0 and launches8 == expect8
+                  and paged8 == res8["paged_attention_launches_expected"]
+                  and res8["graph_nodes_ok"] and qz.int8_matmul.launches_ragged == 0)
+    emit(res8)
+    if not res8["ok"]:
+        raise SystemExit("int8 super-step main path failed its checks")
+    prof8 = {**profile_decode(run["eng"], run["rng"], cfg.vocab_size), "weights": "int8"}
+    emit(prof8)
+    one_kernel_per_call(prof8, int8=True)
     del run
     dense = llama.init_params(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
-    emit(decode_ab({"bf16": dense, "int8": params}, cfg))
-    return {"launches": launches, "profile": prof}
+    emit(decode_ab({"bf16": (dense, {}), "int8": (params, {})}, cfg))
+    # In the super-step's graph the host no longer hides the kernels' device time.
+    n8 = {"decode_steps": MULTI_N}
+    emit(decode_ab({"bf16": (dense, n8), "int8": (params, n8)}, cfg, tokens=2 * MULTI_N))
+    return {"launches": launches, "launches_multistep": launches8, "profile": prof,
+            "profile_multistep": prof8}
 
 
-def decode_ab(weights: dict, cfg, steps: int = 8) -> dict:
-    """Prefill and decode-step wall times of two weight sets served alike, in
-    alternation (A, B, B, A, ...) so that the host's load drifts alike over both: each
-    window is a fresh engine that admits 8 lanes from the same 200-token prompts (the
-    engine's prefill time per request), then ``steps`` decode steps timed on the host
-    clock to a final sync."""
+def decode_ab(variants: dict, cfg, tokens: int = 8) -> dict:
+    """Prefill and decode wall times of two engines served alike, in alternation (A, B,
+    B, A, ...) so that the host's load drifts alike over both: ``variants[name] =
+    (params, engine keywords)``; each window is a fresh engine that admits 8 lanes from
+    the same 200-token prompts (the engine's prefill time per request) and runs its
+    first decode dispatch (a super-step's capture included), then decodes ``tokens``
+    tokens a lane, timed on the host clock to a final sync: ms per decode token (a
+    super-step's time over its N tokens)."""
     from accelerate_tpu_torch.serving import ContinuousBatcher
 
     prompts = np.random.default_rng(9).integers(0, cfg.vocab_size, (8, 200))
-    a, b = list(weights)
+    a, b = list(variants)
 
-    def window(params) -> tuple[float, float]:
-        eng = ContinuousBatcher(params, cfg, **MAIN_ENGINE)
+    def window(params, kw) -> tuple[float, float]:
+        eng = ContinuousBatcher(params, cfg, **MAIN_ENGINE, **kw)
+        n = eng.multi_step
         for prompt in prompts:
-            eng.submit(prompt, max_new_tokens=steps + 2)
-        eng.step()  # admissions + the first decode step
+            eng.submit(prompt, max_new_tokens=n + tokens + 2)
+        eng.step()  # admissions + the first decode dispatch
         torch.cuda.synchronize()
         prefill_ms = 1e3 * eng.stats()["prefill_s"] / len(prompts)
         t0 = time.perf_counter()
-        for _ in range(steps):
+        for _ in range(tokens // n):
             eng.step()
         torch.cuda.synchronize()
-        return prefill_ms, 1e3 * (time.perf_counter() - t0) / steps
+        return prefill_ms, 1e3 * (time.perf_counter() - t0) / tokens
 
     runs = {a: [], b: []}
     prefill = {a: [], b: []}
     for name in (a, b, b, a) * 2:
-        p_ms, s_ms = window(weights[name])
+        p_ms, s_ms = window(*variants[name])
         prefill[name].append(p_ms)
         runs[name].append(s_ms)
     med = {name: float(np.median(r)) for name, r in runs.items()}
     p_med = {name: float(np.median(r)) for name, r in prefill.items()}
-    return {"phase": "decode_ab", "steps_per_window": steps, "lanes": 8,
+    return {"phase": "decode_ab", "tokens_per_window": tokens, "lanes": 8,
+            "decode_steps": {name: v[1].get("decode_steps", 1) for name, v in variants.items()},
             "order": f"({a}, {b}, {b}, {a}) x 2", "step_ms_runs": runs,
             "step_ms_median": med, f"{b}_over_{a}": med[b] / med[a],
             f"{b}_faster_in_every_pair": all(x < y for x, y in zip(runs[b], runs[a])),
@@ -2767,7 +3149,14 @@ def main() -> int:
     # Serving (slice 1).
     kern = run_phase("kernel", phase_kernel, dev)
     run_phase("engine", phase_engine, dev)
+    # The super-step (slice 10): the same engine replaying CUDA graphs of N steps.
+    run_phase("engine_multistep", phase_engine_multistep, dev)
     serve = run_phase("main", phase_main, dev)
+    serve_multi = run_phase("main_multistep", phase_main_multistep, dev, serve)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_phase("generate", phase_generate, dev)
+    gc.collect()
     torch.cuda.empty_cache()
     # Training (slice 2).
     flash = run_phase("flash", phase_flash, dev)
@@ -2800,7 +3189,7 @@ def main() -> int:
     train_tp = run_phase("train_tp", phase_train_tp, dev, train["losses"][0])
     emit({"kernels": run_phase("kernels", kernel_rows, kern, serve, flash, adamw,
                                xent, train, train_fused, int8, serve_int8, partial,
-                               train_tp)})
+                               train_tp, serve_multi)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -2808,8 +3197,10 @@ def main() -> int:
 
 
 def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve_int8,
-                partial, train_tp) -> list:
-    """The kernels line: one row per kernel of the port, from the phases' results."""
+                partial, train_tp, serve_multi) -> list:
+    """The kernels line: one row per kernel of the port, from the phases' results. The
+    serving kernels' launches add their main paths' runs: N = 1 and the super-step's
+    (eager launches plus graph nodes times replays)."""
     csrc, fa_py = "accelerate_tpu_torch/csrc/", "accelerate_tpu/ops/flash_attention.py"
     ft, fe = flash["times"], flash["errors"]["max_abs"]
     # One library call computes dq, dk and dv together: its time stands in both rows,
@@ -2831,8 +3222,13 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                         "once per step for the pair"}
     return [
         _kernel_row("paged_attention", csrc + "paged_attention.cu",
-                    "accelerate_tpu/ops/paged_attention.py:106", serve["launches"],
+                    "accelerate_tpu/ops/paged_attention.py:106",
+                    serve["launches"] + serve_multi["launches"],
                     kern["max_abs_err"], kern, design=PAGED_DESIGN,
+                    launches_by_path={"main": serve["launches"],
+                                      "main_multistep": serve_multi["launches"]},
+                    device_ms_per_super_step=serve_multi["profile"][
+                        "paged_attention_ms_per_step"],
                     device_kernels_per_decode_step=serve["profile"][
                         "paged_attention_kernels_per_step"],
                     device_kernels_per_decode_step_int8=serve_int8["profile"][
@@ -2863,9 +3259,14 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                     train_fused["launches"]["fused_xent_bwd"], xe["dw"], xt["bwd"], None,
                     **xent_extra, **bwd_note),
         _kernel_row("int8_matmul", csrc + "int8_matmul.cu",
-                    "accelerate_tpu/ops/quantization.py:153", serve_int8["launches"],
+                    "accelerate_tpu/ops/quantization.py:153",
+                    serve_int8["launches"] + serve_int8["launches_multistep"],
                     int8["max_abs_err"], int8,
                     "torch._weight_int8pack_mm (weight [N, K], bf16 scales)",
+                    launches_by_path={"main_int8": serve_int8["launches"],
+                                      "main_int8_multistep": serve_int8["launches_multistep"]},
+                    device_ms_per_super_step=serve_int8["profile_multistep"][
+                        "int8_matmul_union_ms_per_step"],
                     shape="one decode step's 7 projections of a layer (M = 8, bf16), "
                           "Llama-3-8B widths", design=INT8_DESIGN,
                     dense_bf16_ms=int8["dense_bf16_ms"],

@@ -43,7 +43,7 @@ def test_importing_serving_loads_no_jax():
     code = (
         "import sys; sys.path.insert(0, sys.argv[1]);"
         "import accelerate_tpu_torch.serving, accelerate_tpu_torch.models.convert;"
-        "import accelerate_tpu_torch.ops.quantization;"
+        "import accelerate_tpu_torch.ops.quantization, accelerate_tpu_torch.utils.cuda_graph;"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r);"
         "print(bad); sys.exit(1 if bad else 0)" % (FORBIDDEN,)
     )
