@@ -30,7 +30,14 @@ Ported so far:
   mesh (``parallel/mesh.py``) and Megatron placement with its collectives
   (``parallel/tp.py``), multi-process ``state``, ``llama.partition_specs`` and the
   sharded forward, and ``loss_impl="fused_tp"`` with the vocab-sharded partial forward
-  kernel (``csrc/fused_xent.cu``, ``ops/fused_xent.fused_cross_entropy_tp``).
+  kernel (``csrc/fused_xent.cu``, ``ops/fused_xent.fused_cross_entropy_tp``);
+- slice 10, device-resident decode: ``ContinuousBatcher(decode_steps=N)`` super-steps
+  replayed from CUDA graphs (``utils/cuda_graph.py``) and ``llama.generate``/``score``/
+  ``perplexity`` (``generation.py``);
+- slice 11, training I/O: ``data_loader`` (samplers, sharded and dispatched loaders),
+  ``lm_dataset`` over ``native/lmdata.cpp``, ``checkpointing`` (verified save/resume),
+  ``scheduler``, ``logging``, ``utils/operations`` and ``utils/random``, and the
+  ``Accelerator`` surface over them.
 """
 
 __version__ = "0.1.0"

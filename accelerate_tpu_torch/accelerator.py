@@ -34,8 +34,25 @@ gradient is scaled for that average. ``max_grad_norm`` clips by the global norm 
 squares of each tp-sharded leaf summed over tp, each replicated leaf counted once), and
 the optimizer updates the local shards.
 
+Training I/O: ``prepare`` takes data loaders (``data_loader.prepare_data_loader``: a
+``DataLoaderShard`` placing batches on the device, sharded over the batch ranks of a
+mesh and gathered back into the global batch the step slices) and stateful schedulers
+(``scheduler.AcceleratedScheduler``). ``save_state``/``load_state`` write and restore a
+verified checkpoint (``checkpointing``): the train state through a bounded host staging
+buffer, loaded IN PLACE into the live state's tensors; with ``ProjectConfiguration``'s
+automatic naming, rotation and the fallback to the newest valid checkpoint.
+``register_for_checkpointing`` adds objects with ``state_dict``/``load_state_dict``.
+``free_memory`` drops the prepared objects and releases ``llama.generate``'s caches (the
+JAX package's ``jax.clear_caches()``).
+
+A loss ``loss_fn(params, batch, rng)`` gets a ``torch.Generator`` on the state's device
+per micro-step, seeded from (``TrainState.rng``, ``step * accumulation + micro``, and
+the batch rank under a mesh): a different stream per micro-step that a resumed run
+repeats. JAX folds the same count into a key: the draws match in distribution, not bit
+for bit.
+
 Not ported yet (raise ``NotImplementedError``): fp8 (``mixed_precision="fp8"``),
-optimizer/activation offload, ZeRO and every sharding plugin, data loaders, telemetry,
+optimizer/activation offload, ZeRO and every sharding plugin, telemetry, trackers,
 fault injection, the compile cache, and training over quantized weight leaves
 (``ops.quantization.QuantizedWeight``: QLoRA, a frozen int8 base under LoRA adapters).
 """
@@ -43,6 +60,7 @@ fault injection, the compile cache, and training over quantized weight leaves
 from __future__ import annotations
 
 import contextlib
+import gc
 import inspect
 from dataclasses import dataclass, replace as dataclass_replace
 from typing import Any, Callable, Optional, Union
@@ -51,16 +69,26 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .data_loader import (DataLoaderDispatcher, DataLoaderShard, prepare_data_loader,
+                          skip_first_batches)
 from .ops.quantization import QuantizedWeight
 from .optimizer import AcceleratedOptimizer
 from .parallel.mesh import mesh_batch_size_divisor, mesh_context
 from .parallel.tp import all_reduce, apply_tensor_parallel, sharded_leaves
+from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.constants import BATCH_AXES, TENSOR_AXIS
-from .utils.dataclasses import GradientAccumulationPlugin, MixedPrecisionPolicy
+from .utils.dataclasses import (
+    DataLoaderConfiguration,
+    GradientAccumulationPlugin,
+    MixedPrecisionPolicy,
+    ProjectConfiguration,
+)
+from .utils.operations import (gather, gather_object, pad_across_processes, recursively_apply,
+                               reduce)
 from .utils.tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["Accelerator", "TrainState", "NonFiniteStepError", "cast_floating"]
+__all__ = ["Accelerator", "TrainState", "NonFiniteStepError", "cast_floating", "micro_generator"]
 
 
 def cast_floating(tree: Any, dtype) -> Any:
@@ -73,7 +101,8 @@ def cast_floating(tree: Any, dtype) -> Any:
 class TrainState:
     """The training carry: everything a train step reads and writes. ``step`` counts
     optimizer steps, ``micro`` the micro-steps since the last apply; ``grad_accum`` holds
-    the running gradient sum between sync steps. ``tp_sharded`` flags, per leaf of
+    the running gradient sum between sync steps. ``rng`` is the int seed of an rng
+    loss's generators (None: the loss gets None). ``tp_sharded`` flags, per leaf of
     ``params`` in ``tree_leaves`` order, the leaves that are this rank's tp shards
     (from ``create_train_state``'s ``partition_specs``; None: every leaf whole)."""
 
@@ -83,6 +112,7 @@ class TrainState:
     grad_accum: Any = None
     micro: int = 0
     tp_sharded: Optional[list] = None
+    rng: Optional[int] = None
 
     def replace(self, **kwargs) -> "TrainState":
         return dataclass_replace(self, **kwargs)
@@ -116,7 +146,6 @@ class _TrainStep:
         self.micro_fn = micro_fn
         self.apply_fn = apply_fn
         self.optimizer = optimizer
-        self.micro_count = 0
         self.skip_nonfinite_steps = skip_nonfinite_steps
         self.nonfinite_total = 0
         self.nonfinite_consecutive = 0
@@ -137,14 +166,17 @@ class _TrainStep:
             raise NonFiniteStepError(self.nonfinite_consecutive, self.nonfinite_total)
 
     def _dispatch(self, acc, state: TrainState, batch) -> tuple[TrainState, Any]:
-        do_sync = (self.micro_count + 1) % acc.gradient_accumulation_steps == 0
-        acc.gradient_state._set_sync_gradients(do_sync)
+        # From the state's micro count (not a host counter), so a resumed state keeps
+        # its place in the accumulation window; the last batch of a prepared data loader
+        # applies whatever was accumulated.
+        gs = acc.gradient_state
+        at_end = gs.sync_with_dataloader and gs.end_of_dataloader
+        do_sync = (state.micro + 1) % acc.gradient_accumulation_steps == 0 or at_end
+        gs._set_sync_gradients(do_sync)
         if do_sync:
             state, metrics = self.apply_fn(state, batch)
-            self.micro_count = 0
         else:
             state, metrics = self.micro_fn(state, batch)
-            self.micro_count += 1
         acc.step += 1
         if self.optimizer is not None:
             self.optimizer.step()
@@ -200,10 +232,8 @@ class _FusedTrainStep:
 
 
 _UNPORTED_ARGS = (
-    "dataloader_config", "fsdp_plugin", "tp_plugin", "pp_plugin", "sp_plugin",
-    "ep_plugin", "megatron_lm_plugin", "rng_types", "log_with", "project_dir",
-    "project_config", "kwargs_handlers", "dynamo_plugin", "telemetry_config",
-    "step_scheduler_with_optimizer",
+    "fsdp_plugin", "tp_plugin", "pp_plugin", "sp_plugin", "ep_plugin", "megatron_lm_plugin",
+    "log_with", "kwargs_handlers", "dynamo_plugin", "telemetry_config",
     "compile_cache_config", "gateway_config", "fault_config",
 )
 
@@ -223,16 +253,20 @@ class Accelerator:
         gradient_accumulation_plugin: Optional[GradientAccumulationPlugin] = None,
         mesh_config=None,
         backend: Optional[str] = None,
+        dataloader_config: Optional[DataLoaderConfiguration] = None,
+        rng_types: Optional[list] = None,
+        project_dir: Optional[str] = None,
+        project_config: Optional[ProjectConfiguration] = None,
+        step_scheduler_with_optimizer: bool = True,
         **kwargs,
     ):
         unported = sorted(k for k, v in kwargs.items() if v is not None)
         unknown = sorted(k for k in kwargs if k not in _UNPORTED_ARGS)
         if unknown:
             raise TypeError(f"Accelerator got unexpected arguments {unknown}")
-        if unported or not device_placement or split_batches:
+        if unported or not device_placement:
             raise NotImplementedError(
-                f"Accelerator arguments {unported or ['device_placement/split_batches']} "
-                "are not ported yet")
+                f"Accelerator arguments {unported or ['device_placement']} are not ported yet")
         if mixed_precision == "fp8":
             raise NotImplementedError("mixed_precision='fp8' is not ported yet")
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu, device=device,
@@ -241,9 +275,27 @@ class Accelerator:
             gradient_accumulation_plugin = GradientAccumulationPlugin(
                 num_steps=gradient_accumulation_steps or 1)
         self.gradient_state = GradientState(gradient_accumulation_plugin)
+        self.project_configuration = project_config or ProjectConfiguration(
+            project_dir=project_dir)
+        if project_dir is not None and self.project_configuration.project_dir is None:
+            self.project_configuration.set_directories(project_dir)
+        self.dataloader_config = dataloader_config or DataLoaderConfiguration(
+            split_batches=split_batches)
+        self.rng_types = rng_types or ["generator"]
+        self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
         self.step = 0
         self._max_grad_norm = max_grad_norm
+        self._models: list = []
         self._optimizers: list[AcceleratedOptimizer] = []
+        self._schedulers: list = []
+        self._dataloaders: list = []
+        self._custom_objects: list = []
+        self._save_model_hooks: list[Callable] = []
+        self._load_model_hooks: list[Callable] = []
+        self.checkpoints_quarantined = 0
+        #: The last save's and load's seconds and bytes (``checkpointing``).
+        self.checkpoint_stats: dict = {"save": {}, "load": {}}
+        self._ckpt_staging = None  # the checkpoint staging buffers, made at first use
 
     # ------------------------------------------------------------------------ properties
     @property
@@ -273,6 +325,13 @@ class Accelerator:
         return self.state.is_main_process
 
     @property
+    def project_dir(self):
+        return self.project_configuration.project_dir
+
+    def wait_for_everyone(self) -> None:
+        self.state.wait_for_everyone()
+
+    @property
     def mixed_precision(self) -> str:
         return self.state.mixed_precision
 
@@ -294,24 +353,64 @@ class Accelerator:
 
     # --------------------------------------------------------------------------- prepare
     def prepare(self, *args):
-        """Prepare each object, preserving order: transformations become
-        ``AcceleratedOptimizer``s, param trees move to the device in the master dtype,
-        anything else passes through."""
+        """Prepare each object, preserving order: data loaders are sharded and place
+        their batches on the device, transformations become ``AcceleratedOptimizer``s,
+        stateful schedulers ``AcceleratedScheduler``s, param trees move to the device in
+        the master dtype, anything else passes through."""
         result = tuple(self._prepare_one(obj) for obj in args)
         return result if len(result) > 1 else result[0]
 
     def _prepare_one(self, obj):
+        if _is_dataloader_like(obj):
+            return self.prepare_data_loader(obj)
         if isinstance(obj, AcceleratedOptimizer):
             if obj not in self._optimizers:
                 self._optimizers.append(obj)
             return obj
-        if type(obj).__module__.startswith("torch.utils.data"):
-            raise NotImplementedError("data loaders are not ported yet")
         if hasattr(obj, "init") and hasattr(obj, "update") and not isinstance(obj, type):
             return self.prepare_optimizer(obj)
+        if hasattr(obj, "step") and hasattr(obj, "state_dict") and not hasattr(obj, "update"):
+            return self.prepare_scheduler(obj)
         if isinstance(obj, dict) and obj and all(torch.is_tensor(x) for x in tree_leaves(obj)):
             return self.prepare_params(obj)
         return obj
+
+    def _batch_group(self):
+        """The process group of this rank's batch ranks (None when there is one)."""
+        mesh = self.mesh
+        if mesh is None or mesh_batch_size_divisor(mesh) == 1:
+            return None
+        return mesh.group(BATCH_AXES)
+
+    def prepare_data_loader(self, data_loader):
+        """A ``DataLoaderShard`` (or ``DataLoaderDispatcher``) over ``data_loader``: each
+        batch rank of the mesh loads its shard (the ranks of one tp group the same one),
+        placed on the device and gathered into the global batch."""
+        if isinstance(data_loader, (DataLoaderShard, DataLoaderDispatcher)):
+            self._dataloaders.append(data_loader)
+            return data_loader
+        cfg, mesh = self.dataloader_config, self.mesh
+        prepared = prepare_data_loader(
+            data_loader, device=self.device,
+            num_processes=1 if mesh is None else mesh_batch_size_divisor(mesh),
+            process_index=0 if mesh is None else mesh.axis_index(BATCH_AXES),
+            split_batches=cfg.split_batches, rng_types=self.rng_types,
+            dispatch_batches=cfg.dispatch_batches, even_batches=cfg.even_batches,
+            use_seedable_sampler=cfg.use_seedable_sampler, data_seed=cfg.data_seed,
+            non_blocking=cfg.non_blocking, use_stateful_dataloader=cfg.use_stateful_dataloader,
+            prefetch_depth=cfg.prefetch_depth, batch_group=self._batch_group())
+        self._dataloaders.append(prepared)
+        return prepared
+
+    def prepare_scheduler(self, scheduler) -> AcceleratedScheduler:
+        wrapped = AcceleratedScheduler(scheduler, optimizers=self._optimizers,
+                                       step_with_optimizer=self.step_scheduler_with_optimizer,
+                                       split_batches=self.dataloader_config.split_batches)
+        self._schedulers.append(wrapped)
+        return wrapped
+
+    def skip_first_batches(self, dataloader, num_batches: int = 0):
+        return skip_first_batches(dataloader, num_batches=num_batches)
 
     def prepare_params(self, params, partition_specs=None):
         """Params on the device with floating leaves in the policy's param dtype (fp32
@@ -356,11 +455,13 @@ class Accelerator:
 
     # -------------------------------------------------------------------- train state/step
     def create_train_state(self, params, optimizer: Union[AcceleratedOptimizer, Any],
-                           partition_specs=None) -> TrainState:
+                           rng: Optional[int] = None, partition_specs=None) -> TrainState:
         """The training carry: params prepared (master dtype, on the device; this rank's
         shards under ``partition_specs``), optimizer state initialized from them, an
-        accumulation buffer when accumulating."""
+        accumulation buffer when accumulating; ``rng`` seeds an rng loss's generators."""
         _refuse_quantized(params)
+        if rng is not None and not isinstance(rng, (int, np.integer)):
+            raise TypeError(f"rng must be an int seed, got {type(rng).__name__}")
         if not isinstance(optimizer, AcceleratedOptimizer):
             optimizer = self.prepare_optimizer(optimizer)
         params = self.prepare_params(params, partition_specs=partition_specs)
@@ -372,7 +473,7 @@ class Accelerator:
         tp_sharded = (None if partition_specs is None
                       else sharded_leaves(params, partition_specs, self.mesh))
         return TrainState(params=params, opt_state=opt_state, step=0, grad_accum=accum, micro=0,
-                          tp_sharded=tp_sharded)
+                          tp_sharded=tp_sharded, rng=None if rng is None else int(rng))
 
     def build_train_step(
         self,
@@ -385,7 +486,8 @@ class Accelerator:
         cast_params: bool = True,
         skip_nonfinite_steps: int = 0,
     ):
-        """The training step: ``loss_fn(params, batch)`` returns a scalar loss, or
+        """The training step: ``loss_fn(params, batch)`` (or ``loss_fn(params, batch,
+        rng)``, ``rng`` a ``torch.Generator`` of the micro-step) returns a scalar loss, or
         ``(loss, aux)`` with ``has_aux``. Gradients are
         accumulated over ``gradient_accumulation_steps`` calls and averaged; at each sync
         step they are clamped to ``max_grad_value``, clipped to ``max_grad_norm`` (global
@@ -411,8 +513,7 @@ class Accelerator:
         policy = self.mixed_precision_policy
         max_grad_norm = self._max_grad_norm if max_grad_norm is None else max_grad_norm
         accum_steps = self.gradient_accumulation_steps
-        if _loss_fn_wants_rng(loss_fn):
-            raise NotImplementedError("loss functions that take an rng are not ported yet")
+        wants_rng = _loss_fn_wants_rng(loss_fn)
         compress_reduce = (cast_params and policy.reduce_dtype is not None
                            and policy.reduce_dtype == policy.compute_dtype
                            and policy.compute_dtype != torch.float32)
@@ -424,8 +525,15 @@ class Accelerator:
         tp_group = None if mesh is None else mesh.group(TENSOR_AXIS)
         world_group = dist.group.WORLD if mesh is not None and mesh.size > 1 else None
 
-        def call_loss(params, batch):
-            out = loss_fn(params, batch)
+        batch_rank = [] if n_batch == 1 else [mesh.axis_index(BATCH_AXES)]
+
+        def call_loss(params, batch, state: TrainState):
+            if wants_rng:
+                rng = None if state.rng is None else micro_generator(
+                    state.rng, state.step * accum_steps + state.micro, self.device, batch_rank)
+                out = loss_fn(params, batch, rng)
+            else:
+                out = loss_fn(params, batch)
             loss, aux = out if has_aux else (out, None)
             # aux may view the params, which the apply then updates in place: snapshot it.
             aux = tree_map(lambda x: x.detach().clone() if torch.is_tensor(x) else x, aux)
@@ -449,7 +557,7 @@ class Accelerator:
                         cast = [p.to(policy.compute_dtype) for p in masters]
                     leaves = [c.requires_grad_(True) for c in cast]
                     del cast
-                    loss, aux = call_loss(tree_unflatten(state.params, leaves), batch)
+                    loss, aux = call_loss(tree_unflatten(state.params, leaves), batch, state)
                     low = list(torch.autograd.grad(loss, leaves, allow_unused=True))
                     del leaves
                     grads = []
@@ -463,7 +571,7 @@ class Accelerator:
                     tree = tree_unflatten(state.params, leaves)
                     if cast_params:
                         tree = cast_floating(tree, policy.compute_dtype)
-                    loss, aux = call_loss(tree, batch)
+                    loss, aux = call_loss(tree, batch, state)
                     grads = [torch.zeros_like(p) if g is None else averaged(g) for g, p in zip(
                         torch.autograd.grad(loss, leaves, allow_unused=True), masters)]
             return averaged(loss.detach().clone().reshape(1))[0], aux, grads
@@ -557,9 +665,132 @@ class Accelerator:
 
         return step
 
+    # ------------------------------------------------------------------- collectives
+    def gather(self, tensor):
+        """Every batch rank's leaves concatenated along dim 0."""
+        return gather(tensor, group=self._batch_group())
+
+    def gather_for_metrics(self, input_data, use_gather_object: bool = False):
+        """:meth:`gather`, then the duplicate tail of the data loader's last (padded)
+        batch dropped: ``GradientState.remainder`` says how many samples are real."""
+        try:
+            recursively_apply(lambda x: x, input_data, error_on_other_type=True)
+            all_tensors = True
+        except TypeError:
+            all_tensors = False
+        group = self._batch_group()
+        use_object = use_gather_object or not all_tensors
+        data = (gather_object if use_object else gather)(input_data, group=group)
+        remainder = self.gradient_state.remainder
+        if self.gradient_state.end_of_dataloader and remainder > 0:
+            try:
+                return data[:remainder] if use_object else recursively_apply(
+                    lambda t: t[:remainder], data)
+            except (TypeError, IndexError):
+                # An unsliceable payload (0-d tensors, objects without __getitem__)
+                # comes back untrimmed.
+                return data
+        return data
+
+    def reduce(self, tensor, reduction: str = "sum", scale: float = 1.0):
+        return reduce(tensor, reduction=reduction, scale=scale, group=self._batch_group())
+
+    def pad_across_processes(self, tensor, dim: int = 0, pad_index: int = 0,
+                             pad_first: bool = False):
+        return pad_across_processes(tensor, dim=dim, pad_index=pad_index, pad_first=pad_first,
+                                    group=self._batch_group())
+
+    # ----------------------------------------------------------------------- checkpointing
+    def register_for_checkpointing(self, *objects):
+        """Objects with ``state_dict``/``load_state_dict`` saved and restored with the
+        checkpoint (``custom_checkpoint_{i}.pkl``, in registration order)."""
+        invalid = [o for o in objects
+                   if not (hasattr(o, "state_dict") and hasattr(o, "load_state_dict"))]
+        if invalid:
+            raise ValueError(
+                f"Objects {invalid} lack state_dict/load_state_dict and cannot be registered.")
+        self._custom_objects.extend(objects)
+
+    def register_save_state_pre_hook(self, hook: Callable):
+        """``hook(models, train_state, output_dir)`` runs at the start of each save."""
+        self._save_model_hooks.append(hook)
+        return _RemovableHandle(self._save_model_hooks, hook)
+
+    def register_load_state_pre_hook(self, hook: Callable):
+        """``hook(models, train_state, input_dir)`` runs before each load restores state."""
+        self._load_model_hooks.append(hook)
+        return _RemovableHandle(self._load_model_hooks, hook)
+
+    def save_state(self, output_dir: Optional[str] = None,
+                   train_state: Optional[TrainState] = None, **save_kwargs) -> str:
+        """``checkpointing.save_accelerator_state``; returns the checkpoint's path."""
+        from .checkpointing import save_accelerator_state
+
+        return save_accelerator_state(self, output_dir, train_state=train_state, **save_kwargs)
+
+    def load_state(self, input_dir: Optional[str] = None,
+                   train_state: Optional[TrainState] = None, **load_kwargs):
+        """``checkpointing.load_accelerator_state``: ``train_state`` overwritten in place
+        and returned with its counts restored."""
+        from .checkpointing import load_accelerator_state
+
+        return load_accelerator_state(self, input_dir, train_state=train_state, **load_kwargs)
+
+    def wait_for_checkpoint(self):
+        """Join an in-flight ``save_state(async_save=True)`` and commit it."""
+        from .checkpointing import wait_for_async_save
+
+        return wait_for_async_save(self)
+
+    def free_memory(self, *objects):
+        """Drop the prepared objects and release device memory held outside them:
+        ``llama.generate``'s caches and decode graphs, and the checkpoint staging
+        buffers (the JAX package's ``jax.clear_caches()``). Returns ``objects``."""
+        from .generation import release_generate_caches
+
+        self.wait_for_checkpoint()
+        self._models.clear()
+        self._optimizers.clear()
+        self._schedulers.clear()
+        self._dataloaders.clear()
+        self._ckpt_staging = None
+        self.step = 0
+        release_generate_caches()
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return objects
+
+    def clear(self, *objects):
+        return self.free_memory(*objects)
+
     def __repr__(self):
         return (f"Accelerator(device={self.device}, mixed_precision={self.mixed_precision!r}, "
                 f"gradient_accumulation_steps={self.gradient_accumulation_steps})")
+
+
+class _RemovableHandle:
+    def __init__(self, container: list, item):
+        self.container = container
+        self.item = item
+
+    def remove(self):
+        if self.item in self.container:
+            self.container.remove(self.item)
+
+
+def _is_dataloader_like(obj) -> bool:
+    if isinstance(obj, (DataLoaderShard, DataLoaderDispatcher, torch.utils.data.DataLoader)):
+        return True
+    return hasattr(obj, "__iter__") and (hasattr(obj, "batch_sampler") or hasattr(obj, "dataset"))
+
+
+def micro_generator(seed: int, counter: int, device, extra=()) -> torch.Generator:
+    """The ``torch.Generator`` an rng loss gets: on ``device``, seeded from ``seed``, the
+    micro-step ``counter`` (``step * accumulation + micro``) and ``extra`` (the batch
+    rank under a mesh), mixed by numpy's ``SeedSequence``."""
+    mixed = np.random.SeedSequence([int(seed), int(counter), *extra]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(mixed[0]))
 
 
 def _loss_fn_wants_rng(loss_fn) -> bool:

@@ -20,6 +20,14 @@ row.
 step captured into a CUDA graph and replayed with the token fed back on the device
 (``utils/cuda_graph.py``), and the host reads the tokens once, at the end; the graph
 is kept for later calls on the same params and cache.
+
+What later calls reuse lives in one cache bounded in bytes (:data:`GENERATE_CACHE_BYTES`,
+least recently used evicted first): ``llama.generate``'s (prefill, decode) pairs with
+the KV caches they hold, and on CUDA the decode graphs with their state (the cache,
+noise, output) and private pools. :func:`release_generate_caches` empties it
+(``Accelerator.free_memory`` calls it; JAX's counterpart is ``jax.clear_caches()``).
+Two calls that share a pair share its cache, so ``generate`` is not re-entrant where
+JAX's is functional.
 """
 
 from __future__ import annotations
@@ -37,7 +45,9 @@ from .utils.tree import tree_leaves
 
 __all__ = ["GenerationConfig", "filtered_logits", "filtered_logits_dyn_k", "sampling_core",
            "sampling_core_dyn_k",
-           "sample_logits", "gumbel_noise", "emission_generator", "generate_loop"]
+           "sample_logits", "gumbel_noise", "emission_generator", "generate_loop",
+           "GENERATE_CACHE_BYTES", "cache_lookup", "cache_store", "held_bytes",
+           "release_generate_caches"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,14 +192,61 @@ def _carry(dst, src) -> None:
         dst.copy_(src)
 
 
-#: On CUDA, each decode graph with its static state, by the decode function, the call's
-#: shapes and knobs, and the device addresses of the params and the cache: a later call
-#: with the same key refills the state and replays the graph (in JAX, jit's cache of
-#: compiled programs). An entry holds the state (the cache among it), not the params:
-#: params at the same addresses are the graph's params. Each holds its graph's pool and
-#: (sampled) ``[T, B, V]`` of noise, hence the small bound.
-_DECODE_GRAPHS: OrderedDict = OrderedDict()
-_DECODE_GRAPHS_MAX = 4
+#: The bound, in bytes of device memory held, on what ``generate`` keeps between calls.
+#: An entry stored past it evicts the least recently used others; it should exceed one
+#: call's cache, graph pool and noise, or each call evicts the last one's.
+GENERATE_CACHE_BYTES = 2 << 30
+
+#: key -> (value, held), least recently used first; ``held(value)`` gives the tensors
+#: the entry keeps alive and the bytes of its graph pool. Keys: ``("fns", config,
+#: max_len)`` for ``llama.generate``'s (prefill, decode) pairs; ``("graph", decode
+#: function, knobs, shapes, params' and cache's addresses)`` for a decode graph with its
+#: state (in JAX, jit's cache of compiled programs).
+_GEN_CACHE: OrderedDict = OrderedDict()
+
+
+def cache_lookup(key):
+    """The value cached under ``key`` (now the most recently used), or None."""
+    entry = _GEN_CACHE.get(key)
+    if entry is None:
+        return None
+    _GEN_CACHE.move_to_end(key)
+    return entry[0]
+
+
+def held_bytes(entries=None) -> int:
+    """Device bytes the cache's entries hold: each tensor storage counted once (a pair's
+    cache is also its decode graph's), plus the graphs' pools."""
+    storages, pools = {}, 0
+    for value, held in (entries if entries is not None else _GEN_CACHE.values()):
+        tensors, pool = held(value)
+        pools += pool
+        for t in tensors:
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    return sum(storages.values()) + pools
+
+
+def cache_store(key, value, held: Callable):
+    """Cache ``value`` under ``key``, then evict least recently used entries (never this
+    one) while the cache holds more than :data:`GENERATE_CACHE_BYTES`."""
+    _GEN_CACHE[key] = (value, held)
+    _GEN_CACHE.move_to_end(key)
+    while len(_GEN_CACHE) > 1 and held_bytes() > GENERATE_CACHE_BYTES:
+        _GEN_CACHE.popitem(last=False)
+    return value
+
+
+def release_generate_caches() -> None:
+    """Drop every cached pair, cache and decode graph (their device memory returns to
+    the allocator; ``torch.cuda.empty_cache()`` gives it back to the device)."""
+    _GEN_CACHE.clear()
+    generate_loop.last_step = None
+
+
+def _graph_held(entry) -> tuple[list, int]:
+    st, run = entry
+    return [t for t in tree_leaves(st) if torch.is_tensor(t)], run.pool_bytes or 0
 
 
 def _addresses(tree) -> tuple:
@@ -238,7 +295,7 @@ def generate_loop(prefill_fn: Callable, decode_fn: Callable, params, prompt: tor
     uploaded once. On CUDA the decode step is a CUDA graph (``utils.cuda_graph``): its
     first run is eager and captures it, and every other step replays it, the token fed
     back on the device; the host reads nothing until the ids are returned. The graph is
-    kept for later calls whose prefill returns the same cache tensors (``_DECODE_GRAPHS``).
+    kept for later calls whose prefill returns the same cache tensors (:func:`cache_store`).
     A failed capture or replay raises."""
     T = gen.max_new_tokens
     last_logits, cache = prefill_fn(params, prompt, prompt_mask)
@@ -253,9 +310,9 @@ def generate_loop(prefill_fn: Callable, decode_fn: Callable, params, prompt: tor
     done = (first == gen.eos_token_id if gen.eos_token_id is not None
             else torch.zeros((B,), dtype=torch.bool, device=dev))
     cuda = dev.type == "cuda"
-    key = ((decode_fn, gen, B, V, str(dev), _addresses(params), _addresses(cache))
+    key = (("graph", decode_fn, gen, B, V, str(dev), _addresses(params), _addresses(cache))
            if cuda else None)
-    entry = _DECODE_GRAPHS.get(key) if cuda else None
+    entry = cache_lookup(key) if cuda else None
     if entry is None:
         st = {"cache": cache, "token": first.clone(), "done": done,
               "out": torch.empty((B, T), dtype=torch.int32, device=dev),
@@ -263,11 +320,8 @@ def generate_loop(prefill_fn: Callable, decode_fn: Callable, params, prompt: tor
         run = functools.partial(_decode_body, decode_fn, params, gen, st)
         if cuda:
             run = CapturedStep(run, dev)
-            _DECODE_GRAPHS[key] = (st, run)
-            while len(_DECODE_GRAPHS) > _DECODE_GRAPHS_MAX:
-                _DECODE_GRAPHS.popitem(last=False)
+            cache_store(key, (st, run), _graph_held)
     else:
-        _DECODE_GRAPHS.move_to_end(key)
         st, run = entry
         st["token"].copy_(first)
         st["done"].copy_(done)

@@ -51,7 +51,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from collections import OrderedDict
 from typing import Any, Optional
 
 import torch
@@ -63,6 +62,7 @@ from ..parallel.tp import (all_reduce, copy_to_group, group_rank_size, reduce_fr
                            vocab_parallel_embedding)
 from ..utils.constants import BATCH_AXES, FSDP_AXIS, TENSOR_AXIS
 from ..utils.device import resolve_device
+from ..utils.tree import tree_leaves
 from .common import (_softcap, attention_dispatch, ce_sum_dispatch, multi_step_decode,
                      put_or_drop, remat_wrap, resolve_loss_chunk)
 from .common import kv_planes as _kv_planes
@@ -751,7 +751,10 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, tp=None) -> tor
     if tp is not None:
         x = vocab_parallel_embedding(table, tokens, tp, dtype=cfg.dtype)
     else:
-        x = table[tokens].to(cfg.dtype)
+        # F.embedding, not ``table[tokens]``: its backward sums repeated tokens' rows in a
+        # fixed order (the indexing backward accumulates them in a thread-dependent order
+        # on the CPU), so a resumed run repeats the unbroken run's bits.
+        x = F.embedding(tokens, table).to(cfg.dtype)
     if cfg.embed_scale:
         # A 0-d CPU tensor rides into the kernel as a scalar: no host-to-device copy.
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
@@ -886,10 +889,10 @@ def perplexity(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
 
 def _make_gen_fns(cfg: LlamaConfig, max_len: int):
     """(prefill, decode) pair for ``generation.generate_loop``. The prefill writes into
-    one cache per (batch, device), kept by the pair and reset per call (``valid``
-    cleared, index 0), so that a decode graph captured on it serves later calls; the
-    cache's write index is a 0-d tensor on the device, so that the decode step reads
-    and advances it there (a step replayed from a CUDA graph reads no host value)."""
+    one cache per (batch, device), kept by the pair (``prefill_fn.caches``) and reset per
+    call (``valid`` cleared, index 0), so that a decode graph captured on it serves later
+    calls; the cache's write index is a 0-d tensor on the device, so that the decode step
+    reads and advances it there (a step replayed from a CUDA graph reads no host value)."""
     caches: dict = {}
 
     def prefill_fn(params, prompt, prompt_mask):
@@ -911,14 +914,25 @@ def _make_gen_fns(cfg: LlamaConfig, max_len: int):
         logits, cache = forward_cached(params, token[:, None], cache, cfg)
         return logits[:, -1, :], cache
 
+    prefill_fn.caches = caches
     return prefill_fn, decode_fn
 
 
-# Bounded cache of (prefill, decode) pairs by (config, bucketed max_len), as in JAX,
-# where stable identities keep generate_loop's compiled programs warm; max_len is
-# bucketed so that nearby prompt lengths share one cache size.
-_GEN_FNS: OrderedDict = OrderedDict()
-_GEN_FNS_MAX = 16
+def _pair_held(pair) -> tuple[list, int]:
+    return [t for cache in pair[0].caches.values() for t in tree_leaves(cache)
+            if torch.is_tensor(t)], 0
+
+
+def generate_fns(cfg: LlamaConfig, max_len: int):
+    """The (prefill, decode) pair ``generate`` uses for ``cfg`` and a bucketed
+    ``max_len`` (a multiple of 64), from ``generation``'s byte-bounded cache: stable
+    identities keep its decode graphs warm, as JAX's cache keeps compiled programs."""
+    from ..generation import cache_lookup, cache_store
+
+    key = ("fns", cfg, max_len)
+    pair = cache_lookup(key)
+    return pair if pair is not None else cache_store(key, _make_gen_fns(cfg, max_len),
+                                                     _pair_held)
 
 
 def generate(params: dict, prompt, cfg: LlamaConfig, gen=None, seed: Optional[int] = None,
@@ -930,7 +944,8 @@ def generate(params: dict, prompt, cfg: LlamaConfig, gen=None, seed: Optional[in
     ``prompt`` [B,S0] int (left-padded; pass ``prompt_mask`` False on pads), moved to
     the params' device. Returns int32 [B, max_new_tokens] on that device. Sampled
     generation draws emission t of every row from ``seed`` (default 0), where JAX takes
-    a key."""
+    a key. The caches and graphs it keeps are released by
+    ``generation.release_generate_caches``."""
     from ..generation import GenerationConfig, generate_loop
 
     gen = gen or GenerationConfig()
@@ -939,13 +954,6 @@ def generate(params: dict, prompt, cfg: LlamaConfig, gen=None, seed: Optional[in
     if prompt_mask is None:
         prompt_mask = torch.ones(prompt.shape, dtype=torch.bool, device=dev)
     prompt_mask = torch.as_tensor(prompt_mask, device=dev).bool()
-    max_len = prompt.shape[1] + gen.max_new_tokens
-    max_len = -(-max_len // 64) * 64
-    key = (cfg, max_len)
-    if key not in _GEN_FNS:
-        _GEN_FNS[key] = _make_gen_fns(cfg, max_len)
-        while len(_GEN_FNS) > _GEN_FNS_MAX:
-            _GEN_FNS.popitem(last=False)
-    _GEN_FNS.move_to_end(key)
-    prefill_fn, decode_fn = _GEN_FNS[key]
+    max_len = -(-(prompt.shape[1] + gen.max_new_tokens) // 64) * 64
+    prefill_fn, decode_fn = generate_fns(cfg, max_len)
     return generate_loop(prefill_fn, decode_fn, params, prompt, prompt_mask, gen, seed)

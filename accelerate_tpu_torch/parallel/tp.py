@@ -264,7 +264,7 @@ def vocab_parallel_embedding(table: torch.Tensor, ids: torch.Tensor, group,
     vl = table.shape[0]
     local = ids.long() - rank * vl
     hit = (local >= 0) & (local < vl)
-    rows = table[local.clamp(0, vl - 1)].to(dtype)
+    rows = torch.nn.functional.embedding(local.clamp(0, vl - 1), table).to(dtype)
     rows = torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                          device=rows.device))
     return reduce_from_group(rows, group)

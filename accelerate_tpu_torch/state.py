@@ -215,7 +215,11 @@ class AcceleratorState:
 
 class GradientState:
     """Gradient-accumulation bookkeeping singleton: ``sync_gradients`` (is this step an
-    optimizer-apply step) and the accumulation plugin's settings."""
+    optimizer-apply step), the accumulation plugin's settings, and the data loader being
+    iterated: ``active_dataloader`` (the innermost one; a stack of references),
+    ``in_dataloader``, and that loader's ``end_of_dataloader`` (known before its last
+    batch is handed out) and ``remainder`` (the real samples of its last, padded global
+    batch, or -1), which ``gather_for_metrics`` reads."""
 
     _shared_state: dict[str, Any] = {}
 
@@ -223,6 +227,8 @@ class GradientState:
         self.__dict__ = self._shared_state
         if not self.initialized:
             self.sync_gradients = True
+            self.active_dataloader = None
+            self.dataloader_references = [None]
             self.plugin_kwargs = {}
         if gradient_accumulation_plugin is not None:
             self.plugin_kwargs = gradient_accumulation_plugin.to_kwargs()
@@ -235,11 +241,43 @@ class GradientState:
     def num_steps(self) -> int:
         return self.plugin_kwargs.get("num_steps", 1)
 
+    @property
+    def adjust_scheduler(self) -> bool:
+        return self.plugin_kwargs.get("adjust_scheduler", True)
+
+    @property
+    def sync_with_dataloader(self) -> bool:
+        return self.plugin_kwargs.get("sync_with_dataloader", True)
+
+    @property
+    def end_of_dataloader(self) -> bool:
+        return self.in_dataloader and self.active_dataloader.end_of_dataloader
+
+    @property
+    def remainder(self) -> int:
+        return self.active_dataloader.remainder if self.in_dataloader else -1
+
+    @property
+    def in_dataloader(self) -> bool:
+        return self.active_dataloader is not None
+
     def _set_sync_gradients(self, sync_gradients: bool) -> None:
         self.sync_gradients = sync_gradients
 
+    def _add_dataloader(self, dataloader) -> None:
+        self.active_dataloader = dataloader
+        self.dataloader_references.append(dataloader)
+
+    def _remove_dataloader(self, dataloader) -> None:
+        # A loader's generator may be closed after ``_reset_state`` (tests): start over.
+        refs = self.__dict__.setdefault("dataloader_references", [None])
+        if dataloader in refs:
+            refs.remove(dataloader)
+        self.active_dataloader = refs[-1]
+
     def __repr__(self) -> str:
-        return f"GradientState(sync_gradients={self.sync_gradients}, num_steps={self.num_steps})"
+        return (f"GradientState(sync_gradients={self.sync_gradients}, num_steps={self.num_steps}, "
+                f"end_of_dataloader={self.end_of_dataloader}, remainder={self.remainder})")
 
     @classmethod
     def _reset_state(cls) -> None:

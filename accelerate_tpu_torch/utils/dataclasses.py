@@ -1,23 +1,41 @@
 """Config dataclasses and enums of the training path.
 
 Copies of ``accelerate_tpu/utils/dataclasses.py``'s ``KwargsHandler``, ``PrecisionType``,
-``DistributedType``, ``GradientAccumulationPlugin`` and ``MixedPrecisionPolicy`` (dtypes
-are torch's).
+``DistributedType``, ``RNGType``, ``GradientAccumulationPlugin``, ``MixedPrecisionPolicy``
+(dtypes are torch's), ``DataLoaderConfiguration`` (with its launcher environment
+sentinels), ``ProjectConfiguration`` and ``TensorInformation``. ``RNGType`` has no
+``jax`` member: the port draws no JAX keys.
 """
 
 from __future__ import annotations
 
 import copy
 import enum
+import os
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 __all__ = [
-    "KwargsHandler", "PrecisionType", "DistributedType", "GradientAccumulationPlugin",
-    "MixedPrecisionPolicy",
+    "KwargsHandler", "PrecisionType", "DistributedType", "RNGType",
+    "GradientAccumulationPlugin", "MixedPrecisionPolicy", "DataLoaderConfiguration",
+    "ProjectConfiguration", "TensorInformation", "parse_flag_from_env",
 ]
+
+_TRUE = {"1", "true", "yes", "y", "on", "t"}
+_FALSE = {"0", "false", "no", "n", "off", "f"}
+
+
+def parse_flag_from_env(key: str, default: bool = False) -> bool:
+    """The environment variable ``key`` read as a boolean flag (``default`` when unset or
+    not a recognised flag value)."""
+    value = str(os.environ.get(key, default)).lower().strip()
+    if value in _TRUE:
+        return True
+    if value in _FALSE:
+        return False
+    return default
 
 
 class KwargsHandler:
@@ -66,6 +84,13 @@ class DistributedType(BaseEnum):
     MULTI_HOST = "MULTI_HOST"
 
 
+class RNGType(BaseEnum):
+    NUMPY = "numpy"
+    PYTHON = "python"
+    GENERATOR = "generator"  # the torch generator that drives a sampler's data order
+    TORCH = "torch"
+
+
 class PrecisionType(BaseEnum):
     NO = "no"
     BF16 = "bf16"
@@ -105,3 +130,77 @@ class MixedPrecisionPolicy(KwargsHandler):
         if precision == PrecisionType.FP8:
             return cls(compute_dtype=torch.bfloat16, reduce_dtype=torch.bfloat16)
         raise ValueError(f"unknown precision {precision}")
+
+
+@dataclass
+class DataLoaderConfiguration(KwargsHandler):
+    """How ``Accelerator.prepare`` wraps a data loader. The None-sentinel fields resolve
+    from the launcher's environment (``ACCELERATE_DISPATCH_BATCHES``,
+    ``ACCELERATE_EVEN_BATCHES``, ``ACCELERATE_USE_SEEDABLE_SAMPLER``), else the built-in
+    default. ``prefetch_depth``: batches placed on the device ahead of the one being
+    consumed (at least 1, which ``end_of_dataloader`` needs)."""
+
+    split_batches: bool = False
+    dispatch_batches: Optional[bool] = None
+    even_batches: Optional[bool] = None         # built-in True
+    use_seedable_sampler: Optional[bool] = None  # built-in True
+    data_seed: Optional[int] = None
+    non_blocking: bool = False
+    use_stateful_dataloader: bool = False
+    prefetch_depth: int = 1
+
+    def __post_init__(self):
+        if self.prefetch_depth < 1:
+            raise ValueError(
+                f"prefetch_depth={self.prefetch_depth} must be >= 1 (the one-batch "
+                "lookahead is required to detect end_of_dataloader before the final "
+                "batch is yielded)")
+        if self.dispatch_batches is None and "ACCELERATE_DISPATCH_BATCHES" in os.environ:
+            self.dispatch_batches = parse_flag_from_env("ACCELERATE_DISPATCH_BATCHES")
+        if self.even_batches is None:
+            self.even_batches = parse_flag_from_env("ACCELERATE_EVEN_BATCHES", True)
+        if self.use_seedable_sampler is None:
+            self.use_seedable_sampler = parse_flag_from_env("ACCELERATE_USE_SEEDABLE_SAMPLER",
+                                                            True)
+
+
+@dataclass
+class ProjectConfiguration(KwargsHandler):
+    """Checkpoint folder layout and rotation: with ``automatic_checkpoint_naming``,
+    ``save_state()`` writes ``project_dir/checkpoints/checkpoint_{iteration}`` and keeps
+    at most ``total_limit`` committed checkpoints."""
+
+    project_dir: Optional[str] = None
+    logging_dir: Optional[str] = None
+    automatic_checkpoint_naming: bool = False
+    total_limit: Optional[int] = None
+    iteration: int = 0
+    save_on_each_node: bool = False
+
+    def set_directories(self, project_dir: Optional[str] = None):
+        self.project_dir = project_dir
+        if self.logging_dir is None:
+            self.logging_dir = project_dir
+
+    def __post_init__(self):
+        if self.project_dir is None and os.environ.get("ACCELERATE_PROJECT_DIR"):
+            self.project_dir = os.environ["ACCELERATE_PROJECT_DIR"]
+        if self.total_limit is None and os.environ.get("ACCELERATE_CHECKPOINT_TOTAL_LIMIT"):
+            self.total_limit = int(os.environ["ACCELERATE_CHECKPOINT_TOTAL_LIMIT"])
+        if self.logging_dir is None:
+            self.logging_dir = self.project_dir
+
+
+class TensorInformation:
+    """Shape and dtype of one leaf, sent ahead of its data by the object collectives."""
+
+    def __init__(self, shape, dtype):
+        self.shape = tuple(shape)
+        self.dtype = dtype
+
+    def __repr__(self):
+        return f"TensorInformation(shape={self.shape}, dtype={self.dtype})"
+
+    def __eq__(self, other):
+        return (isinstance(other, TensorInformation) and self.shape == other.shape
+                and self.dtype == other.dtype)

@@ -120,6 +120,27 @@ that names the phase, its failed cases and the exception:
    rank's launches per step, peak memory of the set-up and of the steps, and step time
    (two ranks on one card with collectives staged through host memory: not a
    tensor-parallel speed).
+17. train_resume (run right after train_fused) — save and resume at ``train_main``'s
+   configuration, fed by a stateful ``DataLoaderShard`` over a ``TokenDataset`` of 2^24
+   seeded tokens (the native C++ gather required) with a custom object and a scheduler
+   registered: 3 steps, ``save_state()``, 3 steps, ``load_state()`` in place, the loader
+   re-iterated from its restored position and the 3 steps again: losses bitwise, every
+   state leaf's checksums, the first layer's leaves (``torch.equal``), the counts and
+   the loader's batches equal; then the same round with ``save_state(async_save=True)``
+   and the steps run while the files are written. Printed: free disk and
+   ``MemAvailable``, state bytes and bytes on disk, the save's seconds (device copies,
+   write and hash thread-seconds, commit) and GB/s, the async save's blocking seconds
+   against its time to commit, the load's (verify, read, host-to-device), peak device
+   memory of the save and the load against the training peak (at most the staging
+   buffers above it), step ms with loader batches against the fixed on-device batch
+   (alternated), the native gather's host ms per batch, and the kernels' launches per
+   step (2L/L/L flash, 1 AdamW).
+18. checkpoint_debug — ``debug``, fp32, on the card: the same round, bitwise; a
+   committed checkpoint with one byte flipped and an uncommitted one quarantined on
+   load, the previous valid one selected (``checkpoints_quarantined == 2``); an explicit
+   corrupt ``input_dir`` raises ``CheckpointCorruptError``; rotation with
+   ``total_limit=2`` keeps the JAX rule's survivors; the card's checkpoint loads into a
+   CPU ``Accelerator``'s state, whose next loss matches the card's within 1e-4.
 
 Then the kernels line (the serving kernels' launches include the super-steps' graph
 replays: kernel nodes times replays), the card's name and power limit, and a last line
@@ -138,11 +159,14 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -709,6 +733,7 @@ def phase_engine(dev, scheme=None) -> None:
 
 # --------------------------------------------- phase 3b: the super-step on the card
 MULTI_N = 8  # decode steps a super-step of the main paths
+MULTI_PROFILE_STEPS = 2  # super-steps in a profiled window
 
 
 def graph_stats(eng) -> dict:
@@ -962,7 +987,9 @@ def phase_main_multistep(dev, main: dict) -> dict:
     emit(res)
     if not res["ok"]:
         raise SystemExit("the super-step main path failed its checks")
-    prof = profile_decode(eng, run["rng"], cfg.vocab_size)
+    # Two super-steps (≈ 48,000 kernels): in a window of five (≈ 121,000) the profiler
+    # once lost 6 of the 1,280 paged-attention kernel records.
+    prof = profile_decode(eng, run["rng"], cfg.vocab_size, steps=MULTI_PROFILE_STEPS)
     emit(prof)
     one_kernel_per_call(prof, int8=False)
     del run, eng
@@ -1106,7 +1133,7 @@ def phase_generate(dev) -> dict:
     host = out.cpu()  # the one host read
     call_s = time.perf_counter() - t0
     replays = step.replays - replays
-    prefill_fn = llama._GEN_FNS[(cfg, -(-(prompt.shape[1] + n) // 64) * 64)][0]
+    prefill_fn = llama.generate_fns(cfg, -(-(prompt.shape[1] + n) // 64) * 64)[0]
     p_t, m_t = torch.from_numpy(prompt).to(dev), torch.from_numpy(mask).to(dev)
     prefill_fn(params, p_t, m_t)
     torch.cuda.synchronize()
@@ -1130,8 +1157,7 @@ def phase_generate(dev) -> dict:
     res["ok"] = ok_debug and ok_8b
     emit(res)
     # The kept decode graphs and prefill caches hold device memory the later phases need.
-    generation._DECODE_GRAPHS.clear()
-    llama._GEN_FNS.clear()
+    generation.release_generate_caches()
     if not res["ok"]:
         raise PhaseFailed("generate on the card failed its checks",
                           [k for k, v in (("debug", ok_debug), ("llama3_8b", ok_8b)) if not v])
@@ -2145,6 +2171,415 @@ def profile_train_step(step, state, batch) -> dict:
     }
 
 
+# -------------------------------------------- phases 17-18: training I/O (slice 11)
+RESUME_STEPS = 3  # steps between the save and the end of each round
+RESUME_CORPUS_TOKENS = 1 << 24  # 64 MB of int32 tokens
+BUILD_ROOT = Path(__file__).resolve().parent / "build"  # git-ignored
+
+
+def _meminfo(key: str) -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024
+    raise KeyError(key)
+
+
+def _host_room(where: Path) -> dict:
+    return {"disk_free_bytes": shutil.disk_usage(where).free,
+            "mem_available_bytes": _meminfo("MemAvailable")}
+
+
+def leaf_checksums(state) -> list:
+    """Per tensor leaf of the train state (params, moments): two 64-bit sums of its
+    words on the device (plain, and weighted by an odd multiplier of the position, so
+    that moved words change it too), taken in chunks of 2^26 words."""
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    out = []
+    for t in tree_leaves([state.params, state.opt_state, state.grad_accum]):
+        if not torch.is_tensor(t):
+            continue
+        words = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+        plain = weighted = torch.zeros((), dtype=torch.int64, device=t.device)
+        for start in range(0, words.numel(), 1 << 26):
+            x = words[start:start + (1 << 26)].to(torch.int64)
+            pos = torch.arange(start, start + x.numel(), device=t.device, dtype=torch.int64)
+            plain = plain + x.sum()
+            weighted = weighted + (x * (2 * pos + 1)).sum()
+        out.append((int(plain), int(weighted)))
+    return out
+
+
+class _Counter:
+    """A custom object registered for checkpointing: a count of steps seen."""
+
+    def __init__(self):
+        self.count = 0
+
+    def state_dict(self):
+        return {"count": self.count}
+
+    def load_state_dict(self, sd):
+        self.count = sd["count"]
+
+
+class _WarmupSchedule:
+    """A stateful scheduler (``step``/``state_dict``/``load_state_dict``), prepared and
+    so saved with the checkpoint: a linear warm-up factor over 10 steps."""
+
+    def __init__(self):
+        self.last_epoch = 0
+
+    def step(self):
+        self.last_epoch += 1
+
+    def get_last_lr(self):
+        return [min(1.0, self.last_epoch / 10)]
+
+    def state_dict(self):
+        return {"last_epoch": self.last_epoch}
+
+    def load_state_dict(self, sd):
+        self.last_epoch = sd["last_epoch"]
+
+
+def _train_counts(fa, fo) -> dict:
+    return {"flash_fwd": fa._fwd.launches, "flash_bwd_dq": fa._bwd_dq.launches,
+            "flash_bwd_dkv": fa._bwd_dkv.launches, "fused_adamw": fo.adamw_leaves.launches}
+
+
+def _reset_train_counts(fa, fo) -> None:
+    fa._fwd.launches = fa._bwd_dq.launches = fa._bwd_dkv.launches = 0
+    fo.adamw_leaves.launches = 0
+
+
+def phase_train_resume(dev) -> dict:
+    """Save and resume at ``train_main``'s configuration (Llama-3-8B widths, 8 layers,
+    B=2, S=2048, bf16 over fp32 masters, remat, flash attention, chunked CE,
+    ``fused_adamw(1e-4)``, clip 1.0), fed by a stateful ``DataLoaderShard`` over a
+    ``TokenDataset`` of 2^24 seeded tokens, with a custom object and a scheduler
+    registered. Round 1: 3 steps, ``save_state()``, 3 steps (losses, batches, per-leaf
+    checksums), ``load_state()`` in place, the loader re-iterated from its restored
+    position, the 3 steps again: losses bitwise, every leaf's checksums and the loader's
+    batches equal, the first layer's leaves ``torch.equal`` to host copies. Round 2: the
+    checkpoint deleted, ``save_state(async_save=True)``, the 3 steps run while the files
+    are written, ``wait_for_checkpoint()``, load, the same checks. Then step ms with
+    loader batches against the fixed on-device batch, alternated, and the native
+    gather's host ms per batch. Peak device memory of the save and load may exceed the
+    training peak by at most the staging buffers; launches per step as train_main's."""
+    from accelerate_tpu_torch import checkpointing as ck
+    from accelerate_tpu_torch import lm_dataset
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.data_loader import DataLoader
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.utils.dataclasses import (DataLoaderConfiguration,
+                                                        ProjectConfiguration)
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    _fresh_state_singletons()
+    BUILD_ROOT.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="train_resume_", dir=BUILD_ROOT))
+    res = {"phase": "train_resume", "config": "llama3-8b", "layers": TRAIN_LAYERS,
+           "batch": [TRAIN_B, TRAIN_S], "host_at_start": _host_room(root)}
+    emit({"phase": "train_resume_host", **res["host_at_start"]})
+    try:
+        if not lm_dataset.native_available():
+            raise PhaseFailed("the native gather (g++ build of lmdata.cpp) is unavailable",
+                              ["native_available"])
+        L = TRAIN_LAYERS
+        cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], n_layers=L, dtype=torch.bfloat16,
+                                  attn_impl="flash", remat=True, remat_policy="full")
+        corpus = root / "corpus.bin"
+        lm_dataset.write_token_file(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, RESUME_CORPUS_TOKENS, dtype=np.int32), str(corpus))
+        dataset = lm_dataset.TokenDataset(str(corpus), seq_len=TRAIN_S, seed=0)
+        acc = Accelerator(
+            mixed_precision="bf16", device=dev,
+            project_config=ProjectConfiguration(project_dir=str(root / "project"),
+                                                automatic_checkpoint_naming=True),
+            dataloader_config=DataLoaderConfiguration(use_stateful_dataloader=True,
+                                                      non_blocking=True))
+        loader = acc.prepare(DataLoader(dataset, batch_size=TRAIN_B, drop_last=True))
+        counter, schedule = _Counter(), acc.prepare(_WarmupSchedule())
+        acc.register_for_checkpointing(counter)
+        torch.cuda.reset_peak_memory_stats()
+        params = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                                   generator=torch.Generator(dev).manual_seed(0), device=dev)
+        state = acc.create_train_state(params, fo.fused_adamw(1e-4))
+        del params
+        step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+        first_layer = len(tree_leaves(state.params["layers"][0]))
+        state_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(
+            [state.params, state.opt_state]) if torch.is_tensor(t))
+        res["state_bytes"] = state_bytes
+        _reset_train_counts(fa, fo)
+        n_steps = 0
+
+        def train(state, it, n):
+            nonlocal n_steps
+            losses, batches = [], []
+            for _ in range(n):
+                batch = next(it)
+                batches.append(batch["tokens"].cpu().numpy().copy())
+                state, metrics = step(state, batch)
+                schedule.step()
+                counter.count += 1
+                losses.append(float(metrics["loss"]))
+                n_steps += 1
+            return state, losses, batches
+
+        def host_copies(state):
+            return [t.detach().cpu() for t in tree_leaves(state.params["layers"][0])]
+
+        rounds = {}
+        it = iter(loader)
+        state, warm, _ = train(state, it, RESUME_STEPS)
+        torch.cuda.synchronize()
+        res["train_peak_bytes"] = train_peak = torch.cuda.max_memory_allocated()
+        res["losses_before_save"] = warm
+        for name, async_save in (("sync", False), ("async", True)):
+            if name == "async":  # one 8B checkpoint on disk at a time
+                shutil.rmtree(root / "project" / "checkpoints")
+            rnd = {"host_before_save": _host_room(root)}
+            torch.cuda.reset_peak_memory_stats()
+            allocated = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            path = acc.save_state(train_state=state, async_save=async_save)
+            rnd["save_call_s"] = time.perf_counter() - t0
+            rnd["save_peak_bytes"] = torch.cuda.max_memory_allocated()
+            rnd["save_allocated_growth_bytes"] = rnd["save_peak_bytes"] - allocated
+            saved_at = (state.step, counter.count, schedule.last_epoch)
+            state, losses, batches = train(state, it, RESUME_STEPS)
+            if async_save:
+                t0 = time.perf_counter()
+                acc.wait_for_checkpoint()
+                rnd["wait_s"] = time.perf_counter() - t0
+            rnd["save"] = dict(acc.checkpoint_stats["save"])
+            rnd["bytes_on_disk"] = sum(p.stat().st_size for p in Path(path).rglob("*")
+                                       if p.is_file())
+            sums, copies = leaf_checksums(state), host_copies(state)
+            end_at = (state.step, counter.count, schedule.last_epoch)
+            torch.cuda.reset_peak_memory_stats()
+            allocated = torch.cuda.memory_allocated()
+            state = acc.load_state(train_state=state)
+            rnd["load_peak_bytes"] = torch.cuda.max_memory_allocated()
+            rnd["load_allocated_growth_bytes"] = rnd["load_peak_bytes"] - allocated
+            rnd["load"] = dict(acc.checkpoint_stats["load"])
+            rnd["restored_at"] = [state.step, counter.count, schedule.last_epoch]
+            it = iter(loader)  # resumes at the loader's saved position
+            state, again, again_batches = train(state, it, RESUME_STEPS)
+            rnd["losses"], rnd["losses_resumed"] = losses, again
+            rnd["losses_bitwise"] = again == losses
+            rnd["batches_equal"] = all(np.array_equal(a, b) for a, b in zip(
+                again_batches, batches, strict=True))
+            new_sums = leaf_checksums(state)
+            rnd["leaves"] = len(sums)
+            rnd["leaf_checksums_equal"] = new_sums == sums
+            rnd["first_layer_torch_equal"] = all(torch.equal(a, b) for a, b in zip(
+                host_copies(state), copies, strict=True))
+            rnd["counts_equal"] = (state.step, counter.count, schedule.last_epoch) == end_at
+            rnd["restored_ok"] = rnd["restored_at"] == list(saved_at)
+            staging = rnd["save"]["staging_bytes"]
+            rnd["memory_ok"] = max(rnd["save_peak_bytes"], rnd["load_peak_bytes"]) <= (
+                train_peak + staging)
+            rnds = rnd["save"]
+            rnd["save_gb_per_s"] = state_bytes / 1e9 / (rnds.get("total_s") or
+                                                        rnds["commit_after_s"])
+            rnd["load_gb_per_s"] = state_bytes / 1e9 / rnd["load"]["total_s"]
+            rounds[name] = rnd
+            emit({"phase": "train_resume_round", "round": name, "first_layer_leaves":
+                  first_layer, **rnd})
+        res["rounds"] = rounds
+        launches = _train_counts(fa, fo)
+        expect = {"flash_fwd": 2 * L * n_steps, "flash_bwd_dq": L * n_steps,
+                  "flash_bwd_dkv": L * n_steps, "fused_adamw": n_steps}
+        res["steps"], res["launches"], res["launches_expected"] = n_steps, launches, expect
+
+        # Loader batches against train_main's fixed on-device batch, alternated.
+        fixed = {"tokens": torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1)), device=dev)}
+        timing = {"loader": [], "fixed": [], "next_batch_host_ms": []}
+        for i in range(8):
+            which = ("loader", "fixed")[i % 2]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if which == "loader":
+                batch = next(it)
+                timing["next_batch_host_ms"].append(1e3 * (time.perf_counter() - t0))
+            else:
+                batch = fixed
+            state, metrics = step(state, batch)
+            float(metrics["loss"])
+            torch.cuda.synchronize()
+            timing[which].append(1e3 * (time.perf_counter() - t0))
+        res["step_ms"] = {k: timing[k] for k in ("loader", "fixed")}
+        res["step_ms_median"] = {k: float(np.median(timing[k][1:])) for k in ("loader", "fixed")}
+        res["next_batch_host_ms"] = timing["next_batch_host_ms"]
+
+        def gather_ms(native: bool) -> float:
+            """Host ms per batch over the epoch's first 200 batches."""
+            saved = lm_dataset._load_native
+            if not native:
+                lm_dataset._load_native = lambda: None
+            try:
+                batches = dataset.iter_batches(TRAIN_B)
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    next(batches)
+                return 1e3 * (time.perf_counter() - t0) / 200
+            finally:
+                lm_dataset._load_native = saved
+
+        res["native_available"] = lm_dataset.native_available()
+        # In turns, after a pass that maps the corpus pages both paths read.
+        gather_ms(False)
+        runs = {"native": [], "numpy": []}
+        for native in (True, False, False, True):
+            runs["native" if native else "numpy"].append(gather_ms(native))
+        res["gather_host_ms_per_batch"] = runs
+        res["host_at_end"] = _host_room(root)
+        ok = {f"{name}_{k}": bool(rnd[k]) for name, rnd in rounds.items()
+              for k in ("losses_bitwise", "batches_equal", "leaf_checksums_equal",
+                        "first_layer_torch_equal", "counts_equal", "restored_ok", "memory_ok")}
+        ok["launches"] = launches == expect
+        ok["finite"] = bool(np.isfinite(warm + rounds["sync"]["losses"]).all())
+        res["checks"] = ok
+        res["ok"] = all(ok.values())
+        emit({k: v for k, v in res.items() if k != "rounds"})  # the rounds were printed
+        if not res["ok"]:
+            raise PhaseFailed("save and resume at 8B width failed its checks",
+                              [k for k, v in ok.items() if not v])
+        acc.free_memory()
+        return res
+    finally:
+        ck.wait_for_async_save()
+        shutil.rmtree(root, ignore_errors=True)
+        _fresh_state_singletons()
+
+
+def phase_checkpoint_debug(dev) -> dict:
+    """The ``debug`` config in fp32 on the card: save → train → load → retrain through the
+    stateful loader, bitwise; a committed checkpoint with one byte flipped and an
+    uncommitted one are both quarantined on load and the previous valid checkpoint is
+    selected (``checkpoints_quarantined == 2``); an explicit corrupt ``input_dir``
+    raises ``CheckpointCorruptError``; ``total_limit=2`` keeps the survivors the JAX rule
+    keeps; a card checkpoint loads into a CPU ``Accelerator``'s state, and the next
+    step's loss there equals the card's within the ``debug`` parity tolerance (1e-4
+    relative)."""
+    from accelerate_tpu_torch import checkpointing as ck
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.data_loader import DataLoader
+    from accelerate_tpu_torch.lm_dataset import TokenDataset, write_token_file
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.fused_optim import fused_adamw
+    from accelerate_tpu_torch.utils.dataclasses import (DataLoaderConfiguration,
+                                                        ProjectConfiguration)
+
+    BUILD_ROOT.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="checkpoint_debug_", dir=BUILD_ROOT))
+    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32, attn_impl="flash")
+    params = llama.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    write_token_file(np.random.default_rng(1).integers(0, cfg.vocab_size, 64 * 128 + 1),
+                     str(root / "corpus.bin"))
+    res = {"phase": "checkpoint_debug", "config": "debug"}
+
+    def setup(where, project=None, **project_kw):
+        _fresh_state_singletons()
+        acc = Accelerator(device=where, project_config=ProjectConfiguration(
+            project_dir=str(project or root / "project"), automatic_checkpoint_naming=True,
+            **project_kw),
+            dataloader_config=DataLoaderConfiguration(use_stateful_dataloader=True))
+        loader = acc.prepare(DataLoader(TokenDataset(str(root / "corpus.bin"), seq_len=128,
+                                                     seed=0), batch_size=2, drop_last=True))
+        state = acc.create_train_state(_clone_to(params, where), fused_adamw(1e-3))
+        step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+        return acc, loader, state, step
+
+    def train(step, state, it, n):
+        losses = []
+        for _ in range(n):
+            state, metrics = step(state, next(it))
+            losses.append(float(metrics["loss"]))
+        return state, losses
+
+    try:
+        acc, loader, state, step = setup(dev)
+        it = iter(loader)
+        state, _ = train(step, state, it, 2)
+        acc.save_state(train_state=state)  # checkpoint_0, step 2
+        state, losses = train(step, state, it, 3)
+        sums = leaf_checksums(state)
+        state = acc.load_state(train_state=state)
+        it = iter(loader)
+        state, again = train(step, state, it, 3)
+        res["round_bitwise"] = again == losses and leaf_checksums(state) == sums
+
+        # checkpoint_1 valid (step 5), checkpoint_2 corrupt (step 6), checkpoint_3
+        # uncommitted (step 7): the load quarantines 3 and 2 and restores step 5.
+        for _ in range(3):
+            acc.save_state(train_state=state)
+            state, _ = train(step, state, it, 1)
+        base = root / "project" / "checkpoints"
+        victim = sorted((base / "checkpoint_2" / "sharded_state").glob("*.bin"))[0]
+        data = bytearray(victim.read_bytes())
+        data[len(data) // 2] ^= 0xFF
+        victim.write_bytes(bytes(data))
+        (base / "checkpoint_3" / ck.COMMIT_MARKER).unlink()
+        state = acc.load_state(train_state=state)
+        res["quarantined"] = acc.checkpoints_quarantined
+        res["fallback_step"] = state.step
+        res["quarantine_dir"] = sorted(p.name for p in (base / ck.QUARANTINE_DIR).iterdir())
+        try:
+            acc.load_state(str(base / ck.QUARANTINE_DIR / "checkpoint_2"), train_state=state)
+            res["explicit_corrupt_raised"] = False
+        except ck.CheckpointCorruptError as e:
+            res["explicit_corrupt_raised"] = "sha256 mismatch" in str(e)
+        # Next step on the card from the restored step-5 state, for the CPU comparison.
+        card_path = acc.save_state(str(root / "card"), train_state=state)
+        card_batch = next(iter(loader))
+        _, metrics = step(state, card_batch)
+        card_loss = float(metrics["loss"])
+
+        # Rotation: 5 saves with total_limit=2, the 4th crashed before its marker. The
+        # JAX rule keeps limit - 1 committed snapshots before each save and never the
+        # newest committed one: checkpoint_2 and checkpoint_4 survive (3 uncommitted).
+        acc_r, _, state_r, _ = setup(dev, project=root / "rotation", total_limit=2)
+        for i in range(5):
+            acc_r.save_state(train_state=state_r)
+            if i == 3:
+                (root / "rotation" / "checkpoints" / "checkpoint_3" / ck.COMMIT_MARKER).unlink()
+        res["rotation_survivors"] = sorted(
+            p.name for p in (root / "rotation" / "checkpoints").glob("checkpoint_*"))
+        res["rotation_expected"] = ["checkpoint_2", "checkpoint_3", "checkpoint_4"]
+
+        # The card's checkpoint into a CPU accelerator's state, and its next step.
+        acc_c, loader_c, state_c, step_c = setup("cpu", project=root / "cpu")
+        state_c = acc_c.load_state(card_path, train_state=state_c)
+        _, metrics = step_c(state_c, {"tokens": card_batch["tokens"].cpu()})
+        cpu_loss = float(metrics["loss"])
+        res.update(card_next_loss=card_loss, cpu_next_loss=cpu_loss,
+                   cpu_loss_rel_err=abs(card_loss - cpu_loss) / abs(cpu_loss), cpu_tol_rel=1e-4)
+        ok = {"round_bitwise": res["round_bitwise"], "quarantined": res["quarantined"] == 2,
+              "fallback": res["fallback_step"] == 5,
+              "quarantine_dir": res["quarantine_dir"] == ["checkpoint_2", "checkpoint_3"],
+              "explicit_corrupt_raised": res["explicit_corrupt_raised"],
+              "rotation": res["rotation_survivors"] == res["rotation_expected"],
+              "cpu_load": res["cpu_loss_rel_err"] <= 1e-4}
+        res["checks"], res["ok"] = ok, all(ok.values())
+        emit(res)
+        if not res["ok"]:
+            raise PhaseFailed("checkpoint_debug failed its checks",
+                              [k for k, v in ok.items() if not v])
+        return res
+    finally:
+        ck.wait_for_async_save()
+        shutil.rmtree(root, ignore_errors=True)
+        _fresh_state_singletons()
+
+
 # ------------------------------------------------------------- phase 11: int8 matmul
 # The serving path's int8 projections at Llama-3-8B's widths: leaf → (K, N).
 INT8_LAYER = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024),
@@ -2567,7 +3002,8 @@ def phase_main_int8(dev) -> int:
     emit(res8)
     if not res8["ok"]:
         raise SystemExit("int8 super-step main path failed its checks")
-    prof8 = {**profile_decode(run["eng"], run["rng"], cfg.vocab_size), "weights": "int8"}
+    prof8 = {**profile_decode(run["eng"], run["rng"], cfg.vocab_size,
+                              steps=MULTI_PROFILE_STEPS), "weights": "int8"}
     emit(prof8)
     one_kernel_per_call(prof8, int8=True)
     del run
@@ -3170,6 +3606,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_fused = run_phase("train_fused", phase_train_main, dev, "fused",
                             first_loss=train["losses"][0])
+    # Training I/O (slice 11): save and resume at 8B width, then the checkpoint rules.
+    torch.cuda.empty_cache()
+    resume = run_phase("train_resume", phase_train_resume, dev)
+    run_phase("checkpoint_debug", phase_checkpoint_debug, dev)
 
     # Int8 weight-only serving (slice 4).
     torch.cuda.empty_cache()
@@ -3189,7 +3629,7 @@ def main() -> int:
     train_tp = run_phase("train_tp", phase_train_tp, dev, train["losses"][0])
     emit({"kernels": run_phase("kernels", kernel_rows, kern, serve, flash, adamw,
                                xent, train, train_fused, int8, serve_int8, partial,
-                               train_tp, serve_multi)})
+                               train_tp, serve_multi, resume)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -3197,10 +3637,17 @@ def main() -> int:
 
 
 def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve_int8,
-                partial, train_tp, serve_multi) -> list:
+                partial, train_tp, serve_multi, resume) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results. The
     serving kernels' launches add their main paths' runs: N = 1 and the super-step's
-    (eager launches plus graph nodes times replays)."""
+    (eager launches plus graph nodes times replays); the training kernels' add
+    train_main's and train_resume's."""
+
+    def train_launches(kernel):
+        by_path = {"train_main": train["launches"][kernel],
+                   "train_resume": resume["launches"][kernel]}
+        return sum(by_path.values()), {"launches_by_path": by_path}
+
     csrc, fa_py = "accelerate_tpu_torch/csrc/", "accelerate_tpu/ops/flash_attention.py"
     ft, fe = flash["times"], flash["errors"]["max_abs"]
     # One library call computes dq, dk and dv together: its time stands in both rows,
@@ -3234,19 +3681,19 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                     device_kernels_per_decode_step_int8=serve_int8["profile"][
                         "paged_attention_kernels_per_step"]),
         _kernel_row("flash_fwd", csrc + "flash_attention.cu", fa_py + ":155",
-                    train["launches"]["flash_fwd"], max(fe["o"], fe["lse"]), ft["fwd"],
+                    train_launches("flash_fwd")[0], max(fe["o"], fe["lse"]), ft["fwd"],
                     "scaled_dot_product_attention forward (flash, enable_gqa)",
-                    design=FLASH_DESIGN),
+                    design=FLASH_DESIGN, **train_launches("flash_fwd")[1]),
         _kernel_row("flash_bwd_dq", csrc + "flash_attention.cu", fa_py + ":343",
-                    train["launches"]["flash_bwd_dq"], fe["dq"], ft["dq"], bwd_library,
-                    design=FLASH_DESIGN),
+                    train_launches("flash_bwd_dq")[0], fe["dq"], ft["dq"], bwd_library,
+                    design=FLASH_DESIGN, **train_launches("flash_bwd_dq")[1]),
         _kernel_row("flash_bwd_dkv", csrc + "flash_attention.cu", fa_py + ":422",
-                    train["launches"]["flash_bwd_dkv"], max(fe["dk"], fe["dv"]), ft["dkv"],
-                    bwd_library, design=FLASH_DESIGN),
+                    train_launches("flash_bwd_dkv")[0], max(fe["dk"], fe["dv"]), ft["dkv"],
+                    bwd_library, design=FLASH_DESIGN, **train_launches("flash_bwd_dkv")[1]),
         _kernel_row("fused_adamw", csrc + "fused_adamw.cu",
-                    "accelerate_tpu/ops/fused_optim.py:101", train["launches"]["fused_adamw"],
+                    "accelerate_tpu/ops/fused_optim.py:101", train_launches("fused_adamw")[0],
                     max(adamw["max_abs_err_fp32"], adamw["max_abs_err_bf16"]), adamw,
-                    "torch._fused_adamw_"),
+                    "torch._fused_adamw_", **train_launches("fused_adamw")[1]),
         _kernel_row("fused_xent_fwd", csrc + "fused_xent.cu", fx_py + ":82",
                     train_fused["launches"]["fused_xent_fwd"], max(xe["nll"], xe["lse"]),
                     xt["fwd"], None, **xent_extra, design=XENT_FWD_DESIGN,

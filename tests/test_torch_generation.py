@@ -135,3 +135,48 @@ def test_score_and_perplexity_match_jax(setup, masked):
     want_p = float(jl.perplexity(jparams, jnp.asarray(tokens), JCFG, m_j))
     got_p = float(tl.perplexity(tparams, torch.from_numpy(tokens), TCFG, m_t))
     np.testing.assert_allclose(got_p, want_p, rtol=1e-5)
+
+
+def test_generate_caches_released_and_bounded_in_bytes(setup, monkeypatch):
+    """``generate`` keeps its (prefill, decode) pair and the KV cache it holds for later
+    calls; ``Accelerator.free_memory()`` empties that cache; under a bound of a few
+    bytes a new entry evicts the least recently used one, and a call after an eviction
+    builds a new cache and gives the same tokens."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+
+    _, tparams, prompt, mask = setup
+    tgen.release_generate_caches()
+
+    def run(n):
+        return tl.generate(tparams, prompt, TCFG, tgen.GenerationConfig(max_new_tokens=n),
+                           prompt_mask=mask)
+
+    first = run(4)
+    assert [k[:3] for k in tgen._GEN_CACHE] == [("fns", TCFG, 64)]
+    held = tgen.held_bytes()
+    assert held >= 2 * TCFG.n_layers * 3 * 64 * TCFG.n_kv_heads * TCFG.head_dim * 4
+    # A second batch size keeps a second cache in the same pair.
+    tl.generate(tparams, prompt[:2], TCFG, tgen.GenerationConfig(max_new_tokens=4),
+                prompt_mask=mask[:2])
+    assert len(tgen._GEN_CACHE) == 1 and tgen.held_bytes() > held
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    try:
+        Accelerator(device="cpu").free_memory()
+    finally:
+        for cls in (AcceleratorState, GradientState, PartialState):
+            cls._reset_state()
+    assert len(tgen._GEN_CACHE) == 0 and tgen.held_bytes() == 0
+    assert tgen.generate_loop.last_step is None
+
+    monkeypatch.setattr(tgen, "GENERATE_CACHE_BYTES", 16)
+    run(4)
+    run(60)  # a 128-slot cache: evicts the 64-slot pair, least recently used
+    assert [k[2] for k in tgen._GEN_CACHE] == [128]
+    assert torch.equal(run(4), first)
+    assert [k[2] for k in tgen._GEN_CACHE] == [64]
+    monkeypatch.setattr(tgen, "GENERATE_CACHE_BYTES", 2 * held + tgen.held_bytes())
+    run(60)
+    assert [k[2] for k in tgen._GEN_CACHE] == [64, 128]
+    tgen.release_generate_caches()

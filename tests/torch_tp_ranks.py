@@ -175,6 +175,162 @@ def mean_loss_train_steps(np_params, batches, mesh_kw: dict, lr: float,
     return out
 
 
+def collectives(seed: int) -> dict:
+    """The host-level collectives of ``utils.operations`` on this rank's inputs (made
+    from ``seed`` and the rank): gather (a 2-D leaf and a 0-d one), gather_object,
+    reduce (sum, mean, scaled), broadcast, broadcast_object_list, pad_across_processes
+    (at the end and first), ``set_seed(device_specific=True)`` then
+    ``synchronize_rng_states`` (Python, numpy, torch and a generator), and debug mode's
+    refusal of mismatched shapes."""
+    import os
+
+    import torch.distributed as dist
+
+    from accelerate_tpu_torch.utils import operations as ops
+
+    _threads()
+    rank = dist.get_rank()
+    rng = np.random.default_rng(seed + rank)
+    x = torch.tensor(rng.standard_normal((2, 3)).astype(np.float32))
+    out = {
+        "x": x.numpy(),
+        "gather": ops.gather({"x": x, "s": torch.tensor(float(rank))}),
+        "gather_object": ops.gather_object([{"rank": rank}]),
+        "reduce_sum": ops.reduce(x, "sum").numpy(),
+        "reduce_mean": ops.reduce(x, "mean").numpy(),
+        "reduce_scaled": ops.reduce(x, "sum", scale=0.5).numpy(),
+        "broadcast": ops.broadcast({"x": x.clone()}, from_process=1)["x"].numpy(),
+        "objects": ops.broadcast_object_list([rank, f"from {rank}"], from_process=1),
+        "pad": ops.pad_across_processes(torch.full((rank + 1, 2), rank + 1)).numpy(),
+        "pad_first": ops.pad_across_processes(torch.full((2, rank + 2), rank + 1), dim=1,
+                                              pad_index=-1, pad_first=True).numpy(),
+    }
+    out = {k: (v if not isinstance(v, dict) else
+               {kk: vv.numpy() if torch.is_tensor(vv) else vv for kk, vv in v.items()})
+           for k, v in out.items()}
+    import random
+
+    from accelerate_tpu_torch.utils.random import set_seed, synchronize_rng_states
+
+    set_seed(100, device_specific=True)  # a seed of its own on each rank
+    out["own_draw"] = float(torch.rand(1))
+    synchronize_rng_states(["python", "numpy", "torch"])
+    gen = torch.Generator().manual_seed(rank)
+    synchronize_rng_states(["generator"], generator=gen)
+    out["synced_draws"] = [random.random(), float(np.random.rand()), float(torch.rand(1)),
+                           float(torch.rand(1, generator=gen))]
+    os.environ["ACCELERATE_DEBUG_MODE"] = "1"
+    try:
+        ops.gather(torch.zeros(rank + 1))
+        out["debug_mode"] = "no error"
+    except ops.DistributedOperationException as e:
+        out["debug_mode"] = str(e)
+    finally:
+        del os.environ["ACCELERATE_DEBUG_MODE"]
+    return out
+
+
+def dispatched_batches(n: int, batch_size: int, split_batches: bool) -> dict:
+    """A ``DataLoaderDispatcher`` over ``n`` rows (only rank 0 reads): this rank's
+    batches, and the gradient state's end flag and remainder at each."""
+    from accelerate_tpu_torch.data_loader import DataLoader, prepare_data_loader
+    from accelerate_tpu_torch.state import GradientState
+
+    _threads()
+
+    class Rows:
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return {"x": np.float32(i), "y": np.arange(i, i + 2)}
+
+    loader = prepare_data_loader(DataLoader(Rows(), batch_size=batch_size), device="cpu",
+                                 dispatch_batches=True, split_batches=split_batches)
+    gs = GradientState()
+    out = {"x": [], "y": [], "end": [], "remainder": [], "len": len(loader)}
+    for batch in loader:
+        out["x"].append(batch["x"].numpy())
+        out["y"].append(batch["y"].numpy())
+        out["end"].append(gs.end_of_dataloader)
+        out["remainder"].append(gs.remainder)
+    return out
+
+
+def accelerator_loader(n: int, batch_size: int, mesh_kw: dict) -> dict:
+    """``Accelerator.prepare`` of a data loader under a mesh: the global batches each
+    rank sees, ``gather_for_metrics`` of the rank's slice of each (trimmed at the
+    end), and ``reduce`` of the rank index."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.data_loader import DataLoader
+    from accelerate_tpu_torch.parallel import MeshConfig
+    from accelerate_tpu_torch.parallel.mesh import mesh_batch_size_divisor
+    from accelerate_tpu_torch.utils.constants import BATCH_AXES
+
+    _threads()
+
+    class Rows:
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return {"x": np.float32(i)}
+
+    acc = Accelerator(device="cpu", mesh_config=MeshConfig(**mesh_kw))
+    loader = acc.prepare(DataLoader(Rows(), batch_size=batch_size))
+    k, i = mesh_batch_size_divisor(acc.mesh), acc.mesh.axis_index(BATCH_AXES)
+    out = {"batches": [], "metrics": []}
+    for batch in loader:
+        x = batch["x"]
+        out["batches"].append(x.numpy())
+        per = x.shape[0] // k
+        out["metrics"].append(acc.gather_for_metrics(x[i * per:(i + 1) * per]).numpy())
+    out["reduce"] = float(acc.reduce(torch.tensor(float(i))))
+    return out
+
+
+def tp_checkpoint_round_trip(np_params, batches, cfg_kw: dict, mesh_kw: dict, lr: float,
+                             directory: str) -> dict:
+    """A tp train state saved after one step (each rank its own shards), trained on,
+    loaded back in place and trained again: per phase the losses, whether the reloaded
+    shards equal the saved ones, the files in the state directory and the shards'
+    shapes."""
+    import os
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_from_jax
+    from accelerate_tpu_torch.ops.fused_optim import fused_adamw
+    from accelerate_tpu_torch.parallel import MeshConfig
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    _threads()
+    cfg = _config(cfg_kw)
+    acc = Accelerator(device="cpu", mesh_config=MeshConfig(**mesh_kw))
+    specs = llama.partition_specs(cfg)
+    state = acc.create_train_state(
+        params_from_jax(np_params, cfg, device="cpu", master_dtype=torch.float32),
+        fused_adamw(lr), partition_specs=specs)
+    step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+    state, _ = step(state, batches[0])
+    path = acc.save_state(os.path.join(directory, "ckpt"), train_state=state)
+    saved = [t.clone() for t in tree_leaves(state.params)]
+    first = []
+    for batch in batches[1:]:
+        state, m = step(state, batch)
+        first.append(float(m["loss"]))
+    state = acc.load_state(path, train_state=state)
+    restored = all(torch.equal(a, b) for a, b in zip(saved, tree_leaves(state.params)))
+    again = []
+    for batch in batches[1:]:
+        state, m = step(state, batch)
+        again.append(float(m["loss"]))
+    files = sorted(os.listdir(os.path.join(path, "sharded_state")))
+    shards = [tuple(t.shape) for t in tree_leaves(state.params)]
+    return {"first": first, "again": again, "restored": restored, "files": files,
+            "shards": shards, "step": state.step}
+
+
 def run_all(jobs) -> list:
     """Each ``(function name, args)`` of ``jobs`` in turn, in one spawn of the ranks:
     their results in order."""
