@@ -613,11 +613,15 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, rng=None) -> torch.Tens
 
 # ----------------------------------------------------------------------- cached generation
 def init_cache(cfg: LlamaConfig, batch_size: int, max_len: int, dtype=None,
-               quantized: Optional[bool] = None, device=None) -> dict:
+               quantized: Optional[bool] = None, device=None,
+               device_index: bool = False) -> dict:
     """Empty dense KV cache for ``batch_size`` sequences of up to ``max_len`` tokens:
     ``{"layers": [{"k": [B,C,K,hd], "v": ...}, ...], "valid": [B,C] bool, "index": int}``
     — ``valid`` marks filled, non-pad slots, ``index`` is the next write slot.
-    ``quantized`` (default ``cfg.kv_quant``): int8 k/v plus fp32 scales."""
+    ``quantized`` (default ``cfg.kv_quant``): int8 k/v plus fp32 scales.
+    ``device_index``: the index is a 0-d int64 tensor on the cache's device instead, so
+    that a forward replayed from a CUDA graph reads the write slot there (a Python int
+    would be baked into the graph) and the caller advances it in place."""
     quantized = cfg.kv_quant if quantized is None else quantized
     dtype = dtype or cfg.dtype
     dev = resolve_device(device)
@@ -628,7 +632,7 @@ def init_cache(cfg: LlamaConfig, batch_size: int, max_len: int, dtype=None,
             for _ in range(cfg.n_layers)
         ],
         "valid": torch.zeros((batch_size, max_len), dtype=torch.bool, device=dev),
-        "index": 0,
+        "index": torch.zeros((), dtype=torch.long, device=dev) if device_index else 0,
     }
 
 
@@ -775,7 +779,10 @@ def forward_cached(params: dict, tokens: torch.Tensor, cache: dict, cfg: LlamaCo
     """Write ``tokens`` [B,T] into the cache at its current index (in place) and return
     (fp32 logits, cache) — logits [B,T,V], or [B,1,V] with ``last_only``. Prefill
     passes the left-padded prompt with ``token_mask`` False on pads. ``cache["index"]``
-    may be a 0-d device tensor; the returned cache then holds ``index + T`` as one."""
+    may be a 0-d device tensor (``init_cache(device_index=True)``); the returned cache
+    then holds ``index + T`` as one, and nothing in the call waits on the host, so it
+    can be captured into a CUDA graph (``generate``'s decode step, the serving
+    engine's prefill programs)."""
     T = tokens.shape[1]
     index, positions, valid = _cache_advance(cache, tokens, token_mask)
     x = _embed(params, tokens, cfg)
@@ -899,8 +906,8 @@ def _make_gen_fns(cfg: LlamaConfig, max_len: int):
         key = (prompt.shape[0], prompt.device)
         cache = caches.get(key)
         if cache is None:
-            cache = init_cache(cfg, prompt.shape[0], max_len, device=prompt.device)
-            cache["index"] = torch.zeros((), dtype=torch.long, device=prompt.device)
+            cache = init_cache(cfg, prompt.shape[0], max_len, device=prompt.device,
+                               device_index=True)
             caches[key] = cache
         else:
             cache["valid"].zero_()

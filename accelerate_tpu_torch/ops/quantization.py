@@ -74,6 +74,14 @@ NF4_CODEBOOK = torch.tensor(
 )
 
 
+@functools.lru_cache(maxsize=None)
+def _nf4_codebook(device: torch.device) -> torch.Tensor:
+    """``NF4_CODEBOOK`` on ``device``, copied there once: a dequantize inside a CUDA
+    graph capture (the serving engine's prefill programs) may not copy from the host.
+    Callers never write to it."""
+    return NF4_CODEBOOK.to(device)
+
+
 @dataclasses.dataclass
 class BnbQuantizationConfig:
     """Quantization knobs (the JAX ``BnbQuantizationConfig``, validated the same way)."""
@@ -155,7 +163,7 @@ def quantize_weight(w: torch.Tensor, scheme: str = "int8", block_size: int = 64)
     if scheme == "int4":
         codes = torch.clamp(torch.round(normed * 7.0) + 8, 0, 15).to(torch.uint8)
     else:
-        cb = NF4_CODEBOOK.to(w.device)
+        cb = _nf4_codebook(w.device)
         codes = (normed[..., None] - cb).abs().argmin(dim=-1).to(torch.uint8)
     flat_codes = codes.reshape(-1)
     packed = flat_codes[0::2] | (flat_codes[1::2] << 4)
@@ -177,7 +185,7 @@ def dequantize_weight(qw: QuantizedWeight, dtype=torch.float32) -> torch.Tensor:
         centred = codes.float() - 8.0
         values = centred / torch.full_like(centred, 7.0)  # a tensor divisor, as above
     else:  # nf4
-        values = NF4_CODEBOOK.to(codes.device)[codes.long()]
+        values = _nf4_codebook(codes.device)[codes.long()]
     blocks = values.reshape(-1, qw.block_size) * qw.scales[:, None]
     n = math.prod(qw.shape)
     return blocks.reshape(-1)[:n].reshape(qw.shape).to(dtype)

@@ -1,19 +1,33 @@
 """Continuous-batching inference engine (slot-based KV cache, per-slot positions).
 
 Counterpart of ``accelerate_tpu/serving.py``'s ``ContinuousBatcher`` for the plain
-decode path, dense (``page_size=0``) and paged (``page_size > 0``):
+decode path and its admission path, dense (``page_size=0``) and paged
+(``page_size > 0``):
 
 - ``max_slots`` decode lanes share one cache; each lane has its own write position.
-- Admission runs a chunked single-row prefill (``llama.forward_cached`` over a dense
-  ``[1, max_len]`` row cache, the prompt left-padded to a whole number of
-  ``prompt_bucket`` chunks) and copies the row into the engine cache: into the lane's
-  row (dense), or through the lane's block table into pool pages (paged).
+- Admission prefills one row (``llama.forward_cached`` over a dense ``[1, max_len]``
+  row cache) and copies it into the engine cache: into the lane's row (dense), or
+  through the lane's block table into pool pages (paged). The prompt is left-padded
+  to a whole number of ``prompt_bucket`` chunks, or, with ``prompt_buckets``, to the
+  smallest rung of that ladder that fits it (one dispatch; prompts past the top rung
+  fall back to chunks); with ``prefix_cache`` it is RIGHT-aligned in chunks instead
+  and resumes from the longest registered full-chunk prefix: a clone of the row cache
+  (dense) or a refcounted page list whose partial boundary page is copied on write
+  (paged, ``paged_kv.BlockManager``). The registry is an LRU of ``prefix_cache``
+  entries; under pool pressure it yields its pages before an admission defers.
+- On the card every prefill program (a bucket rung, the first chunk and the chunk
+  append, the prefix layout's full-logits and keep programs) is one CUDA graph per
+  ``(program, width)``, its inputs in static row and mask buffers and its row cache
+  one static buffer whose write index is a device tensor; the graphs share one
+  memory pool (each replay's outputs are consumed before another prefill replays).
+  ``warm_programs()`` captures every graph the engine can dispatch ahead of traffic.
 - Each ``step()`` advances every lane one token with ONE batched forward
   (``llama.forward_slots`` / ``forward_slots_paged``); paged decode attention runs in
-  the CUDA kernel ``ops/paged_attention.py`` on the card.
-- Paged admission allocates the lane's pages for prompt + budget up front
-  (``paged_kv.BlockManager``) and DEFERS in FIFO order when the pool is short, so no
-  table entry appears during a multi-step super-step.
+  the CUDA kernel ``ops/paged_attention.py`` on the card, over block tables whose
+  lanes may share prefix pages.
+- Paged admission allocates the lane's pages for prompt + budget up front (adopting a
+  registered prefix's full pages read-only) and DEFERS in FIFO order when the pool is
+  short, so no table entry appears during a multi-step super-step.
 - ``decode_steps=N > 1`` runs N decode steps per dispatch (``llama.forward_slots_multi``:
   in-step sampling, EOS/budget masking and lane freezing) and drains the ``[N, B]``
   token buffer and the ``[B]`` counts with ONE host read; on the card the super-step
@@ -28,13 +42,16 @@ device and leaves every weight to ``models.llama``.
 
 The JAX engine donates its cache to jitted programs; this one updates the cache
 tensors in place. Greedy output matches the JAX engine token for token at fp32 on the
-CPU. Sampled requests take an integer ``seed``: emission ``i`` draws from a generator
-seeded from ``(seed, i)`` (``generation.emission_generator``), so a request's tokens do
-not depend on what else is in the batch.
+CPU, and so do the prefix and bucket counters. Sampled requests take an integer
+``seed``: emission ``i`` draws from a generator seeded from ``(seed, i)``
+(``generation.emission_generator``), so a request's tokens do not depend on what else
+is in the batch.
 
-Not in this slice (the constructor does not take them): prefix caching, speculative
-decoding, disaggregated roles, fault injection and recovery, telemetry and tracing,
-the compile cache and bucket ladders.
+Not in this slice (the constructor does not take them): speculative decoding,
+disaggregated roles and KV handoffs, fault injection and recovery, telemetry and
+tracing, and the compile cache itself (the JAX engine's ``compile_cache`` and its
+bucket ``ladder()``; ``warm_programs`` captures graphs in the process instead of
+filling an AOT cache).
 """
 
 from __future__ import annotations
@@ -42,12 +59,13 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from .compile_cache import pick_bucket
 from .generation import (GenerationConfig, emission_generator, gumbel_noise, sampling_core,
                          sampling_core_dyn_k)
 from .models import llama
@@ -210,22 +228,99 @@ def _decode_multi_step_paged(params, cache, tables, tokens, positions, active, b
     return tok_buf, counts, logits, cache
 
 
-def _prefill_first_chunk(params, row, mask, cfg, max_len: int):
-    """First prefill chunk into a fresh single-row cache → (greedy [1], last logits
-    [1, V], row cache)."""
-    cache = llama.init_cache(cfg, 1, max_len, device=row.device)
-    logits, cache = llama.forward_cached(params, row, cache, cfg, token_mask=mask,
-                                         last_only=True)
-    last = logits[:, -1, :]
-    return torch.argmax(last, dim=-1), last, cache
+@dataclasses.dataclass
+class _PagedPrefix:
+    """One paged prefix-registry entry: the physical pages covering the registered
+    prefix (full shared pages, plus — when the boundary cuts a page — an immutable
+    registry-owned copy of the partial page). The prefix length itself is derived
+    from the registry key at lookup; the entry holds one refcount on every id in
+    ``pages``, and eviction releases them."""
+    pages: np.ndarray  # [n] int32 physical page ids
 
 
-def _prefill_next_chunk(params, row, mask, cache, cfg):
-    """Chunked prefill continuation: append one chunk to an existing row cache."""
-    logits, cache = llama.forward_cached(params, row, cache, cfg, token_mask=mask,
-                                         last_only=True)
+def _gather_row_paged(cache, row_cache, read_ids: np.ndarray, prefix_len: int,
+                      page_size: int):
+    """Reassemble the single-row dense cache ``row_cache`` (in place) from pool pages
+    (paged prefix-cache resume): pages ``read_ids`` [MP] (sentinel entries clamp) laid
+    out as the ``[1, max_len]`` row the chunk programs read, slots past
+    ``prefix_len`` invalid and the row's write index (a device tensor) at
+    ``prefix_len``. The pool is only read: the registered pages stay live for other
+    adopters."""
+    MP = read_ids.shape[0]
+    valid = row_cache["valid"]
+    max_len, dev = valid.shape[1], valid.device
+    num_pages = cache["layers"][0]["k"].shape[0]
+    ids = torch.as_tensor(np.minimum(read_ids, num_pages - 1), dtype=torch.long, device=dev)
+    for planes, row in zip(cache["layers"], row_cache["layers"]):
+        for key, pool in planes.items():
+            pages = pool.index_select(0, ids)                     # [MP, ps, ...]
+            row[key][0].copy_(pages.reshape(MP * page_size, *pages.shape[2:])[:max_len])
+    valid.copy_((torch.arange(max_len, device=dev) < prefix_len)[None])
+    row_cache["index"].fill_(prefix_len)
+    return row_cache
+
+
+def _copy_page(cache, src: int, dst: int):
+    """Copy pool page ``src`` → ``dst`` in every plane, int8 KV's scale planes
+    included (the registry-side COW: an immutable snapshot of a partial boundary page
+    whose owning lane keeps writing its own copy)."""
+    for planes in cache["layers"]:
+        for pool in planes.values():
+            pool[dst].copy_(pool[src])
+    return cache
+
+
+def _snapshot_row(row_cache) -> dict:
+    """A dense prefix-registry entry: a clone of the row cache (the prefill programs
+    write one static row cache in place, so the registry keeps copies)."""
+    return {"layers": [{k: t.clone() for k, t in planes.items()}
+                       for planes in row_cache["layers"]],
+            "valid": row_cache["valid"].clone(), "index": row_cache["index"].clone()}
+
+
+def _restore_row(row_cache, snap: dict) -> None:
+    """Copy a registry snapshot back into the row cache (in place)."""
+    for planes, saved in zip(row_cache["layers"], snap["layers"]):
+        for key, t in planes.items():
+            t.copy_(saved[key])
+    row_cache["valid"].copy_(snap["valid"])
+    row_cache["index"].copy_(snap["index"])
+
+
+def _prefill_append(params, row, mask, cache, cfg, last_only: bool):
+    """One prefill chunk appended to the row cache at its device write index (in
+    place; the index advances by the chunk's width) → ``(greedy [1], last logits
+    [1, V])`` with ``last_only``, else the per-position logits ``[1, T, V]`` (the
+    right-aligned prefix layout indexes its real last token, which may sit before
+    trailing pads). Nothing here waits on the host: a CUDA graph holds it."""
+    logits, new = llama.forward_cached(params, row, cache, cfg, token_mask=mask,
+                                       last_only=last_only)
+    cache["index"].copy_(new["index"])
+    if not last_only:
+        return logits
     last = logits[:, -1, :]
-    return torch.argmax(last, dim=-1), last, cache
+    return torch.argmax(last, dim=-1), last
+
+
+def _prefill_fresh(params, row, mask, cache, cfg, last_only: bool):
+    """:func:`_prefill_append` into the row cache emptied first (zero planes, no
+    valid slot, index 0: ``init_cache``'s state): a bucket rung's single dispatch, the
+    first chunk of a chunked prefill, the first chunk of the prefix layout."""
+    for planes in cache["layers"]:
+        for t in planes.values():
+            t.zero_()
+    cache["valid"].zero_()
+    cache["index"].zero_()
+    return _prefill_append(params, row, mask, cache, cfg, last_only)
+
+
+#: The prefill programs, by name → (function, last_only, the JAX program's name).
+_PREFILL_PROGRAMS = {
+    "prefill": (_prefill_fresh, True, "serving.prefill"),
+    "chunk": (_prefill_append, True, "serving.prefill_chunk"),
+    "full_logits": (_prefill_fresh, False, "serving.prefill_full_logits"),
+    "keep": (_prefill_append, False, "serving.prefill_chunk_keep"),
+}
 
 
 class ContinuousBatcher:
@@ -237,11 +332,17 @@ class ContinuousBatcher:
     forward (or up to ``decode_steps`` tokens in one super-step), and returns the
     requests finished this step. ``run()`` drains everything. The engine runs on the
     device its params live on.
+
+    ``prompt_buckets`` pads each prompt to the smallest rung that fits it and its
+    budget (one prefill dispatch; otherwise chunks of ``prompt_bucket``);
+    ``prefix_cache`` keeps up to that many full-chunk prefixes for reuse and takes
+    precedence over ``prompt_buckets``, as in the JAX engine.
     """
 
     def __init__(self, params, cfg, max_slots: int = 8, max_len: int = 512,
-                 prompt_bucket: int = 64, page_size: int = 0,
-                 kv_pages: Optional[int] = None, decode_steps: int = 1):
+                 prompt_bucket: int = 64, prefix_cache: int = 0, prompt_buckets=None,
+                 page_size: int = 0, kv_pages: Optional[int] = None,
+                 decode_steps: int = 1):
         llama.check_supported(cfg)
         self.params = params
         self.cfg = cfg
@@ -249,6 +350,36 @@ class ContinuousBatcher:
         self.max_slots = max_slots
         self.max_len = max_len
         self.prompt_bucket = prompt_bucket
+        # Shape-bucketed prefill: one program (on the card one graph) per rung instead
+        # of per chunk count; the prefix cache keeps its right-aligned chunk layout
+        # (snapshots must align across prompt lengths), so it takes precedence.
+        if prompt_buckets is not None:
+            self.prompt_buckets = tuple(sorted({int(b) for b in prompt_buckets}))
+            if any(b < 1 or b > max_len for b in self.prompt_buckets):
+                raise ValueError(
+                    f"prompt_buckets={self.prompt_buckets} must lie in [1, max_len={max_len}]")
+        else:
+            self.prompt_buckets = None
+        self.bucket_hits = 0    # prompt admitted into a bucket already dispatched
+        self.bucket_misses = 0  # first prompt of a bucket
+        self._buckets_seen: set = set()
+        if not isinstance(prefix_cache, (int, np.integer)) or isinstance(prefix_cache, bool):
+            raise TypeError(f"prefix_cache must be an int, got {type(prefix_cache).__name__}")
+        if prefix_cache < 0:
+            raise ValueError(f"prefix_cache={prefix_cache} must be >= 0 (0 = off)")
+        #: Prefix registry: full-chunk prompt prefix bytes → a row-cache clone (dense)
+        #: or a ``_PagedPrefix`` (paged), least recently used first.
+        self.prefix_cache_size = int(prefix_cache)
+        self._prefix_reg: OrderedDict = OrderedDict()
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_evictions = 0
+        # Misses split into capacity misses (the key was registered and evicted —
+        # remembered in a bounded key set) and key misses (never seen).
+        self.prefix_capacity_misses = 0
+        self.prefix_key_misses = 0
+        self._evicted_keys: OrderedDict = OrderedDict()
+        self._evicted_keys_cap = max(64, 8 * self.prefix_cache_size)
         if not isinstance(page_size, (int, np.integer)) or isinstance(page_size, bool):
             raise TypeError(f"page_size must be an int, got {type(page_size).__name__}")
         if page_size < 0:
@@ -304,12 +435,22 @@ class ContinuousBatcher:
         #: plain function on the CPU.
         self.graphs: dict = {}
         self._mbuf: Optional[dict] = None  # the super-step's static inputs
+        #: Prefill runners by (program, width), as ``graphs``; on the card their graphs
+        #: share one memory pool (``prefill_pool_bytes``).
+        self.prefill_graphs: dict = {}
+        self._prefill_pool = None
+        # The prefill programs' static buffers: the row cache they write (its write
+        # index a device tensor) and, per width, the token row and its mask.
+        self._row = llama.init_cache(cfg, 1, max_len, device=self.device, device_index=True)
+        self._pbuf: dict = {}
 
     # ------------------------------------------------------------------ user API
     def stats(self) -> dict:
-        """Engine counters: queue depth, busy lanes, admission/eviction totals, decode
-        throughput and host-clock time in prefill and decode; paged engines add the
-        page pool's occupancy and churn."""
+        """Engine counters: queue depth, busy lanes, admission/eviction totals, the
+        prefix cache's entries, hits, misses (capacity against key) and evictions, the
+        bucket ladder's hits and misses, decode throughput and host-clock time in
+        prefill and decode; paged engines add the page pool's occupancy, sharing
+        (``kv_shared_pages``) and churn (alloc/free/COW/adopt/defer)."""
         active = sum(r is not None for r in self.slot_req)
         queue_wait_s = 0.0
         if self.queue:
@@ -326,13 +467,24 @@ class ContinuousBatcher:
                 "kv_page_bytes": self.kv_page_bytes,
                 "kv_bytes_in_use": ms["pages_in_use"] * self.kv_page_bytes,
                 "kv_bytes_total": ms["pages_total"] * self.kv_page_bytes,
+                "kv_shared_pages": ms["shared_pages"],
                 "kv_alloc_count": ms["alloc_count"],
                 "kv_free_count": ms["free_count"],
+                "kv_cow_count": ms["cow_count"],
+                "kv_adopt_count": ms["adopt_count"],
                 "kv_defer_count": ms["defer_count"],
             })
         return {
             **kv,
             "peak_active_slots": self.peak_active_slots,
+            "prefix_entries": len(self._prefix_reg),
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+            "prefix_evictions": self.prefix_evictions,
+            "prefix_capacity_misses": self.prefix_capacity_misses,
+            "prefix_key_misses": self.prefix_key_misses,
+            "bucket_hits": self.bucket_hits,
+            "bucket_misses": self.bucket_misses,
             "queued": len(self.queue),
             "queue_wait_s": queue_wait_s,
             "active_slots": active,
@@ -373,9 +525,10 @@ class ContinuousBatcher:
 
     def kv_demand(self, prompt_len: int, max_new: int) -> int:
         """Cache-token cost of one request under this engine's layout: the padded
-        prefill width plus the budget (dense), or the page-granular worst case
-        (paged). Raises ``ValueError`` for unservable geometry and
-        :class:`KVBudgetError` when the demand exceeds the whole page pool."""
+        prefill width (its bucket rung, or whole chunks: the prefix layout's too) plus
+        the budget (dense), or the page-granular worst case (paged). Raises
+        ``ValueError`` for unservable geometry and :class:`KVBudgetError` when the
+        demand exceeds the whole page pool."""
         _, total = self._plan_prefill(prompt_len, max_new)
         if self.paged:
             return self.block_mgr.demand(total + max_new) * self.page_size
@@ -499,19 +652,25 @@ class ContinuousBatcher:
             out = _decode_multi_step(self.params, self.cache, *lanes, self.cfg, N, sample)
         return out[:3]
 
-    def _multi_step(self, active: list[int]) -> list[Request]:
-        """Super-step: ``decode_steps=N`` decode steps in one dispatch (on the card one
-        CUDA graph replay), then ONE read of the ``[N, B]`` token buffer and the counts.
+    def _graph(self, fn: Callable, pool=None):
+        """The runner of ``fn``: a ``CapturedStep`` on the card (run eagerly once,
+        captured, then replayed), ``fn`` itself on the CPU."""
+        if self.device.type == "cuda":
+            return CapturedStep(fn, self.device, pool=pool)
+        return fn
 
-        Finishing lanes freeze inside (EOS / remaining-budget masking; a frozen lane's
-        writes drop, so its last token is never written, as in the N = 1 loop), which
-        makes the streams the N = 1 engine's: greedy lanes take the argmax, sampled lanes
-        the same filter and the noise their emissions would draw. The drain is
-        step-major, lane-minor — generation order, so ``on_token`` transcripts equal the
-        token lists — and clamps each lane to its budget. Admission and eviction act
-        between super-steps."""
-        t0 = time.perf_counter()
-        N, B = self.multi_step, self.max_slots
+    def _super_runner(self, sampled: bool):
+        """The super-step runner of key ``(N, sampled, paged)``, made at first use."""
+        key = (self.multi_step, sampled, self.paged)
+        run = self.graphs.get(key)
+        if run is None:
+            run = self.graphs[key] = self._graph(functools.partial(self._super_step, sampled))
+        return run
+
+    def _load_super_step(self, active: list[int]) -> bool:
+        """Fill the super-step's static inputs for lanes ``active`` (the other lanes
+        idle: frozen at step 0, they write nothing) → whether a live lane samples."""
+        B = self.max_slots
         active_mask = np.zeros((B,), bool)
         budgets = np.ones((B,), np.int32)  # idle lanes: frozen at step 0, never read
         eos_ids = np.full((B,), -1, np.int32)
@@ -541,14 +700,23 @@ class ContinuousBatcher:
             buf[name].copy_(torch.from_numpy(arr))
         if self.paged:
             buf["tables"].copy_(torch.from_numpy(self.block_mgr.tables))
-        key = (N, sampled, self.paged)
-        run = self.graphs.get(key)
-        if run is None:
-            run = functools.partial(self._super_step, sampled)
-            if self.device.type == "cuda":
-                run = CapturedStep(run, self.device)
-            self.graphs[key] = run
-        tok_buf, counts, logits = run()
+        return sampled
+
+    def _multi_step(self, active: list[int]) -> list[Request]:
+        """Super-step: ``decode_steps=N`` decode steps in one dispatch (on the card one
+        CUDA graph replay), then ONE read of the ``[N, B]`` token buffer and the counts.
+
+        Finishing lanes freeze inside (EOS / remaining-budget masking; a frozen lane's
+        writes drop, so its last token is never written, as in the N = 1 loop), which
+        makes the streams the N = 1 engine's: greedy lanes take the argmax, sampled lanes
+        the same filter and the noise their emissions would draw. The drain is
+        step-major, lane-minor — generation order, so ``on_token`` transcripts equal the
+        token lists — and clamps each lane to its budget. Admission and eviction act
+        between super-steps."""
+        t0 = time.perf_counter()
+        N = self.multi_step
+        sampled = self._load_super_step(active)
+        tok_buf, counts, logits = self._super_runner(sampled)()
         self.dispatch_s += time.perf_counter() - t0
         host = torch.cat([tok_buf, counts[None]])
         # While the device runs the super-step, draw the next window's noise of each
@@ -623,11 +791,83 @@ class ContinuousBatcher:
             return out, (n_tokens / dt if dt > 0 else float("inf"))
         return out
 
+    def warm_programs(self, max_new_tokens: int = 32) -> list:
+        """Capture, ahead of traffic, every CUDA graph this engine can dispatch for
+        requests of up to ``max_new_tokens`` new tokens, so that traffic captures none
+        (the JAX engine compiles the same surface into its AOT cache):
+
+        - the super-step of each ``(N, sampled, paged)`` key when ``decode_steps > 1``
+          (both ``sampled`` variants: a mixed workload alternates them);
+        - one prefill per bucket that ``_plan_prefill`` can route such a request to,
+          and the first-chunk + chunk-append pair when one chunk plus the budget fits
+          ``max_len`` (the fall-back of prompts no bucket fits);
+        - with ``prefix_cache``, the prefix layout's full-logits and keep programs
+          instead of the buckets and the pair.
+
+        Each graph's eager first call runs on idle inputs: every lane frozen (the
+        super-step writes nothing) and all-pad rows into the prefill row cache (a
+        scratch buffer). The cache, valid rows, pages, block manager and counters are
+        left as they were. Returns one entry per program: its JAX name, key, capture
+        seconds and pool bytes (graphs already captured report their numbers again);
+        on the CPU, where nothing is captured, the entries only enumerate the
+        surface (``capture_s`` and ``pool_bytes`` None)."""
+        entries = []
+        for key in self._program_surface(max_new_tokens):
+            runners = self.graphs if isinstance(key[0], int) else self.prefill_graphs
+            if self.device.type == "cuda" and key not in runners:
+                self._warm_one(key)
+            run = runners.get(key)
+            name = ("serving.decode_multi" + ("_paged" if self.paged else "")
+                    if isinstance(key[0], int) else _PREFILL_PROGRAMS[key[0]][2])
+            entries.append({"name": name, "key": list(key),
+                            "capture_s": getattr(run, "capture_s", None),
+                            "pool_bytes": getattr(run, "pool_bytes", None)})
+        return entries
+
+    def _program_surface(self, max_new_tokens: int) -> list:
+        """The graph keys ``warm_programs`` covers: ``(N, sampled, paged)`` super-steps,
+        then ``(program, width)`` prefills."""
+        keys = []
+        if self.multi_step > 1:
+            keys += [(self.multi_step, sampled, self.paged) for sampled in (False, True)]
+        if self.prefix_cache_size:
+            keys += [("full_logits", self.prompt_bucket), ("keep", self.prompt_bucket)]
+        else:
+            # Only buckets a request with this budget can land in.
+            keys += [("prefill", b) for b in self.prompt_buckets or ()
+                     if b + max_new_tokens <= self.max_len]
+            if self.prompt_bucket + max_new_tokens <= self.max_len:
+                keys += [("prefill", self.prompt_bucket), ("chunk", self.prompt_bucket)]
+        return list(dict.fromkeys(keys))  # a rung may equal the chunk width
+
+    def _warm_one(self, key: tuple) -> None:
+        """Run the program of graph ``key`` once on idle inputs (on the card its first
+        call: eager, then captured): the super-step with every lane frozen, which
+        writes nothing; a prefill program on an all-pad row into the row cache."""
+        if isinstance(key[0], int):
+            self._load_super_step([])
+            self._super_runner(key[1])()
+        else:
+            pad = np.zeros((1, key[1]), np.int32)
+            self._run_prefill(*key, pad, pad.astype(bool))
+
+    @property
+    def prefill_pool_bytes(self) -> int:
+        """Device bytes of the prefill graphs' shared memory pool (0 on the CPU)."""
+        return sum(getattr(run, "pool_bytes", None) or 0
+                   for run in self.prefill_graphs.values())
+
     # ------------------------------------------------------------------ admission
     def _plan_prefill(self, prompt_len: int, max_new: int):
-        """Chunked prefill layout for one prompt → ``("chunk", total)``: the prompt
-        left-padded to a whole number of ``prompt_bucket`` chunks; raises when that
-        plus the budget does not fit ``max_len``."""
+        """Prefill layout for one prompt: ``("bucket", width)`` when the bucket ladder
+        is on (and no prefix cache) and a rung fits prompt + budget, else
+        ``("chunk", total)``: the prompt padded to a whole number of ``prompt_bucket``
+        chunks; raises when that plus the budget does not fit ``max_len``. Prompts no
+        bucket fits fall back to chunks: bucketing never shrinks the admissible set."""
+        if self.prompt_buckets is not None and not self.prefix_cache_size:
+            bucket = pick_bucket(prompt_len, self.prompt_buckets)
+            if bucket is not None and bucket + max_new <= self.max_len:
+                return "bucket", bucket
         n_chunks = max(1, -(-prompt_len // self.prompt_bucket))
         total = n_chunks * self.prompt_bucket
         if total + max_new > self.max_len:
@@ -653,6 +893,8 @@ class ContinuousBatcher:
                 if prefilled is None:
                     return finished
                 self.queue.popleft()
+                # The first token is read before any other prefill replays (the greedy
+                # token and logits may be a graph's outputs).
                 greedy, logits, prefill_len = prefilled
                 first = (int(greedy[0]) if req.gen.temperature <= 0.0
                          else req._sample(logits[0]))
@@ -676,49 +918,301 @@ class ContinuousBatcher:
     def _prefill_into_slot(self, slot: int, req: Request, plan):
         """Prefill one request and land its KV in lane ``slot`` →
         ``(greedy, logits, prefill_len)``, or None when a paged admission must defer
-        on pool pressure (nothing consumed; the request stays queued)."""
-        if not self.paged:
-            row_cache, greedy, logits, prefill_len = self._prefill(req.prompt, plan)
-            self.cache = _insert_row(self.cache, row_cache, slot)
-            return greedy, logits, prefill_len
-        return self._prefill_into_slot_paged(slot, req, plan)
+        on pool pressure (nothing consumed; the request stays queued). Dense: the
+        row (left-padded, or right-aligned with the prefix cache) is copied into the
+        lane's row; paged: see :meth:`_prefill_into_slot_paged`."""
+        if self.paged:
+            return self._prefill_into_slot_paged(slot, req, plan)
+        if self.prefix_cache_size:
+            out = self._prefill_prefix_cached(req.prompt)
+        else:
+            out = self._prefill(req.prompt, plan)
+        self.cache = _insert_row(self.cache, self._row, slot)
+        return out
 
     def _prefill_into_slot_paged(self, slot: int, req: Request, plan):
+        """Paged admission: allocate the lane's pages (adopting a registered prefix's
+        full pages read-only on a hit, with the divergent partial page re-materialized
+        as an owned one: copy-on-write), prefill the same dense row as the dense
+        engine, scatter it into the owned pages through the write-id map, then
+        register the prompt's prefixes as page lists."""
         mgr = self.block_mgr
-        _, total = plan
-        n_tokens = total + req.gen.max_new_tokens
-        if not mgr.can_admit(n_tokens):
+        ps = self.page_size
+        prompt, max_new = req.prompt, req.gen.max_new_tokens
+        hit_len, entry, lookup_chunks = 0, None, 0
+        if self.prefix_cache_size:
+            n_chunks = max(1, -(-len(prompt) // self.prompt_bucket))
+            total = n_chunks * self.prompt_bucket
+            hit_len, entry, lookup_chunks = self._lookup_prefix_paged(prompt, n_chunks)
+        else:
+            _, total = plan
+        adopted = [] if entry is None else list(entry.pages[: hit_len // ps])
+        cow_partial = hit_len > 0 and hit_len % ps != 0
+        n_tokens = total + max_new
+        # Pool pressure: the registry is a cache and yields to live traffic — evict
+        # LRU entries (releasing their pages) before deferring, then the adopted entry
+        # itself (the request retries as a miss); submit's KVBudgetError bound makes
+        # the bare request fit an otherwise empty pool, so registry pages never starve
+        # an admission once every lane has drained.
+        while not mgr.can_admit(n_tokens, n_adopted=len(adopted)):
+            if self._evict_prefix_lru(keep=entry):
+                continue
+            if entry is not None:
+                hit_len, entry, adopted, cow_partial = 0, None, [], False
+                self._evict_prefix_lru()
+                continue
             mgr.defer_count += 1
             return None
-        row_cache, greedy, logits, prefill_len = self._prefill(req.prompt, plan)
-        ids = mgr.admit(slot, n_tokens)
-        # Row copy: only the pages the prefilled row covers; decode writes continue
-        # directly into the lane's remaining pages.
-        n_row_pages = pages_for(total, self.page_size)
+        # Counted only now, when the admission proceeds: a deferred request repeats
+        # the lookup every step, and an adoption dropped above is served as a miss.
+        if lookup_chunks:
+            if entry is not None:
+                self.prefix_hits += 1
+                self._prefix_reg.move_to_end(prompt[:hit_len].tobytes())
+            else:
+                self._classify_prefix_miss(prompt, lookup_chunks)
+        if self.prefix_cache_size:
+            out = self._prefill_prefix_paged(prompt, hit_len, entry, n_chunks, total)
+        else:
+            out = self._prefill(prompt, plan)
+        ids = mgr.admit(slot, n_tokens, adopted=adopted, cow_partial=cow_partial)
+        # Row scatter: the adopted pages (never written: the last chunk is always
+        # recomputed past them) and everything past the row route to the sentinel;
+        # decode writes continue directly into the lane's remaining pages.
+        n_row_pages = pages_for(total, ps)
         write_ids = np.full((mgr.max_pages,), mgr.SENTINEL, np.int32)
-        write_ids[:n_row_pages] = ids[:n_row_pages]
-        self.cache = _insert_row_paged(self.cache, row_cache, write_ids, slot,
-                                       self.page_size)
-        return greedy, logits, prefill_len
+        write_ids[len(adopted):n_row_pages] = ids[len(adopted):n_row_pages]
+        written = write_ids[write_ids != mgr.SENTINEL]
+        assert (mgr.refcount[written] == 1).all(), "a row scatter would write a shared page"
+        self.cache = _insert_row_paged(self.cache, self._row, write_ids, slot, ps)
+        if self.prefix_cache_size:
+            self._register_prefixes_paged(slot, prompt)
+        return out
+
+    def _lookup_prefix_paged(self, prompt: np.ndarray, n_chunks: int):
+        """Longest registered full-chunk prefix of ``prompt`` → ``(hit length, entry,
+        lookup_chunks)``, capped at ``n_chunks - 1`` chunks (the last chunk is always
+        recomputed, for its logits). Counter-free and LRU-neutral: a deferred
+        admission repeats it every step; ``lookup_chunks > 0`` tells the caller a
+        countable lookup happened."""
+        bucket = self.prompt_bucket
+        full_chunks = min(len(prompt) // bucket, n_chunks - 1)
+        for k in range(full_chunks, 0, -1):
+            hit = self._prefix_reg.get(prompt[: k * bucket].tobytes())
+            if hit is not None:
+                return k * bucket, hit, full_chunks
+        return 0, None, full_chunks
+
+    def _classify_prefix_miss(self, prompt: np.ndarray, full_chunks: int) -> None:
+        """Count one prefix miss, split capacity (key was evicted) vs cold key."""
+        self.prefix_misses += 1
+        bucket = self.prompt_bucket
+        if any(prompt[: k * bucket].tobytes() in self._evicted_keys
+               for k in range(full_chunks, 0, -1)):
+            self.prefix_capacity_misses += 1
+        else:
+            self.prefix_key_misses += 1
+
+    def _prefill_prefix_paged(self, prompt: np.ndarray, hit_len: int, entry,
+                              n_chunks: int, total: int):
+        """Right-aligned chunked prefill resuming from a page-list entry: on a hit the
+        entry's pages are gathered back into the row cache (a copy that skips the
+        prefix's prefill FLOPs) and the remaining chunks run the keep program; on a
+        miss (``entry`` None) the first chunk runs the full-logits program. The
+        caller scatters the row into the lane's own pages."""
+        bucket = self.prompt_bucket
+        row, mask = self._right_aligned(prompt, total)
+        start = hit_len // bucket
+        if entry is not None:
+            read_ids = np.full((self.block_mgr.max_pages,), self.block_mgr.SENTINEL, np.int32)
+            read_ids[: len(entry.pages)] = entry.pages
+            _gather_row_paged(self.cache, self._row, read_ids, hit_len, self.page_size)
+        logits = None
+        for c in range(start, n_chunks):
+            sl = slice(c * bucket, (c + 1) * bucket)
+            name = "keep" if entry is not None or c > start else "full_logits"
+            logits = self._run_prefill(name, bucket, row[:, sl], mask[:, sl])
+        return self._last_of(logits, prompt)
+
+    def _register_prefixes_paged(self, slot: int, prompt: np.ndarray) -> None:
+        """Register every full-chunk prefix of ``prompt`` as a refcounted page list:
+        full pages shared with the lane by refcount and, when the boundary cuts a page,
+        an immutable copy of that page (the lane keeps writing its own) — N entries
+        over one system prompt cost its pages once plus at most one page each."""
+        mgr = self.block_mgr
+        ps = self.page_size
+        bucket = self.prompt_bucket
+        lane_ids = mgr.lane_pages(slot)
+        for c in range(1, len(prompt) // bucket + 1):
+            key = prompt[: c * bucket].tobytes()
+            if key in self._prefix_reg:
+                self._prefix_reg.move_to_end(key)
+                continue
+            p_len = c * bucket
+            n_full = p_len // ps
+            pages = [int(p) for p in lane_ids[:n_full]]
+            if p_len % ps:
+                dst = mgr.take_copy_page()
+                if dst is None:
+                    continue  # pool too tight for a registry copy: skip, not fail
+                self.cache = _copy_page(self.cache, int(lane_ids[n_full]), dst)
+                mgr.retain(pages)
+                pages = pages + [dst]
+            else:
+                mgr.retain(pages)
+            self._register_prefix(key, _PagedPrefix(np.asarray(pages, np.int32)))
+
+    def _run_prefill(self, name: str, width: int, row: np.ndarray, mask: np.ndarray):
+        """Prefill program ``name`` on one ``[1, width]`` token row and its mask,
+        written into the static buffers first; the row cache is ``self._row``. On the
+        card the program replays its graph (captured at its first call), whose
+        outputs the next replay of any prefill graph overwrites."""
+        buf = self._pbuf.get(width)
+        if buf is None:
+            dev = self.device
+            buf = self._pbuf[width] = (torch.zeros((1, width), dtype=torch.int32, device=dev),
+                                       torch.zeros((1, width), dtype=torch.bool, device=dev))
+        buf[0].copy_(torch.from_numpy(row))
+        buf[1].copy_(torch.from_numpy(mask))
+        run = self.prefill_graphs.get((name, width))
+        if run is None:
+            run = self.prefill_graphs[(name, width)] = self._prefill_runner(name, width)
+        return run()
+
+    def _prefill_runner(self, name: str, width: int):
+        """The runner of prefill program ``name`` at ``width``: its graph on the card
+        (all prefill graphs in one shared pool), the plain call on the CPU."""
+        if self.device.type == "cuda" and self._prefill_pool is None:
+            self._prefill_pool = torch.cuda.graph_pool_handle()
+        return self._graph(self._prefill_call(name, width), pool=self._prefill_pool)
+
+    def _prefill_call(self, name: str, width: int) -> Callable:
+        """Prefill program ``name`` at ``width`` as a plain call over the static
+        buffers."""
+        fn, last_only, _ = _PREFILL_PROGRAMS[name]
+        row, mask = self._pbuf[width]
+        return functools.partial(fn, self.params, row, mask, self._row, self.cfg, last_only)
 
     def _prefill(self, prompt: np.ndarray, plan):
-        """Chunked single-row prefill → (row cache, greedy [1], logits [1, V],
-        decode start position)."""
-        _, total = plan
+        """Left-padded single-row prefill into ``self._row`` → (greedy [1], last
+        logits [1, V], decode start position): one dispatch at the bucket's width, or
+        the first chunk then the chunk append over whole ``prompt_bucket`` chunks."""
+        mode, total = plan
         pad = total - len(prompt)
         row = np.zeros((1, total), np.int32)
         row[0, pad:] = prompt
         mask = np.zeros((1, total), bool)
         mask[0, pad:] = True
-        row_t = torch.tensor(row, device=self.device)
-        mask_t = torch.tensor(mask, device=self.device)
+        if mode == "bucket":
+            if total in self._buckets_seen:
+                self.bucket_hits += 1
+            else:
+                self.bucket_misses += 1
+                self._buckets_seen.add(total)
+            greedy, last = self._run_prefill("prefill", total, row, mask)
+            return greedy, last, total
         bucket = self.prompt_bucket
-        greedy, logits, cache = _prefill_first_chunk(
-            self.params, row_t[:, :bucket], mask_t[:, :bucket], self.cfg, self.max_len
-        )
+        greedy, last = self._run_prefill("prefill", bucket, row[:, :bucket], mask[:, :bucket])
         for c in range(1, total // bucket):
             sl = slice(c * bucket, (c + 1) * bucket)
-            greedy, logits, cache = _prefill_next_chunk(
-                self.params, row_t[:, sl], mask_t[:, sl], cache, self.cfg
-            )
-        return cache, greedy, logits, total
+            greedy, last = self._run_prefill("chunk", bucket, row[:, sl], mask[:, sl])
+        return greedy, last, total
+
+    def _right_aligned(self, prompt: np.ndarray, total: int):
+        """The prefix layout's row and mask: the prompt at positions [0, len), its last
+        chunk padded at the end (the first decode write lands on the first pad)."""
+        row = np.zeros((1, total), np.int32)
+        row[0, :len(prompt)] = prompt
+        mask = np.zeros((1, total), bool)
+        mask[0, :len(prompt)] = True
+        return row, mask
+
+    def _last_of(self, logits: torch.Tensor, prompt: np.ndarray):
+        """(greedy [1], logits [1, V], decode start) of the prompt's real last token,
+        from a right-aligned chunk's per-position logits."""
+        last = logits[:, (len(prompt) - 1) % self.prompt_bucket, :]
+        return torch.argmax(last, dim=-1), last, len(prompt)
+
+    def _prefill_prefix_cached(self, prompt: np.ndarray):
+        """Dense right-aligned chunked prefill with prefix-snapshot reuse → (greedy,
+        last logits, decode start). After each fully real chunk the row cache is
+        cloned into the LRU registry under the prefix's bytes; a later prompt starting
+        with the same chunks restores the longest registered snapshot and runs only
+        the chunks after it."""
+        bucket = self.prompt_bucket
+        n_chunks = max(1, -(-len(prompt) // bucket))
+        row, mask = self._right_aligned(prompt, n_chunks * bucket)
+        full_chunks = len(prompt) // bucket  # only fully real chunks are cacheable
+        hit, start = None, 0
+        for k in range(full_chunks, 0, -1):
+            key = prompt[: k * bucket].tobytes()
+            hit = self._prefix_reg.get(key)
+            if hit is not None:
+                self._prefix_reg.move_to_end(key)
+                start = k
+                self.prefix_hits += 1
+                _restore_row(self._row, hit)
+                break
+        if hit is None and full_chunks:
+            self._classify_prefix_miss(prompt, full_chunks)
+        logits = None
+        for c in range(start, n_chunks):
+            sl = slice(c * bucket, (c + 1) * bucket)
+            name = "keep" if hit is not None or c > 0 else "full_logits"
+            logits = self._run_prefill(name, bucket, row[:, sl], mask[:, sl])
+            if c + 1 <= full_chunks:
+                key = prompt[: (c + 1) * bucket].tobytes()
+                if key in self._prefix_reg:
+                    self._prefix_reg.move_to_end(key)
+                else:
+                    self._register_prefix(key, _snapshot_row(self._row))
+        if logits is None:
+            # The whole prompt is a registered prefix with no partial tail: run its
+            # last chunk again for the logits, from the shorter snapshot (the rewrite
+            # is idempotent), or from scratch when that one was evicted.
+            sl = slice((start - 1) * bucket, start * bucket)
+            prev = (self._prefix_reg.get(prompt[: (start - 1) * bucket].tobytes())
+                    if start > 1 else None)
+            if prev is not None:
+                _restore_row(self._row, prev)
+                logits = self._run_prefill("keep", bucket, row[:, sl], mask[:, sl])
+            elif start == 1:
+                logits = self._run_prefill("full_logits", bucket, row[:, sl], mask[:, sl])
+            else:
+                logits = self._recompute_all(row, mask, n_chunks)
+        return self._last_of(logits, prompt)
+
+    def _recompute_all(self, row: np.ndarray, mask: np.ndarray, n_chunks: int):
+        bucket = self.prompt_bucket
+        logits = self._run_prefill("full_logits", bucket, row[:, :bucket], mask[:, :bucket])
+        for c in range(1, n_chunks):
+            sl = slice(c * bucket, (c + 1) * bucket)
+            logits = self._run_prefill("keep", bucket, row[:, sl], mask[:, sl])
+        return logits
+
+    def _register_prefix(self, key: bytes, value) -> None:
+        """Insert one prefix entry (a row-cache clone, or a ``_PagedPrefix``) as the
+        most recently used and enforce the LRU capacity."""
+        self._prefix_reg[key] = value
+        self._prefix_reg.move_to_end(key)
+        while len(self._prefix_reg) > self.prefix_cache_size:
+            self._evict_prefix_lru()
+
+    def _evict_prefix_lru(self, keep=None) -> bool:
+        """Evict the least recently used prefix entry (skipping ``keep``, the entry an
+        admission in progress is adopting): counted in ``prefix_evictions``, its key
+        remembered in the bounded evicted-key set (later misses on it are capacity
+        misses), a paged entry's page references released. Returns False when nothing
+        evictable remains."""
+        victim = next((k for k, v in self._prefix_reg.items() if v is not keep), None)
+        if victim is None:
+            return False
+        old = self._prefix_reg.pop(victim)
+        self.prefix_evictions += 1
+        self._evicted_keys[victim] = True
+        self._evicted_keys.move_to_end(victim)
+        while len(self._evicted_keys) > self._evicted_keys_cap:
+            self._evicted_keys.popitem(last=False)
+        if isinstance(old, _PagedPrefix):
+            self.block_mgr.release(old.pages)
+        return True

@@ -5,8 +5,9 @@ engine's ``decode_steps=N`` super-step and ``generation.generate_loop``'s decode
 are plain functions of tensors that run eagerly on the CPU; on CUDA,
 :class:`CapturedStep` runs such a function once eagerly (so every kernel is built by
 ``ops/_build.py``, every plan is cached and cuBLAS has its handle and workspace on the
-capture stream), captures it into a CUDA graph with a private memory pool, and replays
-the graph on every later call, with no host synchronisation between replays.
+capture stream), captures it into a CUDA graph with a private memory pool (or a pool
+shared with other graphs, ``torch.cuda.graph_pool_handle()``), and replays the graph on
+every later call, with no host synchronisation between replays.
 
 The function reads and writes static tensors it closes over (the caller fills the
 inputs before each call); its return value is the graph's static output, overwritten by
@@ -98,12 +99,18 @@ class CapturedStep:
 
     After the first call: ``kernel_nodes`` (kernel name → nodes in the graph),
     ``capture_s`` (host seconds of the capture and instantiation), ``pool_bytes`` (the
-    device memory the caching allocator reserved during the capture, the graph's
-    private pool) and ``replays``."""
+    device memory the caching allocator reserved during the capture: the graph's
+    private pool, or what it added to a shared one) and ``replays``.
 
-    def __init__(self, fn: Callable, device):
+    ``pool`` (a ``torch.cuda.graph_pool_handle()``) shares one memory pool among the
+    graphs captured with it: a graph may then take memory that another graph's
+    temporaries used, so the caller replays them one at a time and consumes each
+    replay's outputs before another graph of the pool replays."""
+
+    def __init__(self, fn: Callable, device, pool=None):
         self.fn = fn
         self.device = torch.device(device)
+        self.pool = pool
         self.graph = None
         self.out = None
         self.replays = 0
@@ -128,14 +135,14 @@ class CapturedStep:
                 eager = self.fn()
             # capture_begin/end rather than torch.cuda.graph, which empties the
             # allocator's cache first: the eager calls around the graph keep their
-            # cached blocks. A private pool takes new segments, so the reserved bytes
-            # grow by the graph's pool.
+            # cached blocks. A pool takes new segments, so the reserved bytes grow by
+            # what the capture added to it.
             torch.cuda.synchronize()
             reserved = torch.cuda.memory_reserved()
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph(keep_graph=True)
             with torch.cuda.stream(side):
-                graph.capture_begin(capture_error_mode="thread_local")
+                graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
                 try:
                     self.out = self.fn()
                 except BaseException:

@@ -16,7 +16,9 @@ that names the phase, its failed cases and the exception:
    plus T=4, fp32, int8 pools, window, softcap, other head dims and page sizes, G from
    1 to 8, sentinel table entries and a never-written lane, then the cluster schedule's
    edges (a lane with more tiles than its cluster has blocks, lanes of one live slot,
-   lanes ending on a tile boundary, all-sentinel tail pages); every bf16 call made twice
+   lanes ending on a tile boundary, all-sentinel tail pages), and lanes whose block
+   tables share a prefix's page ids with its partial page copied on write (bf16 and
+   int8 pools, as the prefix cache lays them out); every bf16 call made twice
    must repeat its bits; faults planted in the chunked reference (the last live tile
    skipped, the window's edge off by one, p left unrounded, the int8 V scale dropped)
    must fail the same check; then kernel, plain and bound times: device time from
@@ -29,6 +31,14 @@ that names the phase, its failed cases and the exception:
    paged, against the CPU's ``decode_steps=1``: identical greedy tokens, an EOS inside a
    super-step; two sampled requests: identical to the card's ``decode_steps=1``; each
    graph holds one paged-attention launch per layer and step (none when dense).
+   engine_prefix — the admission path against the CPU (``debug``, fp32,
+   ``decode_steps=4``): dense and paged engines with ``prefix_cache=4`` (pages of 24
+   cutting the 32-token chunks: copy-on-write; a 16-page pool: registry eviction and
+   deferral under pressure) and a paged engine with ``prompt_buckets``; a shared
+   system prompt, the system prompt alone, a prompt past the top rung. On the card
+   each engine runs ``warm_programs()`` first and captures no graph in traffic; tokens
+   and every admission, prefix, bucket and page counter equal the CPU's after every
+   step; every page free once the registry is evicted.
 4. main — the paged continuous-batching engine serving 10 requests at Llama-3-8B's
    full width and depth (bf16, seeded random weights made on the card), with the
    kernel's launch count checked against the decode dispatches; then a few decode
@@ -40,6 +50,20 @@ that names the phase, its failed cases and the exception:
    its profiled window (and the graph replayed back to back: device time per
    super-step); ``decode_ab`` of N = 1 and N = 8 engines (ms per decode token) and
    ``drain_ab`` (the whole workload on warm engines: tokens/s), each alternated.
+   On the card every engine's prefill programs replay CUDA graphs, one per
+   (program, width), captured at each program's first call or by ``warm_programs()``.
+   main_prefill — the same workload with ``prompt_buckets=(128, 256, 512)`` and
+   ``decode_steps=8`` after ``warm_programs()``: no graph captured in traffic, every
+   token equal to the same engine's with eager prefill programs, exactly 32·8 paged
+   attention launches a super-step; ``prefill_ab`` (ms per admission, graph against
+   eager, alternated, per rung and past the top rung) and fresh engines draining it
+   without and with ``warm_programs()`` (tokens/s, the first request's time to first
+   token, warm-up seconds and pool bytes). main_prefix — 16 requests sharing a
+   384-token system prompt (suffixes of 16–160 tokens, 64 new tokens each), paged,
+   ``prefix_cache=8``, ``decode_steps=8``: each request's tokens equal to the same
+   request's served with the registry cleared first (all misses), launches exact over
+   shared pages; hits, shared pages, COW copies, peak memory, ms per admission on a hit
+   against a miss and tokens/s beside a ``prefix_cache=0`` engine (each alternated).
    generate — ``llama.generate``, ``score`` and ``perplexity``: ``debug`` fp32 on the
    card against the CPU, then Llama-3-8B bf16, 4 left-padded prompts, 64 new tokens
    (the decode step one graph, replayed; time per token).
@@ -183,10 +207,11 @@ def emit(obj: dict) -> None:
 
 
 class PhaseFailed(SystemExit):
-    """A phase's checks failed; ``cases`` names the failed cases."""
+    """A phase's checks failed; ``cases`` names the failed cases (a dict: with what
+    each read)."""
 
     def __init__(self, what: str, cases):
-        super().__init__(f"{what}: {list(cases)}")
+        super().__init__(f"{what}: {cases if isinstance(cases, dict) else list(cases)}")
         self.cases = list(cases)
 
 
@@ -566,7 +591,42 @@ def paged_cases() -> list:
         ("int8_bf16_ps4_T2", {**main, "ps": 4, "MP": 256, "T": 2, "quantized": True},
          {"window": 300}, None, None),
         ("bf16_rows80", {**main, "T": 20}, {}, None, None),
+        # Lanes that share a registered prefix's pages (the prefix cache's block tables):
+        # five full pages adopted by every lane and the partial sixth page copied on
+        # write into each lane's own page (``shared_prefix_pages``); lane 2 ends inside
+        # the copied page.
+        ("shared_prefix", main, {}, SHARED_LENS, None),
+        ("shared_prefix_int8_bf16", {**main, "quantized": True}, {}, SHARED_LENS, None),
     ]
+
+
+#: Lane lengths of the shared-prefix cases, all past the shared prefix; lane 2 ends
+#: inside its copied partial page.
+SHARED_LENS = [300, 120, 90, 88, 500, 1024, 95, 200]
+SHARED_PREFIX = 87  # slots: 5 full pages of 16 and 7 of the sixth
+
+
+def shared_prefix_pages(pool, tables, prefix: int, ps: int):
+    """Make lanes 1.. share lane 0's prefix as the paged prefix cache lays it out:
+    their table entries of the prefix's full pages become lane 0's page ids (adopted,
+    read-only), and the prefix's partial page is copied into each lane's own page with
+    the engine's ``_copy_page`` (every plane, scale planes included) before the lane's
+    own slots past the prefix are written back (copy-on-write). Returns the tables."""
+    from accelerate_tpu_torch.serving import _copy_page
+
+    n_full, cut = divmod(prefix, ps)
+    tables = tables.clone()
+    cache = {"layers": [pool]}
+    for b in range(1, tables.shape[0]):
+        own = int(tables[b, n_full])
+        if own >= pool["k"].shape[0]:
+            continue
+        tail = {key: t[own, cut:].clone() for key, t in pool.items()}
+        _copy_page(cache, int(tables[0, n_full]), own)
+        for key, t in pool.items():
+            t[own, cut:] = tail[key]
+        tables[b, :n_full] = tables[0, :n_full]
+    return tables
 
 
 def paged_check(got, want, dtype, which) -> tuple[dict, bool]:
@@ -593,6 +653,8 @@ def phase_kernel(dev) -> dict:
     for name, shape, kw, lens, alloc in paged_cases():
         q, pool, tables, positions, valid, lens = make_paged_inputs(
             gen, dev=dev, lens=lens, alloc=alloc, **shape)
+        if name.startswith("shared_prefix"):
+            tables = shared_prefix_pages(pool, tables, SHARED_PREFIX, shape["ps"])
         args = dict(page_size=shape["ps"], sm_scale=shape["hd"] ** -0.5, **kw)
         ragged = paged_attention.launches_ragged
         out = paged_attention(q, pool, tables, positions, valid, **args)
@@ -734,6 +796,11 @@ def phase_engine(dev, scheme=None) -> None:
 # --------------------------------------------- phase 3b: the super-step on the card
 MULTI_N = 8  # decode steps a super-step of the main paths
 MULTI_PROFILE_STEPS = 2  # super-steps in a profiled window
+#: Idle seconds at each end of a profiled decode window. The profiler drops a device
+#: record whose start or end, mapped from the card's clock to the host's, falls outside
+#: the window; the mapping drifts over a long run, and the last layer's kernels end
+#: within a millisecond of a window that stops right after the final sync.
+PROFILE_EDGE_S = 0.5
 
 
 def graph_stats(eng) -> dict:
@@ -823,6 +890,110 @@ def phase_engine_multistep(dev) -> dict:
     emit(res)
     if failed:
         raise PhaseFailed("the super-step on the card disagrees", failed)
+    return res
+
+
+# ------------------------------------------- phase 3c: the admission path on the card
+#: The counters ``engine_prefix`` holds equal between the card and the CPU.
+ADMISSION_STATS = ("admitted", "evicted", "decode_steps", "prefix_entries", "prefix_hits",
+                   "prefix_misses", "prefix_evictions", "prefix_capacity_misses",
+                   "prefix_key_misses", "bucket_hits", "bucket_misses")
+PAGE_STATS = ("pages_in_use", "pages_free", "kv_shared_pages", "kv_alloc_count",
+              "kv_free_count", "kv_cow_count", "kv_adopt_count", "kv_defer_count")
+
+
+def clear_registry(eng) -> None:
+    """Evict every prefix-registry entry (each counted as an eviction)."""
+    while eng._evict_prefix_lru():
+        pass
+
+
+def graph_keys(eng) -> set:
+    """The keys of every graph ``eng`` holds: super-steps and prefill programs."""
+    return set(eng.graphs) | set(eng.prefill_graphs)
+
+
+def phase_engine_prefix(dev) -> dict:
+    """The admission path on the card against the CPU (``debug``, fp32, same seeded
+    params and requests, ``max_slots=4``, ``max_len=256``, ``prompt_bucket=32``): a
+    dense and a paged engine with ``prefix_cache=4`` (pages of 24, which cut the
+    32-token chunks: copy-on-write; a pool of 16 pages: the registry yields its pages
+    under pressure and admissions defer) and a paged engine with ``prompt_buckets``
+    (32, 64, 128), each at ``decode_steps=4``. Requests: a 64-token system prompt with
+    five suffixes, the system prompt alone (a registered prefix), unrelated prompts,
+    one past the top rung. On the card each engine runs ``warm_programs()`` first and
+    must capture no graph in traffic. Greedy tokens and every admission, prefix, bucket
+    and page counter must equal the CPU's after every step; after the drain and after
+    the registry is evicted every page is free."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_to
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32)
+    params_cpu = llama.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                   device="cpu")
+    params_gpu = params_to(params_cpu, dev)
+    rng = np.random.default_rng(12)
+    system = rng.integers(0, cfg.vocab_size, 64)
+    prompts = [np.concatenate([system, rng.integers(0, cfg.vocab_size, int(n))])
+               for n in (5, 17, 40, 3, 70)]
+    prompts += [system] + [rng.integers(0, cfg.vocab_size, int(n)) for n in (20, 150, 45)]
+    budgets = [24, 20, 16, 24, 12, 18, 20, 10, 22]
+    engines = {
+        "dense_prefix": dict(prefix_cache=4),
+        "paged_prefix_cow": dict(prefix_cache=4, page_size=24, kv_pages=16),
+        "paged_buckets": dict(prompt_buckets=(32, 64, 128), page_size=16),
+    }
+    base = dict(max_slots=4, max_len=256, prompt_bucket=32, decode_steps=4)
+    res = {"phase": "engine_prefix", "config": "debug", "engine": base, "cases": {}}
+    failed = []
+    for name, kw in engines.items():
+        engs = {side: ContinuousBatcher(params, cfg, **base, **kw)
+                for side, params in (("cpu", params_cpu), ("gpu", params_gpu))}
+        warm = engs["gpu"].warm_programs(max_new_tokens=24)
+        keys_warm = graph_keys(engs["gpu"])
+        reqs = {side: [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
+                for side, eng in engs.items()}
+        keys = ADMISSION_STATS + (PAGE_STATS if "page_size" in kw else ())
+        stats_equal, steps, peak_shared = True, 0, 0
+        while any(e.queue or any(r is not None for r in e.slot_req) for e in engs.values()):
+            for eng in engs.values():
+                eng.step()
+            sc, sg = engs["cpu"].stats(), engs["gpu"].stats()
+            stats_equal &= all(sc[k] == sg[k] for k in keys)
+            peak_shared = max(peak_shared, sg.get("kv_shared_pages", 0))
+            steps += 1
+        s = engs["gpu"].stats()
+        case = {"tokens_equal_cpu": [r.tokens for r in reqs["cpu"]]
+                == [r.tokens for r in reqs["gpu"]],
+                "stats_equal_cpu_every_step": stats_equal, "steps": steps,
+                "stats": {k: s[k] for k in keys}, "peak_kv_shared_pages": peak_shared,
+                "warm_programs": warm, "graph_keys_warmed": sorted(map(str, keys_warm)),
+                "no_graph_captured_in_traffic": graph_keys(engs["gpu"]) == keys_warm,
+                "prefill_pool_bytes": engs["gpu"].prefill_pool_bytes,
+                "all_done": all(r.done for r in reqs["gpu"])}
+        ok = (case["tokens_equal_cpu"] and stats_equal and case["all_done"]
+              and case["no_graph_captured_in_traffic"])
+        if "prefix_cache" in kw:
+            ok &= s["prefix_hits"] > 0 and s["bucket_misses"] == 0
+        else:
+            ok &= s["bucket_hits"] > 0 and s["bucket_misses"] > 0
+        if "page_size" in kw:
+            case["pages_free_after_drain"] = s["pages_free"]
+            clear_registry(engs["gpu"])
+            case["pages_free_after_registry_evicted"] = engs["gpu"].stats()["pages_free"]
+            ok &= case["pages_free_after_registry_evicted"] == s["pages_total"]
+        if name == "paged_prefix_cow":
+            ok &= (s["kv_cow_count"] > 0 and s["prefix_evictions"] > 0
+                   and s["kv_defer_count"] > 0 and peak_shared > 0 and s["kv_adopt_count"] > 0)
+        case["ok"] = bool(ok)
+        res["cases"][name] = case
+        if not ok:
+            failed.append(name)
+    res["ok"] = not failed
+    emit(res)
+    if failed:
+        raise PhaseFailed("the admission path on the card disagrees with the CPU", failed)
     return res
 
 
@@ -965,7 +1136,7 @@ def phase_main_multistep(dev, main: dict) -> dict:
     from accelerate_tpu_torch.ops.paged_attention import paged_attention
 
     cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
-    params = main.pop("params")
+    params = main["params"]
 
     def reset_counts():
         paged_attention.launches = 0
@@ -1044,6 +1215,336 @@ def drain_ab(variants: dict, cfg, want_tokens) -> dict:
     return {"phase": "drain_ab", "order": f"({a}, {b}, {b}, {a}), warm engines",
             "requests": len(workload), "runs": runs, "tokens_per_s_median": med,
             f"{b}_over_{a}_tokens_per_s": med[b] / med[a], "tokens_equal_main": equal}
+
+
+# ------------------------------------ phase 4b: graph-replayed prefill, warm-up, prefix
+PREFILL_BUCKETS = (128, 256, 512)
+#: prefill_ab's prompt lengths: one per rung, and one past the top rung (11 chunks).
+PREFILL_AB_LENGTHS = {"bucket_128": 100, "bucket_256": 200, "bucket_512": 450,
+                      "chunks_704": 700}
+
+
+def eager_prefill_engine(*args, **kw):
+    """A ``ContinuousBatcher`` whose prefill programs run eagerly on the card (the
+    graphs' comparison); its super-steps are still replayed from graphs."""
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    class EagerPrefill(ContinuousBatcher):
+        def _prefill_runner(self, name, width):
+            return self._prefill_call(name, width)
+
+    return EagerPrefill(*args, **kw)
+
+
+def drain_engine(eng, workload, on_first=None) -> dict:
+    """Submit ``workload`` ([(prompt, submit kwargs)]) and drain it, timed to the final
+    sync: tokens, tokens/s, finite logits, the peak of ``kv_shared_pages`` over the
+    steps, and (``on_first``) the seconds to the first request's first token."""
+    first_at = []
+    reqs = []
+    for i, (prompt, kw) in enumerate(workload):
+        hook = (lambda _tok: first_at.append(time.perf_counter())) if i == 0 else None
+        reqs.append(eng.submit(prompt, on_token=hook, **kw))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finite, peak_shared = True, 0
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        eng.step()
+        if eng.last_logits is not None:
+            finite &= bool(torch.isfinite(eng.last_logits).all())
+        peak_shared = max(peak_shared, eng.stats().get("kv_shared_pages", 0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = sum(len(r.tokens) for r in reqs)
+    return {"tokens": [list(r.tokens) for r in reqs], "wall_s": wall, "n_tokens": n,
+            "tokens_per_s": n / wall, "finite": finite, "peak_kv_shared_pages": peak_shared,
+            "first_token_s": first_at[0] - t0 if first_at else None,
+            "all_done": all(r.done for r in reqs)}
+
+
+def admission_ms(eng, prompt) -> float:
+    """Host ms of one admission (prefill, row insert, first-token read) of a request
+    with ``max_new_tokens=1``, which finishes at admission: ``stats()``'s prefill
+    seconds over one ``step()``."""
+    before = eng.prefill_s
+    eng.submit(prompt, max_new_tokens=1)
+    eng.step()
+    return 1e3 * (eng.prefill_s - before)
+
+
+def alternated(runs: dict, order, fn) -> dict:
+    """``fn(name)`` for each name of ``order`` in turn → {name: [results]}."""
+    for name in order:
+        runs[name].append(fn(name))
+    return runs
+
+
+def warm_summary(entries) -> dict:
+    return {"programs": len(entries),
+            "capture_s": sum(e["capture_s"] or 0.0 for e in entries),
+            "pool_bytes": sum(e["pool_bytes"] or 0 for e in entries), "entries": entries}
+
+
+def graph_device_profile(run, replays: int = 5) -> dict:
+    """Where a captured program's device time goes: its graph replayed ``replays``
+    times back to back between CUDA events (device ms a replay, no host work), then
+    under ``torch.profiler``: device ms a replay by kernel group (cuBLAS products, the
+    rest) and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = _events_ms(lambda _: run.graph.replay(), replays)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(replays):
+            run.graph.replay()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.key] = kernels.get(e.key, 0) + e.self_device_time_total / 1e3 / replays
+    cublas = sum(v for k, v in kernels.items()
+                 if any(n in k for n in ("nvjet", "gemm", "cutlass", "sm90_xmma")))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
+    return {"device_ms": ms, "kernel_nodes": run.nodes(),
+            "profiled_busy_ms": sum(kernels.values()) if kernels else None,
+            "cublas_ms": cublas if kernels else None,
+            "top_kernels_ms": {k[:80]: v for k, v in top}}
+
+
+def phase_main_prefill(dev, main: dict) -> dict:
+    """The main workload at Llama-3-8B's full width and depth (bf16, paged) with
+    ``prompt_buckets=(128, 256, 512)`` and ``decode_steps=8``, after ``warm_programs()``:
+    no graph may be captured in traffic; every token must equal the same engine's with
+    its prefill programs run eagerly; kernel #1's launches must be exactly 32·8 a
+    super-step (graph nodes times replays; no prefill graph holds one). Then
+    ``prefill_ab``: ms per admission, graph against eager, alternated, per rung and for
+    a prompt past the top rung (the chunk pair); and fresh engines draining the
+    workload without and with ``warm_programs()`` (alternated): tokens/s, the first
+    request's time to first token, warm-up seconds and pool bytes."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
+    params = main["params"]
+    kw = dict(**MAIN_ENGINE, prompt_buckets=PREFILL_BUCKETS, decode_steps=MULTI_N)
+    workload = main_workload(cfg.vocab_size)[3]
+
+    eng = ContinuousBatcher(params, cfg, **kw)
+    t0 = time.perf_counter()
+    warm = warm_summary(eng.warm_programs(max_new_tokens=64))
+    torch.cuda.synchronize()
+    warm["wall_s"] = time.perf_counter() - t0
+    keys_warm = graph_keys(eng)
+    paged_attention.launches = 0
+    paged_attention.launches_ragged = 0
+    torch.cuda.reset_peak_memory_stats()
+    run = drain_engine(eng, workload)
+    s = eng.stats()
+    launches = path_launches(eng)[0]
+    expect = cfg.n_layers * MULTI_N * s["decode_steps"]
+    prefill_graphs = [r for r in eng.prefill_graphs.values() if hasattr(r, "nodes")]
+    prefill_paged_nodes = sum(r.nodes(k) for r in prefill_graphs for k in PAGED_KERNELS)
+    eager = eager_prefill_engine(params, cfg, **kw)
+    eager_run = drain_engine(eager, workload)
+    res = {"phase": "main_prefill", "config": "llama3-8b", "dtype": "bfloat16",
+           "engine": {**kw, "prompt_buckets": list(PREFILL_BUCKETS)},
+           "requests": len(workload), "warm_programs": warm,
+           "no_graph_captured_in_traffic": graph_keys(eng) == keys_warm,
+           "tokens_equal_eager_prefill": run["tokens"] == eager_run["tokens"],
+           "tokens_per_s": run["tokens_per_s"], "wall_s": run["wall_s"],
+           "eager_prefill_tokens_per_s": eager_run["tokens_per_s"],
+           "prefill_ms_per_request": 1e3 * s["prefill_s"] / len(workload),
+           "eager_prefill_ms_per_request": 1e3 * eager.stats()["prefill_s"] / len(workload),
+           "bucket_hits": s["bucket_hits"], "bucket_misses": s["bucket_misses"],
+           "decode_steps": s["decode_steps"], "paged_attention_launches": launches,
+           "paged_attention_launches_expected": expect,
+           "paged_attention_launches_ragged": paged_attention.launches_ragged,
+           "prefill_graph_paged_attention_nodes": prefill_paged_nodes,
+           "prefill_graph_kernel_nodes": {f"{k[0]}_{k[1]}": r.nodes()
+                                          for k, r in eng.prefill_graphs.items()
+                                          if hasattr(r, "nodes")},
+           "prefill_pool_bytes": eng.prefill_pool_bytes,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "finite_logits": run["finite"], "all_done": run["all_done"],
+           "pages_in_use_after": s["pages_in_use"]}
+    res["ok"] = (res["no_graph_captured_in_traffic"] and res["tokens_equal_eager_prefill"]
+                 and launches == expect and prefill_paged_nodes == 0
+                 and paged_attention.launches_ragged == 0 and run["finite"]
+                 and run["all_done"] and s["pages_in_use"] == 0)
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("the graph-replayed prefill main path failed its checks")
+
+    # prefill_ab: the warm graph engine against the eager one, (graph, eager, eager,
+    # graph) twice per prompt.
+    rng = np.random.default_rng(14)
+    ab = {"phase": "prefill_ab", "order": "(graph, eager, eager, graph) x 2",
+          "note": "host ms per admission of a max_new_tokens=1 request: prefill, row "
+                  "insert and the first token's host read", "cases": {}}
+    engines = {"graph": eng, "eager": eager}
+    for case, n in PREFILL_AB_LENGTHS.items():
+        prompt = rng.integers(0, cfg.vocab_size, n)
+        runs = alternated({"graph": [], "eager": []}, ("graph", "eager", "eager", "graph") * 2,
+                          lambda name: admission_ms(engines[name], prompt))
+        med = {name: float(np.median(r)) for name, r in runs.items()}
+        ab["cases"][case] = {"prompt_len": n, "ms_runs": runs, "ms_median": med,
+                             "eager_over_graph": med["eager"] / med["graph"]}
+    ab["no_graph_captured"] = graph_keys(eng) == keys_warm
+    # The same programs' device time alone: what the graph leaves of an admission's ms
+    # is host work (input copies, the row scatter, the first token's read).
+    ab["graph_device"] = {f"{k[0]}_{k[1]}": graph_device_profile(r)
+                          for k, r in eng.prefill_graphs.items()}
+    emit(ab)
+    del eager
+    gc.collect()
+
+    # Fresh engines, each draining the workload once: without warm-up the first
+    # admissions and super-steps capture their graphs in traffic.
+    def fresh(name):
+        e = ContinuousBatcher(params, cfg, **kw)
+        out = {}
+        if name == "warm":
+            t = time.perf_counter()
+            out["warm_programs"] = warm_summary(e.warm_programs(max_new_tokens=64))
+            torch.cuda.synchronize()
+            out["warm_programs"]["wall_s"] = time.perf_counter() - t
+            out["warm_programs"].pop("entries")
+        keys0 = graph_keys(e)
+        r = drain_engine(e, workload)
+        out.update({k: r[k] for k in ("tokens_per_s", "wall_s", "first_token_s")})
+        out["tokens_equal"] = r["tokens"] == run["tokens"]
+        out["graphs_captured_in_traffic"] = len(graph_keys(e) - keys0)
+        del e
+        gc.collect()
+        return out
+
+    runs = alternated({"cold": [], "warm": []}, ("cold", "warm", "warm", "cold"), fresh)
+    drains = {"phase": "fresh_drain_ab", "order": "(cold, warm, warm, cold), fresh engines",
+              "runs": runs,
+              "tokens_per_s_median": {k: float(np.median([r["tokens_per_s"] for r in v]))
+                                      for k, v in runs.items()},
+              "first_token_s_median": {k: float(np.median([r["first_token_s"] for r in v]))
+                                       for k, v in runs.items()},
+              "tokens_equal": all(r["tokens_equal"] for v in runs.values() for r in v)}
+    emit(drains)
+    if not (ab["no_graph_captured"] and drains["tokens_equal"]
+            and all(r["graphs_captured_in_traffic"] == 0 for r in runs["warm"])):
+        raise SystemExit("prefill_ab or the fresh-engine drains failed their checks")
+    return {"launches": launches, "ab": ab, "drains": drains, "warm": warm,
+            "prefill_ms_per_request": res["prefill_ms_per_request"]}
+
+
+PREFIX_ENGINE = dict(max_slots=8, max_len=1024, prompt_bucket=64, page_size=16,
+                     prefix_cache=8, decode_steps=MULTI_N)
+
+
+def prefix_workload(vocab: int):
+    """A chat deployment with a fixed system prompt: 16 seeded requests, each a
+    384-token system prompt and its own suffix of 16–160 tokens, 64 new tokens each,
+    greedy → (system prompt, [(prompt, submit kwargs)])."""
+    rng = np.random.default_rng(13)
+    system = rng.integers(0, vocab, 384)
+    return system, [(np.concatenate([system, rng.integers(0, vocab, int(n))]),
+                     dict(max_new_tokens=64)) for n in rng.integers(16, 161, 16)]
+
+
+def phase_main_prefix(dev, main: dict) -> dict:
+    """The shared-system-prompt workload (``prefix_workload``) at Llama-3-8B's full
+    width and depth, bf16, paged (``PREFIX_ENGINE``: pages of 16, ``prefix_cache=8``,
+    ``decode_steps=8``), after ``warm_programs()``: every request done, no graph
+    captured in traffic, kernel #1's launches exactly 32·8 a super-step (its block
+    tables now share the prefix's pages); each request's tokens must equal those of the
+    same request served by the same engine with the registry cleared before it (all
+    misses: the hit gathers the same bytes and runs the same chunk programs). Reported:
+    hits, shared pages, COW copies, peak memory, host ms per admission on a hit against
+    a miss (alternated) and the drain's tokens/s beside a ``prefix_cache=0`` engine's
+    (alternated, the registry cleared before each prefix drain)."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
+    params = main["params"]
+    system, workload = prefix_workload(cfg.vocab_size)
+    eng = ContinuousBatcher(params, cfg, **PREFIX_ENGINE)
+    warm = warm_summary(eng.warm_programs(max_new_tokens=64))
+    keys_warm = graph_keys(eng)
+    paged_attention.launches = 0
+    paged_attention.launches_ragged = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
+    hit = drain_engine(eng, workload)
+    peak = torch.cuda.max_memory_allocated()
+    s = eng.stats()
+    launches = path_launches(eng)[0]
+    expect = cfg.n_layers * MULTI_N * s["decode_steps"]
+    miss_tokens = []
+    for prompt, kw in workload:
+        clear_registry(eng)
+        req = eng.submit(prompt, **kw)
+        eng.run()
+        miss_tokens.append(list(req.tokens))
+    differ = [i for i, (a, b) in enumerate(zip(hit["tokens"], miss_tokens)) if a != b]
+    res = {"phase": "main_prefix", "config": "llama3-8b", "dtype": "bfloat16",
+           "engine": PREFIX_ENGINE, "requests": len(workload), "system_prompt_len": 384,
+           "prompt_lengths": [len(p) for p, _ in workload], "max_new_tokens": 64,
+           "warm_programs": warm,
+           "no_graph_captured_in_traffic": graph_keys(eng) == keys_warm,
+           "tokens_per_s": hit["tokens_per_s"], "wall_s": hit["wall_s"],
+           "prefill_ms_per_request": 1e3 * s["prefill_s"] / len(workload),
+           **{k: s[k] for k in ADMISSION_STATS + PAGE_STATS},
+           "peak_kv_shared_pages": hit["peak_kv_shared_pages"],
+           "requests_differing_from_all_miss": differ,
+           "paged_attention_launches": launches, "paged_attention_launches_expected": expect,
+           "paged_attention_launches_ragged": paged_attention.launches_ragged,
+           "max_memory_allocated_bytes": peak,
+           "memory_allocated_at_start_bytes": allocated_at_start,
+           "finite_logits": hit["finite"], "all_done": hit["all_done"]}
+    res["ok"] = (not differ and res["no_graph_captured_in_traffic"] and launches == expect
+                 and paged_attention.launches_ragged == 0 and hit["finite"]
+                 and hit["all_done"] and s["prefix_hits"] == len(workload) - 1
+                 and hit["peak_kv_shared_pages"] > 0)
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("the prefix-cache main path failed its checks")
+
+    # Admission on a hit against a miss, (hit, miss, miss, hit) twice; the probe's own
+    # miss admission registers the system prompt again for the next hit.
+    probe = np.concatenate([system, np.random.default_rng(15).integers(0, cfg.vocab_size, 100)])
+    hits0 = eng.prefix_hits
+
+    def admit(name):
+        if name == "miss":
+            clear_registry(eng)
+        return admission_ms(eng, probe)
+
+    runs = alternated({"hit": [], "miss": []}, ("hit", "miss", "miss", "hit") * 2, admit)
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    ab = {"phase": "prefix_ab", "order": "(hit, miss, miss, hit) x 2",
+          "prompt_len": len(probe), "ms_runs": runs, "ms_median": med,
+          "miss_over_hit": med["miss"] / med["hit"], "hits": eng.prefix_hits - hits0}
+    base = ContinuousBatcher(params, cfg, **{**PREFIX_ENGINE, "prefix_cache": 0})
+    base.warm_programs(max_new_tokens=64)
+
+    def drain(name):
+        if name == "prefix_cache_8":
+            clear_registry(eng)
+        r = drain_engine(eng if name == "prefix_cache_8" else base, workload)
+        return {k: r[k] for k in ("tokens_per_s", "wall_s", "first_token_s")}
+
+    drains = alternated({"prefix_cache_8": [], "prefix_cache_0": []},
+                        ("prefix_cache_8", "prefix_cache_0", "prefix_cache_0",
+                         "prefix_cache_8"), drain)
+    ab["drains"] = drains
+    ab["drain_order"] = "(prefix_cache_8, prefix_cache_0, prefix_cache_0, prefix_cache_8), warm engines"
+    ab["drain_tokens_per_s_median"] = {k: float(np.median([r["tokens_per_s"] for r in v]))
+                                       for k, v in drains.items()}
+    emit(ab)
+    if ab["hits"] != 4:
+        raise SystemExit("prefix_ab's hit admissions did not hit")
+    del base
+    return {"launches": launches, "ab": ab, "tokens_per_s": hit["tokens_per_s"]}
 
 
 # ------------------------------------------------------- phase 4c: one-request API
@@ -1170,11 +1671,13 @@ def one_kernel_per_call(prof: dict, int8: bool) -> None:
     names = ["paged_attention"] + (["int8_mm"] if int8 else [])
     launch_key = {"paged_attention": "paged_attention_launches_per_step",
                   "int8_mm": "int8_matmul_launches_per_step"}
-    bad = [n for n in names if prof[f"{n}_kernels_per_step"] is None
-           or prof[launch_key[n]] <= 0
-           or prof[f"{n}_kernels_per_step"] != prof[launch_key[n]]]
+    bad = {n: [prof[f"{n}_kernels_per_step"], prof[launch_key[n]]] for n in names
+           if prof[f"{n}_kernels_per_step"] is None or prof[launch_key[n]] <= 0
+           or prof[f"{n}_kernels_per_step"] != prof[launch_key[n]]}
     if bad:
-        raise PhaseFailed("device kernels per step differ from the wrapper's launches", bad)
+        raise PhaseFailed("device kernels per step differ from the wrapper's launches "
+                          "([device kernels, launches] per step; device records' first "
+                          f"and last µs {prof['device_records_first_last_us']})", bad)
 
 
 #: Kernel names (as the driver gives them) of each port kernel's launches in a CUDA
@@ -1192,11 +1695,11 @@ def replayed_launches(runners, names) -> int:
 
 def path_launches(eng) -> tuple[int, int]:
     """(paged attention, int8 matmul) launches so far: the wrappers' counts plus the
-    replays of ``eng``'s graphs."""
+    replays of ``eng``'s graphs (super-steps and prefill programs)."""
     from accelerate_tpu_torch.ops.paged_attention import paged_attention
     from accelerate_tpu_torch.ops.quantization import int8_matmul
 
-    graphs = list(eng.graphs.values())
+    graphs = list(eng.graphs.values()) + list(eng.prefill_graphs.values())
     return (paged_attention.launches + replayed_launches(graphs, PAGED_KERNELS),
             int8_matmul.launches + replayed_launches(graphs, INT8_KERNELS))
 
@@ -1218,11 +1721,13 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
     torch.cuda.synchronize()
     before = path_launches(eng)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_EDGE_S)
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+        time.sleep(PROFILE_EDGE_S)
     after = path_launches(eng)
     launches = (after[0] - before[0], after[1] - before[1])
     replay_ms = None
@@ -1235,6 +1740,9 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
     # so the sum of kernel durations counts that overlap twice.
     spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
+    # Device records' span in the trace (µs from its start): the edges' slack.
+    first_us = min((a for _, a, _ in spans), default=None)
+    last_us = max((b for _, _, b in spans), default=None)
 
     def union_ms(stem=""):
         ivs = sorted((a, b) for n, a, b in spans if stem in n)
@@ -1284,6 +1792,7 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
         "int8_mm_kernels_per_step": group_count("int8_mm") if kernels else None,
         "paged_attention_launches_per_step": launches[0] / steps,
         "int8_matmul_launches_per_step": launches[1] / steps,
+        "device_records_first_last_us": [first_us, last_us],
         "top_kernels_ms_per_step": {k[:80]: v / 1e3 / steps for k, v in top},
     }
 
@@ -2952,7 +3461,8 @@ def phase_main_int8(dev) -> int:
         qz.int8_matmul.launches_ragged = 0
 
     run = serve_main(params, cfg, dev, reset_counts)
-    launches, paged = qz.int8_matmul.launches, paged_attention.launches
+    # Prefill chunks replay graphs (after each program's eager first call).
+    paged, launches = path_launches(run["eng"])
     ragged = qz.int8_matmul.launches_ragged
     paged_ragged = paged_attention.launches_ragged
     s = run["stats"]
@@ -3587,8 +4097,13 @@ def main() -> int:
     run_phase("engine", phase_engine, dev)
     # The super-step (slice 10): the same engine replaying CUDA graphs of N steps.
     run_phase("engine_multistep", phase_engine_multistep, dev)
+    # The admission path (slice 12): prefix cache and buckets against the CPU.
+    run_phase("engine_prefix", phase_engine_prefix, dev)
     serve = run_phase("main", phase_main, dev)
     serve_multi = run_phase("main_multistep", phase_main_multistep, dev, serve)
+    serve_prefill = run_phase("main_prefill", phase_main_prefill, dev, serve)
+    serve_prefix = run_phase("main_prefix", phase_main_prefix, dev, serve)
+    del serve["params"]
     gc.collect()
     torch.cuda.empty_cache()
     run_phase("generate", phase_generate, dev)
@@ -3629,7 +4144,8 @@ def main() -> int:
     train_tp = run_phase("train_tp", phase_train_tp, dev, train["losses"][0])
     emit({"kernels": run_phase("kernels", kernel_rows, kern, serve, flash, adamw,
                                xent, train, train_fused, int8, serve_int8, partial,
-                               train_tp, serve_multi, resume)})
+                               train_tp, serve_multi, resume, serve_prefill,
+                               serve_prefix)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -3637,11 +4153,11 @@ def main() -> int:
 
 
 def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve_int8,
-                partial, train_tp, serve_multi, resume) -> list:
+                partial, train_tp, serve_multi, resume, serve_prefill, serve_prefix) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results. The
-    serving kernels' launches add their main paths' runs: N = 1 and the super-step's
-    (eager launches plus graph nodes times replays); the training kernels' add
-    train_main's and train_resume's."""
+    serving kernels' launches add their main paths' runs: N = 1, the super-step's,
+    the bucketed and the prefix-cache drains (eager launches plus graph nodes times
+    replays); the training kernels' add train_main's and train_resume's."""
 
     def train_launches(kernel):
         by_path = {"train_main": train["launches"][kernel],
@@ -3670,10 +4186,13 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
     return [
         _kernel_row("paged_attention", csrc + "paged_attention.cu",
                     "accelerate_tpu/ops/paged_attention.py:106",
-                    serve["launches"] + serve_multi["launches"],
+                    serve["launches"] + serve_multi["launches"] + serve_prefill["launches"]
+                    + serve_prefix["launches"],
                     kern["max_abs_err"], kern, design=PAGED_DESIGN,
                     launches_by_path={"main": serve["launches"],
-                                      "main_multistep": serve_multi["launches"]},
+                                      "main_multistep": serve_multi["launches"],
+                                      "main_prefill": serve_prefill["launches"],
+                                      "main_prefix": serve_prefix["launches"]},
                     device_ms_per_super_step=serve_multi["profile"][
                         "paged_attention_ms_per_step"],
                     device_kernels_per_decode_step=serve["profile"][
