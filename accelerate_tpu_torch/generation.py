@@ -2,10 +2,11 @@
 categorical draw, and prefill + cached decode steps.
 
 Counterpart of ``GenerationConfig``, ``filtered_logits``, ``sampling_core``,
-``sampling_core_dyn_k``, ``sample_logits`` and ``generate_loop`` in
-``accelerate_tpu/generation.py``. JAX threads ``jax.random`` keys; the port draws
-from ``torch.Generator``s. The two give different numbers for the same seed, so a
-sampled token stream matches the JAX one in distribution, not draw for draw.
+``sampling_core_dyn_k``, ``speculative_accept(_batch)``, ``speculative_prefix_accept``,
+``sample_logits`` and ``generate_loop`` in ``accelerate_tpu/generation.py``. JAX
+threads ``jax.random`` keys; the port draws from ``torch.Generator``s. The two give
+different numbers for the same seed, so a sampled token stream (and a speculative
+accept/reject) matches the JAX one in distribution, not draw for draw.
 
 The draw is Gumbel-max over the filtered logits (what ``jax.random.categorical``
 does). Its noise comes from a CPU generator (:func:`gumbel_noise`) and is then moved
@@ -44,7 +45,8 @@ from .utils.cuda_graph import CapturedStep
 from .utils.tree import tree_leaves
 
 __all__ = ["GenerationConfig", "filtered_logits", "filtered_logits_dyn_k", "sampling_core",
-           "sampling_core_dyn_k",
+           "sampling_core_dyn_k", "speculative_accept", "speculative_accept_batch",
+           "speculative_prefix_accept", "accept_draws",
            "sample_logits", "gumbel_noise", "emission_generator", "generate_loop",
            "GENERATE_CACHE_BYTES", "cache_lookup", "cache_store", "held_bytes",
            "release_generate_caches"]
@@ -147,6 +149,92 @@ def sampling_core_dyn_k(logits: torch.Tensor, noise: torch.Tensor, temperature, 
     top-p and temperature in tests/test_torch_multistep_decode.py."""
     return torch.argmax(filtered_logits_dyn_k(logits, temperature, top_p, top_k) + noise,
                         dim=-1)
+
+
+def accept_draws(generators, n: int, V: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(uniforms [n], Gumbel noise [n, V]) on ``device``: row i's uniform and then its
+    noise drawn from ``generators[i]``, a CPU generator."""
+    if len(generators) != n:
+        raise ValueError(f"{len(generators)} generators for {n} rows")
+    u = torch.empty((n,), dtype=torch.float32)
+    noise = torch.empty((n, V), dtype=torch.float32)
+    for i, g in enumerate(generators):
+        u[i] = torch.rand((), generator=g, dtype=torch.float32)
+        noise[i] = gumbel_noise((V,), g)
+    return u.to(device), noise.to(device)
+
+
+def speculative_accept_batch(p_probs: torch.Tensor, q_probs: torch.Tensor,
+                             draft_tokens: torch.Tensor, generators):
+    """N independent speculative-sampling accept/reject tests (Leviathan et al. 2022)
+    at once: the draft proposed ``draft_tokens[i]`` from ``q_probs[i]``; the target
+    distribution is ``p_probs[i]``. Row i accepts with probability min(1, p/q) and
+    otherwise draws from the residual norm(max(p − q, 0)); each row's output is
+    distributed exactly as its p. ``p_probs``/``q_probs`` [N, V], ``draft_tokens`` [N]
+    → (accepted bool [N], tokens int32 [N]).
+
+    ``generators``: one CPU generator per row (row i draws its uniform, then its Gumbel
+    noise for the residual, from ``generators[i]``); the draws move to the
+    probabilities' device. Where JAX splits each row's key in two,
+    the port draws both from the row's generator in turn. An all-zero residual (p == q
+    exactly; the draw is then unused) falls back to p, so the categorical never sees
+    -inf everywhere."""
+    p = p_probs.float()
+    q = q_probs.float()
+    n, V = p.shape
+    drafts = torch.as_tensor(draft_tokens, device=p.device).long()
+    u, noise = accept_draws(generators, n, V, p.device)
+    p_tok = p.gather(1, drafts[:, None])[:, 0]
+    q_tok = q.gather(1, drafts[:, None])[:, 0]
+    ratio = p_tok / torch.clamp(q_tok, min=1e-30)
+    accepted = u < torch.clamp(ratio, max=1.0)
+    residual = torch.clamp(p - q, min=0.0)
+    denom = residual.sum(dim=1, keepdim=True)
+    safe = torch.where(denom > 0, residual / torch.clamp(denom, min=1e-30), p)
+    resid_tok = torch.argmax(torch.log(torch.clamp(safe, min=1e-30)) + noise, dim=1)
+    return accepted, torch.where(accepted, drafts, resid_tok).to(torch.int32)
+
+
+def speculative_accept(p_probs: torch.Tensor, q_probs: torch.Tensor, draft_token,
+                       generator: torch.Generator):
+    """One accept/reject of :func:`speculative_accept_batch` (``p_probs``/``q_probs``
+    [V], one CPU ``generator``, where JAX takes a key) → (accepted bool 0-d, token
+    int32 0-d); the output is distributed exactly as p."""
+    accepted, token = speculative_accept_batch(
+        p_probs[None], q_probs[None], torch.as_tensor(draft_token).reshape(1), [generator])
+    return accepted[0], token[0]
+
+
+def speculative_prefix_accept(proposals: torch.Tensor, ref: torch.Tensor, live: torch.Tensor,
+                              limits: torch.Tensor, eos_ids: torch.Tensor):
+    """Batched greedy-prefix acceptance, the accept walk of the serving engine's
+    speculative round as fixed-shape tensor ops (no host read, so a CUDA graph holds
+    it). ``proposals`` [B, k] (the drafter's), ``ref`` [B, k+1] (the tokens the verify
+    selected at each position), ``live`` bool [B], ``limits`` [B] (remaining budget:
+    a round emits at most ``min(k+1, max(limits, 1))``), ``eos_ids`` [B] (-1: none).
+
+    Per lane: the longest prefix where proposal j == ref j is accepted, and ref's next
+    token (correction or bonus) follows it; the emissions are cut at the budget, then
+    at the first EOS inclusive. Returns ``(n_emit int32 [B], last_tok int32 [B],
+    hit_eos bool [B], n_accepted int32 [B])``: emissions (0 for dead lanes), the last
+    emitted token (``ref[:, 0]`` where nothing is emitted), whether the round ended on
+    the lane's EOS, and how many emissions were accepted proposals. Pure integer
+    logic: equal to the JAX function's outputs."""
+    k = proposals.shape[1]
+    match = (proposals == ref[:, :k]).to(torch.int32)
+    n_match = torch.cumprod(match, dim=1).sum(dim=1)
+    m = torch.minimum(n_match + 1, torch.clamp(limits, min=1))
+    is_eos = (eos_ids[:, None] >= 0) & (ref == eos_ids[:, None])
+    within = torch.arange(k + 1, device=ref.device)[None, :] < m[:, None]
+    hits = is_eos & within
+    has_eos = hits.any(dim=1)
+    first_eos = hits.to(torch.int32).argmax(dim=1)
+    m = torch.where(has_eos, first_eos + 1, m)
+    n_emit = torch.where(live, m, 0).to(torch.int32)
+    last_idx = torch.clamp(n_emit - 1, 0, k).long()
+    last_tok = ref.gather(1, last_idx[:, None])[:, 0]
+    n_accepted = torch.minimum(n_match, n_emit).to(torch.int32)
+    return n_emit, last_tok.to(torch.int32), has_eos & live, n_accepted
 
 
 def sample_logits(logits: torch.Tensor, gen: GenerationConfig,

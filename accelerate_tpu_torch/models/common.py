@@ -28,8 +28,9 @@ holding anyway, so no writer races another), and a scalar-start slice write CLAM
 start like ``lax.dynamic_update_slice`` (the start may be a device tensor).
 
 :func:`multi_step_decode` runs N cached decode steps with the lane-freezing carry of
-the JAX super-step; on CUDA the serving engine and ``generation.generate_loop`` replay
-such steps from a CUDA graph (``utils/cuda_graph.py``).
+the JAX super-step, and :func:`spec_multi_step_decode` N speculative draft → verify →
+accept rounds; on CUDA the serving engine and ``generation.generate_loop`` replay such
+steps from a CUDA graph (``utils/cuda_graph.py``).
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ __all__ = [
     "fused_ce_allowed", "fused_ce_single_shard",
     "kv_planes", "quant_kv", "put_or_drop", "write_kv", "read_kv",
     "paged_kv_planes", "write_kv_paged", "read_kv_paged", "paged_write_coords",
-    "paged_attention_dispatch", "multi_step_decode",
+    "paged_attention_dispatch", "multi_step_decode", "spec_multi_step_decode",
 ]
 
 _SP_MODES = ("ring", "ulysses", "ulysses_ppermute", "allgather")
@@ -429,3 +430,85 @@ def multi_step_decode(forward_one: Callable, cache, tokens: torch.Tensor,
         tok = nxt
         rows.append(nxt)
     return cache, torch.stack(rows), count, logits
+
+
+def spec_multi_step_decode(forward_verify: Callable, propose: Callable, select_ref: Callable,
+                           cache, tokens: torch.Tensor, positions: torch.Tensor,
+                           active: torch.Tensor, budgets: torch.Tensor,
+                           eos_ids: torch.Tensor, noise_tab, history: torch.Tensor,
+                           hist_lens: torch.Tensor, n_steps: int, spec_k: int,
+                           max_len: int):
+    """N speculative rounds (draft → verify → accept) with the JAX super-step's carry
+    ``(cache, history, hist_lens, tokens, positions, done, count, proposed, accepted)``,
+    written like :func:`multi_step_decode` (fixed shapes, no host reads) so that a CUDA
+    graph can hold all N rounds.
+
+    Per round: ``propose(history, hist_lens) -> [B, k]`` drafts from the carried token
+    history; the pending ``tokens`` and the proposals form the ``[B, k+1]`` verify
+    sequence, written and attended at ``positions`` through ``forward_verify(cache, seq,
+    write_pos) -> (logits [B, k+1, V], cache)``; ``select_ref(logits, noise) -> [B, k+1]``
+    picks the reference tokens (argmax for greedy lanes, the replayed draw for sampled
+    lanes); acceptance is ``generation.speculative_prefix_accept``.
+
+    JAX's key cursor becomes a NOISE cursor: ``noise_tab`` [B, R, V] (R ≥ N·(k+1)) holds
+    each lane's Gumbel noise rows of its next R emissions, and the carried ``count`` is
+    the cursor, so round r of lane b reads rows ``count[b] .. count[b]+k`` — the rows the
+    host loop's replay round reads at the same point, since ``len(req.tokens)`` grows by
+    the same per-lane ``n_emit``. ``noise_tab`` None (every lane greedy) passes None.
+
+    A frozen lane writes at ``max_len`` (dropped); rejected drafts leave K/V above the
+    accepted prefix, hidden by the causal mask until the next round's window, which
+    starts at the first such slot, overwrites it. Accepted emissions are appended to a
+    copy of ``history`` inside the loop (columns past ``n_emit`` drop), so round r+1
+    drafts from round r's tokens.
+
+    Returns ``(cache, tok_buf [N, B, k+1], emits [N, B], counts [B], proposed [B],
+    accepted [B], logits)``: ``tok_buf[r, b, :emits[r, b]]`` are lane b's emissions of
+    round r (drain round-major, lane-minor), ``counts`` the per-lane totals,
+    ``proposed``/``accepted`` the accept-rate counters, and ``logits`` the last round's
+    ``[B, k+1, V]`` (the JAX function returns the first six)."""
+    from ..generation import speculative_prefix_accept
+
+    B, S = history.shape
+    k1 = spec_k + 1
+    dev = tokens.device
+    cols = torch.arange(k1, dtype=torch.int32, device=dev)[None, :]
+    rows = torch.arange(B, device=dev).repeat_interleave(k1)
+    done = ~active
+    zeros = torch.zeros_like(tokens, dtype=torch.int32)
+    count, proposed, accepted = zeros, zeros, zeros
+    hist, lens = history.clone(), hist_lens.to(torch.int32)
+    tok, pos = tokens.to(torch.int32), positions.to(torch.int32)
+    refs, emits, logits = [], [], None
+    for _ in range(n_steps):
+        live = ~done
+        props = propose(hist, lens)
+        seq = torch.cat([tok[:, None], props.to(torch.int32)], dim=1)
+        write_pos = pos.masked_fill(done, max_len)
+        logits, cache = forward_verify(cache, seq, write_pos)
+        noise = None
+        if noise_tab is not None:
+            # The clamp only guards the table's edge: a live lane never reads past row
+            # N·(k+1) - 1.
+            ni = torch.clamp(count[:, None] + cols, 0, noise_tab.shape[1] - 1).long()
+            noise = torch.gather(noise_tab, 1,
+                                 ni[:, :, None].expand(B, k1, noise_tab.shape[2]))
+        ref = select_ref(logits, noise).to(torch.int32)
+        n_emit, last, hit_eos, n_acc = speculative_prefix_accept(
+            props, ref, live, budgets - count, eos_ids)
+        # This round's emissions append to the drafting history (columns past n_emit,
+        # and past the history's end, drop).
+        wi = (lens[:, None] + cols).reshape(-1).long()
+        keep = ((cols < n_emit[:, None]).reshape(-1)) & (wi < S)
+        put_or_drop(hist, rows, wi, ref.reshape(-1), keep)
+        lens = lens + n_emit
+        tok = torch.where(n_emit > 0, last, tok)
+        count = count + n_emit
+        pos = pos + n_emit
+        done = done | (live & (hit_eos | (count >= budgets)))
+        proposed = proposed + torch.where(live, spec_k, 0).to(torch.int32)
+        accepted = accepted + n_acc
+        refs.append(ref)
+        emits.append(n_emit)
+    return (cache, torch.stack(refs), torch.stack(emits), count, proposed, accepted,
+            logits)

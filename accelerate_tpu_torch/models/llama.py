@@ -39,8 +39,9 @@ over the batch ranks: ``parallel.tp.replica_sum``), and
 
 The one-request API — :func:`generate` (prefill, then decode steps replayed from a CUDA
 graph on the card through ``generation.generate_loop``), :func:`score` and
-:func:`perplexity` — and :func:`forward_slots_multi`, the serving engine's N-step
-super-step, follow the JAX functions of the same names.
+:func:`perplexity` — :func:`forward_slots_multi`, the serving engine's N-step
+super-step, and :func:`forward_slots_spec_multi`, its N-round speculative super-step,
+follow the JAX functions of the same names.
 
 Not supported in this slice (raise ``NotImplementedError``): ``moe_experts > 0``,
 ``lora_rank > 0`` and ``use_fp8``.
@@ -64,7 +65,7 @@ from ..utils.constants import BATCH_AXES, FSDP_AXIS, TENSOR_AXIS
 from ..utils.device import resolve_device
 from ..utils.tree import tree_leaves
 from .common import (_softcap, attention_dispatch, ce_sum_dispatch, multi_step_decode,
-                     put_or_drop, remat_wrap, resolve_loss_chunk)
+                     put_or_drop, remat_wrap, resolve_loss_chunk, spec_multi_step_decode)
 from .common import kv_planes as _kv_planes
 from .common import paged_attention_dispatch as _paged_attention
 from .common import paged_kv_planes as _paged_kv_planes
@@ -92,6 +93,7 @@ __all__ = [
     "forward_slots",
     "forward_slots_paged",
     "forward_slots_multi",
+    "forward_slots_spec_multi",
     "score",
     "perplexity",
     "generate",
@@ -864,6 +866,32 @@ def forward_slots_multi(params: dict, cache: dict, tokens: torch.Tensor,
 
     return multi_step_decode(forward_one, cache, tokens, positions, active, budgets,
                              eos_ids, select_token, xs, n_steps, max_len)
+
+
+def forward_slots_spec_multi(params: dict, cache: dict, tokens: torch.Tensor,
+                             positions: torch.Tensor, active: torch.Tensor,
+                             budgets: torch.Tensor, eos_ids: torch.Tensor, propose,
+                             select_ref, noise_tab, history: torch.Tensor,
+                             hist_lens: torch.Tensor, n_steps: int, spec_k: int,
+                             cfg: LlamaConfig, tables: Optional[torch.Tensor] = None,
+                             page_size: int = 0):
+    """N speculative draft → verify → accept rounds — the fused super-step the serving
+    engine's ``spec_k > 0, decode_steps=N`` path runs (replayed from a CUDA graph on the
+    card). Each round's verify is literally a T == spec_k+1 :func:`forward_slots` call,
+    dense or paged (the host loop's verify: same rope positions, masking and paged
+    routing, so per-round logits are the host loop's); see
+    :func:`~.common.spec_multi_step_decode` for the accept, noise-cursor and freeze
+    contract. Returns ``(cache, tok_buf [n_steps, B, spec_k+1], emits [n_steps, B],
+    counts [B], proposed [B], accepted [B], last round's logits [B, spec_k+1, V])``."""
+    max_len = cache["valid"].shape[1]
+
+    def forward_verify(c, seq, write_pos):
+        return forward_slots(params, seq, c, write_pos, cfg, tables=tables,
+                             page_size=page_size)
+
+    return spec_multi_step_decode(forward_verify, propose, select_ref, cache, tokens,
+                                  positions, active, budgets, eos_ids, noise_tab, history,
+                                  hist_lens, n_steps, spec_k, max_len)
 
 
 # ------------------------------------------------------------------- one-request API

@@ -47,11 +47,34 @@ CPU, and so do the prefix and bucket counters. Sampled requests take an integer
 (``generation.emission_generator``), so a request's tokens do not depend on what else
 is in the batch.
 
-Not in this slice (the constructor does not take them): speculative decoding,
-disaggregated roles and KV handoffs, fault injection and recovery, telemetry and
-tracing, and the compile cache itself (the JAX engine's ``compile_cache`` and its
-bucket ``ladder()``; ``warm_programs`` captures graphs in the process instead of
-filling an AOT cache).
+- ``spec_k=k > 0`` decodes speculatively: a ``spec_decode.DraftSource`` (default
+  ``NgramDrafter``) proposes k tokens a lane, ONE target forward over ``[B, k+1]``
+  (``llama.forward_slots``, dense or paged: kernel #1 at T = k+1 query rows a lane)
+  verifies them, and each lane accepts a prefix (1..k+1 tokens a step). Greedy lanes
+  accept by exact match with the verify's argmax; sampled lanes either REPLAY the
+  target's own draw at each position with the noise rows of emissions ``len(tokens) ..
+  len(tokens)+k`` (``spec_accept="replay"``: tokens bitwise ``spec_k=0``'s) or run the
+  Leviathan accept/reject (``"residual"``: emission m draws its uniform and its
+  residual noise from ``emission_generator(seed, m)``; lossless in distribution). On
+  the card this host-loop step runs eagerly; it is the parity reference of the fused
+  path. Rejected drafts leave K/V above each lane's position that the causal mask
+  hides until the next step overwrites it; paged draft tails past a lane's pages route
+  to the sentinel and drop (admission reserves only prompt + budget).
+- ``spec_k > 0`` with ``decode_steps=N > 1``, replay acceptance and a resident drafter
+  runs N draft → verify → accept rounds per dispatch (``llama.forward_slots_spec_multi``
+  with the device n-gram proposer ``spec_decode.ngram_propose_resident``): on the card
+  one CUDA graph per ``(N, k, max_ngram, sampled, paged)``, its inputs (history,
+  tokens, positions, budgets, EOS ids, the ``[B, N·(k+1), V]`` noise table and the
+  sampling knobs) in static buffers; a lane's noise cursor is its emission count, so
+  its tokens are the host loop's, bitwise. One host read drains the round buffers.
+  ``set_spec_enabled(False)`` falls back to the plain super-step (never N = 1).
+
+Not in this slice (the constructor does not take them): disaggregated roles and KV
+handoffs, fault injection and recovery, telemetry and tracing (the ``serving.spec/v1``
+record waits for it), the cross-family draft (``models/gpt.py`` is not ported), and
+the compile cache itself (the JAX engine's ``compile_cache`` and its bucket
+``ladder()``; ``warm_programs`` captures graphs in the process instead of filling an
+AOT cache).
 """
 
 from __future__ import annotations
@@ -66,10 +89,12 @@ import numpy as np
 import torch
 
 from .compile_cache import pick_bucket
-from .generation import (GenerationConfig, emission_generator, gumbel_noise, sampling_core,
-                         sampling_core_dyn_k)
+from .generation import (GenerationConfig, accept_draws, emission_generator, filtered_logits,
+                         gumbel_noise, sampling_core, sampling_core_dyn_k,
+                         speculative_accept_batch)
 from .models import llama
 from .paged_kv import BlockManager, KVBudgetError, pages_for
+from .spec_decode import ModelDrafter, NgramDrafter, ngram_propose_resident
 from .utils.cuda_graph import CapturedStep
 
 __all__ = ["ContinuousBatcher", "KVBudgetError", "Request", "normalize_submit"]
@@ -228,6 +253,100 @@ def _decode_multi_step_paged(params, cache, tables, tokens, positions, active, b
     return tok_buf, counts, logits, cache
 
 
+def _spec_verify_step(params, cache, tokens, positions, cfg):
+    """Batched speculative VERIFY: score ``tokens`` [B, k+1] (each lane's pending token
+    and its k proposals) in ONE target forward → (greedy [B, k+1], logits [B, k+1, V]
+    fp32, cache). Column j is the target's next-token distribution after input j, what
+    j sequential one-token steps would give, which makes prefix acceptance lossless."""
+    logits, cache = llama.forward_slots(params, tokens, cache, positions, cfg)
+    return torch.argmax(logits, dim=-1), logits, cache
+
+
+def _spec_verify_step_paged(params, cache, tables, tokens, positions, cfg, page_size: int):
+    """:func:`_spec_verify_step` over the paged cache: attention through kernel #1 at
+    T = k+1 query rows a lane on the card; draft writes past a lane's allocated pages
+    route through the sentinel table entry and drop."""
+    logits, cache = llama.forward_slots_paged(params, tokens, cache, tables, positions, cfg,
+                                              page_size)
+    return torch.argmax(logits, dim=-1), logits, cache
+
+
+def _replay_draws(logits_rows, noise, temperature, top_p, top_k: int) -> torch.Tensor:
+    """The plain sampler replayed at every verify position of ONE sampled lane:
+    ``logits_rows`` [T, V] with each position's Gumbel noise row ``noise`` [T, V] → the
+    tokens [T] that ``spec_k=0`` decode draws at those emissions (the same filtered
+    draw as :meth:`Request._sample`, row for row)."""
+    filt = filtered_logits(logits_rows, temperature, top_p, top_k)
+    return torch.argmax(filt + noise, dim=-1)
+
+
+def _spec_residual(logits_rows, drafts, generators, temperature, top_p, top_k: int):
+    """Leviathan accept/reject for ONE sampled lane's round → (emitted [k+1] int32,
+    count): the accepted draft prefix, then the residual draw at the first rejection
+    (or, when all k are accepted, a bonus draw from position k's distribution).
+
+    The target probabilities come from the same ``filtered_logits`` as the plain draw;
+    the drafter's q is a point mass on its proposal. Position j draws from
+    ``generators[j]``, its emission's: a uniform for the accept test, then the Gumbel
+    noise of the residual (the bonus takes position k's noise). Tests after the first
+    rejection are computed and discarded."""
+    k = drafts.shape[0]
+    V = logits_rows.shape[-1]
+    p = torch.softmax(filtered_logits(logits_rows, temperature, top_p, top_k), dim=-1)
+    q = torch.nn.functional.one_hot(drafts.long(), V).float()
+    acc, toks = speculative_accept_batch(p[:-1], q, drafts, generators[:-1])
+    _, bonus_noise = accept_draws(generators[-1:], 1, V, p.device)
+    bonus = torch.argmax(torch.log(torch.clamp(p[-1], min=1e-30)) + bonus_noise[0])
+    n = torch.cumprod(acc.to(torch.int32), dim=0).sum()
+    correction = torch.where(n == k, bonus, toks[torch.clamp(n, max=k - 1)].long())
+    pos = torch.arange(k + 1, device=p.device)
+    emitted = torch.where(pos < n, torch.cat([drafts.long(), drafts.new_zeros(1).long()]), 0)
+    emitted = torch.where(pos == n, correction, emitted)
+    return emitted.to(torch.int32), n + 1
+
+
+def _spec_multi_select(sample: bool, temps, top_ps, top_ks) -> Callable:
+    """``select_ref(logits [B, k+1, V], noise [B, k+1, V] or None) -> [B, k+1]`` for the
+    fused speculative rounds: the reference tokens the accept walk compares proposals
+    with. ``sample=False`` is the argmax the host loop's verify returns; ``sample=True``
+    draws every (lane, position) through ``sampling_core_dyn_k`` with that lane's
+    knobs and the noise rows its cursor selected, bitwise :func:`_replay_draws`; greedy
+    lanes ride along with a safe temperature of 1.0 and take the argmax."""
+    if not sample:
+        return lambda logits, _: torch.argmax(logits, dim=-1)
+    safe_temps = torch.where(temps > 0.0, temps, 1.0)
+
+    def select_ref(logits, noise):
+        B, T, V = logits.shape
+        greedy = torch.argmax(logits, dim=-1)
+        drawn = sampling_core_dyn_k(
+            logits.reshape(B * T, V), noise.reshape(B * T, V),
+            safe_temps.repeat_interleave(T), top_ps.repeat_interleave(T),
+            top_ks.repeat_interleave(T)).reshape(B, T)
+        return torch.where(temps[:, None] > 0.0, drawn, greedy)
+
+    return select_ref
+
+
+def _spec_multi_step(params, cache, tables, tokens, positions, active, budgets, eos_ids,
+                     noise, temps, top_ps, top_ks, history, hist_lens, cfg, n_steps: int,
+                     spec_k: int, max_ngram: int, sample: bool, page_size: int = 0):
+    """``n_steps`` speculative draft → verify → accept rounds as one super-step, dense
+    (``tables`` None) or paged → (the drained int32 vector: ``tok_buf`` [N, B, k+1],
+    ``emits`` [N, B], ``counts`` [B], ``proposed`` [B] and ``accepted`` [B] flattened and
+    concatenated, so one host read takes them all; the last round's position-0 logits
+    [B, V]). Drafting is the resident n-gram gather over the carried history; the
+    verify, accept and noise cursor are ``llama.forward_slots_spec_multi``'s."""
+    select_ref = _spec_multi_select(sample, temps, top_ps, top_ks)
+    _, tok_buf, emits, counts, proposed, accepted, logits = llama.forward_slots_spec_multi(
+        params, cache, tokens, positions, active, budgets, eos_ids,
+        lambda hist, lens: ngram_propose_resident(hist, lens, spec_k, max_ngram),
+        select_ref, noise if sample else None, history, hist_lens, n_steps, spec_k, cfg,
+        tables=tables, page_size=page_size)
+    host = torch.cat([tok_buf.reshape(-1), emits.reshape(-1), counts, proposed, accepted])
+    return host, logits[:, 0, :]
+
+
 @dataclasses.dataclass
 class _PagedPrefix:
     """One paged prefix-registry entry: the physical pages covering the registered
@@ -342,7 +461,8 @@ class ContinuousBatcher:
     def __init__(self, params, cfg, max_slots: int = 8, max_len: int = 512,
                  prompt_bucket: int = 64, prefix_cache: int = 0, prompt_buckets=None,
                  page_size: int = 0, kv_pages: Optional[int] = None,
-                 decode_steps: int = 1):
+                 decode_steps: int = 1, spec_k: int = 0, drafter=None,
+                 spec_accept: str = "replay"):
         llama.check_supported(cfg)
         self.params = params
         self.cfg = cfg
@@ -398,6 +518,30 @@ class ContinuousBatcher:
                 f"decode_steps={decode_steps} must be >= 1 (1 = the classic one-token step)")
         #: Decode steps per dispatch (``decode_steps``; the JAX engine's name).
         self.multi_step = int(decode_steps)
+        # Speculative decoding: ``spec_k`` proposals a lane a step, verified by ONE
+        # [B, spec_k+1] forward; ``drafter`` a ``spec_decode.DraftSource`` (default:
+        # NgramDrafter); ``spec_accept`` the sampled lanes' test: "replay" (bitwise the
+        # spec_k=0 tokens) or "residual" (Leviathan accept/reject).
+        if not isinstance(spec_k, (int, np.integer)) or isinstance(spec_k, bool):
+            raise TypeError(f"spec_k must be an int, got {type(spec_k).__name__}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k={spec_k} must be >= 0 (0 disables speculation)")
+        if spec_accept not in ("replay", "residual"):
+            raise ValueError(f"spec_accept={spec_accept!r}: expected 'replay' or 'residual'")
+        self.spec_k = int(spec_k)
+        self.spec_accept = spec_accept
+        if drafter is not None and not self.spec_k:
+            raise ValueError(
+                "a drafter was given but spec_k=0: it would be silently ignored — "
+                "pass spec_k>=1 to enable speculative decoding"
+            )
+        if self.spec_k and drafter is None:
+            drafter = NgramDrafter()
+        self.drafter = drafter
+        #: The speculative master switch (``set_spec_enabled``).
+        self.spec_enabled = True
+        self.spec_proposed = 0  # draft tokens proposed (spec_k a live lane a round)
+        self.spec_accepted = 0  # proposed tokens that were emitted
         if self.paged:
             if kv_pages is None:
                 kv_pages = max_slots * pages_for(max_len, self.page_size)
@@ -443,6 +587,11 @@ class ContinuousBatcher:
         # index a device tensor) and, per width, the token row and its mask.
         self._row = llama.init_cache(cfg, 1, max_len, device=self.device, device_index=True)
         self._pbuf: dict = {}
+        #: Fused speculative super-step runners by (N, k, max_ngram, sampled, paged), as
+        #: ``graphs``.
+        self.spec_graphs: dict = {}
+        if self.drafter is not None:
+            self.drafter.bind(self)
 
     # ------------------------------------------------------------------ user API
     def stats(self) -> dict:
@@ -493,6 +642,7 @@ class ContinuousBatcher:
             "admitted": self.admitted,
             "evicted": self.evicted,
             "evicted_external": self.evicted_external,
+            "spec_k": self.spec_k,
             "multi_step": self.multi_step,
             "decode_steps": self.decode_steps,
             "decode_tokens": self.decode_tokens,
@@ -500,6 +650,13 @@ class ContinuousBatcher:
                 round(self.decode_tokens / self.decode_steps, 4)
                 if self.decode_steps else None
             ),
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_accept_rate": (
+                round(self.spec_accepted / self.spec_proposed, 4)
+                if self.spec_proposed else None
+            ),
+            "spec_enabled": self.spec_enabled,
             "prefill_s": self.prefill_s,
             "decode_s": self.decode_s,
             "dispatch_s": self.dispatch_s,
@@ -559,6 +716,24 @@ class ContinuousBatcher:
                 return True
         return False
 
+    def set_spec_enabled(self, enabled: bool) -> None:
+        """Turn speculative decoding on or off at run time. Output-safe either way:
+        speculation never changes emitted tokens, only how many a dispatch produces.
+        Off, decode takes this engine's plain path for its ``decode_steps`` (the
+        one-token step, or the plain super-step when ``decode_steps > 1``, never
+        N = 1); ``warm_programs`` captures both. Back on, a ``ModelDrafter``'s stale
+        lanes only lower acceptance until they cycle."""
+        if self.spec_k:
+            self.spec_enabled = bool(enabled)
+
+    def _spec_fused(self) -> bool:
+        """Whether speculation dispatches as the FUSED super-step instead of the host
+        loop: it needs ``decode_steps > 1``, replay acceptance (the residual test draws
+        on the host per emission) and a drafter with a device twin
+        (``DraftSource.resident``: the NgramDrafter)."""
+        return (self.multi_step > 1 and self.spec_accept == "replay"
+                and getattr(self.drafter, "resident", False))
+
     def _release_lane(self, slot: int) -> None:
         """Return a freed lane's pages to the pool (paged); a dense lane's row is
         simply overwritten at the next admission."""
@@ -574,7 +749,17 @@ class ContinuousBatcher:
         self.peak_active_slots = max(self.peak_active_slots, len(active))
         if not active:
             return finished_at_admit
-        decode = self._multi_step if self.multi_step > 1 else self._plain_step
+        # Speculation wins while enabled; with it off, a decode_steps > 1 engine takes
+        # the plain super-step, never N = 1.
+        use_spec = self.spec_k and self.spec_enabled
+        if use_spec and self._spec_fused():
+            decode = self._spec_multi
+        elif use_spec:
+            decode = self._spec_step
+        elif self.multi_step > 1:
+            decode = self._multi_step
+        else:
+            decode = self._plain_step
         finished = decode(active)
         self.evicted += len(finished)
         return sorted(finished_at_admit + finished, key=lambda r: r.uid)
@@ -629,22 +814,28 @@ class ContinuousBatcher:
             def zeros(shape, dtype):
                 return torch.zeros(shape, dtype=dtype, device=dev)
 
+            # The fused speculative super-step reads N·(k+1) noise rows a lane and the
+            # drafting history; the plain super-step the first N rows of the same table.
+            rows = N * (self.spec_k + 1) if self._spec_fused() else N
             self._mbuf = {
                 "tokens": zeros((B,), torch.int32), "positions": zeros((B,), torch.int32),
                 "active": zeros((B,), torch.bool), "budgets": zeros((B,), torch.int32),
                 "eos_ids": zeros((B,), torch.int32), "temps": zeros((B,), torch.float32),
                 "top_ps": zeros((B,), torch.float32), "top_ks": zeros((B,), torch.int32),
-                "noise": zeros((B, N, self.cfg.vocab_size), torch.float32),
+                "noise": zeros((B, rows, self.cfg.vocab_size), torch.float32),
             }
             if self.paged:
                 self._mbuf["tables"] = zeros(self.block_mgr.tables.shape, torch.int32)
+            if self._spec_fused():
+                self._mbuf["history"] = zeros((B, self.max_len), torch.int32)
+                self._mbuf["hist_lens"] = zeros((B,), torch.int32)
         return self._mbuf
 
     def _super_step(self, sample: bool):
         """One super-step over the static inputs → (tok_buf, counts, last logits)."""
         b, N = self._mbuf, self.multi_step
         lanes = (b["tokens"], b["positions"], b["active"], b["budgets"], b["eos_ids"],
-                 b["noise"], b["temps"], b["top_ps"], b["top_ks"])
+                 b["noise"][:, :N], b["temps"], b["top_ps"], b["top_ks"])
         if self.paged:
             out = _decode_multi_step_paged(self.params, self.cache, b["tables"], *lanes,
                                            self.cfg, N, sample, self.page_size)
@@ -667,9 +858,11 @@ class ContinuousBatcher:
             run = self.graphs[key] = self._graph(functools.partial(self._super_step, sampled))
         return run
 
-    def _load_super_step(self, active: list[int]) -> bool:
+    def _load_super_step(self, active: list[int], rows: Optional[int] = None) -> bool:
         """Fill the super-step's static inputs for lanes ``active`` (the other lanes
-        idle: frozen at step 0, they write nothing) → whether a live lane samples."""
+        idle: frozen at step 0, they write nothing) → whether a live lane samples. A
+        sampled lane's first ``rows`` noise rows (default N) are its next emissions'."""
+        rows = rows or self.multi_step
         B = self.max_slots
         active_mask = np.zeros((B,), bool)
         budgets = np.ones((B,), np.int32)  # idle lanes: frozen at step 0, never read
@@ -691,7 +884,7 @@ class ContinuousBatcher:
                 top_ps[i] = req.gen.top_p
                 top_ks[i] = req.gen.top_k
                 ts = time.perf_counter()
-                buf["noise"][i].copy_(self._noise_window(req, len(req.tokens)))
+                buf["noise"][i, :rows].copy_(self._noise_window(req, len(req.tokens), rows))
                 self.noise_s += time.perf_counter() - ts
         for name, arr in (("tokens", self.tokens), ("positions", self.positions),
                           ("active", active_mask), ("budgets", budgets),
@@ -760,23 +953,224 @@ class ContinuousBatcher:
         self.decode_s += time.perf_counter() - t0
         return finished
 
-    def _noise_rows(self, req: Request, start: int) -> dict:
+    def _noise_rows(self, req: Request, start: int, n: Optional[int] = None) -> dict:
         """{emission: Gumbel noise row [V]} of ``req``'s emissions ``start ..
-        start + N - 1`` up to its budget's last: each the noise :meth:`Request._sample`
-        draws at that emission (rows drawn ahead are taken, not drawn again)."""
+        start + n - 1`` (default n: N) up to its budget's last: each the noise
+        :meth:`Request._sample` draws at that emission (rows drawn ahead are taken, not
+        drawn again)."""
         ahead = self._noise_ahead.get(req.uid, {})
-        stop = min(start + self.multi_step, req.gen.max_new_tokens)
+        stop = min(start + (n or self.multi_step), req.gen.max_new_tokens)
         return {e: ahead[e] if e in ahead else
                 gumbel_noise((1, self.cfg.vocab_size), emission_generator(req.seed, e))[0]
                 for e in range(start, stop)}
 
-    def _noise_window(self, req: Request, start: int) -> torch.Tensor:
-        """[N, V] noise of a super-step's steps: step j draws emission ``start + j``,
-        clamped at the budget's last emission (the lane freezes there; later rows are
-        never read)."""
-        rows = self._noise_rows(req, start)
+    def _noise_window(self, req: Request, start: int, n: Optional[int] = None) -> torch.Tensor:
+        """[n, V] noise (default n: N): row j is emission ``start + j``'s, clamped at
+        the budget's last emission (the lane freezes there; later rows are never
+        read). The window's rows are kept as drawn ahead: a speculative step emits
+        fewer than n tokens, and the next window reads the rest again."""
+        n = n or self.multi_step
+        rows = self._noise_ahead[req.uid] = self._noise_rows(req, start, n)
         last = max(rows)
-        return torch.stack([rows[min(start + j, last)] for j in range(self.multi_step)])
+        return torch.stack([rows[min(start + j, last)] for j in range(n)])
+
+    # ------------------------------------------------------------------ speculation
+    def _spec_step(self, active: list[int]) -> list[Request]:
+        """Host-loop speculative step: propose → ONE verify over ``[B, k+1]`` → per-lane
+        prefix acceptance. A lane emits the first ``n_emit`` tokens of its reference row
+        (the verify's argmax when greedy, the replayed draws or the Leviathan round when
+        sampled): accepted proposals equal their reference tokens and the first
+        mismatch already holds the correction; the budget caps the emissions and an EOS
+        ends them. On the card the step runs eagerly."""
+        t0 = time.perf_counter()
+        k, T, dev = self.spec_k, self.spec_k + 1, self.device
+        live = {r.uid for r in self.slot_req if r is not None}
+        self._noise_ahead = {u: v for u, v in self._noise_ahead.items() if u in live}
+        proposals = np.asarray(
+            self.drafter.propose(self.slot_req, self.tokens, self.positions, k), np.int32)
+        seq = np.zeros((self.max_slots, T), np.int32)
+        seq[:, 0] = self.tokens  # the pending token: emitted last step, not yet written
+        seq[:, 1:] = proposals
+        seq_t, pos_t = torch.from_numpy(seq).to(dev), torch.from_numpy(self.positions).to(dev)
+        if self.paged:
+            greedy, logits, self.cache = _spec_verify_step_paged(
+                self.params, self.cache, torch.from_numpy(self.block_mgr.tables).to(dev),
+                seq_t, pos_t, self.cfg, self.page_size)
+        else:
+            greedy, logits, self.cache = _spec_verify_step(self.params, self.cache, seq_t,
+                                                           pos_t, self.cfg)
+        self.dispatch_s += time.perf_counter() - t0
+        greedy_host = greedy.cpu().numpy()  # [B, k+1]
+        self.last_logits = logits[:, 0, :]
+        finished = []
+        step_tokens = step_accepted = 0
+        for i in active:
+            req = self.slot_req[i]
+            limit = min(T, req.gen.max_new_tokens - len(req.tokens))  # the budget cap
+            if req.gen.temperature > 0.0 and self.spec_accept == "residual":
+                emitted_vec, count = self._residual_round(req, logits[i], proposals[i])
+                emitted = [int(t) for t in emitted_vec[:min(count, limit)]]
+            else:
+                ref = (greedy_host[i] if req.gen.temperature <= 0.0
+                       else self._replay_round(req, logits[i]))
+                n = 0
+                while n < k and proposals[i, n] == ref[n]:
+                    n += 1
+                emitted = [int(t) for t in ref[:min(n + 1, limit)]]
+            eos = req.gen.eos_token_id
+            if eos is not None and eos in emitted:
+                emitted = emitted[:emitted.index(eos) + 1]
+            # Accepted: emitted tokens that were proposals (the trailing correction or
+            # bonus is the target's own).
+            step_accepted += sum(1 for j, t in enumerate(emitted)
+                                 if j < k and t == int(proposals[i, j]))
+            step_tokens += len(emitted)
+            self.tokens[i] = emitted[-1]
+            self.positions[i] += len(emitted)
+            for tok in emitted:
+                req.tokens.append(tok)
+                if req.on_token is not None:
+                    req.on_token(tok)
+            hit_eos = eos is not None and emitted[-1] == eos
+            if hit_eos or len(req.tokens) >= req.gen.max_new_tokens:
+                req.done = True
+                finished.append(req)
+                self.slot_req[i] = None
+                self._release_lane(i)
+        self.positions = np.minimum(self.positions, self.max_len - 1)
+        self.decode_steps += 1
+        self.decode_tokens += step_tokens
+        self.spec_proposed += k * len(active)
+        self.spec_accepted += step_accepted
+        self.decode_s += time.perf_counter() - t0
+        return finished
+
+    def _replay_round(self, req: Request, logits_rows: torch.Tensor) -> np.ndarray:
+        """A sampled lane's REPLAY reference row: the tokens ``spec_k=0`` decode draws
+        at each verify position, position j with the noise row of emission
+        ``len(tokens) + j`` (clamped at the budget's last), bitwise
+        :meth:`Request._sample` at that emission."""
+        ts = time.perf_counter()
+        noise = self._noise_window(req, len(req.tokens), self.spec_k + 1)
+        self.noise_s += time.perf_counter() - ts
+        return _replay_draws(logits_rows, noise.to(logits_rows.device), req.gen.temperature,
+                             req.gen.top_p, req.gen.top_k).cpu().numpy()
+
+    def _residual_round(self, req: Request, logits_rows: torch.Tensor, drafts: np.ndarray):
+        """A sampled lane's Leviathan round (``spec_accept="residual"``) → (emitted row,
+        count): emission m (clamped at the budget's last) draws its accept uniform and
+        its residual noise from ``emission_generator(seed, m)``. Lossless in
+        distribution, not bitwise the plain draw."""
+        start, last = len(req.tokens), req.gen.max_new_tokens - 1
+        gens = [emission_generator(req.seed, min(start + j, last))
+                for j in range(self.spec_k + 1)]
+        emitted, count = _spec_residual(
+            logits_rows, torch.from_numpy(drafts).to(logits_rows.device), gens,
+            req.gen.temperature, req.gen.top_p, req.gen.top_k)
+        host = torch.cat([emitted, count.reshape(1).to(torch.int32)]).cpu().numpy()
+        return host[:-1], int(host[-1])
+
+    def _spec_super_step(self, sample: bool):
+        """One fused speculative super-step over the static inputs → (drained int32
+        vector, last round's position-0 logits)."""
+        b = self._mbuf
+        return _spec_multi_step(
+            self.params, self.cache, b.get("tables"), b["tokens"], b["positions"],
+            b["active"], b["budgets"], b["eos_ids"], b["noise"], b["temps"], b["top_ps"],
+            b["top_ks"], b["history"], b["hist_lens"], self.cfg, self.multi_step,
+            self.spec_k, int(self.drafter.max_ngram), sample, self.page_size)
+
+    def _spec_key(self, sampled: bool) -> tuple:
+        return (self.multi_step, self.spec_k, int(self.drafter.max_ngram), sampled,
+                self.paged)
+
+    def _spec_runner(self, sampled: bool):
+        """The fused speculative runner of key ``(N, k, max_ngram, sampled, paged)``."""
+        key = self._spec_key(sampled)
+        run = self.spec_graphs.get(key)
+        if run is None:
+            run = self.spec_graphs[key] = self._graph(
+                functools.partial(self._spec_super_step, sampled))
+        return run
+
+    def _load_spec_step(self, active: list[int]) -> bool:
+        """:meth:`_load_super_step` with N·(k+1) noise rows a sampled lane, plus each
+        lane's drafting history: prompt + generated tokens packed from column 0 (the
+        last ``max_len``)."""
+        sampled = self._load_super_step(active, self.multi_step * (self.spec_k + 1))
+        history = np.zeros((self.max_slots, self.max_len), np.int32)
+        hist_lens = np.zeros((self.max_slots,), np.int32)
+        for i in active:
+            req = self.slot_req[i]
+            ctx = np.concatenate([np.asarray(req.prompt, np.int32),
+                                  np.asarray(req.tokens, np.int32)])[-self.max_len:]
+            history[i, :len(ctx)] = ctx
+            hist_lens[i] = len(ctx)
+        self._mbuf["history"].copy_(torch.from_numpy(history))
+        self._mbuf["hist_lens"].copy_(torch.from_numpy(hist_lens))
+        return sampled
+
+    def _spec_multi(self, active: list[int]) -> list[Request]:
+        """Fused speculative super-step: ``decode_steps=N`` draft → verify → accept
+        rounds in one dispatch (on the card one CUDA graph replay), then ONE read of
+        the round buffers. Each lane's noise cursor advances by its own emissions, so
+        its tokens are the host loop's, bitwise. The drain is round-major, lane-minor
+        (the order N host-loop steps append), clamped to each lane's budget."""
+        t0 = time.perf_counter()
+        N, k, B = self.multi_step, self.spec_k, self.max_slots
+        T = k + 1
+        sampled = self._load_spec_step(active)
+        vec, logits = self._spec_runner(sampled)()
+        self.dispatch_s += time.perf_counter() - t0
+        # While the device runs, draw each sampled lane's noise rows up to two windows
+        # ahead (the next window starts at most N·(k+1) emissions later); the rows of
+        # this window are taken, not drawn again.
+        ts = time.perf_counter()
+        self._noise_ahead = {
+            req.uid: self._noise_rows(req, len(req.tokens), 2 * N * T)
+            for req in (self.slot_req[i] for i in active) if req.gen.temperature > 0.0
+            and len(req.tokens) + N < req.gen.max_new_tokens}
+        self.noise_ahead_s += time.perf_counter() - ts
+        host = vec.cpu().numpy()  # the one host read
+        o = N * B * T
+        ref_host = host[:o].reshape(N, B, T)
+        emits_host = host[o:o + N * B].reshape(N, B)
+        counts_host, prop_host, acc_host = host[o + N * B:].reshape(3, B)
+        self.last_logits = logits
+        last_tok = [0] * B
+        for r in range(N):
+            for i in active:
+                req = self.slot_req[i]
+                for j in range(int(emits_host[r, i])):
+                    if len(req.tokens) >= req.gen.max_new_tokens:
+                        break
+                    tok = int(ref_host[r, i, j])
+                    last_tok[i] = tok
+                    req.tokens.append(tok)
+                    if req.on_token is not None:
+                        req.on_token(tok)
+        finished = []
+        step_tokens = 0
+        for i in active:
+            req = self.slot_req[i]
+            c = int(counts_host[i])
+            step_tokens += c
+            self.tokens[i] = last_tok[i]  # the new pending token (c >= 1)
+            self.positions[i] += c
+            eos = req.gen.eos_token_id
+            hit_eos = eos is not None and req.tokens and req.tokens[-1] == eos
+            if hit_eos or len(req.tokens) >= req.gen.max_new_tokens:
+                req.done = True
+                finished.append(req)
+                self.slot_req[i] = None
+                self._release_lane(i)
+        self.positions = np.minimum(self.positions, self.max_len - 1)
+        self.decode_steps += 1
+        self.decode_tokens += step_tokens
+        self.spec_proposed += int(prop_host.sum())
+        self.spec_accepted += int(acc_host.sum())
+        self.decode_s += time.perf_counter() - t0
+        return finished
 
     def run(self, report_throughput: bool = False):
         """Drain queue + active lanes; returns the finished requests (and tokens/s
@@ -797,28 +1191,43 @@ class ContinuousBatcher:
         (the JAX engine compiles the same surface into its AOT cache):
 
         - the super-step of each ``(N, sampled, paged)`` key when ``decode_steps > 1``
-          (both ``sampled`` variants: a mixed workload alternates them);
+          (both ``sampled`` variants: a mixed workload alternates them; a speculative
+          engine dispatches it while speculation is off);
+        - the fused speculative super-step of each ``(N, k, max_ngram, sampled, paged)``
+          key when speculation runs fused;
+        - the drafter's own graphs (``drafter.warm_programs``: a ``ModelDrafter``'s
+          draft round);
         - one prefill per bucket that ``_plan_prefill`` can route such a request to,
           and the first-chunk + chunk-append pair when one chunk plus the budget fits
           ``max_len`` (the fall-back of prompts no bucket fits);
         - with ``prefix_cache``, the prefix layout's full-logits and keep programs
           instead of the buckets and the pair.
 
-        Each graph's eager first call runs on idle inputs: every lane frozen (the
-        super-step writes nothing) and all-pad rows into the prefill row cache (a
-        scratch buffer). The cache, valid rows, pages, block manager and counters are
-        left as they were. Returns one entry per program: its JAX name, key, capture
-        seconds and pool bytes (graphs already captured report their numbers again);
-        on the CPU, where nothing is captured, the entries only enumerate the
-        surface (``capture_s`` and ``pool_bytes`` None)."""
+        The host-loop speculative step (``decode_steps=1``) runs eagerly and has no
+        graph. Each graph's eager first call runs on idle inputs: every lane frozen
+        (a super-step writes nothing), every draft position at the cache end (its
+        writes drop) and all-pad rows into the prefill row cache (a scratch buffer).
+        The cache, valid rows, pages, block manager and counters are left as they were.
+        Returns one entry per program: its JAX name, key, capture seconds and pool
+        bytes (graphs already captured report their numbers again); on the CPU, where
+        nothing is captured, the entries only enumerate the surface (``capture_s`` and
+        ``pool_bytes`` None)."""
         entries = []
+        paged = "_paged" if self.paged else ""
         for key in self._program_surface(max_new_tokens):
-            runners = self.graphs if isinstance(key[0], int) else self.prefill_graphs
-            if self.device.type == "cuda" and key not in runners:
+            if key[0] == "draft":
+                entries.extend(self.drafter.warm_programs(self, max_new_tokens))
+                continue
+            if isinstance(key[0], int):
+                runners, name = self.graphs, "serving.decode_multi" + paged
+            elif key[0] == "spec":
+                runners, name = self.spec_graphs, "serving.spec_multi" + paged
+            else:
+                runners, name = self.prefill_graphs, _PREFILL_PROGRAMS[key[0]][2]
+            rkey = key[1:] if key[0] == "spec" else key
+            if self.device.type == "cuda" and rkey not in runners:
                 self._warm_one(key)
-            run = runners.get(key)
-            name = ("serving.decode_multi" + ("_paged" if self.paged else "")
-                    if isinstance(key[0], int) else _PREFILL_PROGRAMS[key[0]][2])
+            run = runners.get(rkey)
             entries.append({"name": name, "key": list(key),
                             "capture_s": getattr(run, "capture_s", None),
                             "pool_bytes": getattr(run, "pool_bytes", None)})
@@ -826,10 +1235,15 @@ class ContinuousBatcher:
 
     def _program_surface(self, max_new_tokens: int) -> list:
         """The graph keys ``warm_programs`` covers: ``(N, sampled, paged)`` super-steps,
-        then ``(program, width)`` prefills."""
+        ``("spec", N, k, max_ngram, sampled, paged)`` fused speculative super-steps,
+        ``("draft", k)`` for the drafter's graphs, then ``(program, width)`` prefills."""
         keys = []
         if self.multi_step > 1:
             keys += [(self.multi_step, sampled, self.paged) for sampled in (False, True)]
+        if self.spec_k and self._spec_fused():
+            keys += [("spec", *self._spec_key(sampled)) for sampled in (False, True)]
+        if isinstance(self.drafter, ModelDrafter):
+            keys.append(("draft", self.spec_k))
         if self.prefix_cache_size:
             keys += [("full_logits", self.prompt_bucket), ("keep", self.prompt_bucket)]
         else:
@@ -842,11 +1256,17 @@ class ContinuousBatcher:
 
     def _warm_one(self, key: tuple) -> None:
         """Run the program of graph ``key`` once on idle inputs (on the card its first
-        call: eager, then captured): the super-step with every lane frozen, which
-        writes nothing; a prefill program on an all-pad row into the row cache."""
+        call: eager, then captured): a super-step (plain or speculative) with every lane
+        frozen, which writes nothing; the draft round with every position at the cache
+        end; a prefill program on an all-pad row into the row cache."""
         if isinstance(key[0], int):
             self._load_super_step([])
             self._super_runner(key[1])()
+        elif key[0] == "spec":
+            self._load_spec_step([])
+            self._spec_runner(key[4])()
+        elif key[0] == "draft":
+            self.drafter.warm_one(key[1])
         else:
             pad = np.zeros((1, key[1]), np.int32)
             self._run_prefill(*key, pad, pad.astype(bool))
@@ -898,6 +1318,9 @@ class ContinuousBatcher:
                 greedy, logits, prefill_len = prefilled
                 first = (int(greedy[0]) if req.gen.temperature <= 0.0
                          else req._sample(logits[0]))
+                if self.drafter is not None:
+                    # The same lane and padded layout: engine positions index both.
+                    self.drafter.admit(slot, req.prompt, plan)
                 self.prefill_s += time.perf_counter() - t0
                 self.admitted += 1
                 self.slot_req[slot] = req

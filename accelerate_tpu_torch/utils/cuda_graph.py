@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import gc
 import time
 from typing import Callable
 
@@ -141,17 +142,27 @@ class CapturedStep:
             reserved = torch.cuda.memory_reserved()
             t0 = time.perf_counter()
             graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.stream(side):
-                graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
-                try:
-                    self.out = self.fn()
-                except BaseException:
+            # No cyclic garbage collection inside the capture: collecting an unreachable
+            # cycle that holds another CUDA graph frees that graph's memory pool, a
+            # cudaFree that invalidates the capture (torch.cuda.graph collects first).
+            gc_was_enabled = gc.isenabled()
+            gc.collect()
+            gc.disable()
+            try:
+                with torch.cuda.stream(side):
+                    graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
                     try:
-                        graph.capture_end()
-                    except RuntimeError:
-                        pass  # the capture was invalidated; the first error is the one
-                    raise
-                graph.capture_end()
+                        self.out = self.fn()
+                    except BaseException:
+                        try:
+                            graph.capture_end()
+                        except RuntimeError:
+                            pass  # the capture was invalidated; the first error is the one
+                        raise
+                    graph.capture_end()
+            finally:
+                if gc_was_enabled:
+                    gc.enable()
             self.kernel_nodes = graph_kernel_nodes(graph)
             graph.instantiate()
             self.capture_s = time.perf_counter() - t0

@@ -18,12 +18,14 @@ that names the phase, its failed cases and the exception:
    edges (a lane with more tiles than its cluster has blocks, lanes of one live slot,
    lanes ending on a tile boundary, all-sentinel tail pages), and lanes whose block
    tables share a prefix's page ids with its partial page copied on write (bf16 and
-   int8 pools, as the prefix cache lays them out); every bf16 call made twice
+   int8 pools, as the prefix cache lays them out), and the speculative verify's T = 4
+   (bf16 and int8 pools; every lane's window across a page boundary, one ending on a
+   sentinel page whose slots are marked valid); every bf16 call made twice
    must repeat its bits; faults planted in the chunked reference (the last live tile
    skipped, the window's edge off by one, p left unrounded, the int8 V scale dropped)
    must fail the same check; then kernel, plain and bound times: device time from
    CUDA-graph replay between CUDA events, and call time (host work included) from CUDA
-   events around calls; K/V pools rotate past the 50 MB L2.
+   events around calls; K/V pools rotate past the 50 MB L2; the same at T = 4.
 3. engine — the paged engine on the card against the same engine on the CPU
    (``debug`` config, fp32, same seeded params and requests): identical greedy tokens,
    first decode step's logits within tolerance. engine_multistep — the same engine on
@@ -38,7 +40,14 @@ that names the phase, its failed cases and the exception:
    system prompt, the system prompt alone, a prompt past the top rung. On the card
    each engine runs ``warm_programs()`` first and captures no graph in traffic; tokens
    and every admission, prefix, bucket and page counter equal the CPU's after every
-   step; every page free once the registry is evicted.
+   step; every page free once the registry is evicted. engine_spec — speculative serving
+   (``spec_k=3``) against the CPU (``debug``, fp32): n-gram host loop and fused
+   super-step (``decode_steps=4``), dense and paged; the perfect ModelDrafter and a
+   1-layer one; residual acceptance; ``prefix_cache=4``; an int8 paged fused engine.
+   Staggered greedy and sampled requests, an EOS mid-stream, budgets ending inside a
+   round, speculation switched off and on mid-drain: tokens and every ``spec_*``
+   counter equal the CPU's after every step, tokens equal the card's ``spec_k=0``
+   engine's, the perfect drafter accepts everything, no page leaked.
 4. main — the paged continuous-batching engine serving 10 requests at Llama-3-8B's
    full width and depth (bf16, seeded random weights made on the card), with the
    kernel's launch count checked against the decode dispatches; then a few decode
@@ -64,6 +73,15 @@ that names the phase, its failed cases and the exception:
    request's served with the registry cleared first (all misses), launches exact over
    shared pages; hits, shared pages, COW copies, peak memory, ms per admission on a hit
    against a miss and tokens/s beside a ``prefix_cache=0`` engine (each alternated).
+   main_spec — the same workload with ``decode_steps=8``, ``spec_k=3`` and the n-gram
+   drafter after ``warm_programs()``: no graph captured in traffic, tokens equal a
+   host-loop spec engine's bitwise, kernel #1 exactly 32·8 launches a fused super-step
+   on the cluster route, every divergence from ``main``'s tokens a near tie; tokens/s
+   against spec_k=0 at N = 8 (``drain_ab``), accept rate, tokens per round, one
+   super-step's device profile, noise seconds, peak memory. main_spec_draft — the host
+   loop with a ModelDrafter over the target's own params, 4 greedy requests of 32
+   tokens: accept rate ≥ 0.9, ms per token against N = 1 (alternated), the draft
+   round's graph time.
    generate — ``llama.generate``, ``score`` and ``perplexity``: ``debug`` fp32 on the
    card against the CPU, then Llama-3-8B bf16, 4 left-padded prompts, 64 new tokens
    (the decode step one graph, replayed; time per token).
@@ -180,6 +198,7 @@ copy of this script), it times that tree's kernels for a same-call comparison.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -597,7 +616,20 @@ def paged_cases() -> list:
         # the copied page.
         ("shared_prefix", main, {}, SHARED_LENS, None),
         ("shared_prefix_int8_bf16", {**main, "quantized": True}, {}, SHARED_LENS, None),
+        # The speculative verify's shape (T = k+1 = 4 query rows a lane, 16 rows of the
+        # mma): every lane's window straddles a page boundary, and the last lane's ends
+        # on a page past its allocation (a sentinel entry whose slots the verify marked
+        # valid, as a draft tail past the lane's budget leaves them).
+        ("T4_verify", {**main, "T": 4}, {}, VERIFY_LENS, VERIFY_ALLOC),
+        ("T4_verify_int8_bf16", {**main, "T": 4, "quantized": True}, {}, VERIFY_LENS,
+         VERIFY_ALLOC),
     ]
+
+
+#: Lane lengths of the T = 4 verify cases: each window [len-4, len) crosses a multiple
+#: of 16; the last lane's pages end at slot 96 (``VERIFY_ALLOC``), inside its window.
+VERIFY_LENS = [18, 130, 258, 402, 514, 770, 1010, 98]
+VERIFY_ALLOC = [18, 130, 258, 402, 514, 770, 1010, 96]
 
 
 #: Lane lengths of the shared-prefix cases, all past the shared prefix; lane 2 ends
@@ -655,6 +687,9 @@ def phase_kernel(dev) -> dict:
             gen, dev=dev, lens=lens, alloc=alloc, **shape)
         if name.startswith("shared_prefix"):
             tables = shared_prefix_pages(pool, tables, SHARED_PREFIX, shape["ps"])
+        if name.startswith("T4_verify"):
+            for b, (n, a) in enumerate(zip(lens, alloc)):
+                valid[b, a:n] = True  # slots past the allocation that a write marked valid
         args = dict(page_size=shape["ps"], sm_scale=shape["hd"] ** -0.5, **kw)
         ragged = paged_attention.launches_ragged
         out = paged_attention(q, pool, tables, positions, valid, **args)
@@ -732,8 +767,33 @@ def phase_kernel(dev) -> dict:
            "kernel_over_bound": min(kernel_ms) / bound_ms,
            "live_slots_per_set": [sum(s[5]) for s in sets]}
     emit(res)
+    # The speculative verify's shape, T = 4 (spec_k = 3), timed the same way.
+    v_main = {**main, "T": 4}
+    v_sets = [make_paged_inputs(tgen, dev=dev, **v_main) for _ in range(4)]
+
+    def v_kernel(i):
+        q, pool, tables, positions, valid, _ = v_sets[i % 4]
+        paged_attention(q, pool, tables, positions, valid, **args)
+
+    def v_plain(i):
+        q, pool, tables, positions, valid, _ = v_sets[i % 4]
+        paged_attention_reference(q, pool, tables, positions, valid, **args)
+
+    v_plain_ms = [device_ms(v_plain, 4, 10)]
+    v_kernel_ms = [device_ms(v_kernel, 4, 50), device_ms(v_kernel, 4, 50)]
+    v_plain_ms.append(device_ms(v_plain, 4, 10))
+    v_bounds = [paged_bound_ms(s[0], s[1], s[5], T=4, ps=main["ps"]) for s in v_sets]
+    v_bound = sum(b for b, _ in v_bounds) / len(v_bounds)
+    t4 = {"phase": "kernel_time_T4", "shape": {k: str(v) for k, v in v_main.items()},
+          "kernel_ms": min(v_kernel_ms), "plain_ms": min(v_plain_ms),
+          "kernel_ms_runs": v_kernel_ms, "plain_ms_runs": v_plain_ms,
+          "bound_ms": v_bound, "bound_by": v_bounds[0][1],
+          "kernel_over_bound": min(v_kernel_ms) / v_bound,
+          "route": pa.paged_plan(True, 8, 4, 32, 8, 128, 16, 64, sm_count(dev)).route}
+    emit(t4)
     return {"max_abs_err": errors["main"], "kernel_ms": res["kernel_ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": bound_ms, "bound_by": res["bound_by"]}
+            "plain_ms": res["plain_ms"], "bound_ms": bound_ms, "bound_by": res["bound_by"],
+            "t4": t4, "max_abs_err_t4": max(errors["T4_verify"], errors["T4_verify_int8_bf16"])}
 
 
 PAGED_DESIGN = ("one launch; a thread block cluster (<= 8 blocks, one wave) per (lane, kv "
@@ -909,8 +969,10 @@ def clear_registry(eng) -> None:
 
 
 def graph_keys(eng) -> set:
-    """The keys of every graph ``eng`` holds: super-steps and prefill programs."""
-    return set(eng.graphs) | set(eng.prefill_graphs)
+    """The keys of every graph ``eng`` holds: super-steps (plain and speculative),
+    prefill programs and the drafter's rounds."""
+    return (set(eng.graphs) | set(eng.prefill_graphs) | set(eng.spec_graphs)
+            | {("draft", k) for k in getattr(eng.drafter, "graphs", {})})
 
 
 def phase_engine_prefix(dev) -> dict:
@@ -1121,7 +1183,8 @@ def phase_main(dev) -> int:
     prof = profile_decode(run["eng"], run["rng"], cfg.vocab_size)
     emit(prof)
     one_kernel_per_call(prof, int8=False)
-    return {"launches": launches, "profile": prof, "tokens": run["tokens"], "params": params}
+    return {"launches": launches, "profile": prof, "tokens": run["tokens"], "params": params,
+            "first_logits": run["first_logits"]}
 
 
 def phase_main_multistep(dev, main: dict) -> dict:
@@ -1180,14 +1243,16 @@ def drain_ab(variants: dict, cfg, want_tokens) -> dict:
     untimed (the super-step's graphs are captured then), then each drain is timed to
     its final sync: tokens/s, decode and prefill seconds, host seconds drawing sampled
     noise (on the critical path and ahead). Every drain's tokens must equal
-    ``want_tokens``."""
+    ``want_tokens`` (a dict: each variant's own)."""
     from accelerate_tpu_torch.serving import ContinuousBatcher
 
     workload = main_workload(cfg.vocab_size)[3]
     engines = {name: ContinuousBatcher(params, cfg, **MAIN_ENGINE, **kw)
                for name, (params, kw) in variants.items()}
 
-    def drain(eng) -> tuple[dict, bool]:
+    def drain(name) -> tuple[dict, bool]:
+        eng = engines[name]
+        want = want_tokens[name] if isinstance(want_tokens, dict) else want_tokens
         before = eng.stats()
         reqs = [eng.submit(prompt, **kw) for prompt, kw in workload]
         torch.cuda.synchronize()
@@ -1200,15 +1265,15 @@ def drain_ab(variants: dict, cfg, want_tokens) -> dict:
         out = {"wall_s": wall, "tokens_per_s": n / wall,
                **{k: s[k] - before[k] for k in ("decode_steps", "decode_s", "prefill_s",
                                                  "dispatch_s", "noise_s", "noise_ahead_s")}}
-        return out, [list(r.tokens) for r in reqs] == want_tokens
+        return out, [list(r.tokens) for r in reqs] == want
 
     equal = True
-    for eng in engines.values():
-        equal &= drain(eng)[1]
+    for name in engines:
+        equal &= drain(name)[1]
     a, b = list(variants)
     runs = {a: [], b: []}
     for name in (a, b, b, a):
-        r, ok = drain(engines[name])
+        r, ok = drain(name)
         runs[name].append(r)
         equal &= ok
     med = {name: float(np.median([r["tokens_per_s"] for r in rs])) for name, rs in runs.items()}
@@ -1247,11 +1312,13 @@ def drain_engine(eng, workload, on_first=None) -> dict:
         reqs.append(eng.submit(prompt, on_token=hook, **kw))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    finite, peak_shared = True, 0
+    finite, peak_shared, first_logits = True, 0, None
     while eng.queue or any(r is not None for r in eng.slot_req):
         eng.step()
         if eng.last_logits is not None:
             finite &= bool(torch.isfinite(eng.last_logits).all())
+            if first_logits is None:
+                first_logits = eng.last_logits.clone()
         peak_shared = max(peak_shared, eng.stats().get("kv_shared_pages", 0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1259,7 +1326,7 @@ def drain_engine(eng, workload, on_first=None) -> dict:
     return {"tokens": [list(r.tokens) for r in reqs], "wall_s": wall, "n_tokens": n,
             "tokens_per_s": n / wall, "finite": finite, "peak_kv_shared_pages": peak_shared,
             "first_token_s": first_at[0] - t0 if first_at else None,
-            "all_done": all(r.done for r in reqs)}
+            "all_done": all(r.done for r in reqs), "first_logits": first_logits}
 
 
 def admission_ms(eng, prompt) -> float:
@@ -1303,10 +1370,13 @@ def graph_device_profile(run, replays: int = 5) -> dict:
             kernels[e.key] = kernels.get(e.key, 0) + e.self_device_time_total / 1e3 / replays
     cublas = sum(v for k, v in kernels.items()
                  if any(n in k for n in ("nvjet", "gemm", "cutlass", "sm90_xmma")))
+    attn = sum(v for k, v in kernels.items() if "paged_attention" in k)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:5]
     return {"device_ms": ms, "kernel_nodes": run.nodes(),
             "profiled_busy_ms": sum(kernels.values()) if kernels else None,
             "cublas_ms": cublas if kernels else None,
+            "paged_attention_ms": attn if kernels else None,
+            "other_ms": sum(kernels.values()) - cublas - attn if kernels else None,
             "top_kernels_ms": {k[:80]: v for k, v in top}}
 
 
@@ -1547,7 +1617,469 @@ def phase_main_prefix(dev, main: dict) -> dict:
     return {"launches": launches, "ab": ab, "tokens_per_s": hit["tokens_per_s"]}
 
 
-# ------------------------------------------------------- phase 4c: one-request API
+# ------------------------------------------------ phase 4c: speculative serving
+SPEC_K = 3
+#: The counters ``engine_spec`` holds equal between the card and the CPU after every step.
+SPEC_STATS = ("spec_k", "spec_proposed", "spec_accepted", "spec_accept_rate", "spec_enabled",
+              "decode_steps", "decode_tokens", "admitted", "evicted")
+#: Near-tie check of ``main_spec``: at a first divergence from the spec_k=0 engine, the
+#: plain engine's logits row and the speculative verify's row for that emission may
+#: differ by at most this (logits of order 1–10, bf16-valued: a few bf16 steps), and the
+#: plain row's top-two gap (of the filtered logits plus the emission's noise, over the
+#: temperature's scale, for sampled lanes) must be below twice that difference — the
+#: condition under which the two rows' argmaxes can differ at all — or, for a sampled
+#: lane, the two rows' top-k/top-p supports must differ at one engine's token.
+DELTA_MAX = 0.25
+
+
+def spec_workload(vocab: int):
+    """``engine_spec``'s seeded requests: 6 prompts of 20–100 tokens, three of them
+    sharing a 64-token system prompt (prefix hits), greedy and sampled (temperature +
+    top-k, nucleus), budgets that do not end on a round → [(prompt, submit kwargs)]."""
+    from accelerate_tpu_torch.generation import GenerationConfig
+
+    rng = np.random.default_rng(21)
+    system = rng.integers(0, vocab, 64)
+    prompts = [np.concatenate([system, rng.integers(0, vocab, int(n))]) for n in (7, 20, 33)]
+    prompts += [rng.integers(0, vocab, int(n)) for n in (20, 100, 45)]
+    gens = {1: GenerationConfig(max_new_tokens=21, temperature=0.8, top_k=40),
+            4: GenerationConfig(max_new_tokens=19, temperature=1.1, top_p=0.8)}
+    return [(p, dict(gen=gens[i], seed=60 + i) if i in gens else
+             dict(max_new_tokens=(22, None, 18, 23, None, 14)[i])) for i, p in enumerate(prompts)]
+
+
+def _spec_serve(eng, workload, script_eos=None, toggle=True):
+    """Submit ``workload`` (greedy requests take ``script_eos``) and drain it, turning
+    speculation off after 3 steps and on after 2 more (``toggle``) → (requests,
+    per-step stats)."""
+    reqs = []
+    for p, kw in workload:
+        if "gen" not in kw and script_eos is not None:
+            kw = dict(kw, eos_token_id=script_eos)
+        reqs.append(eng.submit(p, **kw))
+    steps = []
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        if toggle and len(steps) in (3, 5):
+            eng.set_spec_enabled(len(steps) == 5)
+        eng.step()
+        s = eng.stats()
+        steps.append({k: s[k] for k in SPEC_STATS})
+    return reqs, steps
+
+
+def phase_engine_spec(dev) -> dict:
+    """Speculative serving on the card against the CPU (``debug``, fp32, same seeded
+    params and requests, ``max_slots=4``, ``max_len=256``, ``prompt_bucket=32``,
+    ``spec_k=3``): n-gram host loop and fused super-step (``decode_steps=4``), dense and
+    paged (pages of 8); a ModelDrafter over the target's own params (the perfect
+    drafter) and one of a 1-layer draft; ``spec_accept="residual"``; ``prefix_cache=4``
+    (paged, fused); an int8 paged fused engine (kernel #10 at M = B·(k+1)). Workload:
+    staggered greedy and sampled requests, an EOS mid-stream, budgets that end inside
+    a round, speculation switched off mid-drain and on again. Checks: tokens and every
+    ``spec_*`` counter equal the CPU engine's after every step; on the card, tokens equal
+    the ``spec_k=0`` engine's (greedy and replay-sampled; a residual engine's greedy
+    lanes); the perfect drafter's greedy accept rate is 1.0 (budgets of whole rounds);
+    every page free at the end."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_to
+    from accelerate_tpu_torch.ops import quantization as qz
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+    from accelerate_tpu_torch.spec_decode import ModelDrafter
+
+    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32)
+    params_cpu = llama.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                   device="cpu")
+    d_cfg = dataclasses.replace(cfg, n_layers=1)
+    draft_cpu = llama.init_params(d_cfg, generator=torch.Generator().manual_seed(1),
+                                  device="cpu")
+    int8_cpu = qz.load_and_quantize_model(params_cpu, qz.BnbQuantizationConfig(
+        skip_modules=["embed", "lm_head"], min_weight_size=1, load_in_8bit=True))
+    sides = {"cpu": (params_cpu, draft_cpu, int8_cpu),
+             "gpu": tuple(params_to(p, dev) for p in (params_cpu, draft_cpu, int8_cpu))}
+    workload = spec_workload(cfg.vocab_size)
+    # The perfect drafter's workload: greedy, budgets of 1 + whole rounds, no switch.
+    whole = [(p, dict(max_new_tokens=1 + (SPEC_K + 1) * m))
+             for (p, _), m in zip(workload, (2, 5, 3, 4, 1, 6))]
+    base = dict(max_slots=4, max_len=256, prompt_bucket=32, spec_k=SPEC_K)
+    engines = {  # name -> (engine keywords, drafter, params index)
+        "host_dense": ({}, None, 0), "host_paged": ({"page_size": 8}, None, 0),
+        "fused_dense": ({"decode_steps": 4}, None, 0),
+        "fused_paged": ({"decode_steps": 4, "page_size": 8}, None, 0),
+        "draft_perfect": ({}, "perfect", 0), "draft_1layer": ({"page_size": 8}, "1layer", 0),
+        "residual": ({"spec_accept": "residual"}, None, 0),
+        "prefix_fused_paged": ({"prefix_cache": 4, "page_size": 8, "decode_steps": 4}, None, 0),
+        "int8_fused_paged": ({"decode_steps": 4, "page_size": 8}, None, 2),
+    }
+    probe = ContinuousBatcher(params_cpu, cfg, **base)
+    probe_reqs, _ = _spec_serve(probe, workload, toggle=False)
+    eos = int(probe_reqs[2].tokens[6])  # request 2 (greedy) emits it mid-stream
+    res = {"phase": "engine_spec", "config": "debug", "engine": base, "eos": eos, "cases": {}}
+    failed = []
+    for name, (kw, drafter, pi) in engines.items():
+        wl, eos_id, toggle = ((whole, None, False) if drafter == "perfect"
+                              else (workload, eos, True))
+        run = {}
+        for side, params in sides.items():
+            d = None
+            if drafter == "perfect":
+                d = ModelDrafter(params[0], cfg)
+            elif drafter == "1layer":
+                d = ModelDrafter(params[1], d_cfg)
+            eng = ContinuousBatcher(params[pi], cfg, **base, **kw, drafter=d)
+            reqs, steps = _spec_serve(eng, wl, eos_id, toggle)
+            if kw.get("prefix_cache"):
+                clear_registry(eng)
+            run[side] = (eng, [list(r.tokens) for r in reqs], steps)
+        eng, tokens, steps = run["gpu"]
+        plain = ContinuousBatcher(sides["gpu"][pi], cfg, **{**base, **kw, "spec_k": 0,
+                                                            "spec_accept": "replay"})
+        plain_tokens = [list(r.tokens) for r in _spec_serve(plain, wl, eos_id, False)[0]]
+        check = [i for i, (p, k) in enumerate(wl)
+                 if kw.get("spec_accept") != "residual" or "gen" not in k]
+        s = eng.stats()
+        case = {"tokens_equal_cpu": tokens == run["cpu"][1],
+                "spec_stats_equal_cpu_every_step": steps == run["cpu"][2],
+                "tokens_equal_spec_k0": all(tokens[i] == plain_tokens[i] for i in check),
+                "requests_checked_against_spec_k0": check,
+                "fused": eng._spec_fused(), "steps": len(steps),
+                "stats": {k: s[k] for k in SPEC_STATS + ("tokens_per_step",)},
+                "pages_in_use_after": s.get("pages_in_use", 0),
+                "eos_stopped_early": drafter == "perfect" or len(tokens[2]) < 18,
+                "all_done": all(len(t) > 0 for t in tokens)}
+        ok = (case["tokens_equal_cpu"] and case["spec_stats_equal_cpu_every_step"]
+              and case["tokens_equal_spec_k0"] and case["pages_in_use_after"] == 0
+              and case["eos_stopped_early"] and s["spec_proposed"] > 0)
+        if drafter == "perfect":
+            case["greedy_accept_rate"] = s["spec_accept_rate"]
+            ok &= s["spec_accept_rate"] == 1.0
+        if name.startswith("int8"):
+            case["int8_matmul_graph_launches"] = replayed_launches(
+                list(eng.spec_graphs.values()), INT8_KERNELS)
+            ok &= case["int8_matmul_graph_launches"] > 0
+        ok &= case["fused"] == ("decode_steps" in kw and kw.get("spec_accept") != "residual")
+        case["ok"] = bool(ok)
+        res["cases"][name] = case
+        if not ok:
+            failed.append(name)
+    res["ok"] = not failed
+    emit(res)
+    if failed:
+        raise PhaseFailed("speculative serving on the card disagrees", failed)
+    return res
+
+
+MAIN_SPEC = dict(**MAIN_ENGINE, decode_steps=MULTI_N, spec_k=SPEC_K)
+
+
+def spec_graph_stats(eng) -> dict:
+    """Each fused speculative graph of ``eng``, by (N, k, max_ngram, sampled, paged):
+    kernel nodes (all, paged attention), replays, capture seconds and pool bytes."""
+    return {"_".join(map(str, key)): {
+        "kernel_nodes": run.nodes(),
+        "paged_attention_nodes": sum(run.nodes(k) for k in PAGED_KERNELS),
+        "replays": run.replays, "capture_s": run.capture_s, "pool_bytes": run.pool_bytes}
+        for key, run in eng.spec_graphs.items() if hasattr(run, "nodes")}
+
+
+def divergence_rows(params, cfg, workload, plain_tokens, spec_tokens) -> dict:
+    """For each request whose speculative tokens differ from the plain (spec_k=0)
+    engine's, at its first divergence d: the logits row the plain N = 1 engine chose
+    token d from, and the row of the host-loop speculative verify that chose it, each
+    read while the request is replayed alone (a lane's computation does not depend on
+    the other lanes: the replayed tokens must equal the batched engines' tokens).
+    Returns {request: {d, tokens, delta (max |row difference|), gap (the plain row's
+    top-two gap: of the logits, or of the filtered logits plus emission d's Gumbel
+    noise for a sampled lane), temperature, limit, filter_boundary (a sampled lane's
+    top-k/top-p supports differ between the rows and one engine's token lies outside
+    the other's), ok}}: a near tie is gap ≤ 2·delta (over the temperature) or a filter
+    boundary, with delta ≤ ``DELTA_MAX``."""
+    from accelerate_tpu_torch import serving as sv
+    from accelerate_tpu_torch.generation import emission_generator, filtered_logits, gumbel_noise
+    from accelerate_tpu_torch.spec_decode import NgramDrafter
+
+    first = {i: next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+             for i, (a, b) in enumerate(zip(plain_tokens, spec_tokens)) if a != b}
+    rows = {"plain": {}, "spec": {}}
+    engines = {"plain": sv.ContinuousBatcher(params, cfg, **MAIN_ENGINE),
+               "spec": sv.ContinuousBatcher(params, cfg, **MAIN_ENGINE, spec_k=SPEC_K,
+                                            drafter=NgramDrafter(3))}
+    seen = {}
+    verify = sv._spec_verify_step_paged
+
+    def recording_verify(*args, **kw):  # keeps the spec replay's verify rows
+        out = verify(*args, **kw)
+        seen["logits"] = out[1]
+        seen["lens"] = [len(r.tokens) if r is not None else 0
+                        for r in engines["spec"].slot_req]
+        return out
+
+    def hook(tok, side, i, d, holder):
+        req = holder[0]
+        if len(req.tokens) != d + 1:
+            return
+        eng = engines[side]
+        slot = eng.slot_req.index(req)
+        row = (eng.last_logits[slot] if side == "plain"
+               else seen["logits"][slot, d - seen["lens"][slot]])
+        rows[side][i] = (row.float().cpu(), int(tok))
+
+    sv._spec_verify_step_paged = recording_verify
+    try:
+        for side, eng in engines.items():
+            for i, d in first.items():
+                prompt, kw = workload[i]
+                if d == 0:  # the first token comes from the same prefill graph
+                    continue
+                kw = (dict(kw, gen=dataclasses.replace(kw["gen"], max_new_tokens=d + 1))
+                      if "gen" in kw else dict(kw, max_new_tokens=d + 1))
+                holder = []
+                holder.append(eng.submit(prompt, **kw, on_token=functools.partial(
+                    hook, side=side, i=i, d=d, holder=holder)))
+            eng.run()
+    finally:
+        sv._spec_verify_step_paged = verify
+    out = {}
+    for i, d in first.items():
+        gen = workload[i][1].get("gen")
+        rec = {"d": d, "plain_token": plain_tokens[i][d], "spec_token": spec_tokens[i][d],
+               "temperature": gen.temperature if gen is not None else None}
+        if i not in rows["plain"] or i not in rows["spec"]:
+            out[i] = {**rec, "ok": False, "note": "not replayed (a divergence at token 0)"}
+            continue
+        (p_row, p_tok), (s_row, s_tok) = rows["plain"][i], rows["spec"][i]
+        delta = float((p_row - s_row).abs().max())
+        scale, boundary = 1.0, False
+        if gen is not None:
+            pf, sf = (filtered_logits(r[None], gen.temperature, gen.top_p, gen.top_k)[0]
+                      for r in (p_row, s_row))
+            # A filter-boundary tie: the rows' top-k/top-p supports differ, and one
+            # engine's token lies outside the other's support.
+            p_in, s_in = torch.isfinite(pf), torch.isfinite(sf)
+            boundary = bool((p_in != s_in).any()) and not (bool(p_in[s_tok])
+                                                             and bool(s_in[p_tok]))
+            p_row = pf + gumbel_noise((1, p_row.shape[0]),
+                                      emission_generator(workload[i][1]["seed"], d))[0]
+            scale = gen.temperature
+        top = torch.topk(p_row, 2).values
+        gap = float(top[0] - top[1])
+        limit = 2 * delta / scale
+        out[i] = {**rec, "replayed_plain_token": p_tok, "replayed_spec_token": s_tok,
+                  "delta": delta, "gap": gap, "limit": limit, "filter_boundary": boundary,
+                  "ok": (p_tok == rec["plain_token"] and s_tok == rec["spec_token"]
+                         and delta <= DELTA_MAX and (gap <= limit or boundary))}
+    return out
+
+
+def phase_main_spec(dev, main: dict) -> dict:
+    """Speculative serving at Llama-3-8B's full width and depth (bf16, paged, pages of
+    16, ``max_slots=8``, ``max_len=1024``, ``decode_steps=8``, ``spec_k=3``,
+    ``NgramDrafter(max_ngram=3)``): ``main``'s workload after ``warm_programs()``. Hard
+    checks: no graph captured in traffic; tokens (greedy and sampled) equal a host-loop
+    spec engine's (``decode_steps=1``) bitwise; kernel #1 exactly 32·8 launches a fused
+    super-step (graph nodes × replays) on the cluster route (``launches_ragged``
+    unchanged); against the spec_k=0 engine (``main``'s tokens), every first divergence
+    a near tie (``divergence_rows``, ``DELTA_MAX``). Reported: tokens/s against spec_k=0 at N = 8 (warm
+    engines alternated, ``drain_ab``), accept rate, tokens per round, one fused
+    super-step's device time and profile, the resident drafter's and the accept walk's
+    device time a round, ``noise_s``, peak memory."""
+    from accelerate_tpu_torch.generation import speculative_prefix_accept
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+    from accelerate_tpu_torch.spec_decode import NgramDrafter, ngram_propose_resident
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
+    params = main["params"]
+    workload = main_workload(cfg.vocab_size)[3]
+    eng = ContinuousBatcher(params, cfg, **MAIN_SPEC, drafter=NgramDrafter(3))
+    t0 = time.perf_counter()
+    warm = warm_summary(eng.warm_programs(max_new_tokens=64))
+    torch.cuda.synchronize()
+    warm["wall_s"] = time.perf_counter() - t0
+    keys_warm = graph_keys(eng)
+    paged_attention.launches = 0
+    paged_attention.launches_ragged = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
+    run = drain_engine(eng, workload)
+    peak = torch.cuda.max_memory_allocated()
+    s = eng.stats()
+    launches = path_launches(eng)[0]
+    ragged = paged_attention.launches_ragged
+    expect = cfg.n_layers * MULTI_N * s["decode_steps"]
+    graphs = spec_graph_stats(eng)
+    nodes_ok = bool(graphs) and all(g["paged_attention_nodes"] == cfg.n_layers * MULTI_N
+                                    for g in graphs.values())
+    host = ContinuousBatcher(params, cfg, **MAIN_ENGINE, spec_k=SPEC_K, drafter=NgramDrafter(3))
+    host_run = drain_engine(host, workload)
+    # The host loop's first verify (position 0) against main's first decode step, on the
+    # same inputs.
+    first_delta = float((host_run["first_logits"].float()
+                         - main["first_logits"].float()).abs().max())
+    del host
+    gc.collect()
+    divergences = divergence_rows(params, cfg, workload, main["tokens"], run["tokens"])
+    ties_ok = all(v["ok"] for v in divergences.values())
+    lane_rounds = s["spec_proposed"] / SPEC_K
+    res = {"phase": "main_spec", "config": "llama3-8b", "dtype": "bfloat16",
+           "engine": {**MAIN_SPEC, "drafter": "NgramDrafter(max_ngram=3)"},
+           "requests": len(workload), "warm_programs": warm,
+           "no_graph_captured_in_traffic": graph_keys(eng) == keys_warm,
+           "tokens_equal_host_loop": run["tokens"] == host_run["tokens"],
+           "tokens_per_s": run["tokens_per_s"], "wall_s": run["wall_s"],
+           "host_loop_tokens_per_s": host_run["tokens_per_s"],
+           "spec_accept_rate": s["spec_accept_rate"], "spec_proposed": s["spec_proposed"],
+           "spec_accepted": s["spec_accepted"], "decode_steps": s["decode_steps"],
+           "decode_tokens": s["decode_tokens"],
+           "tokens_per_super_step": s["tokens_per_step"],
+           "tokens_per_round": s["decode_tokens"] / (s["decode_steps"] * MULTI_N),
+           "tokens_per_lane_round": s["decode_tokens"] / lane_rounds if lane_rounds else None,
+           "noise_s": s["noise_s"], "noise_ahead_s": s["noise_ahead_s"],
+           "dispatch_s": s["dispatch_s"], "decode_s": s["decode_s"],
+           "paged_attention_launches": launches, "paged_attention_launches_expected": expect,
+           "paged_attention_launches_ragged": ragged, "graphs": graphs,
+           "graph_nodes_ok": nodes_ok,
+           "requests_equal_spec_k0": [a == b for a, b in zip(run["tokens"], main["tokens"])],
+           "share_equal_spec_k0": float(np.mean([a == b for a, b in
+                                                 zip(run["tokens"], main["tokens"])])),
+           "first_step_logit_max_abs_diff": first_delta, "delta_max": DELTA_MAX,
+           "divergences": divergences, "near_ties_ok": ties_ok,
+           "max_memory_allocated_bytes": peak,
+           "memory_allocated_at_start_bytes": allocated_at_start,
+           "finite_logits": run["finite"], "all_done": run["all_done"],
+           "pages_in_use_after": s["pages_in_use"]}
+    res["ok"] = (res["no_graph_captured_in_traffic"] and res["tokens_equal_host_loop"]
+                 and launches == expect and ragged == 0 and nodes_ok and ties_ok
+                 and run["finite"] and run["all_done"] and s["pages_in_use"] == 0)
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("the speculative main path failed its checks")
+
+    # One fused super-step with all 8 lanes busy (greedy), replayed from its graph.
+    rng = np.random.default_rng(23)
+    busy = [eng.submit(rng.integers(0, cfg.vocab_size, 200), max_new_tokens=160)
+            for _ in range(eng.max_slots)]
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    prof = graph_device_profile(eng.spec_graphs[eng._spec_key(False)])
+    for r in busy:
+        eng.cancel(r.uid)
+    # The resident drafter and the accept walk alone, at the super-step's shapes.
+    B, S = eng.max_slots, eng.max_len
+    g = torch.Generator(dev).manual_seed(24)
+    hist = torch.randint(0, 50, (B, S), generator=g, device=dev, dtype=torch.int32)
+    lens = torch.randint(300, S, (B,), generator=g, device=dev, dtype=torch.int32)
+    props = torch.randint(0, 4, (B, SPEC_K), generator=g, device=dev, dtype=torch.int32)
+    ref = torch.randint(0, 4, (B, SPEC_K + 1), generator=g, device=dev, dtype=torch.int32)
+    live = torch.ones((B,), dtype=torch.bool, device=dev)
+    lim = torch.full((B,), 9, dtype=torch.int32, device=dev)
+    eos = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    prof["drafter_ms_per_round"] = device_ms(
+        lambda _: ngram_propose_resident(hist, lens, SPEC_K, 3), 8, 20)
+    prof["accept_walk_ms_per_round"] = device_ms(
+        lambda _: speculative_prefix_accept(props, ref, live, lim, eos), 8, 20)
+    prof["phase"] = "main_spec_profile"
+    prof["note"] = ("one 8-round greedy super-step, 8 lanes busy, replayed from its graph; "
+                    "drafter and accept walk timed alone at B=8, S=1024, k=3")
+    emit(prof)
+    variants = {f"spec0_n{MULTI_N}": (params, {"decode_steps": MULTI_N}),
+                f"spec{SPEC_K}_n{MULTI_N}": (params, {"decode_steps": MULTI_N,
+                                                      "spec_k": SPEC_K})}
+    drains = drain_ab(variants, cfg, dict(zip(variants, (main["tokens"], run["tokens"]))))
+    emit(drains)
+    if not drains["tokens_equal_main"]:
+        raise SystemExit("a warm drain's tokens differ from its engine's first drain")
+    del eng
+    gc.collect()
+    return {"launches": launches, "profile": prof, "drains": drains,
+            "accept_rate": s["spec_accept_rate"]}
+
+
+def phase_main_spec_draft(dev, main: dict) -> dict:
+    """The 8B engine's host loop with a ModelDrafter over the target's own params (the
+    weights shared; its dense cache ≈ 1 GB): 4 greedy requests of ``main``'s workload,
+    32 new tokens each, after ``warm_programs()`` (the draft round's graph). Hard check:
+    accept rate ≥ 0.9; kernel #1 launches 32 a verify (eager) and 32·(k+1) a draft
+    round (graph nodes × replays). Reported: ms per token
+    against the N = 1 spec_k=0 engine (alternated), the draft round's device time
+    (graph replay) and profile, peak memory."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+    from accelerate_tpu_torch.spec_decode import ModelDrafter
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
+    params = main["params"]
+    workload = [(p, dict(max_new_tokens=32)) for p, kw in main_workload(cfg.vocab_size)[3]
+                if "gen" not in kw][:4]
+    eng = ContinuousBatcher(params, cfg, **MAIN_ENGINE, spec_k=SPEC_K,
+                            drafter=ModelDrafter(params, cfg))
+    warm = warm_summary(eng.warm_programs(max_new_tokens=32))
+    keys_warm = graph_keys(eng)
+    paged_attention.launches = 0
+    paged_attention.launches_ragged = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = drain_engine(eng, workload)
+    peak = torch.cuda.max_memory_allocated()
+    s = eng.stats()
+    launches = path_launches(eng)[0]
+    # A step: one eager verify, and one draft-round replay of k+1 one-token steps.
+    expect = cfg.n_layers * s["decode_steps"] * (1 + SPEC_K + 1)
+    plain = ContinuousBatcher(params, cfg, **MAIN_ENGINE)
+    engines = {"spec": eng, "plain": plain}
+
+    def ms_per_token(name):
+        e = engines[name]
+        before = e.stats()
+        r = drain_engine(e, workload)
+        after = e.stats()
+        return {"ms_per_token": 1e3 * r["wall_s"] / r["n_tokens"],
+                "decode_ms_per_token": 1e3 * (after["decode_s"] - before["decode_s"])
+                / max(after["decode_tokens"] - before["decode_tokens"], 1),
+                "tokens": r["tokens"]}
+
+    plain_first = ms_per_token("plain")  # captures the plain engine's prefill graphs
+    runs = alternated({"spec": [], "plain": []}, ("spec", "plain", "plain", "spec"),
+                      ms_per_token)
+    med = {k: float(np.median([r["ms_per_token"] for r in v])) for k, v in runs.items()}
+    draft_prof = graph_device_profile(eng.drafter.graphs[SPEC_K])
+    res = {"phase": "main_spec_draft", "config": "llama3-8b", "dtype": "bfloat16",
+           "engine": {**MAIN_ENGINE, "spec_k": SPEC_K, "drafter": "ModelDrafter(target params)"},
+           "requests": len(workload), "max_new_tokens": 32, "warm_programs": warm,
+           "no_graph_captured_in_traffic": graph_keys(eng) == keys_warm,
+           "spec_accept_rate": s["spec_accept_rate"], "decode_steps": s["decode_steps"],
+           "tokens_per_step": s["tokens_per_step"],
+           "draft_cache_bytes": sum(t.numel() * t.element_size()
+                                    for layer in eng.drafter.cache["layers"]
+                                    for t in layer.values()),
+           "paged_attention_launches": launches, "paged_attention_launches_expected": expect,
+           "paged_attention_launches_ragged": paged_attention.launches_ragged,
+           "ms_per_token_runs": {k: [r["ms_per_token"] for r in v] for k, v in runs.items()},
+           "decode_ms_per_token_runs": {k: [r["decode_ms_per_token"] for r in v]
+                                        for k, v in runs.items()},
+           "ms_per_token_median": med, "order": "(spec, plain, plain, spec), warm engines",
+           "share_equal_plain": float(np.mean([a == b for a, b in
+                                               zip(run["tokens"], plain_first["tokens"])])),
+           "draft_round_graph": draft_prof, "max_memory_allocated_bytes": peak,
+           "finite_logits": run["finite"], "all_done": run["all_done"],
+           "pages_in_use_after": s["pages_in_use"]}
+    res["ok"] = (s["spec_accept_rate"] >= 0.9 and launches == expect
+                 and paged_attention.launches_ragged == 0 and run["finite"]
+                 and run["all_done"] and s["pages_in_use"] == 0
+                 and res["no_graph_captured_in_traffic"])
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("the model-drafter main path failed its checks")
+    del eng, plain, engines
+    gc.collect()
+    return {"launches": launches, "accept_rate": s["spec_accept_rate"],
+            "draft_round_ms": draft_prof["device_ms"], "ms_per_token_median": med}
+
+
+# ------------------------------------------------------- phase 4d: one-request API
 GEN_MAIN = dict(lengths=(87, 130, 64, 200), new_tokens=64)
 #: Card against CPU in the debug config (fp32, TF32 off; flash kernels on the card,
 #: the einsum attention on the CPU): log-probabilities of order 1-10.
@@ -1695,11 +2227,14 @@ def replayed_launches(runners, names) -> int:
 
 def path_launches(eng) -> tuple[int, int]:
     """(paged attention, int8 matmul) launches so far: the wrappers' counts plus the
-    replays of ``eng``'s graphs (super-steps and prefill programs)."""
+    replays of ``eng``'s graphs (super-steps, prefill programs, speculative super-steps
+    and the drafter's rounds)."""
     from accelerate_tpu_torch.ops.paged_attention import paged_attention
     from accelerate_tpu_torch.ops.quantization import int8_matmul
 
-    graphs = list(eng.graphs.values()) + list(eng.prefill_graphs.values())
+    graphs = (list(eng.graphs.values()) + list(eng.prefill_graphs.values())
+              + list(eng.spec_graphs.values())
+              + list(getattr(eng.drafter, "graphs", {}).values()))
     return (paged_attention.launches + replayed_launches(graphs, PAGED_KERNELS),
             int8_matmul.launches + replayed_launches(graphs, INT8_KERNELS))
 
@@ -4099,10 +4634,14 @@ def main() -> int:
     run_phase("engine_multistep", phase_engine_multistep, dev)
     # The admission path (slice 12): prefix cache and buckets against the CPU.
     run_phase("engine_prefix", phase_engine_prefix, dev)
+    # Speculative serving (slice 13) against the CPU.
+    run_phase("engine_spec", phase_engine_spec, dev)
     serve = run_phase("main", phase_main, dev)
     serve_multi = run_phase("main_multistep", phase_main_multistep, dev, serve)
     serve_prefill = run_phase("main_prefill", phase_main_prefill, dev, serve)
     serve_prefix = run_phase("main_prefix", phase_main_prefix, dev, serve)
+    serve_spec = run_phase("main_spec", phase_main_spec, dev, serve)
+    serve_spec_draft = run_phase("main_spec_draft", phase_main_spec_draft, dev, serve)
     del serve["params"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -4145,7 +4684,7 @@ def main() -> int:
     emit({"kernels": run_phase("kernels", kernel_rows, kern, serve, flash, adamw,
                                xent, train, train_fused, int8, serve_int8, partial,
                                train_tp, serve_multi, resume, serve_prefill,
-                               serve_prefix)})
+                               serve_prefix, serve_spec, serve_spec_draft)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -4153,11 +4692,12 @@ def main() -> int:
 
 
 def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve_int8,
-                partial, train_tp, serve_multi, resume, serve_prefill, serve_prefix) -> list:
+                partial, train_tp, serve_multi, resume, serve_prefill, serve_prefix,
+                serve_spec, serve_spec_draft) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results. The
     serving kernels' launches add their main paths' runs: N = 1, the super-step's,
-    the bucketed and the prefix-cache drains (eager launches plus graph nodes times
-    replays); the training kernels' add train_main's and train_resume's."""
+    the bucketed, the prefix-cache and the speculative drains (eager launches plus graph
+    nodes times replays); the training kernels' add train_main's and train_resume's."""
 
     def train_launches(kernel):
         by_path = {"train_main": train["launches"][kernel],
@@ -4187,12 +4727,19 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
         _kernel_row("paged_attention", csrc + "paged_attention.cu",
                     "accelerate_tpu/ops/paged_attention.py:106",
                     serve["launches"] + serve_multi["launches"] + serve_prefill["launches"]
-                    + serve_prefix["launches"],
+                    + serve_prefix["launches"] + serve_spec["launches"]
+                    + serve_spec_draft["launches"],
                     kern["max_abs_err"], kern, design=PAGED_DESIGN,
                     launches_by_path={"main": serve["launches"],
                                       "main_multistep": serve_multi["launches"],
                                       "main_prefill": serve_prefill["launches"],
-                                      "main_prefix": serve_prefix["launches"]},
+                                      "main_prefix": serve_prefix["launches"],
+                                      "main_spec": serve_spec["launches"],
+                                      "main_spec_draft": serve_spec_draft["launches"]},
+                    t4_verify={k: kern["t4"][k] for k in ("kernel_ms", "plain_ms",
+                                                         "bound_ms", "bound_by", "route")},
+                    max_abs_err_t4_verify=kern["max_abs_err_t4"],
+                    device_ms_per_spec_super_step=serve_spec["profile"]["paged_attention_ms"],
                     device_ms_per_super_step=serve_multi["profile"][
                         "paged_attention_ms_per_step"],
                     device_kernels_per_decode_step=serve["profile"][
