@@ -51,6 +51,10 @@ the batch rank under a mesh): a different stream per micro-step that a resumed r
 repeats. JAX folds the same count into a key: the draws match in distribution, not bit
 for bit.
 
+Serving: ``build_serving_gateway`` fronts one engine with a ``ServingGateway``, a list
+with a ``FleetRouter``, or, when ``GatewayConfig.replica_roles`` is set, with a
+``DisaggRouter`` (``Accelerator(gateway_config=...)`` or ``ACCELERATE_GATEWAY``).
+
 Not ported yet (raise ``NotImplementedError``): fp8 (``mixed_precision="fp8"``),
 optimizer/activation offload, ZeRO and every sharding plugin, telemetry, trackers,
 fault injection, the compile cache, and training over quantized weight leaves
@@ -80,6 +84,7 @@ from .state import AcceleratorState, GradientState
 from .utils.constants import BATCH_AXES, TENSOR_AXIS
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    GatewayConfig,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
     ProjectConfiguration,
@@ -234,7 +239,7 @@ class _FusedTrainStep:
 _UNPORTED_ARGS = (
     "fsdp_plugin", "tp_plugin", "pp_plugin", "sp_plugin", "ep_plugin", "megatron_lm_plugin",
     "log_with", "kwargs_handlers", "dynamo_plugin", "telemetry_config",
-    "compile_cache_config", "gateway_config", "fault_config",
+    "compile_cache_config", "fault_config",
 )
 
 
@@ -258,6 +263,7 @@ class Accelerator:
         project_dir: Optional[str] = None,
         project_config: Optional[ProjectConfiguration] = None,
         step_scheduler_with_optimizer: bool = True,
+        gateway_config: Optional[GatewayConfig] = None,
         **kwargs,
     ):
         unported = sorted(k for k, v in kwargs.items() if v is not None)
@@ -283,6 +289,8 @@ class Accelerator:
             split_batches=split_batches)
         self.rng_types = rng_types or ["generator"]
         self.step_scheduler_with_optimizer = step_scheduler_with_optimizer
+        #: The serving gateway's configuration (``build_serving_gateway``).
+        self.gateway_config = gateway_config if gateway_config is not None else GatewayConfig()
         self.step = 0
         self._max_grad_norm = max_grad_norm
         self._models: list = []
@@ -741,6 +749,34 @@ class Accelerator:
         from .checkpointing import wait_for_async_save
 
         return wait_for_async_save(self)
+
+    def build_serving_gateway(self, engine, clock=None, tracer=None, engine_factory=None):
+        """Front a ``serving.ContinuousBatcher`` with the request gateway of
+        ``self.gateway_config``: a ``serving_gateway.ServingGateway`` for one engine; for
+        a LIST of engine replicas a ``FleetRouter`` (health routing, per-replica
+        breakers, failover; ``engine_factory(rid)`` builds restarts) or, when
+        ``replica_roles`` is set, a ``DisaggRouter`` (prefill replicas export KV page
+        handoffs, decode replicas adopt them). With the gateway disabled (the default)
+        one engine comes back unchanged, and a list raises. ``tracer`` is not ported
+        yet (span tracing waits for the telemetry slice); the port has no telemetry
+        pipeline, so the gateway emits no records."""
+        from .serving_gateway import DisaggRouter, FleetRouter, ServingGateway
+
+        config = self.gateway_config
+        is_fleet = isinstance(engine, (list, tuple))
+        if not config.enabled:
+            if is_fleet:
+                raise ValueError(
+                    "a fleet of engines needs the gateway enabled: there is no bare-engine "
+                    "equivalent of a multi-replica router (set GatewayConfig(enabled=True) "
+                    "or ACCELERATE_GATEWAY=1)")
+            return engine
+        kwargs = {} if clock is None else {"clock": clock}
+        if is_fleet:
+            router = DisaggRouter if config.replica_roles is not None else FleetRouter
+            return router(list(engine), config, tracer=tracer,
+                          engine_factory=engine_factory, **kwargs)
+        return ServingGateway(engine, config, tracer=tracer, **kwargs)
 
     def free_memory(self, *objects):
         """Drop the prepared objects and release device memory held outside them:

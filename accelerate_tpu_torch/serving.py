@@ -69,12 +69,25 @@ is in the batch.
   its tokens are the host loop's, bitwise. One host read drains the round buffers.
   ``set_spec_enabled(False)`` falls back to the plain super-step (never N = 1).
 
-Not in this slice (the constructor does not take them): disaggregated roles and KV
-handoffs, fault injection and recovery, telemetry and tracing (the ``serving.spec/v1``
-record waits for it), the cross-family draft (``models/gpt.py`` is not ported), and
-the compile cache itself (the JAX engine's ``compile_cache`` and its bucket
-``ladder()``; ``warm_programs`` captures graphs in the process instead of filling an
-AOT cache).
+Disaggregated roles (``role="prefill"|"decode"``, paged only): a prefill engine admits
+and prefills on lanes freed the same step and exports each request's KV as a
+:class:`KVHandoff` (the context pages move into the record, refcounts kept) instead of
+decoding; a decode engine never prefills: ``adopt_handoff`` scatters a transferred page
+block into pages of its own pool, adopts the full context pages read-only, copies the
+boundary page on write, installs the lane's valid range from the handoff and decodes
+from there, kernel #1 reading the adopted pages. The decode lane draws emission
+``len(tokens)`` on, so its tokens are the mixed engine's, greedy and sampled.
+``serving_gateway.DisaggRouter`` drives the pair. The handoff carries the request's
+integer ``seed`` where the JAX record carries its ``rng`` key, and the exported block
+holds the handoff's real pages only (the JAX gather is table-width, one compiled
+program for every size).
+
+Not in this slice (the constructor does not take them): fault injection and recovery
+(``faults``, ``recover``, ``step_timeout_s``; ``serving_gateway.FleetRouter.kill`` is
+the out-of-band crash), telemetry and tracing (the ``serving.spec/v1`` record waits for
+it), the cross-family draft (``models/gpt.py`` is not ported), and the compile cache
+itself (the JAX engine's ``compile_cache`` and its bucket ``ladder()``;
+``warm_programs`` captures graphs in the process instead of filling an AOT cache).
 """
 
 from __future__ import annotations
@@ -97,7 +110,13 @@ from .paged_kv import BlockManager, KVBudgetError, pages_for
 from .spec_decode import ModelDrafter, NgramDrafter, ngram_propose_resident
 from .utils.cuda_graph import CapturedStep
 
-__all__ = ["ContinuousBatcher", "KVBudgetError", "Request", "normalize_submit"]
+__all__ = ["ContinuousBatcher", "ENGINE_ROLES", "KVBudgetError", "KVHandoff", "Request",
+           "normalize_submit"]
+
+#: Engine roles: ``mixed`` prefills and decodes on the same lanes; ``prefill`` prefills
+#: admitted requests and exports their KV as page-list handoffs instead of decoding;
+#: ``decode`` never prefills: its work arrives as handoffs whose pages it adopts.
+ENGINE_ROLES = ("mixed", "prefill", "decode")
 
 
 def normalize_submit(prompt, max_new_tokens=None, eos_token_id=None, gen=None, seed=None):
@@ -128,6 +147,27 @@ def normalize_submit(prompt, max_new_tokens=None, eos_token_id=None, gen=None, s
     if gen.temperature > 0.0 and seed is None:
         raise ValueError("temperature sampling needs a per-request integer seed")
     return prompt, gen
+
+
+@dataclasses.dataclass
+class KVHandoff:
+    """One prefilled request's transferable KV state, built by a prefill engine the
+    step its prefill lands. The lane is freed at once, but its pages covering the
+    context ``[0, prefill_len)`` move INTO this record (``BlockManager.detach_slot``:
+    refcounts kept). A decode engine adopts them through
+    :meth:`ContinuousBatcher.adopt_handoff` after ``ops.collectives.kv_page_transfer``
+    moved the page block. The record keeps its pages on the SOURCE pool until the
+    request is terminal, so a dead decode replica's request can adopt them again; the
+    router then releases it (:meth:`ContinuousBatcher.release_handoff`)."""
+
+    uid: int                      # source-engine request uid
+    prompt: np.ndarray
+    gen: GenerationConfig
+    seed: Optional[int]           # sampled requests: emission i draws from (seed, i)
+    tokens: list                  # already emitted (the prefill's first token)
+    pages: np.ndarray             # [n] int32 source-pool page ids covering the context
+    prefill_len: int              # next write position (= the adopted context length)
+    valid_range: tuple            # (v0, v1): positions [v0, v1) hold real tokens
 
 
 @dataclasses.dataclass
@@ -389,6 +429,31 @@ def _copy_page(cache, src: int, dst: int):
     return cache
 
 
+def _export_pages(cache, ids: torch.Tensor) -> list:
+    """Gather pool pages ``ids`` [n] from every plane (int8 KV's scale planes
+    included) into a transferable page block: per layer, ``{plane: [n, ps, ...]}``.
+    The source pages stay live: the handoff record holds them until the request is
+    terminal."""
+    return [{key: pool.index_select(0, ids) for key, pool in planes.items()}
+            for planes in cache["layers"]]
+
+
+def _import_pages(cache, block: list, ids: torch.Tensor):
+    """Scatter a transferred page block into this pool's pages ``ids`` [n] (in place),
+    plane by plane: the destination half of a handoff."""
+    for planes, got in zip(cache["layers"], block, strict=True):
+        for key, pool in planes.items():
+            pool.index_copy_(0, ids, got[key].to(pool.dtype))
+    return cache
+
+
+def _set_lane_valid(cache, slot: int, valid_row: torch.Tensor):
+    """Install lane ``slot``'s valid mask (in place): an adopted lane has no prefill
+    row to carry it, so the host builds it from the handoff's valid range."""
+    cache["valid"][slot].copy_(valid_row)
+    return cache
+
+
 def _snapshot_row(row_cache) -> dict:
     """A dense prefix-registry entry: a clone of the row cache (the prefill programs
     write one static row cache in place, so the registry keeps copies)."""
@@ -455,14 +520,16 @@ class ContinuousBatcher:
     ``prompt_buckets`` pads each prompt to the smallest rung that fits it and its
     budget (one prefill dispatch; otherwise chunks of ``prompt_bucket``);
     ``prefix_cache`` keeps up to that many full-chunk prefixes for reuse and takes
-    precedence over ``prompt_buckets``, as in the JAX engine.
+    precedence over ``prompt_buckets``, as in the JAX engine. ``role`` splits the two
+    phases over two engines (see the module docstring): ``prefill`` exports handoffs
+    (``take_handoffs``), ``decode`` adopts them (``adopt_handoff``).
     """
 
     def __init__(self, params, cfg, max_slots: int = 8, max_len: int = 512,
                  prompt_bucket: int = 64, prefix_cache: int = 0, prompt_buckets=None,
                  page_size: int = 0, kv_pages: Optional[int] = None,
                  decode_steps: int = 1, spec_k: int = 0, drafter=None,
-                 spec_accept: str = "replay"):
+                 spec_accept: str = "replay", role: str = "mixed"):
         llama.check_supported(cfg)
         self.params = params
         self.cfg = cfg
@@ -506,6 +573,34 @@ class ContinuousBatcher:
             raise ValueError(f"page_size={page_size} must be >= 0 (0 = dense cache)")
         self.page_size = int(page_size)
         self.paged = self.page_size > 0
+        # Roles: the handoff unit is the page, so a role engine is paged; a prefill
+        # engine never decodes (no speculation, no super-step) and a decode engine
+        # never prefills (no prefix registry to fill).
+        if role not in ENGINE_ROLES:
+            raise ValueError(f"role={role!r} must be one of {ENGINE_ROLES}")
+        if role != "mixed" and not self.paged:
+            raise ValueError(
+                f"role={role!r} needs the paged KV cache (page_size >= 1): the "
+                "cross-engine handoff unit is the page")
+        if role == "prefill" and spec_k:
+            raise ValueError(
+                "spec_k was given on a prefill-role engine: it never dispatches decode, so "
+                "the verify/draft programs would be dead weight")
+        if role == "decode" and prefix_cache:
+            raise ValueError(
+                "prefix_cache was given on a decode-role engine: it never runs prefill, "
+                "so the registry could never be populated")
+        self.role = role
+        #: Prefill role: handoffs built the step their prefill landed (``take_handoffs``).
+        self.handoffs: deque = deque()
+        self.handoffs_exported = 0
+        self.handoffs_adopted = 0
+        #: Per-lane (v0, v1) valid ranges recorded at paged admission: the layout fact a
+        #: handoff carries (a decode engine has no row cache to read it from).
+        self._lane_valid: list = [(0, 0)] * max_slots
+        #: Set by ``FleetRouter.kill``: the engine is abandoned, its pool with it.
+        self.crashed = False
+        self.adopt_s = 0.0  # host-clock seconds in adopt_handoff
         if kv_pages is not None and not self.paged:
             raise ValueError(
                 "kv_pages was given but page_size=0: the pool size would be silently "
@@ -516,6 +611,10 @@ class ContinuousBatcher:
         if decode_steps < 1:
             raise ValueError(
                 f"decode_steps={decode_steps} must be >= 1 (1 = the classic one-token step)")
+        if role == "prefill" and decode_steps > 1:
+            raise ValueError(
+                "decode_steps>1 was given on a prefill-role engine: it never dispatches "
+                "decode, so the super-step program would be dead weight")
         #: Decode steps per dispatch (``decode_steps``; the JAX engine's name).
         self.multi_step = int(decode_steps)
         # Speculative decoding: ``spec_k`` proposals a lane a step, verified by ONE
@@ -585,7 +684,9 @@ class ContinuousBatcher:
         self._prefill_pool = None
         # The prefill programs' static buffers: the row cache they write (its write
         # index a device tensor) and, per width, the token row and its mask.
-        self._row = llama.init_cache(cfg, 1, max_len, device=self.device, device_index=True)
+        # (A decode engine never prefills: it holds no row cache.)
+        self._row = (None if role == "decode" else
+                     llama.init_cache(cfg, 1, max_len, device=self.device, device_index=True))
         self._pbuf: dict = {}
         #: Fused speculative super-step runners by (N, k, max_ngram, sampled, paged), as
         #: ``graphs``.
@@ -625,6 +726,11 @@ class ContinuousBatcher:
             })
         return {
             **kv,
+            "role": self.role,
+            "handoffs_pending": len(self.handoffs),
+            "handoffs_exported": self.handoffs_exported,
+            "handoffs_adopted": self.handoffs_adopted,
+            "adopt_s": self.adopt_s,
             "peak_active_slots": self.peak_active_slots,
             "prefix_entries": len(self._prefix_reg),
             "prefix_hits": self.prefix_hits,
@@ -671,7 +777,13 @@ class ContinuousBatcher:
                on_token: Optional[Callable[[int], None]] = None) -> Request:
         """Queue a request: ``max_new_tokens``/``eos_token_id`` (greedy) or a full
         ``gen`` — not both. Temperature sampling needs an integer ``seed``. Raises for
-        a request the cache (or page pool) could never hold."""
+        a request the cache (or page pool) could never hold. A decode-role engine takes
+        no submissions: its work arrives as handoffs (``adopt_handoff``)."""
+        if self.role == "decode":
+            raise RuntimeError(
+                "decode-role engine takes no direct submissions: work arrives as KV "
+                "handoffs (adopt_handoff) from a prefill-role replica — route through "
+                "serving_gateway.DisaggRouter")
         prompt, gen = normalize_submit(prompt, max_new_tokens, eos_token_id, gen, seed)
         self.kv_demand(len(prompt), gen.max_new_tokens)
         req = Request(self._uid, prompt, gen, seed, on_token=on_token,
@@ -685,9 +797,25 @@ class ContinuousBatcher:
         prefill width (its bucket rung, or whole chunks: the prefix layout's too) plus
         the budget (dense), or the page-granular worst case (paged). Raises
         ``ValueError`` for unservable geometry and :class:`KVBudgetError` when the
-        demand exceeds the whole page pool."""
+        demand exceeds the whole page pool.
+
+        By role: a prefill engine holds the prompt's context pages only (its lanes
+        never decode; the decode replica charges the budget); a decode engine prices
+        the adoption: context + budget, plus one page for the boundary page's
+        transient import."""
         _, total = self._plan_prefill(prompt_len, max_new)
         if self.paged:
+            if self.role == "prefill":
+                return self.block_mgr.demand(total) * self.page_size
+            if self.role == "decode":
+                need = self.block_mgr.demand(total + max_new) + 1
+                if need > self.block_mgr.num_pages:
+                    raise KVBudgetError(
+                        f"adoption needs {need} pages ({total + max_new} cache tokens + the "
+                        f"transient boundary-page import at page_size={self.page_size}) but "
+                        f"the pool only has {self.block_mgr.num_pages} — it can never be "
+                        "adopted")
+                return need * self.page_size
             return self.block_mgr.demand(total + max_new) * self.page_size
         return total + max_new
 
@@ -743,7 +871,10 @@ class ContinuousBatcher:
     @torch.no_grad()
     def step(self) -> list[Request]:
         """Admit queued requests, then advance every active lane one token. Returns
-        the requests finished this step, in submission order."""
+        the requests finished this step, in submission order. A prefill-role engine
+        exports its admitted lanes instead of decoding them."""
+        if self.role == "prefill":
+            return self._prefill_role_step()
         finished_at_admit = self._admit()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         self.peak_active_slots = max(self.peak_active_slots, len(active))
@@ -763,6 +894,151 @@ class ContinuousBatcher:
         finished = decode(active)
         self.evicted += len(finished)
         return sorted(finished_at_admit + finished, key=lambda r: r.uid)
+
+    # ------------------------------------------------------- disaggregated roles
+    def _prefill_role_step(self) -> list[Request]:
+        """Prefill-role ``step()``: admit queued requests (the normal admission path),
+        then export every admitted lane as a :class:`KVHandoff` and free it. Returns
+        only the requests that finished at admission (EOS or a one-token budget: they
+        need no handoff)."""
+        finished = self._admit()
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        self.peak_active_slots = max(self.peak_active_slots, len(active))
+        for slot in active:
+            self._export_lane(slot)
+        return sorted(finished, key=lambda r: r.uid)
+
+    def _export_lane(self, slot: int) -> None:
+        """Detach lane ``slot`` into a handoff: the pages covering the prefill context
+        keep their refcounts (the record owns them until ``release_handoff``), pages
+        past the context (a prefix-layout row's invalid tail) are released now, and the
+        lane frees for the next admission."""
+        req = self.slot_req[slot]
+        pages = self.block_mgr.detach_slot(slot)
+        n_ctx = int(self.positions[slot])
+        keep = pages_for(n_ctx, self.page_size)
+        if len(pages) > keep:
+            self.block_mgr.release(pages[keep:])
+        self.handoffs.append(KVHandoff(
+            uid=req.uid, prompt=req.prompt, gen=req.gen, seed=req.seed,
+            tokens=list(req.tokens), pages=pages[:keep], prefill_len=n_ctx,
+            valid_range=self._lane_valid[slot]))
+        self.handoffs_exported += 1
+        self.slot_req[slot] = None
+
+    def take_handoffs(self) -> list:
+        """Drain the export queue: every handoff built since the last call, in
+        admission order."""
+        out = list(self.handoffs)
+        self.handoffs.clear()
+        return out
+
+    def export_page_block(self, h: KVHandoff) -> list:
+        """Gather handoff ``h``'s source pages from every plane into the page block
+        ``adopt_handoff`` scatters: per layer ``{plane: [len(h.pages), ps, ...]}``, on
+        this engine's device. Only the real pages are gathered (the JAX block is
+        table-width)."""
+        ids = torch.as_tensor(np.asarray(h.pages, np.int64), device=self.device)
+        return _export_pages(self.cache, ids)
+
+    def release_handoff(self, h: KVHandoff) -> int:
+        """Drop a handoff's page references on this (source) engine → pages freed."""
+        return self.block_mgr.release(h.pages)
+
+    def can_adopt_handoff(self, h: KVHandoff) -> bool:
+        """Would :meth:`adopt_handoff` land now (a free lane, and the pool covering the
+        transient import peak)? The router asks BEFORE gathering and transferring the
+        block, so a deferred adoption pays for no copy."""
+        if self.role == "prefill" or not self.paged:
+            return False
+        if not any(r is None for r in self.slot_req):
+            return False
+        mgr = self.block_mgr
+        n_full = h.prefill_len // self.page_size
+        remaining = h.gen.max_new_tokens - len(h.tokens)
+        n_lane_pages = mgr.demand(h.prefill_len + remaining + 1)
+        return len(h.pages) + (n_lane_pages - n_full) <= mgr.free_pages
+
+    @torch.no_grad()
+    def adopt_handoff(self, h: KVHandoff, block: list, on_token=None,
+                      replay_tokens: bool = False) -> Optional[Request]:
+        """Start a decode lane exactly where the prefill replica left off, from a
+        transferred page block (on this engine's device): no prefill runs here.
+
+        In order: the block is scattered into pages owned by the import; the lane
+        adopts the full context pages read-only and reserves fresh pages for the rest
+        of its budget (``BlockManager.admit``); a boundary page cut mid-way is copied
+        on write into the lane's first own page; the import's references drop (full
+        pages then belong to the lane, the boundary original frees); the lane's valid
+        range, position and pending token are set. A captured super-step reads the
+        lane through the host tables and positions uploaded before each replay.
+
+        Returns the engine :class:`Request` in the lane, or None when the adoption must
+        DEFER (no free lane, or pool pressure; ``kv_defer_count`` moves; nothing is
+        consumed). ``replay_tokens`` delivers the handoff's tokens again through
+        ``on_token`` (a re-adoption after a decode replica died)."""
+        if self.role == "prefill":
+            raise RuntimeError("a prefill-role engine cannot adopt handoffs")
+        if not self.paged:
+            raise RuntimeError("handoff adoption needs the paged KV cache")
+        slot = next((i for i, r in enumerate(self.slot_req) if r is None), None)
+        if slot is None:
+            return None
+        t0 = time.perf_counter()
+        mgr = self.block_mgr
+        ps = self.page_size
+        n_src = len(h.pages)
+        n_full = h.prefill_len // ps
+        partial = h.prefill_len % ps != 0
+        remaining = h.gen.max_new_tokens - len(h.tokens)
+        if remaining <= 0 or not h.tokens:
+            raise ValueError(
+                f"handoff uid={h.uid} has no decode work (emitted {len(h.tokens)}/"
+                f"{h.gen.max_new_tokens}) — it should have finished on the prefill replica")
+        n_block = block[0]["k"].shape[0]
+        if n_block != n_src:
+            raise ValueError(f"page block holds {n_block} pages, handoff uid={h.uid} {n_src}")
+        # The lane reserves context + the whole residual budget (no mid-decode
+        # allocation); the import peak adds the boundary page's short-lived original.
+        n_lane_tokens = h.prefill_len + remaining + 1
+        n_lane_pages = mgr.demand(n_lane_tokens)
+        if n_src + (n_lane_pages - n_full) > mgr.free_pages:
+            mgr.defer_count += 1
+            return None
+        import_ids = mgr.import_pages(n_src)
+        dev = self.device
+        self.cache = _import_pages(self.cache, block,
+                                   torch.as_tensor(import_ids, dtype=torch.long, device=dev))
+        lane_ids = mgr.admit(slot, n_lane_tokens, adopted=import_ids[:n_full],
+                             cow_partial=partial)
+        if partial:
+            # COW: the lane's first writable page starts as a copy of the boundary page.
+            self.cache = _copy_page(self.cache, int(import_ids[n_full]), int(lane_ids[n_full]))
+        mgr.release(import_ids)
+        v0, v1 = h.valid_range
+        valid_row = np.zeros((self.max_len,), bool)
+        valid_row[v0:v1] = True
+        self.cache = _set_lane_valid(self.cache, slot, torch.from_numpy(valid_row).to(dev))
+        req = Request(self._uid, h.prompt, h.gen, h.seed, on_token=on_token,
+                      enqueued_at=time.monotonic())
+        self._uid += 1
+        req.tokens = list(h.tokens)
+        self.slot_req[slot] = req
+        self.positions[slot] = h.prefill_len
+        self.tokens[slot] = int(h.tokens[-1])
+        self.admitted += 1
+        self.handoffs_adopted += 1
+        self._lane_valid[slot] = (v0, v1)
+        if self.drafter is not None:
+            # Every handoff layout is "context left-padded to width prefill_len" (bucket
+            # and chunk: pad = total - len(prompt); prefix: pad = 0), so one synthesized
+            # bucket plan reproduces it on the draft cache.
+            self.drafter.admit(slot, np.asarray(h.prompt, np.int32), ("bucket", h.prefill_len))
+        self.adopt_s += time.perf_counter() - t0
+        if replay_tokens and on_token is not None:
+            for tok in h.tokens:
+                on_token(int(tok))
+        return req
 
     def _plain_step(self, active: list[int]) -> list[Request]:
         """ONE batched forward advances every lane one token."""
@@ -1203,6 +1479,10 @@ class ContinuousBatcher:
         - with ``prefix_cache``, the prefix layout's full-logits and keep programs
           instead of the buckets and the pair.
 
+        By role: a decode engine's surface holds no prefill program (adoption's page
+        import, boundary copy and valid-row write run eagerly); a prefill engine's
+        holds no decode, super-step or verify graph (it has none to dispatch).
+
         The host-loop speculative step (``decode_steps=1``) runs eagerly and has no
         graph. Each graph's eager first call runs on idle inputs: every lane frozen
         (a super-step writes nothing), every draft position at the cache end (its
@@ -1244,6 +1524,8 @@ class ContinuousBatcher:
             keys += [("spec", *self._spec_key(sampled)) for sampled in (False, True)]
         if isinstance(self.drafter, ModelDrafter):
             keys.append(("draft", self.spec_k))
+        if self.role == "decode":
+            return keys  # a decode engine never prefills
         if self.prefix_cache_size:
             keys += [("full_logits", self.prompt_bucket), ("keep", self.prompt_bucket)]
         else:
@@ -1371,7 +1653,9 @@ class ContinuousBatcher:
             _, total = plan
         adopted = [] if entry is None else list(entry.pages[: hit_len // ps])
         cow_partial = hit_len > 0 and hit_len % ps != 0
-        n_tokens = total + max_new
+        # A prefill-role lane holds the context pages only (the decode replica charges
+        # the budget's at adoption).
+        n_tokens = total if self.role == "prefill" else total + max_new
         # Pool pressure: the registry is a cache and yields to live traffic — evict
         # LRU entries (releasing their pages) before deferring, then the adopted entry
         # itself (the request retries as a miss); submit's KVBudgetError bound makes
@@ -1399,6 +1683,11 @@ class ContinuousBatcher:
         else:
             out = self._prefill(prompt, plan)
         ids = mgr.admit(slot, n_tokens, adopted=adopted, cow_partial=cow_partial)
+        # The lane's valid layout, which a handoff carries: the prefix layout is
+        # left-aligned ([0, len)), bucket and chunk layouts are left-padded
+        # ([pad, total)).
+        self._lane_valid[slot] = ((0, len(prompt)) if self.prefix_cache_size
+                                  else (total - len(prompt), total))
         # Row scatter: the adopted pages (never written: the last chunk is always
         # recomputed past them) and everything past the row route to the sentinel;
         # decode writes continue directly into the lane's remaining pages.

@@ -3,7 +3,8 @@
 Copies of ``accelerate_tpu/utils/dataclasses.py``'s ``KwargsHandler``, ``PrecisionType``,
 ``DistributedType``, ``RNGType``, ``GradientAccumulationPlugin``, ``MixedPrecisionPolicy``
 (dtypes are torch's), ``DataLoaderConfiguration`` (with its launcher environment
-sentinels), ``ProjectConfiguration`` and ``TensorInformation``. ``RNGType`` has no
+sentinels), ``ProjectConfiguration``, ``GatewayConfig`` (the serving gateway's, with its
+validation and its ``ACCELERATE_GATEWAY`` environment variable) and ``TensorInformation``. ``RNGType`` has no
 ``jax`` member: the port draws no JAX keys.
 """
 
@@ -20,7 +21,7 @@ import torch
 __all__ = [
     "KwargsHandler", "PrecisionType", "DistributedType", "RNGType",
     "GradientAccumulationPlugin", "MixedPrecisionPolicy", "DataLoaderConfiguration",
-    "ProjectConfiguration", "TensorInformation", "parse_flag_from_env",
+    "ProjectConfiguration", "GatewayConfig", "TensorInformation", "parse_flag_from_env",
 ]
 
 _TRUE = {"1", "true", "yes", "y", "on", "t"}
@@ -189,6 +190,130 @@ class ProjectConfiguration(KwargsHandler):
             self.total_limit = int(os.environ["ACCELERATE_CHECKPOINT_TOTAL_LIMIT"])
         if self.logging_dir is None:
             self.logging_dir = self.project_dir
+
+
+#: Values of ``ACCELERATE_GATEWAY`` that switch the gateway on or off; anything else
+#: must be a policy name.
+_GATEWAY_ENV_TRUE = frozenset({"1", "true", "yes", "on"})
+_GATEWAY_ENV_FALSE = frozenset({"", "0", "false", "no", "off"})
+_GATEWAY_POLICIES = frozenset({"fifo", "priority", "edf", "wfq"})
+
+
+@dataclass
+class GatewayConfig(KwargsHandler):
+    """The SLO-aware serving gateway's configuration (``serving_gateway``), a copy of
+    the JAX package's ``GatewayConfig``.
+
+    ``enabled`` and ``policy`` resolve as explicit argument > ``ACCELERATE_GATEWAY`` >
+    built-in (off, ``fifo``); a policy-name value of the variable enables the gateway
+    and picks the policy. ``policy``: ``fifo``, ``priority`` (with aging: +1 level per
+    ``aging_s`` waited), ``edf`` or ``wfq`` (``tenant_weights``). ``max_queue`` /
+    ``max_queued_tokens`` bound admission (0 = unbounded); past a bound ``overload``
+    rejects the newcomer or sheds the least urgent queued request. ``deadline_s`` is a
+    default relative deadline; ``preempt`` lets a more urgent queued request evict the
+    least urgent running one, which retries up to ``max_retries`` times. The breaker
+    opens after ``breaker_threshold`` step failures in ``breaker_window_s`` (0 = off)
+    and admits one probe after ``breaker_cooldown_s``; ``degrade`` turns speculation off
+    and then halves the bounds at each opening. Fleet: ``drain_deadline_s``,
+    ``replica_restarts``, ``replica_restart_backoff``; disaggregated serving:
+    ``replica_roles`` (one of prefill/decode/mixed per replica, comma-separated).
+    ``metrics`` and ``capsule_state`` feed the metrics plane and the flight recorder,
+    which wait for the telemetry slice. ``decode_steps`` is the super-step depth the
+    gateway expects of its engine (validated at construction; 1 = whatever it runs)."""
+
+    enabled: Optional[bool] = None
+    policy: Optional[str] = None
+    max_queue: int = 0
+    max_queued_tokens: int = 0
+    overload: str = "reject"
+    aging_s: float = 10.0
+    default_priority: int = 0
+    tenant_weights: Optional[dict] = None
+    deadline_s: Optional[float] = None
+    preempt: bool = False
+    max_retries: int = 0
+    emit_per_request: bool = True
+    max_terminal: int = 4096
+    breaker_threshold: int = 0
+    breaker_window_s: float = 60.0
+    breaker_cooldown_s: float = 30.0
+    degrade: bool = False
+    drain_deadline_s: Optional[float] = 30.0
+    replica_restarts: int = 2
+    replica_restart_backoff: float = 0.0
+    replica_roles: Optional[str] = None
+    metrics: bool = False
+    metrics_window_s: float = 300.0
+    capsule_state: bool = True
+    decode_steps: int = 1
+
+    def __post_init__(self):
+        raw = os.environ.get("ACCELERATE_GATEWAY")
+        raw_norm = raw.strip().lower() if raw is not None else None
+        raw_is_policy = raw_norm in _GATEWAY_POLICIES
+        if (raw_norm is not None and not raw_is_policy
+                and raw_norm not in (_GATEWAY_ENV_TRUE | _GATEWAY_ENV_FALSE)):
+            raise ValueError(
+                f"ACCELERATE_GATEWAY={raw!r}: expected a boolean "
+                f"({'/'.join(sorted(_GATEWAY_ENV_TRUE))} or "
+                f"{'/'.join(sorted(v for v in _GATEWAY_ENV_FALSE if v))}) "
+                f"or a policy name ({'/'.join(sorted(_GATEWAY_POLICIES))})")
+        if self.enabled is None:
+            self.enabled = (False if raw_norm is None
+                            else raw_is_policy or raw_norm in _GATEWAY_ENV_TRUE)
+        if self.policy is None:
+            self.policy = raw_norm if raw_is_policy else "fifo"
+        if self.policy not in _GATEWAY_POLICIES:
+            raise ValueError(f"policy={self.policy!r} must be one of {sorted(_GATEWAY_POLICIES)}")
+        if self.max_queue < 0:
+            raise ValueError(f"max_queue={self.max_queue} must be >= 0 (0 = unbounded)")
+        if self.max_queued_tokens < 0:
+            raise ValueError(
+                f"max_queued_tokens={self.max_queued_tokens} must be >= 0 (0 = unbounded)")
+        if self.overload not in ("reject", "shed"):
+            raise ValueError(f"overload={self.overload!r} must be 'reject' or 'shed'")
+        if self.aging_s <= 0:
+            raise ValueError(
+                f"aging_s={self.aging_s} must be > 0 (aging is what makes the priority "
+                "policy starvation-free; disable aging by raising it, not zeroing it)")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError(f"deadline_s={self.deadline_s} must be > 0 when set")
+        if self.max_retries < 0:
+            raise ValueError(f"max_retries={self.max_retries} must be >= 0")
+        if self.max_terminal < 0:
+            raise ValueError(f"max_terminal={self.max_terminal} must be >= 0 (0 = unbounded)")
+        if self.breaker_threshold < 0:
+            raise ValueError(
+                f"breaker_threshold={self.breaker_threshold} must be >= 0 (0 = off)")
+        if self.breaker_window_s <= 0:
+            raise ValueError(f"breaker_window_s={self.breaker_window_s} must be > 0")
+        if self.breaker_cooldown_s <= 0:
+            raise ValueError(f"breaker_cooldown_s={self.breaker_cooldown_s} must be > 0")
+        if self.drain_deadline_s is not None and self.drain_deadline_s <= 0:
+            raise ValueError(
+                f"drain_deadline_s={self.drain_deadline_s} must be > 0 "
+                "(None = wait for in-flight requests forever)")
+        if self.metrics_window_s <= 0:
+            raise ValueError(f"metrics_window_s={self.metrics_window_s} must be > 0")
+        if self.decode_steps < 1:
+            raise ValueError(
+                f"decode_steps={self.decode_steps} must be >= 1 (1 = classic one-token decode)")
+        if self.replica_restarts < 0:
+            raise ValueError(f"replica_restarts={self.replica_restarts} must be >= 0")
+        if self.replica_restart_backoff < 0:
+            raise ValueError(
+                f"replica_restart_backoff={self.replica_restart_backoff} must be >= 0")
+        if self.replica_roles is not None:
+            roles = [r.strip() for r in self.replica_roles.split(",")]
+            bad = [r for r in roles if r not in ("prefill", "decode", "mixed")]
+            if bad or not roles:
+                raise ValueError(
+                    f"replica_roles={self.replica_roles!r}: expected a comma-separated "
+                    "list of prefill/decode/mixed, one per replica")
+        if self.tenant_weights is not None:
+            for tenant, weight in self.tenant_weights.items():
+                if weight <= 0:
+                    raise ValueError(f"tenant_weights[{tenant!r}]={weight} must be > 0")
 
 
 class TensorInformation:

@@ -48,6 +48,17 @@ that names the phase, its failed cases and the exception:
    round, speculation switched off and on mid-drain: tokens and every ``spec_*``
    counter equal the CPU's after every step, tokens equal the card's ``spec_k=0``
    engine's, the perfect drafter accepts everything, no page leaked.
+   engine_disagg — disaggregated serving against the CPU (``debug``, fp32, pages of 8):
+   ``DisaggRouter`` fleets of a prefill and a decode replica (1P:1D; the decode replica
+   at ``decode_steps=4``, with ``spec_k=2`` n-gram, with a ModelDrafter over the
+   target's params; P:D:mixed; a prefill pool sized for context pages only; a decode
+   pool small enough to defer adoptions; pages of 12 and a prefix-cached prefill
+   replica, whose boundary pages are copied on write; int8 projections; int8 KV pools;
+   ``kill(1)`` of a P:D:D fleet; ``kill(0)`` with a restart factory): tokens and
+   streams equal a mixed engine's on the card, tokens and every router and replica
+   counter equal the CPU's after every router step, pools drained, kernel #1's
+   launches one per layer per token step on each decode-capable replica (plus the
+   drafter's rounds) and none on a prefill replica.
 4. main — the paged continuous-batching engine serving 10 requests at Llama-3-8B's
    full width and depth (bf16, seeded random weights made on the card), with the
    kernel's launch count checked against the decode dispatches; then a few decode
@@ -82,6 +93,16 @@ that names the phase, its failed cases and the exception:
    loop with a ModelDrafter over the target's own params, 4 greedy requests of 32
    tokens: accept rate ≥ 0.9, ms per token against N = 1 (alternated), the draft
    round's graph time.
+   main_disagg — ``main``'s 10 requests through a ``DisaggRouter`` over a prefill
+   replica and a decode replica (``decode_steps=8``) sharing the card and the params,
+   after ``warm_programs()``: tokens equal ``main``'s bitwise, one handoff each, pools
+   drained, no graph captured in traffic, kernel #1 exactly 32·8 a decode super-step
+   and never on the prefill replica; each handoff's pages and bytes against the
+   table-width block; device ms of the export gather, import scatter and copy on write
+   beside bytes / 3.35 TB/s; an adoption's host ms; time to first token and tokens/s
+   against a mixed engine at N = 8 (alternated); the decode replica's idle share; peak
+   memory; then a P:D:D fleet killing decode replica 1 mid-drain (streams equal
+   ``main``'s, requests adopted again from the prefill replica's pages).
    generate — ``llama.generate``, ``score`` and ``perplexity``: ``debug`` fp32 on the
    card against the CPU, then Llama-3-8B bf16, 4 left-padded prompts, 64 new tokens
    (the decode step one graph, replayed; time per token).
@@ -1768,6 +1789,279 @@ def phase_engine_spec(dev) -> dict:
     return res
 
 
+# ------------------------------------ phase 3e: disaggregated serving on the card
+#: The counters ``engine_disagg`` holds equal between the card and the CPU after every
+#: router step: the router's, and each replica engine's.
+DISAGG_ROUTER_STATS = ("submitted", "admitted", "done", "handoffs", "handoff_defers",
+                       "readopted", "migrated", "replica_kills", "replica_restarts",
+                       "replayed", "cancelled", "failed")
+DISAGG_ENGINE_STATS = ("admitted", "evicted", "decode_steps", "decode_tokens",
+                       "handoffs_exported", "handoffs_adopted", "handoffs_pending",
+                       "spec_proposed", "spec_accepted", "pages_in_use", "kv_alloc_count",
+                       "kv_free_count", "kv_cow_count", "kv_adopt_count", "kv_defer_count")
+
+
+def disagg_workload(vocab: int):
+    """``engine_disagg``'s seeded requests: 6 prompts of 9–100 tokens (one ending on a
+    page, the rest cutting one: COW), budgets of 14–24, requests 1 and 4 sampled →
+    [(prompt, submit kwargs)]."""
+    from accelerate_tpu_torch.generation import GenerationConfig
+
+    rng = np.random.default_rng(14)
+    lengths = (20, 45, 70, 100, 33, 9)
+    gens = {1: GenerationConfig(max_new_tokens=21, temperature=0.8, top_k=40, top_p=0.9),
+            4: GenerationConfig(max_new_tokens=17, temperature=1.1, top_p=0.8)}
+    return [(rng.integers(0, vocab, n), dict(gen=gens[i], seed=70 + i) if i in gens else
+             dict(max_new_tokens=(14, None, 24, 19, None, 16)[i]))
+            for i, n in enumerate(lengths)]
+
+
+class _EngineLaunches:
+    """Per-engine launch counts of kernels #1 and #10: each wrapper's count moved by
+    the engine's ``step()`` (its eager launches, a graph's eager first call included),
+    plus its graphs' kernel nodes times their replays (``replayed_launches``)."""
+
+    def __init__(self):
+        self.eager = {}  # id(engine) → [paged attention, int8 matmul]
+
+    def watch(self, eng):
+        from accelerate_tpu_torch.ops.paged_attention import paged_attention
+        from accelerate_tpu_torch.ops.quantization import int8_matmul
+
+        counts = self.eager.setdefault(id(eng), [0, 0])
+        step = eng.step
+
+        def counted_step():
+            pa, i8 = paged_attention.launches, int8_matmul.launches
+            try:
+                return step()
+            finally:
+                counts[0] += paged_attention.launches - pa
+                counts[1] += int8_matmul.launches - i8
+
+        eng.step = counted_step
+        return eng
+
+    def __call__(self, eng) -> tuple[int, int]:
+        graphs = (list(eng.graphs.values()) + list(eng.prefill_graphs.values())
+                  + list(eng.spec_graphs.values())
+                  + list(getattr(eng.drafter, "graphs", {}).values()))
+        pa, i8 = self.eager.get(id(eng), (0, 0))
+        return (pa + replayed_launches(graphs, PAGED_KERNELS),
+                i8 + replayed_launches(graphs, INT8_KERNELS))
+
+
+def expected_paged_launches(eng, n_layers: int, draft_layers: int = 0) -> int:
+    """Kernel #1's launches an engine's decode dispatches make: one per layer per
+    token step (N per super-step, one verify per speculative round), plus a model
+    drafter's k+1 one-token steps per host-loop round; none for a prefill engine (its
+    prefill attends through the dense einsum)."""
+    if eng.role == "prefill":
+        return 0
+    per_dispatch = n_layers * eng.multi_step
+    if eng.spec_k and not eng._spec_fused() and draft_layers:
+        per_dispatch += draft_layers * (eng.spec_k + 1)
+    return per_dispatch * eng.decode_steps
+
+
+def serve_disagg(params, cfg, workload, roles, engine_kw=None, watch=None, kill=None,
+                 factory=False, geometry=None, **router_kw) -> dict:
+    """``workload`` through a ``DisaggRouter`` over one engine per role (``engine_kw``:
+    {role: engine keywords}, each value may be a function of the params giving them),
+    ``geometry`` (default ``DISAGG_ENGINE``) for every engine; streams captured with
+    ``on_retry`` resets; ``kill=(rid, step)`` kills a replica
+    after that many router steps; ``factory`` gives the router a restart factory →
+    tokens, streams, per-step counters, every engine built by role, the router."""
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+    from accelerate_tpu_torch.serving_gateway import DisaggRouter
+    from accelerate_tpu_torch.utils.dataclasses import GatewayConfig
+
+    engine_kw = engine_kw or {}
+    built = []
+
+    def build(rid, role):
+        kw = engine_kw.get(role, {})
+        kw = kw(params) if callable(kw) else kw
+        eng = ContinuousBatcher(params, cfg, role=role, **{**(geometry or DISAGG_ENGINE), **kw})
+        built.append((rid, eng))
+        return watch.watch(eng) if watch is not None else eng
+
+    engines = [build(rid, role) for rid, role in enumerate(roles)]
+    router = DisaggRouter(engines, GatewayConfig(enabled=True, **router_kw), roles=list(roles),
+                          engine_factory=build if factory else None)
+    streams = {i: [] for i in range(len(workload))}
+    greqs = [router.submit(p, on_token=streams[i].append, on_retry=streams[i].clear, **kw)
+             for i, (p, kw) in enumerate(workload)]
+    steps = []
+    while router.queue_depth or router.running_count:
+        if kill is not None and len(steps) == kill[1]:
+            router.kill(kill[0])
+        router.step()
+        snap = {k: router.counters[k] for k in DISAGG_ROUTER_STATS}
+        for rep in router.replicas:
+            s = rep.engine.stats()
+            snap[rep.rid] = {k: s.get(k) for k in DISAGG_ENGINE_STATS}
+        steps.append(snap)
+        if len(steps) > 2000:
+            raise SystemExit("disaggregated router stalled")
+    return {"tokens": [[int(t) for t in g.tokens] for g in greqs],
+            "streams": [[int(t) for t in streams[i]] for i in range(len(workload))],
+            "status": [g.status for g in greqs], "steps": steps, "built": built,
+            "router": router}
+
+
+DISAGG_ENGINE = dict(max_slots=4, max_len=256, prompt_bucket=32, page_size=8)
+
+
+def phase_engine_disagg(dev) -> dict:
+    """Disaggregated serving on the card against the CPU (``debug``, fp32, pages of 8,
+    ``max_slots=4``, ``max_len=256``, ``prompt_bucket=32``): each case a
+    ``DisaggRouter`` over the same seeded params and requests on both sides — 1P:1D;
+    the decode replica at ``decode_steps=4``; with ``spec_k=2`` (n-gram); with a
+    ModelDrafter over the target's params; P:D:mixed; a prefill pool sized for context
+    pages only; a decode pool small enough to defer adoptions; int8 projections on both
+    replicas (kernel #10); int8 KV pools (the scale planes travel with the block);
+    ``kill(1)`` on a P:D:D fleet and ``kill(0)`` with a restart factory. Checks: every
+    request's tokens (and its stream) equal a mixed engine's on the same device; the
+    card's tokens equal the CPU's and every router and replica counter equals the
+    CPU's after every router step; every pool drains to ``pages_in_use == 0``; on the
+    card kernel #1's launches on each decode-capable replica equal one per layer per
+    token step (plus the drafter's rounds) and are 0 on each prefill replica."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_to
+    from accelerate_tpu_torch.ops import quantization as qz
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+    from accelerate_tpu_torch.spec_decode import ModelDrafter
+
+    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32)
+    kv_cfg = dataclasses.replace(cfg, kv_quant=True)
+    params_cpu = llama.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                   device="cpu")
+    int8_cpu = qz.load_and_quantize_model(params_cpu, qz.BnbQuantizationConfig(
+        skip_modules=["embed", "lm_head"], min_weight_size=1, load_in_8bit=True))
+    sides = {"cpu": (params_cpu, int8_cpu),
+             "gpu": (params_to(params_cpu, dev), params_to(int8_cpu, dev))}
+    workloads = {"default": disagg_workload(cfg.vocab_size)}
+    # Greedy, decode budgets that end on a speculative round (k = 2: no round is cut to
+    # one token), so a perfect drafter's every proposal is emitted.
+    workloads["greedy_rounds"] = [(p, dict(max_new_tokens=b)) for (p, _), b in
+                                  zip(workloads["default"], (15, 21, 24, 19, 16, 18))]
+    pd, pdd = ("prefill", "decode"), ("prefill", "decode", "decode")
+    L = cfg.n_layers
+    # name -> (roles, engine keywords by role, params index, cfg, router keywords,
+    #          extras: "geometry" of every engine, "mixed" keywords of the baseline,
+    #          "workload")
+    cases = {
+        "1p1d": (pd, {}, 0, cfg, {}, {}),
+        "1p1d_decode_steps4": (pd, {"decode": {"decode_steps": 4}}, 0, cfg, {}, {}),
+        "1p1d_spec_ngram": (pd, {"decode": {"spec_k": 2}}, 0, cfg, {}, {}),
+        "1p1d_spec_model_drafter": (pd, {"decode": lambda p: {
+            "spec_k": 2, "drafter": ModelDrafter(p, cfg)}}, 0, cfg, {},
+            {"workload": "greedy_rounds"}),
+        "p_d_mixed": (("prefill", "decode", "mixed"), {}, 0, cfg, {}, {}),
+        # 16 pages: the 100-token prompt's 4 chunks (128 slots) with its budget need 19
+        # on a mixed engine; its context alone fits.
+        "prefill_pool_context_only": (pd, {"prefill": {"kv_pages": 16}}, 0, cfg, {}, {}),
+        # 20 pages: the largest adoption (16 imported + 3 own) fits, two rarely do.
+        "decode_pool_defers": (pd, {"decode": {"kv_pages": 20}}, 0, cfg, {}, {}),
+        # Pages of 12 cut the 32-token chunks: every handoff's boundary page is copied on
+        # write; the prefix layout ends the context on the prompt's own length.
+        "pages_of_12_cow": (pd, {}, 0, cfg, {}, {"geometry": {"page_size": 12}}),
+        "prefix_prefill_cow": (pd, {"prefill": {"prefix_cache": 4}}, 0, cfg, {},
+                               {"mixed": {"prefix_cache": 4}}),
+        "int8_projections": (pd, {}, 1, cfg, {}, {}),
+        "int8_kv_pools": (pd, {}, 0, kv_cfg, {}, {}),
+        "kill_decode_pdd": (pdd, {}, 0, cfg, {"kill": (1, 3), "factory": False}, {}),
+        # Killed after 2 steps: its last two exports wait in handoff limbo (the decode
+        # replica's 4 lanes are busy) and die with its pool: they prefill again.
+        "kill_prefill_factory": (pd, {}, 0, cfg, {"kill": (0, 2), "factory": True,
+                                                  "replica_restarts": 2}, {}),
+    }
+    mixed = {}  # (side, params index, kv, baseline keywords, workload) -> tokens, pages
+    res = {"phase": "engine_disagg", "config": "debug", "engine": DISAGG_ENGINE, "cases": {}}
+    failed = []
+    for name, (roles, ekw, pi, c, rkw, extra) in cases.items():
+        geometry = {**DISAGG_ENGINE, **extra.get("geometry", {})}
+        workload = workloads[extra.get("workload", "default")]
+        mixed_kw = {**geometry, **extra.get("mixed", {})}
+        run = {}
+        watch = _EngineLaunches()
+        for side, params in sides.items():
+            key = (side, pi, c.kv_quant, tuple(sorted(mixed_kw.items())),
+                   extra.get("workload", "default"))
+            if key not in mixed:
+                eng = ContinuousBatcher(params[pi], c, **mixed_kw)
+                reqs = [eng.submit(p, **kw) for p, kw in workload]
+                eng.run()
+                clear_registry(eng)
+                mixed[key] = ([[int(t) for t in r.tokens] for r in reqs],
+                              eng.stats()["pages_in_use"])
+            run[side] = serve_disagg(params[pi], c, workload, roles, ekw,
+                                     watch if side == "gpu" else None, geometry=geometry,
+                                     **rkw)
+        gpu, cpu = run["gpu"], run["cpu"]
+        want, mixed_pages = mixed[key]
+        router = gpu["router"]
+        for rep in router.replicas:  # a prefix registry holds pages until evicted
+            clear_registry(rep.engine)
+        live = [rep.engine for rep in router.replicas if not rep.engine.crashed]
+        launches, ok_launch = {}, True
+        for rid, eng in gpu["built"]:
+            draft = L if isinstance(eng.drafter, ModelDrafter) else 0
+            got, got_i8 = watch(eng)
+            exp = expected_paged_launches(eng, L, draft)
+            launches[f"{rid}:{eng.role}{':dead' if eng.crashed else ''}"] = {
+                "paged_attention": got, "expected": exp, "int8_matmul": got_i8}
+            ok_launch &= got == exp and (got_i8 > 0) == (pi == 1)
+        case = {
+            "roles": list(roles), "status_done": all(s == "done" for s in gpu["status"]),
+            "tokens_equal_mixed_card": gpu["tokens"] == want,
+            "streams_equal_tokens": gpu["streams"] == gpu["tokens"],
+            "tokens_equal_cpu": gpu["tokens"] == cpu["tokens"],
+            "counters_equal_cpu_every_step": gpu["steps"] == cpu["steps"],
+            "router_steps": len(gpu["steps"]),
+            "counters": {k: router.counters[k] for k in DISAGG_ROUTER_STATS},
+            "pages_in_use_after": [e.stats()["pages_in_use"] for e in live] + [mixed_pages],
+            "live_handoffs_after": len(router._live_handoffs),
+            "transfer": router.transfer_stats.summary(), "launches": launches,
+            "kv_cow_count_decode_side": sum(e.stats()["kv_cow_count"] for _, e in gpu["built"]
+                                            if e.role != "prefill"),
+            "launches_exact": bool(ok_launch),
+        }
+        ok = (case["status_done"] and case["tokens_equal_mixed_card"]
+              and case["streams_equal_tokens"] and case["tokens_equal_cpu"]
+              and case["counters_equal_cpu_every_step"] and ok_launch
+              and not any(case["pages_in_use_after"]) and not case["live_handoffs_after"])
+        # Every request goes through a handoff, except where a mixed replica serves
+        # both phases itself.
+        ok &= (router.counters["handoffs"] > 0 if "mixed" in roles
+               else router.counters["handoffs"] >= len(workload))
+        if name == "decode_pool_defers":
+            ok &= router.counters["handoff_defers"] > 0
+        if name.startswith("kill"):
+            ok &= router.counters["replica_kills"] == 1
+            ok &= (router.counters["readopted"] > 0 if name == "kill_decode_pdd"
+                   else router.counters["replica_restarts"] >= 1
+                   and router.counters["replayed"] > 0)
+        if name.endswith("_cow"):
+            ok &= case["kv_cow_count_decode_side"] > 0
+        if "spec" in name:
+            dec = router.replicas[1].engine
+            case["spec_accept_rate"] = dec.stats()["spec_accept_rate"]
+            ok &= dec.spec_proposed > 0
+            if "model" in name:
+                ok &= dec.spec_accepted == dec.spec_proposed  # the target's own draft
+        case["ok"] = bool(ok)
+        res["cases"][name] = case
+        if not ok:
+            failed.append(name)
+    res["ok"] = not failed
+    emit(res)
+    if failed:
+        raise PhaseFailed("disaggregated serving on the card disagrees", failed)
+    return res
+
+
 MAIN_SPEC = dict(**MAIN_ENGINE, decode_steps=MULTI_N, spec_k=SPEC_K)
 
 
@@ -2077,6 +2371,259 @@ def phase_main_spec_draft(dev, main: dict) -> dict:
     gc.collect()
     return {"launches": launches, "accept_rate": s["spec_accept_rate"],
             "draft_round_ms": draft_prof["device_ms"], "ms_per_token_median": med}
+
+
+# ------------------------------------------- phase 4e: disaggregated serving at 8B
+class _Records:
+    """A duck-typed telemetry sink (``enabled``, ``emit``) keeping every record."""
+
+    enabled = True
+
+    def __init__(self):
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def disagg_router_8b(params, cfg, roles, telemetry=None, engines=None):
+    """A ``DisaggRouter`` at ``main``'s geometry: prefill replicas at N = 1 (they never
+    decode), decode replicas at ``decode_steps=8``; ``engines`` reuses built ones."""
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+    from accelerate_tpu_torch.serving_gateway import DisaggRouter
+    from accelerate_tpu_torch.utils.dataclasses import GatewayConfig
+
+    engines = engines or [
+        ContinuousBatcher(params, cfg, role=r, **MAIN_ENGINE,
+                          **({"decode_steps": MULTI_N} if r == "decode" else {}))
+        for r in roles]
+    return DisaggRouter(engines, GatewayConfig(enabled=True), roles=list(roles),
+                        telemetry=telemetry)
+
+
+def drain_served(server, workload, kill=None) -> dict:
+    """Submit ``workload`` to a router or an engine at one instant and drain it, timed to
+    the final sync: tokens, streams (``on_retry`` resets them), each request's time to
+    first token, tokens/s; ``kill=(rid, step)`` kills a router's replica after that
+    many steps, and reports the prefill replica's ``admitted`` at that moment."""
+    streams = {i: [] for i in range(len(workload))}
+    first = {}
+
+    def hooks(i):
+        def on_token(tok):
+            first.setdefault(i, time.perf_counter())
+            streams[i].append(int(tok))
+
+        return on_token
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    router = hasattr(server, "replicas")
+    reqs = [server.submit(p, on_token=hooks(i),
+                          **({"on_retry": streams[i].clear} if router else {}), **kw)
+            for i, (p, kw) in enumerate(workload)]
+    steps, admitted_at_kill = 0, None
+    while (server.queue_depth or server.running_count) if router else (
+            server.queue or any(r is not None for r in server.slot_req)):
+        if kill is not None and steps == kill[1]:
+            admitted_at_kill = server.replicas[0].engine.admitted
+            server.kill(kill[0])
+        server.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ttft = [first[i] - t0 for i in range(len(workload))]
+    n = sum(len(r.tokens) for r in reqs)
+    return {"tokens": [[int(t) for t in r.tokens] for r in reqs],
+            "streams": [streams[i] for i in range(len(workload))], "wall_s": wall,
+            "tokens_per_s": n / wall, "ttft_s": ttft,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p95_s": float(np.percentile(ttft, 95)),
+            "done": all(r.status == "done" if router else r.done for r in reqs),
+            "admitted_at_kill": admitted_at_kill}
+
+
+def handoff_device_times(pre, dec, pages: int) -> dict:
+    """Device ms of the handoff's device work at ``pages`` pages, each beside its bytes
+    over 3.35 TB/s: the export gather (``serving._export_pages``, read + write), the
+    import scatter (``_import_pages``) and one boundary page's copy on write
+    (``_copy_page``), each captured in a CUDA graph and replayed between CUDA events.
+    Run on drained pools: the pages written are free."""
+    from accelerate_tpu_torch.serving import _copy_page, _export_pages, _import_pages
+
+    ids = torch.arange(pages, dtype=torch.long, device=pre.device)
+    block = _export_pages(pre.cache, ids)
+    nbytes = sum(t.numel() * t.element_size() for layer in block for t in layer.values())
+    page_bytes = dec.kv_page_bytes
+    out = {"pages": pages, "block_bytes": nbytes}
+    for name, fn, moved in (
+            ("export_gather", lambda _: _export_pages(pre.cache, ids), 2 * nbytes),
+            ("import_scatter", lambda _: _import_pages(dec.cache, block, ids), 2 * nbytes),
+            ("cow_copy", lambda _: _copy_page(dec.cache, pages, pages + 1), 2 * page_bytes)):
+        ms = device_ms(fn, 1, 20)
+        bound = 1e3 * moved / HBM_BYTES_PER_S
+        out[name] = {"device_ms": ms, "bytes": moved, "bound_ms": bound,
+                     "bound_over_ms": bound / ms}
+    return out
+
+
+def phase_main_disagg(dev, main: dict) -> dict:
+    """``main``'s 10 requests at Llama-3-8B's full width and depth (bf16, the same
+    params) through a ``DisaggRouter`` over a prefill replica and a decode replica
+    (``decode_steps=8``), both ``max_slots=8``, ``max_len=1024``, pages of 16, after
+    ``warm_programs()``. Hard checks: every request's tokens (greedy and sampled) equal
+    ``main``'s (the mixed engine's: ``main_multistep`` holds N = 8 equal to N = 1),
+    bitwise; one handoff per request; pools drained; no graph captured in traffic;
+    kernel #1 launched exactly 32·8 times a decode super-step (graph nodes × replays)
+    and never by the prefill replica. Printed: each handoff's real pages and bytes
+    against the table-width block's; device ms of the export gather, the import
+    scatter and the copy on write beside bytes / 3.35 TB/s; the transfer's (a no-op on
+    one card); host ms of an adoption; time to first token (p50, p95) and tokens/s of
+    warm drains, disagg against a mixed engine of the same geometry at N = 8
+    (alternated); the decode replica's idle share; peak memory of the pools and the
+    weights. Then a P:D:D fleet killing decode replica 1 mid-drain: every stream equals
+    ``main``'s tokens, ``readopted > 0``, and the prefill replica admits nothing more."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
+    params = main["params"]
+    workload = main_workload(cfg.vocab_size)[3]
+    want = main["tokens"]
+    tel = _Records()
+    watch = _EngineLaunches()
+    router = disagg_router_8b(params, cfg, ("prefill", "decode"), telemetry=tel)
+    pre, dec = (watch.watch(rep.engine) for rep in router.replicas)
+    warm = {e.role: warm_summary(e.warm_programs(max_new_tokens=64)) for e in (pre, dec)}
+    keys_warm = {e.role: graph_keys(e) for e in (pre, dec)}
+    paged_attention.launches_ragged = 0
+    before = {e.role: (watch(e)[0], e.decode_steps) for e in (pre, dec)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = drain_served(router, workload)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {e.role: watch(e)[0] - before[e.role][0] for e in (pre, dec)}
+    expect = cfg.n_layers * MULTI_N * (dec.decode_steps - before["decode"][1])
+    sp, sd = pre.stats(), dec.stats()
+    records = [r for r in tel.records if r["schema"].endswith("serving.handoff/v1")]
+    table_bytes = dec.block_mgr.max_pages * dec.kv_page_bytes
+    res = {"phase": "main_disagg", "config": "llama3-8b", "dtype": "bfloat16",
+           "engine": {**MAIN_ENGINE, "roles": ["prefill", "decode"],
+                      "decode_steps": {"prefill": 1, "decode": MULTI_N}},
+           "requests": len(workload), "warm_programs": warm,
+           "no_graph_captured_in_traffic": all(graph_keys(e) == keys_warm[e.role]
+                                               for e in (pre, dec)),
+           "tokens_equal_main": run["tokens"] == want,
+           "streams_equal_tokens": run["streams"] == run["tokens"],
+           "handoffs": router.counters["handoffs"],
+           "handoffs_exported": sp["handoffs_exported"],
+           "handoffs_adopted": sd["handoffs_adopted"],
+           "paged_attention_launches": launches,
+           "paged_attention_launches_expected": {"prefill": 0, "decode": expect},
+           "paged_attention_launches_ragged": paged_attention.launches_ragged,
+           "decode_super_steps": sd["decode_steps"], "wall_s": run["wall_s"],
+           "tokens_per_s": run["tokens_per_s"], "ttft_p50_s": run["ttft_p50_s"],
+           "ttft_p95_s": run["ttft_p95_s"],
+           "pages_in_use_after": [sp["pages_in_use"], sd["pages_in_use"]],
+           "live_handoffs_after": len(router._live_handoffs),
+           "max_memory_allocated_bytes": peak,
+           "pool_bytes": {"prefill": pre.cache_bytes(), "decode": dec.cache_bytes()},
+           "params_bytes": sum(t.numel() * t.element_size() for t in tree_leaves(params))}
+    res["ok"] = (res["no_graph_captured_in_traffic"] and res["tokens_equal_main"]
+                 and res["streams_equal_tokens"] and run["done"]
+                 and res["handoffs"] == len(workload) == sp["handoffs_exported"]
+                 == sd["handoffs_adopted"]
+                 and launches == {"prefill": 0, "decode": expect} and expect > 0
+                 and paged_attention.launches_ragged == 0
+                 and res["pages_in_use_after"] == [0, 0] and not res["live_handoffs_after"])
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("the disaggregated main path failed its checks")
+
+    # The handoff's cost: bytes, device times, an adoption's host time.
+    biggest = max(r["pages"] for r in records)
+    handoff = {"phase": "disagg_handoff", "per_handoff": [
+        {"uid": r["uid"], "pages": r["pages"], "bytes": r["nbytes"],
+         "table_width_bytes": table_bytes, "transfer_s": r["dur_s"]} for r in records],
+        "kv_page_bytes": dec.kv_page_bytes, "table_pages": dec.block_mgr.max_pages,
+        "transfer": "same device: kv_page_transfer moves nothing (0.0 s)",
+        "adopt_host_ms_mean": 1e3 * sd["adopt_s"] / sd["handoffs_adopted"],
+        "kv_cow_count_decode": sd["kv_cow_count"], "kv_adopt_count_decode": sd["kv_adopt_count"],
+        "device": handoff_device_times(pre, dec, biggest)}
+    emit(handoff)
+
+    # Warm drains, disagg against a mixed engine of the same geometry at N = 8.
+    mixed = ContinuousBatcher(params, cfg, **MAIN_ENGINE, decode_steps=MULTI_N)
+    mixed.warm_programs(max_new_tokens=64)
+    servers = {"mixed": mixed, "disagg": router}
+    first_mixed = drain_served(mixed, workload)
+
+    def timed(name):
+        r = drain_served(servers[name], workload)
+        replays = {k: getattr(g, "replays", 0) for k, g in dec.graphs.items()}
+        r["decode_replays"] = replays
+        return r
+
+    runs = alternated({"mixed": [], "disagg": []}, ("mixed", "disagg", "disagg", "mixed"),
+                      timed)
+    # The decode replica's device time: its super-step graphs replayed back to back.
+    graph_ms = {k: _events_ms(lambda _, g=g: g.graph.replay(), 5)
+                for k, g in dec.graphs.items() if hasattr(g, "graph")}
+    busy = []
+    for i, r in enumerate(runs["disagg"]):
+        prev = runs["disagg"][i - 1]["decode_replays"] if i else None
+        n = {k: v - (prev[k] if prev else (runs["mixed"][0]["decode_replays"][k]))
+             for k, v in r["decode_replays"].items()}
+        busy.append(sum(n[k] * graph_ms.get(k, 0.0) for k in n))
+    ab = {"phase": "disagg_ab", "order": "(mixed, disagg, disagg, mixed), warm engines",
+          "requests": len(workload),
+          "tokens_equal_main": all(r["tokens"] == want for rs in runs.values() for r in rs)
+          and first_mixed["tokens"] == want,
+          "tokens_per_s": {k: [r["tokens_per_s"] for r in v] for k, v in runs.items()},
+          "ttft_p50_s": {k: [r["ttft_p50_s"] for r in v] for k, v in runs.items()},
+          "ttft_p95_s": {k: [r["ttft_p95_s"] for r in v] for k, v in runs.items()},
+          "decode_graph_device_ms": {str(k): v for k, v in graph_ms.items()},
+          "decode_replica_busy_ms": busy,
+          "decode_replica_idle_share": [1 - b / (1e3 * r["wall_s"])
+                                        for b, r in zip(busy, runs["disagg"])]}
+    ab["tokens_per_s_median"] = {k: float(np.median(v)) for k, v in ab["tokens_per_s"].items()}
+    emit(ab)
+    if not ab["tokens_equal_main"]:
+        raise SystemExit("a warm drain's tokens differ from main's")
+    del mixed, servers
+    gc.collect()
+
+    # P:D:D, decode replica 1 killed mid-drain: its requests adopt again on replica 2
+    # from the prefill replica's still-held pages.
+    d2 = ContinuousBatcher(params, cfg, role="decode", **MAIN_ENGINE, decode_steps=MULTI_N)
+    d2.warm_programs(max_new_tokens=64)
+    watch.watch(d2)
+    kill_router = disagg_router_8b(params, cfg, ("prefill", "decode", "decode"),
+                                   engines=[pre, dec, d2])
+    kbefore = {id(e): watch(e)[0] for e in (pre, dec, d2)}
+    kill = drain_served(kill_router, workload, kill=(1, 2))
+    kres = {"phase": "main_disagg_kill", "roles": ["prefill", "decode", "decode"],
+            "killed": 1, "after_router_steps": 2,
+            "streams_equal_main": kill["streams"] == want, "done": kill["done"],
+            "readopted": kill_router.counters["readopted"],
+            "migrated": kill_router.counters["migrated"],
+            "prefill_admitted_unchanged": pre.admitted == kill["admitted_at_kill"],
+            "pages_in_use_after": [pre.stats()["pages_in_use"], d2.stats()["pages_in_use"]],
+            "paged_attention_launches": sum(watch(e)[0] - kbefore[id(e)]
+                                            for e in (pre, dec, d2)),
+            "wall_s": kill["wall_s"]}
+    kres["ok"] = (kres["streams_equal_main"] and kres["done"] and kres["readopted"] > 0
+                  and kres["prefill_admitted_unchanged"] and kres["pages_in_use_after"] == [0, 0])
+    emit(kres)
+    if not kres["ok"]:
+        raise SystemExit("the disaggregated kill run failed its checks")
+    del router, kill_router, pre, dec, d2
+    gc.collect()
+    return {"launches": launches["decode"], "launches_kill": kres["paged_attention_launches"],
+            "ab": ab, "handoff": handoff}
+
 
 
 # ------------------------------------------------------- phase 4d: one-request API
@@ -4636,12 +5183,17 @@ def main() -> int:
     run_phase("engine_prefix", phase_engine_prefix, dev)
     # Speculative serving (slice 13) against the CPU.
     run_phase("engine_spec", phase_engine_spec, dev)
+    # Disaggregated serving (slice 14) against the CPU.
+    run_phase("engine_disagg", phase_engine_disagg, dev)
     serve = run_phase("main", phase_main, dev)
     serve_multi = run_phase("main_multistep", phase_main_multistep, dev, serve)
     serve_prefill = run_phase("main_prefill", phase_main_prefill, dev, serve)
     serve_prefix = run_phase("main_prefix", phase_main_prefix, dev, serve)
     serve_spec = run_phase("main_spec", phase_main_spec, dev, serve)
     serve_spec_draft = run_phase("main_spec_draft", phase_main_spec_draft, dev, serve)
+    # Disaggregated prefill/decode serving (slice 14): the gateway stack over two
+    # replicas sharing the card and the params.
+    serve_disagg = run_phase("main_disagg", phase_main_disagg, dev, serve)
     del serve["params"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -4684,7 +5236,7 @@ def main() -> int:
     emit({"kernels": run_phase("kernels", kernel_rows, kern, serve, flash, adamw,
                                xent, train, train_fused, int8, serve_int8, partial,
                                train_tp, serve_multi, resume, serve_prefill,
-                               serve_prefix, serve_spec, serve_spec_draft)})
+                               serve_prefix, serve_spec, serve_spec_draft, serve_disagg)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -4693,11 +5245,12 @@ def main() -> int:
 
 def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve_int8,
                 partial, train_tp, serve_multi, resume, serve_prefill, serve_prefix,
-                serve_spec, serve_spec_draft) -> list:
+                serve_spec, serve_spec_draft, serve_disagg) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results. The
     serving kernels' launches add their main paths' runs: N = 1, the super-step's,
-    the bucketed, the prefix-cache and the speculative drains (eager launches plus graph
-    nodes times replays); the training kernels' add train_main's and train_resume's."""
+    the bucketed, the prefix-cache, the speculative and the disaggregated drains (the
+    decode replicas' launches over adopted pages; eager launches plus graph nodes times
+    replays); the training kernels' add train_main's and train_resume's."""
 
     def train_launches(kernel):
         by_path = {"train_main": train["launches"][kernel],
@@ -4728,14 +5281,17 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                     "accelerate_tpu/ops/paged_attention.py:106",
                     serve["launches"] + serve_multi["launches"] + serve_prefill["launches"]
                     + serve_prefix["launches"] + serve_spec["launches"]
-                    + serve_spec_draft["launches"],
+                    + serve_spec_draft["launches"] + serve_disagg["launches"]
+                    + serve_disagg["launches_kill"],
                     kern["max_abs_err"], kern, design=PAGED_DESIGN,
                     launches_by_path={"main": serve["launches"],
                                       "main_multistep": serve_multi["launches"],
                                       "main_prefill": serve_prefill["launches"],
                                       "main_prefix": serve_prefix["launches"],
                                       "main_spec": serve_spec["launches"],
-                                      "main_spec_draft": serve_spec_draft["launches"]},
+                                      "main_spec_draft": serve_spec_draft["launches"],
+                                      "main_disagg": serve_disagg["launches"],
+                                      "main_disagg_kill": serve_disagg["launches_kill"]},
                     t4_verify={k: kern["t4"][k] for k in ("kernel_ms", "plain_ms",
                                                          "bound_ms", "bound_by", "route")},
                     max_abs_err_t4_verify=kern["max_abs_err_t4"],

@@ -2,7 +2,10 @@
 
 - No module of the port, and no line of ``chip_smoke.py``, imports ``jax`` or the JAX
   package ``accelerate_tpu`` (AST scan); importing the serving engine loads none of
-  them, and every module imports with them blocked (fresh interpreters).
+  them, and every module imports with them blocked (fresh interpreters). The serving
+  gateway stack's modules (``serving_gateway``, ``telemetry``, ``resilience``,
+  ``elastic``, ``ops.collectives``), jax-free copies of host-only JAX-package modules,
+  are each held to that by name.
 - Entry points (the Accelerator included) default to CUDA and raise without it; the
   kernel wrappers (paged attention, fused cross-entropy with its vocab-sharded partial
   forward, the int8 matmul) never run the kernel path on CPU tensors (they take the
@@ -13,6 +16,8 @@
 """
 
 import ast
+import functools
+import json
 import pathlib
 import subprocess
 import sys
@@ -76,6 +81,55 @@ def test_every_module_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-I", "-c", code, str(ROOT)],
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+#: The gateway stack's modules: the JAX package's versions import no jax either, so the
+#: port's copies must not reach for the JAX package's instead of their own.
+GATEWAY_MODULES = (
+    "accelerate_tpu_torch.serving_gateway", "accelerate_tpu_torch.serving_gateway.policies",
+    "accelerate_tpu_torch.serving_gateway.gateway", "accelerate_tpu_torch.serving_gateway.fleet",
+    "accelerate_tpu_torch.serving_gateway.disagg", "accelerate_tpu_torch.telemetry",
+    "accelerate_tpu_torch.telemetry.clocks", "accelerate_tpu_torch.telemetry.slo",
+    "accelerate_tpu_torch.telemetry.schemas", "accelerate_tpu_torch.resilience",
+    "accelerate_tpu_torch.resilience.faults", "accelerate_tpu_torch.elastic",
+    "accelerate_tpu_torch.ops.collectives",
+)
+
+
+@functools.lru_cache(maxsize=None)
+def _gateway_imports() -> dict:
+    """{module: modules of ``FORBIDDEN`` loaded once it is imported} for each of
+    :data:`GATEWAY_MODULES`, imported in turn in one fresh interpreter where importing
+    jax or the JAX package raises."""
+    code = (
+        "import importlib, json, sys\n"
+        "FORBIDDEN = %r\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in FORBIDDEN:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "out = {}\n"
+        "for m in %r:\n"
+        "    importlib.import_module(m)\n"
+        "    out[m] = sorted(k for k in sys.modules if k.split('.')[0] in FORBIDDEN)\n"
+        "print(json.dumps(out))\n" % (FORBIDDEN, GATEWAY_MODULES)
+    )
+    res = subprocess.run([sys.executable, "-I", "-c", code, str(ROOT)],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", GATEWAY_MODULES)
+def test_gateway_stack_module_imports_with_jax_blocked(module):
+    assert _gateway_imports()[module] == []
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = path.with_suffix("") / "__init__.py"
+    bad = [m for m in _absolute_imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{module} imports {bad}"
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
