@@ -53,12 +53,21 @@ for bit.
 
 Serving: ``build_serving_gateway`` fronts one engine with a ``ServingGateway``, a list
 with a ``FleetRouter``, or, when ``GatewayConfig.replica_roles`` is set, with a
-``DisaggRouter`` (``Accelerator(gateway_config=...)`` or ``ACCELERATE_GATEWAY``).
+``DisaggRouter`` (``Accelerator(gateway_config=...)`` or ``ACCELERATE_GATEWAY``),
+sharing the accelerator's telemetry and threading a ``tracer`` through.
+
+Telemetry (``telemetry_config`` or ``ACCELERATE_TELEMETRY``): ``self.telemetry`` is a
+``telemetry.Telemetry``; enabled, every train step is bracketed and emits one fenced
+step record (the fence waits on a ``torch.cuda.Event`` after the loss, never a copy of
+it); disabled, a step pays two attribute reads. Fault injection (``fault_config`` or
+``ACCELERATE_FAULTS``): ``self.fault_plan`` draws at ``train.step`` (``nonfinite``
+poisons the batch's float leaves with NaN, ``error`` raises ``InjectedFault``,
+``crash`` raises ``StageCrashed``); a skipped non-finite step emits a fault record.
 
 Not ported yet (raise ``NotImplementedError``): fp8 (``mixed_precision="fp8"``),
-optimizer/activation offload, ZeRO and every sharding plugin, telemetry, trackers,
-fault injection, the compile cache, and training over quantized weight leaves
-(``ops.quantization.QuantizedWeight``: QLoRA, a frozen int8 base under LoRA adapters).
+optimizer/activation offload, ZeRO and every sharding plugin, trackers, the compile
+cache, and training over quantized weight leaves (``ops.quantization.QuantizedWeight``:
+QLoRA, a frozen int8 base under LoRA adapters).
 """
 
 from __future__ import annotations
@@ -79,15 +88,19 @@ from .ops.quantization import QuantizedWeight
 from .optimizer import AcceleratedOptimizer
 from .parallel.mesh import mesh_batch_size_divisor, mesh_context
 from .parallel.tp import all_reduce, apply_tensor_parallel, sharded_leaves
+from .resilience.faults import NonFiniteStepError, StageCrashed
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
 from .utils.constants import BATCH_AXES, TENSOR_AXIS
+from .telemetry import FAULT_SCHEMA, Telemetry
 from .utils.dataclasses import (
     DataLoaderConfiguration,
+    FaultConfig,
     GatewayConfig,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
     ProjectConfiguration,
+    TelemetryConfig,
 )
 from .utils.operations import (gather, gather_object, pad_across_processes, recursively_apply,
                                reduce)
@@ -123,14 +136,16 @@ class TrainState:
         return dataclass_replace(self, **kwargs)
 
 
-class NonFiniteStepError(RuntimeError):
-    """Training aborted: ``skip_nonfinite_steps`` consecutive-skip budget hit."""
+def _poison_float_leaves(batch):
+    """Fault injection: every float leaf of a batch filled with NaN (integer token ids
+    pass through: NaN has no integer spelling)."""
+    def poison(leaf):
+        if torch.is_tensor(leaf):
+            return torch.full_like(leaf, float("nan")) if leaf.is_floating_point() else leaf
+        arr = np.asarray(leaf)
+        return np.full_like(arr, np.nan) if np.issubdtype(arr.dtype, np.floating) else leaf
 
-    def __init__(self, consecutive: int, total: int):
-        super().__init__(f"{consecutive} consecutive non-finite training steps ({total} total "
-                         "skipped) — loss/grads are diverging, aborting")
-        self.consecutive = consecutive
-        self.total = total
+    return tree_map(poison, batch)
 
 
 def _refuse_quantized(params) -> None:
@@ -156,17 +171,52 @@ class _TrainStep:
         self.nonfinite_consecutive = 0
 
     def __call__(self, state: TrainState, batch) -> tuple[TrainState, Any]:
-        state, metrics = self._dispatch(self.accelerator, state, batch)
+        acc = self.accelerator
+        # Fault injection (disabled: one attribute read): ``nonfinite`` poisons the
+        # batch (the real guard path), ``crash`` raises past the step boundary, any
+        # other kind raises its InjectedFault.
+        plan = acc.fault_plan
+        if plan is not None:
+            spec = plan.draw("train.step")
+            if spec is not None:
+                if spec.kind == "nonfinite":
+                    batch = _poison_float_leaves(batch)
+                elif spec.kind == "crash":
+                    raise StageCrashed("train.step", gang_id=plan.scope or "gang0")
+                else:
+                    raise plan.fault_for(spec, "train.step")
+        # Telemetry bracket: off, two attribute reads (no clock, no synchronization);
+        # on, the record is fenced on the loss.
+        tel = acc.telemetry
+        tel_on = tel is not None and tel.enabled
+        if tel_on:
+            tel._step_begin()
+        try:
+            state, metrics = self._dispatch(acc, state, batch)
+        except BaseException:
+            if tel_on:
+                tel._step_abort()  # a failed step must not leak the compile label
+            raise
+        if tel_on:
+            tel._step_end(fence_on=metrics, batch=batch)
         if self.skip_nonfinite_steps:
             self._check_nonfinite(metrics)
         return state, metrics
 
     def _check_nonfinite(self, metrics) -> None:
+        """One boolean read a guarded step: count skipped updates, emit a fault record
+        for each, abort after the consecutive budget."""
         if not bool(metrics.get("nonfinite", False)):
             self.nonfinite_consecutive = 0
             return
         self.nonfinite_total += 1
         self.nonfinite_consecutive += 1
+        acc = self.accelerator
+        tel = acc.telemetry
+        if tel is not None and tel.enabled:
+            tel.emit({"schema": FAULT_SCHEMA, "site": "train.step", "kind": "nonfinite",
+                      "step": acc.step, "consecutive": self.nonfinite_consecutive,
+                      "total": self.nonfinite_total})
         if self.nonfinite_consecutive >= self.skip_nonfinite_steps:
             raise NonFiniteStepError(self.nonfinite_consecutive, self.nonfinite_total)
 
@@ -217,14 +267,24 @@ class _FusedTrainStep:
         acc = self.accelerator
         accum = acc.gradient_accumulation_steps
         per_step = []
-        for batch in self._unstack(batches):
-            if (state.micro + 1) % accum == 0:
-                state, metrics = self.apply_fn(state, batch)
-            else:
-                state, metrics = self.micro_fn(state, batch)
-                if self.pad_grad_norm:
-                    metrics["grad_norm"] = torch.zeros((), device=metrics["loss"].device)
-            per_step.append(metrics)
+        unstacked = self._unstack(batches)
+        tel = acc.telemetry
+        tel_on = tel is not None and tel.enabled
+        if tel_on:
+            tel._step_begin()
+        try:
+            for batch in unstacked:
+                if (state.micro + 1) % accum == 0:
+                    state, metrics = self.apply_fn(state, batch)
+                else:
+                    state, metrics = self.micro_fn(state, batch)
+                    if self.pad_grad_norm:
+                        metrics["grad_norm"] = torch.zeros((), device=metrics["loss"].device)
+                per_step.append(metrics)
+        except BaseException:
+            if tel_on:
+                tel._step_abort()
+            raise
         acc.step += self.fused_steps
         if self.optimizer is not None:
             self.optimizer._step_count += self.fused_steps // accum
@@ -233,13 +293,15 @@ class _FusedTrainStep:
                    for k in per_step[0] if k != "aux"}
         if "aux" in per_step[0]:
             stacked["aux"] = [m["aux"] for m in per_step]
+        if tel_on:
+            # One record a dispatch window of M steps.
+            tel._step_end(fence_on=stacked, batch=unstacked[0], n_steps=self.fused_steps)
         return state, stacked
 
 
 _UNPORTED_ARGS = (
     "fsdp_plugin", "tp_plugin", "pp_plugin", "sp_plugin", "ep_plugin", "megatron_lm_plugin",
-    "log_with", "kwargs_handlers", "dynamo_plugin", "telemetry_config",
-    "compile_cache_config", "fault_config",
+    "log_with", "kwargs_handlers", "dynamo_plugin", "compile_cache_config",
 )
 
 
@@ -264,6 +326,8 @@ class Accelerator:
         project_config: Optional[ProjectConfiguration] = None,
         step_scheduler_with_optimizer: bool = True,
         gateway_config: Optional[GatewayConfig] = None,
+        telemetry_config: Optional[TelemetryConfig] = None,
+        fault_config: Optional[FaultConfig] = None,
         **kwargs,
     ):
         unported = sorted(k for k, v in kwargs.items() if v is not None)
@@ -304,6 +368,13 @@ class Accelerator:
         #: The last save's and load's seconds and bytes (``checkpointing``).
         self.checkpoint_stats: dict = {"save": {}, "load": {}}
         self._ckpt_staging = None  # the checkpoint staging buffers, made at first use
+        #: The step-level telemetry pipeline (off by default: two attribute reads a
+        #: step, no file, no synchronization).
+        self.telemetry = Telemetry(telemetry_config if telemetry_config is not None
+                                   else TelemetryConfig())
+        #: The deterministic fault plan (None unless fault injection is enabled).
+        self.fault_plan = (fault_config if fault_config is not None
+                           else FaultConfig()).build_plan()
 
     # ------------------------------------------------------------------------ properties
     @property
@@ -757,9 +828,9 @@ class Accelerator:
         breakers, failover; ``engine_factory(rid)`` builds restarts) or, when
         ``replica_roles`` is set, a ``DisaggRouter`` (prefill replicas export KV page
         handoffs, decode replicas adopt them). With the gateway disabled (the default)
-        one engine comes back unchanged, and a list raises. ``tracer`` is not ported
-        yet (span tracing waits for the telemetry slice); the port has no telemetry
-        pipeline, so the gateway emits no records."""
+        one engine comes back unchanged, and a list raises. The gateway shares this
+        accelerator's telemetry; ``tracer`` (a ``telemetry.Tracer``) threads through the
+        gateway and every engine that has none."""
         from .serving_gateway import DisaggRouter, FleetRouter, ServingGateway
 
         config = self.gateway_config
@@ -774,9 +845,10 @@ class Accelerator:
         kwargs = {} if clock is None else {"clock": clock}
         if is_fleet:
             router = DisaggRouter if config.replica_roles is not None else FleetRouter
-            return router(list(engine), config, tracer=tracer,
+            return router(list(engine), config, telemetry=self.telemetry, tracer=tracer,
                           engine_factory=engine_factory, **kwargs)
-        return ServingGateway(engine, config, tracer=tracer, **kwargs)
+        return ServingGateway(engine, config, telemetry=self.telemetry, tracer=tracer,
+                              **kwargs)
 
     def free_memory(self, *objects):
         """Drop the prepared objects and release device memory held outside them:

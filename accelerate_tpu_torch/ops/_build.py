@@ -10,7 +10,9 @@ The library name carries a hash of the source, of the ``csrc/`` headers it inclu
 of the flags, so an edited source or header is rebuilt and an unchanged one is reused.
 Sources are built at first use — never when a module is imported — so CPU-only hosts
 (no ``nvcc``) can import every module. A build failure raises; nothing falls back to a
-plain version.
+plain version. Each source built counts as one compile of ``telemetry.compile_monitor``
+(kind ``kernel_build``, its seconds the build's wall time), attributed to the active
+``compile_label``; a library found built counts nothing.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Sequence
 
@@ -77,6 +80,7 @@ def build(names: Sequence[str]) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _lib_path(name) for name in names}
     procs = {}
+    t0 = time.perf_counter()
     for name, lib in paths.items():
         if lib.exists():
             continue
@@ -94,6 +98,12 @@ def build(names: Sequence[str]) -> dict:
         os.replace(tmp, paths[name])  # atomic: a concurrent loader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    if procs:
+        from ..telemetry.compile_monitor import dispatch_compile
+
+        elapsed = time.perf_counter() - t0
+        for _ in procs:  # built together: each charged the batch's wall time
+            dispatch_compile("kernel_build", elapsed)
     return paths
 
 

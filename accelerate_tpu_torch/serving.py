@@ -82,11 +82,31 @@ integer ``seed`` where the JAX record carries its ``rng`` key, and the exported 
 holds the handoff's real pages only (the JAX gather is table-width, one compiled
 program for every size).
 
-Not in this slice (the constructor does not take them): fault injection and recovery
-(``faults``, ``recover``, ``step_timeout_s``; ``serving_gateway.FleetRouter.kill`` is
-the out-of-band crash), telemetry and tracing (the ``serving.spec/v1`` record waits for
-it), the cross-family draft (``models/gpt.py`` is not ported), and the compile cache
-itself (the JAX engine's ``compile_cache`` and its bucket ``ladder()``;
+The fault boundary (``faults``, ``step_timeout_s``, ``recover``): a
+``resilience.FaultPlan`` fires seeded faults at ``serving.decode``, ``serving.prefill``
+and ``serving.kv_admit``, each on the host before the launch it guards (``hang`` sleeps
+there), and a ``StepWatchdog`` checks a dispatch's wall time after its one host read,
+where the host first waits for the device. With recovery armed, a failed dispatch
+quarantines the poison request (``failed = "step_fault:<kind>"``; by bisection over the
+active lanes when the fault names no request), and a dispatch that may have touched the
+device (a timeout, a real error) rebuilds the survivors: the cache is reset IN PLACE
+(the same storage, which every captured graph reads at fixed addresses; the JAX engine
+allocates a fresh one), a new ``BlockManager`` takes the pool, and each survivor is
+re-admitted from its host record (prompt + emitted tokens) through the warmed prefill
+programs, its sampled draws resuming at emission ``len(tokens)``. A ``crash`` fault
+raises ``EngineCrashed`` past the boundary (``crashed`` set): the fleet router's
+failover. A real CUDA error poisons the process's context: a rebuild cannot recover
+from it, and the next launch raises it again.
+
+``telemetry`` (any object with ``enabled`` and ``emit``) receives a ``serving/v1``
+record a step, ``serving.kv/v1`` (paged), ``serving.spec/v1`` (speculative), fault and
+recovery records and a ``serving.throughput/v1`` record from ``run(report_throughput=
+True)``; ``tracer`` (``telemetry.Tracer``) gets the admit, prefill, decode and fault
+spans of gateway-bound requests. Off, each costs two attribute reads a step: no clock
+read, no record.
+
+Not in this slice: the cross-family draft (``models/gpt.py`` is not ported) and the
+compile cache itself (the JAX engine's ``compile_cache`` and its bucket ``ladder()``;
 ``warm_programs`` captures graphs in the process instead of filling an AOT cache).
 """
 
@@ -107,7 +127,14 @@ from .generation import (GenerationConfig, accept_draws, emission_generator, fil
                          speculative_accept_batch)
 from .models import llama
 from .paged_kv import BlockManager, KVBudgetError, pages_for
+from .resilience.faults import EngineCrashed, StepWatchdog
 from .spec_decode import ModelDrafter, NgramDrafter, ngram_propose_resident
+from .telemetry.compile_monitor import compile_label
+from .telemetry.schemas import (FAULT_SCHEMA, RECOVERY_SCHEMA, SERVING_KV_SCHEMA,
+                                SERVING_SCHEMA, SERVING_SPEC_SCHEMA,
+                                SERVING_THROUGHPUT_SCHEMA)
+from .telemetry.slo import latency_summary
+from .telemetry.steady import TELEMETRY_REV
 from .utils.cuda_graph import CapturedStep
 
 __all__ = ["ContinuousBatcher", "ENGINE_ROLES", "KVBudgetError", "KVHandoff", "Request",
@@ -183,6 +210,16 @@ class Request:
     tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
     enqueued_at: float = 0.0  # time.monotonic() at submit
+    #: Machine-readable reason when the fault boundary quarantined this request
+    #: (``step_fault:<kind>`` / ``prefill_fault:<kind>`` / ``recovery_unservable:<detail>``);
+    #: None = never failed. A failed request is ``done`` with the tokens it got.
+    failed: Optional[str] = None
+    #: Times a rebuild re-admitted this request (each re-admission prefills prompt +
+    #: emitted tokens).
+    recoveries: int = 0
+    #: Recovery context: prompt + emitted tokens, set when a rebuild requeues the
+    #: request; the next admission prefills it instead of the prompt (and clears it).
+    _recover_ctx: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
 
     def _sample(self, logits_row: torch.Tensor) -> int:
         """This request's next token from a logits row [V] (first maximum when
@@ -529,7 +566,9 @@ class ContinuousBatcher:
                  prompt_bucket: int = 64, prefix_cache: int = 0, prompt_buckets=None,
                  page_size: int = 0, kv_pages: Optional[int] = None,
                  decode_steps: int = 1, spec_k: int = 0, drafter=None,
-                 spec_accept: str = "replay", role: str = "mixed"):
+                 spec_accept: str = "replay", role: str = "mixed", telemetry=None,
+                 tracer=None, faults=None, step_timeout_s: Optional[float] = None,
+                 recover: Optional[bool] = None):
         llama.check_supported(cfg)
         self.params = params
         self.cfg = cfg
@@ -598,7 +637,8 @@ class ContinuousBatcher:
         #: Per-lane (v0, v1) valid ranges recorded at paged admission: the layout fact a
         #: handoff carries (a decode engine has no row cache to read it from).
         self._lane_valid: list = [(0, 0)] * max_slots
-        #: Set by ``FleetRouter.kill``: the engine is abandoned, its pool with it.
+        #: Set by ``FleetRouter.kill`` or an injected ``crash``: the engine is abandoned,
+        #: its pool with it.
         self.crashed = False
         self.adopt_s = 0.0  # host-clock seconds in adopt_handoff
         if kv_pages is not None and not self.paged:
@@ -682,11 +722,37 @@ class ContinuousBatcher:
         #: share one memory pool (``prefill_pool_bytes``).
         self.prefill_graphs: dict = {}
         self._prefill_pool = None
+        # Fault boundary: ``faults`` (a ``resilience.FaultPlan``) fires at the serving
+        # sites; ``step_timeout_s`` arms a watchdog over each dispatch; ``recover`` turns
+        # the boundary on (default: exactly when faults or a watchdog are armed).
+        self.telemetry = telemetry
+        self.tracer = tracer
+        self.faults = faults
+        self._watchdog = StepWatchdog(step_timeout_s) if step_timeout_s else None
+        self.recover = bool(recover if recover is not None
+                            else (faults is not None or self._watchdog is not None))
+        self._kv_pages_total = int(kv_pages) if self.paged else 0
+        self.step_failures = 0        # dispatches the fault boundary caught
+        self.quarantined = 0          # requests terminally failed by recovery
+        self.recovered_admissions = 0  # survivor re-admissions (prefill replays)
+        self.bisect_rounds = 0        # ambiguous-attribution probe rounds
+        self.recovered_uids: set = set()   # engine uids that survived a rebuild
+        self._suspects: Optional[set] = None  # narrowed poison candidates (uids)
+        self._bisect_hold: list = []   # suspects held out of admission
+        self.rebuild_s = 0.0          # host-clock seconds in in-place rebuilds
+        #: Queue waits measured at admission (submit → lane), the bare engine's latency.
+        self.queue_waits: deque = deque(maxlen=1024)
+        #: End of the previous decode dispatch on the tracer's clock (tracing only).
+        self._last_dispatch_end: Optional[float] = None
         # The prefill programs' static buffers: the row cache they write (its write
-        # index a device tensor) and, per width, the token row and its mask.
-        # (A decode engine never prefills: it holds no row cache.)
-        self._row = (None if role == "decode" else
-                     llama.init_cache(cfg, 1, max_len, device=self.device, device_index=True))
+        # index a device tensor) and, per width, the token row and its mask. A decode
+        # engine never prefills and holds no row cache, unless recovery from a non-crash
+        # fault is armed: survivors are then re-admitted through prefill, as in JAX.
+        needs_row = role != "decode" or (self.recover and (
+            self._watchdog is not None or recover is True or faults is None
+            or any(s.kind != "crash" for s in faults.specs)))
+        self._row = (llama.init_cache(cfg, 1, max_len, device=self.device, device_index=True)
+                     if needs_row else None)
         self._pbuf: dict = {}
         #: Fused speculative super-step runners by (N, k, max_ngram, sampled, paged), as
         #: ``graphs``.
@@ -699,8 +765,10 @@ class ContinuousBatcher:
         """Engine counters: queue depth, busy lanes, admission/eviction totals, the
         prefix cache's entries, hits, misses (capacity against key) and evictions, the
         bucket ladder's hits and misses, decode throughput and host-clock time in
-        prefill and decode; paged engines add the page pool's occupancy, sharing
-        (``kv_shared_pages``) and churn (alloc/free/COW/adopt/defer)."""
+        prefill and decode, and the fault boundary's counters; paged engines add the page
+        pool's occupancy, sharing (``kv_shared_pages``) and churn
+        (alloc/free/COW/adopt/defer). ``queue_wait`` summarizes the waits measured at
+        admission; ``queue_wait_s`` is the oldest queued request's age."""
         active = sum(r is not None for r in self.slot_req)
         queue_wait_s = 0.0
         if self.queue:
@@ -742,6 +810,7 @@ class ContinuousBatcher:
             "bucket_misses": self.bucket_misses,
             "queued": len(self.queue),
             "queue_wait_s": queue_wait_s,
+            "queue_wait": latency_summary(self.queue_waits),
             "active_slots": active,
             "max_slots": self.max_slots,
             "slot_occupancy": active / self.max_slots,
@@ -768,7 +837,73 @@ class ContinuousBatcher:
             "dispatch_s": self.dispatch_s,
             "noise_s": self.noise_s,
             "noise_ahead_s": self.noise_ahead_s,
+            "step_failures": self.step_failures,
+            "quarantined": self.quarantined,
+            "recovered_admissions": self.recovered_admissions,
+            "bisect_rounds": self.bisect_rounds,
+            "bisect_held": len(self._bisect_hold),
+            "watchdog_timeouts": (self._watchdog.timeouts
+                                  if self._watchdog is not None else 0),
+            "rebuild_s": self.rebuild_s,
         }
+
+    def _emit_telemetry(self, extra: Optional[dict] = None) -> None:
+        """Push a ``serving/v1`` counter record (and, paged, a ``serving.kv/v1`` record)
+        through the telemetry; no-op without an enabled one (two attribute reads)."""
+        tel = self.telemetry
+        if tel is None or not tel.enabled:
+            return
+        record = {"schema": SERVING_SCHEMA, "telemetry_rev": TELEMETRY_REV, **self.stats()}
+        if extra:
+            record.update(extra)
+        tel.emit(record)
+        if self.paged:
+            ms = self.block_mgr.stats()
+            tel.emit({
+                "schema": SERVING_KV_SCHEMA,
+                "telemetry_rev": TELEMETRY_REV,
+                # The causality key trace.span/v1 decode spans of the same step carry.
+                "step": self.decode_steps,
+                "page_size": self.page_size,
+                "pages_total": ms["pages_total"],
+                "pages_in_use": ms["pages_in_use"],
+                "page_occupancy": ms["page_occupancy"],
+                "kv_bytes_in_use": ms["pages_in_use"] * self.kv_page_bytes,
+                "kv_bytes_total": ms["pages_total"] * self.kv_page_bytes,
+                "kv_shared_pages": ms["shared_pages"],
+                "kv_alloc_count": ms["alloc_count"],
+                "kv_free_count": ms["free_count"],
+                "kv_cow_count": ms["cow_count"],
+                "kv_adopt_count": ms["adopt_count"],
+                "kv_defer_count": ms["defer_count"],
+                "prefix_entries": len(self._prefix_reg),
+                "prefix_evictions": self.prefix_evictions,
+            })
+
+    def _emit_spec(self, rounds: int, active: int, proposed: int, accepted: int,
+                   tokens: int) -> None:
+        """One ``serving.spec/v1`` record for a speculative dispatch of ``rounds``
+        rounds (no-op without an enabled telemetry)."""
+        tel = self.telemetry
+        if tel is None or not tel.enabled:
+            return
+        tel.emit({
+            "schema": SERVING_SPEC_SCHEMA,
+            "telemetry_rev": TELEMETRY_REV,
+            "step": self.decode_steps,
+            "spec_k": self.spec_k,
+            "rounds": rounds,
+            "active_slots": active,
+            "step_proposed": proposed,
+            "step_accepted": accepted,
+            "step_tokens": tokens,
+            "proposed_total": self.spec_proposed,
+            "accepted_total": self.spec_accepted,
+            "spec_accept_rate": (round(self.spec_accepted / self.spec_proposed, 4)
+                                 if self.spec_proposed else None),
+            "tokens_per_step": (round(self.decode_tokens / self.decode_steps, 4)
+                                if self.decode_steps else None),
+        })
 
     def submit(self, prompt, max_new_tokens: Optional[int] = None,
                eos_token_id: Optional[int] = None,
@@ -825,11 +960,17 @@ class ContinuousBatcher:
                    for planes in self.cache["layers"] for t in planes.values())
 
     def cancel(self, uid: int) -> bool:
-        """Withdraw a request by uid: removed from the queue, or its lane freed now.
-        Returns False when the uid is unknown or already finished."""
+        """Withdraw a request by uid wherever it is: the queue, the bisection hold, or
+        a lane (freed now). Returns False when the uid is unknown or already
+        finished."""
         for req in self.queue:
             if req.uid == uid:
                 self.queue.remove(req)
+                return True
+        for req in self._bisect_hold:
+            if req.uid == uid:
+                self._bisect_hold.remove(req)
+                self._suspects = None if not self._bisect_hold else self._suspects
                 return True
         return self.evict_slot(uid)
 
@@ -868,17 +1009,190 @@ class ContinuousBatcher:
         if self.paged:
             self.block_mgr.release_slot(slot)
 
+    # ------------------------------------------------------------ fault boundary
+    def _pre_dispatch(self, site: str, active: list[int]) -> float:
+        """Before a decode/verify dispatch: open the watchdog window and fire any
+        injected fault due at ``site`` (on the host, before any launch: ``hang``
+        sleeps, ``crash`` raises ``EngineCrashed``, other kinds raise their
+        ``InjectedFault``). Disarmed, two attribute reads."""
+        wd = self._watchdog
+        t0 = wd.open() if wd is not None else 0.0
+        fp = self.faults
+        if fp is not None:
+            uids = [self.slot_req[i].uid for i in active if self.slot_req[i] is not None]
+            spec = fp.draw(site, uids=uids)
+            if spec is not None:
+                if spec.kind == "hang":
+                    time.sleep(spec.hang_s)
+                elif spec.kind == "crash":
+                    self.crashed = True
+                    raise EngineCrashed(site)
+                else:
+                    raise fp.fault_for(spec, site)
+        return t0
+
+    def _post_dispatch(self, t0: float, site: str = "serving.decode") -> None:
+        """After the dispatch's one host read (where the host first waits for the
+        device), before any token lands: the watchdog's check."""
+        if self._watchdog is not None:
+            self._watchdog.check(t0, site)
+
+    def _emit_fault(self, site: str, kind: str, uid, reason: str) -> None:
+        tel = self.telemetry
+        if tel is not None and tel.enabled:
+            tel.emit({"schema": FAULT_SCHEMA, "site": site, "kind": kind, "uid": uid,
+                      "reason": reason, "step": self.decode_steps})
+
+    def _emit_recovery(self, action: str, **cols) -> None:
+        tel = self.telemetry
+        if tel is not None and tel.enabled:
+            tel.emit({"schema": RECOVERY_SCHEMA, "action": action,
+                      "step": self.decode_steps, **cols})
+
+    def _quarantine(self, req: Request, reason: str) -> Request:
+        """Fail one request terminally: ``failed`` reason, lane and pages released,
+        the tokens it streamed kept. Returned to the caller like a finished request."""
+        req.failed = reason
+        req.done = True
+        self.quarantined += 1
+        for slot, r in enumerate(self.slot_req):
+            if r is req:
+                self.slot_req[slot] = None
+                self._release_lane(slot)
+                break
+        tracer = self.tracer
+        if tracer is not None and tracer.enabled:
+            tracer.event(tracer.handle_for(req.uid), "fault", step=self.decode_steps,
+                         reason=reason)
+        self._emit_recovery("quarantine", uid=req.uid, reason=reason)
+        return req
+
+    def _detach_for_requeue(self, req: Request) -> None:
+        """Take a live request off its lane (if any) and arm its recovery context:
+        the next admission prefills prompt + emitted tokens. The noise rows drawn
+        ahead for it are dropped (its next window is drawn from its record)."""
+        for slot, r in enumerate(self.slot_req):
+            if r is req:
+                self.slot_req[slot] = None
+                self._release_lane(slot)
+                break
+        self._noise_ahead.pop(req.uid, None)
+        req._recover_ctx = (np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)])
+                            if req.tokens else req.prompt)
+
+    def _reset_cache(self) -> None:
+        """Reset the engine cache IN PLACE to ``init_cache``/``init_paged_cache``'s
+        state (zero planes, no valid slot): every captured graph reads these tensors
+        at fixed addresses, so they are never reallocated."""
+        for planes in self.cache["layers"]:
+            for t in planes.values():
+                t.zero_()
+        self.cache["valid"].zero_()
+
+    def _rebuild_survivors(self) -> None:
+        """Reset the device-side engine state (a failed dispatch may have written the
+        cache) and requeue every surviving lane at the FRONT of the queue for
+        re-admission from its host record. Paged: the prefix registry is drained
+        against the OLD manager first (its entries hold old page ids), then a new
+        ``BlockManager`` takes the pool. Dense prefix snapshots survive."""
+        t0 = time.perf_counter()
+        survivors = [r for r in self.slot_req if r is not None]
+        if self.paged:
+            while self._evict_prefix_lru():
+                pass
+            self.block_mgr = BlockManager(self._kv_pages_total, self.page_size,
+                                          self.max_slots, self.max_len)
+        self._reset_cache()
+        self.slot_req = [None] * self.max_slots
+        self.positions[:] = 0
+        self.tokens[:] = 0
+        for req in sorted(survivors, key=lambda r: r.uid, reverse=True):
+            self._detach_for_requeue(req)
+            self.queue.appendleft(req)
+        self.rebuild_s += time.perf_counter() - t0
+        self._emit_recovery("rebuild", survivors=len(survivors))
+
+    def _recover_step_failure(self, error: Exception,
+                              active_reqs: list[Request]) -> list[Request]:
+        """A failed decode dispatch: attribute the poison (directly when the error
+        names a uid, else by bisection over the active set), quarantine it, and rebuild
+        the survivors unless the fault fired before the dispatch touched the device.
+
+        Bisection: a poison request fails every dispatch it rides. The probe half keeps
+        running; the held half waits out one clean dispatch and is then requeued as the
+        sole suspects, halving the candidates each failing round."""
+        self.step_failures += 1
+        site = getattr(error, "site", "serving.decode")
+        kind = getattr(error, "kind", type(error).__name__)
+        uid = getattr(error, "uid", None)
+        self._emit_fault(site, kind, uid, reason=str(error))
+        live = [r for r in active_reqs if not r.done]
+        failed: list[Request] = []
+        if uid is not None and any(r.uid == uid for r in live):
+            victim = next(r for r in live if r.uid == uid)
+            failed.append(self._quarantine(victim, f"step_fault:{kind}"))
+            self._suspects = None
+        else:
+            cands = [r for r in live if self._suspects is None or r.uid in self._suspects]
+            if not cands:
+                cands = live
+            if len(cands) == 1:
+                failed.append(self._quarantine(cands[0], f"step_fault:{kind}"))
+                self._suspects = None
+            elif cands:
+                half = max(1, len(cands) // 2)
+                probe, hold = cands[:half], cands[half:]
+                for req in hold:
+                    self._detach_for_requeue(req)
+                    self._bisect_hold.append(req)
+                self._suspects = {r.uid for r in probe}
+                self.bisect_rounds += 1
+                self._emit_recovery("bisect", candidates=len(cands), probing=len(probe),
+                                    held=len(hold))
+        if not getattr(error, "pre_dispatch", False):
+            self._rebuild_survivors()
+        return failed
+
+    def _release_bisect_hold(self) -> None:
+        """Requeue the held suspects (FRONT, uid order) as the only candidates left."""
+        self._suspects = {r.uid for r in self._bisect_hold}
+        for req in sorted(self._bisect_hold, key=lambda r: r.uid, reverse=True):
+            self.queue.appendleft(req)
+        self._bisect_hold = []
+
+    def _after_clean_step(self, active_reqs: list[Request]) -> None:
+        """After a clean dispatch: a clean probe releases the held half as the
+        remaining suspects; a clean dispatch covering every suspect clears the
+        suspicion (the fault was transient)."""
+        if self._bisect_hold:
+            self._release_bisect_hold()
+        elif self._suspects is not None:
+            uids = {r.uid for r in active_reqs}
+            if self._suspects <= uids:
+                self._suspects = None
+
     @torch.no_grad()
     def step(self) -> list[Request]:
-        """Admit queued requests, then advance every active lane one token. Returns
-        the requests finished this step, in submission order. A prefill-role engine
-        exports its admitted lanes instead of decoding them."""
+        """Admit queued requests, then advance every active lane one token (or a
+        super-step's, or a speculative round's). Returns the requests finished this
+        step, in submission order. A prefill-role engine exports its admitted lanes
+        instead of decoding them.
+
+        With recovery armed a failed dispatch does not end the engine: the poison
+        request is quarantined and returned, and the survivors continue from their
+        host records (see the module docstring); a ``crash`` propagates."""
         if self.role == "prefill":
             return self._prefill_role_step()
         finished_at_admit = self._admit()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         self.peak_active_slots = max(self.peak_active_slots, len(active))
         if not active:
+            if self._bisect_hold:
+                # No probe can run: the held suspects are the only work left and
+                # nothing else can clear them.
+                self._release_bisect_hold()
+            if finished_at_admit:
+                self._emit_telemetry()
             return finished_at_admit
         # Speculation wins while enabled; with it off, a decode_steps > 1 engine takes
         # the plain super-step, never N = 1.
@@ -891,8 +1205,20 @@ class ContinuousBatcher:
             decode = self._multi_step
         else:
             decode = self._plain_step
-        finished = decode(active)
+        if not self.recover:
+            finished = decode(active)
+        else:
+            active_reqs = [self.slot_req[i] for i in active]
+            try:
+                finished = decode(active)
+            except EngineCrashed:
+                raise  # the death of the engine: the replica's owner fails over
+            except Exception as e:  # the fault boundary: quarantine + rebuild
+                finished = self._recover_step_failure(e, active_reqs)
+            else:
+                self._after_clean_step(active_reqs)
         self.evicted += len(finished)
+        self._emit_telemetry()
         return sorted(finished_at_admit + finished, key=lambda r: r.uid)
 
     # ------------------------------------------------------- disaggregated roles
@@ -906,6 +1232,8 @@ class ContinuousBatcher:
         self.peak_active_slots = max(self.peak_active_slots, len(active))
         for slot in active:
             self._export_lane(slot)
+        if finished or active:
+            self._emit_telemetry()
         return sorted(finished, key=lambda r: r.uid)
 
     def _export_lane(self, slot: int) -> None:
@@ -1042,21 +1370,29 @@ class ContinuousBatcher:
 
     def _plain_step(self, active: list[int]) -> list[Request]:
         """ONE batched forward advances every lane one token."""
+        tracer = self.tracer
+        tracing = tracer is not None and tracer.enabled  # the two-attribute-read contract
+        ts0 = tracer._clock() if tracing else 0.0
+        traced = [self.slot_req[i] for i in active] if tracing else ()
         t0 = time.perf_counter()
+        t_guard = self._pre_dispatch("serving.decode", active)
         dev = self.device
         tokens = torch.tensor(self.tokens, device=dev)
         positions = torch.tensor(self.positions, device=dev)
         if self.paged:
-            greedy, logits, self.cache = _decode_step_paged(
-                self.params, self.cache, torch.tensor(self.block_mgr.tables, device=dev),
-                tokens, positions, self.cfg, self.page_size,
-            )
+            with compile_label("serving.decode_paged"):
+                greedy, logits, self.cache = _decode_step_paged(
+                    self.params, self.cache, torch.tensor(self.block_mgr.tables, device=dev),
+                    tokens, positions, self.cfg, self.page_size,
+                )
         else:
-            greedy, logits, self.cache = _decode_step(
-                self.params, self.cache, tokens, positions, self.cfg
-            )
+            with compile_label("serving.decode"):
+                greedy, logits, self.cache = _decode_step(
+                    self.params, self.cache, tokens, positions, self.cfg
+                )
         self.dispatch_s += time.perf_counter() - t0
         greedy_host = greedy.cpu().numpy()
+        self._post_dispatch(t_guard)  # the watchdog, before any token lands
         self.last_logits = logits
         finished = []
         # Every lane wrote one slot (idle lanes too); clamp so an idle lane's position
@@ -1079,7 +1415,23 @@ class ContinuousBatcher:
         self.decode_steps += 1
         self.decode_tokens += len(active)
         self.decode_s += time.perf_counter() - t0
+        if tracing:
+            # One span per traced lane, sharing this dispatch's [t0, t1] and step index
+            # (the join key into the serving/kv records of the same step).
+            t1 = tracer._clock()
+            host_s = self._host_gap(ts0, t1)
+            for req in traced:
+                tracer.span(tracer.handle_for(req.uid), "decode", ts0, t1,
+                            step=self.decode_steps, occupancy=len(active), tokens=1,
+                            host_s=host_s)
         return finished
+
+    def _host_gap(self, t0: float, t1: float) -> float:
+        """The measured gap from the previous dispatch's end to this one's start on the
+        tracer's clock (0.0 for a trace's first dispatch, clamped at 0); tracing only."""
+        prev = self._last_dispatch_end
+        self._last_dispatch_end = t1
+        return round(max(0.0, t0 - prev), 9) if prev is not None else 0.0
 
     def _multi_buffers(self) -> dict:
         """The super-step's static inputs on the engine's device (made once: a captured
@@ -1181,11 +1533,18 @@ class ContinuousBatcher:
         the same filter and the noise their emissions would draw. The drain is
         step-major, lane-minor — generation order, so ``on_token`` transcripts equal the
         token lists — and clamps each lane to its budget. Admission and eviction act
-        between super-steps."""
+        between super-steps; the fault boundary and the watchdog wrap the whole
+        super-step."""
+        tracer = self.tracer
+        tracing = tracer is not None and tracer.enabled  # the two-attribute-read contract
+        ts0 = tracer._clock() if tracing else 0.0
+        traced = [(i, self.slot_req[i]) for i in active] if tracing else ()
         t0 = time.perf_counter()
         N = self.multi_step
+        t_guard = self._pre_dispatch("serving.decode", active)
         sampled = self._load_super_step(active)
-        tok_buf, counts, logits = self._super_runner(sampled)()
+        with compile_label("serving.decode_multi" + ("_paged" if self.paged else "")):
+            tok_buf, counts, logits = self._super_runner(sampled)()
         self.dispatch_s += time.perf_counter() - t0
         host = torch.cat([tok_buf, counts[None]])
         # While the device runs the super-step, draw the next window's noise of each
@@ -1197,6 +1556,7 @@ class ContinuousBatcher:
             and len(req.tokens) + N < req.gen.max_new_tokens}
         self.noise_ahead_s += time.perf_counter() - ts
         host = host.cpu().numpy()  # the one host read
+        self._post_dispatch(t_guard)  # the watchdog, before any token lands
         tok_host, counts_host = host[:N], host[N]
         self.last_logits = logits
         for j in range(N):
@@ -1227,6 +1587,15 @@ class ContinuousBatcher:
         self.decode_steps += 1
         self.decode_tokens += step_tokens
         self.decode_s += time.perf_counter() - t0
+        if tracing:
+            # One span per traced lane for the whole super-step: its own emissions, the
+            # fused depth, and ONE inter-dispatch gap for N tokens.
+            t1 = tracer._clock()
+            host_s = self._host_gap(ts0, t1)
+            for i, req in traced:
+                tracer.span(tracer.handle_for(req.uid), "decode", ts0, t1,
+                            step=self.decode_steps, occupancy=len(active),
+                            tokens=int(counts_host[i]), n_steps=N, host_s=host_s)
         return finished
 
     def _noise_rows(self, req: Request, start: int, n: Optional[int] = None) -> dict:
@@ -1258,6 +1627,10 @@ class ContinuousBatcher:
         sampled): accepted proposals equal their reference tokens and the first
         mismatch already holds the correction; the budget caps the emissions and an EOS
         ends them. On the card the step runs eagerly."""
+        tracer = self.tracer
+        tracing = tracer is not None and tracer.enabled  # the two-attribute-read contract
+        ts0 = tracer._clock() if tracing else 0.0
+        traced: list = []
         t0 = time.perf_counter()
         k, T, dev = self.spec_k, self.spec_k + 1, self.device
         live = {r.uid for r in self.slot_req if r is not None}
@@ -1267,16 +1640,20 @@ class ContinuousBatcher:
         seq = np.zeros((self.max_slots, T), np.int32)
         seq[:, 0] = self.tokens  # the pending token: emitted last step, not yet written
         seq[:, 1:] = proposals
+        t_guard = self._pre_dispatch("serving.decode", active)
         seq_t, pos_t = torch.from_numpy(seq).to(dev), torch.from_numpy(self.positions).to(dev)
         if self.paged:
-            greedy, logits, self.cache = _spec_verify_step_paged(
-                self.params, self.cache, torch.from_numpy(self.block_mgr.tables).to(dev),
-                seq_t, pos_t, self.cfg, self.page_size)
+            with compile_label("serving.spec_verify_paged"):
+                greedy, logits, self.cache = _spec_verify_step_paged(
+                    self.params, self.cache, torch.from_numpy(self.block_mgr.tables).to(dev),
+                    seq_t, pos_t, self.cfg, self.page_size)
         else:
-            greedy, logits, self.cache = _spec_verify_step(self.params, self.cache, seq_t,
-                                                           pos_t, self.cfg)
+            with compile_label("serving.spec_verify"):
+                greedy, logits, self.cache = _spec_verify_step(self.params, self.cache,
+                                                               seq_t, pos_t, self.cfg)
         self.dispatch_s += time.perf_counter() - t0
         greedy_host = greedy.cpu().numpy()  # [B, k+1]
+        self._post_dispatch(t_guard)  # the watchdog, before any token lands
         self.last_logits = logits[:, 0, :]
         finished = []
         step_tokens = step_accepted = 0
@@ -1298,8 +1675,11 @@ class ContinuousBatcher:
                 emitted = emitted[:emitted.index(eos) + 1]
             # Accepted: emitted tokens that were proposals (the trailing correction or
             # bonus is the target's own).
-            step_accepted += sum(1 for j, t in enumerate(emitted)
-                                 if j < k and t == int(proposals[i, j]))
+            accepted_i = sum(1 for j, t in enumerate(emitted)
+                             if j < k and t == int(proposals[i, j]))
+            if tracing:
+                traced.append((req, len(emitted), accepted_i))
+            step_accepted += accepted_i
             step_tokens += len(emitted)
             self.tokens[i] = emitted[-1]
             self.positions[i] += len(emitted)
@@ -1319,6 +1699,15 @@ class ContinuousBatcher:
         self.spec_proposed += k * len(active)
         self.spec_accepted += step_accepted
         self.decode_s += time.perf_counter() - t0
+        if tracing:
+            t1 = tracer._clock()
+            host_s = self._host_gap(ts0, t1)
+            for req, n_emitted, n_accepted in traced:
+                tracer.span(tracer.handle_for(req.uid), "decode", ts0, t1,
+                            step=self.decode_steps, occupancy=len(active),
+                            tokens=n_emitted, proposed=k, accepted=n_accepted,
+                            host_s=host_s)
+        self._emit_spec(1, len(active), k * len(active), step_accepted, step_tokens)
         return finished
 
     def _replay_round(self, req: Request, logits_rows: torch.Tensor) -> np.ndarray:
@@ -1392,11 +1781,17 @@ class ContinuousBatcher:
         the round buffers. Each lane's noise cursor advances by its own emissions, so
         its tokens are the host loop's, bitwise. The drain is round-major, lane-minor
         (the order N host-loop steps append), clamped to each lane's budget."""
+        tracer = self.tracer
+        tracing = tracer is not None and tracer.enabled  # the two-attribute-read contract
+        ts0 = tracer._clock() if tracing else 0.0
+        traced = [(i, self.slot_req[i]) for i in active] if tracing else ()
         t0 = time.perf_counter()
         N, k, B = self.multi_step, self.spec_k, self.max_slots
         T = k + 1
+        t_guard = self._pre_dispatch("serving.decode", active)
         sampled = self._load_spec_step(active)
-        vec, logits = self._spec_runner(sampled)()
+        with compile_label("serving.spec_multi" + ("_paged" if self.paged else "")):
+            vec, logits = self._spec_runner(sampled)()
         self.dispatch_s += time.perf_counter() - t0
         # While the device runs, draw each sampled lane's noise rows up to two windows
         # ahead (the next window starts at most N·(k+1) emissions later); the rows of
@@ -1408,6 +1803,7 @@ class ContinuousBatcher:
             and len(req.tokens) + N < req.gen.max_new_tokens}
         self.noise_ahead_s += time.perf_counter() - ts
         host = vec.cpu().numpy()  # the one host read
+        self._post_dispatch(t_guard)  # the watchdog, before any token lands
         o = N * B * T
         ref_host = host[:o].reshape(N, B, T)
         emits_host = host[o:o + N * B].reshape(N, B)
@@ -1441,24 +1837,42 @@ class ContinuousBatcher:
                 self.slot_req[i] = None
                 self._release_lane(i)
         self.positions = np.minimum(self.positions, self.max_len - 1)
+        step_proposed, step_accepted = int(prop_host.sum()), int(acc_host.sum())
         self.decode_steps += 1
         self.decode_tokens += step_tokens
-        self.spec_proposed += int(prop_host.sum())
-        self.spec_accepted += int(acc_host.sum())
+        self.spec_proposed += step_proposed
+        self.spec_accepted += step_accepted
         self.decode_s += time.perf_counter() - t0
+        if tracing:
+            t1 = tracer._clock()
+            host_s = self._host_gap(ts0, t1)
+            for i, req in traced:
+                tracer.span(tracer.handle_for(req.uid), "decode", ts0, t1,
+                            step=self.decode_steps, occupancy=len(active),
+                            tokens=int(counts_host[i]), n_steps=N,
+                            proposed=int(prop_host[i]), accepted=int(acc_host[i]),
+                            host_s=host_s)
+        self._emit_spec(N, len(active), step_proposed, step_accepted, step_tokens)
         return finished
 
     def run(self, report_throughput: bool = False):
-        """Drain queue + active lanes; returns the finished requests (and tokens/s
-        over the drain when ``report_throughput``)."""
+        """Drain the queue, the bisection hold and the lanes; returns the finished
+        requests (and tokens/s over the drain when ``report_throughput``, also emitted
+        as a ``serving.throughput/v1`` record with a telemetry attached)."""
         out = []
         t0 = time.perf_counter()
-        while self.queue or any(r is not None for r in self.slot_req):
+        while self.queue or self._bisect_hold or any(r is not None for r in self.slot_req):
             out.extend(self.step())
         dt = time.perf_counter() - t0
         if report_throughput:
             n_tokens = sum(len(r.tokens) for r in out)
-            return out, (n_tokens / dt if dt > 0 else float("inf"))
+            tokens_per_sec = n_tokens / dt if dt > 0 else float("inf")
+            self._emit_telemetry({
+                "schema": SERVING_THROUGHPUT_SCHEMA, "wall_s": round(dt, 6),
+                "tokens_generated": n_tokens, "requests_finished": len(out),
+                "tokens_per_sec": (round(tokens_per_sec, 3)
+                                   if tokens_per_sec != float("inf") else None)})
+            return out, tokens_per_sec
         return out
 
     def warm_programs(self, max_new_tokens: int = 32) -> list:
@@ -1582,19 +1996,83 @@ class ContinuousBatcher:
 
     def _admit(self) -> list[Request]:
         """Fill free lanes from the queue head (FIFO). A paged admission that does not
-        fit the free pool defers: the head keeps its place and admission stops."""
+        fit the free pool defers: the head keeps its place and admission stops. A
+        recovery re-admission prefills the request's context (prompt + emitted tokens)
+        for its remaining budget; with recovery armed, a prefill fault quarantines the
+        admitting request (``prefill_fault:<kind>``)."""
         finished = []
         for slot in range(self.max_slots):
             # A request can finish AT admission (EOS or max_new_tokens == 1), freeing
             # the lane for the next queued request — hence the inner loop.
             while self.slot_req[slot] is None and self.queue:
                 req = self.queue[0]
-                plan = self._plan_prefill(len(req.prompt), req.gen.max_new_tokens)
+                ctx = req._recover_ctx if req._recover_ctx is not None else req.prompt
+                remaining = req.gen.max_new_tokens - len(req.tokens)
+                try:
+                    if self.prefix_cache_size and req._recover_ctx is not None:
+                        chunks = max(1, -(-len(ctx) // self.prompt_bucket))
+                        if chunks * self.prompt_bucket + remaining > self.max_len:
+                            raise ValueError(
+                                f"recovery context ({len(ctx)} tokens → "
+                                f"{chunks * self.prompt_bucket} padded) + remaining budget "
+                                f"{remaining} exceeds max_len={self.max_len}")
+                    plan = self._plan_prefill(len(ctx), remaining)
+                except ValueError as e:
+                    if req._recover_ctx is None or not self.recover:
+                        raise
+                    # The grown context can overflow where the prompt fit: fail this
+                    # request machine-readably and keep serving the rest.
+                    self.queue.popleft()
+                    finished.append(self._quarantine(req, f"recovery_unservable:{e}"))
+                    continue
+                fp = self.faults
+                if fp is not None and self.recover:
+                    spec = fp.draw("serving.prefill", uid=req.uid)
+                    if spec is not None and spec.kind == "crash":
+                        self.crashed = True
+                        raise EngineCrashed("serving.prefill", uid=req.uid)
+                    if spec is not None:
+                        # Always attributable, and nothing was launched: quarantine.
+                        self.queue.popleft()
+                        self.step_failures += 1
+                        self._emit_fault("serving.prefill", spec.kind, req.uid,
+                                         reason=f"injected:{spec.kind}")
+                        finished.append(self._quarantine(req, f"prefill_fault:{spec.kind}"))
+                        continue
+                tracer = self.tracer
+                tracing = tracer is not None and tracer.enabled
+                if tracing:
+                    t_pf0 = tracer._clock()
+                    hits0 = self.prefix_hits
+                    cow0 = self.block_mgr.cow_count if self.paged else 0
+                    adopt0 = self.block_mgr.adopt_count if self.paged else 0
                 t0 = time.perf_counter()
-                prefilled = self._prefill_into_slot(slot, req, plan)
+                try:
+                    prefilled = self._prefill_into_slot(slot, req, plan, ctx, remaining)
+                except EngineCrashed:
+                    raise
+                except Exception as e:
+                    if not self.recover:
+                        raise
+                    # The admitting request is certainly the one; the row copy into the
+                    # engine cache may have run, so survivors rebuild unless the fault
+                    # fired before any launch.
+                    self.queue.popleft()
+                    self.step_failures += 1
+                    kind = getattr(e, "kind", type(e).__name__)
+                    self._emit_fault(getattr(e, "site", "serving.prefill"), kind, req.uid,
+                                     reason=str(e))
+                    finished.append(self._quarantine(req, f"prefill_fault:{kind}"))
+                    if not getattr(e, "pre_dispatch", False):
+                        self._rebuild_survivors()
+                    return finished
                 if prefilled is None:
+                    if tracing:
+                        tracer.count_defer(req.uid)
                     return finished
                 self.queue.popleft()
+                if req._recover_ctx is None:
+                    self.queue_waits.append(max(0.0, time.monotonic() - req.enqueued_at))
                 # The first token is read before any other prefill replays (the greedy
                 # token and logits may be a graph's outputs).
                 greedy, logits, prefill_len = prefilled
@@ -1602,15 +2080,39 @@ class ContinuousBatcher:
                          else req._sample(logits[0]))
                 if self.drafter is not None:
                     # The same lane and padded layout: engine positions index both.
-                    self.drafter.admit(slot, req.prompt, plan)
+                    self.drafter.admit(slot, ctx, plan)
                 self.prefill_s += time.perf_counter() - t0
                 self.admitted += 1
+                if req._recover_ctx is not None:
+                    # The prefill replayed prompt + emitted tokens: ``first`` is the
+                    # next emission.
+                    req._recover_ctx = None
+                    req.recoveries += 1
+                    self.recovered_admissions += 1
+                    self.recovered_uids.add(req.uid)
+                    self._emit_recovery("readmit", uid=req.uid, tokens_kept=len(req.tokens))
                 self.slot_req[slot] = req
                 self.positions[slot] = prefill_len  # next write = first decode slot
                 self.tokens[slot] = first
                 req.tokens.append(first)
                 if req.on_token is not None:
                     req.on_token(first)
+                if tracing:
+                    # Closes after the first token is read and streamed, so queue +
+                    # prefill reconstructs TTFT.
+                    handle = tracer.handle_for(req.uid)
+                    t_pf1 = tracer._clock()
+                    hit = self.prefix_hits > hits0
+                    mode, width = plan
+                    if self.prefix_cache_size:
+                        mode = "prefix" if hit else "chunk"
+                    tracer.event(handle, "admit", t=t_pf0, lane=slot,
+                                 kv_defer_retries=handle.kv_defers if handle else 0)
+                    tracer.span(handle, "prefill", t_pf0, t_pf1, mode=mode,
+                                width=int(width), prompt_len=len(ctx), prefix_hit=hit,
+                                cow=(self.block_mgr.cow_count - cow0) if self.paged else 0,
+                                adopted_pages=((self.block_mgr.adopt_count - adopt0)
+                                               if self.paged else 0))
                 hit_eos = req.gen.eos_token_id is not None and first == req.gen.eos_token_id
                 if hit_eos or len(req.tokens) >= req.gen.max_new_tokens:
                     req.done = True
@@ -1620,22 +2122,26 @@ class ContinuousBatcher:
                     self.evicted += 1
         return finished
 
-    def _prefill_into_slot(self, slot: int, req: Request, plan):
-        """Prefill one request and land its KV in lane ``slot`` →
-        ``(greedy, logits, prefill_len)``, or None when a paged admission must defer
-        on pool pressure (nothing consumed; the request stays queued). Dense: the
-        row (left-padded, or right-aligned with the prefix cache) is copied into the
-        lane's row; paged: see :meth:`_prefill_into_slot_paged`."""
+    def _prefill_into_slot(self, slot: int, req: Request, plan, ctx: np.ndarray,
+                           remaining: int):
+        """Prefill one request's context ``ctx`` (its prompt, or on a recovery
+        re-admission prompt + emitted tokens, for ``remaining`` new tokens) and land
+        its KV in lane ``slot`` → ``(greedy, logits, prefill_len)``, or None when a
+        paged admission must defer on pool pressure (nothing consumed; the request
+        stays queued). Dense: the row (left-padded, or right-aligned with the prefix
+        cache) is copied into the lane's row; paged: see
+        :meth:`_prefill_into_slot_paged`."""
         if self.paged:
-            return self._prefill_into_slot_paged(slot, req, plan)
+            return self._prefill_into_slot_paged(slot, req, plan, ctx, remaining)
         if self.prefix_cache_size:
-            out = self._prefill_prefix_cached(req.prompt)
+            out = self._prefill_prefix_cached(ctx)
         else:
-            out = self._prefill(req.prompt, plan)
+            out = self._prefill(ctx, plan)
         self.cache = _insert_row(self.cache, self._row, slot)
         return out
 
-    def _prefill_into_slot_paged(self, slot: int, req: Request, plan):
+    def _prefill_into_slot_paged(self, slot: int, req: Request, plan, ctx: np.ndarray,
+                                 remaining: int):
         """Paged admission: allocate the lane's pages (adopting a registered prefix's
         full pages read-only on a hit, with the divergent partial page re-materialized
         as an owned one: copy-on-write), prefill the same dense row as the dense
@@ -1643,7 +2149,7 @@ class ContinuousBatcher:
         register the prompt's prefixes as page lists."""
         mgr = self.block_mgr
         ps = self.page_size
-        prompt, max_new = req.prompt, req.gen.max_new_tokens
+        prompt, max_new = ctx, remaining
         hit_len, entry, lookup_chunks = 0, None, 0
         if self.prefix_cache_size:
             n_chunks = max(1, -(-len(prompt) // self.prompt_bucket))
@@ -1682,6 +2188,14 @@ class ContinuousBatcher:
             out = self._prefill_prefix_paged(prompt, hit_len, entry, n_chunks, total)
         else:
             out = self._prefill(prompt, plan)
+        fp = self.faults
+        if fp is not None and self.recover:
+            spec = fp.draw("serving.kv_admit", uid=req.uid)
+            if spec is not None:
+                # An injected page-pool allocation failure, raised before the manager
+                # is touched: nothing leaks, and the admission boundary quarantines
+                # this request.
+                raise fp.fault_for(spec, "serving.kv_admit", uid=req.uid)
         ids = mgr.admit(slot, n_tokens, adopted=adopted, cow_partial=cow_partial)
         # The lane's valid layout, which a handoff carries: the prefix layout is
         # left-aligned ([0, len)), bucket and chunk layouts are left-padded

@@ -23,7 +23,12 @@ port's counterpart of ``accelerate_tpu/serving_gateway/disagg.py``.
 - **Failover** — a dead prefill replica's in-flight and pending requests re-prefill
   on a peer by replay; a dead decode replica's requests RE-ADOPT from the source pages
   the handoff record still holds (``readopted``), and fall back to replay when the
-  source is gone too. Streams end equal to an undisturbed run's either way.
+  source is gone too. Streams end equal to an undisturbed run's either way. A
+  ``crash`` clause of a replica engine's ``FaultPlan`` reaches the failover as
+  ``EngineCrashed`` out of its ``step()`` or ``adopt_handoff``; any other exception out
+  of ``adopt_handoff`` ends the request ``FAILED`` with ``adopt_fault:<kind>``.
+- **Tracing** — a tracer records a ``handoff`` span from export (or requeue) to the
+  decode lane going live, then binds the decode engine's uid for its decode spans.
 """
 
 from __future__ import annotations
@@ -70,6 +75,7 @@ class _PendingHandoff:
     src_rid: int
     src_engine: object
     src_mgr: object          # the source BlockManager at export time
+    exported_at: float = 0.0  # router clock at export or requeue: the handoff span's t0
     readoptions: int = 0     # decode-replica deaths this handoff survived
 
 
@@ -205,11 +211,11 @@ class DisaggRouter(FleetRouter):
                 self.counters["expired"] += 1
                 self._finalize(greq, EXPIRED, "deadline_handoff", now)
                 events.append(greq)
-        self._collect_handoffs()
+        self._collect_handoffs(now)
         events.extend(self._pump_handoffs(now))
         return events
 
-    def _collect_handoffs(self) -> None:
+    def _collect_handoffs(self, now: float) -> None:
         """Drain every prefill replica's export queue into the router's: the request
         leaves the replica's running set (its lane is already free) for handoff limbo."""
         for rep in self._replicas:
@@ -222,7 +228,8 @@ class DisaggRouter(FleetRouter):
                 if greq is None or greq.terminal:
                     rep.engine.release_handoff(h)  # nothing owes tokens for it
                     continue
-                ph = _PendingHandoff(greq, h, rep.rid, rep.engine, rep.engine.block_mgr)
+                ph = _PendingHandoff(greq, h, rep.rid, rep.engine, rep.engine.block_mgr,
+                                     exported_at=now)
                 greq._rid = None
                 greq._engine_req = None
                 self._handoffs.append(ph)
@@ -283,6 +290,16 @@ class DisaggRouter(FleetRouter):
                     rep.breaker.probe_uid = None
                 self._replica_died(rep, f"crash:{e.site}", now)
                 continue  # ph stays at the head; the next pick skips the dead replica
+            except Exception as e:  # an adoption fault, attributable to this request
+                if probe:
+                    rep.breaker.probe_uid = None
+                self._handoffs.popleft()
+                greq.tokens = list(ph.handoff.tokens)
+                kind = getattr(e, "kind", type(e).__name__)
+                self.counters["failed"] += 1
+                self._finalize(greq, FAILED, f"adopt_fault:{kind}", now)
+                events.append(greq)
+                continue
             if ereq is None:
                 # A lane or the pool was taken after all: defer, nothing consumed.
                 if probe:
@@ -293,6 +310,14 @@ class DisaggRouter(FleetRouter):
             greq._engine_req = ereq
             rep.running[ereq.uid] = greq
             self.counters["handoffs"] += 1
+            tr = self.tracer
+            if tr is not None and greq._trace is not None:
+                # From export (the adoption-queue wait is handoff time) until the
+                # decode lane is live.
+                tr.span(greq._trace, "handoff", ph.exported_at, self._clock(),
+                        src_replica=ph.src_rid, dst_replica=rep.rid,
+                        pages=len(ph.handoff.pages), nbytes=nbytes)
+                tr.bind_engine(greq._trace, ereq.uid)
             self._emit_route(greq.uid, rep, "probe" if probe else "handoff", now)
         return events
 
@@ -335,7 +360,12 @@ class DisaggRouter(FleetRouter):
         greq.n_streamed = 0
         if greq.on_retry is not None:
             greq.on_retry()
+        if self.tracer is not None and greq._trace is not None:
+            greq._trace.attempt = greq.retries_used + greq.replays
+            self.tracer.event(greq._trace, "retry", t=now, attempt=greq._trace.attempt,
+                              cause=cause)
         ph.readoptions += 1
+        ph.exported_at = now  # the re-adoption's span times the new wait alone
         self._handoffs.append(ph)
 
     def _replica_died(self, rep: Replica, reason: str, now: float) -> None:

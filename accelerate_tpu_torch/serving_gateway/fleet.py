@@ -11,7 +11,7 @@ contract and SLO records) dispatching into a fleet of ``ContinuousBatcher`` repl
 - **Per-replica circuit breakers** — OPEN isolates one replica while the others
   serve; a half-open probe earns routing back.
 - **Failover** — a replica death (:meth:`FleetRouter.kill`, or ``EngineCrashed`` out
-  of its ``step()``) migrates its in-flight requests to the queue by replay
+  of its ``step()``: a ``crash`` clause of the engine's ``FaultPlan``) migrates its in-flight requests to the queue by replay
   (``on_retry`` resets the stream; the transcript ends equal to an undisturbed
   run's) at no cost to the preemption retry budget; the replica restarts through
   ``engine_factory`` within the per-replica budget of an ``elastic.FleetSupervisor``,
@@ -21,7 +21,10 @@ contract and SLO records) dispatching into a fleet of ``ContinuousBatcher`` repl
   :meth:`rolling_restart` walks the fleet one replica at a time;
   :meth:`decommission` drains a replica and retires it.
 
-The autoscaler and its scale-up actuator (``spawn_replica``) are not ported.
+A tracer (``tracer=``) threads through every replica engine (restarted ones
+included), as in the single-engine gateway; a request a replica's fault boundary
+quarantined ends ``FAILED`` with its reason. The autoscaler and its scale-up actuator
+(``spawn_replica``) are not ported.
 """
 
 from __future__ import annotations
@@ -112,6 +115,8 @@ class FleetRouter(ServingGateway):
         self.supervisor = supervisor if supervisor is not None else FleetSupervisor(
             max_restarts=cfg.replica_restarts, restart_backoff=cfg.replica_restart_backoff,
             telemetry=telemetry, clock=self._clock)
+        for eng in engines:
+            self._bind_tracer(eng)
         self._replicas: List[Replica] = [
             Replica(rid, eng, self._new_breaker()) for rid, eng in enumerate(engines)]
         self.counters.update({"migrated": 0, "replica_kills": 0, "replica_restarts": 0,
@@ -123,6 +128,11 @@ class FleetRouter(ServingGateway):
         #: Requests finalized outside a step (the all-retired backlog flush after an
         #: out-of-band ``kill()``), returned by the next ``step()``.
         self._pending_events: List[GatewayRequest] = []
+
+    def _bind_tracer(self, engine) -> None:
+        """Hand the router's tracer to an engine that has none."""
+        if self.tracer is not None and getattr(engine, "tracer", None) is None:
+            engine.tracer = self.tracer
 
     def _new_breaker(self) -> CircuitBreaker:
         cfg = self.config
@@ -223,6 +233,7 @@ class FleetRouter(ServingGateway):
             on_token=self._stream_cb(greq))
         greq._engine_req = ereq
         rep.running[ereq.uid] = greq
+        self._trace_admitted(greq, ereq, now)
         self._emit_route(greq.uid, rep, "probe" if probe else "dispatch", now)
 
     # ------------------------------------------------------------------ stepping
@@ -281,10 +292,7 @@ class FleetRouter(ServingGateway):
                 greq = rep.running.pop(ereq.uid, None)
                 if greq is None:
                     continue
-                greq.tokens = list(ereq.tokens)
-                self.counters["done"] += 1
-                self._finalize(greq, DONE, None, t_done)
-                events.append(greq)
+                self._complete(greq, ereq, events, t_done)
             self._observe_replica(rep, now)
         # 7) lifecycle again with this step's completions applied (a drain whose last
         #    request just finished restarts now).
@@ -430,6 +438,7 @@ class FleetRouter(ServingGateway):
             return
         if self.engine_factory is not None:
             rep.engine = self.engine_factory(rep.rid)
+            self._bind_tracer(rep.engine)
             if rep.rid == 0:
                 self.engine = rep.engine  # the base class's kv_demand reads it
         rep.failures_seen = getattr(rep.engine, "step_failures", 0)
@@ -497,6 +506,9 @@ class FleetRouter(ServingGateway):
                 break
             rep.engine.cancel(victim._engine_req.uid)
             rep.running.pop(victim._engine_req.uid, None)
+            if self.tracer is not None:
+                self.tracer.event(victim._trace, "preempt", t=now, preempted_by=top.uid,
+                                  tokens_lost=len(victim._engine_req.tokens))
             self._policy.take(top.uid, now)
             self._queued_cost -= top.cost
             self._dispatch(top, rep, now)

@@ -18,12 +18,18 @@ port's counterpart of ``accelerate_tpu/serving_gateway/gateway.py``.
   ``set_spec_enabled``, then halved bounds).
 - **SLO observability** — per-request queue wait, TTFT and TPOT and their p50/p95/p99
   summaries; records go to any ``telemetry`` with ``enabled`` and ``emit(record)``.
+- **Tracing** — a ``telemetry.Tracer`` (``tracer=``) opens a trace at submit and emits
+  the scheduling-side spans (queue, shed, preempt, retry, first token, terminal); the
+  engine, handed the same tracer, emits admit, prefill, decode and fault spans. An
+  enabled tracer takes the gateway's clock, so both sides share one timeline.
+- **Faults** — a request the engine's fault boundary quarantined ends ``FAILED`` with
+  the engine's reason (``step_fault:<kind>``, ``prefill_fault:<kind>``, ...).
 
 The gateway runs nothing on the device: every kernel launch happens inside the
 engine. Sampled requests take an integer ``seed`` (the engine's), where the JAX
-gateway takes an ``rng`` key. Span tracing (``tracer=``), the live metrics plane
-(``GatewayConfig.metrics``) and the flight recorder's state hook wait for the
-telemetry slice: a tracer or an enabled metrics plane raises ``NotImplementedError``.
+gateway takes an ``rng`` key. The live metrics plane (``GatewayConfig.metrics``) and
+the flight recorder's state hook are not ported yet: an enabled metrics plane or an
+enabled recorder raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,7 +63,8 @@ SHED = "shed"            # removed from the queue by overload shedding
 CANCELLED = "cancelled"  # withdrawn by cancel(uid) (reason: queued/running/handoff)
 EVICTED = "evicted"      # lost its lane (preemption) with no retry budget left
 EXPIRED = "expired"      # deadline passed (reason: queued/running/handoff)
-FAILED = "failed"        # quarantined (adopt_fault:<kind>, fleet_down, ...)
+FAILED = "failed"        # quarantined (step_fault:<kind>, prefill_fault:<kind>,
+#                          adopt_fault:<kind>, fleet_down, ...)
 
 TERMINAL_STATUSES = frozenset({DONE, REJECTED, SHED, CANCELLED, EVICTED, EXPIRED, FAILED})
 
@@ -90,6 +97,7 @@ class GatewayRequest:
     tokens: list = dataclasses.field(default_factory=list)
     retries_used: int = 0
     replays: int = 0                      # replays after a replica death or restart
+    recoveries: int = 0                   # the engine's recovery re-admissions
     # SLO timestamps (gateway clock)
     t_submit: float = 0.0
     t_enqueued: float = 0.0               # this attempt's queue entry
@@ -99,6 +107,7 @@ class GatewayRequest:
     t_done: Optional[float] = None
     n_streamed: int = 0
     _engine_req: Optional[object] = dataclasses.field(default=None, repr=False)
+    _trace: Optional[object] = dataclasses.field(default=None, repr=False)
     #: Replica id serving this request (fleet routing only; None while queued, in
     #: handoff limbo, and on a single-engine gateway).
     _rid: Optional[int] = dataclasses.field(default=None, repr=False)
@@ -212,10 +221,6 @@ class ServingGateway:
 
     def __init__(self, engine, config: Optional[GatewayConfig] = None, telemetry=None,
                  clock: Optional[Callable[[], float]] = None, tracer=None):
-        if tracer is not None:
-            raise NotImplementedError(
-                "tracer= is not ported yet: request-scoped span tracing (telemetry.tracing."
-                "Tracer) and trace-report wait for the telemetry slice; pass tracer=None")
         if config is None:
             config = GatewayConfig(enabled=True)
         if config.metrics and getattr(telemetry, "enabled", False):
@@ -238,6 +243,16 @@ class ServingGateway:
                 "the gateway only validates it)")
         self.telemetry = telemetry
         self._clock = resolve_clock(clock)
+        # Request-scoped tracing: the gateway opens the trace at submit and emits the
+        # scheduling-side spans; the engine, handed the same tracer, the execution-side
+        # ones. An enabled tracer takes the gateway's clock (one timeline for deadlines,
+        # ttft_s and every span); a disabled one never reads its clock.
+        self.tracer = tracer
+        if tracer is not None:
+            if getattr(engine, "tracer", None) is None:
+                engine.tracer = tracer
+            if tracer.enabled:
+                tracer._clock = self._clock
         self._policy = make_policy(config)
         self._uid = 0
         self._queued_cost = 0
@@ -250,7 +265,7 @@ class ServingGateway:
             "replayed": 0,
         }
         # The breaker reads the engine's step_failures counter as a delta after each
-        # step (0 on the port's engine, whose fault boundary is not ported yet).
+        # step.
         self._breaker = CircuitBreaker(config.breaker_threshold, config.breaker_window_s,
                                        config.breaker_cooldown_s)
         self._engine_failures_seen = getattr(engine, "step_failures", 0)
@@ -291,6 +306,9 @@ class ServingGateway:
         self._uid += 1
         self._all[greq.uid] = greq
         self.counters["submitted"] += 1
+        if self.tracer is not None:
+            # The trace opens here: queue wait is client-visible latency.
+            greq._trace = self.tracer.start(greq.uid, tenant=tenant, t=now)
         gate_reason = self._admission_gate(greq, now)
         if gate_reason is not None:
             return self._refuse(greq, now, gate_reason)
@@ -373,6 +391,8 @@ class ServingGateway:
             self._policy.remove(victim.uid)
             self._queued_cost -= victim.cost
             self.counters["shed"] += 1
+            if self.tracer is not None:
+                self.tracer.event(victim._trace, "shed", t=now, shed_for=greq.uid)
             self._finalize(victim, SHED, "overload_shed", now)
         return True
 
@@ -432,19 +452,35 @@ class ServingGateway:
             self._queued_cost -= item.cost
             self._admit(item, now)
             free -= 1
-        # 5) one engine step; map its completions back to gateway state.
+        # 5) one engine step; map its completions back to gateway state. A request the
+        #    engine's fault boundary quarantined ends FAILED with its reason (retrying
+        #    a poison request would poison the batch again).
         for ereq in self.engine.step():
             greq = self._running.pop(ereq.uid, None)
             if greq is None:
                 continue  # submitted to the engine directly, not through the gateway
-            greq.tokens = list(ereq.tokens)
-            self.counters["done"] += 1
-            self._finalize(greq, DONE, None, self._clock())
-            events.append(greq)
+            self._complete(greq, ereq, events)
         # 6) circuit breaker: this step's engine failure delta.
         if self.config.breaker_threshold:
             self._breaker_observe(now)
         return sorted(events, key=lambda r: r.uid)
+
+    def _complete(self, greq: GatewayRequest, ereq, events: list,
+                  t_done: Optional[float] = None) -> None:
+        """Map one finished engine request onto its gateway request: DONE, or FAILED
+        with the reason the engine's fault boundary gave it."""
+        greq.tokens = list(ereq.tokens)
+        greq.recoveries = getattr(ereq, "recoveries", 0)
+        if t_done is None:
+            t_done = self._clock()
+        failed_reason = getattr(ereq, "failed", None)
+        if failed_reason is not None:
+            self.counters["failed"] += 1
+            self._finalize(greq, FAILED, failed_reason, t_done)
+        else:
+            self.counters["done"] += 1
+            self._finalize(greq, DONE, None, t_done)
+        events.append(greq)
 
     # ------------------------------------------------------------ circuit breaker
     def _admission_gate(self, greq: GatewayRequest, now: float) -> Optional[str]:
@@ -521,6 +557,8 @@ class ServingGateway:
         preemption retry budget. Returns the replayed requests."""
         now = self._clock()
         if engine is not None:
+            if self.tracer is not None and getattr(engine, "tracer", None) is None:
+                engine.tracer = self.tracer
             self.engine = engine
             self._engine_failures_seen = getattr(engine, "step_failures", 0)
         replayed = []
@@ -549,6 +587,10 @@ class ServingGateway:
         greq.n_streamed = 0
         if greq.on_retry is not None:
             greq.on_retry()
+        if self.tracer is not None and greq._trace is not None:
+            greq._trace.attempt = greq.retries_used + greq.replays
+            self.tracer.event(greq._trace, "retry", t=now, attempt=greq._trace.attempt,
+                              cause=cause)
         self._policy.push(greq)
         self._queued_cost += greq.cost
 
@@ -586,12 +628,27 @@ class ServingGateway:
             on_token=self._stream_cb(greq))
         greq._engine_req = ereq
         self._running[ereq.uid] = greq
+        self._trace_admitted(greq, ereq, now)
+
+    def _trace_admitted(self, greq: GatewayRequest, ereq, now: float) -> None:
+        """Close this attempt's queue span (from ``t_enqueued``: a retry's span measures
+        the requeue wait alone) and bind the engine uid, so the engine's spans land in
+        this trace."""
+        tr = self.tracer
+        if tr is not None:
+            tr.span(greq._trace, "queue", greq.t_enqueued, now,
+                    attempt=greq.retries_used + greq.replays, outcome="admitted")
+            tr.bind_engine(greq._trace, ereq.uid)
 
     def _stream_cb(self, greq: GatewayRequest) -> Callable[[int], None]:
         def deliver(tok: int) -> None:
             t = self._clock()
             if greq.t_first_token is None:
                 greq.t_first_token = t
+                if self.tracer is not None:
+                    # The clock read ttft_s derives from: trace-reconstructed TTFT
+                    # equals the gateway's to the digit.
+                    self.tracer.event(greq._trace, "first_token", t=t)
             greq.t_last_token = t
             greq.n_streamed += 1
             if greq.on_token is not None:
@@ -613,6 +670,9 @@ class ServingGateway:
                 break
             self.engine.cancel(victim._engine_req.uid)
             self._running.pop(victim._engine_req.uid, None)
+            if self.tracer is not None:
+                self.tracer.event(victim._trace, "preempt", t=now, preempted_by=top.uid,
+                                  tokens_lost=len(victim._engine_req.tokens))
             # take(), not remove(): the preemptor is served (WFQ charges its tenant).
             self._policy.take(top.uid, now)
             self._queued_cost -= top.cost
@@ -638,6 +698,10 @@ class ServingGateway:
             victim.n_streamed = 0
             if victim.on_retry is not None:
                 victim.on_retry()
+            if self.tracer is not None and victim._trace is not None:
+                victim._trace.attempt = victim.retries_used
+                self.tracer.event(victim._trace, "retry", t=now,
+                                  attempt=victim.retries_used)
             self._policy.push(victim)
             self._queued_cost += victim.cost
             return None
@@ -666,6 +730,22 @@ class ServingGateway:
         greq.t_done = now
         greq._engine_req = None
         self._probe_verdict(greq, status, now)
+        tr = self.tracer
+        if tr is not None and greq._trace is not None:
+            if status in (FAILED, EXPIRED, SHED) or (
+                    status == DONE and greq.deadline_met is False):
+                # Tail promotion of a request that ended badly, before its closing
+                # spans, so the promoted stream stays chronological.
+                tr.promote(greq._trace)
+            if greq.t_admit is None:
+                # Still queued at its end: close this attempt's queue span.
+                tr.span(greq._trace, "queue", greq.t_enqueued, now,
+                        attempt=greq.retries_used + greq.replays, outcome=status)
+            tr.event(greq._trace, "terminal", t=now, status=status, reason=reason,
+                     n_tokens=len(greq.tokens), retries_used=greq.retries_used,
+                     queue_wait_s=greq.queue_wait_s, ttft_s=greq.ttft_s,
+                     tpot_s=greq.tpot_s)
+            tr.finish(greq._trace)
         self._terminal.append(greq)
         self._emit_request_record(greq)
         cap = self.config.max_terminal

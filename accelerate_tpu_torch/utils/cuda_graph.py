@@ -16,7 +16,9 @@ each replay. A failed capture or replay raises: nothing falls back to eager exec
 Kernel wrappers count a launch only where they launch (not while a stream is being
 captured); :attr:`CapturedStep.kernel_nodes` counts the graph's kernel nodes by kernel
 name (read through the CUDA driver API), and :attr:`CapturedStep.replays` how often
-they ran, so ``nodes × replays`` is the launches of the replayed path.
+they ran, so ``nodes × replays`` is the launches of the replayed path. Each capture
+counts as one compile of ``telemetry.compile_monitor`` (kind ``graph_capture``, its
+seconds ``capture_s``), attributed to the active ``compile_label``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import time
 from typing import Callable
 
 import torch
+
+from ..telemetry.compile_monitor import dispatch_compile
 
 __all__ = ["CapturedStep", "graph_kernel_nodes"]
 
@@ -168,6 +172,7 @@ class CapturedStep:
             self.capture_s = time.perf_counter() - t0
             self.pool_bytes = torch.cuda.memory_reserved() - reserved
             cur.wait_stream(side)
+        dispatch_compile("graph_capture", self.capture_s)
         self.graph = graph
         self.fn = None  # the graph holds the addresses; fn's references are not needed
         return eager

@@ -4,7 +4,9 @@ Copies of ``accelerate_tpu/utils/dataclasses.py``'s ``KwargsHandler``, ``Precisi
 ``DistributedType``, ``RNGType``, ``GradientAccumulationPlugin``, ``MixedPrecisionPolicy``
 (dtypes are torch's), ``DataLoaderConfiguration`` (with its launcher environment
 sentinels), ``ProjectConfiguration``, ``GatewayConfig`` (the serving gateway's, with its
-validation and its ``ACCELERATE_GATEWAY`` environment variable) and ``TensorInformation``. ``RNGType`` has no
+validation and its ``ACCELERATE_GATEWAY`` environment variable), ``TelemetryConfig``
+(``ACCELERATE_TELEMETRY``, ``ACCELERATE_TELEMETRY_DIR``), ``FaultConfig``
+(``ACCELERATE_FAULTS``) and ``TensorInformation``. ``RNGType`` has no
 ``jax`` member: the port draws no JAX keys.
 """
 
@@ -21,7 +23,8 @@ import torch
 __all__ = [
     "KwargsHandler", "PrecisionType", "DistributedType", "RNGType",
     "GradientAccumulationPlugin", "MixedPrecisionPolicy", "DataLoaderConfiguration",
-    "ProjectConfiguration", "GatewayConfig", "TensorInformation", "parse_flag_from_env",
+    "ProjectConfiguration", "GatewayConfig", "TelemetryConfig", "FaultConfig",
+    "TensorInformation", "parse_flag_from_env",
 ]
 
 _TRUE = {"1", "true", "yes", "y", "on", "t"}
@@ -314,6 +317,120 @@ class GatewayConfig(KwargsHandler):
             for tenant, weight in self.tenant_weights.items():
                 if weight <= 0:
                     raise ValueError(f"tenant_weights[{tenant!r}]={weight} must be > 0")
+
+
+@dataclass
+class TelemetryConfig(KwargsHandler):
+    """The telemetry pipeline's configuration (``telemetry.Telemetry``), a copy of the
+    JAX package's ``TelemetryConfig``.
+
+    Off by default and free when off. ``enabled`` resolves as explicit argument >
+    ``ACCELERATE_TELEMETRY`` > off; ``jsonl_dir`` (``ACCELERATE_TELEMETRY_DIR``) makes
+    records land in ``<jsonl_dir>/telemetry.jsonl``, rolled over past ``rotate_bytes``
+    (0 = never). ``steady_*`` parameterize the warm-until-steady rule;
+    ``flops_per_step``/``tokens_per_step``/``examples_per_step`` are static per-step
+    costs for the derived rates. ``compile_events`` counts graph captures and kernel
+    builds; ``memory_stats`` samples the CUDA allocator. ``trace_sample_*`` set a
+    tracer's head sampling. The flight-recorder fields are validated as in JAX, but the
+    recorder is not ported: an enabled pipeline with ``recorder=True`` raises."""
+
+    enabled: Optional[bool] = None          # None → env ACCELERATE_TELEMETRY > False
+    jsonl_dir: Optional[str] = None         # None → env ACCELERATE_TELEMETRY_DIR
+    rotate_bytes: int = 0
+    steady_k: int = 2
+    steady_rtol: float = 0.10
+    steady_cap: int = 50                    # 0 = never cap the warmup
+    compile_events: bool = True
+    memory_stats: bool = True
+    device_index: int = 0
+    max_records: int = 4096                 # in-memory history cap (JSONL is unbounded)
+    merge_into_log: bool = True
+    flops_per_step: Optional[float] = None
+    tokens_per_step: Optional[float] = None
+    examples_per_step: Optional[float] = None
+    recorder: bool = False
+    recorder_ring: int = 2048
+    recorder_snapshot_every: int = 256
+    capsule_dir: Optional[str] = None       # None → env ACCELERATE_CAPSULE_DIR
+    capsule_cooldown_s: float = 30.0
+    trace_sample_every: int = 1
+    trace_sample_prob: Optional[float] = None
+    trace_sample_seed: int = 0
+
+    def __post_init__(self):
+        if self.enabled is None:
+            self.enabled = parse_flag_from_env("ACCELERATE_TELEMETRY")
+        if self.jsonl_dir is None:
+            self.jsonl_dir = os.environ.get("ACCELERATE_TELEMETRY_DIR") or None
+        if self.capsule_dir is None:
+            self.capsule_dir = os.environ.get("ACCELERATE_CAPSULE_DIR") or None
+        if self.steady_k < 2:
+            raise ValueError(f"steady_k={self.steady_k}: agreement needs >= 2 windows")
+        if self.steady_rtol <= 0:
+            raise ValueError(f"steady_rtol={self.steady_rtol} must be > 0")
+        if self.steady_cap < 0:
+            raise ValueError(f"steady_cap={self.steady_cap} must be >= 0 (0 = no cap)")
+        if self.rotate_bytes < 0:
+            raise ValueError(f"rotate_bytes={self.rotate_bytes} must be >= 0 (0 = never rotate)")
+        if self.recorder_ring < 1:
+            raise ValueError(f"recorder_ring={self.recorder_ring} must be >= 1")
+        if self.recorder_snapshot_every < 0:
+            raise ValueError(f"recorder_snapshot_every={self.recorder_snapshot_every} "
+                             "must be >= 0 (0 = never snapshot)")
+        if self.capsule_cooldown_s < 0:
+            raise ValueError(f"capsule_cooldown_s={self.capsule_cooldown_s} must be >= 0")
+        if self.trace_sample_every < 1:
+            raise ValueError(f"trace_sample_every={self.trace_sample_every} must be >= 1 "
+                             "(1 = trace every request)")
+        if self.trace_sample_prob is not None and not 0.0 <= self.trace_sample_prob <= 1.0:
+            raise ValueError(f"trace_sample_prob={self.trace_sample_prob} must be in [0, 1]")
+
+
+@dataclass
+class FaultConfig(KwargsHandler):
+    """Deterministic fault injection's configuration (``resilience.faults``), a copy of
+    the JAX package's ``FaultConfig``.
+
+    Off by default and free when off. ``enabled`` resolves as explicit argument >
+    ``ACCELERATE_FAULTS`` > off; a value of the variable that is not a boolean is the
+    clause string (``resilience.faults.parse_fault_spec``'s grammar) and both enables
+    injection and defines the plan. ``seed`` seeds the plan (a ``seed=N`` clause wins);
+    :meth:`build_plan` gives the ``FaultPlan`` the ``Accelerator`` exposes as
+    ``fault_plan``."""
+
+    enabled: Optional[bool] = None   # None → env ACCELERATE_FAULTS > False
+    spec: Optional[str] = None       # None → the env clause string (when not a boolean)
+    seed: int = 0
+
+    def __post_init__(self):
+        raw = os.environ.get("ACCELERATE_FAULTS")
+        raw_norm = raw.strip().lower() if raw is not None else None
+        raw_is_spec = raw_norm is not None and raw_norm not in (
+            _GATEWAY_ENV_TRUE | _GATEWAY_ENV_FALSE)
+        if self.enabled is None:
+            if raw_norm is None:
+                self.enabled = False
+            else:
+                self.enabled = raw_is_spec or raw_norm in _GATEWAY_ENV_TRUE
+        if self.spec is None and raw_is_spec:
+            self.spec = raw
+        if self.enabled and not self.spec:
+            raise ValueError(
+                "fault injection enabled with no fault clauses: pass spec= (or set "
+                "ACCELERATE_FAULTS to a clause string like 'serving.decode:error:0.1') — "
+                "an empty plan would silently inject nothing")
+        if self.spec:
+            from ..resilience.faults import parse_fault_spec
+
+            parse_fault_spec(self.spec)  # the grammar is checked here, not at a draw
+
+    def build_plan(self):
+        """The resolved ``FaultPlan`` (None when disabled)."""
+        if not self.enabled:
+            return None
+        from ..resilience.faults import FaultPlan
+
+        return FaultPlan.from_spec(self.spec, seed=self.seed)
 
 
 class TensorInformation:

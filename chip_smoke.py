@@ -205,6 +205,35 @@ that names the phase, its failed cases and the exception:
    ``total_limit=2`` keeps the JAX rule's survivors; the card's checkpoint loads into a
    CPU ``Accelerator``'s state, whose next loss matches the card's within 1e-4.
 
+19. engine_faults — the fault boundary against the CPU (``debug``, fp32, the same six
+   requests): under the same seeded ``FaultPlan`` on both sides, an attributed decode
+   poison (dense), an unattributed poison bisected to its request (paged
+   ``decode_steps=4``; the fused speculative super-step), a ``hang`` past the step
+   watchdog rebuilt in place (paged; int8 projections at ``decode_steps=4``),
+   ``kv_admit`` and ``prefill`` faults (paged prefix cache), a decode-role replica's
+   hang (re-prefilled through its row cache) and ``crash`` clauses failing a P:D:D
+   fleet over: the same quarantined requests, reasons, tokens (greedy and sampled),
+   fired list, counters and fault/recovery records as the CPU, no page leaked, every
+   record valid, no graph captured after ``warm_programs()``, the cache planes at the
+   same addresses after a rebuild, kernel #1 once per layer per token step of every
+   dispatch that ran; and a telemetry step record's fence waiting for 20 fp32
+   products of 4096² on the card (``fence_check``).
+20. main_faults — ``main``'s 10 requests through a ``ServingGateway`` over a paged
+   ``decode_steps=8`` engine after ``warm_programs()``, with an enabled ``Telemetry``
+   and a ``Tracer``, under an unattributed poison of request 2 (bisected to it) and a
+   3 s ``hang`` past a 1 s step watchdog (a rebuild in place): request 2 ``FAILED``
+   with ``step_fault:error``; every other request done, its tokens ``main``'s or
+   diverging only after its re-admission at a near tie; no graph captured, the cache
+   at the same addresses, no page leaked, kernel #1 exact, every record valid; the
+   rebuild's ms, bisection rounds and seconds to quarantine. Then warm drains through
+   gateways with telemetry and tracer off and on (alternated: tokens/s), the on
+   drains' spans against each request's TTFT and TPOT and ``trace_report``'s TTFT
+   percentiles against the gateway's; then a P:D:D fleet whose decode replica 1 dies
+   by a ``crash`` clause at its third dispatch (``EngineCrashed`` out of its
+   ``step()``): streams equal ``main``'s, requests adopted again
+   (``main_disagg_crash``). Both run last: they need only ``main``'s tokens, and
+   ``main_faults`` makes ``main``'s seeded params again.
+
 Then the kernels line (the serving kernels' launches include the super-steps' graph
 replays: kernel nodes times replays), the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
@@ -1867,9 +1896,9 @@ def expected_paged_launches(eng, n_layers: int, draft_layers: int = 0) -> int:
 def serve_disagg(params, cfg, workload, roles, engine_kw=None, watch=None, kill=None,
                  factory=False, geometry=None, **router_kw) -> dict:
     """``workload`` through a ``DisaggRouter`` over one engine per role (``engine_kw``:
-    {role: engine keywords}, each value may be a function of the params giving them),
-    ``geometry`` (default ``DISAGG_ENGINE``) for every engine; streams captured with
-    ``on_retry`` resets; ``kill=(rid, step)`` kills a replica
+    {role or replica id: engine keywords}, a replica id's winning; each value may be a
+    function of the params giving them), ``geometry`` (default ``DISAGG_ENGINE``) for
+    every engine; streams captured with ``on_retry`` resets; ``kill=(rid, step)`` kills a replica
     after that many router steps; ``factory`` gives the router a restart factory →
     tokens, streams, per-step counters, every engine built by role, the router."""
     from accelerate_tpu_torch.serving import ContinuousBatcher
@@ -1880,7 +1909,7 @@ def serve_disagg(params, cfg, workload, roles, engine_kw=None, watch=None, kill=
     built = []
 
     def build(rid, role):
-        kw = engine_kw.get(role, {})
+        kw = engine_kw.get(rid, engine_kw.get(role, {}))
         kw = kw(params) if callable(kw) else kw
         eng = ContinuousBatcher(params, cfg, role=role, **{**(geometry or DISAGG_ENGINE), **kw})
         built.append((rid, eng))
@@ -2619,11 +2648,656 @@ def phase_main_disagg(dev, main: dict) -> dict:
     emit(kres)
     if not kres["ok"]:
         raise SystemExit("the disaggregated kill run failed its checks")
+
     del router, kill_router, pre, dec, d2
     gc.collect()
     return {"launches": launches["decode"], "launches_kill": kres["paged_attention_launches"],
             "ab": ab, "handoff": handoff}
 
+
+
+# ------------------------------------------ phase 4c: the fault boundary and tracing
+FAULT_ENGINE = dict(max_slots=4, max_len=256, prompt_bucket=32)
+FAULT_STATS = ("step_failures", "quarantined", "recovered_admissions", "bisect_rounds",
+               "watchdog_timeouts", "admitted", "evicted", "decode_steps", "decode_tokens")
+#: ``engine_faults``' watchdog and hang: a ``debug`` dispatch takes milliseconds on the
+#: card and on the CPU; every engine runs ``warm_programs()`` first, so no capture runs
+#: inside a watched dispatch.
+DEBUG_TIMEOUT_S, DEBUG_HANG_S = 0.5, 1.0
+
+
+def _fault_plan(specs, seed=0):
+    from accelerate_tpu_torch.resilience import FaultPlan, FaultSpec
+
+    return FaultPlan([FaultSpec(**kw) for kw in specs], seed=seed)
+
+
+def _fault_records(records) -> list:
+    """The fault and recovery records' identifying columns, in order."""
+    return [(r["schema"].rsplit(".", 1)[-1], r.get("site"), r.get("kind"), r.get("action"),
+             r.get("uid"), r.get("step"), r.get("survivors"), r.get("tokens_kept"),
+             # a fault's reason is its exception's text (a timeout's holds its seconds)
+             r.get("reason") if r["schema"].endswith("recovery/v1") else None)
+            for r in records if r["schema"].endswith(("fault/v1", "recovery/v1"))]
+
+
+def serve_faulted(params, cfg, workload, specs, seed=0, warm=True, **engine_kw) -> dict:
+    """``workload`` on one engine under a fresh plan of ``specs``, with an enabled
+    ``Telemetry`` (``warm_programs()`` first on the card) → tokens, failure reasons,
+    counters, the fired list, the fault/recovery records, every record's validation,
+    pages in use after (registry evicted), the engine."""
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+    from accelerate_tpu_torch.telemetry import Telemetry, validate_record
+    from accelerate_tpu_torch.utils.dataclasses import TelemetryConfig
+
+    tel = Telemetry(TelemetryConfig(enabled=True, compile_events=False, memory_stats=False))
+    plan = _fault_plan(specs, seed) if specs else None
+    eng = ContinuousBatcher(params, cfg, faults=plan, telemetry=tel, **engine_kw)
+    if warm and eng.device.type == "cuda":
+        eng.warm_programs(max_new_tokens=32)
+    keys = graph_keys(eng)
+    before = path_launches(eng)  # after the graphs' eager first calls in warm_programs
+    reqs = [eng.submit(p, **kw) for p, kw in workload]
+    done = eng.run()
+    clear_registry(eng)
+    s = eng.stats()
+    return {"tokens": [[int(t) for t in r.tokens] for r in reqs],
+            "failed": [r.failed for r in reqs], "returned": len(done),
+            "counters": {k: s[k] for k in FAULT_STATS},
+            "fired": plan.fired if plan else [], "records": _fault_records(tel.records),
+            "invalid_records": sum(bool(validate_record(r)) for r in tel.records),
+            "pages_in_use": s.get("pages_in_use", 0), "eng": eng,
+            "launches": [a - b for a, b in zip(path_launches(eng), before)],
+            # on the CPU a runner is made at first use; on the card warm_programs made all
+            "captured_in_traffic": sorted(map(str, graph_keys(eng) - keys))}
+
+
+def phase_engine_faults(dev) -> dict:
+    """The fault boundary on the card against the CPU (``debug``, fp32, ``max_slots=4``,
+    ``max_len=256``, ``prompt_bucket=32``; ``engine_disagg``'s six requests, two of them
+    sampled), each case under the same seeded ``FaultPlan`` on both sides: an attributed
+    decode poison (dense); an unattributed poison bisected to its request (paged,
+    ``decode_steps=4``; and the fused speculative super-step, ``spec_k=2``); a ``hang``
+    past the step watchdog, rebuilt in place (paged; and int8 projections at
+    ``decode_steps=4``: kernel #10); ``kv_admit`` and ``prefill`` faults on a paged
+    prefix-cache engine; a decode-role replica's hang under a ``DisaggRouter`` (its
+    survivors re-prefilled through its row cache); and ``crash`` clauses failing a P:D:D
+    fleet's replicas over (re-adoption, re-prefill on a restarted replica). Hard
+    checks: the same quarantined requests and reasons, the same tokens (greedy and
+    sampled), the same fired ``(site, kind, uid, invocation)`` list, counters and fault
+    and recovery records on the card as on the CPU; every request returned; every
+    record valid; no page leaked; on the card, no graph captured in traffic after
+    ``warm_programs()``, the cache planes at the same addresses after every rebuild and
+    kernel #1 launched exactly once per layer per token step of every dispatch that ran
+    (timed-out ones included)."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_to
+    from accelerate_tpu_torch.ops import quantization as qz
+
+    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32)
+    params_cpu = llama.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                                   device="cpu")
+    int8_cpu = qz.load_and_quantize_model(params_cpu, qz.BnbQuantizationConfig(
+        skip_modules=["embed", "lm_head"], min_weight_size=1, load_in_8bit=True))
+    sides = {"cpu": (params_cpu, int8_cpu),
+             "gpu": (params_to(params_cpu, dev), params_to(int8_cpu, dev))}
+    workload = disagg_workload(cfg.vocab_size)
+    L = cfg.n_layers
+    poison = dict(site="serving.decode", kind="error", prob=1.0)
+    hang = dict(site="serving.decode", kind="hang", prob=1.0, max_fires=1, attributed=False,
+                hang_s=DEBUG_HANG_S)
+    paged = dict(FAULT_ENGINE, page_size=8)
+    # name -> (specs, params index, engine keywords, the victim's uid and reason or None)
+    cases = {
+        "dense_poison_attributed": ([dict(poison, match_uid=1, max_fires=1)], 0,
+                                    FAULT_ENGINE, (1, "step_fault:error")),
+        "paged_n4_poison_bisected": ([dict(poison, match_uid=2, attributed=False)], 0,
+                                     dict(paged, decode_steps=4), (2, "step_fault:error")),
+        "paged_hang_rebuild": ([dict(hang, start=2)], 0,
+                               dict(paged, step_timeout_s=DEBUG_TIMEOUT_S), None),
+        "int8_n4_hang_rebuild": ([dict(hang, start=1)], 1,
+                                 dict(paged, decode_steps=4, step_timeout_s=DEBUG_TIMEOUT_S),
+                                 None),
+        "prefix_kv_admit_and_prefill": (
+            [dict(site="serving.kv_admit", kind="error", prob=1.0, start=1, max_fires=1),
+             dict(site="serving.prefill", kind="error", prob=1.0, start=4, max_fires=1)], 0,
+            dict(paged, prefix_cache=4), None),
+        "spec_fused_poison_bisected": ([dict(poison, match_uid=3, attributed=False)], 0,
+                                       dict(paged, decode_steps=4, spec_k=2),
+                                       (3, "step_fault:error")),
+    }
+    res = {"phase": "engine_faults", "config": "debug", "engine": FAULT_ENGINE, "cases": {}}
+    failed = []
+    for name, (specs, pi, kw, victim) in cases.items():
+        run = {}
+        for side, params in sides.items():
+            run[side] = serve_faulted(params[pi], cfg, workload, specs, **kw)
+        gpu, cpu = run["gpu"], run["cpu"]
+        eng = gpu["eng"]
+        c = gpu["counters"]
+        got_pa, got_i8 = gpu["launches"]
+        # Every dispatch that ran: the clean ones and the timed-out ones (a fault of
+        # another kind raises before the launch).
+        expect_pa = (L * eng.multi_step * (c["decode_steps"] + c["watchdog_timeouts"])
+                     if eng.paged else 0)
+        case = {
+            "fired": gpu["fired"], "failed": gpu["failed"], "counters": c,
+            "same_as_cpu": {k: gpu[k] == cpu[k] for k in ("tokens", "failed", "counters",
+                                                           "fired", "records")},
+            "returned_all": gpu["returned"] == cpu["returned"] == len(workload),
+            "invalid_records": gpu["invalid_records"] + cpu["invalid_records"],
+            "pages_in_use_after": [gpu["pages_in_use"], cpu["pages_in_use"]],
+            "paged_attention_launches": got_pa, "paged_attention_expected": expect_pa,
+            "int8_matmul_launches": got_i8,
+            "captured_in_traffic": gpu["captured_in_traffic"],
+        }
+        ok = (all(case["same_as_cpu"].values()) and case["returned_all"]
+              and not case["captured_in_traffic"]
+              and not case["invalid_records"] and case["pages_in_use_after"] == [0, 0]
+              and got_pa == expect_pa and (got_i8 > 0) == (pi == 1) and bool(gpu["fired"]))
+        if victim is not None:
+            uid, reason = victim
+            ok &= [f for f in gpu["failed"] if f] == [reason] and gpu["failed"][uid] == reason
+        elif "hang" in name:
+            ok &= c["watchdog_timeouts"] == 1 and c["recovered_admissions"] > 0
+            ok &= not any(gpu["failed"])
+        else:
+            ok &= sum(f is not None for f in gpu["failed"]) == 2
+        case["ok"] = bool(ok)
+        res["cases"][name] = case
+        if not ok:
+            failed.append(name)
+
+    # In-place rebuild: the cache planes keep their storage across a rebuild, and no
+    # graph is captured after warm_programs() (a survivor's grown context rides the
+    # warmed chunk pair). Compile events counted by an enabled monitor.
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+    from accelerate_tpu_torch.telemetry import CompileMonitor
+
+    eng = ContinuousBatcher(sides["gpu"][0], cfg, **paged, decode_steps=4,
+                            prompt_buckets=(32, 64), step_timeout_s=DEBUG_TIMEOUT_S,
+                            faults=_fault_plan([dict(hang, start=2)]))
+    eng.warm_programs(max_new_tokens=32)
+    keys, ptrs = graph_keys(eng), cache_ptrs(eng)
+    mon = CompileMonitor().start()
+    try:
+        reqs = [eng.submit(p, **kw) for p, kw in workload]
+        eng.run()
+    finally:
+        mon.stop()
+    rebuild = {"no_graph_captured": graph_keys(eng) == keys and mon.count == 0,
+               "compile_events": mon.snapshot(), "cache_ptrs_unchanged": cache_ptrs(eng) == ptrs,
+               "recovered_admissions": eng.recovered_admissions,
+               "all_done": all(r.done and not r.failed for r in reqs)}
+    rebuild["ok"] = bool(rebuild["no_graph_captured"] and rebuild["cache_ptrs_unchanged"]
+                         and rebuild["recovered_admissions"] > 0 and rebuild["all_done"])
+    res["cases"]["in_place_rebuild_buckets"] = rebuild
+    if not rebuild["ok"]:
+        failed.append("in_place_rebuild_buckets")
+
+    # Fleets: a decode-role replica's hang (recovery armed: it re-prefills), and crash
+    # clauses failing a P:D:D fleet over. A replica's plan is one object per side that
+    # its restarts keep (as tests/test_disagg.py builds them), so a fired clause stays
+    # spent.
+    plans = {}
+
+    def plan_of(rid, specs, seed=0):
+        return lambda p: {"faults": plans.setdefault((id(p), rid), _fault_plan(specs, seed))}
+
+    fleets = {
+        "decode_role_hang": (("prefill", "decode"), {"decode": lambda p: {
+            **plan_of(1, [dict(hang, start=2)])(p), "step_timeout_s": DEBUG_TIMEOUT_S}}, {}),
+        "crash_pdd": (("prefill", "decode", "decode"), {
+            0: plan_of(0, [dict(site="serving.prefill", kind="crash", prob=0.2,
+                                max_fires=1)], 11),
+            1: plan_of(1, [dict(site="serving.decode", kind="crash", prob=0.15,
+                                max_fires=1)], 12)},
+            {"factory": True, "replica_restarts": 3}),
+    }
+    from accelerate_tpu_torch.serving import ContinuousBatcher as _CB
+
+    for name, (roles, ekw, rkw) in fleets.items():
+        plans.clear()
+        run = {}
+        watch = _EngineLaunches()
+        for side, params in sides.items():
+            run[side] = serve_disagg(params[0], cfg, workload, roles, ekw,
+                                     watch if side == "gpu" else None, **rkw)
+        gpu, cpu = run["gpu"], run["cpu"]
+        router = gpu["router"]
+        mixed = _CB(sides["gpu"][0], cfg, **DISAGG_ENGINE)
+        mreqs = [mixed.submit(p, **kw) for p, kw in workload]
+        mixed.run()
+        fired = {side: [list(p.fired) for (pid, _), p in sorted(
+            plans.items(), key=lambda kv: kv[0][1]) if pid == id(sides[side][0])]
+            for side in run}
+        live = [rep.engine for rep in router.replicas if not rep.engine.crashed]
+        dec = [e for _, e in gpu["built"] if e.role == "decode"]
+        case = {"roles": list(roles), "status_done": all(s == "done" for s in gpu["status"]),
+                "streams_equal_mixed_card": gpu["streams"] == [[int(t) for t in r.tokens]
+                                                               for r in mreqs],
+                "tokens_equal_cpu": gpu["tokens"] == cpu["tokens"],
+                "counters_equal_cpu_every_step": gpu["steps"] == cpu["steps"],
+                "fired": fired["gpu"], "fired_equal_cpu": fired["gpu"] == fired["cpu"],
+                "counters": {k: router.counters[k] for k in DISAGG_ROUTER_STATS},
+                "decode_recovered_admissions": [e.recovered_admissions for e in dec],
+                "pages_in_use_after": [e.stats()["pages_in_use"] for e in live],
+                "launches": {f"{rid}:{e.role}": watch(e)[0] for rid, e in gpu["built"]}}
+        ok = (case["status_done"] and case["streams_equal_mixed_card"]
+              and case["tokens_equal_cpu"] and case["counters_equal_cpu_every_step"]
+              and case["fired_equal_cpu"] and any(case["fired"])
+              and not any(case["pages_in_use_after"]))
+        if name == "decode_role_hang":
+            ok &= sum(case["decode_recovered_admissions"]) > 0
+        else:
+            ok &= router.counters["replica_kills"] >= 1
+        case["ok"] = bool(ok)
+        res["cases"][name] = case
+        if not ok:
+            failed.append(name)
+    fence = fence_check(dev)
+    res["cases"]["telemetry_fence"] = fence
+    if not fence["ok"]:
+        failed.append("telemetry_fence")
+    res["ok"] = not failed
+    emit(res)
+    if failed:
+        raise PhaseFailed("the fault boundary on the card disagrees", failed)
+    return res
+
+
+def fence_check(dev) -> dict:
+    """A telemetry step record's fence on the card: 20 fp32 products of 4096² (about
+    50 ms of device work) enqueued inside ``_step_begin``/``_step_end``; the fence must
+    wait for them (the event recorded after the last product done when it returns, and
+    most of the wall time in ``fence_s``), and the record carries the allocator's
+    counters."""
+    from accelerate_tpu_torch.telemetry import Telemetry, validate_record
+    from accelerate_tpu_torch.utils.dataclasses import TelemetryConfig
+
+    tel = Telemetry(TelemetryConfig(enabled=True))
+    x = torch.randn(4096, 4096, device=dev, generator=torch.Generator(dev).manual_seed(3))
+
+    def work():
+        y = x
+        for _ in range(20):
+            y = (y @ x) * (1.0 / 64)
+        return {"loss": y.sum(), "big": y}
+
+    work()  # first use: cuBLAS's handle, kernel modules loaded (a load may synchronize)
+    torch.cuda.synchronize()
+    tel._step_begin()
+    out = work()
+    after = torch.cuda.Event()
+    after.record()
+    rec = tel._step_end(fence_on=out)
+    done = after.query()
+    tel.close()
+    res = {"wall_s": rec["wall_s"], "dispatch_s": rec["dispatch_s"], "fence_s": rec["fence_s"],
+           "work_done_at_return": done, "memory": rec.get("memory"),
+           "valid": validate_record(rec) == []}
+    res["ok"] = bool(done and rec["fence_s"] > rec["dispatch_s"] and rec["fence_s"] > 0.005
+                     and (rec.get("memory") or {}).get("bytes_in_use", 0) > 0 and res["valid"])
+    return res
+
+
+def cache_ptrs(eng) -> list:
+    """The device addresses of an engine's cache planes, valid rows and prefill row
+    cache (a rebuild must keep every one)."""
+    ptrs = [t.data_ptr() for planes in eng.cache["layers"] for t in planes.values()]
+    ptrs.append(eng.cache["valid"].data_ptr())
+    if eng._row is not None:
+        ptrs += [t.data_ptr() for planes in eng._row["layers"] for t in planes.values()]
+    return ptrs
+
+
+#: ``main_faults``: the watchdog's budget, about 9× the warm 8B super-step's wall time
+#: (115 ms profiled, PERF.md §5), the injected hang's host sleep well above it and the
+#: dispatch it fires at, and the poisoned request. The poison (in the first 8 lanes) is
+#: bisected and quarantined within the first dispatches and the suspicion cleared before
+#: the hang: two unattributed faults whose bisections overlapped would narrow one's
+#: suspects with the other's failures (as in the JAX engine).
+MAIN_TIMEOUT_S, MAIN_HANG_S, MAIN_HANG_AT, MAIN_POISON_UID = 1.0, 3.0, 10, 2
+#: ``main_faults``' span checks: the gateway's TTFT against the spans' (from the queue
+#: span's start to the prefill span's end, which closes just after the first token is
+#: streamed) and its TPOT against the decode spans' window, in seconds.
+SPAN_TTFT_TOL_S, SPAN_TPOT_TOL_S = 0.01, 0.002
+
+
+def _replay_rows(params, cfg, prompt, kw, d, kept=None):
+    """Request ``prompt`` replayed alone on an N = 1 engine at ``main``'s geometry up
+    to emission ``d`` → (the logits row emission ``d`` was drawn from, its token).
+    ``kept``: the request enters as a recovery re-admission that kept that many
+    ``tokens`` (its context prompt + those tokens, prefilled), as after a rebuild."""
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    eng = ContinuousBatcher(params, cfg, **MAIN_ENGINE)
+    state = {"prefill": None, "row": None}
+    prefill_into = eng._prefill_into_slot
+
+    def recording_prefill(*a, **k):
+        out = prefill_into(*a, **k)
+        state["prefill"] = out[1][0].float().cpu()
+        return out
+
+    eng._prefill_into_slot = recording_prefill
+
+    def hook(tok):
+        if len(req.tokens) == d + 1:
+            row = state["prefill"]
+            if row is None:
+                row = eng.last_logits[eng.slot_req.index(req)].float().cpu()
+            state["row"] = (row, int(tok))
+        state["prefill"] = None
+
+    gen = kw.get("gen")
+    kw = (dict(kw, gen=dataclasses.replace(gen, max_new_tokens=d + 1)) if gen is not None
+          else dict(kw, max_new_tokens=d + 1))
+    req = eng.submit(prompt, on_token=hook, **kw)
+    if kept:
+        req.tokens = list(kept)
+        req._recover_ctx = np.concatenate([req.prompt, np.asarray(kept, np.int32)])
+    eng.run()
+    return state["row"]
+
+
+def recovery_divergence(params, cfg, workload, want, got, readmits) -> dict:
+    """For each request whose tokens after recovery differ from the undisturbed run's,
+    at its first divergence ``d``: it must have been re-admitted with ``k <= d`` tokens
+    kept (tokens before the rebuild came from the undisturbed computation), and ``d``
+    must be a near tie — the undisturbed row and the recovered row (the request
+    replayed alone, re-admitted with its first ``k`` tokens) differing by at most
+    ``DELTA_MAX`` and the undisturbed row's top-two gap (of the filtered logits plus
+    emission ``d``'s noise over the temperature, for a sampled lane) within twice that,
+    or a top-k/top-p support boundary. A re-prefill computes the context's K/V with the
+    prefill programs, whose bf16 rounding is not the decode steps'."""
+    from accelerate_tpu_torch.generation import emission_generator, filtered_logits, gumbel_noise
+
+    out = {}
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a == b or not b:
+            continue
+        d = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        ks = [k for k in readmits.get(i, []) if k <= d]
+        rec = {"d": d, "want_token": a[d] if d < len(a) else None,
+               "got_token": b[d] if d < len(b) else None, "readmitted_with": ks}
+        if not ks or d >= min(len(a), len(b)):
+            out[i] = {**rec, "ok": False}
+            continue
+        prompt, kw = workload[i]
+        (p_row, p_tok), (r_row, r_tok) = (_replay_rows(params, cfg, prompt, kw, d),
+                                          _replay_rows(params, cfg, prompt, kw, d, b[:ks[-1]]))
+        delta = float((p_row - r_row).abs().max())
+        gen, scale, boundary = kw.get("gen"), 1.0, False
+        if gen is not None:
+            pf, rf = (filtered_logits(r[None], gen.temperature, gen.top_p, gen.top_k)[0]
+                      for r in (p_row, r_row))
+            p_in, r_in = torch.isfinite(pf), torch.isfinite(rf)
+            boundary = bool((p_in != r_in).any()) and not (bool(p_in[r_tok])
+                                                             and bool(r_in[p_tok]))
+            p_row = pf + gumbel_noise((1, p_row.shape[0]), emission_generator(kw["seed"], d))[0]
+            scale = gen.temperature
+        top = torch.topk(p_row, 2).values
+        gap = float(top[0] - top[1])
+        out[i] = {**rec, "replayed_want_token": p_tok, "replayed_got_token": r_tok,
+                  "delta": delta, "gap": gap, "limit": 2 * delta / scale,
+                  "filter_boundary": boundary,
+                  "ok": (p_tok == rec["want_token"] and r_tok == rec["got_token"]
+                         and delta <= DELTA_MAX and (gap <= 2 * delta / scale or boundary))}
+    return out
+
+
+def gateway_drain(gw, workload) -> dict:
+    """``workload`` submitted to a gateway at one instant and drained, timed to the
+    final sync → the gateway requests, tokens, tokens/s."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greqs = [gw.submit(p, **kw) for p, kw in workload]
+    gw.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = sum(len(g.tokens) for g in greqs)
+    return {"greqs": greqs, "tokens": [[int(t) for t in g.tokens] for g in greqs],
+            "wall_s": wall, "tokens_per_s": n / wall}
+
+
+def span_agreement(spans, greqs) -> dict:
+    """Per request, the spans against the gateway's own latencies: TTFT from the queue
+    span's start to the (first) prefill span's end, TPOT over the decode spans' window,
+    the decode spans' tokens + 1 against the transcript."""
+    by_uid = {}
+    for s in spans:
+        by_uid.setdefault(s["uid"], []).append(s)
+    worst = {"ttft_abs_s": 0.0, "tpot_abs_s": 0.0}
+    tokens_ok = True
+    for g in greqs:
+        mine = by_uid[g.uid]
+        queue = next(s for s in mine if s["span"] == "queue")
+        prefill = next(s for s in mine if s["span"] == "prefill")
+        decode = [s for s in mine if s["span"] == "decode"]
+        first_t = next(s["t1"] for s in mine if s["span"] == "first_token")
+        worst["ttft_abs_s"] = max(worst["ttft_abs_s"],
+                                  abs((prefill["t1"] - queue["t0"]) - g.ttft_s),
+                                  abs((first_t - queue["t0"]) - g.ttft_s))
+        span_tpot = (max(s["t1"] for s in decode) - first_t) / (len(g.tokens) - 1)
+        worst["tpot_abs_s"] = max(worst["tpot_abs_s"], abs(span_tpot - g.tpot_s))
+        tokens_ok &= sum(s["tokens"] for s in decode) + 1 == len(g.tokens)
+    return {**worst, "decode_span_tokens_equal_transcripts": bool(tokens_ok),
+            "ok": bool(tokens_ok and worst["ttft_abs_s"] <= SPAN_TTFT_TOL_S
+                       and worst["tpot_abs_s"] <= SPAN_TPOT_TOL_S)}
+
+
+def phase_main_faults(dev, main: dict) -> dict:
+    """The fault boundary and request tracing at Llama-3-8B's full width and depth
+    (bf16, the same params): ``main``'s 10 requests through a ``ServingGateway`` over a
+    paged engine at ``decode_steps=8`` after ``warm_programs()``, with an enabled
+    ``Telemetry`` (the JSONL pipeline's records, compile and memory counters) and a
+    ``Tracer``, under a plan of two ``serving.decode`` clauses: a ``hang`` of
+    ``MAIN_HANG_S`` past the ``MAIN_TIMEOUT_S`` watchdog at the third dispatch (a
+    rebuild in place of every lane), and an unattributed poison of request 9
+    (bisected to it). Hard checks: request 9 ends ``FAILED`` with ``step_fault:error``
+    and every other request ``done``; every other request's tokens equal ``main``'s,
+    or differ only after its recovery re-admission at a near tie
+    (``recovery_divergence``); no graph captured after ``warm_programs()`` (none
+    counted by the compile monitor either); the cache planes' addresses unchanged; no
+    page leaked; kernel #1 exactly 32·8 per super-step that ran (the timed-out one
+    included); every record valid. Printed: the rebuild's host ms and the device ms of
+    the in-place reset, bisection rounds and seconds from the poison's first fault to
+    its quarantine. Then warm drains through gateways with telemetry and tracer off and
+    on, alternated (tokens/s; tokens equal ``main``'s), with the on runs' spans held to
+    the gateway's TTFT and TPOT per request (``span_agreement``) and ``trace_report``'s
+    p50/p95 TTFT equal to the gateway's."""
+    from accelerate_tpu_torch.commands.trace_report import trace_report
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+    from accelerate_tpu_torch.serving_gateway import ServingGateway
+    from accelerate_tpu_torch.telemetry import (TRACE_SPAN_SCHEMA, Telemetry, Tracer,
+                                                percentile, validate_record)
+    from accelerate_tpu_torch.utils.dataclasses import GatewayConfig, TelemetryConfig
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
+    # main's seeded params (made again when main's were freed: the same generator seed)
+    params = main.get("params") or llama.init_params(
+        cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    workload = main_workload(cfg.vocab_size)[3]
+    want = main["tokens"]
+    tel = Telemetry(TelemetryConfig(enabled=True))
+    stamped = []
+    tel.sinks.append(lambda r: stamped.append((time.perf_counter(), r)))
+    tracer = Tracer(tel)
+    plan = _fault_plan([
+        dict(site="serving.decode", kind="hang", prob=1.0, start=MAIN_HANG_AT, max_fires=1,
+             hang_s=MAIN_HANG_S, attributed=False),
+        dict(site="serving.decode", kind="error", prob=1.0, match_uid=MAIN_POISON_UID,
+             attributed=False)], seed=15)
+    eng = ContinuousBatcher(params, cfg, **MAIN_ENGINE, decode_steps=MULTI_N, faults=plan,
+                            step_timeout_s=MAIN_TIMEOUT_S, telemetry=tel, tracer=tracer)
+    warm = warm_summary(eng.warm_programs(max_new_tokens=64))
+    keys, ptrs = graph_keys(eng), cache_ptrs(eng)
+    captures = tel.compile_monitor.count
+    gw = ServingGateway(eng, GatewayConfig(enabled=True), telemetry=tel, tracer=tracer)
+    paged_attention.launches_ragged = 0
+    before = path_launches(eng)[0]
+    torch.cuda.reset_peak_memory_stats()
+    run = gateway_drain(gw, workload)
+    launches = path_launches(eng)[0] - before
+    compiles = tel.compile_monitor.count - captures  # before the replays below capture
+    s = eng.stats()
+    expect = cfg.n_layers * MULTI_N * (s["decode_steps"] + s["watchdog_timeouts"])
+    greqs = run["greqs"]
+    status = [(g.status, g.reason) for g in greqs]
+    readmits = {}
+    for _, r in stamped:
+        if r.get("action") == "readmit":
+            readmits.setdefault(r["uid"], []).append(r["tokens_kept"])
+    survivors = [i for i in range(len(workload)) if i != MAIN_POISON_UID]
+    div = recovery_divergence(params, cfg, workload,
+                              [want[i] if i in survivors else [] for i in range(len(want))],
+                              [run["tokens"][i] if i in survivors else []
+                               for i in range(len(want))], readmits)
+    t_fault = next(t for t, r in stamped if r["schema"].endswith("fault/v1")
+                   and r.get("kind") == "error")
+    t_quarantine = next(t for t, r in stamped if r.get("action") == "quarantine")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._reset_cache()
+    torch.cuda.synchronize()
+    reset_ms = 1e3 * (time.perf_counter() - t0)  # launches and device work, synced
+    res = {"phase": "main_faults", "config": "llama3-8b", "dtype": "bfloat16",
+           "engine": {**MAIN_ENGINE, "decode_steps": MULTI_N, "step_timeout_s": MAIN_TIMEOUT_S},
+           "plan": [dataclasses.asdict(sp) for sp in plan.specs], "fired": plan.fired,
+           "warm_programs": {k: v for k, v in warm.items() if k != "entries"},
+           "status": status, "wall_s": run["wall_s"],
+           "tokens_equal_main": [run["tokens"][i] == want[i] for i in survivors],
+           "recovery_divergence": div,
+           "readmitted_with_tokens": readmits,
+           "counters": {k: s[k] for k in FAULT_STATS},
+           "rebuild_host_ms": 1e3 * s["rebuild_s"], "reset_cache_synced_ms": reset_ms,
+           "pool_bytes": eng.cache_bytes(),
+           "bisect_rounds": s["bisect_rounds"],
+           "poison_fault_to_quarantine_s": t_quarantine - t_fault,
+           "no_graph_captured_in_traffic": graph_keys(eng) == keys,
+           "compiles_in_traffic": compiles,
+           "cache_ptrs_unchanged": cache_ptrs(eng) == ptrs,
+           "pages_in_use_after": s["pages_in_use"],
+           "paged_attention_launches": launches, "paged_attention_expected": expect,
+           "paged_attention_launches_ragged": paged_attention.launches_ragged,
+           "records": len(tel.records),
+           "invalid_records": sum(bool(validate_record(r)) for r in tel.records),
+           "spans": sum(r["schema"] == TRACE_SPAN_SCHEMA for r in tel.records),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    res["ok"] = bool(
+        status[MAIN_POISON_UID] == ("failed", "step_fault:error")
+        and all(status[i] == ("done", None) for i in survivors)
+        and all(d["ok"] for d in div.values())
+        and res["no_graph_captured_in_traffic"] and res["compiles_in_traffic"] == 0
+        and res["cache_ptrs_unchanged"] and res["pages_in_use_after"] == 0
+        and launches == expect and paged_attention.launches_ragged == 0
+        and not res["invalid_records"] and s["watchdog_timeouts"] == 1
+        and s["quarantined"] == 1 and len(plan.fired) >= 2)
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("the 8B fault boundary failed its checks")
+    del eng, gw
+    gc.collect()
+
+    # Warm drains with telemetry and the tracer off and on, alternated.
+    variants = {}
+    for name in ("off", "on"):
+        t = Telemetry(TelemetryConfig(enabled=name == "on"))
+        tr = Tracer(t) if name == "on" else None
+        e = ContinuousBatcher(params, cfg, **MAIN_ENGINE, decode_steps=MULTI_N,
+                              telemetry=t if name == "on" else None, tracer=tr)
+        e.warm_programs(max_new_tokens=64)
+        variants[name] = (ServingGateway(e, GatewayConfig(enabled=True),
+                                         telemetry=t if name == "on" else None, tracer=tr), t)
+    for name in variants:  # one untimed drain each
+        gateway_drain(variants[name][0], workload)
+
+    def timed(name):
+        gw_, t = variants[name]
+        t.records.clear()
+        r = gateway_drain(gw_, workload)
+        spans = [rec for rec in t.records if rec["schema"] == TRACE_SPAN_SCHEMA]
+        r["spans"] = span_agreement(spans, r["greqs"]) if name == "on" else None
+        if name == "on":
+            report = trace_report(spans)
+            ttfts = [g.ttft_s for g in r["greqs"]]
+            r["trace_report_ttft"] = {"p50": report["ttft"]["p50"], "p95": report["ttft"]["p95"]}
+            r["trace_report_equals_gateway"] = (
+                report["ttft"]["p95"] == round(percentile(ttfts, 95), 6)
+                and report["ttft"]["p50"] == round(percentile(ttfts, 50), 6))
+            r["records"] = len(t.records)
+            r["invalid_records"] = sum(bool(validate_record(x)) for x in t.records)
+        r.pop("greqs")
+        return r
+
+    runs = alternated({"off": [], "on": []}, ("off", "on", "on", "off"), timed)
+    ab = {"phase": "telemetry_ab", "order": "(off, on, on, off), warm engines",
+          "requests": len(workload),
+          "tokens_equal_main": all(r["tokens"] == want for rs in runs.values() for r in rs),
+          "tokens_per_s": {k: [r["tokens_per_s"] for r in v] for k, v in runs.items()},
+          "spans": [r["spans"] for r in runs["on"]],
+          "trace_report_ttft": [r["trace_report_ttft"] for r in runs["on"]],
+          "trace_report_equals_gateway": all(r["trace_report_equals_gateway"]
+                                             for r in runs["on"]),
+          "records_per_drain": [r["records"] for r in runs["on"]],
+          "invalid_records": sum(r["invalid_records"] for r in runs["on"])}
+    ab["tokens_per_s_median"] = {k: float(np.median(v)) for k, v in ab["tokens_per_s"].items()}
+    ab["on_over_off"] = ab["tokens_per_s_median"]["on"] / ab["tokens_per_s_median"]["off"]
+    ab["ok"] = bool(ab["tokens_equal_main"] and all(x["ok"] for x in ab["spans"])
+                    and ab["trace_report_equals_gateway"] and not ab["invalid_records"])
+    emit(ab)
+    if not ab["ok"]:
+        raise SystemExit("the telemetry on/off drains failed their checks")
+    del variants
+    gc.collect()
+    crash = disagg_crash(params, cfg, workload, want)
+    return {"launches": launches, "launches_crash": crash["paged_attention_launches"],
+            "result": res, "ab": ab, "crash": crash}
+
+
+def disagg_crash(params, cfg, workload, want) -> dict:
+    """The ``FaultPlan`` spelling of a decode replica's death on ``main_disagg``'s fleet:
+    a P:D:D ``DisaggRouter`` at ``main``'s geometry after ``warm_programs()``, decode
+    replica 1 under a ``crash`` clause at its third dispatch, which raises
+    ``EngineCrashed`` out of its ``step()``; the router fails its requests over to decode
+    replica 2, which adopts them again from the prefill replica's pages. Hard checks:
+    every stream equals ``main``'s tokens, one kill, ``readopted > 0``, pools drained."""
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    watch = _EngineLaunches()
+    engines = [ContinuousBatcher(params, cfg, role=role, **MAIN_ENGINE, **kw)
+               for role, kw in (("prefill", {}),
+                                ("decode", {"decode_steps": MULTI_N, "faults": _fault_plan(
+                                    [dict(site="serving.decode", kind="crash", prob=1.0,
+                                          start=2, max_fires=1)])}),
+                                ("decode", {"decode_steps": MULTI_N}))]
+    for eng in engines:
+        eng.warm_programs(max_new_tokens=64)
+        watch.watch(eng)
+    pre, d1, d2 = engines
+    before = {id(e): watch(e)[0] for e in engines}
+    router = disagg_router_8b(params, cfg, ("prefill", "decode", "decode"), engines=engines)
+    crash = drain_served(router, workload)
+    res = {"phase": "main_disagg_crash", "roles": ["prefill", "decode", "decode"],
+           "plan": "serving.decode:crash,start=2,max=1 on replica 1", "fired": d1.faults.fired,
+           "crashed": d1.crashed, "streams_equal_main": crash["streams"] == want,
+           "done": crash["done"], "replica_kills": router.counters["replica_kills"],
+           "readopted": router.counters["readopted"],
+           "pages_in_use_after": [pre.stats()["pages_in_use"], d2.stats()["pages_in_use"]],
+           "paged_attention_launches": sum(watch(e)[0] - before[id(e)] for e in engines),
+           "wall_s": crash["wall_s"]}
+    res["ok"] = (res["streams_equal_main"] and res["done"] and res["crashed"]
+                 and res["replica_kills"] == 1 and res["readopted"] > 0
+                 and res["pages_in_use_after"] == [0, 0])
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("the disaggregated crash run failed its checks")
+    del router, engines, pre, d1, d2
+    gc.collect()
+    return res
 
 
 # ------------------------------------------------------- phase 4d: one-request API
@@ -5233,10 +5907,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_tp = run_phase("train_tp", phase_train_tp, dev, train["losses"][0])
+
+    # The fault boundary and request tracing (slice 15), last: they need only main's
+    # tokens (main_faults makes main's seeded params again). Run before main_int8, they
+    # were followed by torch.profiler losing 3 of 1,120 int8 kernel records in
+    # main_int8's profiled window (which holds alone, and after them in a shorter
+    # process).
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_phase("engine_faults", phase_engine_faults, dev)
+    serve_faults = run_phase("main_faults", phase_main_faults, dev, serve)
     emit({"kernels": run_phase("kernels", kernel_rows, kern, serve, flash, adamw,
                                xent, train, train_fused, int8, serve_int8, partial,
                                train_tp, serve_multi, resume, serve_prefill,
-                               serve_prefix, serve_spec, serve_spec_draft, serve_disagg)})
+                               serve_prefix, serve_spec, serve_spec_draft, serve_disagg,
+                               serve_faults)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -5245,12 +5930,13 @@ def main() -> int:
 
 def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve_int8,
                 partial, train_tp, serve_multi, resume, serve_prefill, serve_prefix,
-                serve_spec, serve_spec_draft, serve_disagg) -> list:
+                serve_spec, serve_spec_draft, serve_disagg, serve_faults) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results. The
     serving kernels' launches add their main paths' runs: N = 1, the super-step's,
-    the bucketed, the prefix-cache, the speculative and the disaggregated drains (the
+    the bucketed, the prefix-cache, the speculative, the disaggregated drains (the
     decode replicas' launches over adopted pages; eager launches plus graph nodes times
-    replays); the training kernels' add train_main's and train_resume's."""
+    replays, with the kill and crash runs) and the faulted 8B drain; the training
+    kernels' add train_main's and train_resume's."""
 
     def train_launches(kernel):
         by_path = {"train_main": train["launches"][kernel],
@@ -5282,7 +5968,8 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                     serve["launches"] + serve_multi["launches"] + serve_prefill["launches"]
                     + serve_prefix["launches"] + serve_spec["launches"]
                     + serve_spec_draft["launches"] + serve_disagg["launches"]
-                    + serve_disagg["launches_kill"],
+                    + serve_disagg["launches_kill"] + serve_faults["launches_crash"]
+                    + serve_faults["launches"],
                     kern["max_abs_err"], kern, design=PAGED_DESIGN,
                     launches_by_path={"main": serve["launches"],
                                       "main_multistep": serve_multi["launches"],
@@ -5291,7 +5978,9 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                                       "main_spec": serve_spec["launches"],
                                       "main_spec_draft": serve_spec_draft["launches"],
                                       "main_disagg": serve_disagg["launches"],
-                                      "main_disagg_kill": serve_disagg["launches_kill"]},
+                                      "main_disagg_kill": serve_disagg["launches_kill"],
+                                      "main_disagg_crash": serve_faults["launches_crash"],
+                                      "main_faults": serve_faults["launches"]},
                     t4_verify={k: kern["t4"][k] for k in ("kernel_ms", "plain_ms",
                                                          "bound_ms", "bound_by", "route")},
                     max_abs_err_t4_verify=kern["max_abs_err_t4"],

@@ -14,10 +14,10 @@ chunked prefill), engines of ``max_slots=2, max_len=64, prompt_bucket=16, page_s
   bitwise (the decode replica draws emissions 1.. where the prefill drew emission 0).
 - Every pool ends with ``pages_in_use == 0`` and no live handoff record.
 
-Waits, not mirrored here: the ``handoff`` trace span and trace-report (``Tracer``, the
-telemetry slice), ``FaultPlan`` crash clauses (``test_injected_crash_faults_failover``:
-fault injection is not ported; ``FleetRouter.kill`` is the crash here), the warm-up
-manifest by role (``run_warmup``, the compile cache) and ``serve-bench --disagg``.
+The ``handoff`` trace span with trace-report, ``FaultPlan`` crash clauses
+(``test_injected_crash_faults_failover``) and ``adopt_fault`` terminals are at the end of
+this file. Waits, not mirrored here: the warm-up manifest by role (``run_warmup``, the
+compile cache) and ``serve-bench --disagg``.
 """
 
 import dataclasses
@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from accelerate_tpu.models import llama as jl
+from accelerate_tpu.resilience import faults as jfaults
 from accelerate_tpu.serving import ContinuousBatcher as JaxBatcher
 from accelerate_tpu.serving_gateway import DisaggRouter as JaxDisaggRouter
 from accelerate_tpu.utils.dataclasses import GatewayConfig as JaxGatewayConfig
@@ -37,7 +38,9 @@ from accelerate_tpu_torch.models import llama as tl
 from accelerate_tpu_torch.models.convert import params_from_jax
 from accelerate_tpu_torch.ops.collectives import TransferStats, kv_page_transfer, tree_bytes
 from accelerate_tpu_torch.serving import ContinuousBatcher, KVHandoff
+from accelerate_tpu_torch.resilience import faults as tfaults
 from accelerate_tpu_torch.serving_gateway import DisaggRouter, FleetRouter
+from accelerate_tpu_torch.telemetry import Tracer
 from accelerate_tpu_torch.spec_decode import ModelDrafter
 from accelerate_tpu_torch.telemetry.schemas import (FLEET_ROUTE_SCHEMA, SERVING_HANDOFF_SCHEMA,
                                                     validate_record)
@@ -81,21 +84,27 @@ def make_jax_engine(jparams, role="mixed", **kw):
 
 
 def make_disagg(params, roles=("prefill", "decode"), factory=False, engine_kw=None,
-                jax_side=False, telemetry=None, **cfg_kwargs):
+                jax_side=False, telemetry=None, tracer=None, plans=None, clock=None,
+                **cfg_kwargs):
     """A DisaggRouter over one engine per role (the port's, or JAX's with
-    ``jax_side``); ``engine_kw[role]`` adds engine keywords; ``factory`` gives it a
-    ``(rid, role)`` restart factory."""
+    ``jax_side``); ``engine_kw[role]`` adds engine keywords; ``plans[rid]`` is replica
+    ``rid``'s fault plan (its restarts keep it, as in tests/test_disagg.py);
+    ``factory`` gives it a ``(rid, role)`` restart factory."""
     engine_kw = engine_kw or {}
     mk = make_jax_engine if jax_side else make_engine
     router, config = ((JaxDisaggRouter, JaxGatewayConfig) if jax_side
                       else (DisaggRouter, GatewayConfig))
 
     def build(rid, role):
-        return mk(params, role=role, **engine_kw.get(role, {}))
+        per = dict(engine_kw.get(role, {}))
+        if plans is not None:
+            per["faults"] = plans[rid]
+        return mk(params, role=role, **per)
 
+    kw = {} if clock is None else {"clock": clock}
     return router([build(rid, role) for rid, role in enumerate(roles)],
-                  config(enabled=True, **cfg_kwargs), telemetry=telemetry, roles=list(roles),
-                  engine_factory=build if factory else None)
+                  config(enabled=True, **cfg_kwargs), telemetry=telemetry, tracer=tracer,
+                  roles=list(roles), engine_factory=build if factory else None, **kw)
 
 
 def drain(router, max_steps=600):
@@ -196,9 +205,12 @@ def test_router_validation(setup):
     with pytest.raises(ValueError, match="declared role"):
         DisaggRouter([make_engine(tparams), make_engine(tparams, role="decode")],
                      GatewayConfig(enabled=True), roles=["prefill", "decode"])
-    with pytest.raises(NotImplementedError, match="telemetry slice"):
-        DisaggRouter([make_engine(tparams, role="prefill"), make_engine(tparams, role="decode")],
-                     GatewayConfig(enabled=True), roles=["prefill", "decode"], tracer=object())
+    # A tracer is accepted (the telemetry slice) and reaches every replica engine.
+    tracer = Tracer(sink=lambda record: None)
+    engines = [make_engine(tparams, role="prefill"), make_engine(tparams, role="decode")]
+    DisaggRouter(engines, GatewayConfig(enabled=True), roles=["prefill", "decode"],
+                 tracer=tracer)
+    assert all(e.tracer is tracer for e in engines)
 
 
 # --------------------------------------------------------------------- parity
@@ -592,3 +604,138 @@ def test_accelerator_builder_roles(setup):
     finally:
         for cls in (AcceleratorState, GradientState, PartialState):
             cls._reset_state()
+
+
+# ------------------------------------------------------ faults and tracing (slice 15)
+def _crash_plans(jax_side):
+    mod = jfaults if jax_side else tfaults
+    return [mod.FaultPlan([mod.FaultSpec("serving.prefill", "crash", prob=0.2, max_fires=1)],
+                          seed=11),
+            mod.FaultPlan([mod.FaultSpec("serving.decode", "crash", prob=0.15, max_fires=1)],
+                          seed=12),
+            None]
+
+
+def test_injected_crash_faults_failover(setup):
+    """Mirrors test_injected_crash_faults_failover: seeded ``crash`` clauses at
+    serving.prefill and serving.decode kill replicas mid-trace (``EngineCrashed`` out
+    of ``step()`` is the router's failover signal); every request ends done with the
+    undisturbed stream, and the plans fire where JAX's do with the same counters."""
+    jparams, tparams, prompts = setup
+    refs = baseline(tparams, prompts, max_new=8)
+    out = []
+    for jax_side, params in ((False, tparams), (True, jparams)):
+        plans = _crash_plans(jax_side)
+        streams = {i: [] for i in range(len(prompts))}
+        router = make_disagg(params, ("prefill", "decode", "decode"), factory=True,
+                             jax_side=jax_side, plans=plans, replica_restarts=3)
+        greqs = [router.submit(p, max_new_tokens=8,
+                               on_token=lambda t, i=i: streams[i].append(int(t)),
+                               on_retry=lambda i=i: streams[i].clear())
+                 for i, p in enumerate(prompts)]
+        drain(router)
+        assert all(g.status == "done" for g in greqs), [(g.status, g.reason) for g in greqs]
+        assert [streams[i] for i in range(len(prompts))] == [refs[p.tobytes()]
+                                                              for p in prompts]
+        out.append(([p.fired for p in plans if p is not None],
+                    {k: router.counters[k] for k in ROUTER_COUNTERS}))
+    assert out[0] == out[1]
+    assert sum(len(f) for f in out[0][0]) >= 1 and out[0][1]["replica_kills"] >= 1
+
+
+def test_handoff_records_span_and_trace_report(setup):
+    """Mirrors test_handoff_records_span_and_trace_report: one ``handoff`` span per
+    handoff record, ``trace_report``'s handoff breakdown and per-role stall split; the
+    port's report over its spans equals the JAX package's."""
+    from accelerate_tpu.commands.trace_report import trace_report as jax_trace_report
+    from accelerate_tpu_torch.commands.trace_report import trace_report
+    from accelerate_tpu_torch.telemetry import TRACE_SPAN_SCHEMA, Telemetry
+    from accelerate_tpu_torch.utils.dataclasses import TelemetryConfig
+
+    tparams, prompts = setup[1], setup[2]
+    tel = Telemetry(TelemetryConfig(enabled=True, compile_events=False, memory_stats=False))
+    router = make_disagg(tparams, telemetry=tel, tracer=Tracer(tel))
+    greqs = [router.submit(p, max_new_tokens=6) for p in prompts]
+    drain(router)
+    assert all(g.status == "done" for g in greqs)
+    handoffs = [r for r in tel.records if r.get("schema") == SERVING_HANDOFF_SCHEMA]
+    assert len(handoffs) == router.counters["handoffs"] > 0
+    assert all(validate_record(r) == [] for r in tel.records)
+    spans = [r for r in tel.records if r.get("schema") == TRACE_SPAN_SCHEMA]
+    hspans = [s for s in spans if s["span"] == "handoff"]
+    assert len(hspans) == len(handoffs)
+    assert [(s["src_replica"], s["dst_replica"], s["pages"], s["nbytes"]) for s in hspans] \
+        == [(r["src_replica"], r["dst_replica"], r["pages"], r["nbytes"]) for r in handoffs]
+    report = trace_report(spans)
+    assert report == jax_trace_report(spans)
+    assert "handoff_s" in report["breakdown"] and "handoff_s" in report["critical_path_share"]
+    assert report["stall_by_role"]["n_requests"] == len(prompts)
+    for t in report["traces"]:
+        assert t["handoffs"] == 1
+        assert t["stall_prefill_s"] is not None and t["stall_decode_s"] is not None
+
+
+def test_adopt_fault_finalizes_failed(setup, monkeypatch):
+    """An exception out of ``adopt_handoff`` other than ``EngineCrashed`` ends the
+    request FAILED with ``adopt_fault:<kind>`` (the record released), as in JAX; the
+    others finish with their streams."""
+    jparams, tparams, prompts = setup
+    out = []
+    for jax_side, params in ((False, tparams), (True, jparams)):
+        router = make_disagg(params, jax_side=jax_side)
+        decode = router.replicas[1].engine
+        real = decode.adopt_handoff
+
+        def flaky(h, block, *a, real=real, **k):
+            if h.uid == 2:
+                raise RuntimeError("page import failed")
+            return real(h, block, *a, **k)
+
+        monkeypatch.setattr(decode, "adopt_handoff", flaky)
+        greqs = [router.submit(p, max_new_tokens=6) for p in prompts]
+        drain(router)
+        assert_pools_clean(router)
+        out.append(([(g.status, g.reason, [int(t) for t in g.tokens]) for g in greqs],
+                    router.counters["failed"]))
+    assert out[0] == out[1]
+    statuses, failed = out[0]
+    assert failed == 1 and statuses[2][:2] == ("failed", "adopt_fault:RuntimeError")
+
+
+def test_decode_engine_recovery_reprefills(setup, monkeypatch):
+    """A decode-role engine with recovery armed holds a prefill row cache: a hang past
+    its watchdog rebuilds its lanes and re-admits the survivors through prefill
+    (prompt + emitted tokens), as JAX's decode engine does; streams equal the mixed
+    engine's and JAX's, every pool drains."""
+    import time
+
+    jparams, tparams, prompts = setup
+    refs = baseline(tparams, prompts)
+    clock = {"t": 0.0}
+
+    def advance(dt):
+        clock["t"] += dt
+
+    monkeypatch.setattr(time, "sleep", advance)
+    assert make_engine(tparams, role="decode")._row is None  # unarmed: no row cache
+    out = []
+    for jax_side, params in ((False, tparams), (True, jparams)):
+        mod = jfaults if jax_side else tfaults
+        plan = mod.FaultPlan([mod.FaultSpec("serving.decode", "hang", prob=1.0, start=2,
+                                            max_fires=1, attributed=False, hang_s=0.4)])
+        router = make_disagg(params, jax_side=jax_side, plans=[None, plan],
+                             engine_kw={"decode": {"step_timeout_s": 0.25}})
+        decode = router.replicas[1].engine
+        decode._watchdog._clock = lambda: clock["t"]
+        if not jax_side:
+            assert decode._row is not None
+        greqs = [router.submit(p, max_new_tokens=6) for p in prompts]
+        drain(router)
+        assert_pools_clean(router)
+        assert all(g.status == "done" for g in greqs)
+        assert decode.recovered_admissions > 0
+        out.append((tokens_of(greqs), plan.fired,
+                    {k: decode.stats()[k] for k in ("step_failures", "recovered_admissions",
+                                                    "bisect_rounds", "quarantined")}))
+    assert out[0] == out[1]
+    assert out[0][0] == [refs[p.tobytes()] for p in prompts]

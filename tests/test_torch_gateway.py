@@ -9,10 +9,11 @@ config at fp32 (``max_slots=2, max_len=64, prompt_bucket=16``) with the JAX weig
 converted; a manual clock makes deadlines and aging deterministic. Greedy tokens and
 gateway counters are held equal to JAX's gateway on the same script.
 
-The port's engine has no fault boundary yet (``FaultPlan``, quarantine, the step
-watchdog), so the breaker's failure signal comes from an engine whose
-``step_failures`` counter a test moves; fault-plan tests, the metrics plane, spans,
-``CompileMonitor`` and ``serve-bench`` wait for their slices.
+The breaker tests here move ``step_failures`` on an engine subclass;
+tests/test_torch_resilience.py drives the breaker from real ``FaultPlan`` faults. At
+the end: a ``crash`` clause failing a fleet replica over, and the tracer threaded
+through the fleet's replicas (span streams equal JAX's). The metrics plane and
+``serve-bench`` wait for their slices.
 """
 
 import dataclasses
@@ -32,6 +33,7 @@ from accelerate_tpu_torch import serving_gateway as tgw
 from accelerate_tpu_torch.models import llama as tl
 from accelerate_tpu_torch.models.convert import params_from_jax
 from accelerate_tpu_torch.serving import ContinuousBatcher
+from accelerate_tpu_torch.telemetry import Tracer
 from accelerate_tpu_torch.telemetry import slo as tslo
 from accelerate_tpu_torch.telemetry.schemas import (FLEET_ROUTE_SCHEMA, GATEWAY_REQUEST_SCHEMA,
                                                     GATEWAY_SLO_SCHEMA, REPLICA_HEALTH_SCHEMA,
@@ -441,8 +443,7 @@ def test_gateway_records_validate(setup):
 
 
 class FlakyEngine(ContinuousBatcher):
-    """An engine whose ``step_failures`` counter a test moves (the port's engine has
-    no fault boundary yet to count real ones)."""
+    """An engine whose ``step_failures`` counter a test moves directly."""
 
     fail_steps = 0
 
@@ -506,11 +507,14 @@ def test_gateway_breaker_opens_and_degrades(setup):
 
 
 def test_gateway_refuses_unported_telemetry(setup):
-    """A tracer, an enabled metrics plane and a flight recorder raise
-    NotImplementedError (the telemetry slice), never silently drop."""
+    """An enabled metrics plane and a flight recorder raise NotImplementedError (not
+    ported yet), never silently drop; a tracer is accepted (the telemetry slice) and
+    handed to the engine."""
     engine = ContinuousBatcher(setup[1], TCFG, **ENGINE)
-    with pytest.raises(NotImplementedError, match="tracer"):
-        tgw.ServingGateway(engine, GatewayConfig(enabled=True), tracer=object())
+    tracer = Tracer(sink=lambda record: None)
+    tgw.ServingGateway(engine, GatewayConfig(enabled=True), tracer=tracer)
+    assert engine.tracer is tracer
+    engine = ContinuousBatcher(setup[1], TCFG, **ENGINE)
     with pytest.raises(NotImplementedError, match="metrics"):
         tgw.ServingGateway(engine, GatewayConfig(enabled=True, metrics=True), telemetry=Sink())
     tel = Sink()
@@ -674,3 +678,73 @@ def test_breaker_trip_isolates_replica_keeps_serving(setup):
     sreqs = [single.submit(p, max_new_tokens=6) for p in setup[2]]
     single.run()
     assert all(g.status == "done" for g in greqs) and toks(greqs) == toks(sreqs)
+
+
+# ------------------------------------------------------ faults and tracing (slice 15)
+def test_injected_crash_fault_fails_over(setup):
+    """Mirrors tests/test_fleet.py::test_injected_crash_fault_fails_over: a seeded
+    ``crash`` clause raises ``EngineCrashed`` past the engine's recovery boundary, and
+    the fleet router turns it into migration and restart: every request done, the
+    plan firing where JAX's does; a bare engine surfaces the crash and is marked
+    crashed."""
+    from accelerate_tpu.resilience import faults as jfaults
+    from accelerate_tpu_torch.resilience import faults as tfaults
+
+    out = []
+    for side, faults in (("port", tfaults), ("jax", jfaults)):
+        _, _, batcher, cfg, pi = SIDES[side]
+        plan = faults.FaultPlan([faults.FaultSpec("serving.decode", "crash", prob=1.0,
+                                                  start=2, max_fires=1)], seed=3)
+        engines = [batcher(setup[pi], cfg, **ENGINE, faults=plan),
+                   batcher(setup[pi], cfg, **ENGINE)]
+        fleet = make_fleet(setup, side, engines=engines)
+        greqs = [fleet.submit(p, max_new_tokens=8) for p in setup[2]]
+        fleet.run()
+        out.append((toks(greqs), [g.status for g in greqs], plan.fired,
+                    fleet.counters["replica_kills"], fleet.counters["migrated"]))
+        bare = batcher(setup[pi], cfg, **ENGINE, faults=faults.FaultPlan(
+            [faults.FaultSpec("serving.decode", "crash", prob=1.0)], seed=0))
+        bare.submit(setup[2][0], max_new_tokens=8)
+        with pytest.raises(faults.EngineCrashed):
+            bare.run()
+        assert bare.crashed
+    assert out[0] == out[1]
+    assert out[0][1] == ["done"] * len(setup[2]) and out[0][3] == 1
+    assert out[0][2][0]["kind"] == "crash"
+
+
+def test_fleet_threads_tracer_through_replicas(setup):
+    """The fleet router hands its tracer to every replica (a restarted one too): each
+    request's trace has its queue, prefill, decode and terminal spans, and the span
+    stream equals JAX's fleet's on a manual clock."""
+    from accelerate_tpu.telemetry.tracing import Tracer as JaxTracer
+
+    streams = []
+    for side, tracer_cls in (("port", Tracer), ("jax", JaxTracer)):
+        spans = []
+        clock = ManualClock()
+        mod, config, batcher, cfg, pi = SIDES[side]
+        tracer = tracer_cls(sink=spans.append, clock=clock)
+
+        def build(rid):
+            return batcher(setup[pi], cfg, **ENGINE)
+
+        fleet = mod.FleetRouter([build(0), build(1)], config(
+            enabled=True, breaker_threshold=2, breaker_window_s=100.0,
+            breaker_cooldown_s=5.0), clock=clock, tracer=tracer, engine_factory=build)
+        greqs = [fleet.submit(p, max_new_tokens=5) for p in setup[2]]
+        fleet.step()
+        clock.advance(0.5)
+        fleet.kill(0)  # the replayed requests' traces record the retry
+        while fleet.queue_depth or fleet.running_count:
+            fleet.step()
+            clock.advance(0.5)
+        assert all(g.status == "done" for g in greqs)
+        assert all(rep.engine.tracer is tracer for rep in fleet.replicas)
+        for g in greqs:
+            kinds = {s["span"] for s in spans if s["uid"] == g.uid}
+            assert {"queue", "prefill", "decode", "terminal"} <= kinds
+        streams.append([(s["uid"], s["span"], s["t0"], s["t1"], s.get("step"),
+                         s.get("tokens"), s.get("attempt")) for s in spans])
+    assert streams[0] == streams[1]
+    assert any(s[1] == "retry" for s in streams[0])

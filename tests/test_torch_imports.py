@@ -83,8 +83,9 @@ def test_every_module_imports_with_jax_blocked():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-#: The gateway stack's modules: the JAX package's versions import no jax either, so the
-#: port's copies must not reach for the JAX package's instead of their own.
+#: The gateway stack's and telemetry pipeline's modules: the JAX package's versions of
+#: most import no jax either, so the port's copies must not reach for the JAX package's
+#: instead of their own.
 GATEWAY_MODULES = (
     "accelerate_tpu_torch.serving_gateway", "accelerate_tpu_torch.serving_gateway.policies",
     "accelerate_tpu_torch.serving_gateway.gateway", "accelerate_tpu_torch.serving_gateway.fleet",
@@ -92,7 +93,11 @@ GATEWAY_MODULES = (
     "accelerate_tpu_torch.telemetry.clocks", "accelerate_tpu_torch.telemetry.slo",
     "accelerate_tpu_torch.telemetry.schemas", "accelerate_tpu_torch.resilience",
     "accelerate_tpu_torch.resilience.faults", "accelerate_tpu_torch.elastic",
-    "accelerate_tpu_torch.ops.collectives",
+    "accelerate_tpu_torch.ops.collectives", "accelerate_tpu_torch.telemetry.core",
+    "accelerate_tpu_torch.telemetry.tracing", "accelerate_tpu_torch.telemetry.timing",
+    "accelerate_tpu_torch.telemetry.memory", "accelerate_tpu_torch.telemetry.derived",
+    "accelerate_tpu_torch.telemetry.compile_monitor", "accelerate_tpu_torch.telemetry.steady",
+    "accelerate_tpu_torch.commands.trace_report",
 )
 
 

@@ -118,8 +118,9 @@ WARM_ENGINES = {"buckets": dict(prompt_buckets=(8, 16, 48)),
 
 def _state(eng) -> dict:
     """Everything warming must leave as it was: cache bytes, lane state, pages and
-    every counter (host-clock seconds aside)."""
-    s = {k: v for k, v in eng.stats().items() if not k.endswith("_s")}
+    every counter (host-clock seconds aside: the ``*_s`` keys and the ``queue_wait``
+    summary)."""
+    s = {k: v for k, v in eng.stats().items() if not k.endswith("_s") and k != "queue_wait"}
     out = {"stats": s, "cache": [t.clone() for planes in eng.cache["layers"]
                                  for t in planes.values()] + [eng.cache["valid"].clone()],
            "positions": eng.positions.copy(), "tokens": eng.tokens.copy(),
