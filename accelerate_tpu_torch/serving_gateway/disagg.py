@@ -399,6 +399,37 @@ class DisaggRouter(FleetRouter):
         if all(r.state == RETIRED for r in self._replicas):
             self._pending_events.extend(self._flush_handoffs_fleet_down(now))
 
+    def spawn_replica(self, role: Optional[str] = None) -> Replica:
+        """Role-aware scale-up: grow the role table first (the wrapped ``(rid, role)``
+        factory reads it by reference), then build the replica through the base
+        actuator; a replica of the wrong role, or a dense decode-capable one in a fleet
+        with prefill replicas, is unregistered and refused."""
+        if role is None:
+            raise ValueError("DisaggRouter.spawn_replica needs a role "
+                             "(prefill/decode/mixed) — a disagg fleet grows BY role")
+        role = parse_roles([role])[0]
+        self.roles.append(role)
+        try:
+            rep = super().spawn_replica()
+        except Exception:
+            self.roles.pop()
+            raise
+        eng = rep.engine
+        problem = None
+        if getattr(eng, "role", "mixed") != role:
+            problem = (f"engine role {getattr(eng, 'role', None)!r} != requested role "
+                       f"{role!r} — the factory must consult the router's role table")
+        elif (role in DECODE_CAPABLE and any(r == "prefill" for r in self.roles)
+                and not getattr(eng, "paged", False)):
+            problem = (f"spawned {role} replica is dense (page_size=0) in a fleet with "
+                       "prefill replicas: handoff adoption needs the paged KV cache")
+        if problem is not None:
+            self._replicas.pop()
+            self.roles.pop()
+            self.counters["replica_spawned"] -= 1
+            raise ValueError(f"replica {rep.rid}: {problem}")
+        return rep
+
     def _restart(self, rep: Replica, now: float) -> None:
         """A draining prefill replica waits for its exported handoffs to reach terminal
         states (their pages live in its pool); past the drain deadline it restarts

@@ -23,8 +23,13 @@ contract and SLO records) dispatching into a fleet of ``ContinuousBatcher`` repl
 
 A tracer (``tracer=``) threads through every replica engine (restarted ones
 included), as in the single-engine gateway; a request a replica's fault boundary
-quarantined ends ``FAILED`` with its reason. The autoscaler and its scale-up actuator
-(``spawn_replica``) are not ported.
+quarantined ends ``FAILED`` with its reason.
+
+- **Scale** — :meth:`spawn_replica` appends a replica built by ``engine_factory`` (its
+  geometry checked, its breaker HALF-OPEN, so one probe earns it full routing) and
+  :meth:`decommission` drains one and retires it; an attached
+  ``autoscaler.Autoscaler`` is polled at the end of every step, and ``replica_hours``
+  integrates the live replicas over the router's clock.
 """
 
 from __future__ import annotations
@@ -120,8 +125,14 @@ class FleetRouter(ServingGateway):
         self._replicas: List[Replica] = [
             Replica(rid, eng, self._new_breaker()) for rid, eng in enumerate(engines)]
         self.counters.update({"migrated": 0, "replica_kills": 0, "replica_restarts": 0,
-                              "replica_retired": 0})
+                              "replica_retired": 0, "replica_spawned": 0})
         self._steps = 0
+        #: Replica-hours: ACTIVE and DRAINING replicas integrated over the router's
+        #: clock (the autoscale bench's cost axis).
+        self.replica_hours = 0.0
+        self._last_step_t: Optional[float] = None
+        #: The attached ``autoscaler.Autoscaler``, polled at the end of every step.
+        self._autoscaler = None
         #: Replica ids awaiting their turn in a rolling restart.
         self._rolling: List[int] = []
         self._rolling_deadline_s: Optional[float] = None
@@ -245,6 +256,10 @@ class FleetRouter(ServingGateway):
         emit the ``replica.health/v1`` records."""
         now = self._clock()
         self._steps += 1
+        if self._last_step_t is not None and now > self._last_step_t:
+            live = sum(1 for rep in self._replicas if rep.state in (ACTIVE, DRAINING))
+            self.replica_hours += (now - self._last_step_t) / 3600.0 * live
+        self._last_step_t = now
         events: List[GatewayRequest] = self._pending_events
         self._pending_events = []
         # 1) queued deadline expiry.
@@ -300,6 +315,8 @@ class FleetRouter(ServingGateway):
         events.extend(self._pending_events)
         self._pending_events = []
         self._emit_health(now)
+        if self._autoscaler is not None:
+            self._autoscaler.poll(self._clock())
         return sorted(events, key=lambda r: r.uid)
 
     def run(self, report_slo: bool = False):
@@ -376,6 +393,34 @@ class FleetRouter(ServingGateway):
         self._replica_died(rep, reason, self._clock())
 
     # ------------------------------------------------------------------ scale down
+    def spawn_replica(self, role: Optional[str] = None) -> Replica:
+        """Scale-up actuator: append a replica built by ``engine_factory`` (the
+        fleet's geometry, checked), its breaker started HALF-OPEN so that one probe earns
+        it full routing, as a restarted replica's. ``role`` is refused here: the disagg
+        router's override grows its role table."""
+        if self.engine_factory is None:
+            raise ValueError("spawn_replica needs an engine_factory — a fleet that "
+                             "cannot build engines cannot grow")
+        if role is not None:
+            raise ValueError("role-aware spawning is a DisaggRouter capability; a flat "
+                             "fleet has no roles")
+        rid = len(self._replicas)
+        engine = self.engine_factory(rid)
+        ref = self._replicas[0].engine
+        geo = (engine.max_slots, engine.max_len, engine.prompt_bucket, engine.page_size)
+        ref_geo = (ref.max_slots, ref.max_len, ref.prompt_bucket, ref.page_size)
+        if geo != ref_geo:
+            raise ValueError(f"spawned replica geometry {geo} != fleet geometry "
+                             f"{ref_geo}: the admission cost model prices ONE layout")
+        self._bind_tracer(engine)
+        rep = Replica(rid, engine, self._new_breaker())
+        self._replicas.append(rep)
+        self.counters["replica_spawned"] += 1
+        if rep.breaker.enabled:
+            rep.breaker.force_half_open()
+        self._emit_fleet_recovery("replica_spawn", rep, self._clock())
+        return rep
+
     def decommission(self, rid: int, deadline_s: Optional[float] = None) -> Replica:
         """Drain replica ``rid`` and retire it when the drain completes (a planned
         exit: no restart budget charged)."""
@@ -575,6 +620,9 @@ class FleetRouter(ServingGateway):
                 for rep in self._replicas],
             "supervisor": self.supervisor.stats(),
             "slo": self.slo_summary(),
+            # The metrics plane's snapshot: the health and route records this router
+            # emits land there as labeled gauges, the signals the autoscaler polls.
+            **({"metrics": self.metrics.stats()} if self.metrics is not None else {}),
         }
 
     def __repr__(self) -> str:

@@ -27,9 +27,12 @@ port's counterpart of ``accelerate_tpu/serving_gateway/gateway.py``.
 
 The gateway runs nothing on the device: every kernel launch happens inside the
 engine. Sampled requests take an integer ``seed`` (the engine's), where the JAX
-gateway takes an ``rng`` key. The live metrics plane (``GatewayConfig.metrics``) and
-the flight recorder's state hook are not ported yet: an enabled metrics plane or an
-enabled recorder raises ``NotImplementedError``.
+gateway takes an ``rng`` key.
+- **Control plane** — ``GatewayConfig.metrics`` over an enabled telemetry builds a
+  ``telemetry.MetricsPlane`` sink on the gateway's clock (``stats()["metrics"]``);
+  with ``capsule_state`` and a telemetry whose flight recorder is armed, the gateway
+  registers its state snapshot (:meth:`ServingGateway._capsule_state`) with the
+  recorder and binds the recorder to the plane and the clock.
 """
 
 from __future__ import annotations
@@ -223,15 +226,6 @@ class ServingGateway:
                  clock: Optional[Callable[[], float]] = None, tracer=None):
         if config is None:
             config = GatewayConfig(enabled=True)
-        if config.metrics and getattr(telemetry, "enabled", False):
-            raise NotImplementedError(
-                "GatewayConfig.metrics is not ported yet: the live metrics plane waits "
-                "for the telemetry slice; pass metrics=False")
-        recorder = getattr(telemetry, "recorder", None)
-        if config.capsule_state and getattr(recorder, "enabled", False):
-            raise NotImplementedError(
-                "the flight recorder's gateway state hook is not ported yet (telemetry "
-                "slice); pass capsule_state=False or a telemetry without a recorder")
         self.engine = engine
         self.config = config
         # The engine owns the super-step depth; the gateway only checks the pairing.
@@ -253,6 +247,23 @@ class ServingGateway:
                 engine.tracer = tracer
             if tracer.enabled:
                 tracer._clock = self._clock
+        # The live metrics plane: a telemetry sink folding the records the gateway,
+        # engine and fleet already emit into counters, gauges and windows on the
+        # gateway's clock (a virtual-clock replay gets virtual-time windows).
+        self.metrics = None
+        if config.metrics and getattr(telemetry, "enabled", False):
+            from ..telemetry.metrics import MetricsPlane
+
+            self.metrics = MetricsPlane(telemetry, clock=self._clock,
+                                        window_s=config.metrics_window_s)
+        # The flight recorder's state hook: a capsule carries the gateway's snapshot,
+        # and ring evictions count on the plane.
+        recorder = getattr(telemetry, "recorder", None)
+        if config.capsule_state and getattr(recorder, "enabled", False):
+            if self.metrics is not None:
+                recorder.bind_metrics(self.metrics)
+            recorder.bind_clock(self._clock)
+            recorder.add_state_provider("gateway", self._capsule_state)
         self._policy = make_policy(config)
         self._uid = 0
         self._queued_cost = 0
@@ -788,9 +799,22 @@ class ServingGateway:
             tel.emit(record)
         return record
 
+    def _capsule_state(self) -> dict:
+        """The incident capsule's state snapshot (a flight-recorder state provider):
+        :meth:`stats`, the engine's lane table (uid per lane) and the fault plan's
+        firing log."""
+        state = self.stats()
+        state["lanes"] = [None if r is None else getattr(r, "uid", None)
+                          for r in getattr(self.engine, "slot_req", [])]
+        faults = getattr(self.engine, "faults", None)
+        if faults is not None:
+            state["faults"] = {**faults.stats(), "fired": list(faults.fired)}
+        return state
+
     def stats(self) -> dict:
-        """Gateway and nested engine counters."""
-        return {
+        """Gateway and nested engine counters (and the metrics plane's snapshot when
+        one is live)."""
+        out = {
             "policy": self._policy.name, "queued": len(self._policy),
             "queued_cost_tokens": self._queued_cost, "running": len(self._running),
             **dict(self.counters), "breaker_state": self._breaker_state,
@@ -798,6 +822,9 @@ class ServingGateway:
             "breaker_closings": self.breaker_closings, "degrade_level": self.degrade_level,
             "slo": self.slo_summary(), "engine": self.engine.stats(),
         }
+        if self.metrics is not None:
+            out["metrics"] = self.metrics.stats()
+        return out
 
     def __repr__(self) -> str:
         return (f"ServingGateway(policy={self._policy.name!r}, queued={len(self._policy)}, "

@@ -87,19 +87,26 @@ class Telemetry:
         self.flops_per_step: Optional[float] = config.flops_per_step
         self.tokens_per_step: Optional[float] = config.tokens_per_step
         self.examples_per_step: Optional[float] = config.examples_per_step
-        #: The flight recorder: not ported, so always None (the tracer reads it).
+        #: The flight recorder (``telemetry/recorder.py``) when ``config.recorder`` is
+        #: set; always None while disabled, so the tracer's read of it stays free.
         self.recorder = None
         if self.enabled:
-            if getattr(config, "recorder", False):
-                raise NotImplementedError(
-                    "TelemetryConfig.recorder: the flight recorder (telemetry/recorder.py) "
-                    "is not ported yet; pass recorder=False")
             if config.compile_events:
                 self.compile_monitor.start()
             if config.jsonl_dir:
                 os.makedirs(config.jsonl_dir, exist_ok=True)
                 self._jsonl_path = os.path.join(config.jsonl_dir, "telemetry.jsonl")
                 self._jsonl_file = open(self._jsonl_path, "a")
+            if getattr(config, "recorder", False):
+                from .recorder import FlightRecorder
+
+                if config.capsule_dir:
+                    os.makedirs(config.capsule_dir, exist_ok=True)
+                self.recorder = FlightRecorder(
+                    self, ring_size=config.recorder_ring,
+                    snapshot_every=config.recorder_snapshot_every,
+                    capsule_dir=config.capsule_dir,
+                    capsule_cooldown_s=config.capsule_cooldown_s)
 
     def set_throughput_hints(self, flops_per_step: Optional[float] = None,
                              tokens_per_step: Optional[float] = None,

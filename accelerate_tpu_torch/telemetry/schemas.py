@@ -1,10 +1,10 @@
 """The record schemas that the port emits, each with its required key set: the
 constants and :func:`validate_record` of ``accelerate_tpu/telemetry/schemas.py`` for the
 step record, the serving engine's counter, page-pool, speculation and throughput
-records, trace spans, fault and recovery records, and the gateway stack's handoff,
-route, health, restart and SLO records (the ids are the JAX package's, so one consumer
-reads both). The metrics-plane, alert, capsule, autoscaler, MPMD and audit records wait
-for the modules that emit them.
+records, trace spans, fault and recovery records, the gateway stack's handoff, route,
+health, restart and SLO records, and the control plane's alert, metrics-snapshot,
+capsule and autoscaler records (the ids are the JAX package's, so one consumer reads
+both). The MPMD and audit records wait for the modules that emit them.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ from typing import Dict, List, Mapping
 __all__ = [
     "STEP_RECORD_SCHEMA", "SERVING_SCHEMA", "SERVING_THROUGHPUT_SCHEMA", "SERVING_KV_SCHEMA",
     "SERVING_SPEC_SCHEMA", "TRACE_SPAN_SCHEMA", "FAULT_SCHEMA", "SERVING_HANDOFF_SCHEMA", "GATEWAY_REQUEST_SCHEMA", "GATEWAY_SLO_SCHEMA",
-    "REPLICA_HEALTH_SCHEMA", "FLEET_ROUTE_SCHEMA", "ELASTIC_RESTART_SCHEMA",
-    "RECOVERY_SCHEMA", "RecordSchema", "SCHEMA_REGISTRY", "registered_schemas",
+    "REPLICA_HEALTH_SCHEMA", "FLEET_ROUTE_SCHEMA", "FLEET_SCALE_SCHEMA",
+    "ELASTIC_RESTART_SCHEMA", "RECOVERY_SCHEMA", "ALERT_SCHEMA", "METRICS_SNAPSHOT_SCHEMA",
+    "CAPSULE_SCHEMA", "RecordSchema", "SCHEMA_REGISTRY", "registered_schemas",
     "validate_record",
 ]
 
@@ -66,6 +67,24 @@ ELASTIC_RESTART_SCHEMA = "accelerate_tpu.telemetry.elastic.restart/v1"
 #: One record per recovery action (quarantine, rebuild, bisection round, re-admission,
 #: circuit-breaker transition, replica death, drain, restart, replay).
 RECOVERY_SCHEMA = "accelerate_tpu.telemetry.recovery/v1"
+
+#: One record per autoscaler decision (``serving_gateway.autoscaler.Autoscaler``):
+#: ``action`` scale_up/scale_down/rebalance, the rule or forecast behind it, the fleet
+#: size after it, the per-role census, replica-hours and the router-clock time.
+FLEET_SCALE_SCHEMA = "accelerate_tpu.telemetry.fleet.scale/v1"
+
+#: One record per alert-state transition (``telemetry.alerts.AlertEngine``): the rule,
+#: ``firing``/``resolved``, its kind, the observed value and the bound it crossed.
+ALERT_SCHEMA = "accelerate_tpu.telemetry.alert/v1"
+
+#: One point-in-time dump of the metrics plane
+#: (``telemetry.metrics.MetricsPlane.snapshot_record``).
+METRICS_SNAPSHOT_SCHEMA = "accelerate_tpu.telemetry.metrics.snapshot/v1"
+
+#: The manifest of one incident capsule (``telemetry.recorder.FlightRecorder``): the
+#: trigger, the triggering record, the time, the ring's captured and dropped counts, the
+#: state snapshots that rode along and the provenance stamp.
+CAPSULE_SCHEMA = "accelerate_tpu.telemetry.capsule/v1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +171,20 @@ SCHEMA_REGISTRY: Dict[str, RecordSchema] = {
         _reg(RECOVERY_SCHEMA, ("action",),
              "recovery boundaries (engine/gateway/fleet router)",
              "one recovery action (quarantine/rebuild/bisect/circuit/replay)"),
+        _reg(FLEET_SCALE_SCHEMA, ("action", "reason", "replicas", "t"),
+             "serving_gateway.autoscaler.Autoscaler",
+             "one autoscaler decision (scale_up/scale_down/rebalance) with the "
+             "post-action fleet census"),
+        _reg(ALERT_SCHEMA, ("rule", "state", "severity", "kind", "t"),
+             "telemetry.alerts.AlertEngine",
+             "one alert-state transition (firing/resolved) over plane aggregates"),
+        _reg(METRICS_SNAPSHOT_SCHEMA, ("t", "counters", "gauges", "histograms", "slo"),
+             "telemetry.metrics.MetricsPlane.snapshot_record",
+             "one point-in-time dump of every live counter/gauge/histogram"),
+        _reg(CAPSULE_SCHEMA,
+             ("trigger", "t", "ring_records", "ring_dropped", "state_keys", "provenance"),
+             "telemetry.recorder.FlightRecorder",
+             "one incident capsule manifest (trigger, ring/state accounting)"),
     )
 }
 

@@ -31,9 +31,10 @@ device's results (the one host read of a dispatch), never at an added synchroniz
 Overhead contract, as :class:`~.core.Telemetry`'s: disabled tracing costs two attribute
 reads per engine step: no clock calls, no records. A ``Tracer`` is enabled iff its
 ``Telemetry`` is (or an explicit ``sink`` is given). Head sampling (``sample_every``,
-``sample_prob``) and tail promotion are as in the JAX package; an unsampled trace's spans
-buffer in the telemetry's flight recorder, which is not ported yet, so without one they
-are dropped (head sampling alone).
+``sample_prob``) and tail promotion are as in the JAX package: an unsampled trace's spans
+buffer in the telemetry's flight recorder (``TelemetryConfig.recorder``) and are
+replayed verbatim through ``Telemetry.emit`` when :meth:`Tracer.promote` is called;
+without a recorder they are dropped.
 """
 
 from __future__ import annotations

@@ -220,8 +220,9 @@ class GatewayConfig(KwargsHandler):
     and then halves the bounds at each opening. Fleet: ``drain_deadline_s``,
     ``replica_restarts``, ``replica_restart_backoff``; disaggregated serving:
     ``replica_roles`` (one of prefill/decode/mixed per replica, comma-separated).
-    ``metrics`` and ``capsule_state`` feed the metrics plane and the flight recorder,
-    which wait for the telemetry slice. ``decode_steps`` is the super-step depth the
+    ``metrics`` builds a live metrics plane over an enabled telemetry (windows of
+    ``metrics_window_s``) and ``capsule_state`` registers the gateway's state with the
+    telemetry's flight recorder. ``decode_steps`` is the super-step depth the
     gateway expects of its engine (validated at construction; 1 = whatever it runs)."""
 
     enabled: Optional[bool] = None
@@ -331,8 +332,10 @@ class TelemetryConfig(KwargsHandler):
     ``flops_per_step``/``tokens_per_step``/``examples_per_step`` are static per-step
     costs for the derived rates. ``compile_events`` counts graph captures and kernel
     builds; ``memory_stats`` samples the CUDA allocator. ``trace_sample_*`` set a
-    tracer's head sampling. The flight-recorder fields are validated as in JAX, but the
-    recorder is not ported: an enabled pipeline with ``recorder=True`` raises."""
+    tracer's head sampling. ``recorder`` arms the flight recorder (a ring of
+    ``recorder_ring`` records, a plane snapshot every ``recorder_snapshot_every``
+    records, incident capsules under ``capsule_dir`` at most once per trigger in
+    ``capsule_cooldown_s``)."""
 
     enabled: Optional[bool] = None          # None → env ACCELERATE_TELEMETRY > False
     jsonl_dir: Optional[str] = None         # None → env ACCELERATE_TELEMETRY_DIR

@@ -231,10 +231,20 @@ that names the phase, its failed cases and the exception:
    percentiles against the gateway's; then a P:D:D fleet whose decode replica 1 dies
    by a ``crash`` clause at its third dispatch (``EngineCrashed`` out of its
    ``step()``): streams equal ``main``'s, requests adopted again
-   (``main_disagg_crash``). Both run last: they need only ``main``'s tokens, and
-   ``main_faults`` makes ``main``'s seeded params again.
+   (``main_disagg_crash``). Both run right after ``main_disagg`` (their numbers in the
+   list are those of the slice that added them), before ``main_control``.
+21. main_control — the serving control plane at Llama-3-8B's full width and depth
+   through the port's serve-bench entry points on the virtual clock (every engine,
+   spawned and restarted ones included, warmed before traffic): a trace replay whose
+   live metrics plane one HTTP scrape on 127.0.0.1 and ``metrics_dump``'s offline
+   re-aggregation must equal; the chaos proof at ``main``'s geometry (decode, prefill
+   and kv_admit faults; alerts, flight recorder, capsules read back; every stream that
+   left the clean arm's at a near tie after its re-admission); the fleet chaos proof
+   (crash kills, restarts, failover; replayed streams bitwise); the autoscaling proof
+   (a scale-up through ``spawn_replica`` and a scale-down; streams bitwise). No graph
+   captured in traffic; kernel #1 exact on the paged engines.
 
-Then the kernels line (the serving kernels' launches include the super-steps' graph
+Then each phase's wall seconds, the kernels line (the serving kernels' launches include the super-steps' graph
 replays: kernel nodes times replays), the card's name and power limit, and a last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device.
 
@@ -262,6 +272,7 @@ import traceback
 from pathlib import Path
 
 import numpy as np
+
 import torch
 
 # Hardware numbers of one H100 SXM (NVIDIA's data sheet): HBM rate and the dense
@@ -284,16 +295,26 @@ class PhaseFailed(SystemExit):
         self.cases = list(cases)
 
 
+#: Wall seconds of each phase run through :func:`run_phase` (a name run twice adds up),
+#: printed on the line before the kernels line.
+PHASE_SECONDS: dict = {}
+
+
 def run_phase(name: str, fn, *args, **kw):
-    """``fn(*args, **kw)``. Any failure first leaves a record on stdout: one JSON line
-    naming the phase, its failed cases (where it names them), the exception's text and
-    the end of its traceback; then it propagates."""
+    """``fn(*args, **kw)``, its wall seconds added to :data:`PHASE_SECONDS`. Any failure
+    first leaves a record on stdout: one JSON line naming the phase, its failed cases
+    (where it names them), the exception's text and the end of its traceback; then it
+    propagates."""
+    t0 = time.perf_counter()
     try:
         return fn(*args, **kw)
     except BaseException as e:
         emit({"phase": "failed", "in": name, "cases": getattr(e, "cases", None),
-              "error": f"{type(e).__name__}: {e}", "traceback": traceback.format_exc()[-4000:]})
+              "error": f"{type(e).__name__}: {e}", "traceback": traceback.format_exc()[-4000:],
+              "phase_seconds": dict(PHASE_SECONDS)})
         raise
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
 
 
 def nvidia_smi() -> str:
@@ -906,11 +927,34 @@ def phase_engine(dev, scheme=None) -> None:
 # --------------------------------------------- phase 3b: the super-step on the card
 MULTI_N = 8  # decode steps a super-step of the main paths
 MULTI_PROFILE_STEPS = 2  # super-steps in a profiled window
-#: Idle seconds at each end of a profiled decode window. The profiler drops a device
-#: record whose start or end, mapped from the card's clock to the host's, falls outside
-#: the window; the mapping drifts over a long run, and the last layer's kernels end
-#: within a millisecond of a window that stops right after the final sync.
+#: Idle seconds at the end of a profiled decode window. The profiler drops a device
+#: record whose end, mapped from the card's clock to the host's, falls after the window
+#: stops; late in a full run the mapped times ran up to 7.8 ms behind the host's (the
+#: last kernel ending after the window's final sync), so the window stops this long
+#: after it.
 PROFILE_EDGE_S = 0.5
+
+
+#: A profiled decode window's lead-in: small kernels and an idle before the work it
+#: measures, whose device records the window leaves out (they start before half the idle).
+PROFILE_LEAD_IN, PROFILE_LEAD_IN_S = 64, 0.1
+PROFILE_WINDOW = "chip_smoke.window"
+
+
+def profiler_lead_in() -> None:
+    """The first thing inside a profiled decode window: ``PROFILE_LEAD_IN`` small kernels,
+    a synchronize and ``PROFILE_LEAD_IN_S`` idle. Late in a full run (after the fault and
+    control phases had built dozens of engines and their graphs) the profiler lost the
+    device records of the first ≈ 1 ms of kernels after it started, wherever they fell:
+    the first decode step's ≈ 50 records (its host copies, embedding and layer 0's
+    q/k/v int8 projections: 3 of 1,120 int8 kernels) after an idle half second, and the
+    lead-in plus ≈ 45 of the first step's after one small kernel; CUPTI reported none
+    dropped and every later record was there. The lead-in takes that loss."""
+    x = torch.ones(1, device="cuda")
+    for _ in range(PROFILE_LEAD_IN):
+        x.add_(1)
+    torch.cuda.synchronize()
+    time.sleep(PROFILE_LEAD_IN_S)
 
 
 def graph_stats(eng) -> dict:
@@ -1289,16 +1333,18 @@ def phase_main_multistep(dev, main: dict) -> dict:
 
 def drain_ab(variants: dict, cfg, want_tokens) -> dict:
     """The main workload drained by warm engines, in alternation (A, B, B, A): one
-    engine per variant (``variants[name] = (params, engine keywords)``) drains it once
-    untimed (the super-step's graphs are captured then), then each drain is timed to
-    its final sync: tokens/s, decode and prefill seconds, host seconds drawing sampled
-    noise (on the critical path and ahead). Every drain's tokens must equal
-    ``want_tokens`` (a dict: each variant's own)."""
+    engine per variant (``variants[name] = (params, engine keywords)``) captures its
+    graphs with ``warm_programs()``, then each drain is timed to its final sync:
+    tokens/s, decode and prefill seconds, host seconds drawing sampled noise (on the
+    critical path and ahead). Every drain's tokens must equal ``want_tokens`` (a dict:
+    each variant's own)."""
     from accelerate_tpu_torch.serving import ContinuousBatcher
 
     workload = main_workload(cfg.vocab_size)[3]
     engines = {name: ContinuousBatcher(params, cfg, **MAIN_ENGINE, **kw)
                for name, (params, kw) in variants.items()}
+    for eng in engines.values():
+        eng.warm_programs(max_new_tokens=64)
 
     def drain(name) -> tuple[dict, bool]:
         eng = engines[name]
@@ -1318,8 +1364,6 @@ def drain_ab(variants: dict, cfg, want_tokens) -> dict:
         return out, [list(r.tokens) for r in reqs] == want
 
     equal = True
-    for name in engines:
-        equal &= drain(name)[1]
     a, b = list(variants)
     runs = {a: [], b: []}
     for name in (a, b, b, a):
@@ -2964,41 +3008,50 @@ MAIN_TIMEOUT_S, MAIN_HANG_S, MAIN_HANG_AT, MAIN_POISON_UID = 1.0, 3.0, 10, 2
 SPAN_TTFT_TOL_S, SPAN_TPOT_TOL_S = 0.01, 0.002
 
 
-def _replay_rows(params, cfg, prompt, kw, d, kept=None):
-    """Request ``prompt`` replayed alone on an N = 1 engine at ``main``'s geometry up
-    to emission ``d`` → (the logits row emission ``d`` was drawn from, its token).
-    ``kept``: the request enters as a recovery re-admission that kept that many
-    ``tokens`` (its context prompt + those tokens, prefilled), as after a rebuild."""
+def _replay_rows(params, cfg, jobs) -> list:
+    """Each job ``(prompt, kw, d, kept)`` replayed to emission ``d`` as one request of
+    ONE engine at ``main``'s geometry (N = 1; its lanes hold up to
+    ``MAIN_ENGINE["max_slots"]`` jobs at once, the rest queue) → per job (the logits row
+    emission ``d`` was drawn from, its token). A lane's rows depend on its own request
+    only (every lane of a step runs the same programs at the same shapes), so a job's
+    row is the one it gets replayed alone. ``kept``: the request enters as a recovery
+    re-admission that kept those ``tokens`` (its context prompt + those tokens,
+    prefilled), as after a rebuild."""
     from accelerate_tpu_torch.serving import ContinuousBatcher
 
     eng = ContinuousBatcher(params, cfg, **MAIN_ENGINE)
-    state = {"prefill": None, "row": None}
+    state = {"prefill": None}
+    rows = [None] * len(jobs)
     prefill_into = eng._prefill_into_slot
 
     def recording_prefill(*a, **k):
         out = prefill_into(*a, **k)
-        state["prefill"] = out[1][0].float().cpu()
+        if out is not None:  # None: a paged admission deferred, nothing ran
+            state["prefill"] = out[1][0].float().cpu()
         return out
 
     eng._prefill_into_slot = recording_prefill
+    reqs = []
+    for j, (prompt, kw, d, kept) in enumerate(jobs):
+        def hook(tok, j=j, d=d):
+            req = reqs[j]
+            if len(req.tokens) == d + 1:
+                row = state["prefill"]
+                if row is None:
+                    row = eng.last_logits[eng.slot_req.index(req)].float().cpu()
+                rows[j] = (row, int(tok))
+            state["prefill"] = None
 
-    def hook(tok):
-        if len(req.tokens) == d + 1:
-            row = state["prefill"]
-            if row is None:
-                row = eng.last_logits[eng.slot_req.index(req)].float().cpu()
-            state["row"] = (row, int(tok))
-        state["prefill"] = None
-
-    gen = kw.get("gen")
-    kw = (dict(kw, gen=dataclasses.replace(gen, max_new_tokens=d + 1)) if gen is not None
-          else dict(kw, max_new_tokens=d + 1))
-    req = eng.submit(prompt, on_token=hook, **kw)
-    if kept:
-        req.tokens = list(kept)
-        req._recover_ctx = np.concatenate([req.prompt, np.asarray(kept, np.int32)])
+        gen = kw.get("gen")
+        kw = (dict(kw, gen=dataclasses.replace(gen, max_new_tokens=d + 1)) if gen is not None
+              else dict(kw, max_new_tokens=d + 1))
+        req = eng.submit(prompt, on_token=hook, **kw)
+        if kept:
+            req.tokens = list(kept)
+            req._recover_ctx = np.concatenate([req.prompt, np.asarray(kept, np.int32)])
+        reqs.append(req)
     eng.run()
-    return state["row"]
+    return rows
 
 
 def recovery_divergence(params, cfg, workload, want, got, readmits) -> dict:
@@ -3013,7 +3066,7 @@ def recovery_divergence(params, cfg, workload, want, got, readmits) -> dict:
     prefill programs, whose bf16 rounding is not the decode steps'."""
     from accelerate_tpu_torch.generation import emission_generator, filtered_logits, gumbel_noise
 
-    out = {}
+    out, replay = {}, {}
     for i, (a, b) in enumerate(zip(want, got)):
         if a == b or not b:
             continue
@@ -3024,9 +3077,15 @@ def recovery_divergence(params, cfg, workload, want, got, readmits) -> dict:
         if not ks or d >= min(len(a), len(b)):
             out[i] = {**rec, "ok": False}
             continue
-        prompt, kw = workload[i]
-        (p_row, p_tok), (r_row, r_tok) = (_replay_rows(params, cfg, prompt, kw, d),
-                                          _replay_rows(params, cfg, prompt, kw, d, b[:ks[-1]]))
+        out[i] = rec
+        replay[i] = (d, b[:ks[-1]])
+    # Every replay at once: request i undisturbed, and re-admitted with its kept tokens.
+    order = sorted(replay)
+    rows = _replay_rows(params, cfg, [job for i in order for job in (
+        (*workload[i], replay[i][0], None), (*workload[i], *replay[i]))]) if order else []
+    for n, i in enumerate(order):
+        rec, kw, d = out[i], workload[i][1], replay[i][0]
+        (p_row, p_tok), (r_row, r_tok) = rows[2 * n], rows[2 * n + 1]
         delta = float((p_row - r_row).abs().max())
         gen, scale, boundary = kw.get("gen"), 1.0, False
         if gen is not None:
@@ -3300,6 +3359,319 @@ def disagg_crash(params, cfg, workload, want) -> dict:
     return res
 
 
+# ------------------------------------------------- the serving control plane (slice 16)
+#: ``main_control``'s gates, sized so the phase stays under two and a half minutes at
+#: 8B. The schedule on the virtual clock does not depend on the model (fixed output
+#: lengths, no EOS), so these were chosen on the CPU at the same geometry: every site
+#: fires and some requests survive re-admission (chaos); with 8 lanes a replica, the
+#: fleet beats one engine of 24 lanes only when arrivals come twice as fast into a queue
+#: of half the lanes (``load``, ``overload``); and the autoscaler's windows are a third
+#: of the JAX bench's defaults (tuned there for 2-lane replicas, whose trace is 4×
+#: longer), so a trough is long enough to scale down.
+CONTROL_CHAOS = dict(requests=24, chaos_rate=0.08, chaos_sites=("decode", "prefill", "kv_admit"),
+                     seed=0)
+CONTROL_FLEET = dict(n_replicas=3, requests=16, kill_rate=0.1, kills_per_replica=2, load=2.0,
+                     overload=0.5, seed=0)
+CONTROL_AUTOSCALE = dict(requests=32, min_replicas=1, max_replicas=3, cooldown_s=4.0,
+                         down_cooldown_s=4.0, idle_window_s=4.0, forecast_window_s=8.0 / 3,
+                         seed=0)
+CONTROL_TRACE = dict(generator="poisson", requests=16, seed=4)
+CONTROL_GEOMETRY = dict(max_slots=8, max_len=1024, prompt_bucket=64)
+
+
+class _ControlEngines:
+    """Every engine a bench builds, seen by its ``engine_hook`` after the engine's
+    ``warm_programs()`` and before its first request: its graph keys then (none may be
+    added in traffic), kernel #1's launches from then on (``_EngineLaunches``), and when
+    it was built (host clock)."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers = n_layers
+        self.watch = _EngineLaunches()
+        self.seen = []
+
+    def __call__(self, eng):
+        self.watch.watch(eng)
+        self.seen.append({"eng": eng, "keys": graph_keys(eng), "t": time.perf_counter(),
+                          "launches0": self.watch(eng)[0]})
+
+    def summary(self, first: int = 0) -> dict:
+        seen = self.seen[first:]
+        return {
+            "engines": len(seen),
+            "graphs_captured_in_traffic": sum(graph_keys(s["eng"]) != s["keys"] for s in seen),
+            "paged_attention_launches": sum(self.watch(s["eng"])[0] - s["launches0"]
+                                            for s in seen),
+            "paged_attention_expected": sum(expected_paged_launches(s["eng"], self.n_layers)
+                                            if s["eng"].paged else 0 for s in seen),
+            "pages_in_use_after": sum(s["eng"].stats().get("pages_in_use", 0) or 0
+                                      for s in seen),
+        }
+
+
+def _trace_prompts(trace, vocab: int, seed: int) -> list:
+    """The prompts ``replay_trace`` synthesizes for ``trace`` (its seeded stream), as
+    ``(prompt, greedy submit keywords)``."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(1, vocab, row.prompt_len).astype(np.int32),
+             dict(max_new_tokens=row.output_len)) for row in trace]
+
+
+def _scrape_equals_stats(plane) -> dict:
+    """One HTTP scrape of ``plane`` through ``MetricsExporter`` on 127.0.0.1 against
+    ``plane.stats()`` read just after: every counter and gauge sample equal to the
+    digit (the scrape counts itself before rendering, so both see it)."""
+    import urllib.request
+
+    from accelerate_tpu_torch.telemetry import MetricsExporter
+
+    with MetricsExporter(plane, host="127.0.0.1", port=0) as exporter:
+        body = urllib.request.urlopen(f"http://127.0.0.1:{exporter.port}/metrics",
+                                      timeout=30).read().decode()
+    stats = plane.stats()
+    parsed = {}
+    for line in body.splitlines():
+        if line.strip() and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            parsed[series] = float(value)
+    wrong = {series: [parsed.get(series), value]
+             for table in ("counters", "gauges") for series, value in stats[table].items()
+             if value is not None and parsed.get(series) != float(value)}
+    return {"series": len(parsed), "bytes": len(body), "mismatched": wrong,
+            "ok": not wrong and len(parsed) > 0}
+
+
+def phase_main_control(dev, main: dict) -> dict:
+    """The serving control plane at Llama-3-8B's full width and depth (bf16, ``main``'s
+    seeded params shared by every replica), through the port's own serve-bench entry
+    points on the virtual clock, every engine warmed with ``warm_programs()`` before it
+    takes traffic (the spawned and restarted replicas included):
+
+    - ``run_trace_replay`` (a poisson trace, FIFO, pages of 16) with a telemetry JSONL
+      and a live ``MetricsPlane`` over it: one HTTP scrape on 127.0.0.1 equals
+      ``stats()`` to the digit, and ``metrics_dump``'s offline re-aggregation of the
+      JSONL equals the live plane's counters and gauges;
+    - ``run_chaos_bench`` (decode, prefill and kv_admit faults, ``main``'s geometry,
+      telemetry, metrics plane, alert rules, flight recorder with a capsule dir and a
+      tracer on): nothing lost, every site fired, alerts silent when clean and firing
+      under chaos, every capsule read back through ``capsule_report``, no page leaked;
+      every stream that differs from the clean arm's differs only at a near tie after
+      its recovery re-admission (``recovery_divergence``);
+    - ``run_fleet_chaos_bench`` (3 replicas, crash clauses, restarts through
+      ``engine_factory``): replayed streams equal the clean fleet's bitwise,
+      availability above one engine of the same lanes, the alerts fired;
+    - ``run_autoscale_bench`` (a swing trace, 1–3 replicas): at least one scale-up
+      through ``spawn_replica`` and one scale-down, streams equal the fixed fleet's
+      bitwise, every ``fleet.scale/v1`` record valid.
+
+    Over every engine: no graph captured in traffic; kernel #1's launches exactly one
+    per layer per decode step on the paged engines."""
+    import tempfile
+
+    from accelerate_tpu_torch.commands import serve_bench as sb
+    from accelerate_tpu_torch.commands.capsule_report import capsule_report
+    from accelerate_tpu_torch.commands.metrics_dump import aggregate_records
+    from accelerate_tpu_torch.commands.trace_report import load_records
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.serving_gateway.workload import generate_workload
+    from accelerate_tpu_torch.telemetry import (MetricsPlane, Telemetry, list_capsules,
+                                                load_capsule, validate_record)
+    from accelerate_tpu_torch.telemetry.metrics import M_TOKENS_PER_SECOND
+    from accelerate_tpu_torch.utils.dataclasses import TelemetryConfig
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
+    params = main.get("params") or llama.init_params(
+        cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    common = dict(preset="llama3-8b", device=dev, dtype=torch.bfloat16, params=params)
+    smi = nvidia_smi()
+    hooks = _ControlEngines(cfg.n_layers)
+    wall = {}
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_control_"))
+    try:
+        # 1) trace replay with the live plane and its two readers.
+        tel = Telemetry(TelemetryConfig(enabled=True, jsonl_dir=str(work / "run"),
+                                        compile_events=False, memory_stats=False))
+        live = MetricsPlane(tel, window_s=1e9)
+        trace = generate_workload(CONTROL_TRACE["generator"], CONTROL_TRACE["requests"],
+                                  seed=CONTROL_TRACE["seed"],
+                                  mean_iat_s=sb._calibrated_iat(CONTROL_GEOMETRY["max_slots"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (row,) = sb.run_trace_replay(trace, policies=("fifo",), **common, **CONTROL_GEOMETRY,
+                                     page_size=16, seed=CONTROL_TRACE["seed"],
+                                     generator=CONTROL_TRACE["generator"], telemetry=tel,
+                                     engine_hook=hooks)
+        torch.cuda.synchronize()
+        wall["trace_replay"] = time.perf_counter() - t0
+        tel.close()
+        trace_engines = hooks.summary()
+        del hooks.seen[:]
+        # metrics_dump first (a scrape counts itself on the live plane). Tokens/s is a
+        # rate over the plane's clock, which the offline replay does not have (it runs
+        # on record ordinals): every other gauge and every counter must be equal.
+        offline = aggregate_records(load_records(str(work / "run"))).stats()
+        live_stats = live.stats()
+        rate = (M_TOKENS_PER_SECOND,)
+        dump_equal = {
+            "counters": offline["counters"] == live_stats["counters"],
+            "gauges": ({k: v for k, v in offline["gauges"].items() if k not in rate}
+                       == {k: v for k, v in live_stats["gauges"].items() if k not in rate})}
+        scrape = _scrape_equals_stats(live)
+        replay = {"phase": "control_trace_replay", "row": row, "engines": trace_engines,
+                  "records": len(tel.records),
+                  "invalid_records": sum(bool(validate_record(r)) for r in tel.records),
+                  "scrape": scrape, "metrics_dump_equals_live": dump_equal,
+                  "wall_s": wall["trace_replay"], "nvidia_smi": smi}
+        replay["ok"] = bool(
+            scrape["ok"] and all(dump_equal.values()) and not replay["invalid_records"]
+            and row["done"] + row["shed"] + row["rejected"] + row["expired"]
+            == len(trace) and trace_engines["graphs_captured_in_traffic"] == 0
+            and trace_engines["paged_attention_launches"]
+            == trace_engines["paged_attention_expected"] > 0
+            and trace_engines["pages_in_use_after"] == 0)
+        emit(replay)
+        if not replay["ok"]:
+            raise SystemExit("the 8B trace replay and its metrics readers failed their checks")
+
+        # 2) the chaos proof at main's geometry.
+        first = len(hooks.seen)
+        t0 = time.perf_counter()
+        chaos = sb.run_chaos_bench(**common, **CONTROL_CHAOS, **MAIN_ENGINE,
+                                   capsule_dir=str(work / "capsules"), engine_hook=hooks)
+        torch.cuda.synchronize()
+        wall["chaos"] = time.perf_counter() - t0
+        clean_eng, chaos_eng = hooks.seen[first]["eng"], hooks.seen[first + 1]["eng"]
+        clean_s = hooks.seen[first + 1]["t"] - hooks.seen[first]["t"]
+        clean_tokens = clean_eng.decode_tokens + clean_eng.admitted
+        chaos_engines = hooks.summary(first)
+        reports = [capsule_report(load_capsule(p))
+                   for p in list_capsules(str(work / "capsules" / "chaos"))]
+        trace = generate_workload("poisson", CONTROL_CHAOS["requests"],
+                                  seed=CONTROL_CHAOS["seed"],
+                                  mean_iat_s=sb._calibrated_iat(MAIN_ENGINE["max_slots"]))
+        workload = _trace_prompts(trace, cfg.vocab_size, CONTROL_CHAOS["seed"])
+        mism = {m["row"]: m for m in chaos["mismatched_requests"]}
+        want = [mism[i]["clean"] if i in mism else [] for i in range(len(trace))]
+        got = [mism[i]["chaos"] if i in mism else [] for i in range(len(trace))]
+        readmits = {i: m["readmitted_with"] for i, m in mism.items()}
+        div = recovery_divergence(params, cfg, workload, want, got, readmits)
+        res = {"phase": "control_chaos", "config": "llama3-8b", "dtype": "bfloat16",
+               "engine": MAIN_ENGINE, **CONTROL_CHAOS,
+               "fired_by_site": chaos["fault_plan"]["fired_by_site"],
+               "streams_compared": chaos["streams_compared"],
+               "streams_mismatched": chaos["streams_mismatched"],
+               "recovery_divergence": div,
+               "silently_lost": [chaos[a]["silently_lost"] for a in ("clean", "chaos")],
+               "done": [chaos[a]["done"] for a in ("clean", "chaos")],
+               "failed_chaos": chaos["chaos"]["failed"],
+               "engine_chaos": chaos["chaos"]["engine"],
+               "alerts_clean_silent": chaos["alerts_clean_silent"],
+               "alerts_chaos_fired": chaos["alerts_chaos_fired"],
+               "capsules": chaos["capsules"], "capsules_clean": chaos["capsules_clean"],
+               "capsule_reports": len(reports), "engines": chaos_engines,
+               "ttft_p95_virtual_s": [(chaos[a]["ttft"] or {}).get("p95")
+                                      for a in ("clean", "chaos")],
+               "clean_arm": {"wall_s": clean_s, "tokens": clean_tokens,
+                             "tokens_per_s": clean_tokens / clean_s},
+               "wall_s": wall["chaos"], "workload_trace_hash": chaos["workload_trace_hash"],
+               "nvidia_smi": smi}
+        res["ok"] = bool(
+            res["silently_lost"] == [0, 0]
+            and set(res["fired_by_site"]) == {"serving.decode", "serving.prefill",
+                                              "serving.kv_admit"}
+            and res["streams_compared"] > 0 and all(d["ok"] for d in div.values())
+            and len(div) == res["streams_mismatched"]
+            and chaos["alerts_clean_silent"] and chaos["alerts_chaos_expected"]
+            and chaos["capsules_chaos_expected"] and chaos["capsules_clean_zero"]
+            and len(reports) == chaos["capsules"]["count"]
+            and chaos_engines["graphs_captured_in_traffic"] == 0
+            and chaos_engines["paged_attention_launches"]
+            == chaos_engines["paged_attention_expected"] > 0
+            and chaos_engines["pages_in_use_after"] == 0)
+        emit(res)
+        if not res["ok"]:
+            raise SystemExit("the 8B chaos proof failed its checks")
+        del clean_eng, chaos_eng, hooks.seen[first:]  # free the bench's caches
+        chaos_launches = chaos_engines["paged_attention_launches"]
+
+        # 3) the fleet chaos proof: crash kills, restarts, failover.
+        first = len(hooks.seen)
+        t0 = time.perf_counter()
+        fleet = sb.run_fleet_chaos_bench(**common, **CONTROL_FLEET, **CONTROL_GEOMETRY,
+                                         capsule_dir=str(work / "fleet_capsules"),
+                                         engine_hook=hooks)
+        torch.cuda.synchronize()
+        wall["fleet"] = time.perf_counter() - t0
+        fleet_engines = hooks.summary(first)
+        del hooks.seen[first:]
+        fres = {"phase": "control_fleet", **CONTROL_FLEET, "engine": CONTROL_GEOMETRY,
+                "streams_compared": fleet["streams_compared"],
+                "streams_identical": fleet["streams_identical"],
+                "availability": [fleet[a]["availability"]
+                                 for a in ("fleet_clean", "fleet_chaos", "single_chaos")],
+                "fleet_availability_above_single": fleet["fleet_availability_above_single"],
+                "replica_kills": fleet["fleet_chaos"]["replica_kills"],
+                "replica_restarts": fleet["fleet_chaos"]["replica_restarts"],
+                "silently_lost": fleet["fleet_chaos"]["silently_lost"],
+                "alerts_clean_silent": fleet["alerts_clean_silent"],
+                "alerts_chaos_fired": fleet["alerts_chaos_fired"],
+                "capsules": fleet["capsules"]["count"], "engines": fleet_engines,
+                "wall_s": wall["fleet"], "nvidia_smi": smi}
+        fres["ok"] = bool(
+            fleet["streams_identical"] and fleet["streams_compared"] > 0
+            and fleet["fleet_availability_above_single"] and fres["replica_kills"] >= 1
+            and fres["silently_lost"] == 0 and fleet["alerts_clean_silent"]
+            and fleet["alerts_chaos_expected"] and fleet["capsules_chaos_expected"]
+            and fleet["capsules_clean_zero"]
+            and fleet_engines["graphs_captured_in_traffic"] == 0)
+        emit(fres)
+        if not fres["ok"]:
+            raise SystemExit("the 8B fleet chaos proof failed its checks")
+
+        # 4) the autoscaling proof.
+        first = len(hooks.seen)
+        t0 = time.perf_counter()
+        auto = sb.run_autoscale_bench(**common, **CONTROL_AUTOSCALE, **CONTROL_GEOMETRY,
+                                      engine_hook=hooks)
+        torch.cuda.synchronize()
+        wall["autoscale"] = time.perf_counter() - t0
+        auto_engines = hooks.summary(first)
+        del hooks.seen[first:]
+        records = [r for arm in ("autoscaled", "steady", "flood", "chaos")
+                   for r in auto[arm]["scale_records"]]
+        ares = {"phase": "control_autoscale", **CONTROL_AUTOSCALE, "engine": CONTROL_GEOMETRY,
+                "scale_actions": auto["autoscaled"]["scale_actions"],
+                "replica_spawned": auto["autoscaled"]["replica_spawned"],
+                "replica_hours": auto["replica_hours"],
+                "attainment_within_band": auto["attainment_within_band"],
+                "streams_compared": auto["streams_compared"],
+                "streams_identical": auto["streams_identical"],
+                "chaos_streams_identical": auto["chaos_streams_identical"],
+                "zero_lost_all_arms": auto["zero_lost_all_arms"],
+                "steady_no_scale": auto["steady_no_scale"],
+                "flood_bounded": auto["flood_bounded"],
+                "scale_records": len(records),
+                "invalid_scale_records": sum(bool(validate_record(r)) for r in records),
+                "engines": auto_engines, "wall_s": wall["autoscale"], "nvidia_smi": smi}
+        ares["ok"] = bool(
+            ares["scale_actions"]["scale_up"] >= 1 and ares["scale_actions"]["scale_down"] >= 1
+            and ares["replica_spawned"] >= 1 and auto["streams_identical"]
+            and auto["streams_compared"] > 0 and auto["chaos_streams_identical"]
+            and auto["zero_lost_all_arms"] and not ares["invalid_scale_records"]
+            and auto_engines["graphs_captured_in_traffic"] == 0)
+        emit(ares)
+        if not ares["ok"]:
+            raise SystemExit("the 8B autoscaling proof failed its checks")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del hooks
+    gc.collect()
+    return {"launches": chaos_launches + trace_engines["paged_attention_launches"],
+            "launches_by_bench": {"trace_replay": trace_engines["paged_attention_launches"],
+                                  "chaos": chaos_launches},
+            "wall_s": wall}
+
+
 # ------------------------------------------------------- phase 4d: one-request API
 GEN_MAIN = dict(lengths=(87, 130, 64, 200), new_tokens=64)
 #: Card against CPU in the debug config (fp32, TF32 off; flash kernels on the card,
@@ -3430,7 +3802,8 @@ def one_kernel_per_call(prof: dict, int8: bool) -> None:
     if bad:
         raise PhaseFailed("device kernels per step differ from the wrapper's launches "
                           "([device kernels, launches] per step; device records' first "
-                          f"and last µs {prof['device_records_first_last_us']})", bad)
+                          f"and last µs {prof['device_records_first_last_us']}; "
+                          f"{prof['profiler_clock_check']})", bad)
 
 
 #: Kernel names (as the driver gives them) of each port kernel's launches in a CUDA
@@ -3477,12 +3850,13 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
     torch.cuda.synchronize()
     before = path_launches(eng)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_EDGE_S)
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+        profiler_lead_in()
+        with torch.profiler.record_function(PROFILE_WINDOW):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / steps
         time.sleep(PROFILE_EDGE_S)
     after = path_launches(eng)
     launches = (after[0] - before[0], after[1] - before[1])
@@ -3491,14 +3865,27 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
         graph = eng.graphs[(n, False, eng.paged)]
         replay_ms = _events_ms(lambda _: graph.graph.replay(), 5)
     eng.run()
+    # The window's device records: those after half the lead-in's idle (the host's
+    # clock and the card's mapped one agree to a few ms). Its host range closes after a
+    # synchronize, so its end follows every record's unless the card's clock is mapped
+    # late onto the host's (what the idle at the window's end absorbs).
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = prof.events()
+    window = next((e.time_range for e in events
+                   if e.name == PROFILE_WINDOW and e.device_type == cpu), None)
+    cut = window.start - 1e6 * PROFILE_LEAD_IN_S / 2
+    records = [e for e in events if e.device_type == cuda and e.name != PROFILE_WINDOW]
+    device = [e for e in records if e.time_range.start >= cut]
     # Device time as the union of the kernels' intervals: a kernel launched as a
     # programmatic dependent (the int8 matmul) starts before the one ahead of it ends,
     # so the sum of kernel durations counts that overlap twice.
-    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    # Device records' span in the trace (µs from its start): the edges' slack.
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in device]
     first_us = min((a for _, a, _ in spans), default=None)
     last_us = max((b for _, _, b in spans), default=None)
+    clock_check = {"window_end_after_last_device_us":
+                       None if last_us is None else window.end - last_us,
+                   "lead_in_records": len(records) - len(device),
+                   "lead_in_launched": PROFILE_LEAD_IN + 1}
 
     def union_ms(stem=""):
         ivs = sorted((a, b) for n, a, b in spans if stem in n)
@@ -3509,15 +3896,13 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
                 end = b
         return total / 1e3 / steps
 
-    kernels, counts, n_launch = {}, {}, 0
-    for e in prof.key_averages():
-        # Device-side events only: a CPU op's entry repeats its kernels' device time.
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        kernels[e.key] = kernels.get(e.key, 0) + e.self_device_time_total
-        counts[e.key] = counts.get(e.key, 0) + e.count
-        n_launch += e.count
+    kernels, counts = {}, {}
+    for name, a, b in spans:
+        kernels[name] = kernels.get(name, 0) + b - a
+        counts[name] = counts.get(name, 0) + 1
+    n_launch = len(spans)
     busy_ms = sum(kernels.values()) / 1e3 / steps
+
     def group_ms(*names):
         return sum(v for k, v in kernels.items() if any(n in k for n in names)) / 1e3 / steps
 
@@ -3549,6 +3934,7 @@ def profile_decode(eng, rng, vocab: int, steps: int = 5) -> dict:
         "paged_attention_launches_per_step": launches[0] / steps,
         "int8_matmul_launches_per_step": launches[1] / steps,
         "device_records_first_last_us": [first_us, last_us],
+        "profiler_clock_check": clock_check,
         "top_kernels_ms_per_step": {k[:80]: v / 1e3 / steps for k, v in top},
     }
 
@@ -5868,6 +6254,11 @@ def main() -> int:
     # Disaggregated prefill/decode serving (slice 14): the gateway stack over two
     # replicas sharing the card and the params.
     serve_disagg = run_phase("main_disagg", phase_main_disagg, dev, serve)
+    # The fault boundary and request tracing (slice 15).
+    run_phase("engine_faults", phase_engine_faults, dev)
+    serve_faults = run_phase("main_faults", phase_main_faults, dev, serve)
+    # The serving control plane (slice 16): the serve-bench gates at 8B.
+    serve_control = run_phase("main_control", phase_main_control, dev, serve)
     del serve["params"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -5908,20 +6299,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_tp = run_phase("train_tp", phase_train_tp, dev, train["losses"][0])
 
-    # The fault boundary and request tracing (slice 15), last: they need only main's
-    # tokens (main_faults makes main's seeded params again). Run before main_int8, they
-    # were followed by torch.profiler losing 3 of 1,120 int8 kernel records in
-    # main_int8's profiled window (which holds alone, and after them in a shorter
-    # process).
-    gc.collect()
-    torch.cuda.empty_cache()
-    run_phase("engine_faults", phase_engine_faults, dev)
-    serve_faults = run_phase("main_faults", phase_main_faults, dev, serve)
+    emit({"phase_seconds": dict(PHASE_SECONDS),
+          "total_s": time.perf_counter() - t0, "nvidia_smi": smi})
     emit({"kernels": run_phase("kernels", kernel_rows, kern, serve, flash, adamw,
                                xent, train, train_fused, int8, serve_int8, partial,
                                train_tp, serve_multi, resume, serve_prefill,
                                serve_prefix, serve_spec, serve_spec_draft, serve_disagg,
-                               serve_faults)})
+                               serve_faults, serve_control)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -5930,13 +6314,15 @@ def main() -> int:
 
 def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve_int8,
                 partial, train_tp, serve_multi, resume, serve_prefill, serve_prefix,
-                serve_spec, serve_spec_draft, serve_disagg, serve_faults) -> list:
+                serve_spec, serve_spec_draft, serve_disagg, serve_faults,
+                serve_control) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results. The
     serving kernels' launches add their main paths' runs: N = 1, the super-step's,
     the bucketed, the prefix-cache, the speculative, the disaggregated drains (the
     decode replicas' launches over adopted pages; eager launches plus graph nodes times
-    replays, with the kill and crash runs) and the faulted 8B drain; the training
-    kernels' add train_main's and train_resume's."""
+    replays, with the kill and crash runs), the faulted 8B drain and the control plane's
+    paged benches (trace replay and both chaos arms); the training kernels' add
+    train_main's and train_resume's."""
 
     def train_launches(kernel):
         by_path = {"train_main": train["launches"][kernel],
@@ -5969,7 +6355,7 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                     + serve_prefix["launches"] + serve_spec["launches"]
                     + serve_spec_draft["launches"] + serve_disagg["launches"]
                     + serve_disagg["launches_kill"] + serve_faults["launches_crash"]
-                    + serve_faults["launches"],
+                    + serve_faults["launches"] + serve_control["launches"],
                     kern["max_abs_err"], kern, design=PAGED_DESIGN,
                     launches_by_path={"main": serve["launches"],
                                       "main_multistep": serve_multi["launches"],
@@ -5980,7 +6366,8 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                                       "main_disagg": serve_disagg["launches"],
                                       "main_disagg_kill": serve_disagg["launches_kill"],
                                       "main_disagg_crash": serve_faults["launches_crash"],
-                                      "main_faults": serve_faults["launches"]},
+                                      "main_faults": serve_faults["launches"],
+                                      "main_control": serve_control["launches"]},
                     t4_verify={k: kern["t4"][k] for k in ("kernel_ms", "plain_ms",
                                                          "bound_ms", "bound_by", "route")},
                     max_abs_err_t4_verify=kern["max_abs_err_t4"],

@@ -49,13 +49,26 @@ COUNTERS = ("submitted", "admitted", "done", "rejected", "shed", "cancelled", "e
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_persistent_cache():
-    """Compile the JAX references afresh (tokens are compared exactly)."""
-    prev = jax.config.jax_compilation_cache_dir
+    """Compile the JAX references afresh in this module, as tests/test_compile_cache.py
+    does: an executable loaded from the suite's persistent cache (tests/.jax_cache, which
+    outlives a run and can hold executables compiled for another host's CPU features) is
+    not held to compute what a fresh compile computes, and these tests compare the two
+    frameworks exactly. Setting the cache directory alone does not do it once an earlier
+    module in the process has used the cache (JAX initializes it once): the cache is
+    switched off and reset, and the in-memory executables are dropped, then restored."""
+    from jax._src import compilation_cache
+
+    prev = (jax.config.jax_compilation_cache_dir, jax.config.jax_enable_compilation_cache)
     jax.config.update("jax_compilation_cache_dir", None)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    jax.clear_caches()
     try:
         yield
     finally:
-        jax.config.update("jax_compilation_cache_dir", prev)
+        jax.config.update("jax_compilation_cache_dir", prev[0])
+        jax.config.update("jax_enable_compilation_cache", prev[1])
+        compilation_cache.reset_cache()
 
 
 @pytest.fixture(scope="module")
@@ -507,20 +520,29 @@ def test_gateway_breaker_opens_and_degrades(setup):
 
 
 def test_gateway_refuses_unported_telemetry(setup):
-    """An enabled metrics plane and a flight recorder raise NotImplementedError (not
-    ported yet), never silently drop; a tracer is accepted (the telemetry slice) and
-    handed to the engine."""
+    """The gateway's telemetry hooks, all ported now: a tracer is handed to the engine;
+    ``GatewayConfig.metrics`` over an enabled telemetry builds the metrics plane as one
+    of its sinks (``stats()["metrics"]``); an armed flight recorder gets the gateway's
+    capsule state, the plane and the clock; the ``decode_steps`` pairing is still
+    refused."""
+    from accelerate_tpu_torch.telemetry import MetricsPlane, Telemetry
+    from accelerate_tpu_torch.utils.dataclasses import TelemetryConfig
+
     engine = ContinuousBatcher(setup[1], TCFG, **ENGINE)
     tracer = Tracer(sink=lambda record: None)
     tgw.ServingGateway(engine, GatewayConfig(enabled=True), tracer=tracer)
     assert engine.tracer is tracer
     engine = ContinuousBatcher(setup[1], TCFG, **ENGINE)
-    with pytest.raises(NotImplementedError, match="metrics"):
-        tgw.ServingGateway(engine, GatewayConfig(enabled=True, metrics=True), telemetry=Sink())
-    tel = Sink()
-    tel.recorder = Sink()
-    with pytest.raises(NotImplementedError, match="recorder"):
-        tgw.ServingGateway(engine, GatewayConfig(enabled=True), telemetry=tel)
+    tel = Telemetry(TelemetryConfig(enabled=True, recorder=True, compile_events=False,
+                                    memory_stats=False))
+    gw = tgw.ServingGateway(engine, GatewayConfig(enabled=True, metrics=True), telemetry=tel)
+    assert isinstance(gw.metrics, MetricsPlane) and gw.metrics.enabled
+    assert "metrics" in gw.stats()
+    assert tel.recorder.metrics is gw.metrics
+    assert tel.recorder._state_providers["gateway"] == gw._capsule_state
+    assert gw._capsule_state()["lanes"] == [None] * ENGINE["max_slots"]
+    assert tgw.ServingGateway(engine, GatewayConfig(enabled=True),
+                              telemetry=Sink()).metrics is None
     with pytest.raises(ValueError, match="decode_steps"):
         tgw.ServingGateway(engine, GatewayConfig(enabled=True, decode_steps=4))
 

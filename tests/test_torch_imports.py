@@ -3,9 +3,9 @@
 - No module of the port, and no line of ``chip_smoke.py``, imports ``jax`` or the JAX
   package ``accelerate_tpu`` (AST scan); importing the serving engine loads none of
   them, and every module imports with them blocked (fresh interpreters). The serving
-  gateway stack's modules (``serving_gateway``, ``telemetry``, ``resilience``,
-  ``elastic``, ``ops.collectives``), jax-free copies of host-only JAX-package modules,
-  are each held to that by name.
+  gateway stack's and control plane's modules (``serving_gateway``, ``telemetry``,
+  ``resilience``, ``elastic``, ``ops.collectives``, ``commands``), jax-free copies of
+  host-only JAX-package modules, are each held to that by name.
 - Entry points (the Accelerator included) default to CUDA and raise without it; the
   kernel wrappers (paged attention, fused cross-entropy with its vocab-sharded partial
   forward, the int8 matmul) never run the kernel path on CPU tensors (they take the
@@ -98,6 +98,12 @@ GATEWAY_MODULES = (
     "accelerate_tpu_torch.telemetry.memory", "accelerate_tpu_torch.telemetry.derived",
     "accelerate_tpu_torch.telemetry.compile_monitor", "accelerate_tpu_torch.telemetry.steady",
     "accelerate_tpu_torch.commands.trace_report",
+    "accelerate_tpu_torch.telemetry.metrics", "accelerate_tpu_torch.telemetry.alerts",
+    "accelerate_tpu_torch.telemetry.exporter", "accelerate_tpu_torch.telemetry.provenance",
+    "accelerate_tpu_torch.telemetry.recorder", "accelerate_tpu_torch.serving_gateway.workload",
+    "accelerate_tpu_torch.serving_gateway.autoscaler",
+    "accelerate_tpu_torch.commands.metrics_dump", "accelerate_tpu_torch.commands.capsule_report",
+    "accelerate_tpu_torch.commands.serve_bench",
 )
 
 
@@ -135,6 +141,23 @@ def test_gateway_stack_module_imports_with_jax_blocked(module):
         path = path.with_suffix("") / "__init__.py"
     bad = [m for m in _absolute_imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{module} imports {bad}"
+
+
+def test_serve_bench_and_smoke_entry_points_default_to_cuda(monkeypatch):
+    """``serve_bench``'s ``run_*`` and ``metrics_dump --smoke`` run on the card unless
+    the caller asks for the CPU: without CUDA they raise, never fall back."""
+    from accelerate_tpu_torch.commands import serve_bench
+    from accelerate_tpu_torch.commands.metrics_dump import run_metrics_smoke
+    from accelerate_tpu_torch.serving_gateway.workload import generate_workload
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: serve_bench.run_chaos_bench(requests=2),
+                 lambda: serve_bench.run_fleet_chaos_bench(requests=2),
+                 lambda: serve_bench.run_autoscale_bench(requests=2),
+                 lambda: serve_bench.run_trace_replay(generate_workload("poisson", 2)),
+                 lambda: run_metrics_smoke(verbose=False)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -57,13 +57,26 @@ COUNTERS = ("step_failures", "quarantined", "recovered_admissions", "bisect_roun
 
 @pytest.fixture(scope="module", autouse=True)
 def _no_jax_persistent_cache():
-    """Compile the JAX references afresh (tokens are compared exactly)."""
-    prev = jax.config.jax_compilation_cache_dir
+    """Compile the JAX references afresh in this module, as tests/test_compile_cache.py
+    does: an executable loaded from the suite's persistent cache (tests/.jax_cache, which
+    outlives a run and can hold executables compiled for another host's CPU features) is
+    not held to compute what a fresh compile computes, and these tests compare the two
+    frameworks exactly. Setting the cache directory alone does not do it once an earlier
+    module in the process has used the cache (JAX initializes it once): the cache is
+    switched off and reset, and the in-memory executables are dropped, then restored."""
+    from jax._src import compilation_cache
+
+    prev = (jax.config.jax_compilation_cache_dir, jax.config.jax_enable_compilation_cache)
     jax.config.update("jax_compilation_cache_dir", None)
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    jax.clear_caches()
     try:
         yield
     finally:
-        jax.config.update("jax_compilation_cache_dir", prev)
+        jax.config.update("jax_compilation_cache_dir", prev[0])
+        jax.config.update("jax_enable_compilation_cache", prev[1])
+        compilation_cache.reset_cache()
 
 
 @pytest.fixture(scope="module")

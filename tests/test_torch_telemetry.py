@@ -249,9 +249,16 @@ def test_telemetry_config_validation():
         with pytest.raises(ValueError):
             TelemetryConfig(**kw)
     TelemetryConfig(steady_k=3, steady_cap=2)
-    with pytest.raises(NotImplementedError, match="flight recorder"):
-        Telemetry(TelemetryConfig(enabled=True, recorder=True))
-    assert Telemetry(TelemetryConfig(enabled=False, recorder=True)).enabled is False
+    from accelerate_tpu_torch.telemetry import FlightRecorder
+
+    armed = Telemetry(TelemetryConfig(enabled=True, recorder=True, recorder_ring=8))
+    assert isinstance(armed.recorder, FlightRecorder) and armed.recorder.ring.maxlen == 8
+    off = Telemetry(TelemetryConfig(enabled=False, recorder=True))
+    assert off.enabled is False and off.recorder is None
+    for kw in ({"recorder_ring": 0}, {"recorder_snapshot_every": -1},
+               {"capsule_cooldown_s": -1.0}):
+        with pytest.raises(ValueError):
+            TelemetryConfig(**kw)
 
 
 # -------------------------------------------------- integration: train step records
