@@ -1,2 +1,2 @@
-"""Command-line tools of the port (library functions; the ``accelerate-tpu`` CLI
-dispatcher is not ported yet)."""
+"""Command-line tools of the port: each ``*_command_parser`` registers on the CLI root
+(``python -m accelerate_tpu_torch <command>``, ``commands/accelerate_cli.py``)."""

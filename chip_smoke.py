@@ -664,6 +664,11 @@ def paged_cases() -> list:
          None, None),
         ("hd32_G8_T4", {**main, "hd": 32, "H": 32, "K": 4, "T": 4}, {}, None, None),
         ("G1_ps32", {**main, "H": 8, "ps": 32, "MP": 32}, {}, None, None),
+        # The other shapes main_bench gives the kernel at 8B: the disagg bench's decode
+        # replica (pages of 8, the smallest page size the cluster route takes, 128 a
+        # lane), and the paged compare's and multistep sweep's lanes (max_len 256).
+        ("main_ps8", {**main, "ps": 8, "MP": 128}, {}, None, None),
+        ("main_MP16", {**main, "MP": 16}, {}, None, None),
         # A lane with more tiles than its cluster has blocks (4096 slots: 64 tiles over
         # 8 blocks), ragged lanes beside it.
         ("lanes_past_cluster_MP256", {**main, "MP": 256}, {}, long_lane, None),
@@ -1332,15 +1337,17 @@ def phase_main_multistep(dev, main: dict) -> dict:
 
 
 def drain_ab(variants: dict, cfg, want_tokens) -> dict:
-    """The main workload drained by warm engines, in alternation (A, B, B, A): one
-    engine per variant (``variants[name] = (params, engine keywords)``) captures its
-    graphs with ``warm_programs()``, then each drain is timed to its final sync:
-    tokens/s, decode and prefill seconds, host seconds drawing sampled noise (on the
-    critical path and ahead). Every drain's tokens must equal ``want_tokens`` (a dict:
-    each variant's own)."""
+    """The main workload's first ``max_slots`` requests (one wave: every lane busy from
+    the first step; the whole workload's second wave kept the N = 1 drains twice as
+    long) drained by warm engines, in alternation (A, B, B, A): one engine per variant
+    (``variants[name] = (params, engine keywords)``) captures its graphs with
+    ``warm_programs()``, then each drain is timed to its final sync: tokens/s, decode
+    and prefill seconds, host seconds drawing sampled noise (on the critical path and
+    ahead). Every drain's tokens must equal ``want_tokens``' first ones (a dict: each
+    variant's own)."""
     from accelerate_tpu_torch.serving import ContinuousBatcher
 
-    workload = main_workload(cfg.vocab_size)[3]
+    workload = main_workload(cfg.vocab_size)[3][:MAIN_ENGINE["max_slots"]]
     engines = {name: ContinuousBatcher(params, cfg, **MAIN_ENGINE, **kw)
                for name, (params, kw) in variants.items()}
     for eng in engines.values():
@@ -1349,6 +1356,7 @@ def drain_ab(variants: dict, cfg, want_tokens) -> dict:
     def drain(name) -> tuple[dict, bool]:
         eng = engines[name]
         want = want_tokens[name] if isinstance(want_tokens, dict) else want_tokens
+        want = want[:len(workload)]
         before = eng.stats()
         reqs = [eng.submit(prompt, **kw) for prompt, kw in workload]
         torch.cuda.synchronize()
@@ -2148,12 +2156,14 @@ def spec_graph_stats(eng) -> dict:
         for key, run in eng.spec_graphs.items() if hasattr(run, "nodes")}
 
 
-def divergence_rows(params, cfg, workload, plain_tokens, spec_tokens) -> dict:
+def divergence_rows(params, cfg, workload, plain_tokens, spec_tokens,
+                    engine_kw=MAIN_ENGINE) -> dict:
     """For each request whose speculative tokens differ from the plain (spec_k=0)
     engine's, at its first divergence d: the logits row the plain N = 1 engine chose
     token d from, and the row of the host-loop speculative verify that chose it, each
     read while the request is replayed alone (a lane's computation does not depend on
-    the other lanes: the replayed tokens must equal the batched engines' tokens).
+    the other lanes: the replayed tokens must equal the batched engines' tokens), on
+    engines of ``engine_kw``'s geometry (paged or dense).
     Returns {request: {d, tokens, delta (max |row difference|), gap (the plain row's
     top-two gap: of the logits, or of the filtered logits plus emission d's Gumbel
     noise for a sampled lane), temperature, limit, filter_boundary (a sampled lane's
@@ -2167,11 +2177,13 @@ def divergence_rows(params, cfg, workload, plain_tokens, spec_tokens) -> dict:
     first = {i: next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
              for i, (a, b) in enumerate(zip(plain_tokens, spec_tokens)) if a != b}
     rows = {"plain": {}, "spec": {}}
-    engines = {"plain": sv.ContinuousBatcher(params, cfg, **MAIN_ENGINE),
-               "spec": sv.ContinuousBatcher(params, cfg, **MAIN_ENGINE, spec_k=SPEC_K,
+    engines = {"plain": sv.ContinuousBatcher(params, cfg, **engine_kw),
+               "spec": sv.ContinuousBatcher(params, cfg, **engine_kw, spec_k=SPEC_K,
                                             drafter=NgramDrafter(3))}
     seen = {}
-    verify = sv._spec_verify_step_paged
+    verify_name = ("_spec_verify_step_paged" if engine_kw.get("page_size")
+                   else "_spec_verify_step")
+    verify = getattr(sv, verify_name)
 
     def recording_verify(*args, **kw):  # keeps the spec replay's verify rows
         out = verify(*args, **kw)
@@ -2190,7 +2202,7 @@ def divergence_rows(params, cfg, workload, plain_tokens, spec_tokens) -> dict:
                else seen["logits"][slot, d - seen["lens"][slot]])
         rows[side][i] = (row.float().cpu(), int(tok))
 
-    sv._spec_verify_step_paged = recording_verify
+    setattr(sv, verify_name, recording_verify)
     try:
         for side, eng in engines.items():
             for i, d in first.items():
@@ -2204,7 +2216,7 @@ def divergence_rows(params, cfg, workload, plain_tokens, spec_tokens) -> dict:
                     hook, side=side, i=i, d=d, holder=holder)))
             eng.run()
     finally:
-        sv._spec_verify_step_paged = verify
+        setattr(sv, verify_name, verify)
     out = {}
     for i, d in first.items():
         gen = workload[i][1].get("gen")
@@ -3670,6 +3682,251 @@ def phase_main_control(dev, main: dict) -> dict:
             "launches_by_bench": {"trace_replay": trace_engines["paged_attention_launches"],
                                   "chaos": chaos_launches},
             "wall_s": wall}
+
+
+# --------------------------------------------- phase 4c': serve-bench's remaining modes
+#: serve-bench's host-clock modes at Llama-3-8B, cut in request counts to fit the run.
+BENCH_ROWS = dict(requests=16, max_slots=8, max_len=1024, prompt_bucket=128, max_new=16,
+                  page_size=16, seed=0)
+BENCH_CURVES = dict(generators=("poisson", "tenant_flood"), policies=("fifo", "priority", "edf"),
+                    loads=(4.0,), requests=24, max_slots=8, max_len=1024, prompt_bucket=64,
+                    seed=0)
+BENCH_DISAGG = dict(prefill_replicas=1, decode_replicas=1, requests=16, max_slots=8,
+                    max_len=1024, prompt_bucket=128, max_new=16, page_size=8, seed=0)
+BENCH_PAGED = dict(budget_rows=2, max_slots=8, requests=12, prefix_cache=2, seed=0)
+BENCH_MULTISTEP = dict(decode_steps=(1, MULTI_N), requests=16, max_new=32, max_slots=8,
+                       page_size=16, seed=0)
+BENCH_SPEC = dict(requests=12, spec_k=SPEC_K, fused_steps=MULTI_N, sweep_requests=12, seed=0)
+
+
+class _ReturnProbe:
+    """Whether the device had finished what a method queued when the method returned:
+    a CUDA event recorded just after the return and queried at once (``query()`` does
+    not wait, so nothing is synchronized that the path does not synchronize). Counts,
+    per method, the calls that did work (an admission that admitted, an adoption that
+    landed, every decode step) and those that returned with work still queued."""
+
+    METHODS = ("_admit", "_plain_step", "adopt_handoff")
+
+    def __init__(self):
+        self.calls = dict.fromkeys(self.METHODS, 0)
+        self.pending = dict.fromkeys(self.METHODS, 0)
+
+    def __call__(self, eng):
+        for name in self.METHODS:
+            orig = getattr(eng, name)
+
+            def probed(*args, _orig=orig, _name=name, **kw):
+                admitted = eng.admitted
+                out = _orig(*args, **kw)
+                ev = torch.cuda.Event()
+                ev.record()
+                if _name == "_plain_step" or eng.admitted != admitted:
+                    self.calls[_name] += 1
+                    self.pending[_name] += not ev.query()
+                return out
+
+            setattr(eng, name, probed)
+
+    def summary(self) -> dict:
+        return {m: {"calls": self.calls[m], "pending_at_return": self.pending[m]}
+                for m in self.METHODS}
+
+
+def _p95(block) -> float:
+    return (block or {}).get("p95")
+
+
+def phase_main_bench(dev, main: dict) -> dict:
+    """serve-bench's host-clock modes and its attainment curves at Llama-3-8B's full
+    width and depth (bf16, ``main``'s seeded params shared by every engine), through the
+    port's ``run_*`` entry points, every engine warmed with ``warm_programs()`` before
+    traffic:
+
+    - ``run_serve_bench``: the four policy rows (paged, pages of 16) and the oracle row
+      (FIFO, ``spec_k=3``: the T = 4 verify through kernel #1);
+    - ``run_trace_curves`` (virtual clock): priority and EDF high-class attainment at
+      least FIFO's on both generators;
+    - ``run_disagg_bench`` (1:1, pages of 8): nothing lost in the disagg and chaos arms,
+      streams equal the mixed arm's; whether each metered method returned with device
+      work still queued (:class:`_ReturnProbe`);
+    - ``run_paged_compare``: concurrency at least 2x, paged bytes a request below dense;
+    - ``run_multistep_bench`` (N = 1 and 8, paged): every stream bitwise the N = 1 row's;
+    - ``run_spec_bench``: fused = host loop bitwise, fused against ``spec_k=0`` within
+      the near-tie rule (``divergence_rows`` on the sweep's dense geometry).
+
+    Over every engine: no graph captured in traffic; kernel #1's launches exactly
+    ``expected_paged_launches`` on the paged engines, none on the pair's route; every
+    row accounts for all its requests."""
+    from accelerate_tpu_torch.commands import serve_bench as sb
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops.paged_attention import paged_attention
+
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
+    params = main.get("params") or llama.init_params(
+        cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    common = dict(preset="llama3-8b", device=dev, dtype=torch.bfloat16, params=params)
+    smi = nvidia_smi()
+    hooks = _ControlEngines(cfg.n_layers)
+    ragged0 = paged_attention.launches_ragged
+    launches, wall, failed = {}, {}, []
+
+    def bench(name, fn, hook=None, **kw):
+        first = len(hooks.seen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art = fn(**common, **kw, engine_hook=hook or hooks)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        engines = hooks.summary(first)
+        engines["paged_attention_ragged_replayed"] = sum(
+            replayed_launches(list(s["eng"].graphs.values())
+                              + list(s["eng"].spec_graphs.values()), PAGED_KERNELS[1:])
+            for s in hooks.seen[first:])
+        del hooks.seen[first:]
+        gc.collect()
+        launches[name] = engines["paged_attention_launches"]
+        return art, engines
+
+    def check(res, ok, engines, pages=True):
+        res["ok"] = bool(ok and engines["graphs_captured_in_traffic"] == 0
+                         and engines["paged_attention_launches"]
+                         == engines["paged_attention_expected"]
+                         and engines["paged_attention_ragged_replayed"] == 0
+                         and (not pages or engines["pages_in_use_after"] == 0))
+        emit(res)
+        if not res["ok"]:
+            failed.append(res["phase"])
+
+    def accounted(row, n):
+        return row["done"] + row["rejected"] + row["shed"] + row["expired"] == n
+
+    # 1) the per-policy overload rows, then the oracle row.
+    rows, engines = bench("rows", sb.run_serve_bench, **BENCH_ROWS)
+    oracle, o_engines = bench("oracle_row", sb.run_serve_bench, policies=("fifo",),
+                              spec_k=SPEC_K, spec_draft="oracle", **BENCH_ROWS)
+    (oracle,) = oracle
+    row_keys = ("policy", "tokens_per_sec", "tokens_per_step", "done", "rejected", "shed",
+                "expired", "kv_bytes_per_request", "max_concurrent_at_fixed_mem", "wall_s")
+    res = {"phase": "bench_rows", **BENCH_ROWS,
+           "rows": [{**{k: r[k] for k in row_keys}, "ttft_p95_s": _p95(r["ttft"]),
+                     "ttft_high_p95_s": _p95(r["ttft_high"]), "tpot_p95_s": _p95(r["tpot"])}
+                    for r in rows],
+           "oracle": {**{k: oracle[k] for k in row_keys + ("spec_accept_rate",)},
+                      "ttft_p95_s": _p95(oracle["ttft"]), "tpot_p95_s": _p95(oracle["tpot"])},
+           "engines": engines, "oracle_engines": o_engines,
+           "wall_s": [wall["rows"], wall["oracle_row"]], "nvidia_smi": smi}
+    check(res, all(accounted(r, BENCH_ROWS["requests"]) for r in rows + [oracle])
+          and o_engines["paged_attention_launches"] == o_engines["paged_attention_expected"] > 0,
+          {k: engines[k] + o_engines[k] for k in engines})
+
+    # 2) attainment against offered load (virtual clock; dense engines).
+    curves, engines = bench("trace_curves", sb.run_trace_curves, **BENCH_CURVES)
+    by = {(c["generator"], c["policy"]): c["points"][0] for c in curves["curves"]}
+    separated = all(by[(g, p)]["attainment_high"] >= by[(g, "fifo")]["attainment_high"]
+                    for g in BENCH_CURVES["generators"] for p in ("priority", "edf"))
+    res = {"phase": "bench_trace_curves", **{k: v for k, v in BENCH_CURVES.items()},
+           "points": {f"{g}/{p}": {k: pt[k] for k in ("attainment", "attainment_high", "done",
+                                                       "rejected", "shed", "expired")}
+                      for (g, p), pt in by.items()},
+           "separated": separated, "engines": engines, "wall_s": wall["trace_curves"],
+           "nvidia_smi": smi}
+    check(res, separated and all(accounted(pt, BENCH_CURVES["requests"]) for pt in by.values()),
+          engines)
+
+    # 3) disaggregation: mixed against P:D, and the chaos arm; the meter's question.
+    probe = _ReturnProbe()
+    disagg, engines = bench("disagg", sb.run_disagg_bench,
+                            hook=lambda eng: (hooks(eng), probe(eng)), **BENCH_DISAGG)
+    arms = ("mixed", "disagg", "disagg_chaos")
+    res = {"phase": "bench_disagg", **BENCH_DISAGG,
+           "silently_lost": [disagg[a]["silently_lost"] for a in arms],
+           "done": [disagg[a]["done"] for a in arms],
+           "streams_identical_vs_mixed": disagg["streams_identical_vs_mixed"],
+           "chaos_streams_identical": disagg["chaos_streams_identical"],
+           "decode_stall_share": [disagg[a]["decode_stall_share"] for a in arms],
+           "ttft_p95_s": [_p95(disagg[a]["ttft"]) for a in arms],
+           "tpot_p95_s": [_p95(disagg[a]["tpot"]) for a in arms],
+           "decode_tokens_per_busy_s": [disagg[a]["decode_tokens_per_busy_s"] for a in arms],
+           "arm_wall_s": [disagg[a]["wall_s"] for a in arms],
+           "handoffs": disagg["disagg"]["handoffs"],
+           "handoff_transfer": disagg["disagg"]["handoff_transfer"],
+           "replica_kills": disagg["disagg_chaos"]["replica_kills"],
+           "stall_improved": disagg["stall_improved"],
+           "ttft_p95_improved": disagg["ttft_p95_improved"],
+           "return_probe": probe.summary(), "engines": engines, "wall_s": wall["disagg"],
+           "nvidia_smi": smi}
+    check(res, disagg["disagg"]["silently_lost"] == 0
+          and disagg["disagg_chaos"]["silently_lost"] == 0
+          and disagg["streams_identical_vs_mixed"] and disagg["chaos_streams_identical"]
+          and disagg["streams_compared_vs_mixed"] > 0 and disagg["disagg"]["handoffs"] > 0,
+          engines, pages=False)
+
+    # 4) dense against paged at one KV byte budget.
+    paged, engines = bench("paged_compare", sb.run_paged_compare, **BENCH_PAGED)
+    dense_row, paged_row = paged["rows"]
+    res = {"phase": "bench_paged", **BENCH_PAGED,
+           "concurrency_ratio": paged["concurrency_ratio"],
+           "prefix_memory_ratio": paged["prefix_memory_ratio"],
+           "kv_budget_bytes": paged["kv_budget_bytes"],
+           "rows": [{k: r[k] for k in ("layout", "max_concurrent_at_fixed_mem", "tokens_per_sec",
+                                       "decode_tokens_per_sec", "tokens_per_step",
+                                       "kv_bytes_per_request", "prefix_hit_memory_bytes",
+                                       "prefix_hits")} for r in paged["rows"]],
+           "engines": engines, "wall_s": wall["paged_compare"], "nvidia_smi": smi}
+    check(res, paged["concurrency_ratio"] >= 2.0
+          and paged_row["kv_bytes_per_request"] < dense_row["kv_bytes_per_request"],
+          engines, pages=False)
+
+    # 5) the super-step sweep.
+    multi, engines = bench("multistep", sb.run_multistep_bench, **BENCH_MULTISTEP)
+    res = {"phase": "bench_multistep", **BENCH_MULTISTEP,
+           "rows": [{k: r[k] for k in ("decode_steps", "tokens_per_sec", "decode_tokens_per_sec",
+                                       "decode_dispatches", "host_share", "identical_vs_n1")}
+                    for r in multi["rows"]],
+           "all_identical": multi["all_identical"],
+           "decode_speedup_best": multi["decode_speedup_best"],
+           "engines": engines, "wall_s": wall["multistep"], "nvidia_smi": smi}
+    check(res, multi["all_identical"], engines)
+
+    # 6) the speculative bench; fused against spec_k=0 under the near-tie rule.
+    spec, engines = bench("spec", sb.run_spec_bench, **BENCH_SPEC)
+    sweep_cfg = dataclasses.replace(cfg, max_seq=256)
+    burst = sb._spec_sweep_workload(cfg.vocab_size, BENCH_SPEC["sweep_requests"], 16, 32,
+                                    "repeat", BENCH_SPEC["seed"])
+    workload = [(p, dict(gen=g, seed=r) if r is not None else
+                 dict(max_new_tokens=g.max_new_tokens)) for p, g, r in burst]
+    mism = {m["row"]: m for m in spec["mismatched_vs_plain"]}
+    div = divergence_rows(
+        params, sweep_cfg, workload,
+        [mism[i]["plain"] if i in mism else [] for i in range(len(burst))],
+        [mism[i]["fused"] if i in mism else [] for i in range(len(burst))],
+        engine_kw=dict(max_slots=8, max_len=256, prompt_bucket=16))
+    res = {"phase": "bench_spec", **BENCH_SPEC,
+           "rows": [{k: r[k] for k in ("metric", "spec_draft", "spec_accept_rate",
+                                       "tokens_per_step", "tokens_per_sec", "done")}
+                    for r in spec["rows"]],
+           "fused_sweep": [{k: r[k] for k in ("decode_steps", "spec_accept_rate",
+                                              "tokens_per_step", "tokens_per_sec",
+                                              "decode_tokens_per_sec", "host_share")}
+                           for r in spec["fused_sweep"]["rows"]],
+           "fused_identical_vs_host_loop": spec["fused_identical_vs_host_loop"],
+           "fused_identical_vs_plain": spec["fused_identical_vs_plain"],
+           "divergence": div, "comparison": spec["comparison"], "engines": engines,
+           "wall_s": wall["spec"], "nvidia_smi": smi}
+    check(res, spec["fused_identical_vs_host_loop"]
+          and len(div) == len(mism) and all(d["ok"] for d in div.values())
+          and all(accounted(r, BENCH_SPEC["requests"]) for r in spec["rows"]), engines)
+
+    ragged = paged_attention.launches_ragged - ragged0
+    emit({"phase": "bench_summary", "launches": launches, "launches_ragged": ragged,
+          "wall_s": wall, "nvidia_smi": smi})
+    if failed or ragged:
+        raise PhaseFailed("the 8B serve-bench modes failed their checks",
+                          failed + (["launches_ragged"] if ragged else []))
+    del hooks
+    gc.collect()
+    return {"launches": sum(launches.values()), "launches_by_bench": launches, "wall_s": wall}
 
 
 # ------------------------------------------------------- phase 4d: one-request API
@@ -5697,7 +5954,7 @@ def decode_ab(variants: dict, cfg, tokens: int = 8) -> dict:
 
     runs = {a: [], b: []}
     prefill = {a: [], b: []}
-    for name in (a, b, b, a) * 2:
+    for name in (a, b, b, a):
         p_ms, s_ms = window(*variants[name])
         prefill[name].append(p_ms)
         runs[name].append(s_ms)
@@ -5705,7 +5962,7 @@ def decode_ab(variants: dict, cfg, tokens: int = 8) -> dict:
     p_med = {name: float(np.median(r)) for name, r in prefill.items()}
     return {"phase": "decode_ab", "tokens_per_window": tokens, "lanes": 8,
             "decode_steps": {name: v[1].get("decode_steps", 1) for name, v in variants.items()},
-            "order": f"({a}, {b}, {b}, {a}) x 2", "step_ms_runs": runs,
+            "order": f"({a}, {b}, {b}, {a})", "step_ms_runs": runs,
             "step_ms_median": med, f"{b}_over_{a}": med[b] / med[a],
             f"{b}_faster_in_every_pair": all(x < y for x, y in zip(runs[b], runs[a])),
             "prefill_ms_per_request_runs": prefill, "prefill_ms_per_request_median": p_med,
@@ -6259,6 +6516,8 @@ def main() -> int:
     serve_faults = run_phase("main_faults", phase_main_faults, dev, serve)
     # The serving control plane (slice 16): the serve-bench gates at 8B.
     serve_control = run_phase("main_control", phase_main_control, dev, serve)
+    # serve-bench's remaining modes (slice 17) at 8B.
+    serve_bench = run_phase("main_bench", phase_main_bench, dev, serve)
     del serve["params"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -6305,7 +6564,7 @@ def main() -> int:
                                xent, train, train_fused, int8, serve_int8, partial,
                                train_tp, serve_multi, resume, serve_prefill,
                                serve_prefix, serve_spec, serve_spec_draft, serve_disagg,
-                               serve_faults, serve_control)})
+                               serve_faults, serve_control, serve_bench)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -6315,14 +6574,14 @@ def main() -> int:
 def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve_int8,
                 partial, train_tp, serve_multi, resume, serve_prefill, serve_prefix,
                 serve_spec, serve_spec_draft, serve_disagg, serve_faults,
-                serve_control) -> list:
+                serve_control, serve_bench) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results. The
     serving kernels' launches add their main paths' runs: N = 1, the super-step's,
     the bucketed, the prefix-cache, the speculative, the disaggregated drains (the
     decode replicas' launches over adopted pages; eager launches plus graph nodes times
     replays, with the kill and crash runs), the faulted 8B drain and the control plane's
-    paged benches (trace replay and both chaos arms); the training kernels' add
-    train_main's and train_resume's."""
+    paged benches (trace replay and both chaos arms) and serve-bench's remaining modes'
+    paged engines; the training kernels' add train_main's and train_resume's."""
 
     def train_launches(kernel):
         by_path = {"train_main": train["launches"][kernel],
@@ -6355,7 +6614,8 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                     + serve_prefix["launches"] + serve_spec["launches"]
                     + serve_spec_draft["launches"] + serve_disagg["launches"]
                     + serve_disagg["launches_kill"] + serve_faults["launches_crash"]
-                    + serve_faults["launches"] + serve_control["launches"],
+                    + serve_faults["launches"] + serve_control["launches"]
+                    + serve_bench["launches"],
                     kern["max_abs_err"], kern, design=PAGED_DESIGN,
                     launches_by_path={"main": serve["launches"],
                                       "main_multistep": serve_multi["launches"],
@@ -6367,7 +6627,8 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                                       "main_disagg_kill": serve_disagg["launches_kill"],
                                       "main_disagg_crash": serve_faults["launches_crash"],
                                       "main_faults": serve_faults["launches"],
-                                      "main_control": serve_control["launches"]},
+                                      "main_control": serve_control["launches"],
+                                      "main_bench": serve_bench["launches"]},
                     t4_verify={k: kern["t4"][k] for k in ("kernel_ms", "plain_ms",
                                                          "bound_ms", "bound_by", "route")},
                     max_abs_err_t4_verify=kern["max_abs_err_t4"],

@@ -104,6 +104,7 @@ GATEWAY_MODULES = (
     "accelerate_tpu_torch.serving_gateway.autoscaler",
     "accelerate_tpu_torch.commands.metrics_dump", "accelerate_tpu_torch.commands.capsule_report",
     "accelerate_tpu_torch.commands.serve_bench",
+    "accelerate_tpu_torch.commands.accelerate_cli", "accelerate_tpu_torch.__main__",
 )
 
 
@@ -144,9 +145,11 @@ def test_gateway_stack_module_imports_with_jax_blocked(module):
 
 
 def test_serve_bench_and_smoke_entry_points_default_to_cuda(monkeypatch):
-    """``serve_bench``'s ``run_*`` and ``metrics_dump --smoke`` run on the card unless
-    the caller asks for the CPU: without CUDA they raise, never fall back."""
+    """``serve_bench``'s ``run_*``, ``metrics_dump --smoke`` and the CLI root's
+    ``serve-bench`` run on the card unless the caller asks for the CPU: without CUDA
+    they raise, never fall back."""
     from accelerate_tpu_torch.commands import serve_bench
+    from accelerate_tpu_torch.commands.accelerate_cli import main
     from accelerate_tpu_torch.commands.metrics_dump import run_metrics_smoke
     from accelerate_tpu_torch.serving_gateway.workload import generate_workload
 
@@ -155,6 +158,14 @@ def test_serve_bench_and_smoke_entry_points_default_to_cuda(monkeypatch):
                  lambda: serve_bench.run_fleet_chaos_bench(requests=2),
                  lambda: serve_bench.run_autoscale_bench(requests=2),
                  lambda: serve_bench.run_trace_replay(generate_workload("poisson", 2)),
+                 lambda: serve_bench.run_serve_bench(requests=2),
+                 lambda: serve_bench.run_trace_curves(requests=2),
+                 lambda: serve_bench.run_disagg_bench(requests=2),
+                 lambda: serve_bench.run_paged_compare(requests=2),
+                 lambda: serve_bench.run_multistep_bench(requests=2),
+                 lambda: serve_bench.run_spec_bench(requests=2),
+                 lambda: main(["serve-bench", "--smoke", "--requests", "2"]),
+                 lambda: main(["serve-bench", "--disagg", "1:1", "--smoke"]),
                  lambda: run_metrics_smoke(verbose=False)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -246,17 +246,6 @@ def test_workload_trace_rides_bucket_ladder_warm_surface(setup):
     assert eng.bucket_hits + eng.bucket_misses > 0
 
 
-def test_unported_modes_raise_naming_the_roadmap(tmp_path):
-    """The serve-bench modes outside this port raise ``NotImplementedError`` naming
-    ROADMAP.md A.1 (mirrors no JAX test: the JAX bench runs them)."""
-    parser = tsb.serve_bench_command_parser()
-    for args in ([], ["--trace-curves", "x.json"], ["--disagg", "1:1"],
-                 ["--paged-compare", "x.json"], ["--multistep", "x.json"],
-                 ["--spec-bench", "x.json"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A.1"):
-            tsb.serve_bench_command(parser.parse_args(args + ["--device", "cpu"]))
-
-
 # ------------------------------------------------------------------ chaos bench
 def test_chaos_bench_artifact(smoke_params):
     """Mirrors tests/test_resilience.py::test_chaos_bench_artifact: the port's artifact
