@@ -3,12 +3,14 @@
 The directory contract and file names are the JAX package's:
 
     checkpoint_dir/
-        sharded_state/rank{r}.json        each rank's index: leaves, dtypes, shapes, offsets
+        sharded_state/rank{r}.json        each rank's index: leaves, dtypes, shapes, offsets,
+                                           the dim a tp-split leaf is split along
         sharded_state/rank{r}_{i:05d}.bin each rank's train state, as byte files
         scheduler.json                     step, iteration, optimizer/scheduler/loader states
         sampler.json                       the data loaders' positions
         random_states_{rank}.pkl           Python, numpy and torch (CPU, CUDA) rng states
         custom_checkpoint_{i}.pkl          registered objects' ``state_dict()``
+        model.safetensors                  ``safe_serialization``: the whole params
         manifest.sha256.json               every file's sha256, written after they land
         COMMITTED                          the validity marker, written last (tmp + rename)
 
@@ -37,9 +39,20 @@ newest checkpoint that verifies is loaded; invalid ones (uncommitted, corrupt) a
 under ``checkpoints/quarantined/`` and counted in ``checkpoints_quarantined``. An
 explicit ``input_dir`` that fails verification raises :class:`CheckpointCorruptError`.
 
-Not ported: pipeline (pp/mpmd) checkpoints, the consolidated ``FULL_STATE_DICT`` format,
-fault-plan draws, and the safetensors export (``safe_serialization`` warns and skips, as
-the JAX package does without ``safetensors``).
+``safe_serialization=True`` also exports the params as ``model.safetensors`` (whole
+tensors: under tp each split leaf is gathered first, a collective every rank joins, and
+the main process writes), through the port's own safetensors writer
+(``utils/serialization.py``), under the JAX params tree's names.
+
+Fault injection (``Accelerator.fault_plan``, site ``ckpt.save``): every rank draws once a
+save, after its data files have landed and before the commit. ``crash`` raises
+``InjectedFault`` there: no marker, an uncommitted directory, as a preemption mid-save
+leaves. ``corrupt`` flips one byte of the first manifested file after the marker, which
+only the manifest's hashes catch; on an async save it rides the deferred commit and
+lands when :func:`wait_for_async_save` has written the marker.
+
+Not ported: pipeline (pp/mpmd) checkpoints and the consolidated ``FULL_STATE_DICT``
+format.
 """
 
 from __future__ import annotations
@@ -59,12 +72,15 @@ import numpy as np
 import torch
 
 from .logging import get_logger
+from .resilience.faults import InjectedFault
 from .utils.constants import (
     CUSTOM_OBJECT_NAME,
     RNG_STATE_NAME,
+    SAFE_WEIGHTS_NAME,
     SAMPLER_STATE_NAME,
     SCHEDULER_STATE_NAME,
     SHARDED_STATE_DIR,
+    TENSOR_AXIS,
 )
 from .utils.operations import _world_size, gather_object
 from .utils.tree import named_parameters, tree_unflatten
@@ -215,20 +231,45 @@ def _bytes_of(t: torch.Tensor) -> torch.Tensor:
     return t.detach().reshape(-1).view(torch.uint8)
 
 
-def _state_index(flat: dict, accelerator) -> dict:
+def _split_dims(train_state, flat: dict) -> dict:
+    """``{path: dim}`` of the state's leaves split over the tp ranks: the params' from
+    ``TrainState.tp_dims``, and every other leaf (a moment, an accumulated gradient) whose
+    path ends with a split param's path and has its shape."""
+    dims = getattr(train_state, "tp_dims", None)
+    if not dims:
+        return {}
+    params = named_parameters(train_state.params)
+    split = {p: (d, tuple(params[p].shape)) for p, d in zip(params, dims) if d is not None}
+    out = {}
+    for path, leaf in flat.items():
+        parts = path.split("/")[1:]
+        for i in range(len(parts)):
+            hit = split.get("/".join(parts[i:]))
+            if hit is not None:
+                if torch.is_tensor(leaf) and tuple(leaf.shape) == hit[1]:
+                    out[path] = hit[0]
+                break
+    return out
+
+
+def _state_index(flat: dict, accelerator, split: dict) -> dict:
     leaves, offset = [], 0
     for path, leaf in flat.items():
         if torch.is_tensor(leaf):
             n = leaf.numel() * leaf.element_size()
             leaves.append({"path": path, "dtype": str(leaf.dtype).removeprefix("torch."),
-                           "shape": list(leaf.shape), "offset": offset, "nbytes": n})
+                           "shape": list(leaf.shape), "offset": offset, "nbytes": n,
+                           "split": split.get(path)})
             offset += n
         else:
             leaves.append({"path": path, "value": leaf})
     mesh = accelerator.mesh
+    tp = None if mesh is None else {"size": mesh.axis_size(TENSOR_AXIS),
+                                    "index": mesh.axis_index(TENSOR_AXIS)}
     return {"world": accelerator.num_processes, "rank": accelerator.process_index,
-            "mesh": None if mesh is None else dict(mesh.shape), "file_bytes": FILE_BYTES,
-            "total_bytes": offset, "n_files": -(-offset // FILE_BYTES), "leaves": leaves}
+            "mesh": None if mesh is None else dict(mesh.shape), "tp": tp,
+            "file_bytes": FILE_BYTES, "total_bytes": offset,
+            "n_files": -(-offset // FILE_BYTES), "leaves": leaves}
 
 
 def _file_pieces(index: dict, tensors: dict) -> list:
@@ -304,6 +345,7 @@ class _AsyncWrites:
 
     def __init__(self, path: Path, write_marker: bool, started: float):
         self.path, self.write_marker, self.started = path, write_marker, started
+        self.corrupt = False  # a ckpt.save ``corrupt`` draw, applied after the marker
         self.pool = ThreadPoolExecutor(STAGING_BUFFERS)
         self.futures: dict = {}  # rel -> future of (digest, write s, hash s)
         self.last_done = started
@@ -328,7 +370,7 @@ def _save_train_state(accelerator, train_state, state_dir: Path, async_writes=No
     t_start = time.perf_counter()
     rank = accelerator.process_index
     flat = _flat_state(train_state)
-    index = _state_index(flat, accelerator)
+    index = _state_index(flat, accelerator, _split_dims(train_state, flat))
     state_dir.mkdir(parents=True, exist_ok=True)
     (state_dir / f"rank{rank}.json").write_text(json.dumps(index))
     pieces = _file_pieces(index, {p: v for p, v in flat.items() if torch.is_tensor(v)})
@@ -469,10 +511,41 @@ def wait_for_async_save(accelerator=None) -> Optional[dict]:
     all_digests = _all_ranks_digests(digests)
     if pending.write_marker:
         _write_commit_marker(pending.path, all_digests)
+        if pending.corrupt:
+            _corrupt_one_file(pending.path)
     _barrier()
     if accelerator is not None:
         accelerator.checkpoint_stats["save"].update(stats)
     return stats
+
+
+def _corrupt_one_file(path: Path) -> None:
+    """Injected silent corruption: one byte flipped in the middle of the first
+    manifested file, which the marker cannot catch and the manifest's hashes must."""
+    files = _manifest_files(path)
+    if not files:
+        return
+    victim = path / files[0]
+    data = bytearray(victim.read_bytes())
+    if data:
+        data[len(data) // 2] ^= 0xFF
+        victim.write_bytes(bytes(data))
+
+
+def _export_safetensors(accelerator, train_state, file_path: Path) -> float:
+    """The whole params as one safetensors file, written by the main process; split
+    leaves are gathered from the tp ranks first (every rank joins). Returns seconds."""
+    from .parallel.tp import gather_split_leaf
+    from .utils.serialization import write_safetensors
+
+    t0 = time.perf_counter()
+    flat = named_parameters(train_state.params)
+    dims = train_state.tp_dims or [None] * len(flat)
+    whole = {path: gather_split_leaf(leaf, d, accelerator.mesh)
+             for (path, leaf), d in zip(flat.items(), dims)}
+    if accelerator.is_main_process:
+        write_safetensors(whole, file_path)
+    return time.perf_counter() - t0
 
 
 def _all_ranks_digests(digests: dict) -> dict:
@@ -528,7 +601,8 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, train_
             pending = _AsyncWrites(path, accelerator.is_main_process, t_start)
         digests, stats = _save_train_state(accelerator, train_state, state_dir, pending)
         if safe_serialization:
-            logger.warning("safetensors export is not ported; skipping interchange export")
+            stats["export_s"] = _export_safetensors(accelerator, train_state,
+                                                    path / SAFE_WEIGHTS_NAME)
 
     meta: dict[str, Any] = {
         "step": accelerator.step, "iteration": project.iteration,
@@ -559,16 +633,29 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, train_
     with open(path / f"{RNG_STATE_NAME}_{accelerator.process_index}.pkl", "wb") as f:
         pickle.dump(states, f)
 
+    # Fault injection: every rank draws once, before the commit's collectives, so all
+    # take the same branch and no survivor waits in a barrier.
+    plan = getattr(accelerator, "fault_plan", None)
+    spec = plan.draw("ckpt.save") if plan is not None else None
+    if spec is not None and spec.kind == "crash":
+        if pending is not None:
+            pending.join()  # the data files land; the marker never does
+        raise InjectedFault("ckpt.save", "crash")
+    corrupt = spec is not None and spec.kind == "corrupt"
+
     # Every file hashed into the manifest, then the marker, last: a crash anywhere above
     # leaves an uncommitted directory the loader skips.
     t_commit = time.perf_counter()
     if pending is not None:
+        pending.corrupt = corrupt  # lands after the deferred marker
         _PENDING = pending
         stats["blocking_s"] = time.perf_counter() - t_start
     else:
         all_digests = _all_ranks_digests(digests)
         if accelerator.is_main_process:
             _write_commit_marker(path, all_digests)
+            if corrupt:
+                _corrupt_one_file(path)
         _barrier()
         stats["commit_s"] = time.perf_counter() - t_commit
         stats["total_s"] = time.perf_counter() - t_start

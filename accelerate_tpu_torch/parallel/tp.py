@@ -46,7 +46,7 @@ __all__ = [
     "register_tp_plan", "get_tp_plan", "plan_from_rules", "apply_tensor_parallel",
     "gather_tensor_parallel", "map_with_specs", "local_shard", "spec_is_sharded",
     "all_reduce", "group_rank_size", "copy_to_group", "reduce_from_group",
-    "replica_sum", "vocab_parallel_embedding", "sharded_leaves",
+    "replica_sum", "vocab_parallel_embedding", "split_dims", "gather_split_leaf",
 ]
 
 _TP_PLANS: dict[str, Callable] = {}
@@ -270,7 +270,28 @@ def vocab_parallel_embedding(table: torch.Tensor, ids: torch.Tensor, group,
     return reduce_from_group(rows, group)
 
 
-def sharded_leaves(params: Any, specs: Any, mesh: Optional[Mesh]) -> list:
-    """Per leaf of ``params`` (in ``tree_leaves`` order), whether its spec shards it."""
-    return tree_leaves(map_with_specs(lambda leaf, spec: spec_is_sharded(spec, mesh),
-                                      params, specs))
+def split_dims(params: Any, specs: Any, mesh: Optional[Mesh]) -> list:
+    """Per leaf of ``params`` (in ``tree_leaves`` order), the dim its spec splits over
+    the ranks of ``mesh`` (None: the leaf is whole on every rank)."""
+    def dim(leaf, spec):
+        for d, entry in enumerate(spec or ()):
+            if mesh is not None and mesh.axis_size(spec_axes(entry)) > 1:
+                return d
+        return -1  # not None: tree_leaves drops None
+
+    return [None if d < 0 else d for d in tree_leaves(map_with_specs(dim, params, specs))]
+
+
+def gather_split_leaf(leaf: torch.Tensor, dim: Optional[int], mesh: Optional[Mesh]):
+    """The whole of a leaf split along ``dim`` over the tp ranks (a collective of the
+    tp group: every rank calls it); ``leaf`` itself when ``dim`` is None."""
+    if dim is None or mesh is None:
+        return leaf
+    n = mesh.axis_size(TENSOR_AXIS)
+    full_shape = list(leaf.shape)
+    full_shape[dim] *= n
+    buf = torch.zeros(full_shape, dtype=leaf.dtype, device=leaf.device)
+    k = leaf.shape[dim]
+    i = mesh.axis_index(TENSOR_AXIS)
+    buf.narrow(dim, i * k, k).copy_(leaf.detach())
+    return all_reduce(buf, "sum", mesh.group(TENSOR_AXIS))

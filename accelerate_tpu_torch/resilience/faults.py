@@ -21,6 +21,10 @@ site                   instrumented in
                        batch's float leaves with NaN, the real non-finite
                        guard path; ``error`` raises; ``crash`` raises
                        :class:`StageCrashed` past the step boundary)
+``ckpt.save``          ``checkpointing.save_accelerator_state`` (``crash``
+                       raises before the commit marker lands; ``corrupt``
+                       flips a byte of a saved file after the marker, caught
+                       by the manifest's hashes at load)
 =====================  ======================================================
 
 Every kind fires on the host before the launch it guards (``hang`` sleeps there), so no

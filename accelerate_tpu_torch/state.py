@@ -9,7 +9,10 @@ backend — ``nccl`` for CUDA ranks and ``gloo`` for CPU ranks unless the caller
 (``backend="gloo"`` where ranks share a card). The device is CUDA unless the caller asks
 for the CPU (``cpu=True`` or ``device="cpu"``); with several NCCL ranks it defaults to
 ``cuda:LOCAL_RANK``; without CUDA and without that request, construction raises; a
-re-init that asks for another device raises too. ``AcceleratorState(mesh_config=...)``
+re-init that asks for another device raises too. The launcher's environment
+(``utils/launch.py``) is read as the JAX package reads it: ``ACCELERATE_USE_CPU`` asks
+for the CPU when the caller names no device, ``ACCELERATE_DEBUG_MODE`` sets ``debug``,
+and ``ACCELERATE_MIXED_PRECISION`` is the precision when the caller passes none. ``AcceleratorState(mesh_config=...)``
 lays the ranks out on a ``parallel.mesh.Mesh`` (also built, all-dp, when several
 processes run without a config, as the JAX package always builds one); with one process
 and no config there is no mesh. Each class keeps the shared-dict singleton of the JAX
@@ -41,6 +44,7 @@ from .utils.constants import (
     TENSOR_AXIS,
 )
 from .utils.device import resolve_device
+from .utils.environment import parse_choice_from_env, parse_flag_from_env
 
 __all__ = ["PartialState", "AcceleratorState", "GradientState", "is_initialized"]
 
@@ -59,9 +63,13 @@ class PartialState:
                  init_method: Optional[str] = None, rank: Optional[int] = None,
                  world_size: Optional[int] = None, timeout_s: Optional[float] = None):
         self.__dict__ = self._shared_state
+        if device is None and not cpu:
+            cpu = parse_flag_from_env("ACCELERATE_USE_CPU")
         if self.initialized:
             self._check_device(cpu, device)
             return
+        self.debug = parse_flag_from_env("ACCELERATE_DEBUG_MODE")
+        self.fork_launched = parse_flag_from_env("FORK_LAUNCHED")
         if rank is None:
             rank = _env_int("RANK", 0)
         if world_size is None:
@@ -112,6 +120,8 @@ class PartialState:
     def _check_device(self, cpu: bool, device) -> None:
         """Raise when a re-init asks for another device than the state holds (``None``
         asks for CUDA, as on first init)."""
+        if device is None and not cpu:
+            cpu = parse_flag_from_env("ACCELERATE_USE_CPU")
         want = torch.device("cpu" if cpu else "cuda" if device is None else device)
         have = self.device
         if want.type != have.type or (want.index is not None and have.index is not None
@@ -156,7 +166,9 @@ class AcceleratorState:
         from .parallel.mesh import MeshConfig, build_mesh
 
         self._partial = PartialState(cpu=cpu, device=device, backend=backend)
-        self._mixed_precision = str(PrecisionType(mixed_precision or "no"))
+        if mixed_precision is None:
+            mixed_precision = parse_choice_from_env("ACCELERATE_MIXED_PRECISION", "no")
+        self._mixed_precision = str(PrecisionType(mixed_precision))
         self.mixed_precision_policy = MixedPrecisionPolicy.from_precision(self._mixed_precision)
         if mesh_config is None:
             mesh_config = MeshConfig.from_env()

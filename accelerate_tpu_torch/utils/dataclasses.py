@@ -20,26 +20,14 @@ from typing import Any, Optional
 
 import torch
 
+from .environment import parse_flag_from_env
+
 __all__ = [
     "KwargsHandler", "PrecisionType", "DistributedType", "RNGType",
     "GradientAccumulationPlugin", "MixedPrecisionPolicy", "DataLoaderConfiguration",
     "ProjectConfiguration", "GatewayConfig", "TelemetryConfig", "FaultConfig",
     "TensorInformation", "parse_flag_from_env",
 ]
-
-_TRUE = {"1", "true", "yes", "y", "on", "t"}
-_FALSE = {"0", "false", "no", "n", "off", "f"}
-
-
-def parse_flag_from_env(key: str, default: bool = False) -> bool:
-    """The environment variable ``key`` read as a boolean flag (``default`` when unset or
-    not a recognised flag value)."""
-    value = str(os.environ.get(key, default)).lower().strip()
-    if value in _TRUE:
-        return True
-    if value in _FALSE:
-        return False
-    return default
 
 
 class KwargsHandler:

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .dataclasses import TensorInformation, parse_flag_from_env
+from .dataclasses import TensorInformation
+from .environment import parse_flag_from_env
 
 __all__ = [
     "is_tensor", "is_namedtuple", "honor_type", "recursively_apply", "send_to_device",

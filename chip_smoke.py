@@ -184,11 +184,13 @@ that names the phase, its failed cases and the exception:
    (two ranks on one card with collectives staged through host memory: not a
    tensor-parallel speed).
 17. train_resume (run right after train_fused) — save and resume at ``train_main``'s
-   configuration, fed by a stateful ``DataLoaderShard`` over a ``TokenDataset`` of 2^24
-   seeded tokens (the native C++ gather required) with a custom object and a scheduler
-   registered: 3 steps, ``save_state()``, 3 steps, ``load_state()`` in place, the loader
-   re-iterated from its restored position and the 3 steps again: losses bitwise, every
-   state leaf's checksums, the first layer's leaves (``torch.equal``), the counts and
+   configuration with the depth cut to 2 layers (``RESUME_LAYERS``: two 8-layer
+   checkpoints wrote 67 GB, past the 45 GiB of disk a run on the card's host may write),
+   fed by a stateful ``DataLoaderShard`` over a ``TokenDataset`` of 2^24 seeded tokens
+   (the native C++ gather required) with a custom object and a scheduler registered:
+   3 steps, ``save_state()``, 3 steps, ``load_state()`` in place, the loader re-iterated
+   from its restored position and the 3 steps again: losses bitwise, every state leaf's
+   checksums, the first layer's leaves (``torch.equal``), the counts and
    the loader's batches equal; then the same round with ``save_state(async_save=True)``
    and the steps run while the files are written. Printed: free disk and
    ``MemAvailable``, state bytes and bytes on disk, the save's seconds (device copies,
@@ -243,6 +245,26 @@ that names the phase, its failed cases and the exception:
    (crash kills, restarts, failover; replayed streams bitwise); the autoscaling proof
    (a scale-up through ``spawn_replica`` and a scale-down; streams bitwise). No graph
    captured in traffic; kernel #1 exact on the paged engines.
+22. elastic_train (run right after checkpoint_debug) — elastic, fault-injected training at
+   Llama-3-8B's width, depth cut to 1 layer (B=1, S=2048, 6 steps, chunked CE,
+   ``fused_adamw``, a ``DataLoaderShard`` over the native ``TokenDataset``), in worker
+   processes (``--elastic-worker``) that load the kernels built by phase 1 and build
+   none: one worker under ``elastic.ElasticSupervisor(max_restarts=2)`` whose first
+   attempt saves a good checkpoint at step 2, one corrupted after its marker at step 4
+   (``ckpt.save:corrupt``) and dies in step 5's save (``ckpt.save:crash``); the second
+   quarantines both, resumes from step 2 through ``skip_first_batches`` and saves with
+   ``safe_serialization=True``; an uninterrupted worker beside it. Final leaves and
+   losses bitwise equal to the uninterrupted worker's, one ``elastic.restart/v1`` record,
+   ``model.safetensors`` and ``python -m accelerate_tpu_torch merge-weights``' output
+   bitwise equal to the final params; save and load seconds and GB/s, each worker's
+   launches (2L/L/L flash, 1 AdamW a step). The checkpoints live in ``/dev/shm``: the
+   card's host takes at most 45 GiB of disk writes a run.
+23. elastic_gang — ``python -m accelerate_tpu_torch launch --multi-process
+   --num-processes 2 --max-restarts 1 chip_smoke.py --gang-worker ...``: two gloo ranks
+   sharing the card (``debug``, fp32); rank 0 dies once after the step-3 checkpoint, the
+   supervisor tears rank 1 down and relaunches both on a fresh port; the gang resumes and
+   its final params match one uninterrupted process within ``train_tp_parity``'s fp32
+   tolerance. NCCL (one rank per card) is not run.
 
 Then each phase's wall seconds, the kernels line (the serving kernels' launches include the super-steps' graph
 replays: kernel nodes times replays), the card's name and power limit, and a last line
@@ -262,7 +284,9 @@ import functools
 import gc
 import json
 import math
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -5081,6 +5105,9 @@ def profile_train_step(step, state, batch) -> dict:
 
 # -------------------------------------------- phases 17-18: training I/O (slice 11)
 RESUME_STEPS = 3  # steps between the save and the end of each round
+# Depth of train_resume's model (cut from TRAIN_LAYERS' 8 in slice 18): the card's host
+# takes at most 45 GiB of disk writes a run, and two 8-layer checkpoints wrote 67 GB.
+RESUME_LAYERS = 2
 RESUME_CORPUS_TOKENS = 1 << 24  # 64 MB of int32 tokens
 BUILD_ROOT = Path(__file__).resolve().parent / "build"  # git-ignored
 
@@ -5099,24 +5126,24 @@ def _host_room(where: Path) -> dict:
 
 
 def leaf_checksums(state) -> list:
-    """Per tensor leaf of the train state (params, moments): two 64-bit sums of its
-    words on the device (plain, and weighted by an odd multiplier of the position, so
-    that moved words change it too), taken in chunks of 2^26 words."""
+    """Per tensor leaf of the train state (params, moments): ``_checksum``'s two sums."""
     from accelerate_tpu_torch.utils.tree import tree_leaves
 
-    out = []
-    for t in tree_leaves([state.params, state.opt_state, state.grad_accum]):
-        if not torch.is_tensor(t):
-            continue
-        words = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
-        plain = weighted = torch.zeros((), dtype=torch.int64, device=t.device)
-        for start in range(0, words.numel(), 1 << 26):
-            x = words[start:start + (1 << 26)].to(torch.int64)
-            pos = torch.arange(start, start + x.numel(), device=t.device, dtype=torch.int64)
-            plain = plain + x.sum()
-            weighted = weighted + (x * (2 * pos + 1)).sum()
-        out.append((int(plain), int(weighted)))
-    return out
+    return [_checksum(t) for t in tree_leaves([state.params, state.opt_state, state.grad_accum])
+            if torch.is_tensor(t)]
+
+
+def _checksum(t: torch.Tensor) -> tuple:
+    """Two 64-bit sums of a tensor's words on its device (plain, and weighted by an odd
+    multiplier of the position, so that moved words change it too), in chunks of 2^26."""
+    words = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+    plain = weighted = torch.zeros((), dtype=torch.int64, device=t.device)
+    for start in range(0, words.numel(), 1 << 26):
+        x = words[start:start + (1 << 26)].to(torch.int64)
+        pos = torch.arange(start, start + x.numel(), device=t.device, dtype=torch.int64)
+        plain = plain + x.sum()
+        weighted = weighted + (x * (2 * pos + 1)).sum()
+    return int(plain), int(weighted)
 
 
 class _Counter:
@@ -5163,8 +5190,8 @@ def _reset_train_counts(fa, fo) -> None:
 
 
 def phase_train_resume(dev) -> dict:
-    """Save and resume at ``train_main``'s configuration (Llama-3-8B widths, 8 layers,
-    B=2, S=2048, bf16 over fp32 masters, remat, flash attention, chunked CE,
+    """Save and resume at ``train_main``'s configuration but RESUME_LAYERS layers
+    (Llama-3-8B widths, B=2, S=2048, bf16 over fp32 masters, remat, flash attention, chunked CE,
     ``fused_adamw(1e-4)``, clip 1.0), fed by a stateful ``DataLoaderShard`` over a
     ``TokenDataset`` of 2^24 seeded tokens, with a custom object and a scheduler
     registered. Round 1: 3 steps, ``save_state()``, 3 steps (losses, batches, per-leaf
@@ -5190,14 +5217,14 @@ def phase_train_resume(dev) -> dict:
     _fresh_state_singletons()
     BUILD_ROOT.mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="train_resume_", dir=BUILD_ROOT))
-    res = {"phase": "train_resume", "config": "llama3-8b", "layers": TRAIN_LAYERS,
+    res = {"phase": "train_resume", "config": "llama3-8b", "layers": RESUME_LAYERS,
            "batch": [TRAIN_B, TRAIN_S], "host_at_start": _host_room(root)}
     emit({"phase": "train_resume_host", **res["host_at_start"]})
     try:
         if not lm_dataset.native_available():
             raise PhaseFailed("the native gather (g++ build of lmdata.cpp) is unavailable",
                               ["native_available"])
-        L = TRAIN_LAYERS
+        L = RESUME_LAYERS
         cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], n_layers=L, dtype=torch.bfloat16,
                                   attn_impl="flash", remat=True, remat_policy="full")
         corpus = root / "corpus.bin"
@@ -5485,6 +5512,483 @@ def phase_checkpoint_debug(dev) -> dict:
     finally:
         ck.wait_for_async_save()
         shutil.rmtree(root, ignore_errors=True)
+        _fresh_state_singletons()
+
+
+# --------------------------------------- phases 22-23: elastic training (slice 18)
+ELASTIC_LAYERS = 1  # fp32 masters and moments of 1 layer: a 15.2 GB state, 3 saved at once
+# The elastic phase's checkpoints (four states, an export and a merge: 73 GB written) go
+# to host memory: the card's host takes at most 45 GiB of disk writes a run.
+SHM_ROOT = Path("/dev/shm")
+ELASTIC_B, ELASTIC_S, ELASTIC_STEPS = 1, 2048, 6
+ELASTIC_SAVES = (2, 4, 5)  # attempt 1 saves after these steps: good, corrupt, crashed
+# Saves are the site's invocations 0, 1, 2: the second is corrupted after its marker,
+# the third crashes before it. Attempt 2 finds its flag file and drops the plan.
+ELASTIC_FAULTS = "ckpt.save:corrupt,start=1,max=1;ckpt.save:crash,start=2,max=1"
+ELASTIC_KERNELS = ("flash_attention", "fused_adamw")
+#: Config fields replaced in the workers (empty: Llama-3-8B's widths); a CPU rehearsal
+#: shrinks them here and passes ``device``.
+ELASTIC_OVERRIDES: dict = {}
+
+
+def _named_checksums(named: dict, dev) -> dict:
+    """``{name: checksum}`` of a flat dict of tensors, each moved to ``dev`` first."""
+    return {k: list(_checksum(v.to(dev))) for k, v in named.items()}
+
+
+def elastic_worker(spec: dict) -> int:
+    """One process of ``elastic_train`` (``chip_smoke.py --elastic-worker SPEC``): Llama-3-8B
+    widths at ELASTIC_LAYERS layers, bf16 over fp32 masters, remat, flash attention,
+    chunked CE, ``fused_adamw(1e-4)``, clip 1.0, fed by a ``DataLoaderShard`` over the
+    native ``TokenDataset``; ELASTIC_STEPS steps. A supervised worker's first attempt
+    (no flag file yet) saves after the ELASTIC_SAVES steps under ``ACCELERATE_FAULTS``;
+    its second drops the plan, loads the newest valid checkpoint (automatic naming:
+    quarantining the invalid ones), skips the batches already trained with
+    ``skip_first_batches``, finishes and saves with ``safe_serialization=True``. The
+    result (losses, leaf checksums, save and load stats, launches, kernel builds) goes to
+    ``spec["result"]`` as JSON, even when an injected fault ends the attempt."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.data_loader import DataLoader
+    from accelerate_tpu_torch.lm_dataset import TokenDataset
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import _build
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.telemetry import CompileMonitor
+    from accelerate_tpu_torch.utils.dataclasses import ProjectConfiguration
+    from accelerate_tpu_torch.utils.tree import named_parameters
+
+    t_start = time.perf_counter()
+    monitor = CompileMonitor().start()
+    root = Path(spec["root"])
+    res = {"role": spec["role"], "attempt": 1, "started_unix": time.time(),
+           "libraries_missing": [n for n in ELASTIC_KERNELS
+                                 if not _build._lib_path(n).exists()]}
+    flag = spec.get("flag")
+    if flag is not None:
+        if os.path.exists(flag):
+            res["attempt"] = 2
+            os.environ.pop("ACCELERATE_FAULTS", None)
+        else:
+            Path(flag).write_text("attempt 1")
+    saves, losses = [], []
+    try:
+        dev = torch.device(spec["device"])
+        cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], **{
+            "n_layers": ELASTIC_LAYERS, "dtype": torch.bfloat16, "attn_impl": "flash",
+            "remat": True, "remat_policy": "full", **spec["overrides"]})
+        acc = Accelerator(mixed_precision="bf16", device=dev, project_config=ProjectConfiguration(
+            project_dir=str(root / "project"), automatic_checkpoint_naming=True))
+        res["fault_plan"] = None if acc.fault_plan is None else repr(acc.fault_plan)
+        loader = acc.prepare(DataLoader(TokenDataset(spec["corpus"], seq_len=spec["seq_len"],
+                                                     seed=0),
+                                        batch_size=spec["batch"], drop_last=True))
+        params = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                                   generator=torch.Generator(dev).manual_seed(0), device=dev)
+        state = acc.create_train_state(params, fo.fused_adamw(1e-4))
+        del params
+        step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+        res["state_bytes"] = sum(t.numel() * t.element_size() for t in named_parameters(
+            {"p": state.params, "o": state.opt_state}).values() if torch.is_tensor(t))
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        sync()
+        res["setup_s"] = time.perf_counter() - t_start
+        _reset_train_counts(fa, fo)
+        start = 0
+        if res["attempt"] == 2:
+            t0 = time.perf_counter()
+            state = acc.load_state(train_state=state)
+            res["load_call_s"] = time.perf_counter() - t0
+            res["load"] = dict(acc.checkpoint_stats["load"])
+            start = res["resumed_from"] = state.step
+            qdir = root / "project" / "checkpoints" / "quarantined"
+            res["quarantined"] = acc.checkpoints_quarantined
+            res["quarantine_dir"] = sorted(p.name for p in qdir.iterdir()) if qdir.exists() else []
+            shutil.rmtree(qdir, ignore_errors=True)  # 36 GB of disk back before the final save
+        t0 = time.perf_counter()
+        for batch in acc.skip_first_batches(loader, start):
+            state, metrics = step(state, batch)
+            losses.append([state.step, float(metrics["loss"])])
+            if spec.get("saves") and res["attempt"] == 1 and state.step in ELASTIC_SAVES:
+                s0 = time.perf_counter()
+                path = acc.save_state(train_state=state)  # the crash propagates
+                saves.append({"step": state.step, "path": Path(path).name,
+                              "call_s": time.perf_counter() - s0,
+                              **dict(acc.checkpoint_stats["save"])})
+            if state.step >= ELASTIC_STEPS:
+                break
+        sync()
+        res["train_s"] = time.perf_counter() - t0
+        if spec.get("final_dir"):
+            s0 = time.perf_counter()
+            acc.save_state(spec["final_dir"], train_state=state, safe_serialization=True)
+            saves.append({"step": state.step, "path": "final", "call_s": time.perf_counter() - s0,
+                          **dict(acc.checkpoint_stats["save"])})
+        res["final_step"] = state.step
+        res["leaf_checksums"] = leaf_checksums(state)
+        res["param_checksums"] = _named_checksums(named_parameters(state.params), dev)
+        return 0
+    finally:
+        res["losses"], res["saves"] = losses, saves
+        res["launches"] = _train_counts(fa, fo)
+        res["kernel_builds"] = monitor.by_kind.get("kernel_build", 0)
+        res["wall_s"] = time.perf_counter() - t_start
+        res["ended_unix"] = time.time()
+        Path(spec["result"]).write_text(json.dumps(res))
+
+
+def _worker_cmd(mode: str, spec) -> list:
+    return [sys.executable, str(Path(__file__).resolve()), mode, json.dumps(spec)]
+
+
+def _safetensors_tensors(path: Path) -> dict:
+    """Every tensor of ``path`` (mapped from the file): one safetensors file, or a
+    directory of ``model.safetensors`` or of the shards its index names."""
+    from accelerate_tpu_torch.utils.serialization import load_flat_safetensors
+
+    if path.is_file():
+        return load_flat_safetensors(path)
+    index = path / "model.safetensors.index.json"
+    files = (sorted(set(json.loads(index.read_text())["weight_map"].values()))
+             if index.exists() else ["model.safetensors"])
+    out = {}
+    for name in files:
+        out.update(load_flat_safetensors(path / name))
+    return out
+
+
+def _same_bytes(a: dict, b: dict) -> bool:
+    """The same names, dtypes, shapes and bytes (on the host)."""
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and torch.equal(a[k].reshape(-1).view(torch.uint8), b[k].reshape(-1).view(torch.uint8))
+        for k in a)
+
+
+def phase_elastic_train(dev) -> dict:
+    """Elastic, fault-injected, checkpointed training at Llama-3-8B's width
+    (ELASTIC_LAYERS layers, B=1, S=2048, 6 steps; ``elastic_worker``). One worker runs under
+    ``elastic.ElasticSupervisor(max_restarts=2)`` with an enabled ``Telemetry``: attempt
+    1 saves a good checkpoint at step 2, one corrupted after its marker at step 4
+    (``ckpt.save:corrupt``) and dies in step 5's save (``ckpt.save:crash``, an uncommitted
+    directory); attempt 2 quarantines both, resumes from step 2 through
+    ``skip_first_batches``, finishes and saves with ``safe_serialization=True``. An
+    uninterrupted worker (no faults, no saves) runs beside it. Checks: 2 attempts,
+    one ``elastic.restart/v1`` record, 2 quarantined, resumed from step 2, every final
+    leaf (params and moments) and every loss of a step both ran bitwise equal to the
+    uninterrupted worker's, ``model.safetensors`` and ``merge-weights``' output bitwise
+    equal to the final params, no kernel built in a worker, and each worker's launches
+    2L/L/L flash and 1 AdamW per step."""
+    from accelerate_tpu_torch import lm_dataset
+    from accelerate_tpu_torch.elastic import ElasticSupervisor
+    from accelerate_tpu_torch.telemetry import ELASTIC_RESTART_SCHEMA, Telemetry, validate_record
+    from accelerate_tpu_torch.utils.dataclasses import TelemetryConfig
+
+    t_phase = time.perf_counter()
+    _fresh_state_singletons()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="elastic_train_", dir=SHM_ROOT))
+    free, total = torch.cuda.mem_get_info()
+    res = {"phase": "elastic_train", "config": "llama3-8b", "layers": ELASTIC_LAYERS,
+           "batch": [ELASTIC_B, ELASTIC_S], "steps": ELASTIC_STEPS, "faults": ELASTIC_FAULTS,
+           "cut": f"depth {ELASTIC_LAYERS} of 32 layers (three checkpoints of the train state "
+                  "at once, in host memory); widths as published", "checkpoint_root": str(root),
+           "host_at_start": _host_room(root), "device_free_bytes": free,
+           "parent_allocated_bytes": torch.cuda.memory_allocated()}
+    emit({"phase": "elastic_train_host", **res["host_at_start"], "device_free_bytes": free})
+    children = []  # every process started here, stopped in the finally
+    try:
+        from accelerate_tpu_torch.models import llama
+
+        n_params = llama.num_params(dataclasses.replace(
+            llama.CONFIGS["llama3-8b"], **{"n_layers": ELASTIC_LAYERS, **ELASTIC_OVERRIDES}))
+        # Three states in /dev/shm at once, and two workers on the card at once (the
+        # uninterrupted one beside the supervised one), each a state and its activations.
+        res["host_bytes_needed"] = host_need = int(3.5 * 12 * n_params)
+        res["device_bytes_needed"] = device_need = int(2 * 1.5 * 12 * n_params)
+        if res["host_at_start"]["mem_available_bytes"] < host_need or free < device_need:
+            raise PhaseFailed("not enough host or device memory for the elastic phase",
+                              {"mem_available_bytes": res["host_at_start"]["mem_available_bytes"],
+                               "host_needed": host_need, "device_free_bytes": free,
+                               "device_needed": device_need})
+        walls = {}
+        corpus = root / "corpus.bin"
+        lm_dataset.write_token_file(np.random.default_rng(0).integers(
+            0, ELASTIC_OVERRIDES.get("vocab_size", 128256), ELASTIC_B * (ELASTIC_S + 1) * 16,
+            dtype=np.int32), str(corpus))
+        common = {"corpus": str(corpus), "device": str(dev), "overrides": ELASTIC_OVERRIDES,
+                  "seq_len": ELASTIC_S, "batch": ELASTIC_B}
+        base = {**common, "root": str(root / "baseline"), "role": "uninterrupted",
+                "result": str(root / "baseline.json")}
+        sup_spec = {**common, "root": str(root / "elastic"), "role": "supervised",
+                    "saves": True, "flag": str(root / "attempt1.flag"),
+                    "final_dir": str(root / "elastic" / "final")}
+        env = {**os.environ, "ACCELERATE_FAULTS": ELASTIC_FAULTS}
+        t0 = time.perf_counter()
+        baseline = subprocess.Popen(_worker_cmd("--elastic-worker", base))
+        children.append(baseline)
+        results = []
+
+        def make_plan(rendezvous):
+            attempt = len(results) + 1
+            results.append(str(root / f"attempt{attempt}.json"))
+            return [(_worker_cmd("--elastic-worker", {**sup_spec, "result": results[-1]}), env)]
+
+        tel = Telemetry(TelemetryConfig(enabled=True, compile_events=False, memory_stats=False))
+        sup = ElasticSupervisor(make_plan, max_restarts=2, monitor_interval=0.1, telemetry=tel)
+        rc = sup.run()
+        walls["supervised_s"] = time.perf_counter() - t0
+        res["baseline_rc"] = baseline.wait()
+        walls["with_baseline_s"] = time.perf_counter() - t0
+        records = [r for r in tel.records if r.get("schema") == ELASTIC_RESTART_SCHEMA]
+        res.update(supervisor_rc=rc, attempts=sup.attempts_used, restart_records=records,
+                   restart_records_valid=all(validate_record(r) == [] for r in records))
+        workers = [json.loads(Path(p).read_text()) for p in results]
+        ref = json.loads(Path(base["result"]).read_text())
+        emit({"phase": "elastic_train_workers", "wall_s": walls, "workers": [
+            {k: w.get(k) for k in ("role", "attempt", "setup_s", "load_call_s", "train_s",
+                                   "wall_s", "final_step")}
+            | {"saves_call_s": [s["call_s"] for s in w["saves"]]} for w in workers + [ref]]})
+        a1, a2 = workers[0], workers[-1]
+        res["exit_codes"] = [r["exit_codes"] for r in records] + [[rc]]
+        # From the failed attempt's end to the next attempt's start (the supervisor's
+        # teardown and poll, a fresh process and its imports), and to its state loaded.
+        res["restart_s"] = a2["started_unix"] - a1["ended_unix"]
+        res["resume_s"] = res["restart_s"] + a2.get("setup_s", 0) + a2.get("load_call_s", 0)
+
+        # The exported and the merged params against the final state's, on the card.
+        final = Path(sup_spec["final_dir"])
+        shutil.rmtree(root / "elastic" / "project", ignore_errors=True)
+        # merge-weights runs while the export is checked.
+        t0 = time.perf_counter()
+        merge = subprocess.Popen([sys.executable, "-m", "accelerate_tpu_torch", "merge-weights",
+                                  str(final), str(root / "merged")], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True,
+                                 cwd=Path(__file__).resolve().parent)
+        children.append(merge)
+        export = _safetensors_tensors(final / "model.safetensors")
+        exported = _named_checksums(export, dev)  # against the worker's, on the card
+        walls["export_check_s"] = time.perf_counter() - t0
+        merge_out, merge_err = merge.communicate(timeout=600)
+        walls["merge_s"] = time.perf_counter() - t0
+        merged_equal = (merge.returncode == 0
+                        and _same_bytes(_safetensors_tensors(root / "merged"), export))
+        walls["merge_check_s"] = time.perf_counter() - t0
+        res["merge"] = {"rc": merge.returncode, "stdout": merge_out[-500:],
+                        "stderr": merge_err[-2000:],
+                        "files": sorted(p.name for p in (root / "merged").glob("*"))}
+        state_bytes = a2.get("state_bytes", 0)
+        for w in [a1, a2, ref]:
+            for s in w["saves"]:
+                s["gb_per_s"] = state_bytes / 1e9 / s["total_s"] if s.get("total_s") else None
+        if a2.get("load"):
+            a2["load"]["gb_per_s"] = state_bytes / 1e9 / a2["load"]["total_s"]
+        ref_losses = {s: l for s, l in ref["losses"]}
+        L = ELASTIC_OVERRIDES.get("n_layers", ELASTIC_LAYERS)
+        per_step = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "fused_adamw": 1}
+        launches = {"attempt1": a1["launches"], "attempt2": a2["launches"],
+                    "uninterrupted": ref["launches"]}
+        expect = {"attempt1": {k: v * len(a1["losses"]) for k, v in per_step.items()},
+                  "attempt2": {k: v * len(a2["losses"]) for k, v in per_step.items()},
+                  "uninterrupted": {k: v * ELASTIC_STEPS for k, v in per_step.items()}}
+        res.update(
+            workers=[{k: v for k, v in w.items() if k not in ("leaf_checksums",
+                                                               "param_checksums")}
+                     for w in workers + [ref]],
+            state_bytes=state_bytes, launches=launches, launches_expected=expect,
+            launches_total={k: sum(v[k] for v in launches.values()) for k in per_step},
+            quarantined=a2.get("quarantined"), quarantine_dir=a2.get("quarantine_dir"),
+            resumed_from=a2.get("resumed_from"), wall_s=walls,
+            leaves=len(ref.get("leaf_checksums", [])))
+        ok = {
+            "two_attempts": rc == 0 and sup.attempts_used == 2 and len(workers) == 2,
+            "one_restart_record": len(records) == 1 and records[0]["attempt"] == 0
+            and records[0]["exit_codes"] == [1] and not records[0]["final"]
+            and res["restart_records_valid"],
+            "attempt1_faults": [s["step"] for s in a1["saves"]] == [2, 4]
+            and a1["losses"][-1][0] == 5 and a1.get("fault_plan") is not None,
+            "quarantined_two": a2.get("quarantined") == 2
+            and a2.get("quarantine_dir") == ["checkpoint_1", "checkpoint_2"],
+            "resumed_from_2": a2.get("resumed_from") == 2 and a2.get("final_step") == 6,
+            "baseline_ok": res["baseline_rc"] == 0 and ref.get("final_step") == 6,
+            "leaves_bitwise": bool(ref.get("leaf_checksums"))
+            and a2.get("leaf_checksums") == ref["leaf_checksums"],
+            "losses_bitwise": all(ref_losses.get(s) == l for s, l in a1["losses"] + a2["losses"]),
+            "export_bitwise": bool(exported) and exported == a2.get("param_checksums"),
+            "merge_bitwise": merged_equal,  # byte for byte the export, itself the params
+            "no_kernel_build": all(w["kernel_builds"] == 0 and not w["libraries_missing"]
+                                   for w in workers + [ref]),
+            "launches": launches == expect,
+            "finite": all(np.isfinite(l) for _, l in ref["losses"]),
+        }
+        res["checks"], res["ok"] = ok, all(ok.values())
+        res["host_at_end"] = _host_room(root)
+        res["phase_s"] = time.perf_counter() - t_phase
+        emit(res)
+        if not res["ok"]:
+            raise PhaseFailed("elastic training failed its checks",
+                              [k for k, v in ok.items() if not v])
+        return res
+    finally:
+        for p in children:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+        _fresh_state_singletons()
+
+
+GANG_STEPS, GANG_DIE_AFTER = 6, 3  # rank 0 dies once, right after the step-3 checkpoint
+GANG_LR = 1e-3
+
+
+def _gang_batch(i: int, vocab: int) -> dict:
+    return {"tokens": np.random.default_rng(100 + i).integers(0, vocab, (4, 129))}
+
+
+def _gang_cfg():
+    from accelerate_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32, attn_impl="flash")
+
+
+def gang_worker(out_dir: str, device: str) -> int:
+    """One rank of ``elastic_gang`` (``chip_smoke.py --gang-worker DIR``, started by
+    ``python -m accelerate_tpu_torch launch --multi-process``): the ``debug`` config in
+    fp32 on the card over gloo (the two ranks share it; all-dp mesh), ``fused_adamw``,
+    clip 1.0, GANG_STEPS steps of seeded global batches. Attempt 1 saves after step
+    GANG_DIE_AFTER and rank 0 exits 17 (once: a flag file); attempt 2 loads that
+    checkpoint and finishes. Each rank writes its result (and rank 0 the params)."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_to_numpy
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.telemetry import CompileMonitor
+    from accelerate_tpu_torch.utils.dataclasses import ProjectConfiguration
+
+    t_start = time.perf_counter()
+    monitor = CompileMonitor().start()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out_dir)
+    rank = int(os.environ["RANK"])
+    flag = out / "rank0_died"
+    res = {"rank": rank, "attempt": 2 if flag.exists() else 1,
+           "env": {k: os.environ.get(k) for k in ("RANK", "LOCAL_RANK", "WORLD_SIZE",
+                                                  "MASTER_ADDR", "MASTER_PORT")}}
+    cfg = _gang_cfg()
+    acc = Accelerator(device=device, backend="gloo", project_config=ProjectConfiguration(
+        project_dir=str(out / "project"), automatic_checkpoint_naming=True))
+    state = acc.create_train_state(
+        llama.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu"),
+        fo.fused_adamw(GANG_LR))
+    step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+    _reset_train_counts(fa, fo)
+    if (out / "project" / "checkpoints").exists():
+        state = acc.load_state(train_state=state)
+    res["resumed_from"] = state.step
+    losses = []
+    while state.step < GANG_STEPS:
+        state, metrics = step(state, _gang_batch(state.step, cfg.vocab_size))
+        losses.append(float(metrics["loss"]))
+        if state.step == GANG_DIE_AFTER and res["attempt"] == 1:
+            acc.save_state(train_state=state)
+            if rank == 0:
+                flag.write_text("rank 0 died after the step-3 checkpoint")
+                os._exit(17)
+    res.update(losses=losses, world=acc.num_processes, launches=_train_counts(fa, fo),
+               kernel_builds=monitor.by_kind.get("kernel_build", 0),
+               wall_s=time.perf_counter() - t_start)
+    if rank == 0:
+        np.save(out / "params.npy", _flat_params(params_to_numpy(state.params)))
+    (out / f"rank{rank}.json").write_text(json.dumps(res))
+    acc.wait_for_everyone()
+    return 0
+
+
+def phase_elastic_gang(dev) -> dict:
+    """``python -m accelerate_tpu_torch launch --multi-process --num-processes 2
+    --max-restarts 1 chip_smoke.py --gang-worker DIR``: two gloo ranks sharing the card
+    (``gang_worker``); rank 0 dies once after the step-3 checkpoint, the supervisor tears
+    rank 1 down and relaunches both on a fresh port; the gang resumes and finishes. Its
+    final params against one uninterrupted process on the card (the same global
+    batches) within ``train_tp_parity``'s fp32 tolerance; no kernel built in a rank.
+    NCCL (one rank per card) needs a machine with several cards and is not run."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_to_numpy
+    from accelerate_tpu_torch.ops.fused_optim import fused_adamw
+
+    BUILD_ROOT.mkdir(exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix="elastic_gang_", dir=BUILD_ROOT))
+    try:
+        cfg = _gang_cfg()
+        _fresh_state_singletons()
+        acc = Accelerator(device=dev)
+        state = acc.create_train_state(
+            llama.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu"),
+            fused_adamw(GANG_LR))
+        step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+        ref_losses = []
+        for i in range(GANG_STEPS):
+            state, metrics = step(state, _gang_batch(i, cfg.vocab_size))
+            ref_losses.append(float(metrics["loss"]))
+        p_ref = _flat_params(params_to_numpy(state.params))
+        _fresh_state_singletons()
+        cmd = [sys.executable, "-m", "accelerate_tpu_torch", "launch", "--multi-process",
+               "--num-processes", "2", "--max-restarts", "1", str(Path(__file__).resolve()),
+               "--gang-worker", str(out), _rank_device(dev)]
+        t0 = time.perf_counter()
+        # A session of its own: on a time-out the launch and its ranks are killed.
+        launch = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True, start_new_session=True,
+                                  cwd=Path(__file__).resolve().parent)
+        try:
+            _, stderr = launch.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            os.killpg(launch.pid, signal.SIGKILL)
+            _, stderr = launch.communicate()
+        launch_s = time.perf_counter() - t0
+        rc = launch.returncode
+        ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)
+                 if (out / f"rank{r}.json").exists()]
+        res = {"phase": "elastic_gang", "config": "debug", "command": " ".join(cmd[1:]),
+               "rc": rc, "launch_s": launch_s, "ranks": ranks,
+               "restart_lines": [l for l in stderr.splitlines() if "worker group" in l],
+               "stderr_tail": stderr[-1500:], "losses_ref": ref_losses,
+               "backend": "gloo (2 ranks share one card); NCCL, one rank per card, not run"}
+        ok = {"rc": rc == 0, "died_once": (out / "rank0_died").exists(),
+              "restarted": len(res["restart_lines"]) == 1 and "[17" in res["restart_lines"][0],
+              "both_ranks_resumed": len(ranks) == 2 and all(
+                  r["attempt"] == 2 and r["resumed_from"] == GANG_DIE_AFTER and r["world"] == 2
+                  for r in ranks),
+              "no_kernel_build": all(r["kernel_builds"] == 0 for r in ranks)}
+        if ok["both_ranks_resumed"]:
+            diff = np.abs(np.load(out / "params.npy") - p_ref)
+            tight = float(np.mean(diff <= 2e-6 + 1e-5 * np.abs(p_ref)))
+            loss_rel = max(abs(a - b) / abs(b) for a, b in
+                           zip(ranks[0]["losses"], ref_losses[GANG_DIE_AFTER:]))
+            res.update(params_max_abs_err=float(diff.max()), params_tol_abs=GANG_LR / 2,
+                       **{"params_share_within_2e-6+1e-5rel": tight},
+                       loss_max_rel_err=loss_rel, loss_tol_rel=1e-4)
+            ok["params"] = float(diff.max()) <= GANG_LR / 2 and tight >= 0.999
+            ok["losses"] = loss_rel <= 1e-4
+            per_step = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+                        "flash_bwd_dkv": cfg.n_layers, "fused_adamw": 1}
+            n = GANG_STEPS - GANG_DIE_AFTER
+            ok["launches"] = all(r["launches"] == {k: v * n for k, v in per_step.items()}
+                                 for r in ranks)
+            res["launches"] = {k: sum(r["launches"][k] for r in ranks) for k in per_step}
+        res["checks"], res["ok"] = ok, all(ok.values())
+        emit(res)
+        if not res["ok"]:
+            raise PhaseFailed("the elastic gang through the launch CLI failed its checks",
+                              [k for k, v in ok.items() if not v])
+        return res
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
         _fresh_state_singletons()
 
 
@@ -6457,6 +6961,12 @@ def _kernel_row(name, source, replaces, launches, max_abs_err, t, library=None,
 
 
 def main() -> int:
+    # A worker process of the elastic phases (started by this script's supervisor or
+    # the launch CLI it runs): its mode and spec follow the script's path.
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        return elastic_worker(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--gang-worker"]:
+        return gang_worker(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
@@ -6540,6 +7050,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     resume = run_phase("train_resume", phase_train_resume, dev)
     run_phase("checkpoint_debug", phase_checkpoint_debug, dev)
+    # Elastic training under the supervisor and through the launch CLI (slice 18).
+    elastic = run_phase("elastic_train", phase_elastic_train, dev)
+    gang = run_phase("elastic_gang", phase_elastic_gang, dev)
 
     # Int8 weight-only serving (slice 4).
     torch.cuda.empty_cache()
@@ -6564,7 +7077,7 @@ def main() -> int:
                                xent, train, train_fused, int8, serve_int8, partial,
                                train_tp, serve_multi, resume, serve_prefill,
                                serve_prefix, serve_spec, serve_spec_draft, serve_disagg,
-                               serve_faults, serve_control, serve_bench)})
+                               serve_faults, serve_control, serve_bench, elastic, gang)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -6574,18 +7087,22 @@ def main() -> int:
 def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve_int8,
                 partial, train_tp, serve_multi, resume, serve_prefill, serve_prefix,
                 serve_spec, serve_spec_draft, serve_disagg, serve_faults,
-                serve_control, serve_bench) -> list:
+                serve_control, serve_bench, elastic, gang) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results. The
     serving kernels' launches add their main paths' runs: N = 1, the super-step's,
     the bucketed, the prefix-cache, the speculative, the disaggregated drains (the
     decode replicas' launches over adopted pages; eager launches plus graph nodes times
     replays, with the kill and crash runs), the faulted 8B drain and the control plane's
     paged benches (trace replay and both chaos arms) and serve-bench's remaining modes'
-    paged engines; the training kernels' add train_main's and train_resume's."""
+    paged engines; the training kernels' add train_main's, train_resume's and the elastic
+    phases' worker processes' (every attempt's and the uninterrupted worker's, counted by
+    each worker's own counters; the gang's relaunched ranks)."""
 
     def train_launches(kernel):
         by_path = {"train_main": train["launches"][kernel],
-                   "train_resume": resume["launches"][kernel]}
+                   "train_resume": resume["launches"][kernel],
+                   "elastic_train": elastic["launches_total"][kernel],
+                   "elastic_gang": gang["launches"][kernel]}
         return sum(by_path.values()), {"launches_by_path": by_path}
 
     csrc, fa_py = "accelerate_tpu_torch/csrc/", "accelerate_tpu/ops/flash_attention.py"

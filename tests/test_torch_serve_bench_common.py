@@ -160,12 +160,13 @@ def run_port_cli(args):
 def test_cli_root_registers_the_ported_commands(capsys):
     """Mirrors the JAX CLI root (``accelerate_tpu/commands/accelerate_cli.py``) for the
     ported commands: ``python -m accelerate_tpu_torch`` dispatches capsule-report,
-    metrics-dump, serve-bench and trace-report; no command prints the help and fails."""
+    config, env, launch, merge-weights, metrics-dump, serve-bench and trace-report; no
+    command prints the help and fails."""
     from accelerate_tpu_torch.commands.accelerate_cli import get_parser, main
 
     sub = next(a for a in get_parser()._actions if a.dest == "command")
-    assert set(sub.choices) == {"capsule-report", "metrics-dump", "serve-bench",
-                                "trace-report"}
+    assert set(sub.choices) == {"capsule-report", "config", "env", "launch", "merge-weights",
+                                "metrics-dump", "serve-bench", "trace-report"}
     assert main([]) == 1 and "serve-bench" in capsys.readouterr().out
     result = subprocess.run([sys.executable, "-m", "accelerate_tpu_torch", "--help"],
                             capture_output=True, text=True, timeout=120, cwd=ROOT)
