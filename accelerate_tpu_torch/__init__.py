@@ -38,6 +38,10 @@ Ported so far:
   ``lm_dataset`` over ``native/lmdata.cpp``, ``checkpointing`` (verified save/resume),
   ``scheduler``, ``logging``, ``utils/operations`` and ``utils/random``, and the
   ``Accelerator`` surface over them.
+- slice 19, fp8 training and LoRA: ``ops/fp8.py`` (``fp8_dot`` over
+  ``torch._scaled_mm``, delayed scaling), scaled-fp8 AdamW moments, ``models/lora.py``
+  and ``optim.multi_transform``, behind ``Accelerator(mixed_precision="fp8")`` and
+  ``LlamaConfig(use_fp8=..., lora_rank=...)``.
 """
 
 __version__ = "0.1.0"

@@ -64,17 +64,35 @@ it); disabled, a step pays two attribute reads. Fault injection (``fault_config`
 poisons the batch's float leaves with NaN, ``error`` raises ``InjectedFault``,
 ``crash`` raises ``StageCrashed``); a skipped non-finite step emits a fault record.
 
+fp8 (``mixed_precision="fp8"``, ``kwargs_handlers=[FP8RecipeKwargs(...)]``, or the
+launcher's ``ACCELERATE_FP8_*``): the recipe becomes ``ops.fp8``'s process default (the
+models' ``use_fp8`` projections read it). With ``use_delayed_scaling`` the train state
+carries a ``DelayedScalingState`` (``TrainState.fp8_state``) and the step runs the loss
+and its backward inside ``ops.fp8.autoscale_ctx`` with the history's scales (the grad
+role's set to NaN: current scaling), then records the forward amaxes and a zero grad
+amax; a skipped non-finite step keeps the old state. ``opt_level="O2"`` turns a
+``FusedAdamW`` whose moment dtypes were left unset into one with scaled-fp8 moments
+when it is prepared (other optimizers keep fp32 state, with a warning).
+
+Frozen leaves: an optimizer with ``frozen_leaves(params)`` (``optim.multi_transform``
+with ``set_to_zero`` groups: ``models/lora.lora_optimizer``) marks leaves that take no
+update. The step takes no gradient for them (they never enter ``torch.autograd.grad``;
+XLA drops their unused gradients under jit), they get no accumulation buffer, and
+``create_train_state`` keeps them in the dtype they came in (a bf16 base stays bf16:
+there is no master copy to keep for a leaf that never changes). The global norm of
+``max_grad_norm`` is then that of the trainable leaves' gradients.
+
 The launcher's environment (``commands/launch.py``) is read as the JAX package reads
 it: ``ACCELERATE_MIXED_PRECISION`` and ``ACCELERATE_GRADIENT_ACCUMULATION_STEPS`` when the
 caller passes none, ``ACCELERATE_USE_CPU`` and ``ACCELERATE_DEBUG_MODE`` through
-``state``.
+``state``, ``ACCELERATE_FP8_*`` through ``FP8RecipeKwargs``.
 
-Not ported yet (raise ``NotImplementedError``): fp8 (``mixed_precision="fp8"``),
-optimizer/activation offload, ZeRO and every sharding plugin, trackers, the compile
-cache, and training over quantized weight leaves (``ops.quantization.QuantizedWeight``:
-QLoRA, a frozen int8 base under LoRA adapters). The launcher's variables that ask for
-them (``ACCELERATE_USE_FSDP``, ``ACCELERATE_FSDP_*``, ``ACCELERATE_SP_MODE``,
-``ACCELERATE_PP_*``, ``ACCELERATE_FP8_*``, ``ACCELERATE_LOG_WITH``) raise too.
+Not ported yet (raise ``NotImplementedError``): optimizer/activation offload, ZeRO and
+every sharding plugin, trackers, the compile cache, and kwargs handlers other than
+``FP8RecipeKwargs``. The launcher's variables that ask for them (``ACCELERATE_USE_FSDP``,
+``ACCELERATE_FSDP_*``, ``ACCELERATE_SP_MODE``, ``ACCELERATE_PP_*``,
+``ACCELERATE_LOG_WITH``) raise too. A train state over quantized weight leaves raises
+as well: the JAX step cannot differentiate them either (see ``_refuse_quantized``).
 """
 
 from __future__ import annotations
@@ -82,6 +100,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import inspect
+import math
 import os
 from dataclasses import dataclass, replace as dataclass_replace
 from typing import Any, Callable, Optional, Union
@@ -104,6 +123,7 @@ from .telemetry import FAULT_SCHEMA, Telemetry
 from .utils.dataclasses import (
     DataLoaderConfiguration,
     FaultConfig,
+    FP8RecipeKwargs,
     GatewayConfig,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
@@ -133,7 +153,8 @@ class TrainState:
     ``params`` in ``tree_leaves`` order, the dim along which the leaf is this rank's tp
     shard, or None where it is whole (from ``create_train_state``'s ``partition_specs``;
     None: every leaf whole); checkpoints record it, so ``merge-weights`` can put the
-    halves back together."""
+    halves back together. ``fp8_state`` is the ``ops.fp8.DelayedScalingState`` of a
+    delayed-scaling fp8 recipe (None otherwise)."""
 
     params: Any
     opt_state: Any
@@ -142,6 +163,7 @@ class TrainState:
     micro: int = 0
     tp_dims: Optional[list] = None
     rng: Optional[int] = None
+    fp8_state: Any = None
 
     def replace(self, **kwargs) -> "TrainState":
         return dataclass_replace(self, **kwargs)
@@ -160,11 +182,28 @@ def _poison_float_leaves(batch):
 
 
 def _refuse_quantized(params) -> None:
-    """Training over quantized weight leaves (QLoRA) is not ported: raise."""
+    """A train state over quantized weight leaves raises, as in the JAX package."""
     if any(isinstance(leaf, QuantizedWeight) for leaf in tree_leaves(params)):
         raise NotImplementedError(
-            "training over quantized weight leaves (QLoRA: a frozen int8 base under "
-            "models/lora.py adapters) is not ported yet")
+            "a train state over quantized weight leaves (QLoRA through the train state) "
+            "is not supported: the JAX package cannot train one either (its step takes "
+            "gradients of every leaf, and int8 leaves have none). Train adapters over an "
+            "int8 base in the closure form: a train state of the adapters alone and a "
+            "loss that closes over the frozen quantized base (gradients reach the "
+            "adapters through quant_matmul's backward)")
+
+
+class _Box:
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
+
+
+def _leaves_like(tree, like) -> list:
+    """The leaves of ``tree`` at the positions of ``like``'s leaves (``tree_leaves``
+    order), None where ``tree`` holds None."""
+    return [box.value for box in tree_leaves(tree_map(lambda _, t: _Box(t), like, tree))]
 
 
 class _TrainStep:
@@ -312,11 +351,11 @@ class _FusedTrainStep:
 
 _UNPORTED_ARGS = (
     "fsdp_plugin", "tp_plugin", "pp_plugin", "sp_plugin", "ep_plugin", "megatron_lm_plugin",
-    "log_with", "kwargs_handlers", "dynamo_plugin", "compile_cache_config",
+    "log_with", "dynamo_plugin", "compile_cache_config",
 )
 #: The launcher's variables of features not ported yet (prefixes): a job that asks for
 #: one fails here rather than training without it.
-_UNPORTED_ENV = ("ACCELERATE_FSDP_", "ACCELERATE_SP_MODE", "ACCELERATE_PP_", "ACCELERATE_FP8_",
+_UNPORTED_ENV = ("ACCELERATE_FSDP_", "ACCELERATE_SP_MODE", "ACCELERATE_PP_",
                  "ACCELERATE_LOG_WITH")
 
 
@@ -352,6 +391,7 @@ class Accelerator:
         gateway_config: Optional[GatewayConfig] = None,
         telemetry_config: Optional[TelemetryConfig] = None,
         fault_config: Optional[FaultConfig] = None,
+        kwargs_handlers: Optional[list] = None,
         **kwargs,
     ):
         unported = sorted(k for k, v in kwargs.items() if v is not None)
@@ -364,8 +404,21 @@ class Accelerator:
         _refuse_unported_env()
         if mixed_precision is None:
             mixed_precision = parse_choice_from_env("ACCELERATE_MIXED_PRECISION", "no")
-        if mixed_precision == "fp8":
-            raise NotImplementedError("mixed_precision='fp8' is not ported yet")
+        #: The fp8 recipe (``FP8RecipeKwargs``), or None when fp8 is off.
+        self.fp8_recipe = None
+        for handler in kwargs_handlers or ():
+            if not isinstance(handler, FP8RecipeKwargs):
+                raise NotImplementedError(
+                    f"kwargs handler {type(handler).__name__} is not ported yet "
+                    "(FP8RecipeKwargs is)")
+            self.fp8_recipe = handler
+        if mixed_precision == "fp8" and self.fp8_recipe is None:
+            self.fp8_recipe = FP8RecipeKwargs()
+        if self.fp8_recipe is not None:
+            # The process default every fp8_dot without an explicit format reads.
+            from .ops.fp8 import set_default_recipe
+
+            set_default_recipe(self.fp8_recipe.fp8_format, self.fp8_recipe.margin)
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu, device=device,
                                       mesh_config=mesh_config, backend=backend)
         if gradient_accumulation_plugin is None:
@@ -522,25 +575,51 @@ class Accelerator:
     def skip_first_batches(self, dataloader, num_batches: int = 0):
         return skip_first_batches(dataloader, num_batches=num_batches)
 
-    def prepare_params(self, params, partition_specs=None):
+    def prepare_params(self, params, partition_specs=None, frozen=None):
         """Params on the device with floating leaves in the policy's param dtype (fp32
         master weights); with ``partition_specs``, each leaf's shard on this rank of the
-        mesh (sliced before it is moved or cast). A leaf already there is kept, not
+        mesh (sliced before it is moved or cast). ``frozen`` (per leaf, ``tree_leaves``
+        order): leaves that keep their dtype. A leaf already there is kept, not
         copied."""
         if partition_specs is not None:
             params = apply_tensor_parallel(params, self.mesh, partition_specs)
         dtype, dev = self.mixed_precision_policy.param_dtype, self.device
-        return tree_map(lambda x: x.to(device=dev, dtype=dtype) if x.is_floating_point()
-                        else x.to(dev), params)
+        leaves = tree_leaves(params)
+        keep = frozen or [False] * len(leaves)
+        return tree_unflatten(params, [
+            x.to(device=dev, dtype=dtype) if x.is_floating_point() and not k else x.to(dev)
+            for x, k in zip(leaves, keep)])
 
     def prepare_optimizer(self, optimizer) -> AcceleratedOptimizer:
         if isinstance(optimizer, AcceleratedOptimizer):
             if optimizer not in self._optimizers:
                 self._optimizers.append(optimizer)
             return optimizer
-        wrapped = AcceleratedOptimizer(optimizer)
+        wrapped = AcceleratedOptimizer(self._apply_fp8_opt_level(optimizer))
         self._optimizers.append(wrapped)
         return wrapped
+
+    def _apply_fp8_opt_level(self, optimizer):
+        """``FP8RecipeKwargs(opt_level="O2")``: a ``FusedAdamW`` whose moment dtypes were
+        left unset stores both moments as scaled e4m3 (``ScaledAdamState``); explicit
+        dtypes win, and other optimizers keep fp32 state (with a warning)."""
+        recipe = self.fp8_recipe
+        if recipe is None or recipe.opt_level != "O2":
+            return optimizer
+        from .ops.fused_optim import FusedAdamW
+
+        if isinstance(optimizer, FusedAdamW):
+            if optimizer.mu_dtype is None and optimizer.nu_dtype is None:
+                return dataclass_replace(optimizer, mu_dtype=torch.float8_e4m3fn,
+                                         nu_dtype=torch.float8_e4m3fn)
+            return optimizer
+        from .logging import get_logger
+
+        get_logger(__name__).warning(
+            "FP8RecipeKwargs(opt_level='O2') needs the fused optimizer "
+            "(ops.fused_optim.fused_adamw) to carry low-precision moments; "
+            f"{type(optimizer).__name__} keeps fp32 optimizer state.")
+        return optimizer
 
     def _to_device(self, batch):
         """Batch leaves (numpy arrays or tensors) as tensors on the device; under a mesh,
@@ -574,16 +653,24 @@ class Accelerator:
             raise TypeError(f"rng must be an int seed, got {type(rng).__name__}")
         if not isinstance(optimizer, AcceleratedOptimizer):
             optimizer = self.prepare_optimizer(optimizer)
-        params = self.prepare_params(params, partition_specs=partition_specs)
+        frozen = _frozen_leaves(optimizer.optimizer, params)
+        params = self.prepare_params(params, partition_specs=partition_specs, frozen=frozen)
         opt_state = optimizer.init(params)
         accum = None
         if self.gradient_accumulation_steps > 1:
-            accum = tree_map(torch.zeros_like, params)
+            accum = tree_unflatten(params, [None if f else torch.zeros_like(p)
+                                            for p, f in zip(tree_leaves(params), frozen)])
         optimizer._opt_state_ref = opt_state
         tp_dims = (None if partition_specs is None
                    else split_dims(params, partition_specs, self.mesh))
+        fp8_state = None
+        if self.fp8_recipe is not None and self.fp8_recipe.use_delayed_scaling:
+            from .ops.fp8 import DelayedScalingState
+
+            fp8_state = DelayedScalingState.init(self.fp8_recipe.amax_history_len, self.device)
         return TrainState(params=params, opt_state=opt_state, step=0, grad_accum=accum, micro=0,
-                          tp_dims=tp_dims, rng=None if rng is None else int(rng))
+                          tp_dims=tp_dims, rng=None if rng is None else int(rng),
+                          fp8_state=fp8_state)
 
     def build_train_step(
         self,
@@ -655,89 +742,128 @@ class Accelerator:
             x = all_reduce(x.contiguous(), "sum", batch_group).to(dtype or x.dtype)
             return x if n_batch == 1 else x.div_(n_batch)
 
+        recipe = self.fp8_recipe
+
+        def fp8_scope(state: TrainState):
+            """The delayed-scaling context of a step (a null one without fp8 state)."""
+            if state.fp8_state is None:
+                return contextlib.nullcontext()
+            from .ops.fp8 import autoscale_ctx, delayed_scales
+
+            scales = delayed_scales(state.fp8_state, recipe.fp8_format, recipe.margin,
+                                    recipe.amax_compute_algo)
+            # The grad role stays on current scaling: no observed cotangent amax exists
+            # at this level (the cotangent is quantized inside fp8_dot's backward).
+            return autoscale_ctx(torch.cat([scales[:2], torch.full_like(scales[2:], math.nan)]))
+
         def compute(state: TrainState, batch):
+            """(loss, aux, per-leaf gradients with None for frozen leaves, new fp8 state)."""
             _refuse_quantized(state.params)
             batch = self._to_device(batch)
             masters = tree_leaves(state.params)
-            with self._mesh_context():
-                if compress_reduce:
+            frozen = _frozen_leaves(tx, state.params)
+            train = [i for i, f in enumerate(frozen) if not f]
+            grads = [None] * len(masters)
+            new_fp8 = None
+            # The fp8 context stays open across the backward: a checkpointed block's
+            # recomputed fp8_dot must take the forward's scales.
+            with self._mesh_context(), fp8_scope(state) as fp8_ctx:
+                if compress_reduce and state.fp8_state is None:
                     # Gradients w.r.t. the cast tree, upcast afterwards: the backward of
                     # the cast IS that upcast, so the values are those of the plain branch.
                     with torch.no_grad():
-                        cast = [p.to(policy.compute_dtype) for p in masters]
-                    leaves = [c.requires_grad_(True) for c in cast]
-                    del cast
+                        leaves = [p.to(policy.compute_dtype) for p in masters]
+                    for i in train:
+                        leaves[i] = leaves[i].detach().requires_grad_(True)
                     loss, aux = call_loss(tree_unflatten(state.params, leaves), batch, state)
-                    low = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+                    low = list(torch.autograd.grad(loss, [leaves[i] for i in train],
+                                                   allow_unused=True))
                     del leaves
-                    grads = []
-                    for i, p in enumerate(masters):
-                        g = low[i]
-                        low[i] = None  # free each low-precision gradient once upcast
-                        grads.append(torch.zeros_like(p) if g is None
-                                     else averaged(g, p.dtype))
+                    for j, i in enumerate(train):
+                        g = low[j]
+                        low[j] = None  # free each low-precision gradient once upcast
+                        grads[i] = (torch.zeros_like(masters[i]) if g is None
+                                    else averaged(g, masters[i].dtype))
                 else:
-                    leaves = [p.detach().requires_grad_(True) for p in masters]
+                    leaves = [p.detach().requires_grad_(not f) for p, f in zip(masters, frozen)]
                     tree = tree_unflatten(state.params, leaves)
                     if cast_params:
                         tree = cast_floating(tree, policy.compute_dtype)
                     loss, aux = call_loss(tree, batch, state)
-                    grads = [torch.zeros_like(p) if g is None else averaged(g) for g, p in zip(
-                        torch.autograd.grad(loss, leaves, allow_unused=True), masters)]
-            return averaged(loss.detach().clone().reshape(1))[0], aux, grads
+                    for i, g in zip(train, torch.autograd.grad(
+                            loss, [leaves[i] for i in train], allow_unused=True)):
+                        grads[i] = torch.zeros_like(masters[i]) if g is None else averaged(g)
+                if fp8_ctx is not None:
+                    amax = fp8_ctx["amax"]
+                    new_fp8 = state.fp8_state.update(amax[0], amax[1], torch.zeros_like(amax[0]))
+            return averaged(loss.detach().clone().reshape(1))[0], aux, grads, new_fp8
+
+        def each(fn, grads):
+            """``fn`` over the gradients that exist (frozen leaves have None)."""
+            return [None if g is None else fn(g) for g in grads]
 
         def micro_step(state: TrainState, batch):
-            loss, aux, grads = compute(state, batch)
+            loss, aux, grads, new_fp8 = compute(state, batch)
             metrics = {"loss": loss}
             if guard:
                 finite = _all_finite(loss, grads, world_group)
                 metrics["nonfinite"] = not finite
                 if not finite:  # a non-finite contribution would poison the window
-                    grads = [torch.zeros_like(g) for g in grads]
+                    grads = each(torch.zeros_like, grads)
             if state.grad_accum is None:
                 accum = tree_unflatten(state.params, grads)
             else:
                 accum = state.grad_accum
                 with torch.no_grad():
-                    for a, g in zip(tree_leaves(accum), grads):
-                        a.add_(g)
+                    for a, g in zip(_leaves_like(accum, state.params), grads):
+                        if g is not None:
+                            a.add_(g)
             if has_aux:
                 metrics["aux"] = aux
-            return state.replace(grad_accum=accum, micro=state.micro + 1), metrics
+            return state.replace(grad_accum=accum, micro=state.micro + 1,
+                                 fp8_state=new_fp8), metrics
 
         def apply_step(state: TrainState, batch):
-            loss, aux, grads = compute(state, batch)
+            loss, aux, grads, new_fp8 = compute(state, batch)
             with torch.no_grad():
                 if state.grad_accum is not None:
-                    grads = [a + g for a, g in zip(tree_leaves(state.grad_accum), grads)]
+                    grads = [g if g is None else a + g for a, g in
+                             zip(_leaves_like(state.grad_accum, state.params), grads)]
                 if accum_steps > 1:
-                    grads = [g / accum_steps for g in grads]
+                    grads = each(lambda g: g / accum_steps, grads)
                 metrics = {"loss": loss}
                 finite = _all_finite(loss, grads, world_group) if guard else True
                 fused_opt = getattr(tx, "fused_apply", None)
                 grad_scale = None
                 if max_grad_value is not None:
-                    grads = [torch.clamp(g, -max_grad_value, max_grad_value) for g in grads]
+                    grads = each(lambda g: torch.clamp(g, -max_grad_value, max_grad_value),
+                                 grads)
                 if max_grad_norm is not None:
                     gnorm = _global_norm(grads, state.tp_dims, tp_group)
                     scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
                     metrics["grad_norm"] = gnorm
                     if fused_opt is None:
-                        grads = [g * scale for g in grads]
+                        grads = each(lambda g: g * scale, grads)
                     else:
                         grad_scale = scale
                 new_params, new_opt_state = state.params, state.opt_state
                 if finite:
                     grad_tree = tree_unflatten(state.params, grads)
                     if fused_opt is not None:
+                        # A tp shard's scaled-fp8 moments take the group's amax.
+                        groups = (None if tp_group is None or not state.tp_dims else
+                                  [None if d is None else tp_group for d in state.tp_dims])
                         new_params, new_opt_state = fused_opt(
                             grad_tree, state.opt_state, state.params,
-                            grad_scale=1.0 if grad_scale is None else grad_scale)
+                            grad_scale=1.0 if grad_scale is None else grad_scale,
+                            groups=groups)
                     else:
                         updates, new_opt_state = tx.update(grad_tree, state.opt_state,
                                                            state.params)
-                        for p, u in zip(tree_leaves(state.params), tree_leaves(updates)):
-                            p.copy_((p + u).to(p.dtype))
+                        for p, u in zip(tree_leaves(state.params),
+                                        _leaves_like(updates, state.params)):
+                            if u is not None:  # a frozen leaf's update is None
+                                p.copy_((p + u).to(p.dtype))
                 del grads
                 if state.grad_accum is not None:
                     for a in tree_leaves(state.grad_accum):
@@ -746,9 +872,12 @@ class Accelerator:
                 metrics["aux"] = aux
             if guard:
                 metrics["nonfinite"] = not finite
+            if not finite:  # a skipped step keeps its fp8 history too
+                new_fp8 = state.fp8_state
             optimizer._opt_state_ref = new_opt_state
             return state.replace(params=new_params, opt_state=new_opt_state,
-                                 step=state.step + (1 if finite else 0), micro=0), metrics
+                                 step=state.step + (1 if finite else 0), micro=0,
+                                 fp8_state=new_fp8), metrics
 
         if fused_steps > 1:
             if fused_steps % accum_steps:
@@ -942,20 +1071,29 @@ def _loss_fn_wants_rng(loss_fn) -> bool:
     return len(params) >= 3 or "rng" in sig.parameters
 
 
+def _frozen_leaves(tx, params) -> list:
+    """Per leaf of ``params``: whether ``tx`` leaves it frozen (``frozen_leaves``, e.g.
+    ``optim.multi_transform``'s ``set_to_zero`` groups); no leaf otherwise."""
+    fn = getattr(tx, "frozen_leaves", None)
+    return list(fn(params)) if fn is not None else [False] * len(tree_leaves(params))
+
+
 def _all_finite(loss: torch.Tensor, grads, group=None) -> bool:
     """One host sync: loss and every gradient finite (on every rank of ``group``)."""
     finite = torch.isfinite(loss).all()
     for g in grads:
-        finite = finite & torch.isfinite(g).all()
+        if g is not None:
+            finite = finite & torch.isfinite(g).all()
     return bool(all_reduce(finite.float().reshape(1), "min", group))
 
 
 def _global_norm(grads, tp_dims=None, tp_group=None) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, in fp32, summed leaf by leaf. Leaves
-    with a ``tp_dims`` entry are this rank's tp shards: their squares are summed over
-    ``tp_group``; the others are replicated and counted once."""
+    """sqrt of the sum of squares over every leaf that has a gradient, in fp32, summed
+    leaf by leaf. Leaves with a ``tp_dims`` entry are this rank's tp shards: their
+    squares are summed over ``tp_group``; the others are replicated and counted once."""
     sharded = [d is not None for d in tp_dims] if tp_dims else [False] * len(grads)
-    squares = [torch.sum(torch.square(g.float())) for g in grads]
+    sharded = [s for s, g in zip(sharded, grads) if g is not None]
+    squares = [torch.sum(torch.square(g.float())) for g in grads if g is not None]
     zero = torch.zeros((), dtype=torch.float32, device=squares[0].device if squares else None)
     local = sum((q for q, s in zip(squares, sharded) if s), zero)
     replicated = sum((q for q, s in zip(squares, sharded) if not s), zero)

@@ -15,7 +15,8 @@ The directory contract and file names are the JAX package's:
         COMMITTED                          the validity marker, written last (tmp + rename)
 
 A train state (``accelerator.TrainState``: params, optimizer state, step, accumulation
-buffer, micro count, rng seed) is a stream of bytes per rank: its tensor leaves in
+buffer, micro count, rng seed, fp8 amax history) is a stream of bytes per rank (fp8
+moments and their fp32 scales included, byte for byte): its tensor leaves in
 ``utils.tree`` order, cut into files of ``FILE_BYTES`` so that several threads write,
 hash and read them at once; its plain values (counts, the seed) go into the index.
 Each rank writes only its own shards (a tp rank holds its halves of the projections).
@@ -104,7 +105,8 @@ QUARANTINE_DIR = "quarantined"
 FILE_BYTES = 256 << 20
 #: Staging buffers (pinned on CUDA) and the threads that fill, write and hash them.
 STAGING_BUFFERS = 4
-_TRAIN_STATE_FIELDS = ("params", "opt_state", "step", "grad_accum", "micro", "rng")
+_TRAIN_STATE_FIELDS = ("params", "opt_state", "step", "grad_accum", "micro", "rng",
+                       "fp8_state")
 
 
 class CheckpointCorruptError(RuntimeError):

@@ -157,7 +157,7 @@ def load_config_from_file(path: Optional[str] = None) -> ClusterConfig:
 
 def _interactive_config() -> ClusterConfig:
     """The questionnaire, over the knobs the port runs (one process per card, the tp
-    axis, precision, accumulation, data loading, checkpoints)."""
+    axis, precision with the fp8 recipe, accumulation, data loading, checkpoints)."""
     from .menu import ask, ask_bool, ask_int, select
 
     cfg = ClusterConfig()
@@ -172,7 +172,16 @@ def _interactive_config() -> ClusterConfig:
     if cfg.num_machines == 1 and cfg.num_processes > 1:
         cfg.distributed_type = "MULTI_DEVICE"
     cfg.use_cpu = ask_bool("Run on the CPU?", False)
-    cfg.mixed_precision = select("Mixed precision?", ["bf16", "no", "fp16"], default=0)
+    cfg.mixed_precision = select("Mixed precision?", ["bf16", "no", "fp16", "fp8"], default=0)
+    if cfg.mixed_precision == "fp8":
+        cfg.fp8_format = select("fp8 format?", ["HYBRID", "E4M3"])
+        cfg.fp8_margin = ask_int("fp8 scale margin (powers of 2 backed off)", 0)
+        cfg.fp8_use_delayed_scaling = ask_bool("Use delayed (history-based) scaling?", False)
+        if cfg.fp8_use_delayed_scaling:
+            cfg.fp8_amax_history_len = ask_int("fp8 amax history length", 16)
+        cfg.fp8_opt_level = select(
+            "MS-AMP opt level? (O2 = scaled-fp8 AdamW moments, needs fused_adamw)",
+            ["O1", "O2"])
     cfg.tp = ask_int("Tensor-parallel degree", 1)
     cfg.gradient_accumulation_steps = ask_int("Gradient accumulation steps", 1)
     if ask_bool("Configure dataloader behavior?", False):

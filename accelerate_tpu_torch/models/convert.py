@@ -35,6 +35,7 @@ from .llama import PROJECTIONS, LlamaConfig, check_supported, partition_specs
 __all__ = ["params_from_jax", "params_to", "params_to_numpy"]
 
 _FP32_LEAVES = ("ln_attn", "ln_mlp", "ln_attn_post", "ln_mlp_post", "bq", "bk", "bv")
+_LORA_MARKERS = ("_lora_a", "_lora_b")
 
 
 _QUANT_FIELDS = ("data", "scales", "shape", "scheme", "block_size")
@@ -63,7 +64,8 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None,
     (``jax.tree.map(np.asarray, params)``), stacked or unstacked layers, on ``device``
     (default CUDA; raises when CUDA is absent and no CPU was asked for). Projections,
     the embedding and the head are stored in ``master_dtype`` (default ``cfg.dtype``);
-    quantized leaves keep their codes and scales. With ``mesh``: this rank's shards
+    LoRA adapters (``{name}_lora_a/b``), norm gammas and biases in fp32; quantized
+    leaves keep their codes and scales. With ``mesh``: this rank's shards
     under ``specs`` (default ``llama.partition_specs(cfg)``)."""
     check_supported(cfg)
     dev = resolve_device(device)
@@ -83,7 +85,7 @@ def params_from_jax(np_params: dict, cfg: LlamaConfig, device=None,
         for name, arr in layer.items():
             if name in PROJECTIONS:
                 out[name] = _tensor(arr, weight_dtype, dev)
-            elif name in _FP32_LEAVES:
+            elif name in _FP32_LEAVES or name.endswith(_LORA_MARKERS):
                 out[name] = _tensor(arr, torch.float32, dev)
             else:
                 raise NotImplementedError(f"layer leaf {name!r} is not ported yet")

@@ -43,8 +43,21 @@ graph on the card through ``generation.generate_loop``), :func:`score` and
 super-step, and :func:`forward_slots_spec_multi`, its N-round speculative super-step,
 follow the JAX functions of the same names.
 
-Not supported in this slice (raise ``NotImplementedError``): ``moe_experts > 0``,
-``lora_rank > 0`` and ``use_fp8``.
+LoRA (``lora_rank > 0``): ``init_params`` adds ``{name}_lora_a`` (A ~ N(0, 1/d_in)) and
+``{name}_lora_b`` (zeros) fp32 leaves beside each projection of ``lora_targets``, and
+``_proj_l`` adds ``((h @ A) @ B) * lora_alpha / lora_rank`` in ``cfg.dtype`` on every path
+(training, cached, slots, super-steps, ``generate``); the adapted weight is never
+made (``models/lora.py``). Under tp, A takes the base's row spec and B its column spec;
+the replicated factor (A of a column-parallel projection, B of a row-parallel one) is
+used behind ``copy_to_group``, so its gradient sums over the group, and the delta of a
+row-parallel projection is added before ``reduce_from_group``, a partial sum like the
+base product.
+
+fp8 (``use_fp8``): every dense projection is ``ops.fp8.fp8_dot(h, w, cfg.fp8_format)``
+(the process recipe's format when None), its amaxes taken over the tp group under a
+mesh; a quantized leaf keeps ``quant_matmul``.
+
+Not supported in this slice (raise ``NotImplementedError``): ``moe_experts > 0``.
 """
 
 from __future__ import annotations
@@ -57,7 +70,9 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.fp8 import fp8_dot
 from ..ops.quantization import QuantizedWeight, quant_matmul
+from ..optim import scale_by
 from ..parallel.mesh import P, current_mesh
 from ..parallel.tp import (all_reduce, copy_to_group, group_rank_size, reduce_from_group,
                            vocab_parallel_embedding)
@@ -213,12 +228,22 @@ CONFIGS = {
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
+#: Row-parallel projections (input dim split over tp); the others are column-parallel.
+ROW_PARALLEL = ("wo", "w_down")
+
+
 def check_supported(cfg: LlamaConfig) -> None:
     """Raise ``NotImplementedError`` for config knobs this slice does not port."""
-    for knob, on in (("moe_experts", cfg.moe_experts > 0), ("lora_rank", cfg.lora_rank > 0),
-                     ("use_fp8", cfg.use_fp8)):
-        if on:
-            raise NotImplementedError(f"{knob}={getattr(cfg, knob)!r} is not ported yet")
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(f"moe_experts={cfg.moe_experts!r} is not ported yet")
+
+
+def _lora_target_names(cfg: LlamaConfig) -> tuple:
+    """The subset of ``cfg.lora_targets`` that exists as dense projections."""
+    unknown = set(cfg.lora_targets) - set(PROJECTIONS)
+    if unknown:
+        raise ValueError(f"lora_targets {sorted(unknown)} are not dense projection names")
+    return tuple(t for t in cfg.lora_targets if t in PROJECTIONS)
 
 
 # --------------------------------------------------------------------------------- params
@@ -274,6 +299,10 @@ def init_params(cfg: LlamaConfig, *, generator: Optional[torch.Generator] = None
     if not cfg.tie_embeddings:
         params["lm_head"] = (torch.randn((cfg.d_model, cfg.vocab_size), generator=g,
                                          device=dev) * scale).to(cfg.dtype)
+    if cfg.lora_rank > 0:  # drawn after the base, so its stream is the same with or without
+        from .lora import add_adapters
+
+        params = add_adapters(params, cfg, generator=g)
     return params
 
 
@@ -282,7 +311,8 @@ def partition_specs(cfg: LlamaConfig, pp: bool = False, virtual_stages: int = 1)
     or with ``scan_layers`` one dict of stacked specs): column-parallel wq/wk/wv/w_gate/
     w_up split their output dim over ``tp``, row-parallel wo/w_down their input dim;
     the embedding and the head shard the vocab dim over ``(tp, fsdp)``; norms are
-    replicated. Pipeline stages, MoE and LoRA are not ported (``NotImplementedError``)."""
+    replicated; a LoRA A takes its base's row spec, B its column spec. Pipeline stages
+    and MoE are not ported (``NotImplementedError``)."""
     if pp or virtual_stages != 1:
         raise NotImplementedError("pipeline-parallel specs are not ported")
     check_supported(cfg)
@@ -306,6 +336,11 @@ def partition_specs(cfg: LlamaConfig, pp: bool = False, virtual_stages: int = 1)
         "w_up": P(None, TENSOR_AXIS),
         "w_down": P(TENSOR_AXIS, None),
     })
+    if cfg.lora_rank > 0:
+        for name in _lora_target_names(cfg):
+            base = layer[name]
+            layer[f"{name}_lora_a"] = P(base[0], None)
+            layer[f"{name}_lora_b"] = P(None, base[1])
     if cfg.scan_layers:
         layers: Any = {k: P(None, *v) for k, v in layer.items()}
     else:
@@ -373,11 +408,14 @@ def _sm_scale(cfg: LlamaConfig) -> float:
     return cfg.attn_scale if cfg.attn_scale is not None else 1.0 / math.sqrt(cfg.head_dim)
 
 
-def _proj(h: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
-    """Projection matmul ``h @ w`` in ``cfg.dtype``, or, for a quantized weight leaf,
-    ``quant_matmul`` (the int8 kernel on the card) with a ``cfg.dtype`` result."""
+def _proj(h: torch.Tensor, w, cfg: LlamaConfig, tp=None) -> torch.Tensor:
+    """Projection matmul ``h @ w`` in ``cfg.dtype``; for a quantized weight leaf
+    ``quant_matmul`` (the int8 kernel on the card) with a ``cfg.dtype`` result; under
+    ``cfg.use_fp8`` ``fp8_dot`` (amaxes over the tp group ``tp``)."""
     if isinstance(w, QuantizedWeight):
         return quant_matmul(h, w, out_dtype=cfg.dtype)
+    if cfg.use_fp8:
+        return fp8_dot(h, w, cfg.fp8_format, group=tp)
     return h @ w.to(cfg.dtype)
 
 
@@ -390,9 +428,21 @@ def _dense_leaf(w, name: str):
     return w
 
 
-def _proj_l(h: torch.Tensor, layer: dict, name: str, cfg: LlamaConfig) -> torch.Tensor:
-    """:func:`_proj` of the layer's ``name`` weight (LoRA adapters are not ported)."""
-    return _proj(h, layer[name], cfg)
+def _proj_l(h: torch.Tensor, layer: dict, name: str, cfg: LlamaConfig,
+            tp=None) -> torch.Tensor:
+    """:func:`_proj` of the layer's ``name`` weight plus its LoRA delta ``((h @ A) @ B) *
+    alpha / rank`` when the layer has adapters for ``name`` (a row-parallel delta is a
+    partial sum: the caller reduces both together)."""
+    out = _proj(h, layer[name], cfg, tp)
+    if cfg.lora_rank > 0 and f"{name}_lora_a" in layer:
+        a, b = layer[f"{name}_lora_a"], layer[f"{name}_lora_b"]
+        if name in ROW_PARALLEL:
+            b = copy_to_group(b, tp)
+        else:
+            a = copy_to_group(a, tp)
+        delta = (h @ a.to(cfg.dtype)) @ b.to(cfg.dtype)
+        out = out + scale_by(cfg.lora_alpha / cfg.lora_rank, delta)
+    return out
 
 
 def _mlp_gate_act(h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
@@ -403,11 +453,11 @@ def _mlp_gate_act(h: torch.Tensor, cfg: LlamaConfig) -> torch.Tensor:
     raise ValueError(f"mlp_act={cfg.mlp_act!r}: expected 'silu' or 'gelu'")
 
 
-def _qkv_proj(h: torch.Tensor, layer: dict, cfg: LlamaConfig):
+def _qkv_proj(h: torch.Tensor, layer: dict, cfg: LlamaConfig, tp=None):
     """q/k/v projections (+ Qwen2-style biases when ``cfg.qkv_bias``)."""
-    q = _proj_l(h, layer, "wq", cfg)
-    k = _proj_l(h, layer, "wk", cfg)
-    v = _proj_l(h, layer, "wv", cfg)
+    q = _proj_l(h, layer, "wq", cfg, tp)
+    k = _proj_l(h, layer, "wk", cfg, tp)
+    v = _proj_l(h, layer, "wv", cfg, tp)
     if cfg.qkv_bias:
         q = q + layer["bq"].to(q.dtype)
         k = k + layer["bk"].to(k.dtype)
@@ -474,19 +524,19 @@ def _block(x, layer, positions, mask, cfg: LlamaConfig, segment_ids=None, tp=Non
     H, K = cfg.n_heads // n, cfg.n_kv_heads // n  # this rank's heads, whole GQA groups
     p1 = cfg.norm_plus_one
     h = copy_to_group(_rms_norm(x, layer["ln_attn"], cfg.norm_eps, p1), tp)
-    q, k, v = _qkv_proj(h, layer, cfg)
+    q, k, v = _qkv_proj(h, layer, cfg, tp)
     q = _rope(q.reshape(B, S, H, cfg.head_dim), positions, cfg)
     k = _rope(k.reshape(B, S, K, cfg.head_dim), positions, cfg)
     v = v.reshape(B, S, K, cfg.head_dim)
     attn = _attention(q, k, v, mask, cfg, segment_ids).reshape(B, S, H * cfg.head_dim)
-    attn_out = reduce_from_group(_proj_l(attn, layer, "wo", cfg), tp)
+    attn_out = reduce_from_group(_proj_l(attn, layer, "wo", cfg, tp), tp)
     if cfg.post_norm:  # Gemma-2: normalize the sublayer OUTPUT before the residual add
         attn_out = _rms_norm(attn_out, layer["ln_attn_post"], cfg.norm_eps, p1)
     x = x + attn_out
     h = copy_to_group(_rms_norm(x, layer["ln_mlp"], cfg.norm_eps, p1), tp)
-    gate = _mlp_gate_act(_proj_l(h, layer, "w_gate", cfg), cfg)
+    gate = _mlp_gate_act(_proj_l(h, layer, "w_gate", cfg, tp), cfg)
     mlp_out = reduce_from_group(
-        _proj_l(gate * _proj_l(h, layer, "w_up", cfg), layer, "w_down", cfg), tp)
+        _proj_l(gate * _proj_l(h, layer, "w_up", cfg, tp), layer, "w_down", cfg, tp), tp)
     if cfg.post_norm:
         mlp_out = _rms_norm(mlp_out, layer["ln_mlp_post"], cfg.norm_eps, p1)
     return x + mlp_out

@@ -17,26 +17,66 @@ of the JAX step's donated buffers), returning ``(params, state)``.
 - Leaves whose size is a multiple of 1024 take :func:`adamw_leaves` (the JAX kernel's
   layout rule); the others take the plain version on any device.
 
-``mu_dtype`` may be fp32 (default: the param's type) or bf16; the second moment stays
-fp32. fp8 moments (the JAX ``ScaledAdamState``) are not ported and raise.
+``mu_dtype`` may be fp32 (default: the param's type), bf16, or an fp8 type; ``nu_dtype``
+fp32 or an fp8 type (a bf16 second moment is not ported and raises). fp8 moments are
+stored scaled, with one fp32 scale per leaf beside each (:class:`ScaledAdamState`, the
+JAX package's MS-AMP analog, set up by ``FP8RecipeKwargs(opt_level="O2")``): CURRENT
+scaling, ``scale = amax / fp8_max`` of the freshly computed moment (not
+``ops.fp8.compute_scale``'s power of two). A leaf with an fp8 moment takes
+:func:`adamw_leaf_scaled_reference`, plain PyTorch on any device, as JAX sends such
+leaves through XLA rather than its Pallas kernel; every other leaf keeps the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
 from ..optim import AdamState, bias_correction, scale_by
+from ..parallel.tp import all_reduce
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from . import _build
 
-__all__ = ["FusedAdamW", "fused_adamw", "adamw_leaf_reference", "adamw_leaves"]
+__all__ = ["FusedAdamW", "fused_adamw", "ScaledAdamState", "adamw_leaf_reference",
+           "adamw_leaf_scaled_reference", "adamw_leaves"]
 
 _LANES = 1024  # leaves whose size is a multiple of this take the kernel
 _M_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_F8_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
+
+
+class ScaledAdamState(NamedTuple):
+    """AdamW state whose moments may be stored in fp8: ``mu_scale``/``nu_scale`` mirror
+    the param tree with one fp32 0-d tensor per leaf, or are None for a moment kept in
+    fp32/bf16. The leading fields are :class:`optim.AdamState`'s."""
+
+    count: int
+    mu: Any
+    nu: Any
+    mu_scale: Any = None
+    nu_scale: Any = None
+
+
+def _is_f8(dtype) -> bool:
+    return dtype in _F8_MAX
+
+
+def _quant_f8(x32: torch.Tensor, dtype, group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor current scaling: ``scale = max(amax, 1e-30) / fp8_max``, codes
+    ``x / scale`` (divisions by tensors, as XLA divides). ``group``: the ranks holding
+    the other shards of the tensor (the amax is theirs too, as GSPMD's is global)."""
+    amax = torch.linalg.vector_norm(x32, float("inf"))
+    if group is not None:
+        amax = all_reduce(amax.reshape(1), "max", group)[0]
+    scale = torch.clamp_min(amax, 1e-30) / torch.full_like(amax, _F8_MAX[dtype])
+    return (x32 / scale).to(dtype), scale
+
+
+def _dequant_f8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return x.float() * scale
 
 
 def adamw_leaf_reference(p, m, v, g, scalars, *, b1, b2, eps, wd):
@@ -50,6 +90,29 @@ def adamw_leaf_reference(p, m, v, g, scalars, *, b1, b2, eps, wd):
     update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps) + scale_by(wd, p32)
     p_new = (p32 - lr * update).to(p.dtype)
     return p_new, m_new.to(m.dtype), v_new.to(v.dtype)
+
+
+def adamw_leaf_scaled_reference(p, m, v, g, scalars, m_scale, v_scale, *, b1, b2, eps, wd,
+                                group=None):
+    """Update of a leaf with fp8 moments (the JAX ``_leaf_xla_scaled``): dequantize
+    with last step's scale, update in fp32, requantize with the fresh amax (over
+    ``group`` for a tp shard) → ``(p', m', v', m_scale', v_scale')``; a scale is None
+    for a moment that is not fp8 (with both None, :func:`adamw_leaf_reference`'s
+    values)."""
+    gscale, lr, bc1, bc2 = scalars[0], scalars[1], scalars[2], scalars[3]
+    g = g.float() * gscale
+    p32 = p.float()
+    m32 = _dequant_f8(m, m_scale) if m_scale is not None else m
+    v32 = _dequant_f8(v, v_scale) if v_scale is not None else v
+    m_new = scale_by(1.0 - b1, g) + scale_by(b1, m32)
+    v_new = scale_by(1.0 - b2, g * g) + scale_by(b2, v32)
+    update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps) + scale_by(wd, p32)
+    p_new = (p32 - lr * update).to(p.dtype)
+    m_out, m_scale_out = (_quant_f8(m_new, m.dtype, group) if m_scale is not None
+                          else (m_new.to(m.dtype), None))
+    v_out, v_scale_out = (_quant_f8(v_new, v.dtype, group) if v_scale is not None
+                          else (v_new.to(v.dtype), None))
+    return p_new, m_out, v_out, m_scale_out, v_scale_out
 
 
 # ------------------------------------------------------------------------ CUDA launches
@@ -114,6 +177,15 @@ def _apply_plain(leaves, scalars, kw) -> None:
         v.copy_(v_new)
 
 
+@torch.no_grad()
+def _apply_scaled(leaves, scalars, kw) -> None:
+    for p, m, v, g, ms, vs, group in leaves:
+        out = adamw_leaf_scaled_reference(p, m, v, g, scalars, ms, vs, **kw, group=group)
+        for dst, src in zip((p, m, v, ms, vs), out):
+            if dst is not None:
+                dst.copy_(src)
+
+
 def adamw_leaves(params, mus, nus, grads, scalars, *, b1, b2, eps, wd) -> None:
     """One-pass AdamW over parallel lists of leaves, IN PLACE on ``params``, ``mus``
     and ``nus``. CPU tensors run :func:`adamw_leaf_reference`; others launch the
@@ -149,18 +221,41 @@ class FusedAdamW:
     use_kernel: Optional[bool] = None
 
     def __post_init__(self):
-        if self.mu_dtype not in (None, torch.float32, torch.bfloat16):
+        if self.mu_dtype not in (None, torch.float32, torch.bfloat16, *_F8_MAX):
             raise NotImplementedError(
-                f"mu_dtype={self.mu_dtype}: only fp32 and bf16 first moments are ported "
-                "(fp8 moments, the JAX ScaledAdamState, are not)")
-        if self.nu_dtype not in (None, torch.float32):
+                f"mu_dtype={self.mu_dtype}: fp32, bf16 and fp8 first moments are ported")
+        if self.nu_dtype not in (None, torch.float32, *_F8_MAX):
             raise NotImplementedError(
-                f"nu_dtype={self.nu_dtype}: the second moment is kept in fp32")
+                f"nu_dtype={self.nu_dtype}: the second moment is kept in fp32 or scaled fp8 "
+                "(a bf16 second moment is not ported)")
 
-    def init(self, params) -> AdamState:
+    def init(self, params):
+        """``optim.AdamState``, or :class:`ScaledAdamState` when a moment is fp8 (its
+        scales start at 1)."""
         mu = tree_map(lambda p: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype), params)
         nu = tree_map(lambda p: torch.zeros_like(p, dtype=self.nu_dtype or p.dtype), params)
-        return AdamState(count=0, mu=mu, nu=nu)
+        if not (_is_f8(self.mu_dtype) or _is_f8(self.nu_dtype)):
+            return AdamState(count=0, mu=mu, nu=nu)
+
+        def ones():
+            return tree_map(lambda p: torch.ones((), dtype=torch.float32, device=p.device),
+                            params)
+
+        return ScaledAdamState(count=0, mu=mu, nu=nu,
+                               mu_scale=ones() if _is_f8(self.mu_dtype) else None,
+                               nu_scale=ones() if _is_f8(self.nu_dtype) else None)
+
+    @staticmethod
+    def _flat_scales(state, n: int) -> tuple[list, list]:
+        """Per-leaf (mu_scale, nu_scale) lists: all None for a plain ``AdamState``."""
+        ms, vs = getattr(state, "mu_scale", None), getattr(state, "nu_scale", None)
+        return (tree_leaves(ms) if ms is not None else [None] * n,
+                tree_leaves(vs) if vs is not None else [None] * n)
+
+    @staticmethod
+    def _next_state(state, **fields):
+        """The state after a step, of the incoming state's type."""
+        return state._replace(count=state.count + 1, **fields)
 
     def _scalars(self, count: int, grad_scale, device) -> torch.Tensor:
         """fp32 ``[grad_scale, lr, 1 - b1^t, 1 - b2^t]`` on ``device``; ``grad_scale``
@@ -181,34 +276,47 @@ class FusedAdamW:
             raise ValueError("FusedAdamW.update requires params (AdamW decays weights).")
         flat_p = tree_leaves(params)
         if not flat_p:
-            return params, AdamState(state.count + 1, state.mu, state.nu)
+            return params, self._next_state(state)
         scalars = self._scalars(state.count, 1.0, flat_p[0].device)
-        out = [adamw_leaf_reference(p, m, v, g, scalars, **self._kw())
-               for p, m, v, g in zip(flat_p, tree_leaves(state.mu), tree_leaves(state.nu),
-                                     tree_leaves(grads))]
-        updates = [(n.float() - p.float()).to(p.dtype) for (n, _, _), p in zip(out, flat_p)]
-        return (tree_unflatten(params, updates),
-                AdamState(count=state.count + 1, mu=tree_unflatten(state.mu, [o[1] for o in out]),
-                          nu=tree_unflatten(state.nu, [o[2] for o in out])))
+        flat_ms, flat_vs = self._flat_scales(state, len(flat_p))
+        out = [adamw_leaf_scaled_reference(p, m, v, g, scalars, ms, vs, **self._kw())
+               for p, m, v, g, ms, vs in zip(flat_p, tree_leaves(state.mu),
+                                             tree_leaves(state.nu), tree_leaves(grads),
+                                             flat_ms, flat_vs)]
+        updates = [(o[0].float() - p.float()).to(p.dtype) for o, p in zip(out, flat_p)]
+        fields = {"mu": tree_unflatten(state.mu, [o[1] for o in out]),
+                  "nu": tree_unflatten(state.nu, [o[2] for o in out])}
+        for i, name in ((3, "mu_scale"), (4, "nu_scale")):
+            if getattr(state, name, None) is not None:
+                fields[name] = tree_unflatten(getattr(state, name), [o[i] for o in out])
+        return tree_unflatten(params, updates), self._next_state(state, **fields)
 
-    def fused_apply(self, grads, state: AdamState, params, grad_scale=1.0):
+    def fused_apply(self, grads, state: AdamState, params, grad_scale=1.0, groups=None):
         """Single-pass apply, IN PLACE → ``(params, state)``. ``grad_scale`` (a float or
-        a 0-d tensor on the params' device) multiplies every gradient in the same pass."""
+        a 0-d tensor on the params' device) multiplies every gradient in the same pass.
+        ``groups`` (per leaf, ``tree_leaves`` order): the process group over which a
+        leaf is split (its fp8 moments' amaxes are taken over it), or None."""
         flat_p = tree_leaves(params)
         if not flat_p:
-            return params, AdamState(state.count + 1, state.mu, state.nu)
+            return params, self._next_state(state)
         scalars = self._scalars(state.count, grad_scale, flat_p[0].device)
-        kernel, plain = ([], [], [], []), []
-        for leaf in zip(flat_p, tree_leaves(state.mu), tree_leaves(state.nu),
-                        tree_leaves(grads)):
-            if self.use_kernel is not False and leaf[0].numel() % _LANES == 0 and leaf[0].numel():
+        kernel, plain, scaled = ([], [], [], []), [], []
+        flat_ms, flat_vs = self._flat_scales(state, len(flat_p))
+        groups = groups or [None] * len(flat_p)
+        for leaf, ms, vs, group in zip(zip(flat_p, tree_leaves(state.mu), tree_leaves(state.nu),
+                                           tree_leaves(grads)), flat_ms, flat_vs, groups):
+            if ms is not None or vs is not None:
+                scaled.append((*leaf, ms, vs, group))
+            elif (self.use_kernel is not False and leaf[0].numel() % _LANES == 0
+                  and leaf[0].numel()):
                 for column, t in zip(kernel, leaf):
                     column.append(t)
             else:
                 plain.append(leaf)
         adamw_leaves(*kernel, scalars, **self._kw())
         _apply_plain(plain, scalars, self._kw())
-        return params, AdamState(count=state.count + 1, mu=state.mu, nu=state.nu)
+        _apply_scaled(scaled, scalars, self._kw())
+        return params, self._next_state(state)
 
 
 def fused_adamw(learning_rate: Union[float, Callable] = 1e-3, b1: float = 0.9,

@@ -14,6 +14,14 @@ the JAX package's to the last bits:
 
 ``learning_rate`` is a float or a schedule called on the step count (0-based), as an
 optax schedule is. Counts are Python ints held on the host.
+
+``multi_transform`` routes each labelled group of leaves to its own transformation and
+``set_to_zero`` freezes a group (``models/lora.lora_optimizer`` builds the pair), with
+optax's semantics: labels by tree path, each inner transformation sees the tree with the
+other groups' leaves left out (None here, optax's ``MaskedNode``), and a
+``set_to_zero`` group keeps no state. A frozen leaf whose gradient is None (the train
+step takes none for it: ``frozen_leaves``) gets a None update, so no tensor of its size
+is made.
 """
 
 from __future__ import annotations
@@ -23,9 +31,10 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
-from .utils.tree import tree_map
+from .utils.tree import tree_leaves, tree_map
 
-__all__ = ["AdamState", "SgdState", "GradientTransformation", "adamw", "sgd",
+__all__ = ["AdamState", "SgdState", "EmptyState", "MultiTransformState",
+           "GradientTransformation", "adamw", "sgd", "set_to_zero", "multi_transform",
            "apply_updates", "scale_by", "bias_correction"]
 
 
@@ -40,6 +49,16 @@ class AdamState(NamedTuple):
 class SgdState(NamedTuple):
     count: int
     trace: Any = None
+
+
+class EmptyState(NamedTuple):
+    """The state of a stateless transformation (no leaves)."""
+
+
+class MultiTransformState(NamedTuple):
+    """``{label: inner state}`` of :func:`multi_transform`."""
+
+    inner_states: dict
 
 
 class GradientTransformation(NamedTuple):
@@ -116,6 +135,70 @@ def sgd(learning_rate: Union[float, Callable[[int], float]], momentum: Optional[
     return GradientTransformation(init, update)
 
 
+class _SetToZero:
+    """``optax.set_to_zero``: zero updates, no state."""
+
+    def init(self, params):
+        return EmptyState()
+
+    def update(self, grads, state, params=None):
+        return tree_map(torch.zeros_like, grads), state
+
+
+def set_to_zero() -> _SetToZero:
+    """A transformation whose updates are zeros (freezes the leaves it is given)."""
+    return _SetToZero()
+
+
+class _MultiTransform:
+    """``optax.multi_transform``: ``transforms`` ``{label: transformation}``,
+    ``param_labels`` a tree of labels shaped like the params or a callable making one."""
+
+    def __init__(self, transforms: dict, param_labels):
+        self.transforms = transforms
+        self.param_labels = param_labels
+
+    def _labels(self, tree):
+        labels = self.param_labels(tree) if callable(self.param_labels) else self.param_labels
+        unknown = {lbl for lbl in tree_leaves(labels)} - set(self.transforms)
+        if unknown:
+            raise ValueError(f"labels {sorted(unknown)} have no transformation")
+        return labels
+
+    @staticmethod
+    def _masked(tree, labels, group):
+        return tree_map(lambda label, x: x if label == group else None, labels, tree)
+
+    def init(self, params):
+        labels = self._labels(params)
+        return MultiTransformState({g: tx.init(self._masked(params, labels, g))
+                                    for g, tx in self.transforms.items()})
+
+    def update(self, grads, state: MultiTransformState, params=None):
+        labels = self._labels(params if params is not None else grads)
+        inner, group_updates = {}, {}
+        for g, tx in self.transforms.items():
+            masked_params = None if params is None else self._masked(params, labels, g)
+            group_updates[g], inner[g] = tx.update(self._masked(grads, labels, g),
+                                                   state.inner_states[g], masked_params)
+        groups = list(self.transforms)
+        updates = tree_map(lambda label, *us: us[groups.index(label)], labels,
+                           *(group_updates[g] for g in groups))
+        return updates, MultiTransformState(inner)
+
+    def frozen_leaves(self, params) -> list:
+        """Per leaf of ``params`` (``tree_leaves`` order): whether its group's
+        transformation is :func:`set_to_zero` (the train step takes no gradient for
+        it)."""
+        labels = self._labels(params)
+        return [isinstance(self.transforms[lbl], _SetToZero) for lbl in tree_leaves(labels)]
+
+
+def multi_transform(transforms: dict, param_labels) -> _MultiTransform:
+    """Each group of leaves (by label) through its own transformation."""
+    return _MultiTransform(transforms, param_labels)
+
+
 def apply_updates(params, updates):
-    """``p + u`` in p's type (``optax.apply_updates``)."""
-    return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
+    """``p + u`` in p's type (``optax.apply_updates``); a None update leaves p."""
+    return tree_map(lambda p, u: p if u is None else (p + u).to(p.dtype), params, updates)

@@ -6,8 +6,8 @@ Copies of ``accelerate_tpu/utils/dataclasses.py``'s ``KwargsHandler``, ``Precisi
 sentinels), ``ProjectConfiguration``, ``GatewayConfig`` (the serving gateway's, with its
 validation and its ``ACCELERATE_GATEWAY`` environment variable), ``TelemetryConfig``
 (``ACCELERATE_TELEMETRY``, ``ACCELERATE_TELEMETRY_DIR``), ``FaultConfig``
-(``ACCELERATE_FAULTS``) and ``TensorInformation``. ``RNGType`` has no
-``jax`` member: the port draws no JAX keys.
+(``ACCELERATE_FAULTS``), ``FP8RecipeKwargs`` (``ACCELERATE_FP8_*``) and
+``TensorInformation``. ``RNGType`` has no ``jax`` member: the port draws no JAX keys.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ __all__ = [
     "KwargsHandler", "PrecisionType", "DistributedType", "RNGType",
     "GradientAccumulationPlugin", "MixedPrecisionPolicy", "DataLoaderConfiguration",
     "ProjectConfiguration", "GatewayConfig", "TelemetryConfig", "FaultConfig",
-    "TensorInformation", "parse_flag_from_env",
+    "FP8RecipeKwargs", "TensorInformation", "parse_flag_from_env",
 ]
 
 
@@ -122,6 +122,46 @@ class MixedPrecisionPolicy(KwargsHandler):
         if precision == PrecisionType.FP8:
             return cls(compute_dtype=torch.bfloat16, reduce_dtype=torch.bfloat16)
         raise ValueError(f"unknown precision {precision}")
+
+
+@dataclass
+class FP8RecipeKwargs(KwargsHandler):
+    """The fp8 recipe (``ops/fp8.py``): ``fp8_format`` picks the dtype pair (HYBRID =
+    e4m3 forward, e5m2 gradients; E4M3 everywhere), ``margin`` backs the scale off by
+    2^margin, ``amax_history_len``/``amax_compute_algo`` parameterize delayed scaling
+    (``DelayedScalingState``; ``use_delayed_scaling=False`` is stateless current
+    scaling). ``opt_level="O2"`` stores a ``FusedAdamW``'s moments as scaled fp8
+    (``ops/fused_optim.ScaledAdamState``) when its moment dtypes were left unset;
+    ``"O1"`` keeps them fp32. Each None field resolves from the launcher's
+    ``ACCELERATE_FP8_*`` variable, else the built-in default."""
+
+    fp8_format: Optional[str] = None       # HYBRID | E4M3; None → env > HYBRID
+    margin: Optional[int] = None           # None → env > 0
+    interval: int = 1                      # TransformerEngine's knob: amaxes update every step
+    amax_history_len: Optional[int] = None  # None → env > 16
+    amax_compute_algo: str = "max"         # max | most_recent
+    use_delayed_scaling: Optional[bool] = None  # None → env > False
+    opt_level: Optional[str] = None        # O1 | O2; None → env > O1
+
+    def __post_init__(self):
+        if self.fp8_format is None:
+            self.fp8_format = os.environ.get("ACCELERATE_FP8_FORMAT", "HYBRID")
+        if self.margin is None:
+            self.margin = int(os.environ.get("ACCELERATE_FP8_MARGIN", 0))
+        if self.amax_history_len is None:
+            self.amax_history_len = int(os.environ.get("ACCELERATE_FP8_AMAX_HISTORY_LEN", 16))
+        if self.use_delayed_scaling is None:
+            self.use_delayed_scaling = parse_flag_from_env("ACCELERATE_FP8_DELAYED_SCALING")
+        if self.opt_level is None:
+            self.opt_level = os.environ.get("ACCELERATE_FP8_OPT_LEVEL", "O1")
+        self.fp8_format = self.fp8_format.upper()
+        self.opt_level = self.opt_level.upper()
+        if self.fp8_format not in ("HYBRID", "E4M3"):
+            raise ValueError("`fp8_format` must be HYBRID or E4M3.")
+        if self.amax_compute_algo not in ("max", "most_recent"):
+            raise ValueError("`amax_compute_algo` must be max or most_recent.")
+        if self.opt_level not in ("O1", "O2"):
+            raise ValueError("`opt_level` must be O1 or O2.")
 
 
 @dataclass

@@ -17,8 +17,9 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator
 
-__all__ = ["tree_leaves", "tree_map", "tree_unflatten", "named_parameters",
-           "unflatten_to_nested_dict", "listify_int_dicts"]
+__all__ = ["tree_leaves", "tree_map", "tree_map_with_path", "tree_leaves_with_path",
+           "keystr", "tree_unflatten", "named_parameters", "unflatten_to_nested_dict",
+           "listify_int_dicts"]
 
 
 def _is_namedtuple(x) -> bool:
@@ -56,6 +57,48 @@ def tree_map(fn: Callable, tree, *rest) -> Any:
         return _rebuild(tree, [tree_map(fn, child, *(r[i] for r in rest))
                                for i, child in enumerate(tree)])
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree, *rest) -> Any:
+    """:func:`tree_map` with ``fn(path, leaf, *rest_leaves)``; ``path`` is the tuple of
+    dict keys and list indices from the root (``jax.tree_util``'s key path)."""
+
+    def walk(node, path, *others):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: walk(node[k], path + (k,), *(o[k] for o in others)) for k in node}
+        if _is_seq(node):
+            return _rebuild(node, [walk(c, path + (i,), *(o[i] for o in others))
+                                   for i, c in enumerate(node)])
+        return fn(path, node, *others)
+
+    return walk(tree, (), *rest)
+
+
+def tree_leaves_with_path(tree) -> list:
+    """``[(path, leaf)]`` in :func:`tree_leaves` order."""
+    out = []
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (k,))
+        elif _is_seq(node):
+            for i, c in enumerate(node):
+                walk(c, path + (i,))
+        else:
+            out.append((path, node))
+
+    walk(tree, ())
+    return out
+
+
+def keystr(path) -> str:
+    """``jax.tree_util.keystr`` of a dict/list path: ``['layers'][0]['wq']``."""
+    return "".join(f"[{k!r}]" for k in path)
 
 
 def tree_unflatten(like, leaves) -> Any:

@@ -184,8 +184,9 @@ that names the phase, its failed cases and the exception:
    (two ranks on one card with collectives staged through host memory: not a
    tensor-parallel speed).
 17. train_resume (run right after train_fused) — save and resume at ``train_main``'s
-   configuration with the depth cut to 2 layers (``RESUME_LAYERS``: two 8-layer
-   checkpoints wrote 67 GB, past the 45 GiB of disk a run on the card's host may write),
+   configuration with the depth cut to 1 layer (``RESUME_LAYERS``: two 8-layer
+   checkpoints wrote 67 GB, past the 45 GiB of disk a run on the card's host may write;
+   2 layers until slice 19, cut to keep the whole script's time in bound),
    fed by a stateful ``DataLoaderShard`` over a ``TokenDataset`` of 2^24 seeded tokens
    (the native C++ gather required) with a custom object and a scheduler registered:
    3 steps, ``save_state()``, 3 steps, ``load_state()`` in place, the loader re-iterated
@@ -265,6 +266,26 @@ that names the phase, its failed cases and the exception:
    supervisor tears rank 1 down and relaunches both on a fresh port; the gang resumes and
    its final params match one uninterrupted process within ``train_tp_parity``'s fp32
    tolerance. NCCL (one rank per card) is not run.
+24. fp8_dot_check (run right after train_fused) — ``ops.fp8``'s products through
+   ``torch._scaled_mm`` against the plain version (fp32-widened codes) at Llama-3-8B's
+   projection shapes (M = 2048), M = 8 and a ragged shape, HYBRID and E4M3, forward, dx
+   and dw; ``fp8_dot``'s bf16 forward and gradients through autograd; times of the
+   product, the whole fp8_dot forward and cuBLAS's bf16 ``x @ w``.
+25. train_fp8 — ``train_main``'s recipe with ``use_fp8`` under
+   ``Accelerator(mixed_precision="fp8")``, delayed scaling (history 4), O1 and O2 arms:
+   finite falling losses, the first within 1% of train_main's, the amax history, O2's
+   moment bytes a quarter of O1's, launches (2L/L/L flash, 1 AdamW a step in O1, 28L
+   ``_scaled_mm`` a step); a profiled O1 step split into ``_scaled_mm``, quantize,
+   amax, layout copies and the rest.
+26. train_lora (run right after main_int8, over its bf16 params) — rank-16 adapters on
+   wq/wk/wv/wo at Llama-3-8B's full depth, ``lora_optimizer(adamw(1e-3))``, 1 x 2048:
+   the base unchanged and never handed to ``torch.autograd.grad``, adapters moved,
+   losses falling, peak memory within 12 GB above what was resident; a greedy paged
+   drain over the adapted params against one over ``merge_lora``'s (near ties
+   allowed); ``only_lora`` → ``load_lora`` bitwise.
+27. qlora_closure — the same adapters over main_int8's int8 base in the closure form
+   (the state holds only the adapters), 3 steps: the int8 bytes unchanged, losses
+   falling, kernel #10's launches exact; #10's time at M = 2048.
 
 Then each phase's wall seconds, the kernels line (the serving kernels' launches include the super-steps' graph
 replays: kernel nodes times replays), the card's name and power limit, and a last line
@@ -5107,7 +5128,7 @@ def profile_train_step(step, state, batch) -> dict:
 RESUME_STEPS = 3  # steps between the save and the end of each round
 # Depth of train_resume's model (cut from TRAIN_LAYERS' 8 in slice 18): the card's host
 # takes at most 45 GiB of disk writes a run, and two 8-layer checkpoints wrote 67 GB.
-RESUME_LAYERS = 2
+RESUME_LAYERS = 1  # 2 in slice 18; 1 since slice 19 to keep the script's time in bound
 RESUME_CORPUS_TOKENS = 1 << 24  # 64 MB of int32 tokens
 BUILD_ROOT = Path(__file__).resolve().parent / "build"  # git-ignored
 
@@ -6426,7 +6447,7 @@ def phase_main_int8(dev) -> int:
     n8 = {"decode_steps": MULTI_N}
     emit(decode_ab({"bf16": (dense, n8), "int8": (params, n8)}, cfg, tokens=2 * MULTI_N))
     return {"launches": launches, "launches_multistep": launches8, "profile": prof,
-            "profile_multistep": prof8}
+            "profile_multistep": prof8, "int8_params": params, "dense_params": dense}
 
 
 def decode_ab(variants: dict, cfg, tokens: int = 8) -> dict:
@@ -6921,6 +6942,598 @@ def phase_train_tp(dev, first_loss: float) -> dict:
     return {"launches": ranks[0]["launches"], "ranks": ranks}
 
 
+# ------------------------------------------ slice 19: fp8 training and LoRA adapters
+FP8_PEAK_FLOPS = 1979e12  # dense fp8 tensor-core peak of one H100 SXM (data sheet)
+#: Llama-3-8B's projection shapes (K, N) at M = 2048 tokens, plus a decode step's M = 8
+#: (rows padded to 16 after the amax) and a ragged shape padded on every dimension.
+FP8_SHAPES = [(2048, 4096, 4096), (2048, 4096, 1024), (2048, 4096, 14336),
+              (2048, 14336, 4096), (8, 4096, 1024), (130, 200, 72)]
+#: max |card - plain| / max |plain| of each fp8 product in fp32. The products of fp8
+#: codes are exact; Hopper's fp8 MMA keeps about 14 mantissa bits of its running sum
+#: within an instruction before cuBLASLt promotes it to fp32 (DeepSeek-V3's report):
+#: 1.2e-4 to 3.4e-4 measured on an H100 (700 W), K from 200 to 14336.
+FP8_PRODUCT_TOL = 1e-3
+#: The same for fp8_dot's bf16 outputs, forward and both gradients: one bf16 rounding.
+FP8_DOT_TOL = 1e-2
+
+
+def _fp8_case(gen, dev, M, K, N):
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((K, N), generator=gen, device=dev) / math.sqrt(K)).to(torch.bfloat16)
+    g = (torch.randn((M, N), generator=gen, device=dev) * 1e-3).to(torch.bfloat16)
+    return x, w, g
+
+
+def _rel(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def phase_fp8_dot_check(dev) -> dict:
+    """``ops.fp8``'s products through ``torch._scaled_mm`` against the plain version (the
+    codes widened to fp32, multiplied, divided by the scales) on the card: Llama-3-8B's
+    projection shapes at M = 2048, a decode step's M = 8 and a ragged shape, both
+    formats, the forward product and both backward products (fp32 outputs); then
+    ``fp8_dot``'s bf16 forward and gradients through autograd against the same plain
+    composition. Times: the fp8 product alone, the whole fp8_dot forward (amaxes,
+    quantize passes, layout copies, product) and a bf16 ``x @ w`` of the same shape."""
+    from accelerate_tpu_torch.ops import fp8
+
+    gen = torch.Generator(dev).manual_seed(19)
+    cases, failed = [], {}
+    for M, K, N in FP8_SHAPES:
+        x, w, g = _fp8_case(gen, dev, M, K, N)
+        for fmt in (fp8.Format.HYBRID, fp8.Format.E4M3):
+            fwd_dt, bwd_dt = fp8._fmt_dtypes(fmt)
+            xs = fp8.compute_scale(fp8._amax(x), fwd_dt)
+            ws = fp8.compute_scale(fp8._amax(w), fwd_dt)
+            gs = fp8.compute_scale(fp8._amax(g), bwd_dt)
+            xq, wq, gq = fp8.quantize(x, xs, fwd_dt), fp8.quantize(w, ws, fwd_dt), \
+                fp8.quantize(g, gs, bwd_dt)
+            products = {"fwd": (xq, wq, xs, ws), "dx": (gq, wq.t(), gs, ws),
+                        "dw": (xq.t(), gq, xs, gs)}
+            errs = {}
+            for which, (a, b, sa, sb) in products.items():
+                got = fp8.scaled_product(a, b, sa, sb, torch.float32)
+                want = fp8.scaled_product_reference(a, b, sa, sb, torch.float32)
+                errs[which] = _rel(got, want)
+            name = f"M{M}_K{K}_N{N}_{fmt}"
+            rec = {"case": name, "max_rel_err": errs}
+            if max(errs.values()) > FP8_PRODUCT_TOL:
+                failed[name] = errs
+            if (M, K, N) == FP8_SHAPES[0]:
+                rec["fp8_dot_bf16"] = _fp8_dot_autograd(fp8, x, w, g, fmt)
+                if max(rec["fp8_dot_bf16"].values()) > FP8_DOT_TOL:
+                    failed[name + "_fp8_dot"] = rec["fp8_dot_bf16"]
+            if M == 2048 and fmt == fp8.Format.HYBRID:
+                rec["times"] = _fp8_times(fp8, x, w, xq, wq, xs, ws)
+            cases.append(rec)
+    engines = _fp8_engine_graphs(dev)
+    if not engines["ok"]:
+        failed["fp8_engine_graphs"] = engines
+    res = {"phase": "fp8_dot_check", "cases": cases, "tol_product": FP8_PRODUCT_TOL,
+           "tol_fp8_dot_bf16": FP8_DOT_TOL, "fp8_engine_graphs": engines, "ok": not failed}
+    emit(res)
+    if failed:
+        raise PhaseFailed("fp8 products on the card disagree with the plain version", failed)
+    return res
+
+
+def _fp8_engine_graphs(dev) -> dict:
+    """``use_fp8`` serving on the card (``debug``, bf16): the paged engine's 4-step
+    super-step, captured into CUDA graphs with the amaxes, scales and ``_scaled_mm``
+    inside, against the same engine one step at a time: the same greedy tokens."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.bfloat16, use_fp8=True)
+    params = llama.init_params(cfg, generator=torch.Generator(dev).manual_seed(3), device=dev)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in (20, 57, 9)]
+    tokens, calls = {}, {}
+    for n in (1, 4):
+        eng = ContinuousBatcher(params, cfg, max_slots=4, max_len=128, prompt_bucket=32,
+                                page_size=16, decode_steps=n)
+        fp8.scaled_product.launches = 0
+        reqs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        tokens[n] = [list(r.tokens) for r in reqs]
+        calls[n] = {"eager_scaled_mm": fp8.scaled_product.launches, "graphs": len(eng.graphs)}
+    return {"config": "debug bf16", "tokens_equal": tokens[1] == tokens[4], "calls": calls,
+            "ok": tokens[1] == tokens[4] and calls[4]["graphs"] > 0}
+
+
+def _fp8_dot_autograd(fp8, x, w, g, fmt) -> dict:
+    """fp8_dot's bf16 forward, dx and dw through autograd (current scaling) against the
+    plain composition of the same quantize passes and products."""
+    xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    y = fp8.fp8_dot(xr, wr, fmt)
+    y.backward(g)
+    fwd_dt, bwd_dt = fp8._fmt_dtypes(fmt)
+    xs, ws = fp8.compute_scale(fp8._amax(x), fwd_dt), fp8.compute_scale(fp8._amax(w), fwd_dt)
+    gs = fp8.compute_scale(fp8._amax(g), bwd_dt)
+    xq, wq, gq = fp8.quantize(x, xs, fwd_dt), fp8.quantize(w, ws, fwd_dt), \
+        fp8.quantize(g, gs, bwd_dt)
+    ref = fp8.scaled_product_reference
+    return {"fwd": _rel(y, ref(xq, wq, xs, ws, torch.bfloat16)),
+            "dx": _rel(xr.grad, ref(gq, wq.t(), gs, ws, torch.bfloat16)),
+            "dw": _rel(wr.grad, ref(xq.t(), gq, xs, gs, torch.bfloat16))}
+
+
+def _fp8_times(fp8, x, w, xq, wq, xs, ws) -> dict:
+    """Device ms (CUDA-graph replay) of the fp8 product alone (bf16 out), of the whole
+    fp8_dot forward, of its plain version, and of cuBLAS's bf16 ``x @ w``; bounds of the
+    fp8 product (fp8 peak or HBM) and of the bf16 product."""
+    M, K = x.shape
+    N = w.shape[1]
+    t = {"product_ms": device_ms(lambda i: fp8.scaled_product(xq, wq, xs, ws, torch.bfloat16),
+                                 10, 5),
+         "fp8_dot_fwd_ms": device_ms(lambda i: fp8.fp8_dot(x, w), 10, 5),
+         "plain_ms": device_ms(lambda i: fp8.scaled_product_reference(
+             xq, wq, xs, ws, torch.bfloat16), 3, 3),
+         "bf16_matmul_ms": device_ms(lambda i: x @ w, 10, 5)}
+    ops = 2 * M * K * N
+    t["bound_ms"] = 1e3 * max(ops / FP8_PEAK_FLOPS, (M * K + K * N + 2 * M * N) / HBM_BYTES_PER_S)
+    t["bound_by"] = ("operations" if ops / FP8_PEAK_FLOPS
+                     > (M * K + K * N + 2 * M * N) / HBM_BYTES_PER_S else "bytes")
+    t["bf16_bound_ms"] = 1e3 * max(ops / PEAK_FLOPS[torch.bfloat16],
+                                   2 * (M * K + K * N + M * N) / HBM_BYTES_PER_S)
+    # cuBLASLt alone on operands already laid out (no transpose copy), with the fp32
+    # promotion the port asks for and without it (use_fast_accum), and that one's error.
+    b = fp8._padded_rows(wq.t(), N, K).t()
+    sa, sb = torch.reciprocal(xs), torch.reciprocal(ws)
+
+    def mm(fast):
+        out = torch._scaled_mm(xq, b, scale_a=sa, scale_b=sb, out_dtype=torch.float32,
+                               use_fast_accum=fast)
+        return out[0] if isinstance(out, tuple) else out
+
+    t["scaled_mm_only_ms"] = device_ms(lambda i: mm(False), 10, 5)
+    t["scaled_mm_fast_accum_ms"] = device_ms(lambda i: mm(True), 10, 5)
+    want = fp8.scaled_product_reference(xq, wq, xs, ws, torch.float32)
+    t["fast_accum_max_rel_err"] = _rel(mm(True), want)
+    t["promoted_max_rel_err"] = _rel(mm(False), want)
+    return t
+
+
+FP8_TRAIN_STEPS = 5  # 2 warm-up and 3 timed
+FP8_TRAIN_TOL_REL = 0.01  # first loss vs train_main's: fp8 operand rounding at 8 layers
+
+
+def phase_train_fp8(dev, first_loss: float) -> dict:
+    """``train_main``'s recipe (Llama-3-8B widths, TRAIN_LAYERS layers, flash, every block
+    checkpointed, chunked CE, ``fused_adamw(1e-4)``, clip 1.0, the same seeded params and
+    batch) with ``use_fp8=True`` under ``Accelerator(mixed_precision="fp8")`` and a
+    delayed-scaling recipe (history 4), in two arms: O1 (fp32 moments, the AdamW
+    kernel) and O2 (scaled-fp8 moments). Checks: finite losses that fall, the first
+    within 1% of ``first_loss``, the amax history (x and w rows filled, the grad row
+    zero), O2's moment bytes a quarter of O1's, and the kernels' launches."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.utils.dataclasses import FP8RecipeKwargs
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    L, n = TRAIN_LAYERS, FP8_TRAIN_STEPS
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], n_layers=L, dtype=torch.bfloat16,
+                              attn_impl="flash", remat=True, remat_policy="full",
+                              use_fp8=True)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    n_params = llama.num_params(cfg)
+    flops_per_token = 6 * n_params + 6 * L * TRAIN_S * cfg.d_model
+    arms, failed = {}, {}
+    for arm in ("O1", "O2"):
+        _fresh_state_singletons()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                                   generator=torch.Generator(dev).manual_seed(0), device=dev)
+        recipe = FP8RecipeKwargs(use_delayed_scaling=True, amax_history_len=4, opt_level=arm)
+        acc = Accelerator(mixed_precision="fp8", device=dev, kwargs_handlers=[recipe])
+        state = acc.create_train_state(params, fo.fused_adamw(1e-4))
+        del params
+        step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+        _reset_train_counts(fa, fo)
+        fp8.scaled_product.launches = 0
+        losses, step_s = [], []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        launches = _train_counts(fa, fo)
+        expect = {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n, "flash_bwd_dkv": L * n,
+                  "fused_adamw": n if arm == "O1" else 0}
+        # 7 projections a layer: one product in each forward (twice under remat) and
+        # two in its backward.
+        scaled = fp8.scaled_product.launches
+        hist = state.fp8_state.history.cpu()
+        moments = [t for t in tree_leaves([state.opt_state.mu, state.opt_state.nu])]
+        step_ms = 1e3 * float(np.mean(step_s[2:]))
+        tokens_per_step = TRAIN_B * TRAIN_S
+        rec = {
+            "opt_level": arm, "losses": losses, "step_ms_runs": [1e3 * t for t in step_s],
+            "step_ms": step_ms, "tokens_per_s": tokens_per_step / (step_ms / 1e3),
+            "mfu_at_bf16_peak": tokens_per_step * flops_per_token / (step_ms / 1e3)
+            / PEAK_FLOPS[torch.bfloat16],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches, "launches_expected": expect,
+            "scaled_mm_calls": scaled, "scaled_mm_calls_expected": 7 * L * 4 * n,
+            "moment_bytes": sum(t.numel() * t.element_size() for t in moments),
+            "moment_dtypes": sorted({str(t.dtype) for t in moments}),
+            "amax_history": hist.tolist(), "fp8_state_step": int(state.fp8_state.step),
+        }
+        rec["first_loss_rel_err_vs_train_main"] = abs(losses[0] - first_loss) / abs(first_loss)
+        checks = {
+            "finite": all(np.isfinite(losses)),
+            "losses_fall": losses[-1] < losses[0],
+            "first_loss": rec["first_loss_rel_err_vs_train_main"] <= FP8_TRAIN_TOL_REL,
+            "history": bool((hist[:2, :min(n, 4)] > 0).all()) and bool((hist[2] == 0).all())
+            and rec["fp8_state_step"] == n,
+            "launches": launches == expect and scaled == rec["scaled_mm_calls_expected"],
+        }
+        rec["checks"] = checks
+        failed.update({f"{arm}_{k}": rec for k, ok in checks.items() if not ok})
+        arms[arm] = rec
+        if arm == "O1":
+            emit({**profile_fp8_step(step, state, batch), "opt_level": arm})
+        del state, step, acc
+    ratio = arms["O2"]["moment_bytes"] / arms["O1"]["moment_bytes"]
+    if ratio != 0.25:
+        failed["o2_moment_bytes"] = ratio
+    res = {"phase": "train_fp8", "config": "llama3-8b", "layers": L,
+           "cut": f"depth {L} of 32 layers, as train_main", "batch": [TRAIN_B, TRAIN_S],
+           "recipe": "HYBRID, delayed scaling, amax history 4 (max), margin 0",
+           "params": n_params, "flops_per_token": flops_per_token, "arms": arms,
+           "o2_moment_bytes_over_o1": ratio, "first_loss_train_main": first_loss,
+           "first_loss_tol_rel": FP8_TRAIN_TOL_REL, "ok": not failed}
+    emit(res)
+    _fresh_state_singletons()
+    if failed:
+        raise PhaseFailed("fp8 training failed its checks", failed)
+    return res
+
+
+def profile_fp8_step(step, state, batch) -> dict:
+    """One fp8 train step under ``torch.profiler``, with ``ops.fp8``'s amax, quantize
+    and layout helpers wrapped in ``record_function`` ranges: the device time of the
+    ``_scaled_mm`` calls, of the quantize passes (clip and cast), of the amaxes, of the
+    layout copies (transposes and padding) and of the rest."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from accelerate_tpu_torch.ops import fp8
+
+    names = {"quantize": "fp8.quantize", "_amax": "fp8.amax", "_padded_rows": "fp8.layout"}
+    saved = {k: getattr(fp8, k) for k in names}
+
+    def ranged(fn, label):
+        def wrapped(*a, **kw):
+            with record_function(label):
+                return fn(*a, **kw)
+        return wrapped
+
+    for k, label in names.items():
+        setattr(fp8, k, ranged(saved[k], label))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        for k, fn in saved.items():
+            setattr(fp8, k, fn)
+    busy_us, by_range = 0.0, {"scaled_mm": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            # The ranges also appear as device-side annotations: not kernels.
+            if e.key not in names.values():
+                busy_us += e.self_device_time_total
+        elif e.key == "aten::_scaled_mm":
+            by_range["scaled_mm"] += e.device_time_total
+        elif e.key in names.values():
+            by_range[e.key] = by_range.get(e.key, 0.0) + e.device_time_total
+    split = {k: v / 1e3 for k, v in by_range.items()}
+    split["rest"] = busy_us / 1e3 - sum(split.values())
+    return {"phase": "train_fp8_profile", "wall_ms_profiled": wall_ms,
+            "device_busy_ms": busy_us / 1e3 if busy_us else None,
+            "device_idle_share": (1 - busy_us / 1e3 / wall_ms) if busy_us else None,
+            "device_ms_split": split if busy_us else None}
+
+
+LORA_RANK = 16
+LORA_S = 2048
+LORA_STEPS = 7  # 2 warm-up and 5 timed
+LORA_PEAK_ROOM = 12 << 30  # peak memory above what was resident before the phase
+LORA_ENGINE = dict(max_slots=4, max_len=256, prompt_bucket=64, page_size=16)
+
+
+def _lora_cfg(cfg):
+    return dataclasses.replace(cfg, lora_rank=LORA_RANK, attn_impl="flash", remat=True,
+                               remat_policy="full")
+
+
+def phase_train_lora(dev, base: dict) -> dict:
+    """LoRA at Llama-3-8B's full width and depth: ``base`` (the bf16 params the int8
+    phase made, 32 layers) frozen, adapters of rank 16 on wq/wk/wv/wo
+    (``lora.add_adapters``), ``lora_optimizer(adamw(1e-3))``, bf16 compute, flash, every
+    block checkpointed, one seeded batch of 1 x 2048: 2 warm-up and 5 timed steps.
+    Checks: the base unchanged (checksums), the adapters moved, losses falling, no
+    base leaf handed to ``torch.autograd.grad`` (every call recorded), the peak memory
+    above what was resident within LORA_PEAK_ROOM, the flash launches. Then
+    ``merge_lora``; a greedy drain of a paged engine over the adapted params against
+    one over the merged params (near ties allowed, as ``divergence_rows`` allows them);
+    an ``only_lora`` → ``load_lora`` round trip, bitwise."""
+    from accelerate_tpu_torch import optim
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama, lora
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    _fresh_state_singletons()
+    cfg = _lora_cfg(dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16))
+    L = cfg.n_layers
+    base_leaves = tree_leaves(base)
+    base_bytes = sum(t.numel() * t.element_size() for t in base_leaves)
+    base_sums = [_checksum(t) for t in base_leaves]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = lora.add_adapters(base, cfg, generator=torch.Generator(dev).manual_seed(1))
+    acc = Accelerator(mixed_precision="bf16", device=dev)
+    state = acc.create_train_state(params, lora.lora_optimizer(optim.adamw(1e-3)))
+    adapters0 = {k: v.clone() for k, v in lora.only_lora(state.params).items()}
+    base_ptrs = {t.data_ptr() for t in base_leaves}
+    # The frozen base enters the state as it is: bf16, not copied to fp32 masters.
+    kept = base_ptrs <= {t.data_ptr() for t in tree_leaves(state.params)}
+    step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg))
+    tokens = np.random.default_rng(19).integers(0, cfg.vocab_size, (1, LORA_S + 1))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    grad_calls = []
+    autograd_grad = torch.autograd.grad
+
+    def recording_grad(outputs, inputs, *a, **kw):
+        grad_calls.append((len(inputs), sum(t.data_ptr() in base_ptrs for t in inputs)))
+        return autograd_grad(outputs, inputs, *a, **kw)
+
+    _reset_train_counts(fa, fo)
+    losses, step_s = [], []
+    torch.autograd.grad = recording_grad
+    try:
+        for _ in range(LORA_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+    finally:
+        torch.autograd.grad = autograd_grad
+    peak_above = torch.cuda.max_memory_allocated() - resident
+    launches = _train_counts(fa, fo)
+    expect = {"flash_fwd": 2 * L * LORA_STEPS, "flash_bwd_dq": L * LORA_STEPS,
+              "flash_bwd_dkv": L * LORA_STEPS, "fused_adamw": 0}
+    n_adapters = 2 * len(cfg.lora_targets) * L
+    moved = any(not torch.equal(adapters0[k], v) for k, v in lora.only_lora(state.params).items())
+    step_ms = 1e3 * float(np.mean(step_s[2:]))
+    # Frozen base: the forward (2N) and the activation gradients (2N) a token, plus the
+    # recomputed forward of every checkpointed block (2N), and attention's.
+    n_params = llama.num_params(cfg)
+    flops_per_token = 6 * n_params + 6 * L * LORA_S * cfg.d_model
+    rec = {"phase": "train_lora", "config": "llama3-8b", "layers": L, "lora_rank": LORA_RANK,
+           "lora_targets": list(cfg.lora_targets), "batch": [1, LORA_S], "losses": losses,
+           "step_ms_runs": [1e3 * t for t in step_s], "step_ms": step_ms,
+           "tokens_per_s": LORA_S / (step_ms / 1e3),
+           "mfu_at_bf16_peak_frozen_base": LORA_S * flops_per_token / (step_ms / 1e3)
+           / PEAK_FLOPS[torch.bfloat16], "flops_per_token_frozen_base": flops_per_token,
+           "base_bytes": base_bytes, "memory_resident_before_bytes": resident,
+           "peak_above_resident_bytes": peak_above, "peak_room_bytes": LORA_PEAK_ROOM,
+           "autograd_grad_calls": len(grad_calls),
+           "autograd_grad_inputs": sorted({c[0] for c in grad_calls}),
+           "base_leaves_handed_to_autograd": sum(c[1] for c in grad_calls),
+           "launches": launches, "launches_expected": expect,
+           "base_kept_in_place": kept}
+    checks = {
+        "base_unchanged": [_checksum(t) for t in base_leaves] == base_sums,
+        "adapters_moved": moved, "finite": all(np.isfinite(losses)),
+        "losses_fall": all(b < a for a, b in zip(losses, losses[1:])),
+        "no_base_gradient": rec["base_leaves_handed_to_autograd"] == 0
+        and rec["autograd_grad_inputs"] == [n_adapters] and len(grad_calls) == LORA_STEPS,
+        "peak_memory": peak_above <= LORA_PEAK_ROOM, "launches": launches == expect,
+        "base_kept_in_place": kept,
+    }
+    del step, acc
+    # Serving: the adapted params against the merged ones, one greedy drain each.
+    merged, merged_cfg = lora.merge_lora(state.params, cfg)
+    serve = _lora_drains(state.params, cfg, merged, merged_cfg)
+    checks["serving"] = serve["ok"]
+    # The adapter file: only_lora → load_lora into a fresh adapted tree, bitwise.
+    saved = {k: v.detach().cpu() for k, v in lora.only_lora(state.params).items()}
+    fresh = lora.add_adapters(base, cfg, generator=torch.Generator(dev).manual_seed(2))
+    loaded = lora.only_lora(lora.load_lora(fresh, saved))
+    checks["only_lora_round_trip"] = (sorted(loaded) == sorted(saved) and all(
+        torch.equal(loaded[k].cpu(), saved[k]) for k in saved))
+    rec.update(serving=serve, adapter_file_entries=len(saved),
+               adapter_file_bytes=sum(v.numel() * v.element_size() for v in saved.values()),
+               checks=checks, ok=all(checks.values()))
+    emit(rec)
+    del merged, fresh, state
+    _fresh_state_singletons()
+    if not rec["ok"]:
+        raise PhaseFailed("LoRA training failed its checks",
+                          {k: v for k, v in checks.items() if not v})
+    return rec
+
+
+def _lora_workload(vocab: int):
+    rng = np.random.default_rng(20)
+    return [(rng.integers(0, vocab, int(n)), dict(max_new_tokens=16))
+            for n in rng.integers(40, 120, 4)]
+
+
+def _lora_drains(adapted, cfg, merged, merged_cfg) -> dict:
+    """One greedy drain of a paged engine (``LORA_ENGINE``) over ``adapted`` and one over
+    ``merged``; for each request whose tokens differ, at its first divergence d, the two
+    engines' logits rows replayed alone: a near tie is a top-two gap of the adapted row
+    within twice the rows' largest difference (``x@W + (x@A)@B`` and ``x@(W + AB)``
+    round apart, as the JAX package's own adapter test warns)."""
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    workload = _lora_workload(cfg.vocab_size)
+    sides = {"adapted": (adapted, cfg), "merged": (merged, merged_cfg)}
+    tokens, launches = {}, {}
+    for side, (p, c) in sides.items():
+        eng = ContinuousBatcher(p, c, **LORA_ENGINE)
+        reqs = [eng.submit(prompt, **kw) for prompt, kw in workload]
+        before = path_launches(eng)[0]
+        eng.run()
+        torch.cuda.synchronize()
+        launches[side] = path_launches(eng)[0] - before
+        tokens[side] = [list(r.tokens) for r in reqs]
+        del eng
+    differ = {i: next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+              for i, (a, b) in enumerate(zip(tokens["adapted"], tokens["merged"])) if a != b}
+    ties = {}
+    rows = {side: _lora_rows(p, c, workload, differ, tokens[side])
+            for side, (p, c) in sides.items()}
+    for i, d in differ.items():
+        (a_row, a_tok), (m_row, m_tok) = rows["adapted"][i], rows["merged"][i]
+        delta = float((a_row - m_row).abs().max())
+        top = torch.topk(a_row, 2).values
+        gap = float(top[0] - top[1])
+        ties[i] = {"d": d, "delta": delta, "gap": gap, "ok": gap <= 2 * delta
+                   and a_tok == tokens["adapted"][i][d] and m_tok == tokens["merged"][i][d]}
+    n_tokens = {s: sum(len(t) for t in v) for s, v in tokens.items()}
+    return {"engine": LORA_ENGINE, "requests": len(workload), "tokens": n_tokens,
+            "paged_attention_launches": launches, "requests_differing": len(differ),
+            "near_ties": ties,
+            "ok": all(t["ok"] for t in ties.values()) and all(v > 0 for v in launches.values())
+            and all(n == 16 * len(workload) for n in n_tokens.values())}
+
+
+def _lora_rows(params, cfg, workload, first: dict, tokens) -> dict:
+    """``{request: (logits row, token)}``: the row each request's token ``d = first[i]``
+    was chosen from, replayed on one fresh ``LORA_ENGINE`` engine (every lane
+    independent of the others; read as the token lands), and the replayed token. Token
+    0 comes from the prefill: its row is the last prompt position of ``llama.forward``."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.serving import ContinuousBatcher
+
+    rows = {}
+    eng = ContinuousBatcher(params, cfg, **LORA_ENGINE)
+    for i, d in first.items():
+        prompt = workload[i][0]
+        if d == 0:
+            with torch.no_grad():
+                ids = torch.as_tensor(prompt, device=params["embed"].device)[None]
+                rows[i] = (llama.forward(params, ids, cfg)[0, -1].float().cpu(), tokens[i][0])
+            continue
+        holder = []
+
+        def hook(tok, i=i, d=d, holder=holder):
+            req = holder[0]
+            if len(req.tokens) == d + 1:
+                rows[i] = (eng.last_logits[eng.slot_req.index(req)].float().cpu(), tok)
+
+        holder.append(eng.submit(prompt, max_new_tokens=d + 1, on_token=hook))
+    eng.run()
+    return rows
+
+
+QLORA_STEPS = 3
+
+
+def phase_qlora_closure(dev, qparams: dict) -> dict:
+    """Adapters over the int8 base of ``main_int8`` in the closure form: the train state
+    holds only the adapters (rank 16 on wq/wk/wv/wo, 32 layers), the loss closes over
+    the frozen int8 base (int8 projections through kernel #10, gradients to the
+    adapters through ``quant_matmul``'s backward), bf16, flash, remat, one seeded batch
+    of 1 x 2048, 3 steps. Checks: the int8 bytes unchanged, finite falling losses, #10's
+    launches exact (7 projections a layer, forward and recomputed forward). Then #10's
+    device ms per call at M = 2048 for each projection shape, beside cuBLAS bf16."""
+    from accelerate_tpu_torch import optim
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama, lora
+    from accelerate_tpu_torch.ops import quantization as qz
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    _fresh_state_singletons()
+    cfg = _lora_cfg(dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16))
+    L = cfg.n_layers
+    codes = [leaf.data for layer in qparams["layers"] for leaf in layer.values()
+             if isinstance(leaf, qz.QuantizedWeight)]
+    sums = [_checksum(t.view(torch.int16) if t.numel() % 2 == 0 else t) for t in codes]
+    adapted = lora.add_adapters(qparams, cfg, generator=torch.Generator(dev).manual_seed(1))
+    adapters = {"layers": [{k: v for k, v in layer.items() if "_lora_" in k}
+                           for layer in adapted["layers"]]}
+    del adapted
+
+    def closure_loss(ad, b):
+        full = {**qparams, "layers": [{**base, **extra} for base, extra
+                                      in zip(qparams["layers"], ad["layers"])]}
+        return llama.loss_fn(full, b, cfg)
+
+    acc = Accelerator(mixed_precision="bf16", device=dev)
+    state = acc.create_train_state(adapters, optim.adamw(1e-3))
+    step = acc.build_train_step(closure_loss)
+    tokens = np.random.default_rng(19).integers(0, cfg.vocab_size, (1, LORA_S + 1))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    qz.int8_matmul.launches = qz.int8_matmul.launches_ragged = 0
+    losses, step_s = [], []
+    for _ in range(QLORA_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+    launches = qz.int8_matmul.launches
+    expect = len(INT8_LAYER) * L * 2 * QLORA_STEPS
+    n_state = len(tree_leaves(state.params))
+    checks = {"int8_unchanged": [_checksum(t.view(torch.int16) if t.numel() % 2 == 0 else t)
+                                 for t in codes] == sums,
+              "finite": all(np.isfinite(losses)), "losses_fall": losses[-1] < losses[0],
+              "launches": launches == expect,
+              "state_is_adapters": n_state == 2 * len(cfg.lora_targets) * L}
+    del step, acc, state
+    gen = torch.Generator(dev).manual_seed(21)
+    times = {}
+    for name in ("wq", "wv", "w_gate", "w_down"):  # wk, wo, w_up repeat these shapes
+        layer0 = qparams["layers"][0][name]
+        K, N = layer0.shape
+        x = torch.randn((LORA_S, K), generator=gen, device=dev).to(torch.bfloat16)
+        w = qz.dequantize_weight(layer0, torch.bfloat16)
+        k_ms = device_ms(lambda i: qz.int8_matmul(x, layer0.data, layer0.scales,
+                                                  torch.bfloat16), 5, 3)
+        ops = 2 * LORA_S * K * N
+        nbytes = LORA_S * K * 2 + K * N + 4 * N + LORA_S * N * 2
+        times[f"{K}x{N}"] = {
+            "kernel_ms": k_ms, "dense_bf16_ms": device_ms(lambda i: x @ w, 5, 3),
+            "bound_ms": 1e3 * max(ops / PEAK_FLOPS[torch.bfloat16], nbytes / HBM_BYTES_PER_S),
+            "bound_by": ("operations" if ops / PEAK_FLOPS[torch.bfloat16]
+                         > nbytes / HBM_BYTES_PER_S else "bytes")}
+        del x, w
+    res = {"phase": "qlora_closure", "config": "llama3-8b", "layers": L,
+           "lora_rank": LORA_RANK, "batch": [1, LORA_S], "losses": losses,
+           "step_ms_runs": [1e3 * t for t in step_s], "int8_matmul_launches": launches,
+           "int8_matmul_launches_expected": expect,
+           "int8_matmul_launches_ragged": qz.int8_matmul.launches_ragged,
+           "int8_matmul_at_m2048": times, "checks": checks, "ok": all(checks.values())}
+    emit(res)
+    _fresh_state_singletons()
+    if not res["ok"]:
+        raise PhaseFailed("QLoRA closure training failed its checks",
+                          {k: v for k, v in checks.items() if not v})
+    return res
+
+
 def kernel_spills(libs: dict) -> dict:
     """Spill bytes (stores + loads) of every redesigned Hopper kernel (``*_ws_kernel``,
     ``*_cluster_kernel``) in the build's ``-Xptxas -v`` logs, by mangled name."""
@@ -7046,6 +7659,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_fused = run_phase("train_fused", phase_train_main, dev, "fused",
                             first_loss=train["losses"][0])
+    # fp8 training (slice 19): the products against their plain version, then
+    # train_main's recipe under fp8 with delayed scaling, O1 and O2.
+    run_phase("fp8_dot_check", phase_fp8_dot_check, dev)
+    torch.cuda.empty_cache()
+    train_fp8 = run_phase("train_fp8", phase_train_fp8, dev, train["losses"][0])
     # Training I/O (slice 11): save and resume at 8B width, then the checkpoint rules.
     torch.cuda.empty_cache()
     resume = run_phase("train_resume", phase_train_resume, dev)
@@ -7060,6 +7678,12 @@ def main() -> int:
     run_phase("quant_engine_vs_cpu", phase_engine, dev, "int8")
     run_phase("quant_engine_vs_cpu", phase_engine, dev, "nf4")
     serve_int8 = run_phase("main_int8", phase_main_int8, dev)
+    # LoRA (slice 19) over main_int8's 8B params: adapters on the bf16 base, then in the
+    # closure form over the int8 base.
+    lora_run = run_phase("train_lora", phase_train_lora, dev, serve_int8.pop("dense_params"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    qlora = run_phase("qlora_closure", phase_qlora_closure, dev, serve_int8.pop("int8_params"))
 
     # Tensor-parallel training (slice 5): the parent frees its cached memory first, since
     # the two ranks share the card.
@@ -7077,7 +7701,8 @@ def main() -> int:
                                xent, train, train_fused, int8, serve_int8, partial,
                                train_tp, serve_multi, resume, serve_prefill,
                                serve_prefix, serve_spec, serve_spec_draft, serve_disagg,
-                               serve_faults, serve_control, serve_bench, elastic, gang)})
+                               serve_faults, serve_control, serve_bench, elastic, gang,
+                               train_fp8, lora_run, qlora)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -7087,7 +7712,8 @@ def main() -> int:
 def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve_int8,
                 partial, train_tp, serve_multi, resume, serve_prefill, serve_prefix,
                 serve_spec, serve_spec_draft, serve_disagg, serve_faults,
-                serve_control, serve_bench, elastic, gang) -> list:
+                serve_control, serve_bench, elastic, gang, train_fp8, lora_run,
+                qlora) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results. The
     serving kernels' launches add their main paths' runs: N = 1, the super-step's,
     the bucketed, the prefix-cache, the speculative, the disaggregated drains (the
@@ -7102,8 +7728,13 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
         by_path = {"train_main": train["launches"][kernel],
                    "train_resume": resume["launches"][kernel],
                    "elastic_train": elastic["launches_total"][kernel],
-                   "elastic_gang": gang["launches"][kernel]}
+                   "elastic_gang": gang["launches"][kernel],
+                   "train_fp8_o1": train_fp8["arms"]["O1"]["launches"][kernel],
+                   "train_fp8_o2": train_fp8["arms"]["O2"]["launches"][kernel],
+                   "train_lora": lora_run["launches"][kernel]}
         return sum(by_path.values()), {"launches_by_path": by_path}
+
+    lora_paged = lora_run["serving"]["paged_attention_launches"]
 
     csrc, fa_py = "accelerate_tpu_torch/csrc/", "accelerate_tpu/ops/flash_attention.py"
     ft, fe = flash["times"], flash["errors"]["max_abs"]
@@ -7132,7 +7763,8 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                     + serve_spec_draft["launches"] + serve_disagg["launches"]
                     + serve_disagg["launches_kill"] + serve_faults["launches_crash"]
                     + serve_faults["launches"] + serve_control["launches"]
-                    + serve_bench["launches"],
+                    + serve_bench["launches"] + lora_paged["adapted"]
+                    + lora_paged["merged"],
                     kern["max_abs_err"], kern, design=PAGED_DESIGN,
                     launches_by_path={"main": serve["launches"],
                                       "main_multistep": serve_multi["launches"],
@@ -7145,7 +7777,9 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                                       "main_disagg_crash": serve_faults["launches_crash"],
                                       "main_faults": serve_faults["launches"],
                                       "main_control": serve_control["launches"],
-                                      "main_bench": serve_bench["launches"]},
+                                      "main_bench": serve_bench["launches"],
+                                      "train_lora_adapted": lora_paged["adapted"],
+                                      "train_lora_merged": lora_paged["merged"]},
                     t4_verify={k: kern["t4"][k] for k in ("kernel_ms", "plain_ms",
                                                          "bound_ms", "bound_by", "route")},
                     max_abs_err_t4_verify=kern["max_abs_err_t4"],
@@ -7183,11 +7817,14 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                     **xent_extra, **bwd_note),
         _kernel_row("int8_matmul", csrc + "int8_matmul.cu",
                     "accelerate_tpu/ops/quantization.py:153",
-                    serve_int8["launches"] + serve_int8["launches_multistep"],
+                    serve_int8["launches"] + serve_int8["launches_multistep"]
+                    + qlora["int8_matmul_launches"],
                     int8["max_abs_err"], int8,
                     "torch._weight_int8pack_mm (weight [N, K], bf16 scales)",
                     launches_by_path={"main_int8": serve_int8["launches"],
-                                      "main_int8_multistep": serve_int8["launches_multistep"]},
+                                      "main_int8_multistep": serve_int8["launches_multistep"],
+                                      "qlora_closure": qlora["int8_matmul_launches"]},
+                    times_at_m2048=qlora["int8_matmul_at_m2048"],
                     device_ms_per_super_step=serve_int8["profile_multistep"][
                         "int8_matmul_union_ms_per_step"],
                     shape="one decode step's 7 projections of a layer (M = 8, bf16), "

@@ -148,8 +148,6 @@ def test_sgd_matches_optax(momentum, nesterov):
 
 
 def test_unported_moments_raise():
-    with pytest.raises(NotImplementedError, match="fp8"):
-        tfo.fused_adamw(mu_dtype=torch.float8_e4m3fn)
     with pytest.raises(NotImplementedError):
         tfo.fused_adamw(nu_dtype=torch.bfloat16)
 

@@ -201,7 +201,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert params["embed"].device.type == "cpu"
 
 
-@pytest.mark.parametrize("knob", [{"moe_experts": 4}, {"lora_rank": 4}, {"use_fp8": True}])
+@pytest.mark.parametrize("knob", [{"moe_experts": 4}])
 def test_unsupported_knobs_raise(knob):
     import dataclasses
 

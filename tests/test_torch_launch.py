@@ -137,6 +137,19 @@ def test_interactive_config_over_scripted_answers(tmp_path, monkeypatch):
                                                  True, "MULTI_HOST")
 
 
+def test_interactive_config_fp8_questions(tmp_path, monkeypatch):
+    """Choosing fp8 asks the JAX questionnaire's recipe questions."""
+    answers = iter(["1", "1", "no", "3", "1", "1", "yes", "8", "1", "1", "1", "no", "no",
+                    "no"])
+    monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
+    args = get_parser().parse_args(["config", "--config_file", str(tmp_path / "f.json")])
+    with contextlib.redirect_stdout(io.StringIO()):
+        args.func(args)
+    cfg = load_config_from_file(str(tmp_path / "f.json"))
+    assert (cfg.mixed_precision, cfg.fp8_format, cfg.fp8_margin, cfg.fp8_use_delayed_scaling,
+            cfg.fp8_amax_history_len, cfg.fp8_opt_level) == ("fp8", "E4M3", 1, True, 8, "O2")
+
+
 def test_write_basic_config(tmp_path):
     from accelerate_tpu_torch.commands.config import write_basic_config
 
@@ -447,8 +460,7 @@ def test_state_env_matches_jax(monkeypatch):
     ("ACCELERATE_USE_FSDP", "true"), ("ACCELERATE_FSDP_ZERO_STAGE", "3"),
     ("ACCELERATE_FSDP_CPU_OFFLOAD", "true"), ("ACCELERATE_SP_MODE", "ring"),
     ("ACCELERATE_PP_MICROBATCHES", "4"), ("ACCELERATE_PP_SCHEDULE", "1f1b"),
-    ("ACCELERATE_FP8_FORMAT", "E4M3"), ("ACCELERATE_FP8_OPT_LEVEL", "O2"),
-    ("ACCELERATE_LOG_WITH", "tensorboard"), ("ACCELERATE_MIXED_PRECISION", "fp8"),
+    ("ACCELERATE_LOG_WITH", "tensorboard"),
 ])
 def test_unported_launcher_flags_fail_loudly(monkeypatch, var, value):
     from accelerate_tpu_torch.accelerator import Accelerator
@@ -456,6 +468,38 @@ def test_unported_launcher_flags_fail_loudly(monkeypatch, var, value):
     monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError, match="not ported"):
         Accelerator(device="cpu")
+
+
+FP8_ENVS = {
+    "defaults": {},
+    "e4m3_delayed": {"ACCELERATE_FP8_FORMAT": "e4m3", "ACCELERATE_FP8_MARGIN": "2",
+                     "ACCELERATE_FP8_AMAX_HISTORY_LEN": "8",
+                     "ACCELERATE_FP8_DELAYED_SCALING": "true"},
+    "o2": {"ACCELERATE_FP8_OPT_LEVEL": "O2", "ACCELERATE_FP8_DELAYED_SCALING": "false"},
+}
+
+
+@pytest.mark.parametrize("env", list(FP8_ENVS))
+def test_fp8_launcher_variables_build_jax_s_recipe(monkeypatch, env):
+    """``ACCELERATE_MIXED_PRECISION=fp8`` and ``ACCELERATE_FP8_*`` build the same
+    ``FP8RecipeKwargs`` as the JAX package's, field for field, in the Accelerator."""
+    from accelerate_tpu.utils.dataclasses import FP8RecipeKwargs as JaxRecipe
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.ops import fp8
+    from accelerate_tpu_torch.utils.dataclasses import FP8RecipeKwargs
+
+    monkeypatch.setenv("ACCELERATE_MIXED_PRECISION", "fp8")
+    for key, value in FP8_ENVS[env].items():
+        monkeypatch.setenv(key, value)
+    want = dataclasses.asdict(JaxRecipe())
+    assert dataclasses.asdict(FP8RecipeKwargs()) == want
+    try:
+        acc = Accelerator(device="cpu")
+        assert acc.mixed_precision == "fp8"
+        assert dataclasses.asdict(acc.fp8_recipe) == want
+        assert fp8._resolve(None, None) == (want["fp8_format"], want["margin"])
+    finally:
+        fp8.set_default_recipe("HYBRID", 0)
 
 
 def test_use_fsdp_false_is_not_a_request(monkeypatch):

@@ -331,6 +331,55 @@ def tp_checkpoint_round_trip(np_params, batches, cfg_kw: dict, mesh_kw: dict, lr
             "shards": shards, "step": state.step}
 
 
+def fp8_lora_steps(np_params, batches, cfg_kw: dict, mesh_kw, lr: float) -> dict:
+    """``Accelerator.build_train_step`` over ``llama.loss_fn`` for a ``use_fp8`` config
+    (delayed scaling, ``fused_adamw`` with O2's scaled-fp8 moments) or a LoRA one (``lora_optimizer(adamw)``), on
+    the mesh of ``mesh_kw`` with ``partition_specs`` (None: one process): per step the
+    loss and the gathered params; the last amax history; whether the adapters moved
+    and the base stayed."""
+    from accelerate_tpu_torch import optim
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama, lora
+    from accelerate_tpu_torch.models.convert import params_from_jax, params_to_numpy
+    from accelerate_tpu_torch.ops.fused_optim import fused_adamw
+    from accelerate_tpu_torch.parallel import MeshConfig
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
+    from accelerate_tpu_torch.utils.dataclasses import FP8RecipeKwargs
+
+    _threads()
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    # A tp-sharded head takes the vocab-sharded CE; one process the chunked one.
+    tp = mesh_kw is not None and mesh_kw.get("tp", 1) > 1
+    cfg = _config({**cfg_kw, "attn_impl": "xla", "loss_impl": "fused_tp" if tp else "auto"})
+    handlers = ([FP8RecipeKwargs(use_delayed_scaling=True, amax_history_len=4, opt_level="O2")]
+                if cfg.use_fp8 else None)
+    acc = Accelerator(device="cpu", kwargs_handlers=handlers,
+                      mesh_config=None if mesh_kw is None else MeshConfig(**mesh_kw))
+    specs = None if mesh_kw is None else llama.partition_specs(cfg)
+    tx = lora.lora_optimizer(optim.adamw(lr)) if cfg.lora_rank else fused_adamw(lr)
+    state = acc.create_train_state(
+        params_from_jax(np_params, cfg, device="cpu", master_dtype=torch.float32), tx,
+        partition_specs=specs)
+    first = params_to_numpy(state.params, mesh=acc.mesh, specs=specs)
+    step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg))
+    out = {"losses": [], "params": []}
+    for batch in batches:
+        state, metrics = step(state, batch)
+        out["losses"].append(float(metrics["loss"]))
+        out["params"].append(params_to_numpy(state.params, mesh=acc.mesh, specs=specs))
+    if state.fp8_state is not None:
+        out["history"] = state.fp8_state.history.numpy().copy()
+    last = out["params"][-1]["layers"]
+    out["adapters_moved"] = any(not np.array_equal(a[k], b[k]) for a, b in
+                                zip(first["layers"], last) for k in a if "_lora_" in k)
+    out["base_unchanged"] = all(np.array_equal(a[k], b[k]) for a, b in
+                                zip(first["layers"], last) for k in a if "_lora_" not in k)
+    for cls in (AcceleratorState, GradientState, PartialState):
+        cls._reset_state()
+    return out
+
+
 def run_all(jobs) -> list:
     """Each ``(function name, args)`` of ``jobs`` in turn, in one spawn of the ranks:
     their results in order."""
