@@ -124,14 +124,19 @@ def dequantize(x: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -> tor
 
 def _amax(t: torch.Tensor, group=None) -> torch.Tensor:
     """fp32 max |t| (one reduction pass, no copy), global over ``group``."""
-    amax = torch.linalg.vector_norm(t.detach(), math.inf).float()
-    if group is None:
-        return amax
-    return all_reduce(amax.reshape(1), "max", group)[0]
+    return _amaxes([t], group)[0]
 
 
-def _pick_scale(provided, tensor, fp8_dtype, margin, group):
-    current = compute_scale(_amax(tensor, group), fp8_dtype, margin)
+def _amaxes(tensors, group=None) -> torch.Tensor:
+    """fp32 ``[len(tensors)]`` of max |t|, global over ``group`` (one all-reduce)."""
+    amax = torch.stack([torch.linalg.vector_norm(t.detach(), math.inf).float()
+                        for t in tensors])
+    return amax if group is None else all_reduce(amax, "max", group)
+
+
+def _pick_scale(provided, amax, fp8_dtype, margin):
+    """``provided`` where it is set, else the current scale of ``amax`` (NaN = unset)."""
+    current = compute_scale(amax, fp8_dtype, margin)
     return torch.where(torch.isnan(provided), current, provided)
 
 
@@ -188,13 +193,14 @@ scaled_product.launches = 0
 
 
 class _Fp8Dot(torch.autograd.Function):
-    """``x @ w`` on fp8 codes; ``scales`` = fp32 ``[3]`` (x, w, grad), NaN = current."""
+    """``x @ w`` on fp8 codes; ``scales`` = fp32 ``[3]`` (x, w, grad), NaN = current;
+    ``amax`` = fp32 ``[2]``, the operands' amaxes (taken once, by :func:`fp8_dot`)."""
 
     @staticmethod
-    def forward(ctx, x, w, scales, fp8_format, margin, group):
+    def forward(ctx, x, w, scales, amax, fp8_format, margin, group):
         fwd_dtype, _ = _fmt_dtypes(fp8_format)
-        x_scale = _pick_scale(scales[0], x, fwd_dtype, margin, group)
-        w_scale = _pick_scale(scales[1], w, fwd_dtype, margin, group)
+        x_scale = _pick_scale(scales[0], amax[0], fwd_dtype, margin)
+        w_scale = _pick_scale(scales[1], amax[1], fwd_dtype, margin)
         x_q = quantize(x, x_scale, fwd_dtype)
         w_q = quantize(w, w_scale, fwd_dtype)
         y = scaled_product(x_q.reshape(-1, x.shape[-1]), w_q, x_scale, w_scale, x.dtype)
@@ -208,7 +214,7 @@ class _Fp8Dot(torch.autograd.Function):
         _, bwd_dtype = _fmt_dtypes(ctx.fp8_format)
         x_q, w_q, x_scale, w_scale, g_scale_in = ctx.saved_tensors
         x_dtype, w_dtype = ctx.dtypes
-        g_scale = _pick_scale(g_scale_in, g, bwd_dtype, ctx.margin, ctx.group)
+        g_scale = _pick_scale(g_scale_in, _amax(g, ctx.group), bwd_dtype, ctx.margin)
         g_q = quantize(g, g_scale, bwd_dtype).reshape(-1, g.shape[-1])
         dx = dw = None
         if ctx.needs_input_grad[0]:  # dx = g @ w.T
@@ -217,7 +223,7 @@ class _Fp8Dot(torch.autograd.Function):
         if ctx.needs_input_grad[1]:  # dw = x.T @ g over every batch dim
             dw = scaled_product(x_q.reshape(-1, x_q.shape[-1]).t(), g_q, x_scale, g_scale,
                                 w_dtype)
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
 # ------------------------------------------------------------------------ delayed scaling
@@ -251,14 +257,14 @@ def fp8_dot(x: torch.Tensor, w: torch.Tensor, fp8_format: Optional[str] = None,
     else current scaling. ``group``: the process group over which each amax is taken
     (a tp group when the operands are shards)."""
     fp8_format, margin = _resolve(fp8_format, margin)
+    # One amax pass per operand: it feeds the current scale and the context's maxima.
+    amax = _amaxes([x, w], group)
     if scales is None and _AUTOSCALE["scales"] is not None:
         scales = _AUTOSCALE["scales"]
-        with torch.no_grad():
-            seen = torch.stack([_amax(x, group), _amax(w, group)])
-            _AUTOSCALE["amax"] = torch.maximum(_AUTOSCALE["amax"], seen)
+        _AUTOSCALE["amax"] = torch.maximum(_AUTOSCALE["amax"], amax)
     if scales is None:
         scales = torch.full((3,), math.nan, dtype=torch.float32, device=x.device)
-    return _Fp8Dot.apply(x, w, scales, fp8_format, margin, group)
+    return _Fp8Dot.apply(x, w, scales, amax, fp8_format, margin, group)
 
 
 def fp8_linear(x, w, b=None, fp8_format: Optional[str] = None, margin: Optional[int] = None,

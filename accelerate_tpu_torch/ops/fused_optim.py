@@ -36,16 +36,15 @@ from typing import Any, Callable, NamedTuple, Optional, Union
 import torch
 
 from ..optim import AdamState, bias_correction, scale_by
-from ..parallel.tp import all_reduce
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from . import _build
+from .fp8 import FP8_MAX, _amax
 
 __all__ = ["FusedAdamW", "fused_adamw", "ScaledAdamState", "adamw_leaf_reference",
            "adamw_leaf_scaled_reference", "adamw_leaves"]
 
 _LANES = 1024  # leaves whose size is a multiple of this take the kernel
 _M_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_F8_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
 
 
 class ScaledAdamState(NamedTuple):
@@ -61,17 +60,15 @@ class ScaledAdamState(NamedTuple):
 
 
 def _is_f8(dtype) -> bool:
-    return dtype in _F8_MAX
+    return dtype in FP8_MAX
 
 
 def _quant_f8(x32: torch.Tensor, dtype, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor current scaling: ``scale = max(amax, 1e-30) / fp8_max``, codes
     ``x / scale`` (divisions by tensors, as XLA divides). ``group``: the ranks holding
     the other shards of the tensor (the amax is theirs too, as GSPMD's is global)."""
-    amax = torch.linalg.vector_norm(x32, float("inf"))
-    if group is not None:
-        amax = all_reduce(amax.reshape(1), "max", group)[0]
-    scale = torch.clamp_min(amax, 1e-30) / torch.full_like(amax, _F8_MAX[dtype])
+    amax = _amax(x32, group)
+    scale = torch.clamp_min(amax, 1e-30) / torch.full_like(amax, FP8_MAX[dtype])
     return (x32 / scale).to(dtype), scale
 
 
@@ -95,23 +92,18 @@ def adamw_leaf_reference(p, m, v, g, scalars, *, b1, b2, eps, wd):
 def adamw_leaf_scaled_reference(p, m, v, g, scalars, m_scale, v_scale, *, b1, b2, eps, wd,
                                 group=None):
     """Update of a leaf with fp8 moments (the JAX ``_leaf_xla_scaled``): dequantize
-    with last step's scale, update in fp32, requantize with the fresh amax (over
-    ``group`` for a tp shard) → ``(p', m', v', m_scale', v_scale')``; a scale is None
-    for a moment that is not fp8 (with both None, :func:`adamw_leaf_reference`'s
-    values)."""
-    gscale, lr, bc1, bc2 = scalars[0], scalars[1], scalars[2], scalars[3]
-    g = g.float() * gscale
-    p32 = p.float()
-    m32 = _dequant_f8(m, m_scale) if m_scale is not None else m
-    v32 = _dequant_f8(v, v_scale) if v_scale is not None else v
-    m_new = scale_by(1.0 - b1, g) + scale_by(b1, m32)
-    v_new = scale_by(1.0 - b2, g * g) + scale_by(b2, v32)
-    update = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps) + scale_by(wd, p32)
-    p_new = (p32 - lr * update).to(p.dtype)
+    with last step's scale, :func:`adamw_leaf_reference` on the fp32 moments, requantize
+    with the fresh amax (over ``group`` for a tp shard) → ``(p', m', v', m_scale',
+    v_scale')``; a scale is None for a moment that is not fp8 (with both None,
+    :func:`adamw_leaf_reference`'s values)."""
+    m_in = _dequant_f8(m, m_scale) if m_scale is not None else m
+    v_in = _dequant_f8(v, v_scale) if v_scale is not None else v
+    p_new, m_new, v_new = adamw_leaf_reference(p, m_in, v_in, g, scalars,
+                                               b1=b1, b2=b2, eps=eps, wd=wd)
     m_out, m_scale_out = (_quant_f8(m_new, m.dtype, group) if m_scale is not None
-                          else (m_new.to(m.dtype), None))
+                          else (m_new, None))
     v_out, v_scale_out = (_quant_f8(v_new, v.dtype, group) if v_scale is not None
-                          else (v_new.to(v.dtype), None))
+                          else (v_new, None))
     return p_new, m_out, v_out, m_scale_out, v_scale_out
 
 
@@ -221,10 +213,10 @@ class FusedAdamW:
     use_kernel: Optional[bool] = None
 
     def __post_init__(self):
-        if self.mu_dtype not in (None, torch.float32, torch.bfloat16, *_F8_MAX):
+        if self.mu_dtype not in (None, torch.float32, torch.bfloat16, *FP8_MAX):
             raise NotImplementedError(
                 f"mu_dtype={self.mu_dtype}: fp32, bf16 and fp8 first moments are ported")
-        if self.nu_dtype not in (None, torch.float32, *_F8_MAX):
+        if self.nu_dtype not in (None, torch.float32, *FP8_MAX):
             raise NotImplementedError(
                 f"nu_dtype={self.nu_dtype}: the second moment is kept in fp32 or scaled fp8 "
                 "(a bf16 second moment is not ported)")
