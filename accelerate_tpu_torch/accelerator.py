@@ -87,21 +87,44 @@ it: ``ACCELERATE_MIXED_PRECISION`` and ``ACCELERATE_GRADIENT_ACCUMULATION_STEPS`
 caller passes none, ``ACCELERATE_USE_CPU`` and ``ACCELERATE_DEBUG_MODE`` through
 ``state``, ``ACCELERATE_FP8_*`` through ``FP8RecipeKwargs``.
 
-Not ported yet (raise ``NotImplementedError``): optimizer/activation offload, ZeRO and
-every sharding plugin, trackers, the compile cache, and kwargs handlers other than
-``FP8RecipeKwargs``. The launcher's variables that ask for them (``ACCELERATE_USE_FSDP``,
-``ACCELERATE_FSDP_*``, ``ACCELERATE_SP_MODE``, ``ACCELERATE_PP_*``,
-``ACCELERATE_LOG_WITH``) raise too. A train state over quantized weight leaves raises
-as well: the JAX step cannot differentiate them either (see ``_refuse_quantized``).
+ZeRO/FSDP (``fsdp_plugin=FullyShardedDataParallelPlugin(...)``, or the launcher's
+``ACCELERATE_USE_FSDP``/``ACCELERATE_FSDP_*``; ``parallel/fsdp.py``): the ranks are laid
+out by ``MeshConfig.from_plugins`` unless a mesh config is given, and ``prepare_params``
+places each rank's pieces (the model's tp spec first, fsdp on the first free dim at
+ZeRO-3; a mesh with an fsdp axis and no plugin takes the default FULL_SHARD, as in
+JAX). ``TrainState.fsdp_dims`` records the dim each param is split along over fsdp,
+``zero_dims`` the dim its optimizer state (and at ZeRO-2 its gradient and accumulation
+buffer) is split along when the param itself is whole (ZeRO-1/2). The step gathers a
+split param where it is used: a loss marked by ``parallel.fsdp.gathers_fsdp_shards``
+(``models.llama.loss_fn`` is) gets ``FsdpShard`` leaves and gathers each layer inside
+its remat unit; any other loss gets the whole tree gathered before the call (correct,
+with the peak of the whole params). A split param's gradient comes out of the gather's
+backward reduce-scattered over fsdp; it is then summed over dp and divided by dp·fsdp.
+ZeRO-1/2 reduce-scatter a gradient (ZeRO-1 averages it whole while it accumulates),
+update this rank's slice of each param (the fused AdamW kernel runs on the
+slices, as on ZeRO-3's shards) and all-gather the new params in place. ``cpu_offload``
+keeps the optimizer state and the accumulation buffers in host memory (pinned on
+CUDA): ``FusedAdamW`` streams its moments through the card in fixed-size chunks
+(``ops.fused_optim.FusedAdamW.fused_apply_offloaded``), any other optimizer fetches its
+whole state for the apply and stores it back. ``get_state_dict`` gathers.
+
+Not ported yet (raise ``NotImplementedError``): activation offload, the tp/pp/sp/ep and
+Megatron plugins, the multi-slice ``dcn_dp`` layout, trackers, the compile cache, and
+kwargs handlers other than ``FP8RecipeKwargs``. The launcher's variables that ask for
+them (``ACCELERATE_SP_MODE``, ``ACCELERATE_PP_*``, ``ACCELERATE_LOG_WITH``) raise too. A
+train state over quantized weight leaves raises as well: the JAX step cannot
+differentiate them either (see ``_refuse_quantized``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import inspect
 import math
 import os
+import weakref
 from dataclasses import dataclass, replace as dataclass_replace
 from typing import Any, Callable, Optional, Union
 
@@ -113,17 +136,20 @@ from .data_loader import (DataLoaderDispatcher, DataLoaderShard, prepare_data_lo
                           skip_first_batches)
 from .ops.quantization import QuantizedWeight
 from .optimizer import AcceleratedOptimizer
-from .parallel.mesh import mesh_batch_size_divisor, mesh_context
-from .parallel.tp import all_reduce, apply_tensor_parallel, split_dims
+from .parallel.fsdp import (FsdpShard, all_gather, fsdp_gather, get_zero_specs,
+                            reduce_scatter, shard_params)
+from .parallel.mesh import mesh_batch_size_divisor, mesh_context, spec_axes
+from .parallel.tp import all_reduce, split_dims
 from .resilience.faults import NonFiniteStepError, StageCrashed
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
-from .utils.constants import BATCH_AXES, TENSOR_AXIS
+from .utils.constants import BATCH_AXES, DATA_AXIS, FSDP_AXIS, TENSOR_AXIS
 from .telemetry import FAULT_SCHEMA, Telemetry
 from .utils.dataclasses import (
     DataLoaderConfiguration,
     FaultConfig,
     FP8RecipeKwargs,
+    FullyShardedDataParallelPlugin,
     GatewayConfig,
     GradientAccumulationPlugin,
     MixedPrecisionPolicy,
@@ -153,7 +179,11 @@ class TrainState:
     ``params`` in ``tree_leaves`` order, the dim along which the leaf is this rank's tp
     shard, or None where it is whole (from ``create_train_state``'s ``partition_specs``;
     None: every leaf whole); checkpoints record it, so ``merge-weights`` can put the
-    halves back together. ``fp8_state`` is the ``ops.fp8.DelayedScalingState`` of a
+    halves back together. ``fsdp_dims`` (same order): the dim along which the leaf is
+    this rank's fsdp piece (ZeRO-3, or a spec naming fsdp), its moments and
+    accumulation buffer pieces alike; ``zero_dims``: the dim along which a whole leaf's
+    optimizer state (and at ZeRO-2 its accumulation buffer) is this rank's slice
+    (ZeRO-1/2). ``fp8_state`` is the ``ops.fp8.DelayedScalingState`` of a
     delayed-scaling fp8 recipe (None otherwise)."""
 
     params: Any
@@ -164,6 +194,8 @@ class TrainState:
     tp_dims: Optional[list] = None
     rng: Optional[int] = None
     fp8_state: Any = None
+    fsdp_dims: Optional[list] = None
+    zero_dims: Optional[list] = None
 
     def replace(self, **kwargs) -> "TrainState":
         return dataclass_replace(self, **kwargs)
@@ -350,19 +382,16 @@ class _FusedTrainStep:
 
 
 _UNPORTED_ARGS = (
-    "fsdp_plugin", "tp_plugin", "pp_plugin", "sp_plugin", "ep_plugin", "megatron_lm_plugin",
+    "tp_plugin", "pp_plugin", "sp_plugin", "ep_plugin", "megatron_lm_plugin",
     "log_with", "dynamo_plugin", "compile_cache_config",
 )
 #: The launcher's variables of features not ported yet (prefixes): a job that asks for
 #: one fails here rather than training without it.
-_UNPORTED_ENV = ("ACCELERATE_FSDP_", "ACCELERATE_SP_MODE", "ACCELERATE_PP_",
-                 "ACCELERATE_LOG_WITH")
+_UNPORTED_ENV = ("ACCELERATE_SP_MODE", "ACCELERATE_PP_", "ACCELERATE_LOG_WITH")
 
 
 def _refuse_unported_env() -> None:
     asked = sorted(k for k, v in os.environ.items() if v and k.startswith(_UNPORTED_ENV))
-    if parse_flag_from_env("ACCELERATE_USE_FSDP"):
-        asked.insert(0, "ACCELERATE_USE_FSDP")
     if asked:
         raise NotImplementedError(
             f"the launcher asked for features that are not ported yet: {asked}")
@@ -392,6 +421,7 @@ class Accelerator:
         telemetry_config: Optional[TelemetryConfig] = None,
         fault_config: Optional[FaultConfig] = None,
         kwargs_handlers: Optional[list] = None,
+        fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
         **kwargs,
     ):
         unported = sorted(k for k, v in kwargs.items() if v is not None)
@@ -419,8 +449,11 @@ class Accelerator:
             from .ops.fp8 import set_default_recipe
 
             set_default_recipe(self.fp8_recipe.fp8_format, self.fp8_recipe.margin)
+        if fsdp_plugin is None and parse_flag_from_env("ACCELERATE_USE_FSDP"):
+            fsdp_plugin = FullyShardedDataParallelPlugin()
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu, device=device,
-                                      mesh_config=mesh_config, backend=backend)
+                                      mesh_config=mesh_config, backend=backend,
+                                      fsdp_plugin=fsdp_plugin)
         if gradient_accumulation_plugin is None:
             # An explicit argument (1 included) wins over the launcher's variable.
             if gradient_accumulation_steps is None:
@@ -452,6 +485,11 @@ class Accelerator:
         #: The last save's and load's seconds and bytes (``checkpointing``).
         self.checkpoint_stats: dict = {"save": {}, "load": {}}
         self._ckpt_staging = None  # the checkpoint staging buffers, made at first use
+        #: The spec tree and fsdp dims of the last ``prepare_params`` (None: whole leaves).
+        self._param_specs = None
+        # The last prepare_params' sharded layout: (its pieces' shapes, tp dims, fsdp
+        # dims) per leaf; None when it placed every leaf whole.
+        self._prepared_layout = None
         #: The step-level telemetry pipeline (off by default: two attribute reads a
         #: step, no file, no synchronization).
         self.telemetry = Telemetry(telemetry_config if telemetry_config is not None
@@ -474,6 +512,10 @@ class Accelerator:
     @property
     def distributed_type(self):
         return self.state.distributed_type
+
+    @property
+    def fsdp_plugin(self) -> Optional[FullyShardedDataParallelPlugin]:
+        return self.state.fsdp_plugin
 
     @property
     def num_processes(self) -> int:
@@ -577,12 +619,21 @@ class Accelerator:
 
     def prepare_params(self, params, partition_specs=None, frozen=None):
         """Params on the device with floating leaves in the policy's param dtype (fp32
-        master weights); with ``partition_specs``, each leaf's shard on this rank of the
-        mesh (sliced before it is moved or cast). ``frozen`` (per leaf, ``tree_leaves``
-        order): leaves that keep their dtype. A leaf already there is kept, not
-        copied."""
-        if partition_specs is not None:
-            params = apply_tensor_parallel(params, self.mesh, partition_specs)
+        master weights); under a mesh, each leaf's piece on this rank (sliced before it
+        is moved or cast): ``partition_specs`` (the model's tp plan) first, then the
+        fsdp axis on the first free dim when the fsdp plugin shards params (ZeRO-3; a
+        mesh with an fsdp axis and no plugin: the default FULL_SHARD). ``frozen`` (per
+        leaf, ``tree_leaves`` order): leaves that keep their dtype. A leaf already
+        there is kept, not copied."""
+        mesh = self.mesh
+        self._param_specs = partition_specs
+        if mesh is not None and (partition_specs is not None or mesh.shape[FSDP_AXIS] > 1):
+            params, self._param_specs = shard_params(params, mesh, self.fsdp_plugin,
+                                                     partition_specs)
+        self._prepared_layout = None if self._param_specs is None else (
+            [tuple(x.shape) if torch.is_tensor(x) else None for x in tree_leaves(params)],
+            split_dims(params, self._param_specs, mesh),
+            split_dims(params, self._param_specs, mesh, FSDP_AXIS))
         dtype, dev = self.mixed_precision_policy.param_dtype, self.device
         leaves = tree_leaves(params)
         keep = frozen or [False] * len(leaves)
@@ -655,14 +706,34 @@ class Accelerator:
             optimizer = self.prepare_optimizer(optimizer)
         frozen = _frozen_leaves(optimizer.optimizer, params)
         params = self.prepare_params(params, partition_specs=partition_specs, frozen=frozen)
-        opt_state = optimizer.init(params)
+        specs, mesh, plugin = self._param_specs, self.mesh, self.fsdp_plugin
+        _, tp_dims, fsdp_dims = self._prepared_layout or (None, None, None)
+        zero_dims = None
+        if (plugin is not None and plugin.shards_optimizer and not plugin.shards_params
+                and mesh is not None and mesh.shape[FSDP_AXIS] > 1):
+            # ZeRO-1/2: the optimizer state's specs from the whole leaves' shapes (as JAX
+            # infers them on global arrays), composed with the params' own specs.
+            whole = tree_unflatten(params, [
+                torch.empty(_whole_shape(p, spec, mesh), device="meta")
+                for p, spec in zip(tree_leaves(params), _spec_leaves(params, specs))])
+            zspecs = get_zero_specs(whole, mesh, plugin, specs)
+            zero_dims = [None if f or (fsdp_dims and fsdp_dims[i] is not None) else d
+                         for i, (d, f) in enumerate(zip(
+                             split_dims(whole, zspecs, mesh, FSDP_AXIS), frozen))]
+        leaves = tree_leaves(params)
+        # What the optimizer updates: a ZeRO-1/2 leaf's slice, every other leaf itself.
+        own = tree_unflatten(params, [_zero_slice(p, d, mesh) for p, d in
+                                      zip(leaves, zero_dims or [None] * len(leaves))])
+        offload = plugin is not None and plugin.cpu_offload
+        opt_state = (_offload_init(optimizer.optimizer, own, self.device) if offload
+                     else optimizer.init(own))
         accum = None
         if self.gradient_accumulation_steps > 1:
-            accum = tree_unflatten(params, [None if f else torch.zeros_like(p)
-                                            for p, f in zip(tree_leaves(params), frozen)])
+            shards_grads = plugin is not None and plugin.shards_grads
+            bufs = [None if f else _zeros_like(o if shards_grads else p, offload)
+                    for p, o, f in zip(leaves, tree_leaves(own), frozen)]
+            accum = tree_unflatten(params, bufs)
         optimizer._opt_state_ref = opt_state
-        tp_dims = (None if partition_specs is None
-                   else split_dims(params, partition_specs, self.mesh))
         fp8_state = None
         if self.fp8_recipe is not None and self.fp8_recipe.use_delayed_scaling:
             from .ops.fp8 import DelayedScalingState
@@ -670,7 +741,7 @@ class Accelerator:
             fp8_state = DelayedScalingState.init(self.fp8_recipe.amax_history_len, self.device)
         return TrainState(params=params, opt_state=opt_state, step=0, grad_accum=accum, micro=0,
                           tp_dims=tp_dims, rng=None if rng is None else int(rng),
-                          fp8_state=fp8_state)
+                          fp8_state=fp8_state, fsdp_dims=fsdp_dims, zero_dims=zero_dims)
 
     def build_train_step(
         self,
@@ -693,7 +764,9 @@ class Accelerator:
         ``skip_nonfinite_steps=K`` skips updates whose loss or gradients are not finite
         (a micro-step's contribution is zeroed) and raises :class:`NonFiniteStepError`
         after K consecutive ones. The step updates its state in place (the JAX step
-        donates it)."""
+        donates it). Under ZeRO-3 a loss marked by ``parallel.fsdp.gathers_fsdp_shards``
+        (``models.llama.loss_fn``) gets ``FsdpShard`` leaves and gathers each where it
+        uses it; any other loss gets the whole tree gathered before the call."""
         if skip_nonfinite_steps < 0:
             raise ValueError(f"skip_nonfinite_steps={skip_nonfinite_steps} must be >= 0 "
                              "(0 = off)")
@@ -719,8 +792,16 @@ class Accelerator:
         mesh = self.mesh
         batch_group = None if mesh is None else mesh.group(BATCH_AXES)
         n_batch = 1 if batch_group is None else dist.get_world_size(batch_group)
-        tp_group = None if mesh is None else mesh.group(TENSOR_AXIS)
+        dp_group = None if mesh is None else mesh.group(DATA_AXIS)
+        fsdp_group = None if mesh is None else mesh.group(FSDP_AXIS)
         world_group = dist.group.WORLD if mesh is not None and mesh.size > 1 else None
+        plugin = self.fsdp_plugin
+        # A ZeRO-1/2 leaf's gradient is reduce-scattered into this rank's slice (ZeRO-2;
+        # ZeRO-1 too when nothing accumulates: the slice is all its update reads), or
+        # averaged whole and sliced at the apply (ZeRO-1's whole accumulation buffers).
+        scatter = plugin is not None and (plugin.shards_grads or accum_steps == 1)
+        offload = plugin is not None and plugin.cpu_offload
+        lazy_gather = getattr(loss_fn, "gathers_fsdp_shards", False)
 
         batch_rank = [] if n_batch == 1 else [mesh.axis_index(BATCH_AXES)]
 
@@ -736,11 +817,31 @@ class Accelerator:
             aux = tree_map(lambda x: x.detach().clone() if torch.is_tensor(x) else x, aux)
             return loss.float(), aux
 
-        def averaged(x, dtype=None):
-            """``x`` averaged over the batch ranks: summed in its own type (in place),
-            then divided by their number in ``dtype``."""
-            x = all_reduce(x.contiguous(), "sum", batch_group).to(dtype or x.dtype)
+        def averaged(x, dtype=None, group=batch_group):
+            """``x`` averaged over the batch ranks: summed over ``group`` in its own type
+            (in place), then divided by their number in ``dtype``."""
+            x = all_reduce(x.contiguous(), "sum", group).to(dtype or x.dtype)
             return x if n_batch == 1 else x.div_(n_batch)
+
+        def reduced(g, i: int, state: TrainState, dtype=None):
+            """Leaf ``i``'s gradient averaged over the batch ranks. A piece of an fsdp-split
+            param came out of its gather's backward summed over fsdp: it is summed over
+            dp only; a ZeRO-1/2 leaf's gradient is reduce-scattered over fsdp first (ZeRO-1
+            only when nothing accumulates)."""
+            if state.fsdp_dims and state.fsdp_dims[i] is not None:
+                return averaged(g, dtype, dp_group)
+            if scatter and state.zero_dims and state.zero_dims[i] is not None:
+                return averaged(reduce_scatter(g, state.zero_dims[i], fsdp_group), dtype,
+                                dp_group)
+            return averaged(g, dtype)
+
+        def gathered(x, i: int, state: TrainState):
+            """What the loss gets for leaf ``i``: an fsdp piece gathered (or, for a loss
+            that gathers itself, wrapped as an ``FsdpShard``), any other leaf as it is."""
+            d = state.fsdp_dims[i] if state.fsdp_dims else None
+            if d is None or fsdp_group is None:
+                return x
+            return FsdpShard(x, d, fsdp_group) if lazy_gather else fsdp_gather(x, d, fsdp_group)
 
         recipe = self.fp8_recipe
 
@@ -771,28 +872,37 @@ class Accelerator:
                 if compress_reduce and state.fp8_state is None:
                     # Gradients w.r.t. the cast tree, upcast afterwards: the backward of
                     # the cast IS that upcast, so the values are those of the plain branch.
+                    # An fsdp piece is cast before its gather: the bytes gathered (and the
+                    # gradient reduce-scattered) are the compute type's.
                     with torch.no_grad():
                         leaves = [p.to(policy.compute_dtype) for p in masters]
                     for i in train:
                         leaves[i] = leaves[i].detach().requires_grad_(True)
-                    loss, aux = call_loss(tree_unflatten(state.params, leaves), batch, state)
+                    loss, aux = call_loss(tree_unflatten(state.params, [
+                        gathered(x, i, state) for i, x in enumerate(leaves)]), batch, state)
                     low = list(torch.autograd.grad(loss, [leaves[i] for i in train],
                                                    allow_unused=True))
                     del leaves
                     for j, i in enumerate(train):
                         g = low[j]
                         low[j] = None  # free each low-precision gradient once upcast
-                        grads[i] = (torch.zeros_like(masters[i]) if g is None
-                                    else averaged(g, masters[i].dtype))
+                        grads[i] = (reduced(g, i, state, masters[i].dtype) if g is not None
+                                    else _zero_grad(masters[i], i, state, scatter, mesh))
                 else:
                     leaves = [p.detach().requires_grad_(not f) for p, f in zip(masters, frozen)]
-                    tree = tree_unflatten(state.params, leaves)
+                    used = leaves
                     if cast_params:
-                        tree = cast_floating(tree, policy.compute_dtype)
+                        used = [x.to(policy.compute_dtype) if x.is_floating_point() else x
+                                for x in leaves]
+                    tree = tree_unflatten(state.params, [gathered(x, i, state)
+                                                         for i, x in enumerate(used)])
+                    del used
                     loss, aux = call_loss(tree, batch, state)
+                    del tree
                     for i, g in zip(train, torch.autograd.grad(
                             loss, [leaves[i] for i in train], allow_unused=True)):
-                        grads[i] = torch.zeros_like(masters[i]) if g is None else averaged(g)
+                        grads[i] = (reduced(g, i, state) if g is not None
+                                    else _zero_grad(masters[i], i, state, scatter, mesh))
                 if fp8_ctx is not None:
                     amax = fp8_ctx["amax"]
                     new_fp8 = state.fp8_state.update(amax[0], amax[1], torch.zeros_like(amax[0]))
@@ -817,7 +927,10 @@ class Accelerator:
                 with torch.no_grad():
                     for a, g in zip(_leaves_like(accum, state.params), grads):
                         if g is not None:
-                            a.add_(g)
+                            if a.device == g.device:
+                                a.add_(g)
+                            else:  # cpu_offload: the buffer streams through the card
+                                a.copy_(a.to(g.device, non_blocking=True) + g)
             if has_aux:
                 metrics["aux"] = aux
             return state.replace(grad_accum=accum, micro=state.micro + 1,
@@ -827,10 +940,15 @@ class Accelerator:
             loss, aux, grads, new_fp8 = compute(state, batch)
             with torch.no_grad():
                 if state.grad_accum is not None:
-                    grads = [g if g is None else a + g for a, g in
-                             zip(_leaves_like(state.grad_accum, state.params), grads)]
+                    grads = [g if g is None else a.to(g.device, non_blocking=True) + g
+                             for a, g in zip(_leaves_like(state.grad_accum, state.params),
+                                             grads)]
                 if accum_steps > 1:
                     grads = each(lambda g: g / accum_steps, grads)
+                zero_dims = state.zero_dims or [None] * len(grads)
+                if not scatter:  # ZeRO-1 accumulating: the whole averaged gradient, sliced
+                    grads = [_zero_slice(g, d, mesh) for g, d in zip(grads, zero_dims)]
+                groups = _split_groups(state, mesh)
                 metrics = {"loss": loss}
                 finite = _all_finite(loss, grads, world_group) if guard else True
                 fused_opt = getattr(tx, "fused_apply", None)
@@ -839,7 +957,7 @@ class Accelerator:
                     grads = each(lambda g: torch.clamp(g, -max_grad_value, max_grad_value),
                                  grads)
                 if max_grad_norm is not None:
-                    gnorm = _global_norm(grads, state.tp_dims, tp_group)
+                    gnorm = _global_norm(grads, groups)
                     scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
                     metrics["grad_norm"] = gnorm
                     if fused_opt is None:
@@ -849,21 +967,31 @@ class Accelerator:
                 new_params, new_opt_state = state.params, state.opt_state
                 if finite:
                     grad_tree = tree_unflatten(state.params, grads)
+                    masters = tree_leaves(state.params)
+                    # What this rank updates: a ZeRO-1/2 leaf's slice, any other leaf itself.
+                    own = tree_unflatten(state.params, [
+                        _zero_slice(p, d, mesh) for p, d in zip(masters, zero_dims)])
                     if fused_opt is not None:
-                        # A tp shard's scaled-fp8 moments take the group's amax.
-                        groups = (None if tp_group is None or not state.tp_dims else
-                                  [None if d is None else tp_group for d in state.tp_dims])
-                        new_params, new_opt_state = fused_opt(
-                            grad_tree, state.opt_state, state.params,
-                            grad_scale=1.0 if grad_scale is None else grad_scale,
-                            groups=groups)
+                        # A split leaf's scaled-fp8 moments take the amax of its group.
+                        kw = dict(grad_scale=1.0 if grad_scale is None else grad_scale,
+                                  groups=groups)
+                        if offload:
+                            new_opt_state = tx.fused_apply_offloaded(
+                                grad_tree, state.opt_state, own, **kw)[1]
+                        else:
+                            new_opt_state = fused_opt(grad_tree, state.opt_state, own, **kw)[1]
                     else:
-                        updates, new_opt_state = tx.update(grad_tree, state.opt_state,
-                                                           state.params)
-                        for p, u in zip(tree_leaves(state.params),
-                                        _leaves_like(updates, state.params)):
+                        opt_state = (_fetch_tree(state.opt_state, self.device) if offload
+                                     else state.opt_state)
+                        updates, new_opt_state = tx.update(grad_tree, opt_state, own)
+                        if offload:
+                            new_opt_state = _store_tree(state.opt_state, new_opt_state)
+                        for p, u in zip(tree_leaves(own), _leaves_like(updates, own)):
                             if u is not None:  # a frozen leaf's update is None
                                 p.copy_((p + u).to(p.dtype))
+                    for p, o, d in zip(masters, tree_leaves(own), zero_dims):
+                        if d is not None:  # ZeRO-1/2: every rank's new slice, in place
+                            p.copy_(all_gather(o, d, fsdp_group))
                 del grads
                 if state.grad_accum is not None:
                     for a in tree_leaves(state.grad_accum):
@@ -892,12 +1020,21 @@ class Accelerator:
         """``eval_fn(params, batch) -> outputs`` under ``torch.no_grad`` with the params
         cast to the compute dtype; floating outputs cast to fp32 when the policy's
         output dtype is fp32. Under a mesh the function runs in its context on this
-        rank's slice of the batch (outputs are the rank's own)."""
+        rank's slice of the batch (outputs are the rank's own); fsdp pieces are
+        gathered first: a ``TrainState``'s by its own ``fsdp_dims``, a params tree by
+        the last ``prepare_params`` layout, which its leaves' shapes must match."""
         policy = self.mixed_precision_policy
 
         def step(params, batch):
             with torch.no_grad(), self._mesh_context():
-                out = eval_fn(cast_floating(params, policy.compute_dtype), self._to_device(batch))
+                params, _, fsdp_dims = self._split_layout(params)
+                params = cast_floating(params, policy.compute_dtype)
+                if fsdp_dims is not None and self.mesh is not None:
+                    group = self.mesh.group(FSDP_AXIS)
+                    params = tree_unflatten(params, [
+                        x if d is None else fsdp_gather(x, d, group)
+                        for x, d in zip(tree_leaves(params), fsdp_dims)])
+                out = eval_fn(params, self._to_device(batch))
                 if policy.output_dtype == torch.float32:
                     out = cast_floating(out, torch.float32)
             return out
@@ -938,6 +1075,44 @@ class Accelerator:
                              pad_first: bool = False):
         return pad_across_processes(tensor, dim=dim, pad_index=pad_index, pad_first=pad_first,
                                     group=self._batch_group())
+
+    # ------------------------------------------------------------------------ model utils
+    def unwrap_model(self, model, keep_fp32_wrapper: bool = True):
+        return model
+
+    def get_state_dict(self, model, unwrap: bool = True):
+        """The whole (unsharded) params on the host: every rank's tp and fsdp pieces
+        gathered (a collective: every rank calls it). ``model`` is a ``TrainState``
+        (gathered by its own ``tp_dims``/``fsdp_dims``) or a params tree of the last
+        ``prepare_params`` layout (its leaves' shapes must match those pieces)."""
+        from .checkpointing import _whole_leaf
+
+        params, tp_dims, fsdp_dims = self._split_layout(model)
+        leaves = tree_leaves(params)
+        none = [None] * len(leaves)
+        return tree_unflatten(params, [
+            _whole_leaf(x, (t, f), self.mesh).detach().cpu() if torch.is_tensor(x) else x
+            for x, t, f in zip(leaves, tp_dims or none, fsdp_dims or none)])
+
+    def _split_layout(self, tree) -> tuple:
+        """(params, tp dims, fsdp dims) of a tree handed in for gathering: a
+        ``TrainState`` carries its own dims; a params tree takes the last
+        ``prepare_params`` layout, and raises unless its leaves' shapes are that
+        layout's pieces (a tree prepared earlier, or whole params, would gather by the
+        wrong dims)."""
+        if isinstance(tree, TrainState):
+            return tree.params, tree.tp_dims, tree.fsdp_dims
+        if self._prepared_layout is None or self.mesh is None:
+            return tree, None, None
+        shapes, tp_dims, fsdp_dims = self._prepared_layout
+        got = [tuple(x.shape) if torch.is_tensor(x) else None for x in tree_leaves(tree)]
+        if got != shapes:
+            raise ValueError(
+                f"these params ({len(got)} leaves) are not the pieces of the last "
+                f"prepare_params layout ({len(shapes)} leaves, shapes differ at leaf "
+                f"{next((i for i, (a, b) in enumerate(zip(got, shapes)) if a != b), min(len(got), len(shapes)))}); "
+                "pass the TrainState, whose dims travel with it")
+        return tree, tp_dims, fsdp_dims
 
     # ----------------------------------------------------------------------- checkpointing
     def register_for_checkpointing(self, *objects):
@@ -1087,16 +1262,161 @@ def _all_finite(loss: torch.Tensor, grads, group=None) -> bool:
     return bool(all_reduce(finite.float().reshape(1), "min", group))
 
 
-def _global_norm(grads, tp_dims=None, tp_group=None) -> torch.Tensor:
+def _global_norm(grads, groups=None) -> torch.Tensor:
     """sqrt of the sum of squares over every leaf that has a gradient, in fp32, summed
-    leaf by leaf. Leaves with a ``tp_dims`` entry are this rank's tp shards: their
-    squares are summed over ``tp_group``; the others are replicated and counted once."""
-    sharded = [d is not None for d in tp_dims] if tp_dims else [False] * len(grads)
-    sharded = [s for s, g in zip(sharded, grads) if g is not None]
-    squares = [torch.sum(torch.square(g.float())) for g in grads if g is not None]
-    zero = torch.zeros((), dtype=torch.float32, device=squares[0].device if squares else None)
-    local = sum((q for q, s in zip(squares, sharded) if s), zero)
-    replicated = sum((q for q, s in zip(squares, sharded) if not s), zero)
-    if tp_group is None:
-        return torch.sqrt(local + replicated)
-    return torch.sqrt(all_reduce(local.reshape(1), "sum", tp_group)[0] + replicated)
+    leaf by leaf. ``groups`` (per leaf): the process group over whose ranks the leaf's
+    gradient is split (tp, fsdp, or both): the squares of each group's leaves are summed
+    over it; a leaf with None is replicated and counted once."""
+    groups = groups or [None] * len(grads)
+    squares = [(torch.sum(torch.square(g.float())), grp)
+               for g, grp in zip(grads, groups) if g is not None]
+    zero = torch.zeros((), dtype=torch.float32, device=squares[0][0].device if squares else None)
+    replicated = sum((q for q, grp in squares if grp is None), zero)
+    buckets: dict = {}
+    for q, grp in squares:
+        if grp is not None:
+            buckets.setdefault(grp, []).append(q)
+    sharded = sum((all_reduce(sum(qs, zero).reshape(1), "sum", grp)[0]
+                   for grp, qs in buckets.items()), zero)
+    return torch.sqrt(sharded + replicated)
+
+
+def _split_groups(state: TrainState, mesh) -> Optional[list]:
+    """Per param leaf, the process group of the mesh axes its gradient (and optimizer
+    state) is split over at the apply: tp (``tp_dims``), fsdp (``fsdp_dims`` or
+    ``zero_dims``), or both; None for a whole leaf. None when nothing is split."""
+    if mesh is None:
+        return None
+    n = len(tree_leaves(state.params))
+    tp = state.tp_dims or [None] * n
+    fs = state.fsdp_dims or [None] * n
+    zd = state.zero_dims or [None] * n
+    out = []
+    for t, f, z in zip(tp, fs, zd):
+        axes = tuple(a for a, on in ((FSDP_AXIS, f is not None or z is not None),
+                                     (TENSOR_AXIS, t is not None)) if on)
+        out.append(mesh.group(axes) if axes else None)
+    return out if any(g is not None for g in out) else None
+
+
+def _spec_leaves(params, specs) -> list:
+    """The specs of ``params``' leaves in ``tree_leaves`` order (None: whole)."""
+    if specs is None:
+        return [None] * len(tree_leaves(params))
+    from .parallel.tp import map_with_specs
+
+    return [b.value for b in tree_leaves(map_with_specs(lambda _, sp: _Box(sp), params, specs))]
+
+
+def _whole_shape(leaf, spec, mesh) -> tuple:
+    """The whole leaf's shape from this rank's piece and its spec."""
+    shape = list(leaf.shape)
+    for d, entry in enumerate(spec or ()):
+        shape[d] *= mesh.axis_size(spec_axes(entry)) if spec_axes(entry) else 1
+    return tuple(shape)
+
+
+def _zero_slice(x, dim: Optional[int], mesh):
+    """This rank's fsdp slice of ``x`` along ``dim`` (a contiguous copy); ``x`` itself
+    when ``dim`` or ``x`` is None."""
+    if dim is None or x is None:
+        return x
+    n = mesh.shape[FSDP_AXIS]
+    k = x.shape[dim] // n
+    return x.narrow(dim, mesh.axis_index(FSDP_AXIS) * k, k).contiguous()
+
+
+def _zero_grad(master, i: int, state: TrainState, scatter: bool, mesh):
+    """The zero gradient of a leaf the loss did not use, in the shape ``reduced`` gives."""
+    d = state.zero_dims[i] if state.zero_dims and scatter else None
+    return torch.zeros_like(master if d is None else _zero_slice(master, d, mesh))
+
+
+def _zeros_like(x: torch.Tensor, on_host: bool) -> torch.Tensor:
+    """Zeros of ``x``'s shape and type: beside ``x``, or (``on_host``) in host memory,
+    pinned when ``x`` lies on CUDA."""
+    if not on_host:
+        return torch.zeros_like(x)
+    return host_zeros(x.shape, x.dtype, pin=x.device.type == "cuda")
+
+
+def host_zeros(shape, dtype, pin: bool) -> torch.Tensor:
+    """Zeros in host memory; ``pin``: page-locked, allocated by the driver at the exact
+    size (``cuMemHostAlloc``, freed with ``cuMemFreeHost`` when the last view goes) and
+    zeroed by copies from a zero buffer on the card. The caching pinned allocator
+    rounds each block up to a power of two (Llama-3-8B's 64.2 GB of moments would take
+    76 GB), and registering pageable memory in place pins at under half the rate."""
+    if not pin:
+        return torch.zeros(shape, dtype=dtype)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = math.prod(shape) * itemsize
+    if not nbytes:
+        return torch.empty(shape, dtype=dtype)
+    driver = _cuda_driver()
+    ptr = ctypes.c_void_p()
+    err = driver.cuMemHostAlloc(ctypes.byref(ptr), ctypes.c_size_t(nbytes), 1)  # PORTABLE
+    if err != 0:
+        raise RuntimeError(f"cuMemHostAlloc of {nbytes} bytes failed: CUDA error {err}")
+    raw = (ctypes.c_uint8 * nbytes).from_address(ptr.value)
+    weakref.finalize(raw, driver.cuMemFreeHost, ctypes.c_void_p(ptr.value))
+    flat = torch.frombuffer(raw, dtype=torch.uint8)  # holds ``raw`` while it lives
+    zero = torch.zeros(min(nbytes, 256 << 20), dtype=torch.uint8, device="cuda")
+    for start in range(0, nbytes, zero.numel()):
+        n = min(zero.numel(), nbytes - start)
+        flat[start:start + n].copy_(zero[:n], non_blocking=True)
+    torch.cuda.current_stream().synchronize()
+    return flat.view(dtype).view(shape)
+
+
+_DRIVER = []
+
+
+def _cuda_driver() -> ctypes.CDLL:
+    """The CUDA driver library, for the host allocations of ``host_zeros``."""
+    if not _DRIVER:
+        lib = ctypes.CDLL("libcuda.so.1")
+        lib.cuMemHostAlloc.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_size_t,
+                                       ctypes.c_uint]
+        lib.cuMemHostAlloc.restype = ctypes.c_int
+        lib.cuMemFreeHost.argtypes = [ctypes.c_void_p]
+        lib.cuMemFreeHost.restype = ctypes.c_int
+        _DRIVER.append(lib)
+    return _DRIVER[0]
+
+
+def _offload_init(tx, params, device) -> Any:
+    """``cpu_offload``'s optimizer state, made in host memory (pinned on CUDA). An Adam
+    state (``optim.AdamState``, ``ops.fused_optim.ScaledAdamState``) is made there
+    directly from the params' shapes (zero moments, unit scales), so the device never
+    holds it; any other optimizer's state is initialized beside the params and moved
+    leaf by leaf."""
+    from .ops.fused_optim import ScaledAdamState
+    from .optim import AdamState
+
+    pin = device.type == "cuda"
+    meta = tx.init(tree_map(lambda p: p.to("meta") if torch.is_tensor(p) else p, params))
+    if isinstance(meta, (AdamState, ScaledAdamState)) and meta.count == 0:
+        def zeros(m):
+            return host_zeros(m.shape, m.dtype, pin)
+
+        fields = {"mu": tree_map(zeros, meta.mu), "nu": tree_map(zeros, meta.nu)}
+        for name in ("mu_scale", "nu_scale"):
+            if getattr(meta, name, None) is not None:
+                fields[name] = tree_map(lambda m: zeros(m).add_(1), getattr(meta, name))
+        return meta._replace(**fields)
+    return _store_tree(None, tx.init(params), pin)
+
+
+def _fetch_tree(tree, device):
+    """A host-resident state tree's tensors copied to ``device``."""
+    return tree_map(lambda x: x.to(device, non_blocking=True) if torch.is_tensor(x) else x,
+                    tree)
+
+
+def _store_tree(host, tree, pin: Optional[bool] = None):
+    """``tree``'s tensors written into ``host``'s (in place: they stay pinned), or, with
+    no ``host``, moved to host memory (pinned when ``pin``); plain values as ``tree``'s."""
+    if host is None:
+        return tree_map(lambda x: host_zeros(x.shape, x.dtype, pin).copy_(x)
+                        if torch.is_tensor(x) else x, tree)
+    return tree_map(lambda h, x: h.copy_(x) if torch.is_tensor(h) else x, host, tree)

@@ -4,8 +4,11 @@ The directory contract and file names are the JAX package's:
 
     checkpoint_dir/
         sharded_state/rank{r}.json        each rank's index: leaves, dtypes, shapes, offsets,
-                                           the dim a tp-split leaf is split along
+                                           each leaf's whole shape and the dims it is split
+                                           along over tp and over fsdp
         sharded_state/rank{r}_{i:05d}.bin each rank's train state, as byte files
+        model_full.pkl                     FULL_STATE_DICT: the whole train state's index
+        model_full_{i:05d}.bin             ... and its bytes (every leaf whole)
         scheduler.json                     step, iteration, optimizer/scheduler/loader states
         sampler.json                       the data loaders' positions
         random_states_{rank}.pkl           Python, numpy and torch (CPU, CUDA) rng states
@@ -19,7 +22,8 @@ buffer, micro count, rng seed, fp8 amax history) is a stream of bytes per rank (
 moments and their fp32 scales included, byte for byte): its tensor leaves in
 ``utils.tree`` order, cut into files of ``FILE_BYTES`` so that several threads write,
 hash and read them at once; its plain values (counts, the seed) go into the index.
-Each rank writes only its own shards (a tp rank holds its halves of the projections).
+Each rank writes only its own shards (a tp rank holds its halves of the projections, a
+ZeRO rank its fsdp pieces).
 
 Bytes move between the device and the files through a bounded staging buffer:
 ``STAGING_BUFFERS`` pinned host buffers of one file each, filled by
@@ -35,7 +39,11 @@ and write in parallel.
 A load verifies the checkpoint (every file's sha256 against the manifest), then copies
 the bytes **in place** into the live state's tensors, their paths, dtypes and shapes
 checked first, and returns the state with its plain values restored. A checkpoint saved
-on another mesh shape raises (the JAX restore reshards). With automatic naming the
+on another world or mesh shape, or with other splits (another ZeRO stage), is
+resharded on load: every leaf's path, dtype and whole shape must agree (a leaf whose
+whole shape differs raises); each rank reads, from the saved ranks' files, the pieces
+that overlap its own piece of each leaf (their places from the split dims the index
+records) and copies the overlap in place. With automatic naming the
 newest checkpoint that verifies is loaded; invalid ones (uncommitted, corrupt) are moved
 under ``checkpoints/quarantined/`` and counted in ``checkpoints_quarantined``. An
 explicit ``input_dir`` that fails verification raises :class:`CheckpointCorruptError`.
@@ -52,8 +60,18 @@ leaves. ``corrupt`` flips one byte of the first manifested file after the marker
 only the manifest's hashes catch; on an async save it rides the deferred commit and
 lands when :func:`wait_for_async_save` has written the marker.
 
-Not ported: pipeline (pp/mpmd) checkpoints and the consolidated ``FULL_STATE_DICT``
-format.
+``FULL_STATE_DICT`` (the fsdp plugin's ``state_dict_type``): every rank gathers each leaf
+of the train state (a collective), rank 0 writes them whole and deletes a stale
+``sharded_state/``; a SHARDED save deletes a stale FULL checkpoint. The FULL format is
+the port's own, not JAX's pickled host pytree: ``model_full.pkl`` (the JAX package's
+file name) is a pickle of ``{"format", "file_bytes", "leaves": {path: {"dtype",
+"shape", "offset", "nbytes"} or {"value"}}}``, and the leaves' bytes (bf16 and fp8 as
+they are) follow one another in ``model_full_{i:05d}.bin`` files of ``FILE_BYTES``, so
+the manifest hashes them on several threads. The load format follows the plugin when
+one is set, else the index file's presence; a FULL load copies each rank's slice of
+every leaf into its live tensors in place, on any mesh shape.
+
+Not ported: pipeline (pp/mpmd) checkpoints.
 """
 
 from __future__ import annotations
@@ -80,6 +98,8 @@ from .utils.constants import (
     SAFE_WEIGHTS_NAME,
     SAMPLER_STATE_NAME,
     SCHEDULER_STATE_NAME,
+    FSDP_AXIS,
+    MODEL_NAME,
     SHARDED_STATE_DIR,
     TENSOR_AXIS,
 )
@@ -105,8 +125,14 @@ QUARANTINE_DIR = "quarantined"
 FILE_BYTES = 256 << 20
 #: Staging buffers (pinned on CUDA) and the threads that fill, write and hash them.
 STAGING_BUFFERS = 4
+#: Threads that hash a checkpoint's files for its manifest and its verification.
+HASH_THREADS = max(STAGING_BUFFERS, os.cpu_count() or 1)
 _TRAIN_STATE_FIELDS = ("params", "opt_state", "step", "grad_accum", "micro", "rng",
                        "fp8_state")
+#: The FULL_STATE_DICT checkpoint's index (the JAX package's file name) and data files.
+FULL_STATE_NAME = f"{MODEL_NAME}_full.pkl"
+FULL_DATA_NAME = MODEL_NAME + "_full_{:05d}.bin"
+_FULL_FORMAT = "accelerate_tpu_torch.full_state.v2"
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -135,9 +161,9 @@ def _manifest_files(path: Path) -> list:
 
 
 def _hash_files(path: Path, rels) -> dict:
-    """sha256 of each file, hashed by ``STAGING_BUFFERS`` threads (``hashlib`` releases
-    the GIL on large buffers)."""
-    with ThreadPoolExecutor(STAGING_BUFFERS) as pool:
+    """sha256 of each file, hashed by ``HASH_THREADS`` threads (``hashlib`` releases the
+    GIL on large buffers)."""
+    with ThreadPoolExecutor(HASH_THREADS) as pool:
         return dict(zip(rels, pool.map(lambda rel: _sha256_file(path / rel), rels)))
 
 
@@ -177,7 +203,7 @@ def verify_checkpoint(path) -> list:
         except OSError as e:  # another rank may be quarantining this directory
             return f"unreadable file {rel}: {e}"
 
-    with ThreadPoolExecutor(STAGING_BUFFERS) as pool:
+    with ThreadPoolExecutor(HASH_THREADS) as pool:
         problems += [p for p in pool.map(check, listed) if p]
     problems += [f"unmanifested file {rel}" for rel in sorted(present - set(manifest))]
     return problems
@@ -233,45 +259,113 @@ def _bytes_of(t: torch.Tensor) -> torch.Tensor:
     return t.detach().reshape(-1).view(torch.uint8)
 
 
-def _split_dims(train_state, flat: dict) -> dict:
-    """``{path: dim}`` of the state's leaves split over the tp ranks: the params' from
-    ``TrainState.tp_dims``, and every other leaf (a moment, an accumulated gradient) whose
-    path ends with a split param's path and has its shape."""
-    dims = getattr(train_state, "tp_dims", None)
-    if not dims:
-        return {}
+def _split_dims(train_state, flat: dict, mesh) -> dict:
+    """``{path: (tp dim, fsdp dim)}`` of the state's leaves that are pieces of a whole
+    leaf. A param's from ``TrainState.tp_dims`` and ``fsdp_dims``; every other leaf (a
+    moment, an accumulated gradient) follows the param whose path its path ends with,
+    when it has the param's rank: its tp split, the param's fsdp split, or the
+    param's ZeRO-1/2 split (``zero_dims``) when it is that slice of the param's
+    shape."""
     params = named_parameters(train_state.params)
-    split = {p: (d, tuple(params[p].shape)) for p, d in zip(params, dims) if d is not None}
+    n = len(params)
+    tp = getattr(train_state, "tp_dims", None) or [None] * n
+    fs = getattr(train_state, "fsdp_dims", None) or [None] * n
+    zd = getattr(train_state, "zero_dims", None) or [None] * n
+    known = {p: (t, f, z, tuple(params[p].shape)) for p, t, f, z in zip(params, tp, fs, zd)
+             if t is not None or f is not None or z is not None}
+    if not known:
+        return {}
+    n_fsdp = 1 if mesh is None else mesh.shape[FSDP_AXIS]
     out = {}
     for path, leaf in flat.items():
         parts = path.split("/")[1:]
         for i in range(len(parts)):
-            hit = split.get("/".join(parts[i:]))
-            if hit is not None:
-                if torch.is_tensor(leaf) and tuple(leaf.shape) == hit[1]:
-                    out[path] = hit[0]
-                break
+            hit = known.get("/".join(parts[i:]))
+            if hit is None:
+                continue
+            t, f, z, shape = hit
+            if torch.is_tensor(leaf) and leaf.dim() == len(shape):
+                fsdp = f
+                if f is None and z is not None and (tuple(leaf.shape) == tuple(
+                        k // n_fsdp if d == z else k for d, k in enumerate(shape))):
+                    fsdp = z
+                if t is not None or fsdp is not None:
+                    out[path] = (t, fsdp)
+            break
     return out
 
 
+def _axis_info(mesh, axis: str) -> Optional[dict]:
+    return None if mesh is None else {"size": mesh.axis_size(axis), "index": mesh.axis_index(axis)}
+
+
+def _whole_shape(shape, split, tp: Optional[dict], fsdp: Optional[dict]) -> list:
+    """A piece's whole leaf shape from its shape and ``(tp dim, fsdp dim)``."""
+    whole = list(shape)
+    t, f = split
+    if t is not None:
+        whole[t] *= tp["size"]
+    if f is not None:
+        whole[f] *= fsdp["size"]
+    return whole
+
+
 def _state_index(flat: dict, accelerator, split: dict) -> dict:
+    mesh = accelerator.mesh
+    tp, fsdp = _axis_info(mesh, TENSOR_AXIS), _axis_info(mesh, FSDP_AXIS)
     leaves, offset = [], 0
     for path, leaf in flat.items():
         if torch.is_tensor(leaf):
             n = leaf.numel() * leaf.element_size()
+            t, f = split.get(path, (None, None))
             leaves.append({"path": path, "dtype": str(leaf.dtype).removeprefix("torch."),
                            "shape": list(leaf.shape), "offset": offset, "nbytes": n,
-                           "split": split.get(path)})
+                           "split": t, "fsdp_split": f,
+                           "whole_shape": _whole_shape(leaf.shape, (t, f), tp, fsdp)})
             offset += n
         else:
             leaves.append({"path": path, "value": leaf})
-    mesh = accelerator.mesh
-    tp = None if mesh is None else {"size": mesh.axis_size(TENSOR_AXIS),
-                                    "index": mesh.axis_index(TENSOR_AXIS)}
     return {"world": accelerator.num_processes, "rank": accelerator.process_index,
-            "mesh": None if mesh is None else dict(mesh.shape), "tp": tp,
+            "mesh": None if mesh is None else dict(mesh.shape), "tp": tp, "fsdp": fsdp,
             "file_bytes": FILE_BYTES, "total_bytes": offset,
             "n_files": -(-offset // FILE_BYTES), "leaves": leaves}
+
+
+def leaf_whole_shape(leaf: dict, index: dict) -> list:
+    """A saved piece's whole leaf shape (recorded; a tp checkpoint of an earlier
+    version records only the tp split)."""
+    return leaf.get("whole_shape") or _whole_shape(
+        leaf["shape"], (leaf.get("split"), None), index.get("tp"), None)
+
+
+def leaf_box(leaf: dict, index: dict) -> list:
+    """The ``(start, length)`` per dim of a saved piece inside its whole leaf: a tp split
+    takes the tp index's part of the dim, an fsdp split the fsdp index's part of that
+    (tp the outer index where both split one dim)."""
+    box = [[0, k] for k in leaf_whole_shape(leaf, index)]
+    for key, axis in (("split", "tp"), ("fsdp_split", "fsdp")):
+        d = leaf.get(key)
+        if d is not None:
+            info = index[axis]
+            box[d][1] //= info["size"]
+            box[d][0] += info["index"] * box[d][1]
+    return box
+
+
+def _overlap(a: list, b: list) -> Optional[list]:
+    """The intersection of two boxes, or None when it is empty."""
+    out = []
+    for (s0, n0), (s1, n1) in zip(a, b):
+        lo, hi = max(s0, s1), min(s0 + n0, s1 + n1)
+        if hi <= lo:
+            return None
+        out.append((lo, hi - lo))
+    return out
+
+
+def _within(box: list, part: list) -> tuple:
+    """Slices of ``part`` relative to ``box``'s origin."""
+    return tuple(slice(s - b, s - b + n) for (b, _), (s, n) in zip(box, part))
 
 
 def _file_pieces(index: dict, tensors: dict) -> list:
@@ -372,7 +466,7 @@ def _save_train_state(accelerator, train_state, state_dir: Path, async_writes=No
     t_start = time.perf_counter()
     rank = accelerator.process_index
     flat = _flat_state(train_state)
-    index = _state_index(flat, accelerator, _split_dims(train_state, flat))
+    index = _state_index(flat, accelerator, _split_dims(train_state, flat, accelerator.mesh))
     state_dir.mkdir(parents=True, exist_ok=True)
     (state_dir / f"rank{rank}.json").write_text(json.dumps(index))
     pieces = _file_pieces(index, {p: v for p, v in flat.items() if torch.is_tensor(v)})
@@ -427,38 +521,48 @@ def _save_train_state(accelerator, train_state, state_dir: Path, async_writes=No
     return digests, stats
 
 
-def _check_index(index: dict, flat: dict, accelerator) -> None:
-    mesh = accelerator.mesh
-    here = {"world": accelerator.num_processes, "mesh": None if mesh is None else dict(mesh.shape)}
-    if {k: index[k] for k in here} != here:
-        raise ValueError(
-            f"checkpoint saved on world {index['world']}, mesh {index['mesh']}; this run has "
-            f"world {here['world']}, mesh {here['mesh']}: loading onto another mesh shape is "
-            "not supported")
-    saved = [leaf["path"] for leaf in index["leaves"]]
-    if saved != list(flat):
-        raise ValueError(f"checkpoint leaves {saved} differ from the train state's {list(flat)}")
-    for leaf in index["leaves"]:
-        live = flat[leaf["path"]]
+def _check_leaves(saved: list, live: dict, whole: dict) -> None:
+    """Paths, kinds, dtypes and whole shapes of the saved leaves against the live state
+    (``whole``: the live leaves' whole shapes)."""
+    paths = [leaf["path"] for leaf in saved]
+    if paths != list(live):
+        raise ValueError(f"checkpoint leaves {paths} differ from the train state's {list(live)}")
+    for leaf in saved:
+        x = live[leaf["path"]]
         if "value" in leaf:
-            if torch.is_tensor(live):
+            if torch.is_tensor(x):
                 raise ValueError(f"{leaf['path']}: saved a value, the state holds a tensor")
             continue
-        if not torch.is_tensor(live):
-            raise ValueError(f"{leaf['path']}: saved a tensor, the state holds {type(live)}")
-        got = (str(live.dtype).removeprefix("torch."), list(live.shape))
-        if got != (leaf["dtype"], leaf["shape"]):
-            raise ValueError(f"{leaf['path']}: saved {leaf['dtype']} {leaf['shape']}, the "
-                             f"state holds {got[0]} {got[1]}")
+        if not torch.is_tensor(x):
+            raise ValueError(f"{leaf['path']}: saved a tensor, the state holds {type(x)}")
+        saved_whole = leaf.get("whole_shape") or leaf["shape"]
+        got = (str(x.dtype).removeprefix("torch."), whole[leaf["path"]])
+        if got != (leaf["dtype"], list(saved_whole)):
+            raise ValueError(f"{leaf['path']}: saved {leaf['dtype']} {list(saved_whole)}, "
+                             f"the state holds {got[0]} {got[1]}")
+
+
+def _same_layout(index: dict, live: dict) -> bool:
+    """Whether the saved rank's index has this rank's world, mesh and every leaf's
+    shape and splits (the bytes then load as they are)."""
+    if (index["world"], index["mesh"]) != (live["world"], live["mesh"]):
+        return False
+    keys = ("path", "dtype", "shape", "split", "fsdp_split")
+    return [{k: leaf.get(k) for k in keys} for leaf in index["leaves"]] == [
+        {k: leaf.get(k) for k in keys} for leaf in live["leaves"]]
 
 
 def _load_train_state(accelerator, train_state, state_dir: Path):
     """This rank's train state copied in place into ``train_state``'s tensors; returns
-    (the state with its plain values restored, stats)."""
+    (the state with its plain values restored, stats). A checkpoint of another layout
+    is resharded (:func:`_reshard_train_state`)."""
     t_start = time.perf_counter()
-    index = json.loads((state_dir / f"rank{accelerator.process_index}.json").read_text())
     flat = _flat_state(train_state)
-    _check_index(index, flat, accelerator)
+    live = _state_index(flat, accelerator, _split_dims(train_state, flat, accelerator.mesh))
+    own = state_dir / f"rank{accelerator.process_index}.json"
+    index = json.loads(own.read_text()) if own.exists() else None
+    if index is None or not _same_layout(index, live):
+        return _reshard_train_state(accelerator, train_state, state_dir, flat, live, t_start)
     pieces = _file_pieces(index, {p: v for p, v in flat.items() if torch.is_tensor(v)})
     staging = _staging(accelerator, index)
     free = [(buf, None) for buf in staging.buffers]  # (buffer, marks of its last copies)
@@ -488,11 +592,110 @@ def _load_train_state(accelerator, train_state, state_dir: Path):
     for _, marks in free:
         if marks is not None:
             totals["h2d_s"] += _copy_s(*marks)
-    values = {leaf["path"]: leaf["value"] for leaf in index["leaves"] if "value" in leaf}
+    return _with_values(train_state, flat, index["leaves"]), {
+        "bytes": index["total_bytes"], "files": index["n_files"], **totals,
+        "read_h2d_s": time.perf_counter() - t_start}
+
+
+def _with_values(train_state, flat: dict, saved: list):
+    """``train_state`` with the saved plain values (counts, the seed) restored."""
+    values = {leaf["path"]: leaf["value"] for leaf in saved if "value" in leaf}
     leaves = [values.get(p, v) for p, v in flat.items()]
     fields = tree_unflatten({f: getattr(train_state, f) for f in _TRAIN_STATE_FIELDS}, leaves)
-    return train_state.replace(**fields), {
-        "bytes": index["total_bytes"], "files": index["n_files"], **totals,
+    return train_state.replace(**fields)
+
+
+def _read_tensor(file_of, file_bytes: int, leaf: dict) -> torch.Tensor:
+    """A leaf's bytes (``offset``, ``nbytes`` in a stream cut into files of
+    ``file_bytes``; ``file_of(i)`` names file ``i``) as a CPU tensor of its dtype and
+    shape."""
+    buf = bytearray(leaf["nbytes"])
+    pos, end = leaf["offset"], leaf["offset"] + leaf["nbytes"]
+    view = memoryview(buf)
+    while pos < end:
+        i, off = divmod(pos, file_bytes)
+        n = min(end - pos, file_bytes - off)
+        with open(file_of(i), "rb") as f:
+            f.seek(off)
+            f.readinto(view[pos - leaf["offset"]:pos - leaf["offset"] + n])
+        pos += n
+    dtype = getattr(torch, leaf["dtype"])
+    t = torch.frombuffer(buf, dtype=torch.uint8) if buf else torch.empty(0, dtype=torch.uint8)
+    return t.view(dtype).reshape(leaf["shape"])
+
+
+def read_leaf(state_dir: Path, index: dict, leaf: dict) -> torch.Tensor:
+    """One saved rank's piece of a leaf from its files, as a CPU tensor."""
+    return _read_tensor(lambda i: state_dir / f"rank{index['rank']}_{i:05d}.bin",
+                        index["file_bytes"], leaf)
+
+
+def read_full_leaf(ckpt: Path, index: dict, path: str) -> torch.Tensor:
+    """A FULL_STATE_DICT checkpoint's whole leaf ``path`` (its ``model_full.pkl`` index
+    read into ``index``), as a CPU tensor."""
+    return _read_tensor(lambda i: ckpt / FULL_DATA_NAME.format(i), index["file_bytes"],
+                        index["leaves"][path])
+
+
+def read_full_index(ckpt: Path) -> dict:
+    with open(ckpt / FULL_STATE_NAME, "rb") as f:
+        index = pickle.load(f)  # written by this program's save
+    if index.get("format") != _FULL_FORMAT:
+        raise ValueError(f"{ckpt / FULL_STATE_NAME}: not a {_FULL_FORMAT} index")
+    return index
+
+
+def _prefetched(fn, items, depth: int = STAGING_BUFFERS):
+    """``fn(item)`` for each item, in order, by ``depth`` threads at most ``depth``
+    items ahead (file reads release the GIL)."""
+    with ThreadPoolExecutor(depth) as pool:
+        pending = []
+        for item in items:
+            pending.append(pool.submit(fn, item))
+            if len(pending) > depth:
+                yield pending.pop(0).result()
+        for fut in pending:
+            yield fut.result()
+
+
+def saved_indexes(state_dir: Path) -> list:
+    """Every saved rank's index, in rank order."""
+    first = json.loads((state_dir / "rank0.json").read_text())
+    return [first] + [json.loads((state_dir / f"rank{r}.json").read_text())
+                      for r in range(1, first["world"])]
+
+
+def _reshard_train_state(accelerator, train_state, state_dir: Path, flat: dict, live: dict,
+                         t_start: float):
+    """Load a checkpoint saved on another world, mesh or split layout: for each leaf,
+    every distinct saved piece that overlaps this rank's piece is read and the overlap
+    copied in place."""
+    indexes = saved_indexes(state_dir)
+    whole = {leaf["path"]: leaf["whole_shape"] for leaf in live["leaves"] if "value" not in leaf}
+    _check_leaves(indexes[0]["leaves"], flat, whole)
+
+    def overlapping(k):
+        """The saved pieces of leaf ``k`` that overlap this rank's: (piece, its box)."""
+        box, out = leaf_box(live["leaves"][k], live), []
+        for index in indexes:
+            leaf = index["leaves"][k]
+            sbox = leaf_box(leaf, index)
+            if _overlap(box, sbox) is not None and sbox not in [b for _, b in out]:
+                out.append((read_leaf(state_dir, index, leaf), sbox))
+        return box, out
+
+    read = 0
+    tensors = [k for k, mine in enumerate(live["leaves"]) if "value" not in mine]
+    with torch.no_grad():
+        for k, (box, pieces) in zip(tensors, _prefetched(overlapping, tensors)):
+            target = flat[live["leaves"][k]["path"]]
+            for piece, sbox in pieces:
+                part = _overlap(box, sbox)
+                read += piece.numel() * piece.element_size()
+                target[_within(box, part)].copy_(piece[_within(sbox, part)])
+    return _with_values(train_state, flat, indexes[0]["leaves"]), {
+        "bytes": read, "resharded_from": {"world": indexes[0]["world"],
+                                          "mesh": indexes[0]["mesh"]},
         "read_h2d_s": time.perf_counter() - t_start}
 
 
@@ -534,17 +737,137 @@ def _corrupt_one_file(path: Path) -> None:
         victim.write_bytes(bytes(data))
 
 
+def _full_state_dict(accelerator) -> bool:
+    plugin = getattr(accelerator, "fsdp_plugin", None)
+    return plugin is not None and plugin.state_dict_type == "FULL_STATE_DICT"
+
+
+def _whole_leaf(leaf: torch.Tensor, split, mesh) -> torch.Tensor:
+    """The whole of a state leaf from every rank's piece (a collective over the axes
+    that split it: fsdp first, the inner index; ``parallel.fsdp.all_gather``'s route)."""
+    from .parallel.fsdp import all_gather
+
+    t, f = split
+    if f is not None:
+        leaf = all_gather(leaf.detach(), f, mesh.group(FSDP_AXIS))
+    if t is not None:
+        leaf = all_gather(leaf.detach(), t, mesh.group(TENSOR_AXIS))
+    return leaf
+
+
+def _remove_full_state(path: Path) -> None:
+    (path / FULL_STATE_NAME).unlink(missing_ok=True)
+    for data in path.glob(FULL_DATA_NAME.replace("{:05d}", "*")):
+        data.unlink()
+
+
+class _StreamWriter:
+    """Bytes appended to a stream of files of ``FILE_BYTES`` (``FULL_DATA_NAME``), each
+    file written by one of ``STAGING_BUFFERS`` threads once its bytes are all given (a
+    piece's buffer stays alive until its file is written)."""
+
+    def __init__(self, path: Path):
+        self.path, self.offset = path, 0
+        self.pool = ThreadPoolExecutor(STAGING_BUFFERS)
+        self.pieces: list = []  # the open file's pieces
+        self.futures: list = []
+
+    def write(self, data: memoryview) -> None:
+        pos = 0
+        while pos < len(data):
+            n = min(len(data) - pos, FILE_BYTES - self.offset % FILE_BYTES)
+            self.pieces.append(data[pos:pos + n])
+            pos += n
+            self.offset += n
+            if self.offset % FILE_BYTES == 0:
+                self._submit()
+
+    def _submit(self) -> None:
+        pieces, self.pieces = self.pieces, []
+        target = self.path / FULL_DATA_NAME.format((self.offset - 1) // FILE_BYTES)
+
+        def write():
+            with open(target, "wb") as f:
+                for piece in pieces:
+                    f.write(piece)
+
+        self.futures.append(self.pool.submit(write))
+
+    def close(self) -> None:
+        if self.pieces:
+            self._submit()
+        for fut in self.futures:
+            fut.result()
+        self.pool.shutdown()
+
+
+def _save_full_state(accelerator, train_state, path: Path) -> dict:
+    """FULL_STATE_DICT: every leaf of the train state gathered whole (a collective, leaf
+    by leaf); rank 0 writes its bytes into the data files and the index last."""
+    t0 = time.perf_counter()
+    flat = _flat_state(train_state)
+    split = _split_dims(train_state, flat, accelerator.mesh)
+    main = accelerator.is_main_process
+    writer = _StreamWriter(path) if main else None
+    leaves, gather_s = {}, 0.0
+    with torch.no_grad():
+        for name, leaf in flat.items():
+            if not torch.is_tensor(leaf):
+                leaves[name] = {"value": leaf}
+                continue
+            t1 = time.perf_counter()
+            whole = _whole_leaf(leaf, split.get(name, (None, None)), accelerator.mesh)
+            gather_s += time.perf_counter() - t1
+            if main:
+                host = whole.cpu()
+                leaves[name] = {"dtype": str(host.dtype).removeprefix("torch."),
+                                "shape": list(host.shape), "offset": writer.offset,
+                                "nbytes": host.numel() * host.element_size()}
+                writer.write(memoryview(_bytes_of(host).numpy()))
+            del whole
+    if main:
+        writer.close()
+        with open(path / FULL_STATE_NAME, "wb") as f:
+            pickle.dump({"format": _FULL_FORMAT, "file_bytes": FILE_BYTES,
+                         "total_bytes": writer.offset, "leaves": leaves}, f)
+    accelerator.wait_for_everyone()
+    return {"bytes": writer.offset if main else 0, "gather_s": gather_s,
+            "state_s": time.perf_counter() - t0, "format": "FULL_STATE_DICT"}
+
+
+def _load_full_state(accelerator, train_state, path: Path):
+    """A FULL_STATE_DICT checkpoint into the live state in place: each rank copies its
+    piece of every leaf (on any mesh shape)."""
+    t0 = time.perf_counter()
+    index = read_full_index(path)
+    flat = _flat_state(train_state)
+    live = _state_index(flat, accelerator, _split_dims(train_state, flat, accelerator.mesh))
+    entries = [{"path": p, **e} for p, e in index["leaves"].items()]
+    whole = {leaf["path"]: leaf["whole_shape"] for leaf in live["leaves"] if "value" not in leaf}
+    _check_leaves(entries, flat, whole)
+    mine = [leaf for leaf in live["leaves"] if "value" not in leaf]
+    with torch.no_grad():
+        for leaf, src in zip(mine, _prefetched(
+                lambda m: read_full_leaf(path, index, m["path"]), mine)):
+            box = leaf_box(leaf, live)
+            flat[leaf["path"]].copy_(src[tuple(slice(s, e + s) for s, e in box)])
+    return _with_values(train_state, flat, entries), {
+        "bytes": index["total_bytes"], "format": "FULL_STATE_DICT",
+        "read_h2d_s": time.perf_counter() - t0}
+
+
 def _export_safetensors(accelerator, train_state, file_path: Path) -> float:
     """The whole params as one safetensors file, written by the main process; split
-    leaves are gathered from the tp ranks first (every rank joins). Returns seconds."""
-    from .parallel.tp import gather_split_leaf
+    leaves are gathered from the tp and fsdp ranks first (every rank joins). Returns
+    seconds."""
     from .utils.serialization import write_safetensors
 
     t0 = time.perf_counter()
     flat = named_parameters(train_state.params)
     dims = train_state.tp_dims or [None] * len(flat)
-    whole = {path: gather_split_leaf(leaf, d, accelerator.mesh)
-             for (path, leaf), d in zip(flat.items(), dims)}
+    fsdp = getattr(train_state, "fsdp_dims", None) or [None] * len(flat)
+    whole = {path: _whole_leaf(leaf, (d, f), accelerator.mesh)
+             for (path, leaf), d, f in zip(flat.items(), dims, fsdp)}
     if accelerator.is_main_process:
         write_safetensors(whole, file_path)
     return time.perf_counter() - t0
@@ -596,12 +919,22 @@ def save_accelerator_state(accelerator, output_dir: Optional[str] = None, train_
     pending = None
     if train_state is not None:
         state_dir = path / SHARDED_STATE_DIR
-        if accelerator.is_main_process and state_dir.exists():
-            shutil.rmtree(state_dir)
+        full = _full_state_dict(accelerator)
+        if accelerator.is_main_process:
+            # No stale snapshot of the other format may shadow this one on load.
+            if state_dir.exists():
+                shutil.rmtree(state_dir)
+            _remove_full_state(path)
         accelerator.wait_for_everyone()
-        if async_save:
-            pending = _AsyncWrites(path, accelerator.is_main_process, t_start)
-        digests, stats = _save_train_state(accelerator, train_state, state_dir, pending)
+        if full:
+            if async_save:
+                logger.warning("async_save is only supported for the sharded format; "
+                               "FULL_STATE_DICT saves synchronously")
+            stats = _save_full_state(accelerator, train_state, path)
+        else:
+            if async_save:
+                pending = _AsyncWrites(path, accelerator.is_main_process, t_start)
+            digests, stats = _save_train_state(accelerator, train_state, state_dir, pending)
         if safe_serialization:
             stats["export_s"] = _export_safetensors(accelerator, train_state,
                                                     path / SAFE_WEIGHTS_NAME)
@@ -726,8 +1059,16 @@ def load_accelerator_state(accelerator, input_dir: Optional[str] = None, train_s
 
     restored = None
     if train_state is not None:
-        restored, read_stats = _load_train_state(accelerator, train_state,
-                                                 path / SHARDED_STATE_DIR)
+        # The format follows the plugin when one is set (the same on every rank), else
+        # the file that is there.
+        plugin = getattr(accelerator, "fsdp_plugin", None)
+        use_full = (plugin.state_dict_type == "FULL_STATE_DICT" if plugin is not None
+                    else (path / FULL_STATE_NAME).exists())
+        if use_full:
+            restored, read_stats = _load_full_state(accelerator, train_state, path)
+        else:
+            restored, read_stats = _load_train_state(accelerator, train_state,
+                                                     path / SHARDED_STATE_DIR)
         stats.update(read_stats)
         for opt in accelerator._optimizers:
             if opt._opt_state_ref is train_state.opt_state:

@@ -156,8 +156,9 @@ def load_config_from_file(path: Optional[str] = None) -> ClusterConfig:
 
 
 def _interactive_config() -> ClusterConfig:
-    """The questionnaire, over the knobs the port runs (one process per card, the tp
-    axis, precision with the fp8 recipe, accumulation, data loading, checkpoints)."""
+    """The questionnaire, over the knobs the port runs (one process per card, precision
+    with the fp8 recipe, the ZeRO/FSDP stage with offload and checkpoint layout, the tp
+    axis, accumulation, data loading, checkpoints)."""
     from .menu import ask, ask_bool, ask_int, select
 
     cfg = ClusterConfig()
@@ -182,6 +183,22 @@ def _interactive_config() -> ClusterConfig:
         cfg.fp8_opt_level = select(
             "MS-AMP opt level? (O2 = scaled-fp8 AdamW moments, needs fused_adamw)",
             ["O1", "O2"])
+    stage = select("ZeRO/FSDP sharding stage?", [
+        "0 — replicated params (plain data parallel)",
+        "1 — shard optimizer state",
+        "2 — + reduce-scatter gradients",
+        "3 — + shard parameters (FSDP FULL_SHARD)",
+    ])
+    cfg.fsdp_zero_stage = int(stage.split(" ")[0])
+    if cfg.fsdp_zero_stage > 0:
+        cfg.fsdp = ask_int("fsdp axis size (-1 = all remaining devices)", -1)
+        cfg.dp = 1
+        cfg.fsdp_cpu_offload = ask_bool(
+            "Offload optimizer state to host RAM (ZeRO-Offload)?", False)
+        cfg.fsdp_min_weight_size = ask_int(
+            "Min parameter size to shard (smaller stay replicated)", 1024)
+        cfg.fsdp_state_dict_type = select(
+            "Checkpoint layout?", ["SHARDED_STATE_DICT", "FULL_STATE_DICT"])
     cfg.tp = ask_int("Tensor-parallel degree", 1)
     cfg.gradient_accumulation_steps = ask_int("Gradient accumulation steps", 1)
     if ask_bool("Configure dataloader behavior?", False):

@@ -3,9 +3,10 @@ consolidated safetensors, the port's counterpart of ``accelerate_tpu/commands/me
 
 The JAX command restores an orbax ``sharded_state`` tree; this one reads the port's own
 byte format (``checkpointing``: ``sharded_state/rank{r}.json`` indexes and their
-``rank{r}_{i:05d}.bin`` files) with no process group and no device. Each leaf is rebuilt
-from its bytes; a leaf split over the tp ranks is put back together by concatenating one
-shard per tp index along the dim the index records. The params (or, with
+``rank{r}_{i:05d}.bin`` files, or a FULL_STATE_DICT ``model_full.pkl``) with no process
+group and no device. Each leaf is rebuilt from its bytes; a leaf split over the tp or
+fsdp ranks (or both) is put back together by placing one piece per distinct place the
+index records (the tp and fsdp split dims and indexes). The params (or, with
 ``--full-state``, the whole train state: moments, accumulation buffer and counts) are
 written by ``utils.modeling.save_sharded_checkpoint`` under the JAX params tree's names
 (``layers/0/wq``), one ``model.safetensors`` or several shards with an index.
@@ -14,7 +15,6 @@ written by ``utils.modeling.save_sharded_checkpoint`` under the JAX params tree'
 from __future__ import annotations
 
 import argparse
-import json
 from pathlib import Path
 
 import torch
@@ -47,53 +47,43 @@ def merge_command_parser(subparsers=None) -> argparse.ArgumentParser:
     return parser
 
 
-def _read_leaf(state_dir: Path, index: dict, leaf: dict) -> torch.Tensor:
-    """One rank's leaf from its files, as a CPU tensor."""
-    buf = bytearray(leaf["nbytes"])
-    fb, pos, end = index["file_bytes"], leaf["offset"], leaf["offset"] + leaf["nbytes"]
-    view = memoryview(buf)
-    while pos < end:
-        i, off = divmod(pos, fb)
-        n = min(end - pos, fb - off)
-        with open(state_dir / f"rank{index['rank']}_{i:05d}.bin", "rb") as f:
-            f.seek(off)
-            f.readinto(view[pos - leaf["offset"]:pos - leaf["offset"] + n])
-        pos += n
-    dtype = getattr(torch, leaf["dtype"])
-    t = torch.frombuffer(buf, dtype=torch.uint8) if buf else torch.empty(0, dtype=torch.uint8)
-    return t.view(dtype).reshape(leaf["shape"])
-
-
 def read_sharded_state(checkpoint_dir, prefix: str = "") -> dict:
     """``{path: whole tensor or plain value}`` of a checkpoint's train state, every
-    rank's shards put back together (paths as the checkpoint's index names them:
+    rank's pieces put back together (paths as the checkpoint's index names them:
     ``params/layers/0/wq``, ``opt_state/...``, ``step``); only the paths that start with
-    ``prefix`` are read."""
+    ``prefix`` are read. A FULL_STATE_DICT checkpoint (``model_full.pkl``) is read from
+    its one file."""
+    from ..checkpointing import (FULL_STATE_NAME, leaf_box, leaf_whole_shape, read_full_index,
+                                 read_full_leaf, read_leaf, saved_indexes)
+
     path = Path(checkpoint_dir)
+    if not (path / SHARDED_STATE_DIR).is_dir() and (path / FULL_STATE_NAME).exists():
+        index = read_full_index(path)
+        return {p: e["value"] if "value" in e else read_full_leaf(path, index, p)
+                for p, e in index["leaves"].items() if p.startswith(prefix)}
     if (path / SHARDED_STATE_DIR).is_dir():
         path = path / SHARDED_STATE_DIR
-    first = json.loads((path / "rank0.json").read_text())
-    indexes = [first] + [json.loads((path / f"rank{r}.json").read_text())
-                         for r in range(1, first["world"])]
-    # One rank per tp index holds each shard of a split leaf (the others repeat it).
-    by_tp = {}
-    for index in indexes:
-        tp = index.get("tp") or {"size": 1, "index": 0}
-        by_tp.setdefault(tp["index"], index)
-    tp_ranks = [by_tp[i] for i in sorted(by_tp)]
+    indexes = saved_indexes(path)
     out = {}
-    for k, leaf in enumerate(first["leaves"]):
+    for k, leaf in enumerate(indexes[0]["leaves"]):
         if not leaf["path"].startswith(prefix):
             continue
         if "value" in leaf:
             out[leaf["path"]] = leaf["value"]
             continue
-        dim = leaf.get("split")
-        if dim is None:
-            out[leaf["path"]] = _read_leaf(path, first, leaf)
-        else:
-            out[leaf["path"]] = torch.cat(
-                [_read_leaf(path, index, index["leaves"][k]) for index in tp_ranks], dim=dim)
+        whole = torch.empty(leaf_whole_shape(leaf, indexes[0]),
+                            dtype=getattr(torch, leaf["dtype"]))
+        seen = []
+        # One rank per distinct piece (the others repeat it): each is put in its place.
+        for index in indexes:
+            piece_leaf = index["leaves"][k]
+            piece_box = leaf_box(piece_leaf, index)
+            if piece_box in seen:
+                continue
+            seen.append(piece_box)
+            whole[tuple(slice(s, s + n) for s, n in piece_box)] = read_leaf(
+                path, index, piece_leaf)
+        out[leaf["path"]] = whole
     return out
 
 

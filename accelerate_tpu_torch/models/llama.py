@@ -37,6 +37,13 @@ over the batch ranks: ``parallel.tp.replica_sum``), and
 ``forward``/``head_logits`` give this rank's vocab slice of the logits. The cached
 (serving) forwards take whole params.
 
+ZeRO-3 (``parallel/fsdp.py``): ``loss_fn`` gathers ``FsdpShard`` leaves itself
+(``gathers_fsdp_shards``). A layer's leaves are gathered at the start of the block,
+inside its remat unit, so the forward holds one layer's whole weights at a time and the
+recompute in the backward gathers again (torch FSDP's schedule); the projections (and
+biases and adapters) are cast to ``cfg.dtype`` before the gather, as they would be at
+their use; the embedding, the head and ``ln_f`` are gathered where they are used.
+
 The one-request API — :func:`generate` (prefill, then decode steps replayed from a CUDA
 graph on the card through ``generation.generate_loop``), :func:`score` and
 :func:`perplexity` — :func:`forward_slots_multi`, the serving engine's N-step
@@ -54,8 +61,9 @@ row-parallel projection is added before ``reduce_from_group``, a partial sum lik
 base product.
 
 fp8 (``use_fp8``): every dense projection is ``ops.fp8.fp8_dot(h, w, cfg.fp8_format)``
-(the process recipe's format when None), its amaxes taken over the tp group under a
-mesh; a quantized leaf keeps ``quant_matmul``.
+(the process recipe's format when None), its amaxes taken over every rank of a mesh
+(tp shards and batch ranks alike, as GSPMD's amax is global); a quantized leaf keeps
+``quant_matmul``.
 
 Not supported in this slice (raise ``NotImplementedError``): ``moe_experts > 0``.
 """
@@ -73,6 +81,7 @@ import torch.nn.functional as F
 from ..ops.fp8 import fp8_dot
 from ..ops.quantization import QuantizedWeight, quant_matmul
 from ..optim import scale_by
+from ..parallel.fsdp import gathers_fsdp_shards, materialize
 from ..parallel.mesh import P, current_mesh
 from ..parallel.tp import (all_reduce, copy_to_group, group_rank_size, reduce_from_group,
                            vocab_parallel_embedding)
@@ -411,12 +420,24 @@ def _sm_scale(cfg: LlamaConfig) -> float:
 def _proj(h: torch.Tensor, w, cfg: LlamaConfig, tp=None) -> torch.Tensor:
     """Projection matmul ``h @ w`` in ``cfg.dtype``; for a quantized weight leaf
     ``quant_matmul`` (the int8 kernel on the card) with a ``cfg.dtype`` result; under
-    ``cfg.use_fp8`` ``fp8_dot`` (amaxes over the tp group ``tp``)."""
+    ``cfg.use_fp8`` ``fp8_dot`` (amaxes over :func:`_fp8_group`)."""
     if isinstance(w, QuantizedWeight):
         return quant_matmul(h, w, out_dtype=cfg.dtype)
     if cfg.use_fp8:
-        return fp8_dot(h, w, cfg.fp8_format, group=tp)
+        return fp8_dot(h, w, cfg.fp8_format, group=_fp8_group(tp))
     return h @ w.to(cfg.dtype)
+
+
+def _fp8_group(tp):
+    """The group of an fp8 amax: every rank of a mesh of several (a batch rank holds
+    its own rows and a tp rank its own shard, and GSPMD's amax is global over both);
+    ``tp`` (None) outside one."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size == 1:
+        return tp
+    import torch.distributed as dist
+
+    return dist.group.WORLD
 
 
 def _dense_leaf(w, name: str):
@@ -468,8 +489,8 @@ def _qkv_proj(h: torch.Tensor, layer: dict, cfg: LlamaConfig, tp=None):
 def _head(params: dict, cfg: LlamaConfig) -> torch.Tensor:
     """The LM head ``[D, V]``: ``embed.T`` when tied, else ``lm_head``."""
     if cfg.tie_embeddings:
-        return _dense_leaf(params["embed"], "embed").T
-    return _dense_leaf(params["lm_head"], "lm_head")
+        return _dense_leaf(materialize(params["embed"]), "embed").T
+    return _dense_leaf(materialize(params["lm_head"]), "lm_head")
 
 
 def head_logits(x: torch.Tensor, params: dict, cfg: LlamaConfig) -> torch.Tensor:
@@ -519,6 +540,7 @@ def _attention(q, k, v, mask, cfg: LlamaConfig, segment_ids=None):
 def _block(x, layer, positions, mask, cfg: LlamaConfig, segment_ids=None, tp=None):
     """One transformer block (dense MLP; MoE is not ported). ``tp``: the
     tensor-parallel group whose rank holds ``layer``'s shards (``None``: whole)."""
+    layer = _gather_layer(layer, cfg)
     B, S, D = x.shape
     n = group_rank_size(tp)[1]
     H, K = cfg.n_heads // n, cfg.n_kv_heads // n  # this rank's heads, whole GQA groups
@@ -540,6 +562,22 @@ def _block(x, layer, positions, mask, cfg: LlamaConfig, segment_ids=None, tp=Non
     if cfg.post_norm:
         mlp_out = _rms_norm(mlp_out, layer["ln_mlp_post"], cfg.norm_eps, p1)
     return x + mlp_out
+
+
+#: Layer leaves cast to ``cfg.dtype`` at their use (so before an fsdp gather too).
+_CAST_AT_USE = PROJECTIONS + ("bq", "bk", "bv")
+
+
+def _gather_layer(layer: dict, cfg: LlamaConfig) -> dict:
+    """The layer's whole leaves from ``FsdpShard`` pieces (``parallel.fsdp.materialize``;
+    other leaves as they are), a projection, bias or adapter cast to ``cfg.dtype``
+    first unless fp8 quantizes it from its own type."""
+    def dtype(name):
+        if cfg.use_fp8:
+            return None
+        return cfg.dtype if name in _CAST_AT_USE or "_lora_" in name else None
+
+    return {k: materialize(v, dtype(k)) for k, v in layer.items()}
 
 
 def _maybe_remat_block(cfg: LlamaConfig):
@@ -602,7 +640,7 @@ def forward_hidden(params: dict, tokens: torch.Tensor, cfg: LlamaConfig,
     for layer, layer_cfg in zip(params["layers"], _layer_cfgs(cfg)):
         x = block(x, layer, positions, mask if layer_cfg.sliding_window else full_mask,
                   layer_cfg, segment_ids, tp)
-    return _rms_norm(x, params["ln_f"], cfg.norm_eps, cfg.norm_plus_one)
+    return _rms_norm(x, materialize(params["ln_f"]), cfg.norm_eps, cfg.norm_plus_one)
 
 
 def _tp_group(cfg: LlamaConfig):
@@ -642,9 +680,11 @@ def _ce_from_hidden(x, params, targets, mask, cfg: LlamaConfig) -> torch.Tensor:
     return total / denom
 
 
+@gathers_fsdp_shards
 def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, rng=None) -> torch.Tensor:
     """Next-token cross-entropy over ``batch`` = {"tokens": [B, S+1]} with optional
-    "mask" [B, S+1], packed "segment_ids" [B, S+1] and "positions" [B, S+1]."""
+    "mask" [B, S+1], packed "segment_ids" [B, S+1] and "positions" [B, S+1]. ZeRO-3
+    ``FsdpShard`` leaves are gathered at their use (module docstring)."""
     tokens = batch["tokens"].long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     B, S = inputs.shape
@@ -803,7 +843,7 @@ def _cache_advance(cache: dict, tokens: torch.Tensor, token_mask: Optional[torch
 def _embed(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, tp=None) -> torch.Tensor:
     """Token embeddings in ``cfg.dtype``; ``tp``: the group over whose ranks the table's
     rows are sharded (the vocab-parallel lookup)."""
-    table = _dense_leaf(params["embed"], "embed")
+    table = _dense_leaf(materialize(params["embed"]), "embed")
     if tp is not None:
         x = vocab_parallel_embedding(table, tokens, tp, dtype=cfg.dtype)
     else:

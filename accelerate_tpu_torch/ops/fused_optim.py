@@ -25,12 +25,23 @@ scaling, ``scale = amax / fp8_max`` of the freshly computed moment (not
 ``ops.fp8.compute_scale``'s power of two). A leaf with an fp8 moment takes
 :func:`adamw_leaf_scaled_reference`, plain PyTorch on any device, as JAX sends such
 leaves through XLA rather than its Pallas kernel; every other leaf keeps the kernel.
+
+``FusedAdamW.fused_apply_offloaded`` is the ``cpu_offload`` apply: the moments live in
+host memory (pinned on CUDA) and stream through ``OFFLOAD_BUFFERS`` device staging
+buffers of ``OFFLOAD_CHUNK_ELEMS`` elements in fixed-size chunks (the host-to-device
+copy of chunk i+1 and the device-to-host copy of chunk i-1 run on two copy streams while
+the kernel updates chunk i), one kernel launch a chunk. AdamW is elementwise, so the
+chunks give the bits of the whole-tree apply. Leaves the kernel does not take (fp8
+moments, sizes off the 1024 rule) fetch their moments whole, update and store them
+back. On the CPU the host is the device: the same chunks, copied without streams.
+:data:`OFFLOAD_STATS` holds the last call's chunks, bytes and copy seconds.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import time
 from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
@@ -41,9 +52,16 @@ from . import _build
 from .fp8 import FP8_MAX, _amax
 
 __all__ = ["FusedAdamW", "fused_adamw", "ScaledAdamState", "adamw_leaf_reference",
-           "adamw_leaf_scaled_reference", "adamw_leaves"]
+           "adamw_leaf_scaled_reference", "adamw_leaves", "OFFLOAD_CHUNK_ELEMS",
+           "OFFLOAD_BUFFERS", "OFFLOAD_STATS", "offload_chunks"]
 
 _LANES = 1024  # leaves whose size is a multiple of this take the kernel
+#: Elements of one offload staging chunk (a multiple of 1024: 256 MiB of fp32 moment).
+OFFLOAD_CHUNK_ELEMS = 64 << 20
+#: Device staging buffers of the offload stream (each one chunk of both moments).
+OFFLOAD_BUFFERS = 3
+#: The last ``fused_apply_offloaded`` call's chunks, bytes and copy seconds.
+OFFLOAD_STATS: dict = {}
 _M_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -309,6 +327,143 @@ class FusedAdamW:
         _apply_plain(plain, scalars, self._kw())
         _apply_scaled(scaled, scalars, self._kw())
         return params, self._next_state(state)
+
+    def fused_apply_offloaded(self, grads, state: AdamState, params, grad_scale=1.0,
+                              groups=None, chunk_elems: Optional[int] = None,
+                              n_buffers: Optional[int] = None):
+        """:meth:`fused_apply` over moments held in host memory (``cpu_offload``), IN
+        PLACE → ``(params, state)``, the moments staying where they are. Kernel leaves
+        stream in chunks of ``chunk_elems`` (default :data:`OFFLOAD_CHUNK_ELEMS`)
+        through ``n_buffers`` (default :data:`OFFLOAD_BUFFERS`) staging buffers, one
+        launch a chunk; the others fetch their moments whole and store them back."""
+        flat_p = tree_leaves(params)
+        if not flat_p:
+            return params, self._next_state(state)
+        dev = flat_p[0].device
+        t0 = time.perf_counter()
+        scalars = self._scalars(state.count, grad_scale, dev)
+        flat_ms, flat_vs = self._flat_scales(state, len(flat_p))
+        groups = groups or [None] * len(flat_p)
+        streamed: dict = {}  # first-moment dtype -> ([p], [m], [v], [g])
+        whole = []
+        for leaf, ms, vs, group in zip(zip(flat_p, tree_leaves(state.mu), tree_leaves(state.nu),
+                                           tree_leaves(grads)), flat_ms, flat_vs, groups):
+            if (ms is None and vs is None and self.use_kernel is not False
+                    and leaf[0].numel() % _LANES == 0 and leaf[0].numel()):
+                for column, t in zip(streamed.setdefault(leaf[1].dtype, ([], [], [], [])),
+                                     leaf):
+                    column.append(t)
+            else:
+                whole.append((*leaf, ms, vs, group))
+        stats = {"chunks": 0, "h2d_bytes": 0, "d2h_bytes": 0, "h2d_s": 0.0, "d2h_s": 0.0}
+        for columns in streamed.values():
+            one = _stream_moments(*columns, scalars, self._kw(), chunk_elems or OFFLOAD_CHUNK_ELEMS,
+                                  n_buffers or OFFLOAD_BUFFERS)
+            for k in stats:
+                stats[k] += one[k]
+        for p, m, v, g, ms, vs, group in whole:
+            fetched = [None if t is None else t.to(dev, non_blocking=True)
+                       for t in (m, v, ms, vs)]
+            _apply_scaled([(p, *fetched[:2], g, *fetched[2:], group)], scalars, self._kw())
+            for host, new in zip((m, v, ms, vs), fetched):
+                if host is not None:
+                    host.copy_(new)
+        stats["whole_leaves"] = len(whole)
+        stats["s"] = time.perf_counter() - t0
+        OFFLOAD_STATS.clear()
+        OFFLOAD_STATS.update(stats)
+        return params, self._next_state(state)
+
+
+def offload_chunks(sizes, chunk: int) -> list:
+    """The offload stream's chunks over leaves of ``sizes`` elements (multiples of 1024),
+    in order: per chunk, its pieces ``(leaf, start in the leaf, length, offset in the
+    chunk)``; a leaf larger than the room left runs on into the next chunk."""
+    chunks, used = [[]], 0
+    for i, n in enumerate(sizes):
+        start = 0
+        while start < n:
+            if used == chunk:
+                chunks.append([])
+                used = 0
+            take = min(chunk - used, n - start)
+            chunks[-1].append((i, start, take, used))
+            used += take
+            start += take
+    return [c for c in chunks if c]
+
+
+@torch.no_grad()
+def _stream_moments(params, mus, nus, grads, scalars, kw, chunk: int, n_buffers: int) -> dict:
+    """AdamW over host-resident moments streamed through the device in chunks (one
+    kernel launch a chunk, the parameters and gradients on the device); the moments are
+    written back in place. Returns the stream's stats."""
+    dev = params[0].device
+    m_dtype = mus[0].dtype
+    plan = offload_chunks([p.numel() for p in params], chunk)
+    size = min(chunk, max(sum(n for _, _, n, _ in c) for c in plan))
+    bufs = [(torch.empty(size, dtype=m_dtype, device=dev),
+             torch.empty(size, dtype=torch.float32, device=dev)) for _ in range(n_buffers)]
+    flat = [(p.view(-1), m.view(-1), v.view(-1), g.view(-1))
+            for p, m, v, g in zip(params, mus, nus, grads)]
+    moment_bytes = sum(m.numel() * m.element_size() + v.numel() * v.element_size()
+                       for m, v in zip(mus, nus))
+    stats = {"chunks": len(plan), "h2d_bytes": moment_bytes, "d2h_bytes": moment_bytes,
+             "h2d_s": 0.0, "d2h_s": 0.0}
+    cuda = dev.type == "cuda"
+    if cuda:
+        compute = torch.cuda.current_stream(dev)
+        h2d, d2h = torch.cuda.Stream(dev), torch.cuda.Stream(dev)
+        freed = [None] * n_buffers
+        spans = []  # (stat, start event, end event)
+
+        def mark(stream):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(stream)
+            return ev
+    for c, pieces in enumerate(plan):
+        mb, vb = bufs[c % n_buffers]
+        if cuda:
+            with torch.cuda.stream(h2d):
+                if freed[c % n_buffers] is not None:
+                    h2d.wait_event(freed[c % n_buffers])
+                t0 = mark(h2d)
+                for i, a, n, off in pieces:
+                    mb[off:off + n].copy_(flat[i][1][a:a + n], non_blocking=True)
+                    vb[off:off + n].copy_(flat[i][2][a:a + n], non_blocking=True)
+                loaded = mark(h2d)
+                spans.append(("h2d_s", t0, loaded))
+            compute.wait_event(loaded)
+        else:
+            for i, a, n, off in pieces:
+                mb[off:off + n].copy_(flat[i][1][a:a + n])
+                vb[off:off + n].copy_(flat[i][2][a:a + n])
+        adamw_leaves([flat[i][0][a:a + n] for i, a, n, _ in pieces],
+                     [mb[off:off + n] for _, _, n, off in pieces],
+                     [vb[off:off + n] for _, _, n, off in pieces],
+                     [flat[i][3][a:a + n] for i, a, n, _ in pieces], scalars, **kw)
+        if cuda:
+            updated = mark(compute)
+            with torch.cuda.stream(d2h):
+                d2h.wait_event(updated)
+                t0 = mark(d2h)
+                for i, a, n, off in pieces:
+                    flat[i][1][a:a + n].copy_(mb[off:off + n], non_blocking=True)
+                    flat[i][2][a:a + n].copy_(vb[off:off + n], non_blocking=True)
+                freed[c % n_buffers] = mark(d2h)
+                spans.append(("d2h_s", t0, freed[c % n_buffers]))
+        else:
+            for i, a, n, off in pieces:
+                flat[i][1][a:a + n].copy_(mb[off:off + n])
+                flat[i][2][a:a + n].copy_(vb[off:off + n])
+    if cuda:
+        # The host moments are the state's from here on, and the staging buffers go back
+        # to the allocator: both need every copy done.
+        d2h.synchronize()
+        compute.wait_stream(d2h)
+        for key, start, end in spans:
+            stats[key] += start.elapsed_time(end) / 1e3
+    return stats
 
 
 def fused_adamw(learning_rate: Union[float, Callable] = 1e-3, b1: float = 0.9,

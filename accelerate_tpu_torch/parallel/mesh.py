@@ -9,7 +9,9 @@ batch axes ``(dp, fsdp)`` together. An axis set of size 1 has no group (``None``
 the port's collectives skip it, so a one-process mesh needs no process group at all.
 
 - :class:`MeshConfig` — the axis sizes, one ``-1`` filling the rest, with the JAX
-  package's validation errors; ``from_env`` reads ``ACCELERATE_MESH_*``.
+  package's validation errors; ``from_env`` reads ``ACCELERATE_MESH_*``;
+  ``from_plugins`` derives the layout from the plugins (the fsdp plugin's ZeRO stage
+  gives the fsdp axis every rank left after tp·pp·sp·ep; HYBRID shards within a node).
 - :func:`build_mesh` — the mesh over the initialized ``torch.distributed`` world (or
   one process). Every rank must call it, in the same order: it creates the groups.
 - :func:`mesh_context` / :func:`current_mesh` — the ambient mesh of a train step (the
@@ -19,7 +21,7 @@ the port's collectives skip it, so a one-process mesh needs no process group at 
   tuple of axis names, so ``models.llama.partition_specs`` reads as in JAX.
 
 Not ported: the multi-slice ``dcn_dp`` layout (``from_env`` accepts ``DCN_DP=1`` and
-raises on more) and ``from_plugins``.
+raises on more).
 """
 
 from __future__ import annotations
@@ -132,6 +134,41 @@ class MeshConfig:
                 "is not ported")
         return cls(**values)
 
+    @classmethod
+    def from_plugins(cls, fsdp_plugin=None, tp_plugin=None, pp_plugin=None, sp_plugin=None,
+                     ep_plugin=None, num_devices: Optional[int] = None) -> "MeshConfig":
+        """The mesh of the active plugins (the JAX package's rule; a plugin is any object
+        with the ``tp_size``/``pp_size``/``sp_size``/``ep_size`` attribute). The device
+        count is the world size. With an fsdp plugin of ZeRO stage > 0, the fsdp axis
+        takes every rank left after tp·pp·sp·ep; a HYBRID strategy shards within a node
+        (``gcd(rest, LOCAL_WORLD_SIZE)``, the processes of one node standing for JAX's
+        ``local_device_count``) and replicates across nodes over dp. Otherwise dp does."""
+        cfg = cls(tp=tp_plugin.tp_size if tp_plugin else 1,
+                  pp=pp_plugin.pp_size if pp_plugin else 1,
+                  sp=sp_plugin.sp_size if sp_plugin else 1,
+                  ep=ep_plugin.ep_size if ep_plugin else 1)
+        if num_devices is None:
+            num_devices = _world()[1]
+        fixed = cfg.tp * cfg.pp * cfg.sp * cfg.ep
+        if num_devices % fixed != 0:
+            raise ValueError(
+                f"tp*pp*sp*ep = {fixed} does not divide the {num_devices} available devices "
+                f"(tp={cfg.tp}, pp={cfg.pp}, sp={cfg.sp}, ep={cfg.ep})")
+        rest = num_devices // fixed
+        if fsdp_plugin is not None and fsdp_plugin.zero_stage > 0:
+            from ..utils.dataclasses import FSDPShardingStrategy
+
+            if fsdp_plugin.sharding_strategy in (FSDPShardingStrategy.HYBRID_SHARD,
+                                                 FSDPShardingStrategy.HYBRID_SHARD_ZERO2):
+                local = max(1, int(os.environ.get("LOCAL_WORLD_SIZE") or num_devices))
+                cfg.fsdp = math.gcd(rest, local)
+                cfg.dp = rest // cfg.fsdp
+            else:
+                cfg.fsdp, cfg.dp = rest, 1
+        else:
+            cfg.dp, cfg.fsdp = rest, 1
+        return cfg
+
 
 def _world() -> tuple[int, int]:
     """(rank, world size) of the initialized process group, or (0, 1)."""
@@ -214,11 +251,14 @@ class Mesh:
 
 
 def _group_axes(shape: dict) -> list:
-    """The axis sets that get a process group: each axis of size > 1, and the batch
-    axes together when both are > 1 (``Mesh.group`` drops axes of size 1)."""
+    """The axis sets that get a process group: each axis of size > 1, the batch axes
+    together when both are > 1, and ``(fsdp, tp)`` when both are > 1 (the ranks holding
+    the pieces of a leaf split over both; ``Mesh.group`` drops axes of size 1)."""
     sets = [(name,) for name in MESH_AXIS_NAMES if shape[name] > 1]
     if all(shape[a] > 1 for a in BATCH_AXES):
         sets.append(BATCH_AXES)
+    if shape[FSDP_AXIS] > 1 and shape[TENSOR_AXIS] > 1:
+        sets.append((FSDP_AXIS, TENSOR_AXIS))
     return sets
 
 

@@ -7,9 +7,10 @@ partition_specs``, a registered plan, or :func:`plan_from_rules`).
 :func:`apply_tensor_parallel` gives each rank its contiguous shard of every leaf along
 the spec's axes; :func:`gather_tensor_parallel` puts the shards back together. A spec
 tree whose layer entry is one dict (the stacked ``scan_layers`` specs) applies to each
-layer of a per-layer list with its leading entry dropped. Only the ``tp`` axis may have
-more than one rank in a param spec: fsdp, sp, pp and ep sharding raise
-``NotImplementedError`` in this slice.
+layer of a per-layer list with its leading entry dropped. A param spec may split a leaf
+over ``tp`` and ``fsdp`` (both on one dim as ``(tp, fsdp)``: tp the outer index);
+``apply_tensor_parallel(..., fsdp_plugin=)`` adds the fsdp axis on the first free dim
+(``parallel/fsdp.py``). sp, pp and ep specs raise ``NotImplementedError``.
 
 The collectives (Megatron's regions), each over an explicit process group; a ``None``
 group is one rank, and every collective is then the identity:
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..utils.constants import TENSOR_AXIS
+from ..utils.constants import FSDP_AXIS, TENSOR_AXIS
 from ..utils.tree import tree_leaves
 from .mesh import Mesh, P, spec_axes
 
@@ -95,10 +96,10 @@ def _slices(shape, spec, mesh: Optional[Mesh]) -> tuple:
         axes = spec_axes(entry)
         n = 1 if mesh is None or not axes else mesh.axis_size(axes)
         for a in axes:
-            if mesh is not None and a != TENSOR_AXIS and mesh.shape[a] > 1:
+            if mesh is not None and a not in (TENSOR_AXIS, FSDP_AXIS) and mesh.shape[a] > 1:
                 raise NotImplementedError(
                     f"sharding a param over {a!r} (size {mesh.shape[a]}) is not ported: "
-                    "fsdp, sp, pp and ep specs come in a later slice")
+                    "sp, pp and ep specs come in a later slice")
         if n == 1:
             out.append(slice(None))
             continue
@@ -151,14 +152,19 @@ def _unstack_specs(specs):
 
 
 def apply_tensor_parallel(params: Any, mesh: Optional[Mesh], specs: Any = None,
-                          plan: Optional[str] = None) -> Any:
+                          plan: Optional[str] = None, fsdp_plugin=None) -> Any:
     """Each leaf's shard on this rank under ``specs`` (or a registered ``plan``'s
-    specs). ``mesh`` None is one rank: the leaves come back as they are."""
+    specs), composed with fsdp as the JAX package composes it: the model's spec first,
+    the fsdp axis on the first free dim (``fsdp.get_fsdp_shardings``; no plugin: the
+    default FULL_SHARD, which adds nothing on a mesh without an fsdp axis). ``mesh``
+    None is one rank: the leaves come back as they are."""
+    from .fsdp import shard_params
+
     if specs is None:
         if plan is None:
             raise ValueError("Pass either a spec pytree or a registered plan name")
         specs = get_tp_plan(plan)(params)
-    return map_with_specs(lambda leaf, spec: local_shard(leaf, spec, mesh), params, specs)
+    return shard_params(params, mesh, fsdp_plugin, specs)[0]
 
 
 def gather_tensor_parallel(params: Any, mesh: Optional[Mesh], specs: Any) -> Any:
@@ -270,28 +276,31 @@ def vocab_parallel_embedding(table: torch.Tensor, ids: torch.Tensor, group,
     return reduce_from_group(rows, group)
 
 
-def split_dims(params: Any, specs: Any, mesh: Optional[Mesh]) -> list:
+def split_dims(params: Any, specs: Any, mesh: Optional[Mesh], axis: str = TENSOR_AXIS) -> list:
     """Per leaf of ``params`` (in ``tree_leaves`` order), the dim its spec splits over
-    the ranks of ``mesh`` (None: the leaf is whole on every rank)."""
+    the ``axis`` ranks of ``mesh`` (None: no rank of that axis holds a piece of it)."""
     def dim(leaf, spec):
         for d, entry in enumerate(spec or ()):
-            if mesh is not None and mesh.axis_size(spec_axes(entry)) > 1:
+            if mesh is not None and axis in spec_axes(entry) and mesh.shape[axis] > 1:
                 return d
         return -1  # not None: tree_leaves drops None
 
     return [None if d < 0 else d for d in tree_leaves(map_with_specs(dim, params, specs))]
 
 
-def gather_split_leaf(leaf: torch.Tensor, dim: Optional[int], mesh: Optional[Mesh]):
-    """The whole of a leaf split along ``dim`` over the tp ranks (a collective of the
-    tp group: every rank calls it); ``leaf`` itself when ``dim`` is None."""
+def gather_split_leaf(leaf: torch.Tensor, dim: Optional[int], mesh: Optional[Mesh],
+                      axis: str = TENSOR_AXIS):
+    """The whole of a leaf split along ``dim`` over the ``axis`` ranks (a collective of
+    that axis's group: every rank calls it); ``leaf`` itself when ``dim`` is None. A
+    leaf split over ``(tp, fsdp)`` on one dim gathers over fsdp first (the inner
+    index)."""
     if dim is None or mesh is None:
         return leaf
-    n = mesh.axis_size(TENSOR_AXIS)
+    n = mesh.axis_size(axis)
     full_shape = list(leaf.shape)
     full_shape[dim] *= n
     buf = torch.zeros(full_shape, dtype=leaf.dtype, device=leaf.device)
     k = leaf.shape[dim]
-    i = mesh.axis_index(TENSOR_AXIS)
+    i = mesh.axis_index(axis)
     buf.narrow(dim, i * k, k).copy_(leaf.detach())
-    return all_reduce(buf, "sum", mesh.group(TENSOR_AXIS))
+    return all_reduce(buf, "sum", mesh.group(axis))

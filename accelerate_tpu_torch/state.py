@@ -15,8 +15,12 @@ for the CPU when the caller names no device, ``ACCELERATE_DEBUG_MODE`` sets ``de
 and ``ACCELERATE_MIXED_PRECISION`` is the precision when the caller passes none. ``AcceleratorState(mesh_config=...)``
 lays the ranks out on a ``parallel.mesh.Mesh`` (also built, all-dp, when several
 processes run without a config, as the JAX package always builds one); with one process
-and no config there is no mesh. Each class keeps the shared-dict singleton of the JAX
-package: every instance observes one state until ``_reset_state()``.
+and no config there is no mesh. An fsdp plugin (``FullyShardedDataParallelPlugin``) is kept
+as ``fsdp_plugin``; without a mesh config it lays several processes out by
+``MeshConfig.from_plugins`` (the launcher's ``ACCELERATE_MESH_*`` then do not apply, as
+in JAX), and a dp×fsdp mesh refines ``distributed_type`` to ``FSDP``. Each class keeps
+the shared-dict singleton of the JAX package: every instance observes one state until
+``_reset_state()``.
 """
 
 from __future__ import annotations
@@ -113,7 +117,11 @@ class PartialState:
             dist.barrier()
 
     def destroy_process_group(self) -> None:
-        """Leave the process group (a no-op when none is initialized)."""
+        """Leave the process group (a no-op when none is initialized), dropping the
+        fsdp collectives' CUDA IPC buffers first."""
+        from .parallel.fsdp import release_shared
+
+        release_shared()
         if dist.is_available() and dist.is_initialized():
             dist.destroy_process_group()
 
@@ -147,7 +155,7 @@ class AcceleratorState:
     _shared_state: dict[str, Any] = {}
 
     def __init__(self, mixed_precision: Optional[str] = None, cpu: bool = False, device=None,
-                 mesh_config=None, backend: Optional[str] = None):
+                 mesh_config=None, backend: Optional[str] = None, fsdp_plugin=None):
         self.__dict__ = self._shared_state
         if self.initialized:
             self._partial._check_device(cpu, device)
@@ -162,6 +170,11 @@ class AcceleratorState:
                     f"AcceleratorState already initialized with mesh_config="
                     f"{self.mesh_config}; cannot re-init with {mesh_config}. Call "
                     "AcceleratorState._reset_state() first (tests).")
+            if fsdp_plugin is not None and fsdp_plugin != self.fsdp_plugin:
+                raise ValueError(
+                    f"AcceleratorState already initialized with fsdp_plugin="
+                    f"{self.fsdp_plugin}; cannot re-init with {fsdp_plugin}. Call "
+                    "AcceleratorState._reset_state() first (tests).")
             return
         from .parallel.mesh import MeshConfig, build_mesh
 
@@ -170,10 +183,13 @@ class AcceleratorState:
             mixed_precision = parse_choice_from_env("ACCELERATE_MIXED_PRECISION", "no")
         self._mixed_precision = str(PrecisionType(mixed_precision))
         self.mixed_precision_policy = MixedPrecisionPolicy.from_precision(self._mixed_precision)
-        if mesh_config is None:
+        self.fsdp_plugin = fsdp_plugin
+        if mesh_config is None and fsdp_plugin is None:
             mesh_config = MeshConfig.from_env()
         if mesh_config is None and self._partial.num_processes > 1:
-            mesh_config = MeshConfig()
+            mesh_config = (MeshConfig() if fsdp_plugin is None else
+                           MeshConfig.from_plugins(fsdp_plugin=fsdp_plugin,
+                                                   num_devices=self._partial.num_processes))
         self.mesh_config = mesh_config
         self.mesh = build_mesh(mesh_config) if mesh_config is not None else None
         self.distributed_type = self._refine_distributed_type()
@@ -220,6 +236,9 @@ class AcceleratorState:
 
     @classmethod
     def _reset_state(cls, reset_partial_state: bool = False) -> None:
+        from .parallel.fsdp import release_shared
+
+        release_shared()  # the mesh's groups go with the state
         cls._shared_state.clear()
         if reset_partial_state:
             PartialState._reset_state()

@@ -6,8 +6,9 @@ Copies of ``accelerate_tpu/utils/dataclasses.py``'s ``KwargsHandler``, ``Precisi
 sentinels), ``ProjectConfiguration``, ``GatewayConfig`` (the serving gateway's, with its
 validation and its ``ACCELERATE_GATEWAY`` environment variable), ``TelemetryConfig``
 (``ACCELERATE_TELEMETRY``, ``ACCELERATE_TELEMETRY_DIR``), ``FaultConfig``
-(``ACCELERATE_FAULTS``), ``FP8RecipeKwargs`` (``ACCELERATE_FP8_*``) and
-``TensorInformation``. ``RNGType`` has no ``jax`` member: the port draws no JAX keys.
+(``ACCELERATE_FAULTS``), ``FP8RecipeKwargs`` (``ACCELERATE_FP8_*``),
+``FSDPShardingStrategy`` and ``FullyShardedDataParallelPlugin`` (``ACCELERATE_FSDP_*``)
+and ``TensorInformation``. ``RNGType`` has no ``jax`` member: the port draws no JAX keys.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ __all__ = [
     "KwargsHandler", "PrecisionType", "DistributedType", "RNGType",
     "GradientAccumulationPlugin", "MixedPrecisionPolicy", "DataLoaderConfiguration",
     "ProjectConfiguration", "GatewayConfig", "TelemetryConfig", "FaultConfig",
-    "FP8RecipeKwargs", "TensorInformation", "parse_flag_from_env",
+    "FP8RecipeKwargs", "FSDPShardingStrategy", "FullyShardedDataParallelPlugin",
+    "TensorInformation", "parse_flag_from_env",
 ]
 
 
@@ -162,6 +164,79 @@ class FP8RecipeKwargs(KwargsHandler):
             raise ValueError("`amax_compute_algo` must be max or most_recent.")
         if self.opt_level not in ("O1", "O2"):
             raise ValueError("`opt_level` must be O1 or O2.")
+
+
+class FSDPShardingStrategy(BaseEnum):
+    """FSDP strategy names → ZeRO stages over the ``fsdp`` mesh axis."""
+
+    FULL_SHARD = "FULL_SHARD"          # ZeRO-3
+    SHARD_GRAD_OP = "SHARD_GRAD_OP"    # ZeRO-2
+    NO_SHARD = "NO_SHARD"              # DDP
+    HYBRID_SHARD = "HYBRID_SHARD"      # ZeRO-3 within a node, replicated across nodes
+    HYBRID_SHARD_ZERO2 = "HYBRID_SHARD_ZERO2"
+
+
+@dataclass
+class FullyShardedDataParallelPlugin(KwargsHandler):
+    """ZeRO/FSDP sharding along the ``fsdp`` mesh axis (``parallel/fsdp.py``).
+
+    ``zero_stage`` (None: from ``sharding_strategy``) picks what is split over the fsdp
+    ranks: 1 the optimizer state, 2 also the gradients and accumulation buffers, 3 also
+    the params. ``min_weight_size``: leaves with fewer elements stay replicated.
+    ``state_dict_type``: ``SHARDED_STATE_DICT`` (each rank writes its shards) or
+    ``FULL_STATE_DICT`` (gathered, one file written by rank 0). ``cpu_offload``: the
+    optimizer state and the accumulation buffers live in (pinned) host memory between
+    steps. Each None field resolves from the launcher's ``ACCELERATE_FSDP_ZERO_STAGE``,
+    ``_MIN_WEIGHT_SIZE``, ``_STATE_DICT_TYPE`` variable (``_CPU_OFFLOAD`` turns offload
+    on when the argument left it off), else the built-in default: an explicit value
+    always wins. ``use_orig_params``, ``cpu_ram_efficient_loading`` and
+    ``sync_module_states`` are accepted for configuration compatibility: params are
+    plain trees (their original form), a rank slices its shards from the tree it is
+    given, and every rank builds the same seeded tree."""
+
+    sharding_strategy: Any = FSDPShardingStrategy.FULL_SHARD
+    zero_stage: Optional[int] = None          # overrides sharding_strategy if set
+    min_weight_size: Optional[int] = None     # None → env > 1024
+    shard_axis: str = "fsdp"
+    state_dict_type: Optional[str] = None     # None → env > SHARDED_STATE_DICT
+    cpu_offload: bool = False
+    use_orig_params: bool = True
+    cpu_ram_efficient_loading: bool = True
+    sync_module_states: bool = True
+
+    def __post_init__(self):
+        self.sharding_strategy = FSDPShardingStrategy(str(self.sharding_strategy))
+        env_stage = os.environ.get("ACCELERATE_FSDP_ZERO_STAGE")
+        if self.zero_stage is None and env_stage is not None:
+            self.zero_stage = int(env_stage)
+        if not self.cpu_offload and parse_flag_from_env("ACCELERATE_FSDP_CPU_OFFLOAD"):
+            self.cpu_offload = True
+        if self.state_dict_type is None:
+            self.state_dict_type = os.environ.get("ACCELERATE_FSDP_STATE_DICT_TYPE",
+                                                  "SHARDED_STATE_DICT")
+        if self.min_weight_size is None:
+            self.min_weight_size = int(os.environ.get("ACCELERATE_FSDP_MIN_WEIGHT_SIZE",
+                                                      2**10))
+        if self.zero_stage is None:
+            self.zero_stage = {
+                FSDPShardingStrategy.FULL_SHARD: 3,
+                FSDPShardingStrategy.SHARD_GRAD_OP: 2,
+                FSDPShardingStrategy.NO_SHARD: 0,
+                FSDPShardingStrategy.HYBRID_SHARD: 3,
+                FSDPShardingStrategy.HYBRID_SHARD_ZERO2: 2,
+            }[self.sharding_strategy]
+
+    @property
+    def shards_params(self) -> bool:
+        return self.zero_stage >= 3
+
+    @property
+    def shards_grads(self) -> bool:
+        return self.zero_stage >= 2
+
+    @property
+    def shards_optimizer(self) -> bool:
+        return self.zero_stage >= 1
 
 
 @dataclass

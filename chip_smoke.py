@@ -182,7 +182,9 @@ that names the phase, its failed cases and the exception:
    ``fused_adamw``, global-norm clip; the first loss against ``train_main``'s, each
    rank's launches per step, peak memory of the set-up and of the steps, and step time
    (two ranks on one card with collectives staged through host memory: not a
-   tensor-parallel speed).
+   tensor-parallel speed). Since slice 20, 3 steps (2 warm-up, 1 timed), and phases
+   15, 16 and 30 share one launch of the two ranks (``train_ranks``, after 29): a rank
+   process pays its start and its first step's warm-up once.
 17. train_resume (run right after train_fused) — save and resume at ``train_main``'s
    configuration with the depth cut to 1 layer (``RESUME_LAYERS``: two 8-layer
    checkpoints wrote 67 GB, past the 45 GiB of disk a run on the card's host may write;
@@ -236,8 +238,8 @@ that names the phase, its failed cases and the exception:
    ``step()``): streams equal ``main``'s, requests adopted again
    (``main_disagg_crash``). Both run right after ``main_disagg`` (their numbers in the
    list are those of the slice that added them), before ``main_control``.
-21. main_control — the serving control plane at Llama-3-8B's full width and depth
-   through the port's serve-bench entry points on the virtual clock (every engine,
+21. main_control — the serving control plane at Llama-3-8B's full width, depth cut to
+   BENCH_LAYERS (8; main_bench likewise), through the port's serve-bench entry points on the virtual clock (every engine,
    spawned and restarted ones included, warmed before traffic): a trace replay whose
    live metrics plane one HTTP scrape on 127.0.0.1 and ``metrics_dump``'s offline
    re-aggregation must equal; the chaos proof at ``main``'s geometry (decode, prefill
@@ -287,6 +289,28 @@ that names the phase, its failed cases and the exception:
 27. qlora_closure — the same adapters over main_int8's int8 base in the closure form
    (the state holds only the adapters), 3 steps: the int8 bytes unchanged, losses
    falling, kernel #10's launches exact; #10's time at M = 2048.
+28. packed_check (after fused_xent_partial; slice 20) — one seeded packed batch (documents of
+   64-1536 tokens packed first-fit by ``ops.packing.pack_sequences`` into 2 rows of 2048,
+   4-5 documents a row) at Llama-3-8B's width, 2 layers, forward only: the packed loss
+   against the documents' own losses (token-weighted), each document's packed hidden
+   states against its own alone, the flash kernels' segment route and the bf16 einsum
+   attention each against an fp32 einsum reference, a planted fault (segment ids
+   dropped) caught; #2's segment launches.
+29. train_offload — ``cpu_offload`` on one rank: 2 layers bitwise against no offload;
+   then Llama-3-8B at full depth (32 layers, one
+   packed row of 7 documents; fewer when the host's available memory cannot pin the
+   moments, printed as ``full_depth: false``) with its moments streamed from pinned
+   host memory: step time, the stream's rates, #9 once a chunk.
+30. train_ranks (the shared launch: train_tp_parity, train_tp, then train_fsdp's ranks),
+   train_tp_parity and train_tp (15, 16), then train_fsdp — ZeRO-3, ZeRO-2 and ZeRO-1
+   on two gloo ranks sharing the card (dp1×fsdp2, 2 layers, the packed batch,
+   collectives through CUDA IPC) against a one-rank arm run before the launch (its
+   params on the card, read by the ranks through CUDA IPC): losses, params, ZeRO-3's
+   halved resident state, launches, collective
+   bytes and routes; fsdp_ckpt — the ranks' depth-1 ZeRO-3 state saved SHARDED and
+   FULL_STATE_DICT under /dev/shm: FULL reloaded into the ranks, the SHARDED save
+   resharded into one rank, the FULL checkpoint into one rank, ``merge-weights``: every
+   leaf bitwise (per-leaf checksums summed from each rank's pieces).
 
 Then each phase's wall seconds, the kernels line (the serving kernels' launches include the super-steps' graph
 replays: kernel nodes times replays), the card's name and power limit, and a last line
@@ -3430,11 +3454,34 @@ CONTROL_CHAOS = dict(requests=24, chaos_rate=0.08, chaos_sites=("decode", "prefi
                      seed=0)
 CONTROL_FLEET = dict(n_replicas=3, requests=16, kill_rate=0.1, kills_per_replica=2, load=2.0,
                      overload=0.5, seed=0)
-CONTROL_AUTOSCALE = dict(requests=32, min_replicas=1, max_replicas=3, cooldown_s=4.0,
+CONTROL_AUTOSCALE = dict(requests=16, min_replicas=1, max_replicas=3, cooldown_s=4.0,
                          down_cooldown_s=4.0, idle_window_s=4.0, forecast_window_s=8.0 / 3,
                          seed=0)
 CONTROL_TRACE = dict(generator="poisson", requests=16, seed=4)
 CONTROL_GEOMETRY = dict(max_slots=8, max_len=1024, prompt_bucket=64)
+
+
+#: main_control's and main_bench's depth: their gates (policies, faults, kills,
+#: scaling on the virtual clock, stream equality between arms) do not depend on depth,
+#: and their engines' warm-ups and host-bound N = 1 steps scale with it (32 before
+#: slice 20, cut to keep the script in its time). Registered as a preset of its own,
+#: the first BENCH_LAYERS layers of ``main``'s params.
+BENCH_LAYERS = 8
+BENCH_PRESET = f"llama3-8b-{BENCH_LAYERS}l"
+
+
+def bench_model(dev, main: dict):
+    """(cfg, params) of main_control and main_bench: Llama-3-8B's widths at depth
+    BENCH_LAYERS (the preset BENCH_PRESET), the first layers of ``main``'s params."""
+    from accelerate_tpu_torch.models import llama
+
+    llama.CONFIGS.setdefault(BENCH_PRESET, dataclasses.replace(
+        llama.CONFIGS["llama3-8b"], n_layers=BENCH_LAYERS))
+    cfg = dataclasses.replace(llama.CONFIGS[BENCH_PRESET], dtype=torch.bfloat16)
+    params = main.get("params") or llama.init_params(
+        dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16),
+        generator=torch.Generator(dev).manual_seed(0), device=dev)
+    return cfg, {**params, "layers": params["layers"][:BENCH_LAYERS]}
 
 
 class _ControlEngines:
@@ -3500,8 +3547,8 @@ def _scrape_equals_stats(plane) -> dict:
 
 
 def phase_main_control(dev, main: dict) -> dict:
-    """The serving control plane at Llama-3-8B's full width and depth (bf16, ``main``'s
-    seeded params shared by every replica), through the port's own serve-bench entry
+    """The serving control plane at Llama-3-8B's full width, depth BENCH_LAYERS (bf16,
+    the first layers of ``main``'s seeded params, shared by every replica), through the port's own serve-bench entry
     points on the virtual clock, every engine warmed with ``warm_programs()`` before it
     takes traffic (the spawned and restarted replicas included):
 
@@ -3537,10 +3584,8 @@ def phase_main_control(dev, main: dict) -> dict:
     from accelerate_tpu_torch.telemetry.metrics import M_TOKENS_PER_SECOND
     from accelerate_tpu_torch.utils.dataclasses import TelemetryConfig
 
-    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
-    params = main.get("params") or llama.init_params(
-        cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
-    common = dict(preset="llama3-8b", device=dev, dtype=torch.bfloat16, params=params)
+    cfg, params = bench_model(dev, main)
+    common = dict(preset=BENCH_PRESET, device=dev, dtype=torch.bfloat16, params=params)
     smi = nvidia_smi()
     hooks = _ControlEngines(cfg.n_layers)
     wall = {}
@@ -3613,7 +3658,7 @@ def phase_main_control(dev, main: dict) -> dict:
         got = [mism[i]["chaos"] if i in mism else [] for i in range(len(trace))]
         readmits = {i: m["readmitted_with"] for i, m in mism.items()}
         div = recovery_divergence(params, cfg, workload, want, got, readmits)
-        res = {"phase": "control_chaos", "config": "llama3-8b", "dtype": "bfloat16",
+        res = {"phase": "control_chaos", "config": BENCH_PRESET, "dtype": "bfloat16",
                "engine": MAIN_ENGINE, **CONTROL_CHAOS,
                "fired_by_site": chaos["fault_plan"]["fired_by_site"],
                "streams_compared": chaos["streams_compared"],
@@ -3732,17 +3777,17 @@ def phase_main_control(dev, main: dict) -> dict:
 
 # --------------------------------------------- phase 4c': serve-bench's remaining modes
 #: serve-bench's host-clock modes at Llama-3-8B, cut in request counts to fit the run.
-BENCH_ROWS = dict(requests=16, max_slots=8, max_len=1024, prompt_bucket=128, max_new=16,
+BENCH_ROWS = dict(requests=8, max_slots=8, max_len=1024, prompt_bucket=128, max_new=16,
                   page_size=16, seed=0)
 BENCH_CURVES = dict(generators=("poisson", "tenant_flood"), policies=("fifo", "priority", "edf"),
                     loads=(4.0,), requests=24, max_slots=8, max_len=1024, prompt_bucket=64,
                     seed=0)
-BENCH_DISAGG = dict(prefill_replicas=1, decode_replicas=1, requests=16, max_slots=8,
+BENCH_DISAGG = dict(prefill_replicas=1, decode_replicas=1, requests=8, max_slots=8,
                     max_len=1024, prompt_bucket=128, max_new=16, page_size=8, seed=0)
-BENCH_PAGED = dict(budget_rows=2, max_slots=8, requests=12, prefix_cache=2, seed=0)
-BENCH_MULTISTEP = dict(decode_steps=(1, MULTI_N), requests=16, max_new=32, max_slots=8,
+BENCH_PAGED = dict(budget_rows=2, max_slots=8, requests=8, prefix_cache=2, seed=0)
+BENCH_MULTISTEP = dict(decode_steps=(1, MULTI_N), requests=8, max_new=32, max_slots=8,
                        page_size=16, seed=0)
-BENCH_SPEC = dict(requests=12, spec_k=SPEC_K, fused_steps=MULTI_N, sweep_requests=12, seed=0)
+BENCH_SPEC = dict(requests=6, spec_k=SPEC_K, fused_steps=MULTI_N, sweep_requests=6, seed=0)
 
 
 class _ReturnProbe:
@@ -3785,7 +3830,8 @@ def _p95(block) -> float:
 
 def phase_main_bench(dev, main: dict) -> dict:
     """serve-bench's host-clock modes and its attainment curves at Llama-3-8B's full
-    width and depth (bf16, ``main``'s seeded params shared by every engine), through the
+    width, depth BENCH_LAYERS (bf16, the first layers of ``main``'s seeded params,
+    shared by every engine), through the
     port's ``run_*`` entry points, every engine warmed with ``warm_programs()`` before
     traffic:
 
@@ -3808,10 +3854,8 @@ def phase_main_bench(dev, main: dict) -> dict:
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.ops.paged_attention import paged_attention
 
-    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], dtype=torch.bfloat16)
-    params = main.get("params") or llama.init_params(
-        cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
-    common = dict(preset="llama3-8b", device=dev, dtype=torch.bfloat16, params=params)
+    cfg, params = bench_model(dev, main)
+    common = dict(preset=BENCH_PRESET, device=dev, dtype=torch.bfloat16, params=params)
     smi = nvidia_smi()
     hooks = _ControlEngines(cfg.n_layers)
     ragged0 = paged_attention.launches_ragged
@@ -6766,24 +6810,26 @@ def _flat_params(flat: dict) -> np.ndarray:
                            + [v for layer in flat["layers"] for v in layer.values()]])
 
 
-def phase_train_tp_parity(dev) -> None:
+def phase_train_tp_parity(dev, launched=None) -> None:
     """The tensor-parallel train step on the card (2 gloo ranks sharing it, dp1×tp2,
     ``loss_impl="fused_tp"``, kernel #6 and the fused-CE backward on each rank's vocab
     slice) against the same step on the CPU in one process (``loss_impl="fused"``, the
     plain versions): ``debug`` config, fp32, TF32 off, 3 steps of ``fused_adamw`` with
     ``max_grad_norm=1.0``; losses, the gathered params, and each step's global grad norm
     (AdamW's update barely moves when a leaf's gradient is scaled by a constant, so a
-    tp-scaled or twice-reduced gradient shows in the norm, not in the params)."""
+    tp-scaled or twice-reduced gradient shows in the norm, not in the params).
+    ``launched``: the ranks' results and seconds from ``phase_train_ranks``' shared
+    launch (None: this phase launches its own ranks)."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.launchers import notebook_launcher
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.models.convert import params_to_numpy
     from accelerate_tpu_torch.ops.fused_optim import fused_adamw
 
-    lr, steps = 1e-3, 3
+    lr, steps = TP_PARITY_LR, TP_PARITY_STEPS
     cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32, attn_impl="flash",
                               loss_impl="fused")
-    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 129))
+    tokens = _tp_parity_tokens()
     _fresh_state_singletons()
     acc = Accelerator(device="cpu")
     state = acc.create_train_state(
@@ -6797,11 +6843,13 @@ def phase_train_tp_parity(dev) -> None:
         n_cpu.append(float(metrics["grad_norm"]))
     p_cpu = _flat_params(params_to_numpy(state.params))
     _fresh_state_singletons()
-    t0 = time.perf_counter()
-    card = _rank_device(dev)
-    ranks = notebook_launcher(tp_rank_parity, (tokens, lr, steps, card), 2, device=card,
-                              backend="gloo", timeout_s=600)
-    launch_s = time.perf_counter() - t0
+    if launched is None:
+        t0 = time.perf_counter()
+        card = _rank_device(dev)
+        ranks = notebook_launcher(tp_rank_parity, (tokens, lr, steps, card), 2, device=card,
+                                  backend="gloo", timeout_s=600)
+        launched = (ranks, time.perf_counter() - t0)
+    ranks, launch_s = launched
     L = cfg.n_layers
     expect = {"fused_xent_partial": steps, "fused_xent_bwd": steps, "fused_xent_fwd": 0,
               "flash_fwd": L * steps, "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps,
@@ -6831,7 +6879,18 @@ def phase_train_tp_parity(dev) -> None:
         raise SystemExit("tensor-parallel train step on the card disagrees with the CPU")
 
 
-TP_STEPS = 5  # 2 warm-up steps and 3 timed
+TP_STEPS = 3  # 2 warm-up steps and 1 timed (5 before slice 20, for the script's time)
+TP_PARITY_LR, TP_PARITY_STEPS = 1e-3, 3
+
+
+def _tp_parity_tokens():
+    from accelerate_tpu_torch.models import llama
+
+    return np.random.default_rng(4).integers(0, llama.CONFIGS["debug"].vocab_size, (2, 129))
+
+
+def _tp_main_tokens():
+    return np.random.default_rng(0).integers(0, 128256, (TRAIN_B, TRAIN_S + 1))
 
 
 def tp_rank_main(tokens, device: str) -> dict:
@@ -6891,26 +6950,29 @@ def tp_rank_main(tokens, device: str) -> dict:
             "layer_leaf_sizes_mod_1024": shard_sizes}
 
 
-def phase_train_tp(dev, first_loss: float) -> dict:
+def phase_train_tp(dev, first_loss: float, launched=None) -> dict:
     """The tensor-parallel training path at Llama-3-8B's full width, depth TRAIN_LAYERS:
     two gloo ranks share the card (dp1×tp2), each holding half of every projection, of
     the embedding and of the head, on ``train_main``'s seeded weights and batch. The
     first loss must be within 2e-3 of ``train_main``'s, and each rank's launches per step
     must be kernel #6 once, the fused-CE backward once, the flash forward 2L (remat), dq
     and dk/dv L each, AdamW once. The step time is two ranks on one card with the
-    collectives staged through host memory by gloo: no tensor-parallel speed."""
+    collectives staged through host memory by gloo: no tensor-parallel speed.
+    ``launched``: the ranks' results and seconds from ``phase_train_ranks``' shared
+    launch (None: this phase launches its own ranks)."""
     from accelerate_tpu_torch.launchers import notebook_launcher
 
     _fresh_state_singletons()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     parent_bytes = torch.cuda.memory_allocated()
-    tokens = np.random.default_rng(0).integers(0, 128256, (TRAIN_B, TRAIN_S + 1))
-    t0 = time.perf_counter()
-    card = _rank_device(dev)
-    ranks = notebook_launcher(tp_rank_main, (tokens, card), 2, device=card, backend="gloo",
-                              timeout_s=900)
-    launch_s = time.perf_counter() - t0
+    if launched is None:
+        t0 = time.perf_counter()
+        card = _rank_device(dev)
+        ranks = notebook_launcher(tp_rank_main, (_tp_main_tokens(), card), 2, device=card,
+                                  backend="gloo", timeout_s=900)
+        launched = (ranks, time.perf_counter() - t0)
+    ranks, launch_s = launched
     L, n = TRAIN_LAYERS, TP_STEPS
     expect = {"fused_xent_partial": n, "fused_xent_bwd": n, "fused_xent_fwd": 0,
               "flash_fwd": 2 * L * n, "flash_bwd_dq": L * n, "flash_bwd_dkv": L * n,
@@ -7581,6 +7643,790 @@ def check_spills(libs: dict) -> None:
                           [k for k, v in spills.items() if v != 0])
 
 
+# ------------------------------- slice 20: ZeRO/FSDP, cpu_offload and packed batches
+#: The packed batch of every slice-20 phase: documents of 64-1536 tokens (seeded
+#: lengths) packed first-fit by ``ops.packing.pack_sequences`` into rows of S + 1.
+PACK_S, PACK_DOCS = 2048, (64, 1536)
+PACK_DRAWS = 64  # documents drawn at most while a row still has room
+PACKED_LAYERS = 2  # packed_check's depth (forward only)
+#: packed_check's limits (bf16 weights at 8B width): the packed loss against the
+#: token-weighted mean of the documents' own losses (relative); each document's hidden
+#: states in its packed slots against its own, alone (the norm of the difference over
+#: the reference's; 4.2e-3 measured on an H100); the live hidden states of the flash
+#: path, and of the bf16 einsum path, against an fp32 einsum reference (likewise: 1.10e-2
+#: and 1.30e-2 measured: the bf16 forward's rounding, not the attention kernel's); the
+#: planted fault (segment ids dropped; 0.73 measured) must miss the per-document limit
+#: by PACKED_FAULT_MARGIN times at least.
+PACKED_LOSS_TOL, PACKED_DOC_TOL, PACKED_HIDDEN_TOL = 2e-3, 1e-2, 2e-2
+PACKED_FAULT_MARGIN = 10
+FSDP_LAYERS = 2  # train_fsdp's and train_offload (a)'s depth
+FSDP_MESH = {"dp": 1, "fsdp": 2}
+FSDP_STEPS = {3: 3, 2: 2, 1: 2}  # steps of each ZeRO stage's arm
+#: A bf16 step's loss against the one-rank arm's (train_tp's first-loss rule), and the
+#: gathered params after the arm's steps: AdamW's first updates are about lr * sign(g),
+#: so an element whose gradient is at bf16 noise may move the other way (2 lr a step),
+#: while the rest agree closely.
+FSDP_LOSS_TOL, FSDP_LR = 2e-3, 1e-4
+FSDP_PARAM_SHARE = 0.99  # share of elements within lr / 2 of the one-rank arm's
+FSDP_CKPT_LAYERS = 1  # fsdp_ckpt's depth
+OFFLOAD_LAYERS = 32  # train_offload (b): Llama-3-8B's full depth
+OFFLOAD_STEPS = 3  # 1 warm-up and 2 timed
+SHM = Path("/dev/shm")  # checkpoints here: the card's host limits disk writes a call
+
+
+def packed_batch(vocab: int, rows: int, seed: int) -> tuple[dict, list]:
+    """``rows`` rows of ``PACK_S + 1`` tokens packed first-fit from seeded documents
+    (lengths uniform in ``PACK_DOCS``): documents are drawn until every row has less room
+    than the shortest document, or PACK_DRAWS have been drawn; a document that fits no
+    row is skipped. Raises unless every row holds at least 2 documents, one starting
+    past slot 0, with the positions restarting at 0 at each document's first slot.
+    Returns (the packed batch, the documents)."""
+    from accelerate_tpu_torch.ops.packing import pack_sequences
+
+    rng = np.random.default_rng(seed)
+    cap = PACK_S + 1
+    used, docs = [0] * rows, []
+    for _ in range(PACK_DRAWS):
+        if cap - min(used) < PACK_DOCS[0]:
+            break
+        n = int(rng.integers(PACK_DOCS[0], PACK_DOCS[1] + 1))
+        doc = rng.integers(1, vocab, n).astype(np.int32)
+        row = next((r for r in range(rows) if used[r] + n <= cap), None)
+        if row is not None:  # first fit, as pack_sequences places it
+            used[row] += n
+            docs.append(doc)
+    packed = pack_sequences(docs, cap, max_bins=rows)
+    seg, pos = packed["segment_ids"], packed["positions"]
+    starts = (seg != 0) & np.concatenate(
+        [np.ones((rows, 1), bool), seg[:, 1:] != seg[:, :-1]], axis=1)
+    if not (packed["tokens"].shape[0] == rows and (seg.max(1) >= 2).all()
+            and starts[:, 1:].any(1).all() and (pos[starts] == 0).all()
+            and ((pos[:, 1:] == pos[:, :-1] + 1) | starts[:, 1:] | (seg[:, 1:] == 0)).all()):
+        raise PhaseFailed("the packed batch does not hold 2 documents a row",
+                          {"rows": rows, "used": used, "documents": len(docs)})
+    return packed, docs
+
+
+def packed_layout(packed: dict, docs: list) -> dict:
+    """What a phase prints of its packed batch: documents a row, their lengths, the
+    slots where a document starts past slot 0, the live share."""
+    seg = packed["segment_ids"]
+    starts = [[int(i) for i in np.flatnonzero((s[1:] != s[:-1]) & (s[1:] != 0)) + 1]
+              for s in seg]
+    return {"rows": list(packed["tokens"].shape), "documents": len(docs),
+            "documents_per_row": [int(s.max()) for s in seg],
+            "doc_lengths": [len(d) for d in docs], "starts_past_slot_0": starts,
+            "live_share": float((seg != 0).mean())}
+
+
+def _fsdp_cfg(layers: int, **kw):
+    from accelerate_tpu_torch.models import llama
+
+    return dataclasses.replace(llama.CONFIGS["llama3-8b"], n_layers=layers,
+                               dtype=torch.bfloat16, attn_impl="flash", remat=True,
+                               remat_policy="full", loss_impl="auto", **kw)
+
+
+def phase_packed_check(dev) -> dict:
+    """One packed batch at Llama-3-8B's width, depth PACKED_LAYERS, forward only (bf16
+    weights; 2 rows of 4-5 documents each): JAX's ``test_packed_loss_matches_unpacked_sum``
+    and ``test_packed_flash_matches_xla_path`` at full width. Checks: the packed rows'
+    loss within PACKED_LOSS_TOL of the token-weighted mean of each document's loss
+    computed alone; each document's hidden states in its packed slots against the same
+    document's computed alone through the same kernels (segment isolation and the
+    per-segment positions, within PACKED_DOC_TOL); the live slots' hidden states through
+    the flash kernels' segment route and through the bf16 einsum attention (the
+    block-diagonal mask, ``attn_impl="xla"``) each against an fp32 einsum reference,
+    within PACKED_HIDDEN_TOL (the einsum path the witness that the distance is the bf16
+    forward's); a planted fault, the same rows with
+    their segment ids dropped (positions kept), caught by the per-document check by at
+    least PACKED_FAULT_MARGIN times its tolerance. Kernel #2's launches on the segment
+    route: one a layer in the packed loss."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.utils.tree import tree_map
+
+    cfg = dataclasses.replace(_fsdp_cfg(PACKED_LAYERS), remat=False)
+    params = llama.init_params(cfg, generator=torch.Generator(dev).manual_seed(0), device=dev)
+    packed, docs = packed_batch(cfg.vocab_size, 2, seed=20)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in packed.items()}
+    inputs = batch["tokens"][:, :-1]
+    kw = dict(positions=batch["positions"][:, :-1], segment_ids=batch["segment_ids"][:, :-1])
+    live = kw["segment_ids"] != 0
+    # Each document's (row, first slot), in the documents' order: first fit, as packed.
+    used, slots = [0, 0], []
+    for doc in docs:
+        r = next(r for r in range(2) if used[r] + len(doc) <= PACK_S + 1)
+        slots.append((r, used[r]))
+        used[r] += len(doc)
+
+    def rel(x, ref):
+        return float((x - ref).norm() / ref.norm())
+
+    def doc_err(x_packed, alone):
+        """The packed slots' hidden states of every document against its own (the
+        slots that predict a next token: the document's length less 1)."""
+        got = torch.cat([x_packed[r, s:s + len(a)] for (r, s), a in zip(slots, alone)])
+        return rel(got, torch.cat(alone))
+
+    with torch.no_grad():
+        fa._fwd.launches = 0
+        packed_loss = float(llama.loss_fn(params, batch, cfg))
+        segment_launches = fa._fwd.launches
+        total, count, alone = 0.0, 0, []
+        for doc in docs:
+            tok = torch.as_tensor(doc[None], device=dev)
+            loss = float(llama.loss_fn(params, {"tokens": tok}, cfg))
+            total, count = total + loss * (len(doc) - 1), count + len(doc) - 1
+            alone.append(llama.forward_hidden(params, tok[:, :-1], cfg)[0].float())
+        x_flash = llama.forward_hidden(params, inputs, cfg, **kw).float()
+        doc_rel = doc_err(x_flash, alone)
+        # The planted fault: a kernel that ignored the segment ids.
+        x_fault = llama.forward_hidden(params, inputs, cfg, positions=kw["positions"]).float()
+        fault_rel = doc_err(x_fault, alone)
+        x_xla = llama.forward_hidden(params, inputs, dataclasses.replace(cfg, attn_impl="xla"),
+                                     **kw).float()
+        del x_fault, alone
+        ref_params = tree_map(lambda t: t.float() if torch.is_tensor(t) else t, params)
+        del params
+        _free_cuda()
+        x_ref = llama.forward_hidden(
+            ref_params, inputs, dataclasses.replace(cfg, attn_impl="xla", dtype=torch.float32),
+            **kw)
+        del ref_params
+        scale = x_ref.square().mean(-1, keepdim=True).sqrt()
+        hidden_max = float(((x_flash - x_ref).abs() / scale)[live].max())
+        hidden_err = rel(x_flash[live], x_ref[live])
+        xla_err = rel(x_xla[live], x_ref[live])
+        flash_vs_xla = rel(x_flash[live], x_xla[live])
+    unpacked = total / count
+    loss_rel = abs(packed_loss - unpacked) / abs(unpacked)
+    res = {"phase": "packed_check", "config": "llama3-8b", "layers": PACKED_LAYERS,
+           **packed_layout(packed, docs), "packed_loss": packed_loss,
+           "unpacked_token_weighted_loss": unpacked, "loss_rel_err": loss_rel,
+           "loss_tol_rel": PACKED_LOSS_TOL, "doc_hidden_rel_err": doc_rel,
+           "doc_hidden_tol": PACKED_DOC_TOL,
+           "fault_segment_ids_dropped_doc_hidden_rel_err": fault_rel,
+           "fault_margin_min": PACKED_FAULT_MARGIN,
+           "hidden_rel_err_vs_fp32": hidden_err, "hidden_tol": PACKED_HIDDEN_TOL,
+           "hidden_max_err_over_row_rms_vs_fp32": hidden_max,
+           "xla_bf16_hidden_rel_err_vs_fp32": xla_err, "flash_vs_xla_bf16_rel_err": flash_vs_xla,
+           "flash_fwd_segment_launches": segment_launches,
+           "segment_launches_expected": PACKED_LAYERS}
+    res["ok"] = (loss_rel <= PACKED_LOSS_TOL and doc_rel <= PACKED_DOC_TOL
+                 and fault_rel >= PACKED_FAULT_MARGIN * PACKED_DOC_TOL
+                 and hidden_err <= PACKED_HIDDEN_TOL and xla_err <= PACKED_HIDDEN_TOL
+                 and segment_launches == PACKED_LAYERS
+                 and math.isfinite(packed_loss))
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("packed batch at 8B width failed its checks")
+    return {"launches": {"flash_fwd": segment_launches}}
+
+
+def _state_bytes(state, own_bytes: int) -> dict:
+    """A train state's resident fp32 bytes: params, moments, and the gradients the step
+    makes (``own_bytes``: each leaf's piece this rank updates)."""
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+                   if torch.is_tensor(t) and t.dim() > 0)
+
+    params, moments = nbytes(state.params), nbytes(state.opt_state)
+    return {"params": params, "moments": moments, "grads": own_bytes,
+            "total": params + moments + own_bytes}
+
+
+def _own_bytes(state, mesh, stage: int) -> int:
+    """Bytes of the gradients a step of ``stage`` leaves on this rank: the fsdp pieces
+    (ZeRO-3), the slices (ZeRO-2), the whole leaves (ZeRO-1 and one rank)."""
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    leaves = tree_leaves(state.params)
+    zd = state.zero_dims or [None] * len(leaves)
+    n = 1 if mesh is None else mesh.shape["fsdp"]
+    return sum(p.numel() * p.element_size() // (n if d is not None and stage == 2 else 1)
+               for p, d in zip(leaves, zd))
+
+
+def _fsdp_train(acc, cfg, seed: int, batch: dict, steps: int, after_step=None,
+                **step_kw) -> dict:
+    """``steps`` of the slice-20 recipe (``fused_adamw(FSDP_LR)``, clip 1.0, the loss
+    that gathers its ZeRO-3 leaves per layer) on fresh seeded fp32 params: losses, step
+    times, launches of #2-#4 and #9, peak memory, the collectives' counts and bytes a
+    step. ``after_step(i, state)`` runs after step ``i`` (1-based), outside the timing."""
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.parallel import fsdp
+
+    dev = acc.device
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                               generator=torch.Generator(dev).manual_seed(seed), device=dev)
+    state = acc.create_train_state(params, fo.fused_adamw(FSDP_LR))
+    del params
+    torch.cuda.empty_cache()
+    step = acc.build_train_step(fsdp.gathers_fsdp_shards(
+        lambda p, b: llama.loss_fn(p, b, cfg)), max_grad_norm=1.0, **step_kw)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_train_counts(fa, fo)
+    fsdp.reset_stats()
+    losses, norms, step_s = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if after_step is not None:
+            after_step(len(losses), state)
+    return {"state": state, "step": step, "losses": losses, "grad_norms": norms,
+            "step_ms_runs": [1e3 * s for s in step_s], "init_s": init_s,
+            "init_peak_bytes": init_peak, "step_peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": _train_counts(fa, fo),
+            "collectives_per_step": {k: v / max(steps, 1) for k, v in fsdp.STATS.items()}}
+
+
+def _piece_checksum(t: torch.Tensor, box=None, whole_shape=None) -> torch.Tensor:
+    """``_checksum``'s two sums (int64 on ``t``'s device) of the piece ``t`` of a whole
+    leaf: ``box`` (per dim, the piece's start and length in ``whole_shape``) places
+    each word at its position in the whole leaf, so the pieces' sums add up to the
+    whole leaf's ``_checksum``; None: ``t`` is the whole leaf."""
+    words = t.detach().reshape(-1).view(torch.int16 if t.element_size() == 2 else torch.int32)
+    shape = list(t.shape) if whole_shape is None else list(whole_shape)
+    starts = [0] * len(shape) if box is None else [s for s, _ in box]
+    strides = [math.prod(shape[d + 1:]) for d in range(len(shape))]
+    sums = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for first in range(0, words.numel(), 1 << 26):
+        x = words[first:first + (1 << 26)].to(torch.int64)
+        q = torch.arange(first, first + x.numel(), device=t.device, dtype=torch.int64)
+        pos = torch.zeros_like(q)
+        for d in reversed(range(t.dim())):
+            pos += (q % t.shape[d] + starts[d]) * strides[d]
+            q //= t.shape[d]
+        sums += torch.stack([x.sum(), (x * (2 * pos + 1)).sum()])
+    return sums
+
+
+def state_checksums(acc, state) -> dict:
+    """``{path: (plain, weighted)}`` of every whole tensor leaf of a train state, from
+    each rank's pieces: each distinct piece's sums (the ranks holding a copy of one add
+    it once) added over the ranks in one all-reduce; no leaf is gathered."""
+    from accelerate_tpu_torch import checkpointing as ck
+    from accelerate_tpu_torch.parallel.tp import all_reduce
+
+    flat = ck._flat_state(state)
+    live = ck._state_index(flat, acc, ck._split_dims(state, flat, acc.mesh))
+    paths, sums = [], []
+    for leaf in live["leaves"]:
+        if "value" in leaf:
+            continue
+        split_axes = {a for a, key in (("tp", "split"), ("fsdp", "fsdp_split"))
+                      if leaf.get(key) is not None}
+        mine = acc.mesh is None or all(
+            i == 0 for a, i in acc.mesh.coords.items() if a not in split_axes)
+        box = ck.leaf_box(leaf, live)
+        sums.append(_piece_checksum(flat[leaf["path"]], box, leaf["whole_shape"]).cpu()
+                    if mine else torch.zeros(2, dtype=torch.int64))
+        paths.append(leaf["path"])
+    total = torch.stack(sums).contiguous()
+    if acc.mesh is not None and acc.mesh.size > 1:
+        all_reduce(total, "sum", torch.distributed.group.WORLD)
+    return {p: tuple(int(v) for v in row) for p, row in zip(paths, total)}
+
+
+def _param_agreement(acc, state, ref: dict) -> dict:
+    """Each rank's params against its slice of the one-rank arm's (``ref``: ``{path:
+    tensor}`` on the card, the parent's, mapped through CUDA IPC): the largest
+    difference and the share within lr / 2 over the whole params (the counts of
+    replicated pieces taken once), in one all-reduce."""
+    from accelerate_tpu_torch import checkpointing as ck
+    from accelerate_tpu_torch.parallel.tp import all_reduce
+
+    flat = ck._flat_state(state)
+    live = ck._state_index(flat, acc, ck._split_dims(state, flat, acc.mesh))
+    worst, within, n = 0.0, 0, 0
+    for leaf in live["leaves"]:
+        if not leaf["path"].startswith("params/"):
+            continue
+        box = ck.leaf_box(leaf, live)
+        want = ref[leaf["path"].removeprefix("params/")][tuple(slice(s, s + k) for s, k in box)]
+        diff = (flat[leaf["path"]] - want).abs()
+        worst = max(worst, float(diff.max()))
+        split = leaf.get("split") is not None or leaf.get("fsdp_split") is not None
+        if split or acc.mesh.coords["fsdp"] == 0:
+            within += int((diff <= FSDP_LR / 2).sum())
+            n += diff.numel()
+    stats = torch.tensor([float(within), float(n)], dtype=torch.float64)
+    top = torch.tensor([worst], dtype=torch.float64)
+    all_reduce(stats, "sum", torch.distributed.group.WORLD)
+    all_reduce(top, "max", torch.distributed.group.WORLD)
+    return {"params_max_abs_diff": float(top[0]),
+            "params_share_within_half_lr": float(stats[0] / stats[1])}
+
+
+def _free_cuda() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fsdp_rank_main(packed: dict, device: str, refs: dict, ckpt_dir: str) -> dict:
+    """One rank of ``train_fsdp`` and ``fsdp_ckpt`` (two gloo ranks sharing the card,
+    dp1×fsdp2). The arms ZeRO-3, ZeRO-2, ZeRO-1 (FSDP_STEPS each) on the packed batch,
+    each held to the one-rank arm's params after as many steps (``refs``: the parent's
+    tensors on the card, mapped here through CUDA IPC), then a depth-FSDP_CKPT_LAYERS
+    ZeRO-3 state saved SHARDED and FULL_STATE_DICT, trained a step, and the FULL
+    checkpoint loaded back in place."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.parallel import MeshConfig, fsdp
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in packed.items()}
+    out = {"arms": {}}
+
+    def accelerator(stage, **plugin_kw):
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+        return Accelerator(mixed_precision="bf16", device=dev, backend="gloo",
+                           mesh_config=MeshConfig(**FSDP_MESH),
+                           fsdp_plugin=FullyShardedDataParallelPlugin(zero_stage=stage,
+                                                                      **plugin_kw))
+
+    for stage, steps in FSDP_STEPS.items():
+        t_arm = time.perf_counter()
+        acc = accelerator(stage)
+        run = _fsdp_train(acc, _fsdp_cfg(FSDP_LAYERS), 0, batch, steps)
+        run["train_wall_s"] = time.perf_counter() - t_arm
+        state = run.pop("state")
+        run.pop("step")
+        run["resident_bytes"] = _state_bytes(state, _own_bytes(state, acc.mesh, stage))
+        # Leaves below min_weight_size stay whole: params, 2 moments and a gradient each.
+        run["replicated_bytes"] = 4 * sum(
+            p.numel() * p.element_size() for p, d in zip(
+                tree_leaves(state.params), state.fsdp_dims or [None] * 10**6) if d is None)
+        t1 = time.perf_counter()
+        run.update(_param_agreement(acc, state, refs[steps]))
+        run["agreement_s"] = time.perf_counter() - t1
+        run["routes"] = {k: fsdp.collective_route(acc.mesh.group("fsdp"), state.params["ln_f"])
+                         for k in ("all_gather", "reduce_scatter")}
+        run["rank"], run["distributed_type"] = acc.process_index, str(acc.distributed_type)
+        out["arms"][stage] = run
+        del state
+        _free_cuda()
+        run["arm_wall_s"] = time.perf_counter() - t_arm
+
+    # fsdp_ckpt: SHARDED, then FULL_STATE_DICT, on a depth-FSDP_CKPT_LAYERS ZeRO-3 state.
+    t_ck = time.perf_counter()
+    acc = accelerator(3)
+    run = _fsdp_train(acc, _fsdp_cfg(FSDP_CKPT_LAYERS), 1, batch, 1)
+    state, step = run["state"], run["step"]
+    ck = {"steps_before_save": 1, "setup_s": time.perf_counter() - t_ck}
+    t0 = time.perf_counter()
+    acc.save_state(str(Path(ckpt_dir) / "sharded"), train_state=state)
+    ck["sharded_save_s"] = time.perf_counter() - t0
+    ck["sharded_stats"] = acc.checkpoint_stats["save"]
+    ck["saved_checksums"] = state_checksums(acc, state)
+    acc.fsdp_plugin.state_dict_type = "FULL_STATE_DICT"
+    t0 = time.perf_counter()
+    acc.save_state(str(Path(ckpt_dir) / "full"), train_state=state)
+    ck["full_save_s"] = time.perf_counter() - t0
+    ck["full_stats"] = acc.checkpoint_stats["save"]
+    ck["full_files"] = sorted(os.listdir(Path(ckpt_dir) / "full"))
+    state, _ = step(state, batch)  # the state moves on before the load
+    ck["moved_checksums_differ"] = state_checksums(acc, state) != ck["saved_checksums"]
+    t0 = time.perf_counter()
+    state = acc.load_state(str(Path(ckpt_dir) / "full"), train_state=state)
+    ck["full_load_s"] = time.perf_counter() - t0
+    ck["full_load_checksums"] = state_checksums(acc, state)
+    ck["rank"] = acc.process_index
+    ck["wall_s"] = time.perf_counter() - t_ck
+    out["ckpt"] = ck
+    del state, step
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+    _free_cuda()
+    return out
+
+
+def shared_ranks(jobs) -> list:
+    """The rank function of ``phase_train_ranks``' one launch: each ``(function name,
+    args)`` of ``jobs`` in turn on a fresh ``AcceleratorState`` (the process group and
+    the warmed process stay): its result and wall seconds."""
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    out = []
+    for name, args in jobs:
+        AcceleratorState._reset_state()
+        GradientState._reset_state()
+        t0 = time.perf_counter()
+        result = globals()[name](*args)
+        out.append((result, time.perf_counter() - t0))
+        _free_cuda()
+    return out
+
+
+def phase_train_ranks(dev, work: Path) -> dict:
+    """One spawn of two gloo ranks sharing the card for ``train_tp_parity``,
+    ``train_tp`` and ``train_fsdp`` (with ``fsdp_ckpt``'s saves), in that order
+    (``shared_ranks``): a rank process pays its start and its first step's warm-up
+    (10-20 s each) once. Before the launch, ``train_fsdp``'s one-rank arm runs here and
+    its params after 2 and 3 steps stay on the card for the ranks (CUDA IPC) until the
+    launch returns; during it, ``fsdp_ckpt_loads`` runs in a thread here. Returns each
+    job's per-rank results and the launch's seconds; the phases' reports and checks
+    follow."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.launchers import notebook_launcher
+    from accelerate_tpu_torch.utils.tree import named_parameters
+
+    _fresh_state_singletons()
+    packed, docs = packed_batch(_fsdp_cfg(1).vocab_size, 2, seed=20)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in packed.items()}
+    refs = {}
+
+    def snapshot(i, state):  # the params after each arm's step count, for the ranks
+        if i in FSDP_STEPS.values():
+            refs[i] = {k: v.detach().clone() for k, v in named_parameters(state.params).items()}
+
+    one = _fsdp_train(Accelerator(mixed_precision="bf16", device=dev), _fsdp_cfg(FSDP_LAYERS),
+                      0, batch, max(FSDP_STEPS.values()), after_step=snapshot)
+    state = one.pop("state")
+    one["resident_bytes"] = _state_bytes(state, _own_bytes(state, None, 0))
+    del state, one["step"], one["collectives_per_step"], batch
+    _fresh_state_singletons()
+    _free_cuda()
+    card = _rank_device(dev)
+    jobs = [("tp_rank_parity", (_tp_parity_tokens(), TP_PARITY_LR, TP_PARITY_STEPS, card)),
+            ("tp_rank_main", (_tp_main_tokens(), card)),
+            ("fsdp_rank_main", (packed, card, refs, str(work / "ckpt")))]
+    parent_bytes = torch.cuda.memory_allocated()
+    # fsdp_ckpt's loads in this process run in a thread beside the ranks, each as soon as
+    # the ranks' checkpoint it reads has committed.
+    loads, done = {}, threading.Event()
+
+    def load_beside():
+        try:
+            loads.update(fsdp_ckpt_loads(dev, work / "ckpt", done))
+        except BaseException as e:  # re-raised below, after the launch
+            loads["error"] = e
+
+    thread = threading.Thread(target=load_beside, daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        ranks = notebook_launcher(shared_ranks, (jobs,), 2, device=card, backend="gloo",
+                                  timeout_s=1200)
+    finally:
+        launch_s = time.perf_counter() - t0
+        done.set()
+        thread.join()
+    refs.clear()
+    _free_cuda()
+    if "error" in loads:
+        raise loads["error"]
+    walls = {name: [r[k][1] for r in ranks] for k, (name, _) in enumerate(jobs)}
+    emit({"phase": "train_ranks", "launch_s": launch_s, "job_wall_s_by_rank": walls,
+          "parent_allocated_bytes_during_launch": parent_bytes,
+          "fsdp_ckpt_loads_thread_s": loads["thread_s"],
+          "fsdp_ckpt_loads_waited_s": loads["waited_s"]})
+    out = {name: ([r[k][0] for r in ranks], max(walls[name]))
+           for k, (name, _) in enumerate(jobs)}
+    out["fsdp_inputs"] = {"one": one, "packed": packed, "docs": docs, "loads": loads}
+    return out
+
+
+def phase_train_fsdp(dev, work: Path, launched, inputs: dict) -> dict:
+    """ZeRO/FSDP training at Llama-3-8B's width, depth FSDP_LAYERS, on one seeded packed
+    batch (2 rows of 2048): against a one-rank replicated arm (``inputs["one"]``, run by
+    ``phase_train_ranks``, whose params after 2 and 3 steps the ranks read through CUDA
+    IPC), two gloo ranks sharing the card (dp1×fsdp2) ran the ZeRO-3, ZeRO-2 and ZeRO-1
+    arms (``fsdp_rank_main``), and after them ``fsdp_ckpt``'s saves (``launched``: their
+    results and seconds). Every arm's losses within FSDP_LOSS_TOL of the one-rank arm's;
+    its params after its steps with every element within 2·lr a step and
+    FSDP_PARAM_SHARE of them within lr / 2 of the one-rank arm's; ZeRO-3's resident fp32
+    state (params, gradients, moments) half of the one-rank arm's on each rank, give or
+    take the leaves below ``min_weight_size``; kernel #9 once a step a rank, #2-#4
+    2L/L/L (remat). Prints each arm's step ms, each rank's peak memory, the gathered and
+    reduce-scattered bytes a step and the collective route the gloo group took
+    (``cuda_ipc``: the ranks share the card)."""
+    one, packed, docs = inputs["one"], inputs["packed"], inputs["docs"]
+    ranks, launch_s = launched
+    parent_bytes = torch.cuda.memory_allocated()
+    try:
+        L = FSDP_LAYERS
+        res = {"phase": "train_fsdp", "config": "llama3-8b", "layers": L, "mesh": FSDP_MESH,
+               "backend": "gloo (2 ranks share one card; the fsdp collectives through CUDA IPC)",
+               "packed": packed_layout(packed, docs), "one_rank": one, "launch_s": launch_s, "parent_allocated_bytes": parent_bytes,
+               "loss_tol_rel": FSDP_LOSS_TOL, "params_share_min": FSDP_PARAM_SHARE,
+               "arms": {}}
+        ok = True
+        for stage, steps in FSDP_STEPS.items():
+            expect = {"flash_fwd": 2 * L * steps, "flash_bwd_dq": L * steps,
+                      "flash_bwd_dkv": L * steps, "fused_adamw": steps}
+            arm = {"steps": steps, "launches_expected_per_rank": expect, "ranks": []}
+            for r in ranks:
+                a = r["arms"][stage]
+                rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], one["losses"]))
+                a_ok = (rel <= FSDP_LOSS_TOL and a["launches"] == expect
+                        and all(np.isfinite(a["losses"]))
+                        and a["params_max_abs_diff"] <= 2 * FSDP_LR * steps
+                        and a["params_share_within_half_lr"] >= FSDP_PARAM_SHARE)
+                if stage == 3:
+                    a["resident_share_of_one_rank"] = a["resident_bytes"]["total"] / one[
+                        "resident_bytes"]["total"]
+                    a_ok = a_ok and 2 * a["resident_bytes"]["total"] == (
+                        one["resident_bytes"]["total"] + a["replicated_bytes"])
+                ok = ok and a_ok
+                arm["ranks"].append({**a, "loss_max_rel_err": rel, "ok": a_ok})
+            arm["step_ms"] = max(float(np.mean(r["arms"][stage]["step_ms_runs"][1:]))
+                                 for r in ranks)
+            res["arms"][f"zero{stage}"] = arm
+        res["ok"] = ok
+        emit(res)
+        ckpt = phase_fsdp_ckpt(dev, ranks, inputs["loads"], work / "ckpt")
+        if not ok:
+            raise SystemExit("ZeRO/FSDP training at 8B width failed its checks")
+        return {"launches": {k: sum(r["arms"][s]["launches"][k] for s in FSDP_STEPS
+                                    for r in ranks[:1]) for k in ranks[0]["arms"][3]["launches"]},
+                "res": res, "ckpt": ckpt}
+    finally:
+        shutil.rmtree(work / "ckpt", ignore_errors=True)
+
+
+def _wait_for(path: Path, done: threading.Event) -> None:
+    """Until ``path`` exists; raises once ``done`` is set without it."""
+    while not path.exists():
+        if done.is_set() and not path.exists():
+            raise RuntimeError(f"{path} never appeared: the ranks stopped before writing it")
+        time.sleep(0.2)
+
+
+def fsdp_ckpt_loads(dev, ckpt_dir: Path, done: threading.Event) -> dict:
+    """This process's side of ``fsdp_ckpt``, run in a thread while the ranks run on: as
+    each checkpoint of the ranks commits (its marker written last), the SHARDED one is
+    loaded into a one-rank replicated state (the reshard), then merged by
+    ``merge-weights`` in a thread of its own (its params' checksums) while the FULL one
+    is awaited and loaded into the same state. Each leaf's checksums are taken after
+    each load."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.checkpointing import COMMIT_MARKER
+    from accelerate_tpu_torch.commands.merge import merge_weights
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import fused_optim as fo
+
+    t_start = time.perf_counter()
+    out = {}
+    _wait_for(ckpt_dir / "sharded" / COMMIT_MARKER, done)
+    out["waited_s"] = time.perf_counter() - t_start
+    cfg = _fsdp_cfg(FSDP_CKPT_LAYERS)
+    acc = Accelerator(mixed_precision="bf16", device=dev)
+    params = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                               generator=torch.Generator(dev).manual_seed(3), device=dev)
+    state = acc.create_train_state(params, fo.fused_adamw(FSDP_LR))
+    del params
+
+    def load(name, fmt):
+        nonlocal state
+        _wait_for(ckpt_dir / name / COMMIT_MARKER, done)
+        t0 = time.perf_counter()
+        state = acc.load_state(str(ckpt_dir / name), train_state=state)
+        out[f"{fmt}_s"] = time.perf_counter() - t0
+        out[f"{fmt}_stats"] = dict(acc.checkpoint_stats["load"])
+        out[f"{fmt}_checksums"] = state_checksums(acc, state)
+
+    def merge():
+        try:
+            t0 = time.perf_counter()
+            merge_weights(str(ckpt_dir / "sharded"), str(ckpt_dir / "merged"))
+            out["merge_s"] = time.perf_counter() - t0
+            out["merged_checksums"] = {
+                f"params/{k}": tuple(int(x) for x in _piece_checksum(v.to(dev)))
+                for k, v in _safetensors_tensors(ckpt_dir / "merged").items()}
+            shutil.rmtree(ckpt_dir / "merged", ignore_errors=True)
+        except BaseException as e:  # re-raised below
+            out["merge_error"] = e
+
+    load("sharded", "reshard_2_to_1")
+    merging = threading.Thread(target=merge, daemon=True)
+    merging.start()
+    load("full", "full_into_1")
+    merging.join()
+    if "merge_error" in out:
+        raise out.pop("merge_error")
+    del state, acc
+    _free_cuda()
+    out["thread_s"] = time.perf_counter() - t_start
+    return out
+
+
+def phase_fsdp_ckpt(dev, ranks, loads: dict, ckpt_dir: Path) -> dict:
+    """The checkpoints the ranks of ``train_fsdp`` saved (depth FSDP_CKPT_LAYERS, ZeRO-3,
+    in host memory under /dev/shm): the SHARDED save loaded into a one-rank replicated
+    state (the reshard) and the FULL_STATE_DICT checkpoint loaded into one rank
+    (``loads``: ``fsdp_ckpt_loads``, run while the ranks ran on), each bitwise equal to
+    the ranks' gathered state (per-leaf checksums); the FULL checkpoint loaded back
+    into the 2 ranks, bitwise; ``merge-weights`` of the SHARDED save bitwise equal to
+    the gathered params."""
+    saved = ranks[0]["ckpt"]["saved_checksums"]
+    res = {"phase": "fsdp_ckpt", "config": "llama3-8b", "layers": FSDP_CKPT_LAYERS,
+           "where": str(ckpt_dir), "ranks": [{k: v for k, v in r["ckpt"].items()
+                                              if not k.endswith("checksums")}
+                                             for r in ranks],
+           **{k: v for k, v in loads.items() if not k.endswith("checksums")}}
+    checks = {"ranks_saved_the_same_state": all(r["ckpt"]["saved_checksums"] == saved
+                                                for r in ranks),
+              "full_reload_on_two_ranks_bitwise": all(
+                  r["ckpt"]["full_load_checksums"] == saved and r["ckpt"]["moved_checksums_differ"]
+                  for r in ranks),
+              "full_file_without_sharded_state": all(
+                  "model_full.pkl" in r["ckpt"]["full_files"]
+                  and "sharded_state" not in r["ckpt"]["full_files"] for r in ranks),
+              "reshard_2_to_1_bitwise": loads["reshard_2_to_1_checksums"] == saved,
+              "full_into_1_bitwise": loads["full_into_1_checksums"] == saved,
+              "merge_weights_bitwise": loads["merged_checksums"] == {
+                  k: v for k, v in saved.items() if k.startswith("params/")}}
+    res.update(checks=checks, ok=all(checks.values()))
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("ZeRO/FSDP checkpoints at 8B width failed their checks")
+    return res
+
+
+def _offload_arm(dev, cfg, batch, steps: int, offload: bool, cast_params: bool = True,
+                 checksums: bool = True) -> dict:
+    """``steps`` of the slice-20 recipe on one rank, with the optimizer state in host
+    memory when ``offload`` (``FullyShardedDataParallelPlugin(zero_stage=0,
+    cpu_offload=True)``): losses, step times, launches, the moment stream's stats a
+    step, whether every moment stayed on the host, pinned, after every step, and the
+    resident bytes."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    _fresh_state_singletons()
+    acc = Accelerator(mixed_precision="bf16", device=dev, fsdp_plugin=(
+        FullyShardedDataParallelPlugin(zero_stage=0, cpu_offload=True) if offload else None))
+    streams, on_host = [], [True]
+
+    def after_step(i, state):
+        if offload:
+            streams.append(dict(fo.OFFLOAD_STATS))
+            on_host[0] = on_host[0] and all(
+                t.device.type == "cpu" and t.is_pinned()
+                for t in tree_leaves([state.opt_state.mu, state.opt_state.nu]))
+
+    run = _fsdp_train(acc, cfg, 0, batch, steps, after_step=after_step,
+                      cast_params=cast_params)
+    state = run.pop("state")
+    del run["step"], run["collectives_per_step"]
+    moments = tree_leaves([state.opt_state.mu, state.opt_state.nu])
+    run.update(streams=streams, moments_on_pinned_host=on_host[0] if offload else None,
+               pinned_host_bytes=sum(t.numel() * t.element_size() for t in moments
+                                     if t.device.type == "cpu"),
+               resident_bytes=_state_bytes(state, _own_bytes(state, None, 0)),
+               sizes=[p.numel() for p in tree_leaves(state.params)])
+    if checksums:  # moments on the host are summed on the card, a leaf at a time
+        run["checksums"] = [tuple(int(x) for x in _piece_checksum(t.to(dev)))
+                            for t in tree_leaves([state.params, state.opt_state])
+                            if torch.is_tensor(t)]
+    del state, acc
+    _fresh_state_singletons()
+    _free_cuda()
+    return run
+
+
+def _offload_depth() -> tuple[int, dict]:
+    """The deepest Llama-3-8B cut up to OFFLOAD_LAYERS whose fp32 params and gradients
+    (8 bytes a param) fit the card's free memory with 8 GB to spare, and whose moments
+    (8 bytes a param) fit the host's available memory with 4 GB to spare."""
+    from accelerate_tpu_torch.models import llama
+
+    free, _ = torch.cuda.mem_get_info()
+    host = _meminfo("MemAvailable")
+    for layers in range(OFFLOAD_LAYERS, 0, -1):
+        n = llama.num_params(_fsdp_cfg(layers))
+        if 8 * n + (8 << 30) <= free and 8 * n + (4 << 30) <= host:
+            break
+    with open("/proc/self/status") as f:
+        rss = next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+    return layers, {"device_free_bytes": free, "host_available_bytes": host,
+                    "host_total_bytes": _meminfo("MemTotal"), "shmem_bytes": _meminfo("Shmem"),
+                    "this_process_rss_bytes": rss,
+                    "params": llama.num_params(_fsdp_cfg(layers)),
+                    "params_at_full_depth": llama.num_params(_fsdp_cfg(OFFLOAD_LAYERS))}
+
+
+def phase_train_offload(dev) -> dict:
+    """ZeRO-Offload on one rank: (a) depth FSDP_LAYERS, 3 steps with the moments in
+    pinned host memory against the same steps without offload: params and moments
+    bitwise (per-leaf checksums: the same kernel on the same elements, in chunks);
+    (b) Llama-3-8B at full depth (32 layers; else the deepest the card and the host
+    hold, by arithmetic before the run), one packed row of 2048, ``cast_params=False``,
+    1 warm-up and 2 timed steps: losses finite and not rising, every moment on the host
+    and pinned after every step, kernel #9 once a chunk."""
+    from accelerate_tpu_torch.ops import fused_optim as fo
+
+    cfg = _fsdp_cfg(FSDP_LAYERS)
+    packed, _ = packed_batch(cfg.vocab_size, 2, seed=20)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in packed.items()}
+    plain = _offload_arm(dev, cfg, batch, 3, offload=False)
+    off = _offload_arm(dev, cfg, batch, 3, offload=True)
+    chunks = len(fo.offload_chunks([n for n in off["sizes"] if n % 1024 == 0],
+                                   fo.OFFLOAD_CHUNK_ELEMS))
+    a = {"layers": FSDP_LAYERS, "losses": off["losses"], "losses_no_offload": plain["losses"],
+         "bitwise": off["checksums"] == plain["checksums"] and off["losses"] == plain["losses"],
+         "step_ms_runs": off["step_ms_runs"], "step_ms_runs_no_offload": plain["step_ms_runs"],
+         "chunks_per_step": chunks, "launches": off["launches"],
+         "moments_on_pinned_host": off["moments_on_pinned_host"],
+         "pinned_host_bytes": off["pinned_host_bytes"], "stream": off["streams"][-1]}
+    a["ok"] = (a["bitwise"] and a["moments_on_pinned_host"]
+               and off["launches"]["fused_adamw"] == 3 * chunks)
+    del plain, off
+    layers, room = _offload_depth()
+    packed1, docs1 = packed_batch(cfg.vocab_size, 1, seed=21)
+    batch1 = {k: torch.as_tensor(v, device=dev) for k, v in packed1.items()}
+    full = _offload_arm(dev, _fsdp_cfg(layers), batch1, OFFLOAD_STEPS, offload=True,
+                        cast_params=False, checksums=False)
+    chunks = len(fo.offload_chunks([n for n in full["sizes"] if n % 1024 == 0],
+                                   fo.OFFLOAD_CHUNK_ELEMS))
+    timed = full["streams"][1:]
+    moment_bytes = full["pinned_host_bytes"]
+    b = {"layers": layers, "full_depth": layers == OFFLOAD_LAYERS, "room_before": room,
+         "packed": packed_layout(packed1, docs1),
+         "losses": full["losses"], "step_ms_runs": full["step_ms_runs"],
+         "step_ms": float(np.mean(full["step_ms_runs"][1:])), "init_s": full["init_s"],
+         "init_peak_bytes": full["init_peak_bytes"], "step_peak_bytes": full["step_peak_bytes"],
+         "pinned_host_bytes": moment_bytes, "chunks_per_step": chunks,
+         "launches": full["launches"], "moments_on_pinned_host": full["moments_on_pinned_host"],
+         "h2d_s": [s["h2d_s"] for s in timed], "d2h_s": [s["d2h_s"] for s in timed],
+         "h2d_gb_per_s": [s["h2d_bytes"] / s["h2d_s"] / 1e9 for s in timed if s["h2d_s"]],
+         "d2h_gb_per_s": [s["d2h_bytes"] / s["d2h_s"] / 1e9 for s in timed if s["d2h_s"]],
+         "apply_s": [s["s"] for s in timed]}
+    b["ok"] = (all(np.isfinite(full["losses"]))
+               and all(y <= x for x, y in zip(full["losses"], full["losses"][1:]))
+               and full["moments_on_pinned_host"]
+               and full["launches"]["fused_adamw"] == OFFLOAD_STEPS * chunks)
+    # A depth below OFFLOAD_LAYERS passes (the host's memory bounds it) but is flagged.
+    res = {"phase": "train_offload", "config": "llama3-8b", "depth_2": a, "deep": b,
+           "full_depth": b["full_depth"], "ok": a["ok"] and b["ok"]}
+    emit(res)
+    if not res["ok"]:
+        raise SystemExit("cpu_offload training failed its checks")
+    return {"launches": {k: a["launches"][k] + full["launches"][k] for k in a["launches"]},
+            "layers": layers, "full_depth": b["full_depth"], "res": res}
+
+
 def _kernel_row(name, source, replaces, launches, max_abs_err, t, library=None,
                 **extra) -> dict:
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -7707,10 +8553,24 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     partial = run_phase("fused_xent_partial", phase_fused_xent_partial, dev)
-    run_phase("train_tp_parity", phase_train_tp_parity, dev)
-    gc.collect()
-    torch.cuda.empty_cache()
-    train_tp = run_phase("train_tp", phase_train_tp, dev, train["losses"][0])
+
+    # ZeRO/FSDP, cpu_offload and packed batches (slice 20).
+    _free_cuda()
+    packed = run_phase("packed_check", phase_packed_check, dev)
+    _free_cuda()
+    offload = run_phase("train_offload", phase_train_offload, dev)
+    _free_cuda()
+    # The multi-rank training phases share one launch of two gloo ranks (slices 5, 20).
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_fsdp_", dir=SHM if SHM.is_dir() else None))
+    try:
+        shared = run_phase("train_ranks", phase_train_ranks, dev, work)
+        run_phase("train_tp_parity", phase_train_tp_parity, dev, shared["tp_rank_parity"])
+        train_tp = run_phase("train_tp", phase_train_tp, dev, train["losses"][0],
+                             shared["tp_rank_main"])
+        fsdp_run = run_phase("train_fsdp", phase_train_fsdp, dev, work,
+                             shared["fsdp_rank_main"], shared["fsdp_inputs"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     emit({"phase_seconds": dict(PHASE_SECONDS),
           "total_s": time.perf_counter() - t0, "nvidia_smi": smi})
@@ -7719,7 +8579,7 @@ def main() -> int:
                                train_tp, serve_multi, resume, serve_prefill,
                                serve_prefix, serve_spec, serve_spec_draft, serve_disagg,
                                serve_faults, serve_control, serve_bench, elastic, gang,
-                               train_fp8, lora_run, qlora)})
+                               train_fp8, lora_run, qlora, packed, fsdp_run, offload)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -7730,7 +8590,7 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                 partial, train_tp, serve_multi, resume, serve_prefill, serve_prefix,
                 serve_spec, serve_spec_draft, serve_disagg, serve_faults,
                 serve_control, serve_bench, elastic, gang, train_fp8, lora_run,
-                qlora) -> list:
+                qlora, packed, fsdp_run, offload) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results. The
     serving kernels' launches add their main paths' runs: N = 1, the super-step's,
     the bucketed, the prefix-cache, the speculative, the disaggregated drains (the
@@ -7739,7 +8599,9 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
     paged benches (trace replay and both chaos arms) and serve-bench's remaining modes'
     paged engines; the training kernels' add train_main's, train_resume's and the elastic
     phases' worker processes' (every attempt's and the uninterrupted worker's, counted by
-    each worker's own counters; the gang's relaunched ranks)."""
+    each worker's own counters; the gang's relaunched ranks), and slice 20's: the packed
+    forward's segment route, rank 0 of train_fsdp's three ZeRO arms, and train_offload's
+    arms (#9 once a chunk)."""
 
     def train_launches(kernel):
         by_path = {"train_main": train["launches"][kernel],
@@ -7748,8 +8610,14 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                    "elastic_gang": gang["launches"][kernel],
                    "train_fp8_o1": train_fp8["arms"]["O1"]["launches"][kernel],
                    "train_fp8_o2": train_fp8["arms"]["O2"]["launches"][kernel],
-                   "train_lora": lora_run["launches"][kernel]}
-        return sum(by_path.values()), {"launches_by_path": by_path}
+                   "train_lora": lora_run["launches"][kernel],
+                   "packed_check": packed["launches"].get(kernel, 0),
+                   "train_fsdp": fsdp_run["launches"][kernel],
+                   "train_offload": offload["launches"][kernel]}
+        # train_offload (b)'s launches are those of the depth it ran.
+        return sum(by_path.values()), {"launches_by_path": by_path,
+                                       "train_offload_layers": offload["layers"],
+                                       "train_offload_full_depth": offload["full_depth"]}
 
     lora_paged = lora_run["serving"]["paged_attention_launches"]
 

@@ -48,7 +48,7 @@ from accelerate_tpu_torch.data_loader import DataLoader
 from accelerate_tpu_torch.launchers import notebook_launcher
 from accelerate_tpu_torch.lm_dataset import TokenDataset, write_token_file
 from accelerate_tpu_torch.models import llama as tl
-from accelerate_tpu_torch.models.convert import params_from_jax
+from accelerate_tpu_torch.models.convert import params_from_jax, params_to_numpy
 from accelerate_tpu_torch.ops.fused_optim import fused_adamw
 from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
 from accelerate_tpu_torch.utils.dataclasses import DataLoaderConfiguration, ProjectConfiguration
@@ -363,7 +363,8 @@ def _tp_round_trip(directory):
 
 def test_tp_round_trip_two_ranks(tmp_path_factory):
     """Each rank writes its own shards (its index and files), reloads them in place, and
-    retrains bitwise; the same checkpoint cannot load into one process."""
+    retrains bitwise; the same checkpoint loads into one process by resharding (the
+    whole params bitwise, the step count restored)."""
     directory = str(tmp_path_factory.mktemp("tp"))
     r0, r1 = _tp_round_trip(directory)
     for r in (r0, r1):
@@ -377,8 +378,11 @@ def test_tp_round_trip_two_ranks(tmp_path_factory):
     state = acc.create_train_state(params_from_jax(_tp_inputs()[0], tcfg, device="cpu",
                                                    master_dtype=torch.float32),
                                    fused_adamw(1e-3))
-    with pytest.raises(ValueError, match="another mesh shape"):
-        acc.load_state(f"{directory}/ckpt", train_state=state)
+    state = acc.load_state(f"{directory}/ckpt", train_state=state)
+    assert state.step == 1 and acc.checkpoint_stats["load"]["resharded_from"]["world"] == 2
+    got = params_to_numpy(state.params)
+    for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(r0["saved_whole"])):
+        assert np.array_equal(a, b)
 
 
 # ------------------------------------------------------- debug fp32 run through the loader

@@ -125,7 +125,8 @@ def test_config_same_fields_as_jax():
 
 def test_interactive_config_over_scripted_answers(tmp_path, monkeypatch):
     """The questionnaire on a pipe: the numbered menu and free-form answers."""
-    answers = iter(["2", "1", "10.0.0.5", "29501", "4", "no", "0", "2", "4", "no", "no", "yes"])
+    answers = iter(["2", "1", "10.0.0.5", "29501", "4", "no", "0", "0", "2", "4", "no", "no",
+                    "yes"])
     monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
     args = get_parser().parse_args(["config", "--config_file", str(tmp_path / "q.json")])
     with contextlib.redirect_stdout(io.StringIO()):
@@ -139,7 +140,7 @@ def test_interactive_config_over_scripted_answers(tmp_path, monkeypatch):
 
 def test_interactive_config_fp8_questions(tmp_path, monkeypatch):
     """Choosing fp8 asks the JAX questionnaire's recipe questions."""
-    answers = iter(["1", "1", "no", "3", "1", "1", "yes", "8", "1", "1", "1", "no", "no",
+    answers = iter(["1", "1", "no", "3", "1", "1", "yes", "8", "1", "0", "1", "1", "no", "no",
                     "no"])
     monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
     args = get_parser().parse_args(["config", "--config_file", str(tmp_path / "f.json")])
@@ -457,10 +458,8 @@ def test_state_env_matches_jax(monkeypatch):
 
 
 @pytest.mark.parametrize("var,value", [
-    ("ACCELERATE_USE_FSDP", "true"), ("ACCELERATE_FSDP_ZERO_STAGE", "3"),
-    ("ACCELERATE_FSDP_CPU_OFFLOAD", "true"), ("ACCELERATE_SP_MODE", "ring"),
-    ("ACCELERATE_PP_MICROBATCHES", "4"), ("ACCELERATE_PP_SCHEDULE", "1f1b"),
-    ("ACCELERATE_LOG_WITH", "tensorboard"),
+    ("ACCELERATE_SP_MODE", "ring"), ("ACCELERATE_PP_MICROBATCHES", "4"),
+    ("ACCELERATE_PP_SCHEDULE", "1f1b"), ("ACCELERATE_LOG_WITH", "tensorboard"),
 ])
 def test_unported_launcher_flags_fail_loudly(monkeypatch, var, value):
     from accelerate_tpu_torch.accelerator import Accelerator
@@ -468,6 +467,52 @@ def test_unported_launcher_flags_fail_loudly(monkeypatch, var, value):
     monkeypatch.setenv(var, value)
     with pytest.raises(NotImplementedError, match="not ported"):
         Accelerator(device="cpu")
+
+
+FSDP_ENVS = {
+    "use_fsdp": {"ACCELERATE_USE_FSDP": "true"},
+    "zero_stage": {"ACCELERATE_USE_FSDP": "true", "ACCELERATE_FSDP_ZERO_STAGE": "2"},
+    "cpu_offload": {"ACCELERATE_USE_FSDP": "true", "ACCELERATE_FSDP_CPU_OFFLOAD": "true"},
+    "full_state_dict": {"ACCELERATE_USE_FSDP": "true",
+                        "ACCELERATE_FSDP_STATE_DICT_TYPE": "FULL_STATE_DICT",
+                        "ACCELERATE_FSDP_MIN_WEIGHT_SIZE": "4096"},
+}
+
+
+@pytest.mark.parametrize("env", list(FSDP_ENVS))
+def test_fsdp_launcher_variables_build_jax_s_plugin(monkeypatch, env):
+    """``ACCELERATE_USE_FSDP`` and ``ACCELERATE_FSDP_*`` build the JAX package's plugin,
+    field for field, in the Accelerator (JAX's ``test_cli.py`` wire-protocol test); an
+    explicit field still wins over the environment."""
+    from accelerate_tpu.utils.dataclasses import FullyShardedDataParallelPlugin as JaxPlugin
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    for key, value in FSDP_ENVS[env].items():
+        monkeypatch.setenv(key, value)
+    want = {k: str(v) for k, v in dataclasses.asdict(JaxPlugin()).items()}
+    acc = Accelerator(device="cpu")
+    got = {k: str(v) for k, v in dataclasses.asdict(acc.fsdp_plugin).items()}
+    assert got == want
+    assert acc.state.fsdp_plugin is acc.fsdp_plugin
+    explicit = FullyShardedDataParallelPlugin(min_weight_size=64, zero_stage=1,
+                                              state_dict_type="SHARDED_STATE_DICT")
+    assert (explicit.min_weight_size, explicit.zero_stage, explicit.state_dict_type) == (
+        64, 1, "SHARDED_STATE_DICT")
+
+
+def test_interactive_config_fsdp_questions(tmp_path, monkeypatch):
+    """Choosing a ZeRO stage asks the JAX questionnaire's fsdp questions."""
+    answers = iter(["1", "4", "no", "0", "3", "4", "yes", "64", "1", "1", "1", "no", "no",
+                    "no"])
+    monkeypatch.setattr("builtins.input", lambda prompt="": next(answers))
+    args = get_parser().parse_args(["config", "--config_file", str(tmp_path / "z.json")])
+    with contextlib.redirect_stdout(io.StringIO()):
+        args.func(args)
+    cfg = load_config_from_file(str(tmp_path / "z.json"))
+    assert (cfg.fsdp_zero_stage, cfg.fsdp, cfg.dp, cfg.fsdp_cpu_offload,
+            cfg.fsdp_min_weight_size, cfg.fsdp_state_dict_type) == (
+        3, 4, 1, True, 64, "FULL_STATE_DICT")
 
 
 FP8_ENVS = {

@@ -189,10 +189,14 @@ def test_apply_tensor_parallel_shards_concatenate_back(n, stacked):
 
 
 def test_non_tp_sharding_raises():
+    """sp, pp and ep param specs raise; fsdp specs shard (since the ZeRO/FSDP slice)."""
+    params = {"w": torch.arange(16.0).reshape(4, 4)}
+    for axis in ("sp", "pp", "ep"):
+        with pytest.raises(NotImplementedError, match=axis):
+            ttp.apply_tensor_parallel(params, _mesh(0, **{axis: 2}), {"w": tm.P(axis, None)})
     specs = {"w": tm.P("fsdp", None)}
-    params = {"w": torch.zeros((4, 4))}
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        ttp.apply_tensor_parallel(params, _mesh(0, fsdp=2), specs)
+    assert torch.equal(ttp.apply_tensor_parallel(params, _mesh(1, fsdp=2), specs)["w"],
+                       params["w"][2:])
     assert ttp.apply_tensor_parallel(params, _mesh(0, tp=2), specs)["w"] is params["w"]
     with pytest.raises(ValueError, match="does not split"):
         ttp.apply_tensor_parallel({"w": torch.zeros((3, 4))}, _mesh(0, tp=2),

@@ -282,7 +282,7 @@ def test_fused_steps_match_sequential():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
-        tacc.Accelerator(fsdp_plugin=object(), device="cpu")
+        tacc.Accelerator(tp_plugin=object(), device="cpu")
     from accelerate_tpu_torch.models import common
 
     with pytest.raises(NotImplementedError):

@@ -293,13 +293,13 @@ def tp_checkpoint_round_trip(np_params, batches, cfg_kw: dict, mesh_kw: dict, lr
                              directory: str) -> dict:
     """A tp train state saved after one step (each rank its own shards), trained on,
     loaded back in place and trained again: per phase the losses, whether the reloaded
-    shards equal the saved ones, the files in the state directory and the shards'
-    shapes."""
+    shards equal the saved ones, the files in the state directory, the shards' shapes
+    and the whole params at the save."""
     import os
 
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models import llama
-    from accelerate_tpu_torch.models.convert import params_from_jax
+    from accelerate_tpu_torch.models.convert import params_from_jax, params_to_numpy
     from accelerate_tpu_torch.ops.fused_optim import fused_adamw
     from accelerate_tpu_torch.parallel import MeshConfig
     from accelerate_tpu_torch.utils.tree import tree_leaves
@@ -315,6 +315,7 @@ def tp_checkpoint_round_trip(np_params, batches, cfg_kw: dict, mesh_kw: dict, lr
     state, _ = step(state, batches[0])
     path = acc.save_state(os.path.join(directory, "ckpt"), train_state=state)
     saved = [t.clone() for t in tree_leaves(state.params)]
+    saved_whole = params_to_numpy(state.params, mesh=acc.mesh, specs=specs)
     first = []
     for batch in batches[1:]:
         state, m = step(state, batch)
@@ -328,15 +329,16 @@ def tp_checkpoint_round_trip(np_params, batches, cfg_kw: dict, mesh_kw: dict, lr
     files = sorted(os.listdir(os.path.join(path, "sharded_state")))
     shards = [tuple(t.shape) for t in tree_leaves(state.params)]
     return {"first": first, "again": again, "restored": restored, "files": files,
-            "shards": shards, "step": state.step}
+            "shards": shards, "step": state.step, "saved_whole": saved_whole}
 
 
-def fp8_lora_steps(np_params, batches, cfg_kw: dict, mesh_kw, lr: float) -> dict:
+def fp8_lora_steps(np_params, batches, cfg_kw: dict, mesh_kw, lr: float,
+                   plugin_kw=None) -> dict:
     """``Accelerator.build_train_step`` over ``llama.loss_fn`` for a ``use_fp8`` config
     (delayed scaling, ``fused_adamw`` with O2's scaled-fp8 moments) or a LoRA one (``lora_optimizer(adamw)``), on
     the mesh of ``mesh_kw`` with ``partition_specs`` (None: one process): per step the
     loss and the gathered params; the last amax history; whether the adapters moved
-    and the base stayed."""
+    and the base stayed. ``plugin_kw``: a ``FullyShardedDataParallelPlugin`` (ZeRO)."""
     from accelerate_tpu_torch import optim
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models import llama, lora
@@ -344,7 +346,8 @@ def fp8_lora_steps(np_params, batches, cfg_kw: dict, mesh_kw, lr: float) -> dict
     from accelerate_tpu_torch.ops.fused_optim import fused_adamw
     from accelerate_tpu_torch.parallel import MeshConfig
     from accelerate_tpu_torch.state import AcceleratorState, GradientState, PartialState
-    from accelerate_tpu_torch.utils.dataclasses import FP8RecipeKwargs
+    from accelerate_tpu_torch.utils.dataclasses import (FP8RecipeKwargs,
+                                                        FullyShardedDataParallelPlugin)
 
     _threads()
     for cls in (AcceleratorState, GradientState, PartialState):
@@ -355,12 +358,14 @@ def fp8_lora_steps(np_params, batches, cfg_kw: dict, mesh_kw, lr: float) -> dict
     handlers = ([FP8RecipeKwargs(use_delayed_scaling=True, amax_history_len=4, opt_level="O2")]
                 if cfg.use_fp8 else None)
     acc = Accelerator(device="cpu", kwargs_handlers=handlers,
-                      mesh_config=None if mesh_kw is None else MeshConfig(**mesh_kw))
-    specs = None if mesh_kw is None else llama.partition_specs(cfg)
+                      mesh_config=None if mesh_kw is None else MeshConfig(**mesh_kw),
+                      fsdp_plugin=None if plugin_kw is None
+                      else FullyShardedDataParallelPlugin(**plugin_kw))
     tx = lora.lora_optimizer(optim.adamw(lr)) if cfg.lora_rank else fused_adamw(lr)
     state = acc.create_train_state(
         params_from_jax(np_params, cfg, device="cpu", master_dtype=torch.float32), tx,
-        partition_specs=specs)
+        partition_specs=None if mesh_kw is None else llama.partition_specs(cfg))
+    specs = acc._param_specs  # the placed specs: the plan's, with fsdp where ZeRO-3 adds it
     first = params_to_numpy(state.params, mesh=acc.mesh, specs=specs)
     step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg))
     out = {"losses": [], "params": []}
@@ -377,6 +382,230 @@ def fp8_lora_steps(np_params, batches, cfg_kw: dict, mesh_kw, lr: float) -> dict
                                 zip(first["layers"], last) for k in a if "_lora_" not in k)
     for cls in (AcceleratorState, GradientState, PartialState):
         cls._reset_state()
+    return out
+
+
+def _reset_accelerator_state() -> None:
+    """A fresh ``AcceleratorState``/``GradientState`` (the process group stays)."""
+    from accelerate_tpu_torch.state import AcceleratorState, GradientState
+
+    AcceleratorState._reset_state()
+    GradientState._reset_state()
+
+
+def _resident_bytes(state) -> int:
+    """Bytes of this rank's params, optimizer moments and accumulation buffers."""
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    trees = (state.params, state.opt_state, state.grad_accum)
+    return sum(t.numel() * t.element_size() for tree in trees for t in tree_leaves(tree)
+               if torch.is_tensor(t) and t.dim() > 0)
+
+
+def zero_problem_steps(np_params, batch, cases: dict) -> dict:
+    """Per case ``{name: {"mesh", "plugin", "accum", "steps", "opt", "clip"}}``: the JAX
+    ZeRO test's two-layer problem trained through ``Accelerator.build_train_step`` on
+    the case's mesh with ``FullyShardedDataParallelPlugin(**plugin)`` (None: no
+    plugin): per step the loss (and grad norm), the whole params after the last step
+    (``get_state_dict``), the state's splits, resident bytes and where the moments
+    live."""
+    from accelerate_tpu_torch import optim
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.ops.fused_optim import fused_adamw
+    from accelerate_tpu_torch.parallel import MeshConfig
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    _threads()
+    out = {}
+    for name, case in cases.items():
+        _reset_accelerator_state()
+        plugin = (None if case.get("plugin") is None
+                  else FullyShardedDataParallelPlugin(**case["plugin"]))
+        acc = Accelerator(device="cpu", fsdp_plugin=plugin,
+                          mesh_config=None if case.get("mesh") is None
+                          else MeshConfig(**case["mesh"]),
+                          gradient_accumulation_steps=case.get("accum", 1))
+        tx = fused_adamw(1e-2) if case.get("opt") == "fused" else optim.adamw(1e-2)
+        state = acc.create_train_state({k: torch.tensor(v) for k, v in np_params.items()}, tx)
+
+        def loss_fn(p, b):
+            h = torch.tanh(b["x"] @ p["w1"] + p["b1"])
+            return torch.mean((h @ p["w2"] - b["y"]) ** 2)
+
+        step = acc.build_train_step(loss_fn, max_grad_norm=case.get("clip"))
+        res = {"losses": [], "grad_norms": []}
+        for _ in range(case.get("steps", 4) * case.get("accum", 1)):
+            state, metrics = step(state, batch)
+            res["losses"].append(float(metrics["loss"]))
+            if "grad_norm" in metrics:
+                res["grad_norms"].append(float(metrics["grad_norm"]))
+        res["params"] = {k: v.numpy().copy() for k, v in acc.get_state_dict(state.params).items()}
+        # The TrainState gathers by its own dims; whole params are not this layout's pieces
+        # wherever fsdp splits a leaf.
+        res["state_dict_of_state_equal"] = all(
+            torch.equal(v, acc.get_state_dict(state)[k]) for k, v in
+            acc.get_state_dict(state.params).items())
+        try:
+            acc.get_state_dict({k: torch.tensor(v) for k, v in np_params.items()})
+            res["whole_params_refused"] = False
+        except ValueError:
+            res["whole_params_refused"] = True
+        res["fsdp_dims"], res["zero_dims"] = state.fsdp_dims, state.zero_dims
+        res["resident_bytes"] = _resident_bytes(state)
+        res["param_shapes"] = {k: tuple(v.shape) for k, v in state.params.items()}
+        res["mu_shapes"] = {k: tuple(v.shape) for k, v in state.opt_state.mu.items()}
+        res["accum_shapes"] = (None if state.grad_accum is None else
+                               {k: tuple(v.shape) for k, v in state.grad_accum.items()})
+        res["distributed_type"] = str(acc.distributed_type)
+        res["mesh"] = None if acc.mesh is None else dict(acc.mesh.shape)
+        res["moments_on"] = sorted({str(t.device) for t in tree_leaves(state.opt_state.mu)})
+        out[name] = res
+    _reset_accelerator_state()
+    return out
+
+
+def _plain_specs(specs):
+    """A spec tree with each ``P`` as a plain tuple (a ``P`` does not survive pickling)."""
+    from accelerate_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda spec: ("P", *spec), specs)
+
+
+def fsdp_llama_steps(np_params, batches, cfg_kw: dict, mesh_kw: dict, plugin_kw: dict,
+                     lr: float, clip, lazy: bool = True, tp_specs: bool = False) -> dict:
+    """``Accelerator.build_train_step`` over ``llama.loss_fn`` (marked to gather its
+    ``FsdpShard`` leaves itself when ``lazy``, else wrapped in a plain lambda: the
+    whole-tree gather) with ``fused_adamw`` under ``FullyShardedDataParallelPlugin(
+    **plugin_kw)`` on the mesh of ``mesh_kw`` (``tp_specs``: the model's
+    ``partition_specs`` too): per step the loss, the grad norm and the whole params;
+    the placed specs, the collective routes taken and the kernel's (CPU) calls."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_from_jax
+    from accelerate_tpu_torch.ops.fused_optim import fused_adamw
+    from accelerate_tpu_torch.parallel import MeshConfig, fsdp
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    _threads()
+    _reset_accelerator_state()
+    cfg = _config(cfg_kw)
+    acc = Accelerator(device="cpu", mesh_config=MeshConfig(**mesh_kw),
+                      fsdp_plugin=FullyShardedDataParallelPlugin(**plugin_kw))
+    state = acc.create_train_state(
+        params_from_jax(np_params, cfg, device="cpu", master_dtype=torch.float32),
+        fused_adamw(lr), partition_specs=llama.partition_specs(cfg) if tp_specs else None)
+    loss = (fsdp.gathers_fsdp_shards(lambda p, b: llama.loss_fn(p, b, cfg)) if lazy
+            else (lambda p, b: llama.loss_fn(p, b, cfg)))
+    step = acc.build_train_step(loss, max_grad_norm=clip)
+    fsdp.reset_stats()
+    out = {"losses": [], "grad_norms": [], "params": [],
+           "specs": _plain_specs(acc._param_specs), "distributed_type": str(acc.distributed_type),
+           "fsdp_dims": state.fsdp_dims, "resident_bytes": _resident_bytes(state)}
+    for batch in batches:
+        state, metrics = step(state, batch)
+        out["losses"].append(float(metrics["loss"]))
+        out["grad_norms"].append(float(metrics["grad_norm"]))
+        whole = acc.get_state_dict(state.params)
+        out["params"].append({"embed": whole["embed"].numpy().copy(),
+                              "ln_f": whole["ln_f"].numpy().copy(),
+                              "layers": [{k: v.numpy().copy() for k, v in layer.items()}
+                                         for layer in whole["layers"]],
+                              **({"lm_head": whole["lm_head"].numpy().copy()}
+                                 if "lm_head" in whole else {})})
+    out["stats"] = dict(fsdp.STATS)
+    _reset_accelerator_state()
+    return out
+
+
+def whole_state(acc, state) -> dict:
+    """``{path: numpy}`` of every tensor leaf of a train state, each gathered whole from
+    the ranks' pieces (a collective), and its plain values as they are."""
+    from accelerate_tpu_torch import checkpointing as ck
+
+    flat = ck._flat_state(state)
+    split = ck._split_dims(state, flat, acc.mesh)
+    return {p: (ck._whole_leaf(v, split.get(p, (None, None)), acc.mesh).numpy().copy()
+                if torch.is_tensor(v) else v) for p, v in flat.items()}
+
+
+def fsdp_checkpoint_round_trip(np_params, batch, directory: str, one_dir: str) -> dict:
+    """The ZeRO test's problem on dp1×fsdp2 (``fused_adamw``, ``min_weight_size=1``):
+
+    - ``full``: ZeRO-3, FULL_STATE_DICT saved after a step (into ``full`` and
+      ``switch``), two more steps, loaded back in place, the two steps again; then a
+      SHARDED save into ``switch``, loaded back;
+    - ``sharded``: ZeRO-3 saved SHARDED after a step (for the one-process reshard and
+      ``merge-weights``), with the whole state at the save;
+    - ``from_one``: ``one_dir`` (a one-process ZeRO-0 checkpoint) loaded into a ZeRO-3
+      and a ZeRO-1 state (the reshard from 1 to 2 ranks), their whole states.
+    """
+    import os
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.ops.fused_optim import fused_adamw
+    from accelerate_tpu_torch.parallel import MeshConfig
+    from accelerate_tpu_torch.utils.dataclasses import FullyShardedDataParallelPlugin
+
+    _threads()
+
+    def setup(stage, sdt="SHARDED_STATE_DICT"):
+        _reset_accelerator_state()
+        acc = Accelerator(device="cpu", mesh_config=MeshConfig(dp=1, fsdp=2),
+                          fsdp_plugin=FullyShardedDataParallelPlugin(
+                              zero_stage=stage, min_weight_size=1, state_dict_type=sdt))
+        state = acc.create_train_state({k: torch.tensor(v) for k, v in np_params.items()},
+                                       fused_adamw(1e-2))
+
+        def loss_fn(p, b):
+            h = torch.tanh(b["x"] @ p["w1"] + p["b1"])
+            return torch.mean((h @ p["w2"] - b["y"]) ** 2)
+
+        return acc, state, acc.build_train_step(loss_fn)
+
+    out = {}
+    acc, state, step = setup(3, "FULL_STATE_DICT")
+    state, m = step(state, batch)
+    path = acc.save_state(os.path.join(directory, "full"), train_state=state)
+    switch = acc.save_state(os.path.join(directory, "switch"), train_state=state)
+    saved = whole_state(acc, state)
+    first = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        first.append(float(m["loss"]))
+    files_full = sorted(os.listdir(path))
+    state = acc.load_state(path, train_state=state)
+    restored = whole_state(acc, state)
+    again = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        again.append(float(m["loss"]))
+    acc.fsdp_plugin.state_dict_type = "SHARDED_STATE_DICT"
+    acc.save_state(switch, train_state=state)
+    switched = whole_state(acc, state)
+    files_switched = sorted(os.listdir(switch))
+    state = acc.load_state(switch, train_state=state)
+    out["full"] = {"saved": saved, "restored": restored, "first": first, "again": again,
+                   "files_full": files_full, "files_switched": files_switched,
+                   "switched": switched, "reloaded": whole_state(acc, state)}
+
+    acc, state, step = setup(3)
+    state, _ = step(state, batch)
+    acc.save_state(os.path.join(directory, "sharded"), train_state=state)
+    out["sharded"] = {"saved": whole_state(acc, state), "losses": []}
+    for _ in range(2):
+        state, m = step(state, batch)
+        out["sharded"]["losses"].append(float(m["loss"]))
+
+    out["from_one"] = {}
+    for stage in (3, 1):
+        acc, state, step = setup(stage)
+        state = acc.load_state(one_dir, train_state=state)
+        loaded = whole_state(acc, state)
+        state, m = step(state, batch)
+        out["from_one"][stage] = {"loaded": loaded, "loss": float(m["loss"]),
+                                  "stats": acc.checkpoint_stats["load"]}
+    _reset_accelerator_state()
     return out
 
 
