@@ -42,6 +42,36 @@ Ported so far:
   ``torch._scaled_mm``, delayed scaling), scaled-fp8 AdamW moments, ``models/lora.py``
   and ``optim.multi_transform``, behind ``Accelerator(mixed_precision="fp8")`` and
   ``LlamaConfig(use_fp8=..., lora_rank=...)``.
+
+The package exports the JAX package's top-level names for what is ported (the
+``Accelerator``, the state singletons, the launchers, the config dataclasses, the mesh).
 """
 
 __version__ = "0.1.0"
+
+import importlib
+
+#: The top-level names, each from the module that defines it. They load at first use, so
+#: importing a submodule (``accelerate_tpu_torch.ops._build``, a CLI) does not import the
+#: whole package.
+_EXPORTS = {
+    "Accelerator": "accelerator", "AcceleratorState": "state", "GradientState": "state",
+    "PartialState": "state", "skip_first_batches": "data_loader",
+    "GenerationConfig": "generation", "generate_loop": "generation",
+    "sample_logits": "generation", "debug_launcher": "launchers",
+    "notebook_launcher": "launchers", "TokenDataset": "lm_dataset",
+    "write_token_file": "lm_dataset", "get_logger": "logging",
+    "DataLoaderConfiguration": "utils", "DistributedType": "utils", "FaultConfig": "utils",
+    "FullyShardedDataParallelPlugin": "utils", "GatewayConfig": "utils",
+    "GradientAccumulationPlugin": "utils", "MixedPrecisionPolicy": "utils",
+    "ProjectConfiguration": "utils", "TelemetryConfig": "utils",
+    "TensorParallelPlugin": "utils", "synchronize_rng_states": "utils",
+    "MeshConfig": "parallel", "build_mesh": "parallel",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__), name)

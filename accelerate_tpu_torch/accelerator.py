@@ -108,7 +108,21 @@ CUDA): ``FusedAdamW`` streams its moments through the card in fixed-size chunks
 (``ops.fused_optim.FusedAdamW.fused_apply_offloaded``), any other optimizer fetches its
 whole state for the apply and stores it back. ``get_state_dict`` gathers.
 
-Not ported yet (raise ``NotImplementedError``): activation offload, the tp/pp/sp/ep and
+The user surface of HF Accelerate's loops (``accumulate``, ``no_sync``, ``autocast``,
+``join_uneven_inputs``, ``clip_grad_norm_``/``clip_grad_value_``, ``value_and_grad``,
+``set_trigger``/``check_trigger`` and the process control of ``state.PartialState``)
+follows the JAX package: ``accumulate()`` decides on the host whether the next step
+applies (every ``gradient_accumulation_steps``-th entry, at the end of a prepared data
+loader, or every batch with ``sync_each_batch``), and a step built by
+``build_train_step`` takes that decision while the context is open; ``no_sync()`` makes
+every step inside it accumulate. ``clip_grad_*_`` record a limit that every step built
+after the call reads (a step built before is not affected). ``backward`` raises: the
+params are a tensor tree that the step's own optimizer updates, so a ``.grad`` that
+``loss.backward()`` leaves would reach nothing; ``value_and_grad`` serves manual loops.
+``tp_plugin=TensorParallelPlugin(tp_size=n)`` lays the ranks out on a tp axis of ``n``
+(``MeshConfig.from_plugins``), as ``mesh_config=MeshConfig(tp=n)`` does.
+
+Not ported yet (raise ``NotImplementedError``): activation offload, the pp/sp/ep and
 Megatron plugins, the multi-slice ``dcn_dp`` layout, trackers, the compile cache, and
 kwargs handlers other than ``FP8RecipeKwargs``. The launcher's variables that ask for
 them (``ACCELERATE_SP_MODE``, ``ACCELERATE_PP_*``, ``ACCELERATE_LOG_WITH``) raise too. A
@@ -143,7 +157,7 @@ from .parallel.tp import all_reduce, split_dims
 from .resilience.faults import NonFiniteStepError, StageCrashed
 from .scheduler import AcceleratedScheduler
 from .state import AcceleratorState, GradientState
-from .utils.constants import BATCH_AXES, DATA_AXIS, FSDP_AXIS, TENSOR_AXIS
+from .utils.constants import BATCH_AXES, DATA_AXIS, FSDP_AXIS, PIPELINE_AXIS, TENSOR_AXIS
 from .telemetry import FAULT_SCHEMA, Telemetry
 from .utils.dataclasses import (
     DataLoaderConfiguration,
@@ -155,6 +169,7 @@ from .utils.dataclasses import (
     MixedPrecisionPolicy,
     ProjectConfiguration,
     TelemetryConfig,
+    TensorParallelPlugin,
 )
 from .utils.environment import parse_choice_from_env, parse_flag_from_env
 from .utils.operations import (gather, gather_object, pad_across_processes, recursively_apply,
@@ -303,13 +318,17 @@ class _TrainStep:
             raise NonFiniteStepError(self.nonfinite_consecutive, self.nonfinite_total)
 
     def _dispatch(self, acc, state: TrainState, batch) -> tuple[TrainState, Any]:
-        # From the state's micro count (not a host counter), so a resumed state keeps
-        # its place in the accumulation window; the last batch of a prepared data loader
+        # Inside ``accumulate()``/``no_sync()`` the context has decided. Outside, from
+        # the state's micro count (not a host counter), so a resumed state keeps its
+        # place in the accumulation window; the last batch of a prepared data loader
         # applies whatever was accumulated.
         gs = acc.gradient_state
-        at_end = gs.sync_with_dataloader and gs.end_of_dataloader
-        do_sync = (state.micro + 1) % acc.gradient_accumulation_steps == 0 or at_end
-        gs._set_sync_gradients(do_sync)
+        if acc._in_accumulate_ctx:
+            do_sync = gs.sync_gradients
+        else:
+            at_end = gs.sync_with_dataloader and gs.end_of_dataloader
+            do_sync = (state.micro + 1) % acc.gradient_accumulation_steps == 0 or at_end
+            gs._set_sync_gradients(do_sync)
         if do_sync:
             state, metrics = self.apply_fn(state, batch)
         else:
@@ -382,7 +401,7 @@ class _FusedTrainStep:
 
 
 _UNPORTED_ARGS = (
-    "tp_plugin", "pp_plugin", "sp_plugin", "ep_plugin", "megatron_lm_plugin",
+    "pp_plugin", "sp_plugin", "ep_plugin", "megatron_lm_plugin",
     "log_with", "dynamo_plugin", "compile_cache_config",
 )
 #: The launcher's variables of features not ported yet (prefixes): a job that asks for
@@ -422,6 +441,7 @@ class Accelerator:
         fault_config: Optional[FaultConfig] = None,
         kwargs_handlers: Optional[list] = None,
         fsdp_plugin: Optional[FullyShardedDataParallelPlugin] = None,
+        tp_plugin: Optional[TensorParallelPlugin] = None,
         **kwargs,
     ):
         unported = sorted(k for k, v in kwargs.items() if v is not None)
@@ -453,7 +473,7 @@ class Accelerator:
             fsdp_plugin = FullyShardedDataParallelPlugin()
         self.state = AcceleratorState(mixed_precision=mixed_precision, cpu=cpu, device=device,
                                       mesh_config=mesh_config, backend=backend,
-                                      fsdp_plugin=fsdp_plugin)
+                                      fsdp_plugin=fsdp_plugin, tp_plugin=tp_plugin)
         if gradient_accumulation_plugin is None:
             # An explicit argument (1 included) wins over the launcher's variable.
             if gradient_accumulation_steps is None:
@@ -474,6 +494,11 @@ class Accelerator:
         self.gateway_config = gateway_config if gateway_config is not None else GatewayConfig()
         self.step = 0
         self._max_grad_norm = max_grad_norm
+        self._max_grad_value: Optional[float] = None
+        self._in_accumulate_ctx = False
+        self._accumulate_count = 0
+        #: ``set_trigger``'s flag on this process (None: not set since the last check).
+        self.flag_tensor = None
         self._models: list = []
         self._optimizers: list[AcceleratedOptimizer] = []
         self._schedulers: list = []
@@ -526,15 +551,71 @@ class Accelerator:
         return self.state.process_index
 
     @property
+    def local_process_index(self) -> int:
+        return self.state.local_process_index
+
+    @property
     def is_main_process(self) -> bool:
         return self.state.is_main_process
+
+    @property
+    def is_local_main_process(self) -> bool:
+        return self.state.is_local_main_process
+
+    @property
+    def is_last_process(self) -> bool:
+        return self.state.is_last_process
+
+    @property
+    def use_distributed(self) -> bool:
+        return self.state.use_distributed
 
     @property
     def project_dir(self):
         return self.project_configuration.project_dir
 
+    # Pipeline parallelism is not ported (no pp plugin; the launcher's ACCELERATE_PP_*
+    # raise): the pipeline settings are those of a mesh without a pipeline.
+    @property
+    def num_microbatches(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[PIPELINE_AXIS]
+
+    @property
+    def pp_schedule(self) -> str:
+        return "gpipe"
+
+    @property
+    def virtual_stages(self) -> int:
+        return 1
+
+    # ------------------------------------------------------------------- process control
     def wait_for_everyone(self) -> None:
         self.state.wait_for_everyone()
+
+    def print(self, *args, **kwargs) -> None:
+        self.state.print(*args, **kwargs)
+
+    def split_between_processes(self, inputs, apply_padding: bool = False):
+        return self.state.split_between_processes(inputs, apply_padding=apply_padding)
+
+    def main_process_first(self):
+        return self.state.main_process_first()
+
+    def local_main_process_first(self):
+        return self.state.local_main_process_first()
+
+    def on_main_process(self, function: Callable) -> Callable:
+        return self.state.on_main_process(function)
+
+    def on_local_main_process(self, function: Callable) -> Callable:
+        return self.state.on_local_main_process(function)
+
+    def on_process(self, function: Optional[Callable] = None,
+                   process_index: Optional[int] = None):
+        return self.state.on_process(function, process_index=process_index)
+
+    def on_last_process(self, function: Callable) -> Callable:
+        return self.state.on_last_process(function)
 
     @property
     def mixed_precision(self) -> str:
@@ -759,8 +840,13 @@ class Accelerator:
         ``(loss, aux)`` with ``has_aux``. Gradients are
         accumulated over ``gradient_accumulation_steps`` calls and averaged; at each sync
         step they are clamped to ``max_grad_value``, clipped to ``max_grad_norm`` (global
-        norm; folded into the fused apply as a scale) and applied. ``cast_params=False``
-        leaves the cast to the model (llama casts each weight at its use).
+        norm; folded into the fused apply as a scale) and applied. Either limit left
+        None takes the value of the last ``clip_grad_value_``/``clip_grad_norm_`` call
+        (or the constructor's ``max_grad_norm``). Inside ``accumulate()`` or
+        ``no_sync()`` the context decides whether a call applies; an apply before the
+        window is full still divides the sum by ``gradient_accumulation_steps``.
+        ``cast_params=False`` leaves the cast to the model (llama casts each weight at
+        its use).
         ``skip_nonfinite_steps=K`` skips updates whose loss or gradients are not finite
         (a micro-step's contribution is zeroed) and raises :class:`NonFiniteStepError`
         after K consecutive ones. The step updates its state in place (the JAX step
@@ -782,6 +868,7 @@ class Accelerator:
         tx = optimizer.optimizer
         policy = self.mixed_precision_policy
         max_grad_norm = self._max_grad_norm if max_grad_norm is None else max_grad_norm
+        max_grad_value = self._max_grad_value if max_grad_value is None else max_grad_value
         accum_steps = self.gradient_accumulation_steps
         wants_rng = _loss_fn_wants_rng(loss_fn)
         compress_reduce = (cast_params and policy.reduce_dtype is not None
@@ -1015,6 +1102,127 @@ class Accelerator:
                                    pad_grad_norm=max_grad_norm is not None)
         return _TrainStep(self, micro_step, apply_step, optimizer=optimizer,
                           skip_nonfinite_steps=skip_nonfinite_steps)
+
+    # -------------------------------------------------- accumulation and sync contexts
+    @contextlib.contextmanager
+    def accumulate(self, *models):
+        """Gradient-accumulation context: counts its entries and sets ``sync_gradients``
+        on every ``gradient_accumulation_steps``-th one, at the end of a prepared data
+        loader (``sync_with_dataloader``) or on each one (``sync_each_batch``). A step
+        built by ``build_train_step`` called inside applies exactly when it is set."""
+        self._accumulate_count += 1
+        gs = self.gradient_state
+        do_sync = (self._accumulate_count % self.gradient_accumulation_steps == 0
+                   or (gs.sync_with_dataloader and gs.end_of_dataloader)
+                   or gs.sync_each_batch)
+        gs._set_sync_gradients(do_sync)
+        self._in_accumulate_ctx = True
+        try:
+            yield
+        finally:
+            self._in_accumulate_ctx = False
+
+    @contextlib.contextmanager
+    def no_sync(self, model=None):
+        """Every step called inside only accumulates (its gradient is added to the
+        state's accumulation buffer, nothing is applied); ``sync_gradients`` is back to
+        its value on exit."""
+        gs = self.gradient_state
+        prev = gs.sync_gradients
+        gs._set_sync_gradients(False)
+        self._in_accumulate_ctx = True
+        try:
+            yield
+        finally:
+            gs._set_sync_gradients(prev)
+            self._in_accumulate_ctx = False
+
+    @contextlib.contextmanager
+    def autocast(self, autocast_handler=None):
+        """A context for loops written against HF Accelerate: the train step casts to
+        the compute dtype itself, so this one does nothing (as in JAX)."""
+        yield
+
+    @contextlib.contextmanager
+    def join_uneven_inputs(self, joinables, even_batches: Optional[bool] = None):
+        """Prepared data loaders already even out the ranks' batches
+        (``even_batches``); ``even_batches`` given here overrides that for the block."""
+        cfg = self.dataloader_config
+        prev = cfg.even_batches
+        if even_batches is not None:
+            cfg.even_batches = even_batches
+        try:
+            yield
+        finally:
+            cfg.even_batches = prev
+
+    # ------------------------------------------------------------------ gradient utilities
+    def backward(self, loss, **kwargs):
+        raise RuntimeError(
+            "The params are a tensor tree that the train step's own optimizer updates: a "
+            ".grad left by loss.backward() would reach nothing. Use `step = "
+            "accelerator.build_train_step(loss_fn)` and call `state, metrics = step(state, "
+            "batch)` — or `accelerator.value_and_grad(loss_fn)` for manual loops.")
+
+    def value_and_grad(self, loss_fn: Callable, has_aux: bool = False) -> Callable:
+        """``fn(params, *args, **kwargs) -> (loss, grads)`` (``((loss, aux), grads)``
+        with ``has_aux``): ``loss_fn`` on the params cast to the policy's compute dtype,
+        its gradients with respect to the params' floating leaves taken by
+        ``torch.autograd`` through that cast, so each comes back in its leaf's dtype
+        (None for other leaves; zeros for a leaf the loss does not use). The caller's
+        tensors are not modified; the loss runs in the mesh's context."""
+        policy = self.mixed_precision_policy
+
+        def wrapped(params, *args, **kwargs):
+            leaves = tree_leaves(params)
+            train = [i for i, x in enumerate(leaves)
+                     if torch.is_tensor(x) and x.is_floating_point()]
+            with torch.enable_grad(), self._mesh_context():
+                own = list(leaves)
+                for i in train:
+                    own[i] = leaves[i].detach().requires_grad_(True)
+                out = loss_fn(cast_floating(tree_unflatten(params, own), policy.compute_dtype),
+                              *args, **kwargs)
+                loss, aux = out if has_aux else (out, None)
+                got = torch.autograd.grad(loss, [own[i] for i in train], allow_unused=True)
+            grads = [None] * len(leaves)
+            for i, g in zip(train, got):
+                grads[i] = torch.zeros_like(leaves[i]) if g is None else g
+            loss = loss.detach()
+            grads = tree_unflatten(params, grads)
+            if not has_aux:
+                return loss, grads
+            aux = tree_map(lambda x: x.detach() if torch.is_tensor(x) else x, aux)
+            return (loss, aux), grads
+
+        return wrapped
+
+    def clip_grad_norm_(self, max_grad_norm: float) -> None:
+        """Clip by the global norm at ``max_grad_norm`` in every train step built after
+        this call (the norm is in each step's ``grad_norm`` metric)."""
+        self._max_grad_norm = float(max_grad_norm)
+
+    def clip_grad_value_(self, clip_value: float) -> None:
+        """Clamp every gradient element to ``[-clip_value, clip_value]`` in every train
+        step built after this call, before any global-norm clip (the order a torch user
+        calls the pair in)."""
+        self._max_grad_value = float(clip_value)
+
+    def set_trigger(self) -> None:
+        """Raise this process's flag: the next ``check_trigger`` is True on every
+        process."""
+        self.flag_tensor = 1
+
+    def check_trigger(self) -> bool:
+        """Whether any process called ``set_trigger`` since the last check, on every
+        process (a sum over all of them; a collective: every process calls it); the flag
+        is cleared. The flag is a tensor on the device under NCCL, on the CPU under gloo
+        (which would stage a CUDA tensor through host memory)."""
+        dev = self.device if self.state.backend == "nccl" else torch.device("cpu")
+        local = torch.tensor([float(self.flag_tensor or 0)], device=dev)
+        fired = bool(reduce(local, reduction="sum")[0] > 0)
+        self.flag_tensor = None
+        return fired
 
     def build_eval_step(self, eval_fn: Callable) -> Callable:
         """``eval_fn(params, batch) -> outputs`` under ``torch.no_grad`` with the params

@@ -26,9 +26,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Sequence
+from typing import Optional, Sequence
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "build", "load"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "KERNEL_SOURCES", "build", "finish", "load", "start"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 #: Every CUDA source of the port, as ``build`` names them.
@@ -72,11 +72,9 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(names: Sequence[str]) -> dict:
-    """Compile every named source that is not built yet, all ``nvcc`` processes
-    started together → ``{name: library path}``. The compiler's output (``-Xptxas
-    -v``: registers, shared memory and spills per kernel) is kept beside each
-    library as ``.log``. Raises ``RuntimeError`` naming the failed sources."""
+def start(names: Sequence[str]) -> dict:
+    """Start ``nvcc`` for every named source that is not built yet, all together; the
+    handle :func:`finish` waits on."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: _lib_path(name) for name in names}
     procs = {}
@@ -88,8 +86,21 @@ def build(names: Sequence[str]) -> dict:
         cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), tmp)
+    return {"paths": paths, "procs": procs, "t0": t0}
+
+
+def finish(started: dict, names: Optional[Sequence[str]] = None) -> dict:
+    """Wait for the ``nvcc`` processes :func:`start` started (of ``names``; every one when
+    None; the others can be waited for later) → ``{name: library path}`` of ``names``.
+    The compiler's output (``-Xptxas -v``: registers, shared memory and spills per
+    kernel) is kept beside each library as ``.log``. Raises ``RuntimeError`` naming the
+    failed sources."""
+    paths, procs = started["paths"], started["procs"]
+    names = list(paths) if names is None else list(names)
+    waited = [name for name in names if name in procs]
     failed = []
-    for name, (proc, tmp) in procs.items():
+    for name in waited:
+        proc, tmp = procs.pop(name)
         log, _ = proc.communicate()
         paths[name].with_suffix(".log").write_text(log)
         if proc.returncode != 0:
@@ -98,13 +109,19 @@ def build(names: Sequence[str]) -> dict:
         os.replace(tmp, paths[name])  # atomic: a concurrent loader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    if procs:
+    if waited:
         from ..telemetry.compile_monitor import dispatch_compile
 
-        elapsed = time.perf_counter() - t0
-        for _ in procs:  # built together: each charged the batch's wall time
+        elapsed = time.perf_counter() - started["t0"]
+        for _ in waited:  # built together: each charged the wall time until it was waited for
             dispatch_compile("kernel_build", elapsed)
-    return paths
+    return {name: paths[name] for name in names}
+
+
+def build(names: Sequence[str]) -> dict:
+    """Compile every named source that is not built yet, all ``nvcc`` processes
+    started together (:func:`start`, then :func:`finish`) → ``{name: library path}``."""
+    return finish(start(names))
 
 
 @functools.lru_cache(maxsize=None)

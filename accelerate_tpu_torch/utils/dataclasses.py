@@ -7,8 +7,8 @@ sentinels), ``ProjectConfiguration``, ``GatewayConfig`` (the serving gateway's, 
 validation and its ``ACCELERATE_GATEWAY`` environment variable), ``TelemetryConfig``
 (``ACCELERATE_TELEMETRY``, ``ACCELERATE_TELEMETRY_DIR``), ``FaultConfig``
 (``ACCELERATE_FAULTS``), ``FP8RecipeKwargs`` (``ACCELERATE_FP8_*``),
-``FSDPShardingStrategy`` and ``FullyShardedDataParallelPlugin`` (``ACCELERATE_FSDP_*``)
-and ``TensorInformation``. ``RNGType`` has no ``jax`` member: the port draws no JAX keys.
+``FSDPShardingStrategy`` and ``FullyShardedDataParallelPlugin`` (``ACCELERATE_FSDP_*``),
+``TensorParallelPlugin`` and ``TensorInformation``. ``RNGType`` has no ``jax`` member: the port draws no JAX keys.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ __all__ = [
     "GradientAccumulationPlugin", "MixedPrecisionPolicy", "DataLoaderConfiguration",
     "ProjectConfiguration", "GatewayConfig", "TelemetryConfig", "FaultConfig",
     "FP8RecipeKwargs", "FSDPShardingStrategy", "FullyShardedDataParallelPlugin",
-    "TensorInformation", "parse_flag_from_env",
+    "TensorParallelPlugin", "TensorInformation", "parse_flag_from_env",
 ]
 
 
@@ -237,6 +237,16 @@ class FullyShardedDataParallelPlugin(KwargsHandler):
     @property
     def shards_optimizer(self) -> bool:
         return self.zero_stage >= 1
+
+
+@dataclass
+class TensorParallelPlugin(KwargsHandler):
+    """Megatron-style tensor parallelism along the ``tp`` mesh axis: ``tp_size`` ranks
+    (``parallel/tp.py``; the model's ``partition_specs`` place the shards). ``plan`` is
+    accepted and not read, as in JAX: the placement comes from the model's specs."""
+
+    tp_size: int = 1
+    plan: Optional[str] = None
 
 
 @dataclass

@@ -4,7 +4,10 @@
 
 Phases, in order; each prints one JSON line and any failure exits non-zero, after one
 line ``{"phase": "failed", "in": ..., "cases": ..., "error": ..., "traceback": ...}``
-that names the phase, its failed cases and the exception:
+that names the phase, its failed cases and the exception. Since slice 22, phases 5-10
+(flash to train_fused) and train_accumulate run right after the training kernels are
+built, while paged attention's source, the longest to compile, still compiles; phase 1
+then waits for the rest of the build (``device_serving``) and prints its line:
 
 1. device — the card's ``nvidia-smi`` name and power limit; build every CUDA kernel
    of the port from ``accelerate_tpu_torch/csrc`` (all ``nvcc`` processes started
@@ -267,7 +270,9 @@ that names the phase, its failed cases and the exception:
    sharing the card (``debug``, fp32); rank 0 dies once after the step-3 checkpoint, the
    supervisor tears rank 1 down and relaunches both on a fresh port; the gang resumes and
    its final params match one uninterrupted process within ``train_tp_parity``'s fp32
-   tolerance. NCCL (one rank per card) is not run.
+   tolerance. NCCL (one rank per card) is not run. Since slice 22 its launch starts
+   before elastic_train and runs beside it (``elastic_gang_start``); the phase then
+   waits for it and checks it.
 24. fp8_dot_check (run right after train_fused) — ``ops.fp8``'s products through
    ``torch._scaled_mm`` against the plain version (fp32-widened codes) at Llama-3-8B's
    projection shapes (M = 2048), M = 8 and a ragged shape, HYBRID and E4M3, forward, dx
@@ -311,6 +316,25 @@ that names the phase, its failed cases and the exception:
    FULL_STATE_DICT under /dev/shm: FULL reloaded into the ranks, the SHARDED save
    resharded into one rank, the FULL checkpoint into one rank, ``merge-weights``: every
    leaf bitwise (per-leaf checksums summed from each rank's pieces).
+   Since slice 22 the tp ranks build their ``Accelerator`` through
+   ``tp_plugin=TensorParallelPlugin(tp_size=2)`` (the mesh must be dp1×tp2), and in
+   train_tp_parity rank 1's ``set_trigger`` must fire ``check_trigger`` on both ranks,
+   the next check on neither.
+31. train_accumulate (run right after train_fused; slice 22) — HF Accelerate's loop
+   surface at Llama-3-8B's width, 1 layer, B=2, S=2048, ``gradient_accumulation_steps=2``,
+   four batches: arm A (``clip_grad_value_``/``clip_grad_norm_``, then each step inside
+   ``accumulate()``) against arm B (the constructor's ``max_grad_norm`` and
+   ``build_train_step(max_grad_value=)``, run twice for its own spread) bit for bit,
+   arm C (no clip, the planted fault) off B; sync flags, the clamped share, a
+   ``no_sync()`` window (params unchanged, the buffer the sum of both gradients), the
+   launches of #2-#4 and #9 in every arm, all within 10 s.
+
+Every process the script starts keeps the bytecode it compiles under ``build/pycache``
+(``share_bytecode``): where the installation writes none, each process compiled torch's
+sources anew, which was most of a fresh worker's or rank's start and first step. The
+kernels compile while the script imports torch (``start_kernel_build``), and the script,
+each elastic worker and each rank of the shared launch import ``torch._dynamo`` (which
+the first checkpointed block needs) in a thread while they set up (``preload_dynamo``).
 
 Then each phase's wall seconds, the kernels line (the serving kernels' launches include the super-steps' graph
 replays: kernel nodes times replays), the card's name and power limit, and a last line
@@ -325,6 +349,7 @@ copy of this script), it times that tree's kernels for a same-call comparison.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -340,10 +365,56 @@ import threading
 import time
 import traceback
 from pathlib import Path
+from typing import Optional
 
-import numpy as np
+#: The kernel sources the training phases that run first launch (``main``).
+TRAIN_SOURCES = ("flash_attention", "fused_adamw", "fused_xent")
+#: Where every Python process of the script keeps its compiled bytecode (git-ignored).
+PYCACHE = Path(__file__).resolve().parent / "build" / "pycache"
 
-import torch
+
+def share_bytecode() -> None:
+    """Keep the bytecode that Python compiles from source in PYCACHE, in this process and
+    every process it starts (``PYTHONPYCACHEPREFIX``), written even where the
+    environment says not to (``PYTHONDONTWRITEBYTECODE``). Where the installation ships
+    no bytecode beside torch's sources and bytecode is not written, every process
+    compiles the sources it imports anew: about 8 s of ``import torch``, and about 9 s
+    of ``torch._dynamo``, which the first non-reentrant ``torch.utils.checkpoint`` call
+    imports (``torch._disable_dynamo``), in each elastic worker, launched rank and
+    spawned rank process (a fresh process's first remat step took 10-13 s)."""
+    PYCACHE.mkdir(parents=True, exist_ok=True)
+    sys.pycache_prefix = str(PYCACHE)
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
+def start_kernel_build(argv) -> Optional[dict]:
+    """Start ``nvcc`` for the kernel sources the run needs (``_build.start``), so that the
+    compiles overlap the interpreter's import of torch; None where the port or ``nvcc``
+    is missing (``main`` then stops, or builds what it needs)."""
+    try:
+        from accelerate_tpu_torch.ops import _build
+    except ImportError:
+        return None
+    names = ["fused_xent"] if "--xent-fwd-times" in argv else list(_build.KERNEL_SOURCES)
+    try:
+        return _build.start(names)
+    except RuntimeError:  # no nvcc
+        return None
+
+
+EARLY_BUILD: Optional[dict] = None
+# Before torch is imported: its bytecode is kept, and the kernels compile while it loads
+# (worker processes build nothing).
+if __name__ == "__main__":
+    share_bytecode()
+    if sys.argv[1:2] not in (["--elastic-worker"], ["--gang-worker"]):
+        EARLY_BUILD = start_kernel_build(sys.argv[1:])
+
+import numpy as np  # noqa: E402
+
+import torch  # noqa: E402
 
 # Hardware numbers of one H100 SXM (NVIDIA's data sheet): HBM rate and the dense
 # tensor-core peak in bf16 (fp32 math outside the tensor cores: 67 TFLOP/s).
@@ -5255,6 +5326,187 @@ def _reset_train_counts(fa, fo) -> None:
     fo.adamw_leaves.launches = 0
 
 
+# ------------------------------ slice 22: accumulate(), clip_grad_*_ and no_sync() at 8B
+ACCUM_LAYERS = 1
+ACCUM_STEPS = 2  # gradient_accumulation_steps
+ACCUM_BATCHES = 4
+ACCUM_NORM = 1.0  # the global-norm clip of arms A and B
+ACCUM_CLAMP_TARGET = 0.02  # share of the first window's averaged gradient the clamp aims at
+ACCUM_CLAMP_MIN = 0.01  # the share it must reach
+ACCUM_MAX_S = 10.0
+
+
+def _leaf_diff(a: list, b: list) -> dict:
+    """max |a - b| over two lists of tensors, and the share of elements that differ."""
+    worst, differ, total = 0.0, 0, 0
+    for x, y in zip(a, b):
+        d = (x.float() - y.float()).abs()
+        worst = max(worst, float(d.max()))
+        differ += int((d > 0).sum())
+        total += d.numel()
+    return {"max_abs": worst, "share_differing": differ / total}
+
+
+def phase_train_accumulate(dev) -> dict:
+    """HF Accelerate's loop surface on the training path at Llama-3-8B's width, depth cut
+    to ACCUM_LAYERS: bf16 over fp32 masters, remat, flash attention, chunked CE,
+    ``fused_adamw(1e-4)``, B=2, S=2048, ``gradient_accumulation_steps=2``, four seeded
+    batches through three arms:
+
+    - A: a fresh ``Accelerator``, ``clip_grad_value_(v)`` and ``clip_grad_norm_(n)``,
+      then ``build_train_step``; each step inside ``with acc.accumulate():``;
+    - B: ``Accelerator(max_grad_norm=n)`` and ``build_train_step(max_grad_value=v)``,
+      called plainly (run twice: B against B measures the path's own repeat spread);
+    - C: as B without a clip (the planted fault).
+
+    ``v`` clamps about ACCUM_CLAMP_TARGET of the first window's averaged gradient
+    (``value_and_grad`` of batches 0 and 1; at least ACCUM_CLAMP_MIN checked). Checks:
+    the sync flags ``[False, True, False, True]`` in A and B; A's params, losses and grad
+    norms equal B's bit for bit (or within B's own spread, if the path does not repeat
+    its bits); C's params at least 10× that spread away; a ``no_sync()`` window of two
+    batches leaves the params as they were and the accumulation buffer equal to the sum
+    of both gradients; #2–#4 and #9 launched 2L/L/L and once an apply in every arm;
+    the whole phase within ACCUM_MAX_S seconds."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.ops import flash_attention as fa
+    from accelerate_tpu_torch.ops import fused_optim as fo
+    from accelerate_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    _fresh_state_singletons()
+    L = ACCUM_LAYERS
+    cfg = dataclasses.replace(llama.CONFIGS["llama3-8b"], n_layers=L, dtype=torch.bfloat16,
+                              attn_impl="flash", remat=True, remat_policy="full")
+    rng = np.random.default_rng(22)
+    batches = [{"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_B, TRAIN_S + 1)), device=dev)}
+        for _ in range(ACCUM_BATCHES)]
+    init = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
+                             generator=torch.Generator(dev).manual_seed(0), device=dev)
+    init_leaves = tree_leaves(init)
+
+    def loss(p, b):
+        return llama.loss_fn(p, b, cfg)
+
+    # The first window's gradients through value_and_grad (batch 0 twice: its spread).
+    acc = Accelerator(mixed_precision="bf16", device=dev)
+    vg = acc.value_and_grad(loss)
+    _reset_train_counts(fa, fo)
+    g0 = tree_leaves(vg(init, batches[0])[1])
+    g0_again = tree_leaves(vg(init, batches[0])[1])
+    grad_spread = _leaf_diff(g0, g0_again)["max_abs"]
+    del g0_again
+    g_sum = [x + y for x, y in zip(g0, tree_leaves(vg(init, batches[1])[1]))]
+    del g0
+    vg_launches = _train_counts(fa, fo)
+    with torch.no_grad():
+        sample = torch.cat([(g / ACCUM_STEPS).abs().reshape(-1)[::61] for g in g_sum])
+        clamp = float(sample.sort().values[int((1 - ACCUM_CLAMP_TARGET) * (sample.numel() - 1))])
+        clamped = sum(int(((g / ACCUM_STEPS).abs() > clamp).sum()) for g in g_sum)
+    clamped_share = clamped / sum(g.numel() for g in g_sum)
+    del sample
+
+    per_batch = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "fused_adamw": 0}
+    expect = {k: v * ACCUM_BATCHES for k, v in per_batch.items()}
+    expect["fused_adamw"] = ACCUM_BATCHES // ACCUM_STEPS
+
+    def arm(route: str, clip: bool) -> dict:
+        _fresh_state_singletons()
+        kw = {"max_grad_norm": ACCUM_NORM} if route == "constructor" and clip else {}
+        acc = Accelerator(mixed_precision="bf16", device=dev,
+                          gradient_accumulation_steps=ACCUM_STEPS, **kw)
+        state = acc.create_train_state(_clone_to(init, dev), fo.fused_adamw(1e-4))
+        if route == "context":
+            acc.clip_grad_value_(clamp)
+            acc.clip_grad_norm_(ACCUM_NORM)
+            step = acc.build_train_step(loss)
+        else:
+            step = acc.build_train_step(loss, max_grad_value=clamp if clip else None)
+        _reset_train_counts(fa, fo)
+        run = {"flags": [], "losses": [], "grad_norms": []}
+        for batch in batches:
+            with acc.accumulate() if route == "context" else contextlib.nullcontext():
+                state, metrics = step(state, batch)
+            run["flags"].append(acc.sync_gradients)
+            run["losses"].append(float(metrics["loss"]))
+            if "grad_norm" in metrics:
+                run["grad_norms"].append(float(metrics["grad_norm"]))
+        run["launches"] = _train_counts(fa, fo)
+        run["params"] = tree_leaves(state.params)
+        return run
+
+    t_arms = time.perf_counter()
+    b = arm("constructor", clip=True)
+    b_params = b.pop("params")
+    b2 = arm("constructor", clip=True)
+    spread = _leaf_diff(b2.pop("params"), b_params)["max_abs"]
+    a = arm("context", clip=True)
+    a_diff = _leaf_diff(a.pop("params"), b_params)
+    c = arm("constructor", clip=False)
+    c_diff = _leaf_diff(c.pop("params"), b_params)
+    del b_params
+    arms_s = time.perf_counter() - t_arms
+
+    # no_sync(): two batches accumulate and nothing is applied.
+    _fresh_state_singletons()
+    acc = Accelerator(mixed_precision="bf16", device=dev, gradient_accumulation_steps=ACCUM_STEPS)
+    state = acc.create_train_state(_clone_to(init, dev), fo.fused_adamw(1e-4))
+    step = acc.build_train_step(loss)
+    _reset_train_counts(fa, fo)
+    inside = []
+    with acc.no_sync():
+        for batch in batches[:2]:
+            state, _ = step(state, batch)
+            inside.append(acc.sync_gradients)
+    no_sync = {"flags_inside": inside, "flag_after": acc.sync_gradients,
+               "step": state.step, "micro": state.micro,
+               "params_unchanged": all(torch.equal(x, y) for x, y in
+                                       zip(tree_leaves(state.params), init_leaves)),
+               "accum_vs_sum": _leaf_diff(tree_leaves(state.grad_accum), g_sum),
+               "launches": _train_counts(fa, fo)}
+    del state, step, g_sum, init, init_leaves
+    _fresh_state_singletons()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    want_flags = [(i + 1) % ACCUM_STEPS == 0 for i in range(ACCUM_BATCHES)]
+    bitwise = spread == 0.0
+    checks = {
+        "flags": a["flags"] == b["flags"] == want_flags,
+        "clamp_share": clamped_share >= ACCUM_CLAMP_MIN,
+        "a_equals_b": (a_diff["max_abs"] == 0.0 if bitwise else a_diff["max_abs"] <= spread)
+        and (not bitwise or (a["losses"] == b["losses"] and a["grad_norms"] == b["grad_norms"])),
+        "planted_fault_caught": c_diff["max_abs"] > 10 * spread,
+        "no_sync": inside == [False, False] and no_sync["flag_after"]
+        and no_sync["step"] == 0 and no_sync["micro"] == 2 and no_sync["params_unchanged"]
+        and no_sync["accum_vs_sum"]["max_abs"] <= 2 * grad_spread,
+        "launches": all(r["launches"] == expect for r in (a, b, b2, c))
+        and no_sync["launches"] == {k: v * 2 for k, v in per_batch.items()}
+        and vg_launches == {k: v * 3 for k, v in per_batch.items()},
+        "finite": all(np.isfinite(r["losses"]).all() for r in (a, b, c)),
+    }
+    phase_s = time.perf_counter() - t_phase
+    checks["within_time"] = phase_s <= ACCUM_MAX_S
+    res = {"phase": "train_accumulate", "config": "llama3-8b", "layers": L,
+           "cut": f"depth {L} of 32 layers; widths as published", "batch": [TRAIN_B, TRAIN_S],
+           "gradient_accumulation_steps": ACCUM_STEPS, "batches": ACCUM_BATCHES,
+           "clip_grad_norm": ACCUM_NORM, "clip_grad_value": clamp,
+           "clamped_share_first_window": clamped_share, "grad_repeat_spread": grad_spread,
+           "b_repeat_spread": spread, "bit_reproducible": bitwise,
+           "a_vs_b": a_diff, "c_vs_b": c_diff, "arms": {"A_context": a, "B_constructor": b,
+                                                       "B_again": b2, "C_no_clip": c},
+           "no_sync": no_sync, "value_and_grad_launches": vg_launches,
+           "launches_expected": expect, "launches": a["launches"], "arms_s": arms_s,
+           "phase_s": phase_s, "max_s": ACCUM_MAX_S, "checks": checks,
+           "ok": all(checks.values())}
+    emit(res)
+    if not res["ok"]:
+        raise PhaseFailed("accumulate/clip/no_sync failed its checks",
+                          [k for k, v in checks.items() if not v])
+    return res
+
+
 def phase_train_resume(dev) -> dict:
     """Save and resume at ``train_main``'s configuration but RESUME_LAYERS layers
     (Llama-3-8B widths, B=2, S=2048, bf16 over fp32 masters, remat, flash attention, chunked CE,
@@ -5623,8 +5875,10 @@ def elastic_worker(spec: dict) -> int:
     from accelerate_tpu_torch.telemetry import CompileMonitor
     from accelerate_tpu_torch.utils.dataclasses import ProjectConfiguration
     from accelerate_tpu_torch.utils.tree import named_parameters
+    import accelerate_tpu_torch.checkpointing  # noqa: F401  (imported before the preload)
 
     t_start = time.perf_counter()
+    preload_dynamo()  # loads while the worker sets up (and, resuming, reads its checkpoint)
     monitor = CompileMonitor().start()
     root = Path(spec["root"])
     res = {"role": spec["role"], "attempt": 1, "started_unix": time.time(),
@@ -5672,9 +5926,12 @@ def elastic_worker(spec: dict) -> int:
             res["quarantine_dir"] = sorted(p.name for p in qdir.iterdir()) if qdir.exists() else []
             shutil.rmtree(qdir, ignore_errors=True)  # 36 GB of disk back before the final save
         t0 = time.perf_counter()
+        step_s = res["step_s"] = []  # each step to its loss on the host
         for batch in acc.skip_first_batches(loader, start):
+            s0 = time.perf_counter()
             state, metrics = step(state, batch)
             losses.append([state.step, float(metrics["loss"])])
+            step_s.append(time.perf_counter() - s0)
             if spec.get("saves") and res["attempt"] == 1 and state.step in ELASTIC_SAVES:
                 s0 = time.perf_counter()
                 path = acc.save_state(train_state=state)  # the crash propagates
@@ -5792,6 +6049,7 @@ def phase_elastic_train(dev) -> dict:
                     "final_dir": str(root / "elastic" / "final")}
         env = {**os.environ, "ACCELERATE_FAULTS": ELASTIC_FAULTS}
         t0 = time.perf_counter()
+        planned = [time.time()]  # when each worker was asked for: the baseline, attempts
         baseline = subprocess.Popen(_worker_cmd("--elastic-worker", base))
         children.append(baseline)
         results = []
@@ -5799,6 +6057,7 @@ def phase_elastic_train(dev) -> dict:
         def make_plan(rendezvous):
             attempt = len(results) + 1
             results.append(str(root / f"attempt{attempt}.json"))
+            planned.append(time.time())
             return [(_worker_cmd("--elastic-worker", {**sup_spec, "result": results[-1]}), env)]
 
         tel = Telemetry(TelemetryConfig(enabled=True, compile_events=False, memory_stats=False))
@@ -5814,13 +6073,17 @@ def phase_elastic_train(dev) -> dict:
         ref = json.loads(Path(base["result"]).read_text())
         emit({"phase": "elastic_train_workers", "wall_s": walls, "workers": [
             {k: w.get(k) for k in ("role", "attempt", "setup_s", "load_call_s", "train_s",
-                                   "wall_s", "final_step")}
+                                   "step_s", "wall_s", "final_step")}
             | {"saves_call_s": [s["call_s"] for s in w["saves"]]} for w in workers + [ref]]})
         a1, a2 = workers[0], workers[-1]
         res["exit_codes"] = [r["exit_codes"] for r in records] + [[rc]]
         # From the failed attempt's end to the next attempt's start (the supervisor's
         # teardown and poll, a fresh process and its imports), and to its state loaded.
         res["restart_s"] = a2["started_unix"] - a1["ended_unix"]
+        # Each worker's start: from its process asked for to its worker function entered.
+        res["worker_start_s"] = {"uninterrupted": ref["started_unix"] - planned[0],
+                                 **{f"attempt{i + 1}": w["started_unix"] - planned[i + 1]
+                                    for i, w in enumerate(workers)}}
         res["resume_s"] = res["restart_s"] + a2.get("setup_s", 0) + a2.get("load_call_s", 0)
 
         # The exported and the merged params against the final state's, on the card.
@@ -5974,54 +6237,89 @@ def gang_worker(out_dir: str, device: str) -> int:
     return 0
 
 
-def phase_elastic_gang(dev) -> dict:
-    """``python -m accelerate_tpu_torch launch --multi-process --num-processes 2
-    --max-restarts 1 chip_smoke.py --gang-worker DIR``: two gloo ranks sharing the card
-    (``gang_worker``); rank 0 dies once after the step-3 checkpoint, the supervisor tears
-    rank 1 down and relaunches both on a fresh port; the gang resumes and finishes. Its
-    final params against one uninterrupted process on the card (the same global
-    batches) within ``train_tp_parity``'s fp32 tolerance; no kernel built in a rank.
-    NCCL (one rank per card) needs a machine with several cards and is not run."""
+def start_elastic_gang(dev) -> dict:
+    """The reference run of ``elastic_gang`` (one uninterrupted process on the card, the
+    same global batches), then its launch started in the background: ``python -m
+    accelerate_tpu_torch launch --multi-process --num-processes 2 --max-restarts 1
+    chip_smoke.py --gang-worker DIR``. A thread waits for the launch (600 s at most, then
+    its session is killed) and records its seconds. The launch's processes spend most of
+    their time starting up and writing checkpoints, so it runs beside ``elastic_train``,
+    whose workers do the same; :func:`phase_elastic_gang` waits for it and checks it."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.models.convert import params_to_numpy
     from accelerate_tpu_torch.ops.fused_optim import fused_adamw
 
     BUILD_ROOT.mkdir(exist_ok=True)
-    out = Path(tempfile.mkdtemp(prefix="elastic_gang_", dir=BUILD_ROOT))
-    try:
-        cfg = _gang_cfg()
-        _fresh_state_singletons()
-        acc = Accelerator(device=dev)
-        state = acc.create_train_state(
-            llama.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu"),
-            fused_adamw(GANG_LR))
-        step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
-        ref_losses = []
-        for i in range(GANG_STEPS):
-            state, metrics = step(state, _gang_batch(i, cfg.vocab_size))
-            ref_losses.append(float(metrics["loss"]))
-        p_ref = _flat_params(params_to_numpy(state.params))
-        _fresh_state_singletons()
-        cmd = [sys.executable, "-m", "accelerate_tpu_torch", "launch", "--multi-process",
-               "--num-processes", "2", "--max-restarts", "1", str(Path(__file__).resolve()),
-               "--gang-worker", str(out), _rank_device(dev)]
-        t0 = time.perf_counter()
-        # A session of its own: on a time-out the launch and its ranks are killed.
-        launch = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                  text=True, start_new_session=True,
-                                  cwd=Path(__file__).resolve().parent)
+    run = {"out": Path(tempfile.mkdtemp(prefix="elastic_gang_", dir=BUILD_ROOT))}
+    cfg = run["cfg"] = _gang_cfg()
+    _fresh_state_singletons()
+    acc = Accelerator(device=dev)
+    state = acc.create_train_state(
+        llama.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu"),
+        fused_adamw(GANG_LR))
+    step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
+    run["ref_losses"] = []
+    for i in range(GANG_STEPS):
+        state, metrics = step(state, _gang_batch(i, cfg.vocab_size))
+        run["ref_losses"].append(float(metrics["loss"]))
+    run["p_ref"] = _flat_params(params_to_numpy(state.params))
+    del state, step
+    _fresh_state_singletons()
+    run["cmd"] = [sys.executable, "-m", "accelerate_tpu_torch", "launch", "--multi-process",
+                  "--num-processes", "2", "--max-restarts", "1", str(Path(__file__).resolve()),
+                  "--gang-worker", str(run["out"]), _rank_device(dev)]
+    t0 = time.perf_counter()
+    # A session of its own: on a time-out, or when the script stops early, the launch and
+    # its ranks are killed together.
+    launch = run["launch"] = subprocess.Popen(run["cmd"], stdout=subprocess.PIPE,
+                                              stderr=subprocess.PIPE, text=True,
+                                              start_new_session=True,
+                                              cwd=Path(__file__).resolve().parent)
+
+    def wait():
         try:
-            _, stderr = launch.communicate(timeout=600)
+            run["stderr"] = launch.communicate(timeout=600)[1]
         except subprocess.TimeoutExpired:
             os.killpg(launch.pid, signal.SIGKILL)
-            _, stderr = launch.communicate()
-        launch_s = time.perf_counter() - t0
-        rc = launch.returncode
+            run["stderr"] = launch.communicate()[1]
+        run["launch_s"] = time.perf_counter() - t0
+
+    run["waiter"] = threading.Thread(target=wait, daemon=True)
+    run["waiter"].start()
+    return run
+
+
+def stop_elastic_gang(run: dict) -> None:
+    """Kill the gang's launch if it still runs (its whole session) and remove its files."""
+    launch = run.get("launch")
+    if launch is not None and launch.poll() is None:
+        os.killpg(launch.pid, signal.SIGKILL)
+    if run.get("waiter") is not None:
+        run["waiter"].join()
+    shutil.rmtree(run["out"], ignore_errors=True)
+
+
+def phase_elastic_gang(dev, run: Optional[dict] = None) -> dict:
+    """``python -m accelerate_tpu_torch launch --multi-process --num-processes 2
+    --max-restarts 1 chip_smoke.py --gang-worker DIR``: two gloo ranks sharing the card
+    (``gang_worker``); rank 0 dies once after the step-3 checkpoint, the supervisor tears
+    rank 1 down and relaunches both on a fresh port; the gang resumes and finishes. Its
+    final params against one uninterrupted process on the card (the same global
+    batches) within ``train_tp_parity``'s fp32 tolerance; no kernel built in a rank.
+    NCCL (one rank per card) needs a machine with several cards and is not run.
+    ``run``: the launch :func:`start_elastic_gang` started (None: start it here)."""
+    beside = run is not None
+    run = run or start_elastic_gang(dev)
+    try:
+        run["waiter"].join()
+        out, cfg, ref_losses, p_ref = run["out"], run["cfg"], run["ref_losses"], run["p_ref"]
+        rc, stderr = run["launch"].returncode, run["stderr"]
         ranks = [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)
                  if (out / f"rank{r}.json").exists()]
-        res = {"phase": "elastic_gang", "config": "debug", "command": " ".join(cmd[1:]),
-               "rc": rc, "launch_s": launch_s, "ranks": ranks,
+        res = {"phase": "elastic_gang", "config": "debug", "command": " ".join(run["cmd"][1:]),
+               "rc": rc, "launch_s": run["launch_s"],
+               "ran_beside": "elastic_train" if beside else None, "ranks": ranks,
                "restart_lines": [l for l in stderr.splitlines() if "worker group" in l],
                "stderr_tail": stderr[-1500:], "losses_ref": ref_losses,
                "backend": "gloo (2 ranks share one card); NCCL, one rank per card, not run"}
@@ -6054,7 +6352,7 @@ def phase_elastic_gang(dev) -> dict:
                               [k for k, v in ok.items() if not v])
         return res
     finally:
-        shutil.rmtree(out, ignore_errors=True)
+        stop_elastic_gang(run)
         _fresh_state_singletons()
 
 
@@ -6733,6 +7031,23 @@ def xent_fwd_times(dev) -> dict:
 
 # ------------------------------------------------ phases 15-16: tensor-parallel training
 TP_MESH = {"dp": 1, "tp": 2}  # two gloo ranks share the card
+TRIGGER_RANK = 1  # the rank that calls set_trigger() in tp_rank_parity
+
+
+def tp_accelerator(device, **kw):
+    """A rank's ``Accelerator`` on TP_MESH, built through ``tp_plugin=`` (two ranks:
+    dp takes what tp leaves, 1)."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.utils.dataclasses import TensorParallelPlugin
+
+    return Accelerator(device=device, backend="gloo",
+                       tp_plugin=TensorParallelPlugin(tp_size=TP_MESH["tp"]), **kw)
+
+
+def _tp_mesh_ok(r) -> bool:
+    """The rank's mesh is TP_MESH (every other axis 1) and its type TP."""
+    return (r["mesh"] == {k: TP_MESH.get(k, 1) for k in r["mesh"]}
+            and r["distributed_type"] == "TP")
 
 
 def _rank_device(dev) -> str:
@@ -6770,17 +7085,17 @@ def gloo_cuda_probe(device) -> dict:
 
 
 def tp_rank_parity(tokens, lr: float, steps: int, device: str) -> dict:
-    """One rank of ``train_tp_parity``: the ``debug`` config in fp32 on dp1×tp2, the
-    params made on the CPU from seed 0 and sharded by ``partition_specs``,
-    ``fused_adamw`` and ``loss_impl="fused_tp"``; losses, grad norms, the gathered params
-    and the kernels' launches."""
+    """One rank of ``train_tp_parity``: the ``debug`` config in fp32 on dp1×tp2 (the
+    ``Accelerator`` built through ``tp_plugin=``), the params made on the CPU from seed 0
+    and sharded by ``partition_specs``, ``fused_adamw`` and ``loss_impl="fused_tp"``;
+    losses, grad norms, the gathered params, the kernels' launches, the mesh, and two
+    ``check_trigger`` calls after rank TRIGGER_RANK's ``set_trigger``."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.models.convert import params_to_numpy
     from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.ops import fused_optim as fo
     from accelerate_tpu_torch.ops import fused_xent as fx
-    from accelerate_tpu_torch.parallel import MeshConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -6788,7 +7103,7 @@ def tp_rank_parity(tokens, lr: float, steps: int, device: str) -> dict:
     cfg = dataclasses.replace(llama.CONFIGS["debug"], dtype=torch.float32, attn_impl="flash",
                               loss_impl="fused_tp")
     params = llama.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
-    acc = Accelerator(device=device, mesh_config=MeshConfig(**TP_MESH), backend="gloo")
+    acc = tp_accelerator(device)
     specs = llama.partition_specs(cfg)
     state = acc.create_train_state(params, fo.fused_adamw(lr), partition_specs=specs)
     step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg), max_grad_norm=1.0)
@@ -6798,11 +7113,17 @@ def tp_rank_parity(tokens, lr: float, steps: int, device: str) -> dict:
         state, metrics = step(state, {"tokens": tokens})
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
+    launches = _tp_counts(fa, fo, fx)
     flat = params_to_numpy(state.params, mesh=acc.mesh, specs=specs)
+    # One rank raises the trigger; every rank's check sees it, and the next one does not.
+    if acc.process_index == TRIGGER_RANK:
+        acc.set_trigger()
+    trigger = [acc.check_trigger(), acc.check_trigger()]
     return {"rank": acc.process_index, "gloo_cuda_all_reduce": probe, "losses": losses,
-            "grad_norms": norms,
-            "launches": _tp_counts(fa, fo, fx), "params": _flat_params(flat),
-            "backend": acc.state.backend, "device": str(acc.device)}
+            "grad_norms": norms, "launches": launches, "params": _flat_params(flat),
+            "backend": acc.state.backend, "device": str(acc.device),
+            "mesh": dict(acc.mesh.shape), "distributed_type": str(acc.distributed_type),
+            "trigger": trigger}
 
 
 def _flat_params(flat: dict) -> np.ndarray:
@@ -6817,7 +7138,10 @@ def phase_train_tp_parity(dev, launched=None) -> None:
     plain versions): ``debug`` config, fp32, TF32 off, 3 steps of ``fused_adamw`` with
     ``max_grad_norm=1.0``; losses, the gathered params, and each step's global grad norm
     (AdamW's update barely moves when a leaf's gradient is scaled by a constant, so a
-    tp-scaled or twice-reduced gradient shows in the norm, not in the params).
+    tp-scaled or twice-reduced gradient shows in the norm, not in the params). The ranks
+    build their ``Accelerator`` through ``tp_plugin=TensorParallelPlugin(tp_size=2)``: the
+    mesh must be dp1×tp2; rank TRIGGER_RANK's ``set_trigger`` must fire ``check_trigger``
+    on both ranks, and the next check must not.
     ``launched``: the ranks' results and seconds from ``phase_train_ranks``' shared
     launch (None: this phase launches its own ranks)."""
     from accelerate_tpu_torch.accelerator import Accelerator
@@ -6857,7 +7181,8 @@ def phase_train_tp_parity(dev, launched=None) -> None:
     res = {"phase": "train_tp_parity", "config": "debug", "mesh": TP_MESH,
            "loss_impl": "fused_tp (card, 2 gloo ranks) vs fused (CPU, one process)",
            "losses_cpu": l_cpu, "grad_norms_cpu": n_cpu, "launch_s": launch_s, "launches_expected_per_rank": expect,
-           "ranks": []}
+           "accelerator": f"tp_plugin=TensorParallelPlugin(tp_size={TP_MESH['tp']})",
+           "trigger_rank": TRIGGER_RANK, "ranks": []}
     ok = True
     for r in ranks:
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], l_cpu))
@@ -6866,7 +7191,8 @@ def phase_train_tp_parity(dev, launched=None) -> None:
         tight = float(np.mean(diff <= 2e-6 + 1e-5 * np.abs(p_cpu)))
         r_ok = (loss_rel <= 1e-4 and norm_rel <= 1e-5 and float(diff.max()) <= lr / 2
                 and tight >= 0.999
-                and r["launches"] == expect and all(r["gloo_cuda_all_reduce"].values()))
+                and r["launches"] == expect and all(r["gloo_cuda_all_reduce"].values())
+                and _tp_mesh_ok(r) and r["trigger"] == [True, False])
         ok = ok and r_ok
         res["ranks"].append({k: v for k, v in r.items() if k != "params"} | {
             "loss_max_rel_err": loss_rel, "grad_norm_max_rel_err": norm_rel,
@@ -6879,7 +7205,9 @@ def phase_train_tp_parity(dev, launched=None) -> None:
         raise SystemExit("tensor-parallel train step on the card disagrees with the CPU")
 
 
-TP_STEPS = 3  # 2 warm-up steps and 1 timed (5 before slice 20, for the script's time)
+# 1 warm-up step and 1 timed (5 steps before slice 20, 3 before slice 22: the second
+# warm-up step waited out a rank's first-step import of torch._dynamo, now preloaded).
+TP_STEPS = 2
 TP_PARITY_LR, TP_PARITY_STEPS = 1e-3, 3
 
 
@@ -6896,14 +7224,14 @@ def _tp_main_tokens():
 def tp_rank_main(tokens, device: str) -> dict:
     """One rank of ``train_tp``: ``train_main``'s model (Llama-3-8B widths, TRAIN_LAYERS
     layers, the same seeded fp32 params made on the card) sharded by
-    ``partition_specs`` over dp1×tp2, bf16 over fp32 masters, remat, flash attention,
-    ``loss_impl="fused_tp"``, ``fused_adamw(1e-4)``, ``max_grad_norm=1.0``."""
+    ``partition_specs`` over dp1×tp2 (the ``Accelerator`` built through ``tp_plugin=``),
+    bf16 over fp32 masters, remat, flash attention, ``loss_impl="fused_tp"``,
+    ``fused_adamw(1e-4)``, ``max_grad_norm=1.0``."""
     from accelerate_tpu_torch.accelerator import Accelerator
     from accelerate_tpu_torch.models import llama
     from accelerate_tpu_torch.ops import flash_attention as fa
     from accelerate_tpu_torch.ops import fused_optim as fo
     from accelerate_tpu_torch.ops import fused_xent as fx
-    from accelerate_tpu_torch.parallel import MeshConfig
     from accelerate_tpu_torch.utils.tree import tree_leaves
 
     dev = torch.device(device)
@@ -6912,8 +7240,7 @@ def tp_rank_main(tokens, device: str) -> dict:
                               remat_policy="full", loss_impl="fused_tp")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    acc = Accelerator(mixed_precision="bf16", device=dev, mesh_config=MeshConfig(**TP_MESH),
-                      backend="gloo")
+    acc = tp_accelerator(dev, mixed_precision="bf16")
     params = llama.init_params(dataclasses.replace(cfg, dtype=torch.float32),
                                generator=torch.Generator(dev).manual_seed(0), device=dev)
     state = acc.create_train_state(params, fo.fused_adamw(1e-4),
@@ -6943,11 +7270,12 @@ def tp_rank_main(tokens, device: str) -> dict:
     # rank's work too: the sum of the ranks' busy times bounds the card's from above.
     profile = profile_train_step(step, state, batch)
     return {"rank": acc.process_index, "losses": losses, "grad_norms": norms,
-            "step_ms_runs": [1e3 * s for s in step_s], "step_ms": 1e3 * float(np.mean(step_s[2:])),
+            "step_ms_runs": [1e3 * s for s in step_s], "step_ms": 1e3 * float(np.mean(step_s[1:])),
             "init_s": init_s, "init_peak_bytes": init_peak, "step_peak_bytes": step_peak,
             "launches": launches, "profile": profile,
             "local_params": sum(leaf.numel() for leaf in tree_leaves(state.params)),
-            "layer_leaf_sizes_mod_1024": shard_sizes}
+            "layer_leaf_sizes_mod_1024": shard_sizes, "mesh": dict(acc.mesh.shape),
+            "distributed_type": str(acc.distributed_type)}
 
 
 def phase_train_tp(dev, first_loss: float, launched=None) -> dict:
@@ -6988,7 +7316,8 @@ def phase_train_tp(dev, first_loss: float, launched=None) -> dict:
         rel = abs(r["losses"][0] - first_loss) / abs(first_loss)
         r_ok = (rel <= 2e-3 and all(np.isfinite(r["losses"])) and all(np.isfinite(r["grad_norms"]))
                 and all(b < a for a, b in zip(r["losses"], r["losses"][1:]))
-                and r["launches"] == expect and r["layer_leaf_sizes_mod_1024"] == [0])
+                and r["launches"] == expect and r["layer_leaf_sizes_mod_1024"] == [0]
+                and _tp_mesh_ok(r))
         ok = ok and r_ok
         res["ranks"].append({**r, "launches_per_step": {k: v / n for k, v in r["launches"].items()},
                              "first_loss_rel_err_vs_train_main": rel, "ok": r_ok})
@@ -8059,12 +8388,22 @@ def fsdp_rank_main(packed: dict, device: str, refs: dict, ckpt_dir: str) -> dict
     return out
 
 
-def shared_ranks(jobs) -> list:
+def shared_ranks(jobs) -> dict:
     """The rank function of ``phase_train_ranks``' one launch: each ``(function name,
     args)`` of ``jobs`` in turn on a fresh ``AcceleratorState`` (the process group and
-    the warmed process stay): its result and wall seconds."""
+    the warmed process stay): its result and wall seconds (``jobs``), and the host clock
+    when the rank entered this function and left it (the launch's start and exit around
+    them)."""
     from accelerate_tpu_torch.state import AcceleratorState, GradientState
+    # The jobs' modules, imported before the preload.
+    import accelerate_tpu_torch.accelerator  # noqa: F401
+    import accelerate_tpu_torch.checkpointing  # noqa: F401
+    import accelerate_tpu_torch.models.llama  # noqa: F401
+    import accelerate_tpu_torch.ops.fused_xent  # noqa: F401
+    import torch.profiler  # noqa: F401
 
+    entered = time.time()
+    preload_dynamo()  # loads during the first (tp parity) job, which has no remat
     out = []
     for name, args in jobs:
         AcceleratorState._reset_state()
@@ -8073,7 +8412,7 @@ def shared_ranks(jobs) -> list:
         result = globals()[name](*args)
         out.append((result, time.perf_counter() - t0))
         _free_cuda()
-    return out
+    return {"jobs": out, "entered_unix": entered, "left_unix": time.time()}
 
 
 def phase_train_ranks(dev, work: Path) -> dict:
@@ -8121,21 +8460,26 @@ def phase_train_ranks(dev, work: Path) -> dict:
             loads["error"] = e
 
     thread = threading.Thread(target=load_beside, daemon=True)
-    t0 = time.perf_counter()
+    t0, t0_unix = time.perf_counter(), time.time()
     thread.start()
     try:
-        ranks = notebook_launcher(shared_ranks, (jobs,), 2, device=card, backend="gloo",
-                                  timeout_s=1200)
+        launched = notebook_launcher(shared_ranks, (jobs,), 2, device=card, backend="gloo",
+                                     timeout_s=1200)
     finally:
-        launch_s = time.perf_counter() - t0
+        launch_s, t1_unix = time.perf_counter() - t0, time.time()
         done.set()
         thread.join()
+    ranks = [r["jobs"] for r in launched]
     refs.clear()
     _free_cuda()
     if "error" in loads:
         raise loads["error"]
     walls = {name: [r[k][1] for r in ranks] for k, (name, _) in enumerate(jobs)}
     emit({"phase": "train_ranks", "launch_s": launch_s, "job_wall_s_by_rank": walls,
+          # From the launch to each rank's first job (spawn, imports, the process group)
+          # and from its last job to the launch's return (exit, results read back).
+          "rank_start_s": [r["entered_unix"] - t0_unix for r in launched],
+          "rank_exit_s": [t1_unix - r["left_unix"] for r in launched],
           "parent_allocated_bytes_during_launch": parent_bytes,
           "fsdp_ckpt_loads_thread_s": loads["thread_s"],
           "fsdp_ckpt_loads_waited_s": loads["waited_s"]})
@@ -8436,6 +8780,16 @@ def _kernel_row(name, source, replaces, launches, max_abs_err, t, library=None,
             **extra}
 
 
+def preload_dynamo() -> threading.Thread:
+    """Import ``torch._dynamo`` in a thread: the first checkpointed block imports it
+    (``torch._disable_dynamo``), 5-9 s of loading in a fresh process, so the process
+    loads it while it does other work. Start it after the thread that goes on has done
+    its own imports (two threads importing one module in turn is safe; a cycle is not)."""
+    thread = threading.Thread(target=__import__, args=("torch._dynamo",), daemon=True)
+    thread.start()
+    return thread
+
+
 def main() -> int:
     # A worker process of the elastic phases (started by this script's supervisor or
     # the launch CLI it runs): its mode and spec follow the script's path.
@@ -8444,6 +8798,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--gang-worker"]:
         return gang_worker(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
+        for proc, _ in (EARLY_BUILD or {}).get("procs", {}).values():
+            proc.kill()
+            proc.wait()
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
@@ -8457,25 +8814,67 @@ def main() -> int:
     print(smi, flush=True)
     t0 = time.perf_counter()
     fwd_only = "--xent-fwd-times" in sys.argv[1:]
-    libs = run_phase("device", _build.build,
-                     ["fused_xent"] if fwd_only else list(_build.KERNEL_SOURCES))
-    build_s = time.perf_counter() - t0
-    for lib in libs.values():
-        log = lib.with_suffix(".log")
-        if log.exists():
-            print(log.read_text(), file=sys.stderr)
-    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "build_s": build_s, "sources": list(libs)})
+    build = EARLY_BUILD or _build.start(["fused_xent"] if fwd_only
+                                        else list(_build.KERNEL_SOURCES))
+    # torch._dynamo (imported by the first checkpointed block) is imported, and its
+    # bytecode written to PYCACHE for the processes started later, while nvcc builds
+    # (started before torch was imported).
+    preload = preload_dynamo()
+    # The training kernels first: paged attention's source takes the longest to compile
+    # (54-61 s of a 61 s build on one machine, the next 25 s), so the training phases
+    # that launch only flash attention, AdamW and the fused CE run while it compiles.
+    train_sources = ["fused_xent"] if fwd_only else list(TRAIN_SOURCES)
+    libs = run_phase("device", _build.finish, build, train_sources)
+    preload.join()
+    build_wait_s = {"training_kernels": time.perf_counter() - t0}
+
+    def report_build() -> None:
+        for lib in libs.values():
+            log = lib.with_suffix(".log")
+            if log.exists():
+                print(log.read_text(), file=sys.stderr)
+        emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "build_s": sum(build_wait_s.values()),
+              "build_wait_s": build_wait_s, "sources": list(libs)})
+        run_phase("spills", check_spills, libs)
+
     if fwd_only:  # a probe for same-call comparisons
+        report_build()
         emit({"phase": "xent_fwd_times", "nvidia_smi": smi,
               **run_phase("xent_fwd_times", xent_fwd_times, dev)})
         return 0
-    run_phase("spills", check_spills, libs)
+
+    def finish_build() -> None:
+        t1 = time.perf_counter()
+        libs.update(run_phase("device_serving", _build.finish, build))
+        build_wait_s["serving_kernels"] = time.perf_counter() - t1
+        report_build()
+
     if "--int8-split-sweep" in sys.argv[1:]:  # a probe, run only when asked
+        finish_build()
         for t in run_phase("int8_split_sweep", int8_split_sweep,
                            torch.Generator(dev).manual_seed(6), dev):
             emit({"phase": "int8_split_sweep", **t})
         return 0
+
+    # Training (slice 2) while paged attention compiles.
+    flash = run_phase("flash", phase_flash, dev)
+    torch.cuda.empty_cache()
+    adamw = run_phase("adamw", phase_adamw, dev, TRAIN_LAYERS)
+    # Fused cross-entropy (slice 3).
+    xent = run_phase("fused_xent", phase_fused_xent, dev)
+    run_phase("train_parity", phase_train_parity, dev)
+    torch.cuda.empty_cache()
+    train = run_phase("train_main", phase_train_main, dev)
+    torch.cuda.empty_cache()
+    train_fused = run_phase("train_fused", phase_train_main, dev, "fused",
+                            first_loss=train["losses"][0])
+    # HF Accelerate's loop surface (slice 22): accumulate() and clip_grad_*_ against the
+    # constructor route, no_sync().
+    torch.cuda.empty_cache()
+    accum = run_phase("train_accumulate", phase_train_accumulate, dev)
+    _free_cuda()
+    finish_build()
 
     # Serving (slice 1).
     kern = run_phase("kernel", phase_kernel, dev)
@@ -8510,18 +8909,6 @@ def main() -> int:
     run_phase("generate", phase_generate, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    # Training (slice 2).
-    flash = run_phase("flash", phase_flash, dev)
-    torch.cuda.empty_cache()
-    adamw = run_phase("adamw", phase_adamw, dev, TRAIN_LAYERS)
-    # Fused cross-entropy (slice 3).
-    xent = run_phase("fused_xent", phase_fused_xent, dev)
-    run_phase("train_parity", phase_train_parity, dev)
-    torch.cuda.empty_cache()
-    train = run_phase("train_main", phase_train_main, dev)
-    torch.cuda.empty_cache()
-    train_fused = run_phase("train_fused", phase_train_main, dev, "fused",
-                            first_loss=train["losses"][0])
     # fp8 training (slice 19): the products against their plain version, then
     # train_main's recipe under fp8 with delayed scaling, O1 and O2.
     run_phase("fp8_dot_check", phase_fp8_dot_check, dev)
@@ -8531,9 +8918,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     resume = run_phase("train_resume", phase_train_resume, dev)
     run_phase("checkpoint_debug", phase_checkpoint_debug, dev)
-    # Elastic training under the supervisor and through the launch CLI (slice 18).
-    elastic = run_phase("elastic_train", phase_elastic_train, dev)
-    gang = run_phase("elastic_gang", phase_elastic_gang, dev)
+    # Elastic training under the supervisor and through the launch CLI (slice 18): the
+    # gang's launch runs beside elastic_train (both mostly start processes and write
+    # checkpoints); elastic_gang then waits for it.
+    gang_run = run_phase("elastic_gang_start", start_elastic_gang, dev)
+    try:
+        elastic = run_phase("elastic_train", phase_elastic_train, dev)
+        gang = run_phase("elastic_gang", phase_elastic_gang, dev, gang_run)
+    finally:
+        stop_elastic_gang(gang_run)
 
     # Int8 weight-only serving (slice 4).
     torch.cuda.empty_cache()
@@ -8579,7 +8972,8 @@ def main() -> int:
                                train_tp, serve_multi, resume, serve_prefill,
                                serve_prefix, serve_spec, serve_spec_draft, serve_disagg,
                                serve_faults, serve_control, serve_bench, elastic, gang,
-                               train_fp8, lora_run, qlora, packed, fsdp_run, offload)})
+                               train_fp8, lora_run, qlora, packed, fsdp_run, offload,
+                               accum)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -8590,7 +8984,7 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                 partial, train_tp, serve_multi, resume, serve_prefill, serve_prefix,
                 serve_spec, serve_spec_draft, serve_disagg, serve_faults,
                 serve_control, serve_bench, elastic, gang, train_fp8, lora_run,
-                qlora, packed, fsdp_run, offload) -> list:
+                qlora, packed, fsdp_run, offload, accum) -> list:
     """The kernels line: one row per kernel of the port, from the phases' results. The
     serving kernels' launches add their main paths' runs: N = 1, the super-step's,
     the bucketed, the prefix-cache, the speculative, the disaggregated drains (the
@@ -8601,7 +8995,8 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
     phases' worker processes' (every attempt's and the uninterrupted worker's, counted by
     each worker's own counters; the gang's relaunched ranks), and slice 20's: the packed
     forward's segment route, rank 0 of train_fsdp's three ZeRO arms, and train_offload's
-    arms (#9 once a chunk)."""
+    arms (#9 once a chunk); and slice 22's train_accumulate (its arm A, the
+    ``accumulate()`` route)."""
 
     def train_launches(kernel):
         by_path = {"train_main": train["launches"][kernel],
@@ -8613,7 +9008,8 @@ def kernel_rows(kern, serve, flash, adamw, xent, train, train_fused, int8, serve
                    "train_lora": lora_run["launches"][kernel],
                    "packed_check": packed["launches"].get(kernel, 0),
                    "train_fsdp": fsdp_run["launches"][kernel],
-                   "train_offload": offload["launches"][kernel]}
+                   "train_offload": offload["launches"][kernel],
+                   "train_accumulate": accum["launches"][kernel]}
         # train_offload (b)'s launches are those of the depth it ran.
         return sum(by_path.values()), {"launches_by_path": by_path,
                                        "train_offload_layers": offload["layers"],

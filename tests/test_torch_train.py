@@ -281,8 +281,8 @@ def test_fused_steps_match_sequential():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tacc.Accelerator(tp_plugin=object(), device="cpu")
+    with pytest.raises(NotImplementedError):  # tp_plugin is ported (slice 22); pp is not
+        tacc.Accelerator(pp_plugin=object(), device="cpu")
     from accelerate_tpu_torch.models import common
 
     with pytest.raises(NotImplementedError):

@@ -609,6 +609,106 @@ def fsdp_checkpoint_round_trip(np_params, batch, directory: str, one_dir: str) -
     return out
 
 
+def _share_to_plain(share):
+    """A ``split_between_processes`` share as plain values: a tensor as
+    ``("tensor", dtype, values)``, a dict value by value."""
+    if isinstance(share, dict):
+        return {k: _share_to_plain(v) for k, v in share.items()}
+    if torch.is_tensor(share):
+        return ("tensor", str(share.dtype), share.numpy().copy())
+    return share
+
+
+def process_control(order_file: str, split_cases: dict) -> dict:
+    """The process control of ``Accelerator``/``PartialState`` on this rank: the order
+    in which the ranks write to ``order_file`` inside ``main_process_first`` and
+    ``local_main_process_first`` (the first process sleeps before its write, so an
+    unordered body would let another rank write first), this rank's share of each
+    ``split_cases`` input with and without padding, the ``on_*`` decorators, and
+    ``check_trigger`` twice after rank 1's ``set_trigger``."""
+    import time
+
+    from accelerate_tpu_torch.accelerator import Accelerator
+
+    _threads()
+    _reset_accelerator_state()
+    acc = Accelerator(device="cpu")
+    rank = acc.process_index
+    out = {"rank": rank, "local_process_index": acc.local_process_index,
+           "is_last_process": acc.is_last_process, "use_distributed": acc.use_distributed}
+    for name, first in (("main_process_first", acc.is_main_process),
+                        ("local_main_process_first", acc.is_local_main_process)):
+        with getattr(acc, name)():
+            if first:
+                time.sleep(0.5)
+            with open(f"{order_file}.{name}", "a") as f:
+                f.write(f"{rank}\n")
+        acc.wait_for_everyone()
+    out["split"] = {}
+    for kind, inputs in split_cases.items():
+        for padding in (False, True):
+            value = torch.tensor(inputs) if kind.startswith("tensor") else inputs
+            with acc.split_between_processes(value, apply_padding=padding) as share:
+                out["split"][kind, padding] = _share_to_plain(share)
+    out["on"] = {"main": acc.on_main_process(lambda: rank)(),
+                 "local_main": acc.on_local_main_process(lambda: rank)(),
+                 "process_1": acc.on_process(process_index=1)(lambda: rank)(),
+                 "last": acc.on_last_process(lambda: rank)()}
+    if rank == 1:
+        acc.set_trigger()
+    out["trigger"] = [acc.check_trigger(), acc.check_trigger()]
+    _reset_accelerator_state()
+    return out
+
+
+def tp_plugin_steps(np_params, batches, cfg_kw: dict, lr: float, max_grad_norm: float) -> dict:
+    """``train_steps``' llama run on a tp axis of the world's size, built twice: through
+    ``Accelerator(tp_plugin=TensorParallelPlugin(tp_size=n))`` and through
+    ``mesh_config=MeshConfig(tp=n)``; per route the mesh's sizes, the distributed type
+    and the losses and grad norms of each step. Then a ``mesh_config`` that disagrees
+    with the plugin: the error it raises, and whether the state stayed uninitialized."""
+    from accelerate_tpu_torch.accelerator import Accelerator
+    from accelerate_tpu_torch.models import llama
+    from accelerate_tpu_torch.models.convert import params_from_jax
+    from accelerate_tpu_torch.ops.fused_optim import fused_adamw
+    from accelerate_tpu_torch.parallel import MeshConfig
+    from accelerate_tpu_torch.state import AcceleratorState
+    from accelerate_tpu_torch.utils.dataclasses import TensorParallelPlugin
+
+    import torch.distributed as dist
+
+    _threads()
+    n = dist.get_world_size()
+    cfg = _config(cfg_kw)
+    out = {}
+    for route, kw in (("tp_plugin", {"tp_plugin": TensorParallelPlugin(tp_size=n)}),
+                      ("mesh_config", {"mesh_config": MeshConfig(dp=1, tp=n)})):
+        _reset_accelerator_state()
+        acc = Accelerator(device="cpu", **kw)
+        state = acc.create_train_state(
+            params_from_jax(np_params, cfg, device="cpu", master_dtype=torch.float32),
+            fused_adamw(lr), partition_specs=llama.partition_specs(cfg))
+        step = acc.build_train_step(lambda p, b: llama.loss_fn(p, b, cfg),
+                                    max_grad_norm=max_grad_norm)
+        run = {"mesh": dict(acc.mesh.shape), "distributed_type": str(acc.distributed_type),
+               "losses": [], "grad_norms": []}
+        for batch in batches:
+            state, metrics = step(state, batch)
+            run["losses"].append(float(metrics["loss"]))
+            run["grad_norms"].append(float(metrics["grad_norm"]))
+        out[route] = run
+    _reset_accelerator_state()
+    try:
+        Accelerator(device="cpu", tp_plugin=TensorParallelPlugin(tp_size=n),
+                    mesh_config=MeshConfig(dp=n))
+        out["disagreeing"] = None
+    except ValueError as e:
+        out["disagreeing"] = str(e)
+    out["left_uninitialized"] = "_partial" not in AcceleratorState._shared_state
+    _reset_accelerator_state()
+    return out
+
+
 def run_all(jobs) -> list:
     """Each ``(function name, args)`` of ``jobs`` in turn, in one spawn of the ranks:
     their results in order."""
